@@ -1,0 +1,164 @@
+"""SODDA — StOchastic Doubly Distributed Algorithm (paper Algorithm 1).
+
+Single-device implementation on torch tensors, batched over the (P, Q)
+worker grid. Counterpart of ``repro.core.sodda``; the inner loop runs
+either as plain PyTorch (``inner_loop``) or through the hand-written CUDA
+kernel behind ``repro_torch.kernels.ops.sodda_inner``.
+
+The outer-iteration counter ``t`` lives on the host, so the step size
+gamma_t is computed there in float32 (bitwise the reference's on-device
+value) and the step never synchronises with the device.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.sodda_svm import SoddaConfig
+from repro_torch.core import losses
+from repro_torch.core.partition import (IterationSample, block_col_start,
+                                        sample_iteration)
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+from repro_torch.platform import resolve_device
+
+__all__ = ["SoddaState", "init_state", "state_from_numpy", "sodda_step",
+           "consume_update", "snapshot_gradient", "inner_loop",
+           "iteration_flops"]
+
+
+class SoddaState(NamedTuple):
+    w: torch.Tensor  # (M,) current iterate, on the device
+    t: int  # 1-based outer iteration (for gamma_t), on the host
+    seed: int  # base seed: iteration t's sample is drawn from (seed, t)
+
+
+def init_state(seed: int, M: int, device) -> SoddaState:
+    return SoddaState(w=torch.zeros(M, dtype=torch.float32, device=device),
+                      t=1, seed=int(seed))
+
+
+def state_from_numpy(w, t, seed: int = 0, device=None) -> SoddaState:
+    """A :class:`SoddaState` from a reference state's ``w`` and ``t``
+    (numpy arrays or numbers). The reference's PRNG key has no torch
+    counterpart; the port's own draws come from ``seed``."""
+    return SoddaState(
+        w=torch.tensor(np.asarray(w, np.float32),
+                   device=resolve_device(device)),
+        t=int(t), seed=int(seed))
+
+
+# ---------------------------------------------------------------------------
+# Step 8: stochastic snapshot gradient
+#   mu^t = (1/d^t) sum_{j in D^t} bar_grad_{w_{C^t}} f_j(x_j^{B^t} w_{B^t})
+# Two GEMVs over the whole of X (cuBLAS through torch on the card).
+# ---------------------------------------------------------------------------
+def snapshot_gradient(loss: str, X, y, w, sample: IterationSample,
+                      d_count: int):
+    zb = X @ (w * sample.mask_b)  # inner products restricted to B^t
+    s = losses.loss_deriv(loss, zb, y) * sample.mask_d / d_count
+    return sample.mask_c * (X.T @ s)  # coordinates restricted to C^t
+
+
+# ---------------------------------------------------------------------------
+# Steps 13-17: the L-step inner loop on one sub-block (paper step 16):
+#   wbar <- wbar - gamma * [ l'(x.wbar) x - l'(x.w0) x + mu_blk ]
+# ---------------------------------------------------------------------------
+def inner_loop(loss: str, w0, Xl, yl, mu_blk, gamma):
+    """w0 (..., mt), Xl (..., L, mt), yl (..., L), mu_blk (..., mt)
+    -> (..., mt); each leading index is an independent chain."""
+    return kref.sodda_inner_ref(w0, Xl, yl, mu_blk, gamma, loss)
+
+
+# ---------------------------------------------------------------------------
+# One full outer iteration (paper steps 5-19)
+# ---------------------------------------------------------------------------
+def _counts(cfg: SoddaConfig):
+    b = max(1, int(round(cfg.b_frac * cfg.M)))
+    c = max(1, min(b, int(round(cfg.c_frac * cfg.M))))
+    d_local = max(1, int(round(cfg.d_frac * cfg.n)))
+    return b, c, d_local
+
+
+def _gamma(cfg: SoddaConfig, t: int) -> np.float32:
+    """gamma_t in float32, computed on the host exactly as the reference
+    computes it on the device: f32(lr0) / (1 + sqrt(f32(max(t-1, 0))))."""
+    if cfg.constant_lr > 0:
+        return np.float32(cfg.constant_lr)
+    return np.float32(cfg.lr0) / (
+        np.float32(1.0) + np.sqrt(np.float32(max(t - 1, 0))))
+
+
+def consume_update(X, y, w, mu, smp: IterationSample, gamma,
+                   cfg: SoddaConfig, use_kernel: bool = False):
+    """Steps 10-19 — the *consume* half of an outer iteration.
+
+    Gathers the per-(p, q) working sets for the iteration's sample, runs the
+    L-step inner loops against the exchange vector ``mu``, and concatenates
+    the updated sub-blocks into the new iterate.
+
+    The (P, Q, L, m_tilde) working set is gathered straight out of X with
+    computed indices — row p*n + J[p, q], columns q*m + pi[q, p]*m_tilde +
+    [0, m_tilde) — so no view of X is ever copied (a reshape of the
+    reference's (P, QP, n, m_tilde) transpose would copy all of X).
+    """
+    P, Q, n, m, L, M = cfg.P, cfg.Q, cfg.n, cfg.m, cfg.L, cfg.M
+    mt = cfg.m_tilde
+    dev = X.device
+    p_ar = torch.arange(P, device=dev)
+    q_ar = torch.arange(Q, device=dev)
+
+    # gather per-(p,q) working sets ----------------------------------------
+    k = smp.pi.T  # (P, Q): sub-block k = pi_q(p) of worker (p, q)
+    rows = p_ar[:, None, None] * n + smp.J  # (P, Q, L) global rows
+    col0 = block_col_start(q_ar[None, :], k, m, mt)  # (P, Q)
+    cols = col0[..., None] + torch.arange(mt, device=dev)  # (P, Q, mt)
+    Xl = X[rows[..., :, None], cols[..., None, :]]  # (P, Q, L, mt)
+    yl = y[rows]  # (P, Q, L)
+    wb = w.view(Q, P, mt)
+    w0 = wb[q_ar[None, :], k]  # (P, Q, mt)
+    mu_blk = mu.view(Q, P, mt)[q_ar[None, :], k]
+
+    if use_kernel:
+        wL = kops.sodda_inner(
+            w0.reshape(P * Q, mt), Xl.reshape(P * Q, L, mt),
+            yl.reshape(P * Q, L), mu_blk.reshape(P * Q, mt),
+            gamma, cfg.loss).view(P, Q, mt)
+    else:
+        wL = inner_loop(cfg.loss, w0, Xl, yl, mu_blk, gamma)
+
+    # step 19: conflict-free concatenation — each (q, pi_q(p)) written once
+    new_wb = wb.clone()
+    new_wb[q_ar.repeat_interleave(P), smp.pi.reshape(-1)] = (
+        wL.transpose(0, 1).reshape(Q * P, mt))
+    return new_wb.view(M)
+
+
+def sodda_step(state: SoddaState, X, y, cfg: SoddaConfig,
+               use_kernel: bool = False,
+               sample: Optional[IterationSample] = None) -> SoddaState:
+    """One outer iteration. ``sample`` replaces the iteration's own draw
+    (tests feed the reference's sample through it)."""
+    t = state.t
+    b_count, c_count, d_local = _counts(cfg)
+    if sample is None:
+        sample = sample_iteration(state.seed, t, cfg.P, cfg.Q, cfg.n, cfg.M,
+                                  cfg.L, b_count, c_count, d_local, X.device)
+    mu = snapshot_gradient(cfg.loss, X, y, state.w, sample, cfg.P * d_local)
+    w_new = consume_update(X, y, state.w, mu, sample, float(_gamma(cfg, t)),
+                           cfg, use_kernel)
+    return SoddaState(w=w_new, t=t + 1, seed=state.seed)
+
+
+# ---------------------------------------------------------------------------
+# Analytic per-iteration cost (gradient-coordinate evaluations).
+# ---------------------------------------------------------------------------
+def iteration_flops(cfg: SoddaConfig, exact_snapshot: bool = False) -> float:
+    b = 1.0 if exact_snapshot else cfg.b_frac
+    c = 1.0 if exact_snapshot else cfg.c_frac
+    d = 1.0 if exact_snapshot else cfg.d_frac
+    snapshot = 2.0 * d * cfg.N * (b * cfg.M) + 2.0 * d * cfg.N * (c * cfg.M)
+    inner = cfg.P * cfg.Q * cfg.L * 6.0 * cfg.m_tilde
+    return snapshot + inner

@@ -1,0 +1,2 @@
+"""Hand-written Hopper kernels, their plain PyTorch versions (``ref``) and
+the dispatching wrappers (``ops``)."""

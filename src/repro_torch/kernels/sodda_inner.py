@@ -1,0 +1,149 @@
+"""Build, binding and launch of the Hopper ``sodda_inner`` kernel.
+
+The kernel (``csrc/sodda_inner.cu``) replaces the TPU kernel
+``repro.kernels.sodda_inner.sodda_inner_pallas``; its source says what it
+computes, what bounds it and how it is laid out. This module compiles it at
+first use with ``nvcc`` into a shared library with a plain C interface
+(under ``build/torch_kernels/`` at the repository root, named by a hash of
+the source and the flags, so an edited source is rebuilt), loads it with
+ctypes, checks arguments and launches it on PyTorch's current stream.
+
+Nothing here runs at import: the CPU tests import this module on hosts
+without ``nvcc`` or a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+__all__ = ["THREADS", "SHARED_MEMORY_BUDGET", "LOSS_CODES",
+           "shared_memory_bytes", "check_args", "build", "sodda_inner_cuda"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "sodda_inner.cu"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+THREADS = 256  # kThreads in the source
+SHARED_MEMORY_BUDGET = 232_448  # bytes one block may use on an H100 (227 KB)
+LOSS_CODES = {"hinge": 0, "logistic": 1, "squared": 2}
+
+
+def shared_memory_bytes(L: int, mt: int) -> int:
+    """Dynamic shared memory of one block: w0, mu, wbar (mt each), d0 (L)
+    and the double-buffered per-warp partials."""
+    return 4 * (3 * mt + L + 2 * (THREADS // 32))
+
+
+def check_args(w0, Xl, yl, mu, loss: str) -> None:
+    """Raise ``ValueError`` on anything the kernel does not take."""
+    if loss not in LOSS_CODES:
+        raise ValueError(f"sodda_inner: unknown loss {loss!r}; "
+                         f"expected one of {sorted(LOSS_CODES)}")
+    if Xl.dim() != 3:
+        raise ValueError(f"sodda_inner: Xl must be (B, L, mt), got "
+                         f"{tuple(Xl.shape)}")
+    B, L, mt = Xl.shape
+    if B == 0:
+        raise ValueError("sodda_inner: an empty batch (B = 0) launches no "
+                         "kernel")
+    want = {"w0": (B, mt), "yl": (B, L), "mu": (B, mt)}
+    for name, t in (("w0", w0), ("yl", yl), ("mu", mu)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"sodda_inner: {name} must be {want[name]} for "
+                             f"Xl {tuple(Xl.shape)}, got {tuple(t.shape)}")
+    for name, t in (("w0", w0), ("Xl", Xl), ("yl", yl), ("mu", mu)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"sodda_inner: {name} must be float32, got "
+                             f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"sodda_inner: {name} must be contiguous")
+        if t.device != Xl.device:
+            raise ValueError(f"sodda_inner: {name} is on {t.device}, Xl on "
+                             f"{Xl.device}")
+    need = shared_memory_bytes(L, mt)
+    if need > SHARED_MEMORY_BUDGET:
+        raise ValueError(
+            f"sodda_inner: mt={mt}, L={L} needs {need} bytes of shared "
+            f"memory, above the {SHARED_MEMORY_BUDGET}-byte budget of one "
+            "block")
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("sodda_inner: nvcc not found on PATH or in "
+                           "/usr/local/cuda/bin; the CUDA kernel cannot be "
+                           "built on this host")
+    return path
+
+
+def build() -> Path:
+    """Compile the kernel library if it is not built yet; return its path.
+
+    The compiler's report (``-Xptxas -v``: registers, shared memory,
+    spills) is kept beside the library as ``<library>.log``.
+    """
+    digest = hashlib.sha256(SOURCE.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"libsodda_inner_{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True)
+    lib.with_name(lib.name + ".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"sodda_inner: nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.sodda_inner_f32.argtypes = [vp, vp, vp, vp, ctypes.c_float, vp,
+                                    ci, ci, ci, ci, vp]
+    lib.sodda_inner_f32.restype = ci
+    lib.sodda_inner_error_string.argtypes = [ci]
+    lib.sodda_inner_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def sodda_inner_cuda(w0, Xl, yl, mu, gamma, loss: str = "hinge"):
+    """Launch the kernel: w0 (B, mt), Xl (B, L, mt), yl (B, L), mu (B, mt),
+    all float32 CUDA tensors, gamma a host number -> (B, mt).
+
+    Runs on PyTorch's current stream without synchronising. Raises on a
+    CPU tensor, on arguments the kernel does not take, and when the launch
+    is refused.
+    """
+    check_args(w0, Xl, yl, mu, loss)
+    if Xl.device.type != "cuda":
+        raise RuntimeError(f"sodda_inner_cuda needs CUDA tensors, got "
+                           f"{Xl.device}")
+    if isinstance(gamma, torch.Tensor):
+        raise TypeError("sodda_inner_cuda: pass gamma as a host number; "
+                        "reading a tensor would synchronise")
+    B, L, mt = Xl.shape
+    out = torch.empty_like(w0)
+    lib = _library()
+    with torch.cuda.device(Xl.device):
+        stream = torch.cuda.current_stream(Xl.device).cuda_stream
+        rc = lib.sodda_inner_f32(w0.data_ptr(), Xl.data_ptr(), yl.data_ptr(),
+                                 mu.data_ptr(), float(gamma), out.data_ptr(),
+                                 B, L, mt, LOSS_CODES[loss], stream)
+    if rc != 0:
+        raise RuntimeError("sodda_inner kernel launch failed: "
+                           + lib.sodda_inner_error_string(rc).decode())
+    return out

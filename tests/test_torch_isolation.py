@@ -1,0 +1,121 @@
+"""The PyTorch port stands alone: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports jax or the JAX package, and the port's own copies
+of the reference's configuration and tolerance policies are equal to it."""
+import ast
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+from repro.configs import sodda_svm as ref_cfg
+from repro.testing import tolerances as ref_tol
+from repro_torch.configs import sodda_svm as port_cfg
+from repro_torch.testing import tolerances as port_tol
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+PORT_DIR = os.path.join(ROOT, "src", "repro_torch")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PORT_DIR):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__")):
+            yield node.args[0].value
+
+
+def test_port_files_found():
+    files = _port_files()
+    assert os.path.join(PORT_DIR, "core", "driver.py") in files
+    assert len(files) >= 15, files
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_repro_import(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    """At run time too: the whole port imports without jax or repro."""
+    code = ("import sys\n"
+            "import repro_torch.core.driver, repro_torch.core.engine\n"
+            "import repro_torch.data.synthetic, repro_torch.kernels.ops\n"
+            "import repro_torch.testing.tolerances, repro_torch.platform\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_ast_scan_catches_a_jax_import(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text("import numpy\nfrom jax import numpy as jnp\n"
+                   "import importlib\nimportlib.import_module('repro.core')\n")
+    assert [m for m in _imported_modules(str(bad)) if _forbidden(m)] == [
+        "jax", "repro.core"]
+    assert not _forbidden("repro_torch.core")
+
+
+def test_sodda_config_fields_and_defaults_match_reference():
+    ref_fields = [(f.name, f.type, f.default)
+                  for f in dataclasses.fields(ref_cfg.SoddaConfig)]
+    port_fields = [(f.name, f.type, f.default)
+                   for f in dataclasses.fields(port_cfg.SoddaConfig)]
+    assert port_fields == ref_fields
+
+
+@pytest.mark.parametrize("name", ["SMALL", "MEDIUM", "LARGE", "CONFIG"])
+def test_table1_instances_match_reference(name):
+    ref, port = getattr(ref_cfg, name), getattr(port_cfg, name)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert (port.N, port.M, port.m_tilde) == (ref.N, ref.M, ref.m_tilde)
+    assert [port.gamma(t) for t in range(1, 9)] == [
+        ref.gamma(t) for t in range(1, 9)]
+
+
+def test_table1_250k_18k_matches_the_benchmark_cell():
+    """The port's full-width instance is the reference's bench-large cell
+    (``benchmarks/run.py``), read from its source."""
+    with open(os.path.join(ROOT, "benchmarks", "run.py")) as f:
+        src = f.read()
+    m = re.search(r'SoddaConfig\(name="sodda-table1-250kx18k".*?\)', src,
+                  re.DOTALL)
+    assert m, "Table-1 250k x 18k cell not found in benchmarks/run.py"
+    ref = eval(m.group(0), {"SoddaConfig": ref_cfg.SoddaConfig})
+    port = port_cfg.TABLE1_250K_18K
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert (port.N, port.M, port.m_tilde) == (250_000, 18_000, 1_200)
+
+
+@pytest.mark.parametrize("name",
+                         ["BITWISE", "F32_REDUCTION", "QUANTIZED", "STALENESS"])
+def test_tolerance_policies_match_reference(name):
+    assert tuple(getattr(port_tol, name)) == tuple(getattr(ref_tol, name))
