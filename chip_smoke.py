@@ -7,9 +7,10 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
 
 1. prints the card's name and power limit (``nvidia-smi``); fails without
    a CUDA device;
-2. builds the hand-written ``sodda_inner`` kernel from the sources in the
-   checkout and prints the build time and the compiler's register report;
-3. holds the kernel against its plain PyTorch version on the card at the
+2. builds the hand-written kernels (``sodda_inner``, ``flash_attention``)
+   from the sources in the checkout, one ``nvcc`` per source, all at once,
+   and prints the build time and the compiler's register report;
+3. holds ``sodda_inner`` against its plain PyTorch version on the card at the
    Table-1 shapes (15, 64, 1200) for all three losses and at an unaligned
    (2, 8, 100), requires two launches to agree bitwise, and times kernel
    and plain version with CUDA events beside the kernel's bound;
@@ -19,12 +20,29 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
    card) through ``repro_torch.core.driver.run`` on the ``cuda`` backend —
    the main path, with the launch counts set to 0 just before it — and on
    the ``reference`` backend, checks descent, agreement, launches and peak
-   device memory, and breaks one iteration down by layer.
+   device memory, and breaks one iteration down by layer; then frees X;
+6. holds ``flash_attention`` against its plain version at the gemma2-9b
+   prefill shape (B=4, H=16, KV=8, S=4608, D=256, bf16) for a local and a
+   global layer, at an unaligned f32 shape (causal and not) and at decode
+   offsets, and times it there beside its bound, its plain version and
+   ``scaled_dot_product_attention``;
+7. runs gemma2-9b at full width, cut to 4 layers, in f32, on 4608-token
+   prompts through ``serve`` with the kernel and with the plain version:
+   prefill logits within 2e-4 and 8 greedy tokens identical;
+8. serves 4 requests of 4608 prompt tokens for 32 tokens each through
+   full-depth bf16 gemma2-9b (``repro_torch.launch.serve.serve``, the
+   second main path, with the flash launch count set to 0 just before it):
+   42 launches in the prefill and none in the decode, finite logits within
+   1.0 of the plain path's (or within 2x of the plain path's gap to itself
+   summed in another order), and prefill time, decode time per token and
+   peak device memory.
 
 Exits non-zero if any phase fails. The last three lines of standard output
 are the card line, a JSON ``kernels`` record and a JSON ``ok`` record.
 """
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -36,20 +54,39 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
+from repro_torch.configs.gemma2_9b import CONFIG as GEMMA2_9B  # noqa: E402
 from repro_torch.configs.sodda_svm import SoddaConfig, TABLE1_250K_18K  # noqa: E402
 from repro_torch.core import driver, losses, partition, sodda  # noqa: E402
 from repro_torch.data.synthetic import make_svm_data  # noqa: E402
+from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import sodda_inner as kernel_build  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.params import tree_leaves  # noqa: E402
 from repro_torch.testing import tolerances as tol  # noqa: E402
 
 ITERS = 20  # outer iterations of each Table-1 run
 RECORD_EVERY = 5
 SEED = 0
 
-# H100 SXM peaks (NVIDIA data sheet) for the kernel's bound.
+# H100 SXM peaks (NVIDIA data sheet) for the kernels' bounds.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+
+# flash_attention against its plain version: tests/test_kernels.py:201
+# holds the Pallas kernel to its oracle at 2e-5 in f32; bf16 outputs carry
+# 2^-8 relative rounding, and the plain version rounds scores to bf16.
+FLASH_F32_TOL, FLASH_BF16_TOL = 2e-5, 1e-2
+# the decode-vs-forward tolerance of tests/test_models.py:74
+MODEL_TOL = 2e-4
+SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 4608, 32  # 4608 = 36 x 128 > 4096
+CUT_DEPTH_LAYERS, CUT_DEPTH_B, CUT_DEPTH_GEN = 4, 2, 8
+LOGIT_GAP_LIMIT = 1.0  # kernel vs plain path, bf16, logits capped at +-30
+FLOOR_FACTOR = 2.0  # ... or within 2x the plain path's own reordering gap
 
 # tests/test_kernels.py:35 — one kernel call against its plain version:
 # the kernel hoists z0 and reduces in another order than the plain loop.
@@ -287,6 +324,251 @@ def phase_table1(cfg):
     return X, y, st_c.w, launches, ms_c
 
 
+# ---------------------------------------------------------------------------
+# flash_attention and the gemma2-9b serving path
+# ---------------------------------------------------------------------------
+def attention_pairs(Sq, Sk, causal=True, window=0, q_offset=0):
+    """Unmasked (query, key) pairs of one head: the work the mask leaves."""
+    n = 0
+    for r in range(Sq):
+        qpos = q_offset + r
+        hi = min(Sk, qpos + 1) if causal else Sk
+        lo = max(0, qpos - window + 1) if window > 0 else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def flash_bound_ms(B, H, KV, Sq, Sk, D, dtype, **mask):
+    """Least time for one call: 4 B H D FLOP per unmasked pair (QK^T and
+    PV) over the dtype's peak, vs Q, K, V read once and O written once
+    over the HBM rate."""
+    flops = 4.0 * B * H * D * attention_pairs(Sq, Sk, **mask)
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = item * (2 * B * Sq * H * D + 2 * B * Sk * KV * D)
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def flash_inputs(B, H, KV, Sq, Sk, D, dtype, gen):
+    """q (B,Sq,H,D), k/v (B,Sk,KV,D) on the card, scaled as the kernel
+    tests of tests/test_kernels.py scale them: q, k at std 0.5, v at 1."""
+    def rnd(scale, *shape):
+        x = torch.randn(*shape, generator=gen, device="cuda") * scale
+        return x.to(dtype)
+    return (rnd(0.5, B, Sq, H, D), rnd(0.5, B, Sk, KV, D),
+            rnd(1.0, B, Sk, KV, D))
+
+
+def phase_flash():
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf16, f32 = torch.bfloat16, torch.float32
+    S = SERVE_PROMPT
+    cases = [
+        ("gemma2 local layer", (4, 16, 8, S, S, 256), bf16,
+         dict(window=4096, softcap=50.0)),
+        ("gemma2 global layer", (4, 16, 8, S, S, 256), bf16,
+         dict(softcap=50.0)),
+        ("gemma2 decode offset", (4, 16, 8, 1, S, 256), bf16,
+         dict(window=4096, softcap=50.0, q_offset=S - 1)),
+        ("unaligned causal", (2, 4, 2, 200, 200, 64), f32, dict()),
+        ("unaligned non-causal", (2, 4, 2, 200, 200, 64), f32,
+         dict(causal=False)),
+        ("unaligned window+softcap", (2, 4, 2, 200, 200, 64), f32,
+         dict(window=64, softcap=30.0)),
+        ("unaligned decode offset", (2, 4, 2, 1, 200, 64), f32,
+         dict(window=64, softcap=30.0, q_offset=199)),
+    ]
+    max_err = 0.0
+    for name, (B, H, KV, Sq, Sk, D), dtype, opts in cases:
+        q, k, v = flash_inputs(B, H, KV, Sq, Sk, D, dtype, gen)
+        a = ops.flash_attention(q, k, v, force="cuda", **opts)
+        b = ops.flash_attention(q, k, v, force="cuda", **opts)
+        want = ops.flash_attention(q, k, v, force="ref", **opts)
+        torch.cuda.synchronize()
+        tag = f"flash {name} {(B, H, KV, Sq, Sk, D)} {dtype} {opts}"
+        check(torch.equal(a, b), f"{tag}: two launches differ")
+        check(bool(torch.isfinite(a).all()), f"{tag}: non-finite output")
+        t = FLASH_BF16_TOL if dtype == bf16 else FLASH_F32_TOL
+        torch.testing.assert_close(a.float(), want.float(), rtol=t, atol=t)
+        err = float((a.float() - want.float()).abs().max())
+        max_err = max(max_err, err)
+        log(f"{tag}: bitwise across launches, max|kernel-plain| = "
+            f"{err:.3e} (tol {t})")
+
+    B, H, KV, D = 4, 16, 8, 256  # one gemma2-9b prefill layer
+    q, k, v = flash_inputs(B, H, KV, S, S, D, bf16, gen)
+    times = {}
+    for layer, window in (("local", 4096), ("global", 0)):
+        opts = dict(window=window, softcap=50.0)
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, force="cuda",
+                                                 **opts), reps=5, warmup=1)
+        plain_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, force="ref",
+                                                       **opts),
+                           reps=2, warmup=1)
+        bound_ms, bound_by = flash_bound_ms(B, H, KV, S, S, D, bf16,
+                                            window=window)
+        times[layer] = (ms, plain_ms, bound_ms, bound_by)
+        log(f"flash {layer} layer (4, 16, 8, {S}, 256) bf16: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}), kernel/bound {ms / bound_ms:.1f}x")
+    # the one PyTorch call for the same function: causal, no softcap, no
+    # window (a yardstick only; the port never calls it)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=10, warmup=2)
+    same_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, force="cuda"),
+                      reps=5, warmup=1)
+    log(f"flash global-layer shape, causal, GQA, no softcap: torch "
+        f"scaled_dot_product_attention {sdpa_ms:.4f} ms, the kernel "
+        f"{same_ms:.4f} ms")
+    ms, plain_ms, bound_ms, bound_by = times["global"]
+    record = dict(name="flash_attention", route="cuda",
+                  source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                  replaces="src/repro/kernels/flash_attention.py:74",
+                  launches=None, max_abs_err=max_err, ms=ms,
+                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  library_ms=sdpa_ms)
+    return record, times
+
+
+def phase_cut_depth():
+    """gemma2-9b at full width, 4 layers (2 local, 2 global), f32: the
+    kernel path against the plain path on the same weights and prompts."""
+    cfg = dataclasses.replace(GEMMA2_9B, num_layers=CUT_DEPTH_LAYERS)
+    model = Model(cfg, param_dtype=torch.float32)
+    params = model.init(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (CUT_DEPTH_B, SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    before = ops.flash_attention.launches
+    tok_k, logits_k = serve(model, params, prompts, CUT_DEPTH_GEN)
+    torch.cuda.synchronize()
+    launches = ops.flash_attention.launches - before
+    tok_r, logits_r = serve(model, params, prompts, CUT_DEPTH_GEN,
+                            force="ref")
+    torch.cuda.synchronize()
+    check(launches == CUT_DEPTH_LAYERS,
+          f"cut-depth: {launches} flash launches for {CUT_DEPTH_LAYERS} "
+          "layers")
+    check(bool(torch.isfinite(logits_k).all()), "cut-depth: non-finite")
+    torch.testing.assert_close(logits_k, logits_r, rtol=MODEL_TOL,
+                               atol=MODEL_TOL)
+    check(torch.equal(tok_k, tok_r),
+          f"cut-depth: greedy tokens differ\n{tok_k}\n{tok_r}")
+    gap = float((logits_k - logits_r).abs().max())
+    log(f"cut-depth gemma2-9b ({CUT_DEPTH_LAYERS} layers, full width, f32, "
+        f"B={CUT_DEPTH_B}, prompt {SERVE_PROMPT}): kernel vs plain prefill "
+        f"logits max gap {gap:.3e} (tol {MODEL_TOL}), {CUT_DEPTH_GEN} greedy "
+        f"tokens identical: {tok_k[0].tolist()}")
+
+
+def phase_serve():
+    """The second main path: full-depth bf16 gemma2-9b serving a batch."""
+    cfg = GEMMA2_9B
+    model = Model(cfg)  # bf16 weights on the card
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    log(f"serve gemma2-9b: {model.param_count()} parameters "
+        f"({weight_bytes / 1e9:.3f} GB bf16) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    serve(model, params, prompts[:, :256], 2)  # warm-up: handles, library
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = {}
+
+    def after_prefill():
+        torch.cuda.synchronize()
+        marks["prefill_s"] = time.perf_counter() - t0
+        marks["prefill_launches"] = ops.flash_attention.launches
+
+    ops.flash_attention.launches = 0  # the main path starts here
+    t0 = time.perf_counter()
+    tokens, logits = serve(model, params, prompts, SERVE_GEN,
+                           after_prefill=after_prefill)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = ops.flash_attention.launches  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+
+    prefill_launches = marks["prefill_launches"]
+    check(prefill_launches == cfg.num_layers,
+          f"serve: {prefill_launches} flash launches in the prefill, "
+          f"expected {cfg.num_layers}")
+    check(launches == prefill_launches,
+          f"serve: {launches - prefill_launches} flash launches in decode")
+    check(tuple(tokens.shape) == (SERVE_B, SERVE_GEN),
+          f"serve: tokens {tuple(tokens.shape)}")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          "serve: a token outside the vocabulary")
+    check(tuple(logits.shape) == (SERVE_B, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()),
+          "serve: prefill logits not finite or of the wrong shape")
+    prefill_ms = 1e3 * marks["prefill_s"]
+    steps = SERVE_GEN - 1
+    decode_s = total_s - marks["prefill_s"]
+    kv_bytes = (2 * cfg.num_layers * SERVE_B * (SERVE_PROMPT + SERVE_GEN)
+                * cfg.num_kv_heads * cfg.resolved_head_dim * 2)
+    log(f"serve {SERVE_B} x {SERVE_PROMPT} prompt tokens, {SERVE_GEN} "
+        f"generated each: prefill {prefill_ms:.3f} ms "
+        f"({SERVE_B * SERVE_PROMPT / marks['prefill_s']:.1f} prompt tok/s), "
+        f"decode {1e3 * decode_s / steps:.3f} ms/token over {steps} steps "
+        f"({SERVE_B * steps / decode_s:.1f} tok/s), end to end "
+        f"{SERVE_B * SERVE_GEN / total_s:.1f} generated tok/s")
+    log(f"serve flash launches: {prefill_launches} in prefill, "
+        f"{launches - prefill_launches} in decode")
+    log(f"serve peak device memory {peak / 1e9:.3f} GB; weights "
+        f"{weight_bytes / 1e9:.3f} GB + KV cache {kv_bytes / 1e9:.3f} GB = "
+        f"{(weight_bytes + kv_bytes) / 1e9:.3f} GB")
+    log(f"serve sample tokens: {tokens[0, :16].tolist()}")
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits_ref, _ = model.prefill(params, {"tokens": prompts}, force="ref")
+    torch.cuda.synchronize()
+    plain_prefill_ms = 1e3 * (time.perf_counter() - t1)
+    # The noise floor of the comparison: the plain path against itself with
+    # 256-key chunks instead of 512, i.e. the same math summed in another
+    # order. bf16 rounding flips that the order decides grow through the 42
+    # layers, so no implementation that sums in another order than the
+    # plain version can be held closer to it than this.
+    with plain_attention_chunk(256):
+        logits_ref2, _ = model.prefill(params, {"tokens": prompts},
+                                       force="ref")
+    diff, floor = logits - logits_ref, logits_ref2 - logits_ref
+    gap, floor_gap = float(diff.abs().max()), float(floor.abs().max())
+    log(f"serve plain-path prefill (force='ref'): {plain_prefill_ms:.3f} ms")
+    log(f"serve last-prompt-token logits (capped at "
+        f"+-{cfg.final_logit_softcap}), max |gap| / rms gap: kernel vs plain "
+        f"{gap:.4f} / {float(diff.pow(2).mean().sqrt()):.5f}; plain vs plain "
+        f"with 256-key chunks {floor_gap:.4f} / "
+        f"{float(floor.pow(2).mean().sqrt()):.5f} (limit {LOGIT_GAP_LIMIT}, "
+        f"or the summation-order floor x {FLOOR_FACTOR})")
+    check(gap < LOGIT_GAP_LIMIT or gap <= FLOOR_FACTOR * floor_gap,
+          f"serve: logit gap {gap} >= {LOGIT_GAP_LIMIT} and > "
+          f"{FLOOR_FACTOR} x the plain path's summation-order gap "
+          f"{floor_gap}")
+    return launches, prefill_ms
+
+
+@contextlib.contextmanager
+def plain_attention_chunk(chunk):
+    """Run the plain attention with `chunk`-key chunks inside the block."""
+    orig = kref.attention_ref
+    kref.attention_ref = functools.partial(orig, chunk=chunk)
+    try:
+        yield
+    finally:
+        kref.attention_ref = orig
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA "
@@ -299,11 +581,12 @@ def main():
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    lib = kernel_build.build()
-    log(f"built {lib.name} in {time.perf_counter() - t0:.2f} s")
-    for line in lib.with_name(lib.name + ".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  nvcc: {line.strip()}")
+    libs = kbuild.build_all([kernel_build.SOURCE, flash_build.SOURCE])
+    log(f"built {', '.join(lib.name for lib in libs)} in "
+        f"{time.perf_counter() - t0:.2f} s (one nvcc per source, together)")
+    for lib in libs:
+        for line in kbuild.compiler_report(lib):
+            log(f"  nvcc {lib.name}: {line}")
 
     record = phase_kernel()
     phase_small()
@@ -313,9 +596,22 @@ def main():
     log(f"table1 kernel share of a cuda-backend iteration: "
         f"{record['ms']:.4f} / {ms_c:.3f} ms = {record['ms'] / ms_c:.4%}")
     phase_breakdown(cfg, X, y, w)
+    del X, y, w  # free the 18 GB before the serving phases
+    torch.cuda.empty_cache()
+
+    flash_record, times = phase_flash()
+    phase_cut_depth()
+    torch.cuda.empty_cache()
+    flash_record["launches"], prefill_ms = phase_serve()
+    n_local = GEMMA2_9B.num_layers // 2
+    kernel_ms = n_local * (times["local"][0] + times["global"][0])
+    log(f"serve flash kernel share of the prefill: {n_local} x "
+        f"({times['local'][0]:.4f} + {times['global'][0]:.4f}) ms = "
+        f"{kernel_ms:.3f} / {prefill_ms:.3f} ms = "
+        f"{kernel_ms / prefill_ms:.2%}")
 
     print(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, flash_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

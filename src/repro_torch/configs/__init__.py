@@ -1,1 +1,55 @@
-"""Configurations of the port (its own copies; see ``sodda_svm``)."""
+"""Configurations of the port (its own copies of the reference's).
+
+``sodda_svm`` holds the SODDA instances. The architecture registry
+(``get_config`` / ``list_archs`` / ``reduced_config``) holds only the
+architectures the port runs; any other name raises ``KeyError`` with the
+list of known ones, as the reference's registry does.
+"""
+import dataclasses
+
+from repro_torch.configs import gemma2_9b
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig
+
+_REGISTRY = {m.CONFIG.name: m.CONFIG for m in (gemma2_9b,)}
+
+# short aliases: --arch gemma2_9b as well as --arch gemma2-9b
+_ALIASES = {"gemma2_9b": "gemma2-9b"}
+
+
+def list_archs():
+    return sorted(_REGISTRY)
+
+
+def get_config(name: str) -> ArchConfig:
+    key = _ALIASES.get(name, name)
+    if key not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
+    return _REGISTRY[key]
+
+
+def reduced_config(cfg: ArchConfig, seq_chunk: int = 16) -> ArchConfig:
+    """Small same-family config for CPU smoke tests (few layers, small
+    width, few experts, tiny vocab); the reference's rule, copied."""
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        num_layers=4 if cfg.family == "hybrid" else 2,
+        d_model=64,
+        num_heads=4 if cfg.num_heads else 0,
+        num_kv_heads=min(cfg.num_kv_heads, 2) if cfg.num_kv_heads else 0,
+        head_dim=16 if cfg.num_heads else 0,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab_size=256,
+        num_experts=8 if cfg.num_experts else 0,
+        experts_per_token=min(cfg.experts_per_token, 2) if cfg.num_experts else 0,
+        frontend_tokens=8 if cfg.frontend_tokens else 0,
+        ssm_state=16 if cfg.ssm_state else 0,
+        ssm_head_dim=16,
+        ssm_chunk=seq_chunk,
+        attn_every=2 if cfg.attn_every else 0,
+        sliding_window=8 if cfg.sliding_window else 0,
+    )
+
+
+__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "get_config", "list_archs",
+           "reduced_config"]

@@ -8,6 +8,7 @@ padding: that is a TPU rule, and the CUDA kernel masks its own tail.
 from __future__ import annotations
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.sodda_inner import sodda_inner_cuda
 
 FORCES = ("auto", "cuda", "ref")
@@ -36,3 +37,34 @@ def sodda_inner(w0, Xl, yl, mu, gamma, loss: str = "hinge",
 
 
 sodda_inner.launches = 0
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, q_offset: int = 0,
+                    force: str = "auto"):
+    """q (B,Sq,H,D), k/v (B,Sk,KV,D) -> (B,Sq,H,D) (layout as models use it).
+
+    ``force="auto"`` launches the CUDA kernel for CUDA tensors and runs
+    :func:`ref.attention_ref` for CPU tensors; ``"cuda"`` requires CUDA
+    tensors; ``"ref"`` runs the plain version on any device. Inputs are
+    made contiguous; nothing is padded. ``flash_attention.launches`` counts
+    kernel launches.
+    """
+    if force not in FORCES:
+        raise ValueError(f"force must be one of {FORCES}, got {force!r}")
+    device = q.device.type
+    if force == "ref" or (force == "auto" and device == "cpu"):
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, q_offset=q_offset)
+    if device != "cuda":
+        raise RuntimeError(f"flash_attention(force={force!r}) launches the "
+                           f"CUDA kernel and needs CUDA tensors, got "
+                           f"{q.device}")
+    out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=causal, window=window, softcap=softcap,
+                               q_offset=q_offset)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -4,9 +4,9 @@ The kernel (``csrc/sodda_inner.cu``) replaces the TPU kernel
 ``repro.kernels.sodda_inner.sodda_inner_pallas``; its source says what it
 computes, what bounds it and how it is laid out. This module compiles it at
 first use with ``nvcc`` into a shared library with a plain C interface
-(under ``build/torch_kernels/`` at the repository root, named by a hash of
-the source and the flags, so an edited source is rebuilt), loads it with
-ctypes, checks arguments and launches it on PyTorch's current stream.
+(``kernels.build``: under ``build/torch_kernels/``, rebuilt when the source
+changes), loads it with ctypes, checks arguments and launches it on
+PyTorch's current stream.
 
 Nothing here runs at import: the CPU tests import this module on hosts
 without ``nvcc`` or a card.
@@ -15,24 +15,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
-__all__ = ["THREADS", "SHARED_MEMORY_BUDGET", "LOSS_CODES",
-           "shared_memory_bytes", "check_args", "build", "sodda_inner_cuda"]
+from repro_torch.kernels import build as kbuild
+
+__all__ = ["SOURCE", "THREADS", "SHARED_MEMORY_BUDGET", "LOSS_CODES",
+           "shared_memory_bytes", "check_args", "sodda_inner_cuda"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "sodda_inner.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 THREADS = 256  # kThreads in the source
-SHARED_MEMORY_BUDGET = 232_448  # bytes one block may use on an H100 (227 KB)
+SHARED_MEMORY_BUDGET = kbuild.SHARED_MEMORY_BUDGET
 LOSS_CODES = {"hinge": 0, "logistic": 1, "squared": 2}
 
 
@@ -76,41 +71,9 @@ def check_args(w0, Xl, yl, mu, loss: str) -> None:
             "block")
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("sodda_inner: nvcc not found on PATH or in "
-                           "/usr/local/cuda/bin; the CUDA kernel cannot be "
-                           "built on this host")
-    return path
-
-
-def build() -> Path:
-    """Compile the kernel library if it is not built yet; return its path.
-
-    The compiler's report (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside the library as ``<library>.log``.
-    """
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libsodda_inner_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    lib.with_name(lib.name + ".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"sodda_inner: nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    return lib
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = kbuild.load(SOURCE)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.sodda_inner_f32.argtypes = [vp, vp, vp, vp, ctypes.c_float, vp,
                                     ci, ci, ci, ci, vp]

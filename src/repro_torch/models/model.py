@@ -1,0 +1,74 @@
+"""Model facade: config, template, device and the serving entry points.
+
+Counterpart of ``repro.models.model.Model``. Parameters are a nested dict
+of tensors passed to each entry point, as in the reference; the module
+holds the configuration, the template, the device and the parameter dtype.
+It runs on the CUDA device unless the caller passes ``device="cpu"``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention, transformer
+from repro_torch.models.params import count_params, init_params
+from repro_torch.platform import DeviceLike, resolve_device
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
+                 param_dtype=torch.bfloat16):
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.param_dtype = param_dtype
+        self.template = transformer.model_template(cfg)
+
+    # -- parameters ------------------------------------------------------
+    def init(self, seed: int, dtype=None):
+        """Weights drawn on the model's device from a generator seeded by
+        `seed`, with the padded heads' wo rows zeroed."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return self._fixup(init_params(self.template, gen,
+                                       dtype or self.param_dtype))
+
+    def _fixup(self, params):
+        """Zero the padded q-head wo rows (exact head padding)."""
+        cfg = self.cfg
+        if attention.padded_heads(cfg) == cfg.num_heads:
+            return params
+        layers = dict(params["layers"])
+        layers["attn"] = attention.zero_padded_wo(cfg, layers["attn"])
+        return dict(params, layers=layers)
+
+    def param_count(self) -> int:
+        return count_params(self.template)
+
+    # -- entry points ----------------------------------------------------
+    def prefill(self, params, batch, force: str = "auto"):
+        """batch {'tokens': (B,S)} -> (last-position logits (B,Vp) f32,
+        cache {'k', 'v': (L,B,S,KV,hd)})."""
+        logits, cache = transformer.forward(params, batch["tokens"], self.cfg,
+                                            collect_cache=True,
+                                            last_only=True, force=force)
+        return logits[:, -1], cache
+
+    def decode(self, params, cache, tokens, pos):
+        """tokens (B,1), pos (B,) -> (logits (B,Vp) f32, cache). The cache
+        is updated in place."""
+        return transformer.decode_step(params, cache, tokens, pos, self.cfg)
+
+    # -- caches ----------------------------------------------------------
+    def cache_template(self, batch: int, seq: int,
+                       dtype: Optional[torch.dtype] = None):
+        """A zeroed KV cache {'k', 'v': (L,B,seq,KV,hd)} on the model's
+        device, in `dtype` (default: the parameter dtype)."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch, seq, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        dt = dtype or self.param_dtype
+        return {"k": torch.zeros(shape, dtype=dt, device=self.device),
+                "v": torch.zeros(shape, dtype=dt, device=self.device)}

@@ -1,0 +1,108 @@
+"""Parameter templates with logical axes.
+
+Counterpart of ``repro.models.params``. A model is described once as a
+nested dict of ``ParamSpec`` (shape, logical axes, initializer). From the
+template come ``init_params`` (weights drawn on the target device from an
+explicit ``torch.Generator``), ``count_params``, and ``from_numpy``, which
+carries the reference's parameters (``jax.tree.map(np.asarray, params)``)
+into the port. The sharding helpers of the reference belong with the mesh
+work and are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.platform import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # logical axis names (None = never sharded)
+    init: str = "normal"  # normal | zeros | ones | embed
+    scale: float = 1.0  # stddev multiplier for 'normal'
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"ParamSpec: shape {self.shape} and axes "
+                             f"{self.axes} differ in rank")
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def tree_map_specs(fn: Callable, template):
+    """Apply `fn` to every leaf of a nested dict, in sorted key order (the
+    order in which jax flattens a dict)."""
+    if isinstance(template, dict):
+        return {k: tree_map_specs(fn, template[k]) for k in sorted(template)}
+    return fn(template)
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict, in sorted key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def _std(spec: ParamSpec) -> float:
+    """Fan-in scaled std; embeddings at 1; a stacked 'layers' axis does not
+    count toward fan-in (the reference's ``_init_one``)."""
+    if spec.init == "embed":
+        return 1.0
+    shape = spec.shape
+    fan_in = shape[0] if len(shape) == 1 else math.prod(shape[:-1])
+    if spec.axes and spec.axes[0] == "layers" and len(shape) > 2:
+        fan_in = math.prod(shape[1:-1])
+    return spec.scale / math.sqrt(max(fan_in, 1))
+
+
+def _init_one(spec: ParamSpec, gen: torch.Generator, dtype) -> torch.Tensor:
+    dev = gen.device
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=dev)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=dev)
+    std = _std(spec)
+    out = torch.empty(spec.shape, dtype=dtype, device=dev)
+    # a stacked leaf is drawn one layer at a time, so the f32 draw never
+    # holds more than one layer beside the weights
+    parts = out if spec.axes and spec.axes[0] == "layers" else [out]
+    for part in parts:
+        draw = torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                           device=dev)
+        part.copy_(draw.mul_(std))
+    return out
+
+
+def init_params(template, gen: torch.Generator, dtype=torch.float32):
+    """Weights for `template` on the generator's device, drawn in the
+    reference's leaf order with its scaling rule (not its bits: a torch
+    generator gives other numbers than a jax key)."""
+    return tree_map_specs(lambda s: _init_one(s, gen, dtype), template)
+
+
+def count_params(template) -> int:
+    return sum(math.prod(leaf.shape) for leaf in tree_leaves(template))
+
+
+def from_numpy(tree, device: DeviceLike = None, dtype=None):
+    """The port's parameters from the reference's, given as a nested dict
+    of numpy arrays. Each array is copied to `device` (default: the CUDA
+    device) and cast to `dtype` (default: kept)."""
+    dev = resolve_device(device)
+
+    def one(a):
+        t = torch.from_numpy(np.array(a))  # a writable copy
+        return t.to(device=dev, dtype=dtype or t.dtype)
+
+    if isinstance(tree, dict):
+        return {k: from_numpy(v, dev, dtype) for k, v in tree.items()}
+    return one(tree)

@@ -1,0 +1,160 @@
+"""Model assembly for the dense transformer family: templates, the
+prefill forward (cache construction) and decode (cache consumption).
+
+Counterpart of ``repro.models.transformer``. The reference scans over a
+stacked ``(L, ...)`` parameter tree; here a Python loop over layers indexes
+the stacked parameters as views. gemma2's local/global alternation is a
+per-layer window: even layers see ``cfg.sliding_window`` keys, odd layers
+all of them. Rematerialisation is a training matter and is left out. The
+MoE, SSM and hybrid families are not ported yet (ROADMAP A).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention, mlp
+from repro_torch.models.layers import embed_tokens, rms_norm, unembed
+from repro_torch.models.params import ParamSpec, tree_map_specs
+
+
+def check_family(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a family the port does not run."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet "
+            "(ROADMAP A: SSM/hybrid families)")
+    if cfg.num_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP A: MoE "
+            "family)")
+
+
+# ---------------------------------------------------------------------------
+# Templates
+# ---------------------------------------------------------------------------
+def _norm(d):
+    return ParamSpec((d,), ("embed",), init="zeros")
+
+
+def layer_template(cfg: ArchConfig) -> dict:
+    check_family(cfg)
+    d = cfg.d_model
+    t = {"ln1": _norm(d), "attn": attention.attn_template(cfg),
+         "ln2": _norm(d), "mlp": mlp.mlp_template(d, cfg.d_ff)}
+    if cfg.local_global:  # gemma2 post-norms
+        t["ln1post"] = _norm(d)
+        t["ln2post"] = _norm(d)
+    return t
+
+
+def model_template(cfg: ArchConfig) -> dict:
+    d, Vp, L = cfg.d_model, cfg.padded_vocab, cfg.num_layers
+    t = {"embed": ParamSpec((Vp, d), ("vocab", "embed"), init="embed")}
+    if not cfg.tie_embeddings:
+        t["unembed"] = ParamSpec((d, Vp), ("embed", "vocab"))
+    t["final_norm"] = _norm(d)
+    t["layers"] = tree_map_specs(
+        lambda s: ParamSpec((L,) + s.shape, ("layers",) + s.axes, s.init,
+                            s.scale), layer_template(cfg))
+    return t
+
+
+def layer_params(layers: dict, i: int) -> dict:
+    """Layer `i`'s parameters: views into the stacked (L, ...) tensors."""
+    if isinstance(layers, dict):
+        return {k: layer_params(v, i) for k, v in layers.items()}
+    return layers[i]
+
+
+def layer_window(cfg: ArchConfig, i: int) -> int:
+    """gemma2: even layers local (sliding window), odd global."""
+    return cfg.sliding_window if (cfg.local_global and i % 2 == 0) else 0
+
+
+def _embed(params, tokens, cfg: ArchConfig):
+    h = embed_tokens(params["embed"], tokens)
+    if cfg.local_global:  # gemma scales embeddings, by sqrt(d) in h's dtype
+        scale = torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32)
+        h = h * scale.to(device=h.device, dtype=h.dtype)
+    return h
+
+
+def _logits(params, h, cfg: ArchConfig):
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    wout = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return unembed(h, wout, cfg.final_logit_softcap)
+
+
+def _mlp_half(lp, h, cfg: ArchConfig):
+    m = mlp.mlp_forward(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps))
+    if "ln2post" in lp:
+        m = rms_norm(m, lp["ln2post"], cfg.norm_eps)
+    return h + m
+
+
+def _attn_block(lp, h, cfg: ArchConfig, positions, window: int, force: str):
+    a, kv = attention.attn_forward(lp["attn"],
+                                   rms_norm(h, lp["ln1"], cfg.norm_eps), cfg,
+                                   positions, window=window, force=force)
+    if "ln1post" in lp:
+        a = rms_norm(a, lp["ln1post"], cfg.norm_eps)
+    return _mlp_half(lp, h + a, cfg), kv
+
+
+# ---------------------------------------------------------------------------
+# Prefill forward
+# ---------------------------------------------------------------------------
+def forward(params, tokens, cfg: ArchConfig, *, collect_cache: bool = False,
+            last_only: bool = False, force: str = "auto"):
+    """tokens (B,S) -> (logits (B,S,Vp) f32, cache or None).
+
+    With `collect_cache`, cache is {'k', 'v': (L,B,S,KV,hd)} in the
+    activations' dtype, filled layer by layer. With `last_only`, logits are
+    computed for the last position only: (B,1,Vp). `force` goes to the
+    attention kernel's wrapper (``kernels.ops.flash_attention``).
+    """
+    check_family(cfg)
+    h = _embed(params, tokens, cfg)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=h.device).expand(B, S)
+    L = cfg.num_layers
+    cache = None
+    if collect_cache:
+        shape = (L, B, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+        cache = {"k": torch.empty(shape, dtype=h.dtype, device=h.device),
+                 "v": torch.empty(shape, dtype=h.dtype, device=h.device)}
+    for i in range(L):
+        h, (k, v) = _attn_block(layer_params(params["layers"], i), h, cfg,
+                                positions, layer_window(cfg, i), force)
+        if cache is not None:
+            cache["k"][i].copy_(k)
+            cache["v"][i].copy_(v)
+    if last_only:
+        h = h[:, -1:]
+    return _logits(params, h, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
+    """tokens (B,1), pos (B,) -> (logits (B,Vp), cache).
+
+    cache: {'k': (L,B,S,KV,hd), 'v': (L,B,S,KV,hd)}, updated in place at
+    position ``pos[0] % S`` of every layer and returned.
+    """
+    check_family(cfg)
+    h = _embed(params, tokens, cfg)
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["layers"], i)
+        x = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        a, _ = attention.decode_attn_heads(lp["attn"], x, cfg, cache["k"][i],
+                                           cache["v"][i], pos,
+                                           window=layer_window(cfg, i))
+        if "ln1post" in lp:
+            a = rms_norm(a, lp["ln1post"], cfg.norm_eps)
+        h = _mlp_half(lp, h + a, cfg)
+    return _logits(params, h, cfg)[:, 0], cache

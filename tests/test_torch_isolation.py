@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports jax or the JAX package, and the port's own copies
-of the reference's configuration and tolerance policies are equal to it."""
+of the reference's configurations (SODDA and the LM architectures) and
+tolerance policies are equal to it."""
 import ast
 import dataclasses
 import os
@@ -10,8 +11,12 @@ import sys
 
 import pytest
 
+import repro.configs as ref_archs
+from repro.configs import base as ref_base
 from repro.configs import sodda_svm as ref_cfg
 from repro.testing import tolerances as ref_tol
+import repro_torch.configs as port_archs
+from repro_torch.configs import base as port_base
 from repro_torch.configs import sodda_svm as port_cfg
 from repro_torch.testing import tolerances as port_tol
 
@@ -66,6 +71,8 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.core.driver, repro_torch.core.engine\n"
             "import repro_torch.data.synthetic, repro_torch.kernels.ops\n"
             "import repro_torch.testing.tolerances, repro_torch.platform\n"
+            "import repro_torch.launch.serve, repro_torch.models.model\n"
+            "import repro_torch.kernels.flash_attention\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -119,3 +126,38 @@ def test_table1_250k_18k_matches_the_benchmark_cell():
                          ["BITWISE", "F32_REDUCTION", "QUANTIZED", "STALENESS"])
 def test_tolerance_policies_match_reference(name):
     assert tuple(getattr(port_tol, name)) == tuple(getattr(ref_tol, name))
+
+
+def test_arch_config_fields_and_defaults_match_reference():
+    for cls in ("ArchConfig", "ShapeConfig"):
+        ref = [(f.name, f.type, f.default)
+               for f in dataclasses.fields(getattr(ref_base, cls))]
+        port = [(f.name, f.type, f.default)
+                for f in dataclasses.fields(getattr(port_base, cls))]
+        assert port == ref, cls
+    assert {k: dataclasses.asdict(v) for k, v in port_base.SHAPES.items()} \
+        == {k: dataclasses.asdict(v) for k, v in ref_base.SHAPES.items()}
+
+
+@pytest.mark.parametrize("name", ["gemma2-9b", "gemma2_9b"])
+def test_gemma2_config_and_reduced_config_match_reference(name):
+    ref, port = ref_archs.get_config(name), port_archs.get_config(name)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(port_archs.reduced_config(port)) == \
+        dataclasses.asdict(ref_archs.reduced_config(ref))
+    for cfg_p, cfg_r in ((port, ref), (port_archs.reduced_config(port),
+                                       ref_archs.reduced_config(ref))):
+        assert cfg_p.param_count() == cfg_r.param_count()
+        assert (cfg_p.resolved_head_dim, cfg_p.padded_vocab) == \
+            (cfg_r.resolved_head_dim, cfg_r.padded_vocab)
+        for shape in ref_base.SHAPES.values():
+            assert cfg_p.model_flops(port_base.SHAPES[shape.name]) == \
+                cfg_r.model_flops(shape)
+            assert cfg_p.supports_shape(port_base.SHAPES[shape.name]) == \
+                cfg_r.supports_shape(shape)
+
+
+def test_port_registry_is_a_subset_of_the_reference():
+    assert set(port_archs.list_archs()) <= set(ref_archs.list_archs())
+    with pytest.raises(KeyError, match="known"):
+        port_archs.get_config("mamba2-130m")
