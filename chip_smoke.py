@@ -25,30 +25,35 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
    prefill shape (B=4, H=16, KV=8, S=4608, D=256, bf16) for a local and a
    global layer, at an unaligned f32 shape (causal and not) and at decode
    offsets, and times it there beside its bound, its plain version and
-   ``scaled_dot_product_attention``;
+   ``scaled_dot_product_attention``. A bf16 output must be its f32 value
+   correctly rounded (see ``F32_NOISE``), and a control that rounds the
+   scores to bf16 must fail that rule;
 7. runs gemma2-9b at full width, cut to 4 layers, in f32, on 4608-token
    prompts through ``serve`` with the kernel and with the plain version:
-   prefill logits within 2e-4 and 8 greedy tokens identical;
+   prefill logits and 8 decode steps' logits within 2e-4, and 8 greedy
+   tokens identical;
 8. serves 4 requests of 4608 prompt tokens for 32 tokens each through
    full-depth bf16 gemma2-9b (``repro_torch.launch.serve.serve``, the
    second main path, with the flash launch count set to 0 just before it):
-   42 launches in the prefill and none in the decode, finite logits within
-   1.0 of the plain path's (or within 2x of the plain path's gap to itself
-   summed in another order), and prefill time, decode time per token and
-   peak device memory.
+   42 launches in the prefill and none in the decode, finite logits, and
+   prefill time, decode time per token and peak device memory. Then each
+   of the 42 layers' attention, on the plain path's activations, is held
+   to the rounding rule of 6 (the control failing it), and the rms gap of
+   the kernel path's logits to the plain path's to 1.2x the plain path's
+   gap to itself summed in another order.
 
 Exits non-zero if any phase fails. The last three lines of standard output
 are the card line, a JSON ``kernels`` record and a JSON ``ok`` record.
 """
 import contextlib
 import dataclasses
-import functools
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+import types
 
 import torch
 
@@ -63,8 +68,9 @@ from repro_torch.kernels import flash_attention as flash_build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import sodda_inner as kernel_build  # noqa: E402
-from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.launch.serve import make_serve_steps, serve  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import attention as mattn  # noqa: E402
 from repro_torch.models.params import tree_leaves  # noqa: E402
 from repro_torch.testing import tolerances as tol  # noqa: E402
 
@@ -78,15 +84,25 @@ F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 
 # flash_attention against its plain version: tests/test_kernels.py:201
-# holds the Pallas kernel to its oracle at 2e-5 in f32; bf16 outputs carry
-# 2^-8 relative rounding, and the plain version rounds scores to bf16.
-FLASH_F32_TOL, FLASH_BF16_TOL = 2e-5, 1e-2
+# holds the Pallas kernel to its oracle at 2e-5 in f32.
+FLASH_F32_TOL = 2e-5
+# In bf16 a sound kernel rounds its f32 result to the nearest bf16, so each
+# output lies within half a bf16 ulp of the plain version run on f32 copies
+# of the inputs, give or take the f32 summation noise of either, which is
+# held to F32_NOISE x max|v|. The bf16-score control (scores rounded to bf16
+# before the softmax, as the JAX reference's einsum does) must fail it. On
+# an H100 the kernel's excess was at most 1.124e-07 and the control's at
+# least 6.845e-05 (gemma2-9b layer shape and all 42 layers of the serving
+# run): the limit sits ~30x from each.
+F32_NOISE = 2.0 ** -18
 # the decode-vs-forward tolerance of tests/test_models.py:74
 MODEL_TOL = 2e-4
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 4608, 32  # 4608 = 36 x 128 > 4096
 CUT_DEPTH_LAYERS, CUT_DEPTH_B, CUT_DEPTH_GEN = 4, 2, 8
-LOGIT_GAP_LIMIT = 1.0  # kernel vs plain path, bf16, logits capped at +-30
-FLOOR_FACTOR = 2.0  # ... or within 2x the plain path's own reordering gap
+# Full depth in bf16: the rms gap of the kernel path's last-token logits to
+# the plain path's, against the plain path's gap to itself summed in
+# 256-key chunks (the summation-order floor of 42 bf16 layers).
+RMS_GAP_FACTOR = 1.2
 
 # tests/test_kernels.py:35 — one kernel call against its plain version:
 # the kernel hoists z0 and reduces in another order than the plain loop.
@@ -352,13 +368,42 @@ def flash_bound_ms(B, H, KV, Sq, Sk, D, dtype, **mask):
 
 
 def flash_inputs(B, H, KV, Sq, Sk, D, dtype, gen):
-    """q (B,Sq,H,D), k/v (B,Sk,KV,D) on the card, scaled as the kernel
-    tests of tests/test_kernels.py scale them: q, k at std 0.5, v at 1."""
-    def rnd(scale, *shape):
-        x = torch.randn(*shape, generator=gen, device="cuda") * scale
-        return x.to(dtype)
-    return (rnd(0.5, B, Sq, H, D), rnd(0.5, B, Sk, KV, D),
-            rnd(1.0, B, Sk, KV, D))
+    """q (B,Sq,H,D), k/v (B,Sk,KV,D) on the card, unit-variance entries,
+    as the model's projections of a normed residual give them."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    return rnd(B, Sq, H, D), rnd(B, Sk, KV, D), rnd(B, Sk, KV, D)
+
+
+def attention_bf16_scores(q, k, v, **opts):
+    """The control: attention whose scores are rounded to bf16 before the
+    f32 softmax (``attention_naive``'s einsum runs in the input dtype, as
+    the JAX reference's does), one batch row at a time."""
+    return torch.cat([kref.attention_naive(q[b:b + 1], k[b:b + 1],
+                                           v[b:b + 1], **opts)
+                      for b in range(q.shape[0])])
+
+
+def bf16_excess(q, k, v, opts, **outs):
+    """For each bf16 output in `outs`: its largest distance to the plain
+    version run on f32 copies of the inputs beyond half a bf16 ulp of that
+    f32 value, over max|v|. A correctly rounded output scores <= 0."""
+    oracle = kref.attention_ref(q.float(), k.float(), v.float(), **opts)
+    exponent = torch.frexp(oracle.abs().clamp_min(2.0 ** -126))[1]
+    half_ulp = torch.exp2((exponent - 9).float())  # bf16 ulp is 2^(e - 8)
+    vmax = float(v.float().abs().max())
+    return {name: float(((o.float() - oracle).abs() - half_ulp).max()) / vmax
+            for name, o in outs.items()}
+
+
+def check_excess(tag, ex):
+    """kernel and plain within the rounding rule; the control outside it."""
+    check(ex["kernel"] <= F32_NOISE and ex["plain"] <= F32_NOISE,
+          f"{tag}: beyond half a bf16 ulp of the f32 result by {ex} x "
+          f"max|v| (limit {F32_NOISE})")
+    check(ex["control"] > F32_NOISE,
+          f"{tag}: the bf16-score control passes the rounding rule ({ex}), "
+          "so the rule cannot tell such a kernel apart")
 
 
 def phase_flash():
@@ -390,12 +435,21 @@ def phase_flash():
         tag = f"flash {name} {(B, H, KV, Sq, Sk, D)} {dtype} {opts}"
         check(torch.equal(a, b), f"{tag}: two launches differ")
         check(bool(torch.isfinite(a).all()), f"{tag}: non-finite output")
-        t = FLASH_BF16_TOL if dtype == bf16 else FLASH_F32_TOL
-        torch.testing.assert_close(a.float(), want.float(), rtol=t, atol=t)
+        if dtype == bf16:
+            ex = bf16_excess(q, k, v, opts, kernel=a, plain=want,
+                             control=attention_bf16_scores(q, k, v, **opts))
+            check_excess(tag, ex)
+            rule = (f"excess over half a bf16 ulp / max|v|: kernel "
+                    f"{ex['kernel']:.3e}, plain {ex['plain']:.3e}, bf16-score "
+                    f"control {ex['control']:.3e} (limit {F32_NOISE:.3e})")
+        else:
+            torch.testing.assert_close(a, want, rtol=FLASH_F32_TOL,
+                                       atol=FLASH_F32_TOL)
+            rule = f"tol {FLASH_F32_TOL}"
         err = float((a.float() - want.float()).abs().max())
         max_err = max(max_err, err)
         log(f"{tag}: bitwise across launches, max|kernel-plain| = "
-            f"{err:.3e} (tol {t})")
+            f"{err:.3e}; {rule}")
 
     B, H, KV, D = 4, 16, 8, 256  # one gemma2-9b prefill layer
     q, k, v = flash_inputs(B, H, KV, S, S, D, bf16, gen)
@@ -433,6 +487,25 @@ def phase_flash():
     return record, times
 
 
+def decode_logits(model, params, prompts, tokens, force):
+    """Prefill `prompts` through `make_serve_steps(model, force)`, copy the
+    cache as `serve` does, then decode the given tokens (B, n) one step at a
+    time: the logits of every step, (B, n, Vp)."""
+    prefill_step, decode_step = make_serve_steps(model, force)
+    B, P = prompts.shape
+    _, pre = prefill_step(params, {"tokens": prompts})
+    cache = model.cache_template(B, P + tokens.shape[1], dtype=pre["k"].dtype)
+    cache["k"][:, :, :P].copy_(pre["k"])
+    cache["v"][:, :, :P].copy_(pre["v"])
+    del pre
+    out = []
+    for i in range(tokens.shape[1]):
+        pos = torch.full((B,), P + i, dtype=torch.long, device=prompts.device)
+        logits, cache = decode_step(params, cache, tokens[:, i:i + 1], pos)
+        out.append(logits)
+    return torch.stack(out, dim=1)
+
+
 def phase_cut_depth():
     """gemma2-9b at full width, 4 layers (2 local, 2 global), f32: the
     kernel path against the plain path on the same weights and prompts."""
@@ -458,10 +531,22 @@ def phase_cut_depth():
     check(torch.equal(tok_k, tok_r),
           f"cut-depth: greedy tokens differ\n{tok_k}\n{tok_r}")
     gap = float((logits_k - logits_r).abs().max())
+    # The random-weight model's greedy choice repeats one token, so the
+    # decode steps are also held by their logits, fed random tokens over
+    # the cache that each path's prefill built.
+    fed = torch.randint(0, cfg.vocab_size, (CUT_DEPTH_B, CUT_DEPTH_GEN),
+                        generator=gen, device="cuda")
+    dec_k = decode_logits(model, params, prompts, fed, "auto")
+    dec_r = decode_logits(model, params, prompts, fed, "ref")
+    check(bool(torch.isfinite(dec_k).all()), "cut-depth: non-finite decode")
+    torch.testing.assert_close(dec_k, dec_r, rtol=MODEL_TOL, atol=MODEL_TOL)
+    dec_gap = float((dec_k - dec_r).abs().max())
     log(f"cut-depth gemma2-9b ({CUT_DEPTH_LAYERS} layers, full width, f32, "
         f"B={CUT_DEPTH_B}, prompt {SERVE_PROMPT}): kernel vs plain prefill "
-        f"logits max gap {gap:.3e} (tol {MODEL_TOL}), {CUT_DEPTH_GEN} greedy "
-        f"tokens identical: {tok_k[0].tolist()}")
+        f"logits max gap {gap:.3e}, {CUT_DEPTH_GEN} decode steps' logits "
+        f"max gap {dec_gap:.3e} (tol {MODEL_TOL}); {CUT_DEPTH_GEN} greedy "
+        f"tokens identical: {tok_k.tolist()}; decode argmax "
+        f"{dec_k.argmax(-1).tolist()}")
 
 
 def phase_serve():
@@ -480,25 +565,24 @@ def phase_serve():
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
                             generator=gen, device="cuda")
     serve(model, params, prompts[:, :256], 2)  # warm-up: handles, library
+    # time to the first token: serve one token, i.e. prefill and cache copy
+    ops.flash_attention.launches = 0
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve(model, params, prompts, 1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = ops.flash_attention.launches
+
     torch.cuda.reset_peak_memory_stats()
-    marks = {}
-
-    def after_prefill():
-        torch.cuda.synchronize()
-        marks["prefill_s"] = time.perf_counter() - t0
-        marks["prefill_launches"] = ops.flash_attention.launches
-
     ops.flash_attention.launches = 0  # the main path starts here
     t0 = time.perf_counter()
-    tokens, logits = serve(model, params, prompts, SERVE_GEN,
-                           after_prefill=after_prefill)
+    tokens, logits = serve(model, params, prompts, SERVE_GEN)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = ops.flash_attention.launches  # ... and ends here
     peak = torch.cuda.max_memory_allocated()
 
-    prefill_launches = marks["prefill_launches"]
     check(prefill_launches == cfg.num_layers,
           f"serve: {prefill_launches} flash launches in the prefill, "
           f"expected {cfg.num_layers}")
@@ -511,14 +595,13 @@ def phase_serve():
     check(tuple(logits.shape) == (SERVE_B, cfg.padded_vocab)
           and bool(torch.isfinite(logits).all()),
           "serve: prefill logits not finite or of the wrong shape")
-    prefill_ms = 1e3 * marks["prefill_s"]
     steps = SERVE_GEN - 1
-    decode_s = total_s - marks["prefill_s"]
+    decode_s = total_s - prefill_s
     kv_bytes = (2 * cfg.num_layers * SERVE_B * (SERVE_PROMPT + SERVE_GEN)
                 * cfg.num_kv_heads * cfg.resolved_head_dim * 2)
     log(f"serve {SERVE_B} x {SERVE_PROMPT} prompt tokens, {SERVE_GEN} "
-        f"generated each: prefill {prefill_ms:.3f} ms "
-        f"({SERVE_B * SERVE_PROMPT / marks['prefill_s']:.1f} prompt tok/s), "
+        f"generated each: prefill {1e3 * prefill_s:.3f} ms "
+        f"({SERVE_B * SERVE_PROMPT / prefill_s:.1f} prompt tok/s), "
         f"decode {1e3 * decode_s / steps:.3f} ms/token over {steps} steps "
         f"({SERVE_B * steps / decode_s:.1f} tok/s), end to end "
         f"{SERVE_B * SERVE_GEN / total_s:.1f} generated tok/s")
@@ -529,44 +612,73 @@ def phase_serve():
         f"{(weight_bytes + kv_bytes) / 1e9:.3f} GB")
     log(f"serve sample tokens: {tokens[0, :16].tolist()}")
 
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    logits_ref, _ = model.prefill(params, {"tokens": prompts}, force="ref")
-    torch.cuda.synchronize()
-    plain_prefill_ms = 1e3 * (time.perf_counter() - t1)
-    # The noise floor of the comparison: the plain path against itself with
-    # 256-key chunks instead of 512, i.e. the same math summed in another
-    # order. bf16 rounding flips that the order decides grow through the 42
-    # layers, so no implementation that sums in another order than the
-    # plain version can be held closer to it than this.
-    with plain_attention_chunk(256):
-        logits_ref2, _ = model.prefill(params, {"tokens": prompts},
-                                       force="ref")
-    diff, floor = logits - logits_ref, logits_ref2 - logits_ref
-    gap, floor_gap = float(diff.abs().max()), float(floor.abs().max())
-    log(f"serve plain-path prefill (force='ref'): {plain_prefill_ms:.3f} ms")
+    # Every layer's attention at the main path's shape and dtype, on the
+    # activations the plain path feeds it: the kernel and the bf16-score
+    # control against the rounding rule (the plain path goes on unchanged).
+    layer_ex = []
+
+    def held(q, k, v, force, **opts):
+        out = kernel_wrapper(q, k, v, force=force, **opts)
+        layer_ex.append(bf16_excess(
+            q, k, v, opts, plain=out,
+            kernel=kernel_wrapper(q, k, v, force="cuda", **opts),
+            control=attention_bf16_scores(q, k, v, **opts)))
+        return out
+
+    with attention_as(held) as kernel_wrapper:
+        logits_ref, _ = model.prefill(params, {"tokens": prompts},
+                                      force="ref")
+    check(len(layer_ex) == cfg.num_layers,
+          f"serve: {len(layer_ex)} attention calls held, expected "
+          f"{cfg.num_layers}")
+    for i, ex in enumerate(layer_ex):
+        check_excess(f"serve layer {i}", ex)
+    log("serve every layer's attention on the plain path's activations, "
+        f"excess over half a bf16 ulp / max|v| (limit {F32_NOISE:.3e}): "
+        f"kernel max {max(e['kernel'] for e in layer_ex):.3e}, plain max "
+        f"{max(e['plain'] for e in layer_ex):.3e}, bf16-score control min "
+        f"{min(e['control'] for e in layer_ex):.3e} / max "
+        f"{max(e['control'] for e in layer_ex):.3e}")
+
+    # The logits at full depth, against the plain path summed in another
+    # order (the floor) and the plain path with bf16 scores (the control).
+    with attention_as(lambda q, k, v, force, **opts: kref.attention_ref(
+            q, k, v, chunk=256, **opts)):
+        logits_floor, _ = model.prefill(params, {"tokens": prompts},
+                                        force="ref")
+    with attention_as(lambda q, k, v, force, **opts: attention_bf16_scores(
+            q, k, v, **opts)):
+        logits_ctl, _ = model.prefill(params, {"tokens": prompts},
+                                      force="ref")
+    gaps = {}
+    for name, x in (("kernel", logits), ("floor", logits_floor),
+                    ("control", logits_ctl)):
+        d = x - logits_ref
+        gaps[name] = (float(d.abs().max()), float(d.pow(2).mean().sqrt()))
+    ratio = {name: r / gaps["floor"][1] for name, (_, r) in gaps.items()}
     log(f"serve last-prompt-token logits (capped at "
-        f"+-{cfg.final_logit_softcap}), max |gap| / rms gap: kernel vs plain "
-        f"{gap:.4f} / {float(diff.pow(2).mean().sqrt()):.5f}; plain vs plain "
-        f"with 256-key chunks {floor_gap:.4f} / "
-        f"{float(floor.pow(2).mean().sqrt()):.5f} (limit {LOGIT_GAP_LIMIT}, "
-        f"or the summation-order floor x {FLOOR_FACTOR})")
-    check(gap < LOGIT_GAP_LIMIT or gap <= FLOOR_FACTOR * floor_gap,
-          f"serve: logit gap {gap} >= {LOGIT_GAP_LIMIT} and > "
-          f"{FLOOR_FACTOR} x the plain path's summation-order gap "
-          f"{floor_gap}")
-    return launches, prefill_ms
+        f"+-{cfg.final_logit_softcap}) against the plain path, max |gap| / "
+        f"rms gap / rms over the floor's: "
+        + "; ".join(f"{name} {a:.4f} / {r:.5f} / {ratio[name]:.4f}"
+                    for name, (a, r) in gaps.items())
+        + f" (floor: plain in 256-key chunks; control: bf16 scores; limit "
+          f"{RMS_GAP_FACTOR})")
+    check(ratio["kernel"] <= RMS_GAP_FACTOR,
+          f"serve: rms logit gap {gaps['kernel'][1]} > {RMS_GAP_FACTOR} x "
+          f"the summation-order floor {gaps['floor'][1]}")
+    return launches, 1e3 * prefill_s
 
 
 @contextlib.contextmanager
-def plain_attention_chunk(chunk):
-    """Run the plain attention with `chunk`-key chunks inside the block."""
-    orig = kref.attention_ref
-    kref.attention_ref = functools.partial(orig, chunk=chunk)
+def attention_as(fn):
+    """Route the model's attention calls to fn(q, k, v, force, **opts)
+    inside the block; yields the wrapper they reach otherwise."""
+    orig = mattn.kops
+    mattn.kops = types.SimpleNamespace(flash_attention=fn)
     try:
-        yield
+        yield orig.flash_attention
     finally:
-        kref.attention_ref = orig
+        mattn.kops = orig
 
 
 def main():

@@ -15,8 +15,6 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Callable, Optional
-
 import torch
 
 from repro_torch.configs import get_config, reduced_config
@@ -36,17 +34,16 @@ def make_serve_steps(model: Model, force: str = "auto"):
     return prefill_step, decode_step
 
 
-def serve(model: Model, params, prompts, gen_len: int, force: str = "auto",
-          after_prefill: Optional[Callable[[], None]] = None):
+def serve(model: Model, params, prompts, gen_len: int, force: str = "auto"):
     """Greedy generation for a batch of requests.
 
     prompts (B, P) integer tensor on the model's device -> (tokens (B,
     gen_len), prefill logits (B, Vp) f32 of the last prompt position).
     The first token comes from the prefill logits, each further one from a
     decode step, so there are gen_len - 1 decode steps over a cache of
-    P + gen_len positions. `after_prefill`, if given, is called once
-    between prefill and decode (a caller's timing or counting point).
-    Nothing here synchronises with the host.
+    P + gen_len positions; gen_len = 1 is the prefill alone (the time to
+    the first token). `force` goes to the attention kernel's wrapper in
+    prefill. Nothing here synchronises with the host.
     """
     if gen_len < 1:
         raise ValueError(f"gen_len must be >= 1, got {gen_len}")
@@ -57,8 +54,6 @@ def serve(model: Model, params, prompts, gen_len: int, force: str = "auto",
     cache["k"][:, :, :P].copy_(pre["k"])
     cache["v"][:, :, :P].copy_(pre["v"])
     del pre
-    if after_prefill is not None:
-        after_prefill()
     tok = logits.argmax(dim=-1)
     out = [tok]
     for i in range(gen_len - 1):

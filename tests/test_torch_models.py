@@ -292,13 +292,23 @@ def test_make_serve_steps_threads_force(reduced):
         prefill(pp, {"tokens": toks})
 
 
-def test_serve_calls_after_prefill_once_and_refuses_empty(reduced):
+def test_serve_one_token_is_the_prefill_argmax(reduced):
+    """gen_len = 1 runs no decode step: its token is the prefill's argmax,
+    and it is the first token of a longer generation."""
+    cfg, jm, jp, pm, pp = reduced
+    prompts = torch.from_numpy(_tokens(2, 6, cfg.vocab_size, seed=9)).long()
+    tokens, logits = port_serve.serve(pm, pp, prompts, 1)
+    want, _ = pm.prefill(pp, {"tokens": prompts})
+    assert tokens.shape == (2, 1)
+    assert torch.equal(logits, want)
+    assert torch.equal(tokens[:, 0], want.argmax(-1))
+    longer, _ = port_serve.serve(pm, pp, prompts, 3)
+    assert torch.equal(longer[:, :1], tokens)
+
+
+def test_serve_refuses_empty_generation(reduced):
     cfg, jm, jp, pm, pp = reduced
     prompts = torch.from_numpy(_tokens(1, 6, cfg.vocab_size, seed=9)).long()
-    calls = []
-    tokens, _ = port_serve.serve(pm, pp, prompts, 3,
-                                 after_prefill=lambda: calls.append(1))
-    assert calls == [1] and tokens.shape == (1, 3)
     with pytest.raises(ValueError, match="gen_len"):
         port_serve.serve(pm, pp, prompts, 0)
 
