@@ -7,9 +7,10 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
 
 1. prints the card's name and power limit (``nvidia-smi``); fails without
    a CUDA device;
-2. builds the hand-written kernels (``sodda_inner``, ``flash_attention``)
-   from the sources in the checkout, one ``nvcc`` per source, all at once,
-   and prints the build time and the compiler's register report;
+2. builds the hand-written kernels (``sodda_inner``, ``flash_attention``,
+   ``ssd_scan``) from the sources in the checkout, one ``nvcc`` per source,
+   all at once, and prints the build time and the compiler's register
+   report;
 3. holds ``sodda_inner`` against its plain PyTorch version on the card at the
    Table-1 shapes (15, 64, 1200) for all three losses and at an unaligned
    (2, 8, 100), requires two launches to agree bitwise, and times kernel
@@ -40,7 +41,26 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
    of the 42 layers' attention, on the plain path's activations, is held
    to the rounding rule of 6 (the control failing it), and the rms gap of
    the kernel path's logits to the plain path's to 1.2x the plain path's
-   gap to itself summed in another order.
+   gap to itself summed in another order;
+9. holds ``ssd_scan`` against its plain chunked version at the mamba2-130m
+   layer shape (B=16, S=2048, H=24, P=64, G=1, N=128), with Mamba-2's dt
+   and A and a slow-decay case, at S = 1000 and at G = 2, in f32
+   (rtol = atol = 1e-4) and bf16 (the rounding rule of 6, over max|y|,
+   which a carry-dropping control and a bf16-W control must fail),
+   requires two launches to agree bitwise, prints the inter-chunk share
+   ||y_inter|| / ||y||, and times kernel and plain version beside the bound;
+10. runs full-depth mamba2-130m in f32 (B=2, 1024 prompt tokens, Mamba-2's
+    A_log and dt_bias): the kernel path's prefill logits within 2e-4 of the
+    plain path's and of the decode warm-up's last logits (the scan against
+    the recurrence), and 8 decode steps' logits, fed random tokens, within
+    2e-4 of the scan's at the same positions;
+11. serves 16 requests of 2048 prompt tokens for 32 tokens each through
+    full-depth bf16 mamba2-130m (``serve``, the third main path, with the
+    SSD launch count set to 0 just before it): 24 launches in the prefill
+    and none in the warm-up or decode, finite logits, and prefill time,
+    warm-up time, decode time per token and peak device memory. Then each
+    of the 24 layers' SSD, on the plain path's activations, is held to the
+    rounding rule of 9, both controls failing it.
 
 Exits non-zero if any phase fails. The last three lines of standard output
 are the card line, a JSON ``kernels`` record and a JSON ``ok`` record.
@@ -60,6 +80,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 from repro_torch.configs.gemma2_9b import CONFIG as GEMMA2_9B  # noqa: E402
+from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M  # noqa: E402
 from repro_torch.configs.sodda_svm import SoddaConfig, TABLE1_250K_18K  # noqa: E402
 from repro_torch.core import driver, losses, partition, sodda  # noqa: E402
 from repro_torch.data.synthetic import make_svm_data  # noqa: E402
@@ -68,9 +89,12 @@ from repro_torch.kernels import flash_attention as flash_build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import sodda_inner as kernel_build  # noqa: E402
-from repro_torch.launch.serve import make_serve_steps, serve  # noqa: E402
-from repro_torch.models import Model  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_build  # noqa: E402
+from repro_torch.launch.serve import (make_serve_steps, serve,  # noqa: E402
+                                      warm_up)
+from repro_torch.models import Model, transformer  # noqa: E402
 from repro_torch.models import attention as mattn  # noqa: E402
+from repro_torch.models import ssm as mssm  # noqa: E402
 from repro_torch.models.params import tree_leaves  # noqa: E402
 from repro_torch.testing import tolerances as tol  # noqa: E402
 
@@ -97,6 +121,19 @@ FLASH_F32_TOL = 2e-5
 F32_NOISE = 2.0 ** -18
 # the decode-vs-forward tolerance of tests/test_models.py:74
 MODEL_TOL = 2e-4
+# ssd_scan against its plain version: tests/test_kernels.py:258 holds the
+# Pallas kernel to the recurrence at 1e-4 in f32; in bf16 the rule is
+# F32_NOISE's, over max|y|.
+SSD_F32_TOL = 1e-4
+SSD_SHAPE = (16, 2048, 24, 64, 1, 128)  # (B, S, H, P, G, N): a serving layer
+SSM_F32_B, SSM_F32_PROMPT, SSM_F32_FED = 2, 1024, 8
+# Full-depth f32 mamba2: the plain path against itself at another chunk
+# length (the same function summed in another order) moves single logits
+# by ~3e-4, past the elementwise 2e-4 rule, so the logits are held by
+# their rms gap to that floor; each layer's SSD is held to SSD_F32_TOL.
+FLOOR_FACTOR = 2.0
+# 2048: the context of the Mamba-2 paper's language-model runs
+SSM_SERVE_B, SSM_SERVE_PROMPT, SSM_SERVE_GEN = 16, 2048, 32
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 4608, 32  # 4608 = 36 x 128 > 4096
 CUT_DEPTH_LAYERS, CUT_DEPTH_B, CUT_DEPTH_GEN = 4, 2, 8
 # Full depth in bf16: the rms gap of the kernel path's last-token logits to
@@ -384,26 +421,33 @@ def attention_bf16_scores(q, k, v, **opts):
                       for b in range(q.shape[0])])
 
 
-def bf16_excess(q, k, v, opts, **outs):
-    """For each bf16 output in `outs`: its largest distance to the plain
-    version run on f32 copies of the inputs beyond half a bf16 ulp of that
-    f32 value, over max|v|. A correctly rounded output scores <= 0."""
-    oracle = kref.attention_ref(q.float(), k.float(), v.float(), **opts)
+def half_ulp_excess(oracle, scale, **outs):
+    """For each bf16 output in `outs`: its largest distance to the f32
+    `oracle` beyond half a bf16 ulp of the oracle, over `scale`. A
+    correctly rounded output scores <= 0."""
     exponent = torch.frexp(oracle.abs().clamp_min(2.0 ** -126))[1]
     half_ulp = torch.exp2((exponent - 9).float())  # bf16 ulp is 2^(e - 8)
-    vmax = float(v.float().abs().max())
-    return {name: float(((o.float() - oracle).abs() - half_ulp).max()) / vmax
+    return {name: float(((o.float() - oracle).abs() - half_ulp).max()) / scale
             for name, o in outs.items()}
 
 
+def bf16_excess(q, k, v, opts, **outs):
+    """`half_ulp_excess` against the plain version run on f32 copies of
+    the inputs, over max|v|."""
+    oracle = kref.attention_ref(q.float(), k.float(), v.float(), **opts)
+    return half_ulp_excess(oracle, float(v.float().abs().max()), **outs)
+
+
 def check_excess(tag, ex):
-    """kernel and plain within the rounding rule; the control outside it."""
-    check(ex["kernel"] <= F32_NOISE and ex["plain"] <= F32_NOISE,
+    """kernel and plain within the rounding rule; every control outside."""
+    held = {k: v for k, v in ex.items() if not k.startswith("control")}
+    check(all(v <= F32_NOISE for v in held.values()),
           f"{tag}: beyond half a bf16 ulp of the f32 result by {ex} x "
-          f"max|v| (limit {F32_NOISE})")
-    check(ex["control"] > F32_NOISE,
-          f"{tag}: the bf16-score control passes the rounding rule ({ex}), "
-          "so the rule cannot tell such a kernel apart")
+          f"the output scale (limit {F32_NOISE})")
+    controls = {k: v for k, v in ex.items() if k.startswith("control")}
+    check(controls and all(v > F32_NOISE for v in controls.values()),
+          f"{tag}: a control passes the rounding rule ({ex}), so the rule "
+          "cannot tell such a kernel apart")
 
 
 def phase_flash():
@@ -681,6 +725,401 @@ def attention_as(fn):
         mattn.kops = orig
 
 
+# ---------------------------------------------------------------------------
+# ssd_scan and the mamba2-130m serving path
+# ---------------------------------------------------------------------------
+def ssd_bound_ms(B, S, H, P, G, N, dtype, chunk=ssd_build.CHUNK):
+    """Least time for one call: x, dt, B, C read once and y written once
+    over the HBM rate, vs the chunked work over the dtype's peak: per
+    chunk of q steps C.B^T once per group (q^2 N), and per head W.x over
+    j <= i (q(q+1)/2 P) and the two state terms (2 q N P), 2 FLOP each."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = item * (2 * B * S * H * P + B * S * H + 2 * B * S * G * N) \
+        + 4 * 2 * H  # A and D in f32
+    flops = 0
+    for c0 in range(0, S, chunk):
+        q = min(chunk, S - c0)
+        flops += 2 * (B * G * q * q * N
+                      + B * H * (q * (q + 1) // 2 * P + 2 * q * N * P))
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def ssd_inputs(B, S, H, P, G, N, decay, gen):
+    """x, dt, A, Bm, Cm, D on the card, f32. "mamba2": A = -U[1, 16] and
+    dt log-uniform in [1e-3, 1e-1], as Mamba-2 initialises them; "slow":
+    A = -U[0.5, 1] and dt log-uniform in [1e-3, 1e-2], so exp(sum dt A)
+    over a 64-step chunk stays above 0.5 and the carry dominates."""
+    lo, hi, a_lo, a_hi = ((1e-3, 1e-1, 1.0, 16.0) if decay == "mamba2"
+                          else (1e-3, 1e-2, 0.5, 1.0))
+
+    def uniform(shape, a, b):
+        return torch.rand(shape, generator=gen, device="cuda") * (b - a) + a
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen, device="cuda") * std
+
+    return (normal((B, S, H, P), 0.5),
+            torch.exp(uniform((B, S, H), math.log(lo), math.log(hi))),
+            -uniform((H,), a_lo, a_hi),
+            normal((B, S, G, N), 0.3), normal((B, S, G, N), 0.3),
+            1.0 + normal((H,), 0.5))
+
+
+def ssd_terms(x, dt, A, Bm, Cm, D, w_dtype=None):
+    """The plain chunked SSD on f32 copies, at the kernel's chunk, as
+    (y, y_intra + D x, inter share): the f32 oracle, the control that
+    drops the state the kernel carries from chunk to chunk (before
+    rounding), and ||y_inter|| / ||y||."""
+    f = [t.float() for t in (x, dt, A, Bm, Cm)]
+    y_intra, y_inter = kref.ssd_chunk_terms(*f, chunk=ssd_build.CHUNK,
+                                            w_dtype=w_dtype)
+    dx = D.float()[None, None, :, None] * f[0]
+    y = y_intra + y_inter + dx
+    share = float(y_inter.norm() / y.norm())
+    return y, y_intra + dx, share
+
+
+def ssd_excess(x, dt, A, Bm, Cm, D, **outs):
+    """The bf16 rounding rule for SSD outputs (`half_ulp_excess` over
+    max|y|), with both controls: the carry dropped, and W rounded to bf16
+    before W . x."""
+    oracle, dropped, share = ssd_terms(x, dt, A, Bm, Cm, D)
+    w_bf16, _, _ = ssd_terms(x, dt, A, Bm, Cm, D, w_dtype=torch.bfloat16)
+    bf16 = torch.bfloat16
+    ex = half_ulp_excess(oracle, float(oracle.abs().max()),
+                         control_carry=dropped.to(bf16),
+                         control_w_bf16=w_bf16.to(bf16), **outs)
+    return ex, share
+
+
+def phase_ssd():
+    """ssd_scan against its plain version at the mamba2-130m layer shape."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, S, H, P, G, N = SSD_SHAPE
+    cases = [
+        ("mamba2 layer", (B, S, H, P, G, N), "mamba2"),
+        ("slow decay", (B, S, H, P, G, N), "slow"),
+        ("unaligned S=1000", (B, 1000, H, P, G, N), "mamba2"),
+        ("G=2", (4, S, H, P, 2, N), "mamba2"),
+    ]
+    max_err = 0.0
+    for name, shape, decay in cases:
+        x, dt, A, Bm, Cm, D = ssd_inputs(*shape, decay, gen)
+        for dtype in (f32, bf16):
+            args = [t.to(dtype) for t in (x, dt)] + [A] \
+                + [t.to(dtype) for t in (Bm, Cm)] + [D]
+            a = ops.ssd_scan(*args, force="cuda")
+            b = ops.ssd_scan(*args, force="cuda")
+            want = ops.ssd_scan(*args, chunk=256, force="ref")
+            torch.cuda.synchronize()
+            tag = f"ssd {name} {shape} {dtype} {decay}"
+            check(torch.equal(a, b), f"{tag}: two launches differ")
+            check(bool(torch.isfinite(a).all()), f"{tag}: non-finite output")
+            if dtype == bf16:
+                ex, share = ssd_excess(*args, kernel=a, plain=want)
+                check_excess(tag, ex)
+                rule = ("excess over half a bf16 ulp / max|y|: "
+                        + ", ".join(f"{k} {v:.3e}" for k, v in ex.items())
+                        + f" (limit {F32_NOISE:.3e})")
+            else:
+                torch.testing.assert_close(a, want, rtol=SSD_F32_TOL,
+                                           atol=SSD_F32_TOL)
+                oracle, dropped, share = ssd_terms(*args)
+                gap = float((dropped - oracle).abs().max())
+                check(gap > 10 * SSD_F32_TOL,
+                      f"{tag}: dropping the carry moves y by only {gap}")
+                rule = (f"tol {SSD_F32_TOL}; the carry-dropping control is "
+                        f"{gap:.3e} off")
+            err = float((a.float() - want.float()).abs().max())
+            max_err = max(max_err, err)
+            log(f"{tag}: bitwise across launches, max|kernel-plain| = "
+                f"{err:.3e}, ||y_inter||/||y|| = {share:.4f}; {rule}")
+
+    x, dt, A, Bm, Cm, D = ssd_inputs(B, S, H, P, G, N, "mamba2", gen)
+    times = {}
+    for dtype in (bf16, f32):
+        args = [t.to(dtype) for t in (x, dt)] + [A] \
+            + [t.to(dtype) for t in (Bm, Cm)] + [D]
+        ms = cuda_ms(lambda: ops.ssd_scan(*args, force="cuda"), reps=10,
+                     warmup=2)
+        plain_ms = cuda_ms(lambda: ops.ssd_scan(*args, chunk=256,
+                                                force="ref"),
+                           reps=3, warmup=1)
+        bound_ms, bound_by = ssd_bound_ms(B, S, H, P, G, N, dtype)
+        times[dtype] = (ms, plain_ms, bound_ms, bound_by)
+        log(f"ssd mamba2 layer {SSD_SHAPE} {dtype}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}),"
+            f" kernel/bound {ms / bound_ms:.1f}x")
+    ms, plain_ms, bound_ms, bound_by = times[bf16]
+    return dict(name="ssd_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan.py:67",
+                launches=None, max_abs_err=max_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+def mamba2_params(model, seed):
+    """Weights from `seed`, with A_log = log U[1, 16] and dt_bias =
+    softplus^-1(log-uniform [1e-3, 1e-1]) per layer and head, as Mamba-2
+    initialises them: the template's A_log = 1, dt_bias = 0 decay the state
+    to 0 within a chunk, so no check could see the carry."""
+    params = model.init(seed)
+    gen = torch.Generator(device=model.device).manual_seed(seed + 100)
+    ssm_p = params["layers"]["ssm"]
+    shape = ssm_p["A_log"].shape
+    u = torch.rand(shape, generator=gen, device=model.device)
+    ssm_p["A_log"].copy_(torch.log(1.0 + 15.0 * u))
+    u = torch.rand(shape, generator=gen, device=model.device)
+    dt0 = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+    ssm_p["dt_bias"].copy_(torch.log(torch.expm1(dt0)))
+    return params
+
+
+def gap_stats(a, b):
+    """Max and rms of |a - b|, and how many entries break the elementwise
+    rtol = atol = MODEL_TOL rule against b."""
+    d = (a - b).abs()
+    return dict(max=float(d.max()), rms=float(d.pow(2).mean().sqrt()),
+                over=int((d > MODEL_TOL + MODEL_TOL * b.abs()).sum()))
+
+
+def ssd_at_chunk(chunk):
+    """The plain version at a fixed chunk length, whatever the model asks:
+    the same function summed in another order (the floor)."""
+    def fn(x, dt, A, Bm, Cm, D, **_):
+        return kref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk)
+    return fn
+
+
+def ssd_carry_dropped(x, dt, A, Bm, Cm, D, **_):
+    """The control: the SSD with the state between the kernel's chunks
+    dropped."""
+    _, dropped, _ = ssd_terms(x, dt, A, Bm, Cm, D)
+    return dropped.to(x.dtype)
+
+
+def phase_ssm_f32():
+    """Full-depth mamba2-130m in f32. Each layer's SSD, on the plain path's
+    activations, within SSD_F32_TOL of its plain version (a carry-dropping
+    control must fail that). At the logits, the kernel path's prefill, the
+    decode warm-up's last logits (the recurrence) and 8 decode steps fed
+    random tokens, against the plain path: their rms gaps within
+    FLOOR_FACTOR of the floor, the plain path against itself at the
+    kernel's chunk length; the carry-dropping control outside it."""
+    cfg = MAMBA2_130M
+    B, P, n = SSM_F32_B, SSM_F32_PROMPT, SSM_F32_FED
+    model = Model(cfg, param_dtype=torch.float32)
+    params = mamba2_params(model, SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    # the prompt, the fed tokens, and more, so the scan over all of them
+    # keeps the reference's S % chunk == 0
+    toks = torch.randint(0, cfg.vocab_size, (B, P + cfg.ssm_chunk),
+                         generator=gen, device="cuda")
+    batch = {"tokens": toks[:, :P]}
+    before = ops.ssd_scan.launches
+    logits_k, _ = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = ops.ssd_scan.launches - before
+    check(launches == cfg.num_layers,
+          f"mamba2 f32: {launches} ssd launches in a {cfg.num_layers}-layer "
+          "prefill")
+
+    layers = []
+
+    def held(x, dt, A, Bm, Cm, D, chunk, force):
+        out = kernel_wrapper(x, dt, A, Bm, Cm, D, chunk=chunk, force=force)
+        k = kernel_wrapper(x, dt, A, Bm, Cm, D, force="cuda")
+        dropped = ssd_carry_dropped(x, dt, A, Bm, Cm, D)
+        torch.testing.assert_close(k, out, rtol=SSD_F32_TOL, atol=SSD_F32_TOL)
+        over = (dropped - out).abs() - (SSD_F32_TOL + SSD_F32_TOL * out.abs())
+        check(float(over.max()) > 0, f"mamba2 f32 layer {len(layers)}: the "
+              "carry-dropping control passes the f32 tolerance")
+        layers.append((float((k - out).abs().max()),
+                       float((dropped - out).abs().max())))
+        return out
+
+    with ssd_as(held) as kernel_wrapper:
+        logits_r, _ = model.prefill(params, batch, force="ref")
+    check(len(layers) == cfg.num_layers,
+          f"mamba2 f32: {len(layers)} ssd calls held")
+    log(f"mamba2-130m f32 every layer's SSD on the plain path's activations "
+        f"(B={B}, prompt {P}): max|kernel-plain| "
+        f"{max(k for k, _ in layers):.3e} (tol {SSD_F32_TOL}); the "
+        f"carry-dropping control min {min(c for _, c in layers):.3e} off")
+
+    with ssd_as(ssd_at_chunk(ssd_build.CHUNK)):
+        logits_f, _ = model.prefill(params, batch, force="ref")
+        scan_f, _ = transformer.forward(params, toks, cfg, force="ref")
+    with ssd_as(ssd_carry_dropped):
+        logits_c, _ = model.prefill(params, batch, force="ref")
+    warm, cache = warm_up(model, params, toks[:, :P],
+                          model.cache_template(B, P + n))
+    dec = []
+    for i in range(P, P + n):
+        pos = torch.full((B,), i, dtype=torch.long, device="cuda")
+        logits, cache = model.decode(params, cache, toks[:, i:i + 1], pos)
+        dec.append(logits)
+    dec = torch.stack(dec, dim=1)
+    scan_k, _ = transformer.forward(params, toks, cfg)
+    scan_r, _ = transformer.forward(params, toks, cfg, force="ref")
+    at = slice(P, P + n)
+    torch.cuda.synchronize()
+    for name, x in (("kernel", logits_k), ("plain", logits_r), ("warm", warm),
+                    ("decode", dec), ("scan", scan_k)):
+        check(bool(torch.isfinite(x).all()), f"mamba2 f32: {name} non-finite")
+    prefill = {"kernel path": gap_stats(logits_k, logits_r),
+               "decode warm-up (recurrence)": gap_stats(warm, logits_r),
+               "floor: plain at chunk 64": gap_stats(logits_f, logits_r),
+               "control: carry dropped": gap_stats(logits_c, logits_r)}
+    steps = {"kernel path's scan": gap_stats(scan_k[:, at], scan_r[:, at]),
+             f"{n} decode steps (recurrence)": gap_stats(dec, scan_r[:, at]),
+             "floor: plain at chunk 64": gap_stats(scan_f[:, at],
+                                                   scan_r[:, at])}
+    for where, gaps in (("prefill last-token logits", prefill),
+                        (f"logits at the {n} fed positions", steps)):
+        floor = gaps["floor: plain at chunk 64"]["rms"]
+        log(f"mamba2-130m f32 {where} against the plain path (chunk "
+            f"{cfg.ssm_chunk}), max / rms / entries over rtol=atol="
+            f"{MODEL_TOL} / rms over the floor's: "
+            + "; ".join(f"{k} {g['max']:.3e} / {g['rms']:.3e} / {g['over']} "
+                        f"/ {g['rms'] / floor:.3f}" for k, g in gaps.items())
+            + f" (limit {FLOOR_FACTOR} x the floor's rms; logits max|.| "
+              f"{float(logits_r.abs().max()):.2f})")
+        for k, g in gaps.items():
+            if k.startswith("floor"):
+                continue
+            if k.startswith("control"):
+                check(g["rms"] > FLOOR_FACTOR * floor,
+                      f"mamba2 f32 {where}: the {k} control is within "
+                      f"{FLOOR_FACTOR} x the floor ({g}, floor {floor})")
+            else:
+                check(g["rms"] <= FLOOR_FACTOR * floor,
+                      f"mamba2 f32 {where}: {k} rms gap {g['rms']} > "
+                      f"{FLOOR_FACTOR} x the floor {floor}")
+    log(f"mamba2-130m f32 decode argmax {dec.argmax(-1).tolist()}")
+
+
+@contextlib.contextmanager
+def ssd_as(fn):
+    """Route the model's SSD calls to fn(x, dt, A, Bm, Cm, D, chunk=...,
+    force=...) inside the block; yields the wrapper they reach otherwise."""
+    orig = mssm.kops
+    mssm.kops = types.SimpleNamespace(ssd_scan=fn)
+    try:
+        yield orig.ssd_scan
+    finally:
+        mssm.kops = orig
+
+
+def phase_ssm_serve():
+    """The third main path: full-depth bf16 mamba2-130m serving a batch."""
+    cfg = MAMBA2_130M
+    B, P, n = SSM_SERVE_B, SSM_SERVE_PROMPT, SSM_SERVE_GEN
+    model = Model(cfg)  # bf16 weights on the card
+    params = mamba2_params(model, SEED)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device="cuda")
+    serve(model, params, prompts[:, :256], 2)  # warm-up: handles, library
+    # time to the first token: serve one token, i.e. the prefill
+    ops.ssd_scan.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, _ = serve(model, params, prompts, 1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = ops.ssd_scan.launches
+    # the decode warm-up over the prompt, then the greedy decode steps
+    # from its cache, each timed alone as serve runs them
+    t0 = time.perf_counter()
+    _, cache = warm_up(model, params, prompts, model.cache_template(B, P + n))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    _, decode_step = make_serve_steps(model)
+    tok = first[:, 0]
+    t0 = time.perf_counter()
+    for i in range(n - 1):
+        pos = torch.full((B,), P + i, dtype=torch.long, device="cuda")
+        step_logits, cache = decode_step(params, cache, tok[:, None], pos)
+        tok = step_logits.argmax(dim=-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    del cache
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.ssd_scan.launches = 0  # the main path starts here
+    t0 = time.perf_counter()
+    tokens, logits = serve(model, params, prompts, n)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = ops.ssd_scan.launches  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+
+    check(prefill_launches == cfg.num_layers,
+          f"mamba2 serve: {prefill_launches} ssd launches in the prefill, "
+          f"expected {cfg.num_layers}")
+    check(launches == prefill_launches,
+          f"mamba2 serve: {launches - prefill_launches} ssd launches in the "
+          "warm-up and decode")
+    check(tuple(tokens.shape) == (B, n), f"mamba2 serve: tokens "
+          f"{tuple(tokens.shape)}")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          "mamba2 serve: a token outside the vocabulary")
+    check(tuple(logits.shape) == (B, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()),
+          "mamba2 serve: prefill logits not finite or of the wrong shape")
+    steps = n - 1
+    log(f"mamba2 serve {B} x {P} prompt tokens, {n} generated each: prefill "
+        f"{1e3 * prefill_s:.3f} ms ({B * P / prefill_s:.1f} prompt tok/s), "
+        f"decode warm-up over the prompt {1e3 * warm_s:.3f} ms "
+        f"({1e3 * warm_s / P:.3f} ms a position), decode "
+        f"{1e3 * decode_s / steps:.3f} ms/token over {steps} steps; serve "
+        f"end to end {1e3 * total_s:.3f} ms, {B * n / total_s:.1f} generated "
+        "tok/s")
+    log(f"mamba2 serve ssd launches: {prefill_launches} in the prefill, "
+        f"{launches - prefill_launches} in the warm-up and decode")
+    log(f"mamba2 serve peak device memory {peak / 1e9:.3f} GB; weights "
+        f"{weight_bytes / 1e9:.3f} GB bf16")
+    log(f"mamba2 serve sample tokens: {tokens[0, :16].tolist()}")
+
+    # Every layer's SSD at the main path's shape and dtype, on the
+    # activations the plain path feeds it: the kernel and both controls
+    # against the rounding rule (the plain path goes on unchanged).
+    layer_ex = []
+
+    def held(x, dt, A, Bm, Cm, D, chunk, force):
+        out = kernel_wrapper(x, dt, A, Bm, Cm, D, chunk=chunk, force=force)
+        ex, share = ssd_excess(
+            x, dt, A, Bm, Cm, D, plain=out,
+            kernel=kernel_wrapper(x, dt, A, Bm, Cm, D, force="cuda"))
+        layer_ex.append((ex, share))
+        return out
+
+    with ssd_as(held) as kernel_wrapper:
+        model.prefill(params, {"tokens": prompts}, force="ref")
+    check(len(layer_ex) == cfg.num_layers,
+          f"mamba2 serve: {len(layer_ex)} ssd calls held, expected "
+          f"{cfg.num_layers}")
+    for i, (ex, _) in enumerate(layer_ex):
+        check_excess(f"mamba2 serve layer {i}", ex)
+    names = layer_ex[0][0].keys()
+    log("mamba2 serve every layer's SSD on the plain path's activations, "
+        f"excess over half a bf16 ulp / max|y| (limit {F32_NOISE:.3e}): "
+        + "; ".join(f"{k} min {min(e[k] for e, _ in layer_ex):.3e} max "
+                    f"{max(e[k] for e, _ in layer_ex):.3e}" for k in names)
+        + "; ||y_inter||/||y|| min "
+          f"{min(s for _, s in layer_ex):.4f} max "
+          f"{max(s for _, s in layer_ex):.4f}")
+    return launches, 1e3 * prefill_s
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA "
@@ -693,7 +1132,8 @@ def main():
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    libs = kbuild.build_all([kernel_build.SOURCE, flash_build.SOURCE])
+    libs = kbuild.build_all([kernel_build.SOURCE, flash_build.SOURCE,
+                             ssd_build.SOURCE])
     log(f"built {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.2f} s (one nvcc per source, together)")
     for lib in libs:
@@ -722,8 +1162,19 @@ def main():
         f"{kernel_ms:.3f} / {prefill_ms:.3f} ms = "
         f"{kernel_ms / prefill_ms:.2%}")
 
+    torch.cuda.empty_cache()
+    ssd_record = phase_ssd()
+    phase_ssm_f32()
+    torch.cuda.empty_cache()
+    ssd_record["launches"], ssm_prefill_ms = phase_ssm_serve()
+    ssd_ms = MAMBA2_130M.num_layers * ssd_record["ms"]
+    log(f"mamba2 serve ssd kernel share of the prefill: "
+        f"{MAMBA2_130M.num_layers} x {ssd_record['ms']:.4f} ms = "
+        f"{ssd_ms:.3f} / {ssm_prefill_ms:.3f} ms = "
+        f"{ssd_ms / ssm_prefill_ms:.2%}")
+
     print(card)
-    print(json.dumps({"kernels": [record, flash_record]}))
+    print(json.dumps({"kernels": [record, flash_record, ssd_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

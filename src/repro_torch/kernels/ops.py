@@ -7,9 +7,12 @@ padding: that is a TPU rule, and the CUDA kernel masks its own tail.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.sodda_inner import sodda_inner_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
 FORCES = ("auto", "cuda", "ref")
 
@@ -68,3 +71,33 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0
+
+
+def ssd_scan(x, dt, A, Bm, Cm, D=None, chunk: int = 128, force: str = "auto"):
+    """x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,G,N) -> y (B,S,H,P).
+
+    The Mamba-2 SSD scan plus D . x, rounded once to x's dtype.
+    ``force="auto"`` launches the CUDA kernel for CUDA tensors and runs
+    :func:`ref.ssd_chunked_ref` with chunk length `chunk` for CPU tensors;
+    ``"cuda"`` requires CUDA tensors; ``"ref"`` runs the plain version on
+    any device. The kernel uses its own chunk (``ssd_scan.CHUNK``); the
+    result depends on the chunk only through f32 rounding. A and D are
+    taken in float32; x is read through its strides and nothing is padded.
+    ``ssd_scan.launches`` counts kernel launches.
+    """
+    if force not in FORCES:
+        raise ValueError(f"force must be one of {FORCES}, got {force!r}")
+    device = x.device.type
+    if force == "ref" or (force == "auto" and device == "cpu"):
+        return ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk)
+    if device != "cuda":
+        raise RuntimeError(f"ssd_scan(force={force!r}) launches the CUDA "
+                           f"kernel and needs CUDA tensors, got {x.device}")
+    f32 = torch.float32
+    out = ssd_scan_cuda(x, dt, A.to(f32).contiguous(), Bm, Cm,
+                        None if D is None else D.to(f32).contiguous())
+    ssd_scan.launches += 1
+    return out
+
+
+ssd_scan.launches = 0

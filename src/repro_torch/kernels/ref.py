@@ -9,6 +9,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import losses
 
@@ -117,3 +118,112 @@ def attention_naive(q, k, v, *, causal=True, window=0, softcap=0.0,
     s = s.masked_fill(~mask, -math.inf)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD. The exact sequential recurrence (the oracle)
+#   state_t = exp(dt_t * A_h) * state_{t-1} + dt_t * outer(x_t, B_t)
+#   y_t     = C_t . state_t + D_h * x_t
+# and the chunked form the kernel computes (``models/ssm.py::ssd_chunked``
+# of the reference). Head h reads B/C group h // (H // G).
+# ---------------------------------------------------------------------------
+def _group_heads(m, H: int):
+    """(B, S, G, N) -> (B, S, H, N) f32: head h reads group h // (H // G)."""
+    G = m.shape[2]
+    if H % G:
+        raise ValueError(f"ssd: H={H} is not a multiple of G={G}")
+    return m.float().repeat_interleave(H // G, dim=2)
+
+
+def ssd_ref(x, dt, A, Bm, Cm, D=None):
+    """x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,G,N) -> (B,S,H,P).
+
+    One step at a time in f32, rounded once to x's dtype at the end.
+    """
+    Bsz, S, H, P = x.shape
+    Bh, Ch = _group_heads(Bm, H), _group_heads(Cm, H)
+    xf, dtf, A = x.float(), dt.float(), A.float()
+    state = torch.zeros(Bsz, H, P, Bm.shape[-1], dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * A)  # (B, H)
+        state = (state * decay[..., None, None]
+                 + (dtf[:, t, :, None] * xf[:, t])[..., None]
+                 * Bh[:, t, :, None, :])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]))
+    y = torch.stack(ys, dim=1)
+    if D is not None:
+        y = y + D.float()[None, None, :, None] * xf
+    return y.to(x.dtype)
+
+
+def ssd_chunk_terms(x, dt, A, Bm, Cm, chunk: int = 256, w_dtype=None):
+    """The two f32 terms of the chunked SSD, each (B, S, H, P):
+
+      y_intra_i = sum_{j <= i in i's chunk} C_i.B_j exp(cum_i - cum_j) dt_j x_j
+      y_inter_i = exp(cum_i) C_i . state_in  (the state carried into the chunk)
+
+    with cum the inclusive cumsum of dt * A inside each chunk. Every
+    exponent is <= 0 (A < 0, dt > 0). A ragged last chunk is zero-padded:
+    a row with dt = 0, x = 0 adds nothing, so the pad changes no output.
+    `w_dtype` rounds the intra-chunk weights W to that dtype before W . x
+    (a control: the product a kernel would take in bf16).
+    """
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    pad = (-S) % chunk
+    NC = (S + pad) // chunk
+
+    def chunks(t):  # (B, S, ...) -> (B, NC, chunk, ...) f32
+        t = t.float()
+        if pad:
+            t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(Bsz, NC, chunk, *t.shape[2:])
+
+    xc, dtc = chunks(x), chunks(dt)
+    Bc, Cc = chunks(_group_heads(Bm, H)), chunks(_group_heads(Cm, H))
+    cum = torch.cumsum(dtc * A.float(), dim=2)  # (B, NC, Cn, H), <= 0
+    seg = cum[:, :, :, None] - cum[:, :, None]  # (B, NC, Cn_i, Cn_j, H)
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()[None, None, :, :, None]
+    decay = torch.where(causal, torch.exp(seg), 0.0)
+    Gm = torch.einsum("bnchk,bnjhk->bnhcj", Cc, Bc)  # (B, NC, H, Cn, Cn)
+    W = (Gm * decay.permute(0, 1, 4, 2, 3)
+         * dtc.permute(0, 1, 3, 2)[..., None, :])
+    del seg, decay, Gm
+    if w_dtype is not None:
+        W = W.to(w_dtype).float()
+    y_intra = torch.einsum("bnhcj,bnjhp->bnchp", W, xc)
+    del W
+
+    # each chunk's outgoing state contribution, then the carry across chunks
+    last = cum[:, :, -1:]  # (B, NC, 1, H)
+    w_state = torch.exp(last - cum) * dtc  # (B, NC, Cn, H)
+    S_c = torch.einsum("bnchp,bnchk->bnhpk", xc * w_state[..., None], Bc)
+    state = torch.zeros(Bsz, H, P, N, dtype=torch.float32, device=x.device)
+    states_in = []
+    for c in range(NC):
+        states_in.append(state)
+        state = state * torch.exp(last[:, c, 0])[..., None, None] + S_c[:, c]
+    states_in = torch.stack(states_in, dim=1)  # (B, NC, H, P, N)
+    y_inter = torch.einsum("bnchk,bnhpk->bnchp",
+                           Cc * torch.exp(cum)[..., None], states_in)
+    return (y_intra.reshape(Bsz, NC * chunk, H, P)[:, :S],
+            y_inter.reshape(Bsz, NC * chunk, H, P)[:, :S])
+
+
+def ssd_chunked_ref(x, dt, A, Bm, Cm, D=None, chunk: int = 256):
+    """x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,G,N) -> (B,S,H,P).
+
+    The chunked SSD (``ssd_chunk_terms``), D . x added in f32 and rounded
+    once to x's dtype, as the reference's ``models/ssm.py::ssd_chunked``
+    does. (The reference's ``ops.ssd_scan`` rounds the kernel's output and
+    then the sum with D . x: twice.) The result depends on `chunk` only
+    through f32 rounding.
+    """
+    y_intra, y_inter = ssd_chunk_terms(x, dt, A, Bm, Cm, chunk)
+    y = y_intra + y_inter
+    if D is not None:
+        y = y + D.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype)

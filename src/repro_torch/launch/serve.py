@@ -1,12 +1,17 @@
 """Serving: prefill/decode steps and a batched-request driver.
 
 Counterpart of ``repro.launch.serve``. ``serve`` answers a batch of
-requests: it prefills the prompts (one flash-attention launch per layer),
-copies the prefill keys and values into a cache sized for the whole
-generation, and decodes greedily one token at a time. The CLI serves a
-batch of random prompts through it:
+requests: it prefills the prompts (one kernel launch per layer: flash
+attention for the dense family, the SSD scan for the SSM family), builds
+the decode cache, and decodes greedily one token at a time. The dense
+family copies the prefill keys and values into a cache sized for the
+whole generation. The SSM family's prefill builds no decode state, as in
+the reference, whose serving CLI feeds the prompt token by token through
+decode: ``warm_up`` does the same. The CLI serves a batch of random
+prompts through it:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
 
 (on the CUDA device; ``--device cpu`` runs it on the CPU). ``--no-reduced``
 serves the full-size configuration.
@@ -23,7 +28,7 @@ from repro_torch.models import Model
 
 def make_serve_steps(model: Model, force: str = "auto"):
     """(prefill_step, decode_step) of `model`; `force` goes to the
-    attention kernel's wrapper in prefill."""
+    layers' kernel wrapper in prefill."""
 
     def prefill_step(params, batch):
         return model.prefill(params, batch, force=force)
@@ -34,6 +39,17 @@ def make_serve_steps(model: Model, force: str = "auto"):
     return prefill_step, decode_step
 
 
+def warm_up(model: Model, params, prompts, cache):
+    """Feed prompts (B, P) through decode, positions 0 ... P-1, into
+    `cache` (updated in place): the SSM family's decode state after the
+    prompt. Returns (logits (B, Vp) f32 of the last position, cache)."""
+    B, P = prompts.shape
+    for i in range(P):
+        pos = torch.full((B,), i, dtype=torch.long, device=prompts.device)
+        logits, cache = model.decode(params, cache, prompts[:, i:i + 1], pos)
+    return logits, cache
+
+
 def serve(model: Model, params, prompts, gen_len: int, force: str = "auto"):
     """Greedy generation for a batch of requests.
 
@@ -42,18 +58,24 @@ def serve(model: Model, params, prompts, gen_len: int, force: str = "auto"):
     The first token comes from the prefill logits, each further one from a
     decode step, so there are gen_len - 1 decode steps over a cache of
     P + gen_len positions; gen_len = 1 is the prefill alone (the time to
-    the first token). `force` goes to the attention kernel's wrapper in
-    prefill. Nothing here synchronises with the host.
+    the first token). For the SSM family the cache is built by
+    ``warm_up`` (P decode steps) when gen_len > 1. `force` goes to the
+    layers' kernel wrapper in prefill. Nothing here synchronises with the
+    host.
     """
     if gen_len < 1:
         raise ValueError(f"gen_len must be >= 1, got {gen_len}")
     prefill_step, decode_step = make_serve_steps(model, force)
     B, P = prompts.shape
     logits, pre = prefill_step(params, {"tokens": prompts})
-    cache = model.cache_template(B, P + gen_len, dtype=pre["k"].dtype)
-    cache["k"][:, :, :P].copy_(pre["k"])
-    cache["v"][:, :, :P].copy_(pre["v"])
-    del pre
+    if pre is not None:
+        cache = model.cache_template(B, P + gen_len, dtype=pre["k"].dtype)
+        cache["k"][:, :, :P].copy_(pre["k"])
+        cache["v"][:, :, :P].copy_(pre["v"])
+        del pre
+    elif gen_len > 1:
+        _, cache = warm_up(model, params, prompts,
+                           model.cache_template(B, P + gen_len))
     tok = logits.argmax(dim=-1)
     out = [tok]
     for i in range(gen_len - 1):

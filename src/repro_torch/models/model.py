@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, transformer
+from repro_torch.models import attention, ssm, transformer
 from repro_torch.models.params import count_params, init_params
 from repro_torch.platform import DeviceLike, resolve_device
 
@@ -38,7 +38,7 @@ class Model(nn.Module):
     def _fixup(self, params):
         """Zero the padded q-head wo rows (exact head padding)."""
         cfg = self.cfg
-        if attention.padded_heads(cfg) == cfg.num_heads:
+        if cfg.family == "ssm" or attention.padded_heads(cfg) == cfg.num_heads:
             return params
         layers = dict(params["layers"])
         layers["attn"] = attention.zero_padded_wo(cfg, layers["attn"])
@@ -50,10 +50,12 @@ class Model(nn.Module):
     # -- entry points ----------------------------------------------------
     def prefill(self, params, batch, force: str = "auto"):
         """batch {'tokens': (B,S)} -> (last-position logits (B,Vp) f32,
-        cache {'k', 'v': (L,B,S,KV,hd)})."""
-        logits, cache = transformer.forward(params, batch["tokens"], self.cfg,
-                                            collect_cache=True,
-                                            last_only=True, force=force)
+        cache {'k', 'v': (L,B,S,KV,hd)}, or None for the SSM family, whose
+        prefill builds no decode state, as in the reference)."""
+        logits, cache = transformer.forward(
+            params, batch["tokens"], self.cfg,
+            collect_cache=self.cfg.family != "ssm", last_only=True,
+            force=force)
         return logits[:, -1], cache
 
     def decode(self, params, cache, tokens, pos):
@@ -65,8 +67,13 @@ class Model(nn.Module):
     def cache_template(self, batch: int, seq: int,
                        dtype: Optional[torch.dtype] = None):
         """A zeroed KV cache {'k', 'v': (L,B,seq,KV,hd)} on the model's
-        device, in `dtype` (default: the parameter dtype)."""
+        device, in `dtype` (default: the parameter dtype). For the SSM
+        family {'state': (L,B,nh,hd,N), 'conv': (L,B,k-1,C)}, f32 whatever
+        `dtype`, and independent of `seq`."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            return ssm.ssm_cache_template(cfg, batch, self.device,
+                                          layers=(cfg.num_layers,))
         shape = (cfg.num_layers, batch, seq, cfg.num_kv_heads,
                  cfg.resolved_head_dim)
         dt = dtype or self.param_dtype

@@ -1,12 +1,13 @@
-"""Model assembly for the dense transformer family: templates, the
-prefill forward (cache construction) and decode (cache consumption).
+"""Model assembly for the dense transformer and SSM families: templates,
+the prefill forward (cache construction) and decode (cache consumption).
 
 Counterpart of ``repro.models.transformer``. The reference scans over a
 stacked ``(L, ...)`` parameter tree; here a Python loop over layers indexes
 the stacked parameters as views. gemma2's local/global alternation is a
 per-layer window: even layers see ``cfg.sliding_window`` keys, odd layers
-all of them. Rematerialisation is a training matter and is left out. The
-MoE, SSM and hybrid families are not ported yet (ROADMAP A).
+all of them. An SSM layer is a pre-normed Mamba-2 block with a residual.
+Rematerialisation is a training matter and is left out. The MoE and hybrid
+families are not ported yet (ROADMAP A).
 """
 from __future__ import annotations
 
@@ -15,17 +16,17 @@ import math
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, mlp
+from repro_torch.models import attention, mlp, ssm
 from repro_torch.models.layers import embed_tokens, rms_norm, unembed
 from repro_torch.models.params import ParamSpec, tree_map_specs
 
 
 def check_family(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port does not run."""
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "hybrid":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP A: SSM/hybrid families)")
+            f"{cfg.name}: the hybrid family is not ported yet (ROADMAP A: "
+            "hybrid family)")
     if cfg.num_experts:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers are not ported yet (ROADMAP A: MoE "
@@ -42,6 +43,8 @@ def _norm(d):
 def layer_template(cfg: ArchConfig) -> dict:
     check_family(cfg)
     d = cfg.d_model
+    if cfg.family == "ssm":
+        return {"ln": _norm(d), "ssm": ssm.ssm_template(cfg)}
     t = {"ln1": _norm(d), "attn": attention.attn_template(cfg),
          "ln2": _norm(d), "mlp": mlp.mlp_template(d, cfg.d_ff)}
     if cfg.local_global:  # gemma2 post-norms
@@ -104,6 +107,12 @@ def _attn_block(lp, h, cfg: ArchConfig, positions, window: int, force: str):
     return _mlp_half(lp, h + a, cfg), kv
 
 
+def _ssm_block(lp, h, cfg: ArchConfig, force: str):
+    return h + ssm.ssm_forward(lp["ssm"], rms_norm(h, lp["ln"], cfg.norm_eps),
+                               cfg, chunk=min(cfg.ssm_chunk, h.shape[1]),
+                               force=force)
+
+
 # ---------------------------------------------------------------------------
 # Prefill forward
 # ---------------------------------------------------------------------------
@@ -112,12 +121,20 @@ def forward(params, tokens, cfg: ArchConfig, *, collect_cache: bool = False,
     """tokens (B,S) -> (logits (B,S,Vp) f32, cache or None).
 
     With `collect_cache`, cache is {'k', 'v': (L,B,S,KV,hd)} in the
-    activations' dtype, filled layer by layer. With `last_only`, logits are
+    activations' dtype, filled layer by layer; the SSM family builds no
+    cache here (None), as in the reference. With `last_only`, logits are
     computed for the last position only: (B,1,Vp). `force` goes to the
-    attention kernel's wrapper (``kernels.ops.flash_attention``).
+    layer's kernel wrapper (``kernels.ops.flash_attention`` or
+    ``kernels.ops.ssd_scan``).
     """
     check_family(cfg)
     h = _embed(params, tokens, cfg)
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            h = _ssm_block(layer_params(params["layers"], i), h, cfg, force)
+        if last_only:
+            h = h[:, -1:]
+        return _logits(params, h, cfg), None
     B, S = tokens.shape
     positions = torch.arange(S, device=h.device).expand(B, S)
     L = cfg.num_layers
@@ -144,10 +161,20 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
     """tokens (B,1), pos (B,) -> (logits (B,Vp), cache).
 
     cache: {'k': (L,B,S,KV,hd), 'v': (L,B,S,KV,hd)}, updated in place at
-    position ``pos[0] % S`` of every layer and returned.
+    position ``pos[0] % S`` of every layer and returned; for the SSM family
+    {'state': (L,B,nh,hd,N), 'conv': (L,B,k-1,C)}, updated in place (`pos`
+    is not read: the state holds the position).
     """
     check_family(cfg)
     h = _embed(params, tokens, cfg)
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            lp = layer_params(params["layers"], i)
+            y, _ = ssm.ssm_decode_step(
+                lp["ssm"], rms_norm(h, lp["ln"], cfg.norm_eps), cfg,
+                {"state": cache["state"][i], "conv": cache["conv"][i]})
+            h = h + y
+        return _logits(params, h, cfg)[:, 0], cache
     for i in range(cfg.num_layers):
         lp = layer_params(params["layers"], i)
         x = rms_norm(h, lp["ln1"], cfg.norm_eps)

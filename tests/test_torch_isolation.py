@@ -73,6 +73,7 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.testing.tolerances, repro_torch.platform\n"
             "import repro_torch.launch.serve, repro_torch.models.model\n"
             "import repro_torch.kernels.flash_attention\n"
+            "import repro_torch.kernels.ssd_scan, repro_torch.models.ssm\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -139,7 +140,8 @@ def test_arch_config_fields_and_defaults_match_reference():
         == {k: dataclasses.asdict(v) for k, v in ref_base.SHAPES.items()}
 
 
-@pytest.mark.parametrize("name", ["gemma2-9b", "gemma2_9b"])
+@pytest.mark.parametrize("name", ["gemma2-9b", "gemma2_9b", "mamba2-130m",
+                                  "mamba2_130m"])
 def test_gemma2_config_and_reduced_config_match_reference(name):
     ref, port = ref_archs.get_config(name), port_archs.get_config(name)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
@@ -160,4 +162,4 @@ def test_gemma2_config_and_reduced_config_match_reference(name):
 def test_port_registry_is_a_subset_of_the_reference():
     assert set(port_archs.list_archs()) <= set(ref_archs.list_archs())
     with pytest.raises(KeyError, match="known"):
-        port_archs.get_config("mamba2-130m")
+        port_archs.get_config("zamba2-7b")

@@ -71,13 +71,19 @@ def _port_flat(template, fields, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("reduce", [True, False], ids=["reduced", "full"])
-def test_template_matches_reference(reduce):
+@pytest.mark.parametrize("arch,reduce",
+                         [(ARCH, True), (ARCH, False),
+                          ("mamba2-130m", True), ("mamba2-130m", False)],
+                         ids=["reduced", "full", "mamba2-reduced",
+                              "mamba2-full"])
+def test_template_matches_reference(arch, reduce):
     """Names, shapes, axes, initializers and count equal the reference's,
-    for the full gemma2-9b template too (nothing is initialised)."""
+    for the full gemma2-9b and mamba2-130m templates too (nothing is
+    initialised); mamba2's tree is {embed, final_norm, layers: {ln, ssm:
+    13 leaves}}."""
     from repro.models import transformer as jax_transformer
-    jcfg = jax_get_config(ARCH)
-    cfg = get_config(ARCH)
+    jcfg = jax_get_config(arch)
+    cfg = get_config(arch)
     if reduce:
         jcfg, cfg = jax_reduced_config(jcfg), reduced_config(cfg)
     fields = ("shape", "axes", "init", "scale")
@@ -88,6 +94,10 @@ def test_template_matches_reference(reduce):
     assert port_params.count_params(pt) == jax_params.count_params(jt)
     assert Model(cfg, device="cpu").param_count() == \
         JaxModel(jcfg).param_count()
+    if cfg.family == "ssm":
+        assert sorted(pt) == ["embed", "final_norm", "layers"]
+        assert sorted(pt["layers"]) == ["ln", "ssm"]
+        assert len(pt["layers"]["ssm"]) == 13
 
 
 def test_full_gemma2_size():
@@ -331,18 +341,26 @@ def test_model_defaults_to_the_card():
             port_params.from_numpy({"a": np.zeros(2, np.float32)})
 
 
-@pytest.mark.parametrize("change", [dict(family="ssm"),
+@pytest.mark.parametrize("change", [None,
                                     dict(family="hybrid"),
                                     dict(num_experts=8, experts_per_token=2)],
                          ids=["ssm", "hybrid", "moe"])
 def test_unported_families_raise(change):
+    """Hybrid and MoE raise, naming ROADMAP. The ssm family is ported: its
+    case now builds reduced mamba2."""
+    if change is None:
+        cfg = reduced_config(get_config("mamba2-130m"))
+        model = Model(cfg, device="cpu")
+        assert model.cfg.family == "ssm" and "ssm" in model.template["layers"]
+        return
     cfg = dataclasses.replace(reduced_config(get_config(ARCH)), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(cfg, device="cpu")
 
 
 def test_registry_holds_the_ported_archs_only():
-    assert list_archs() == ["gemma2-9b"]
+    assert list_archs() == ["gemma2-9b", "mamba2-130m"]
     assert get_config("gemma2_9b") is get_config("gemma2-9b")
+    assert get_config("mamba2_130m") is get_config("mamba2-130m")
     with pytest.raises(KeyError, match="gemma2-9b"):
         get_config("phi3-mini-3.8b")
