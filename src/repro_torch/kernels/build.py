@@ -5,7 +5,8 @@ interface. It is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library under ``build/torch_kernels/`` at the repository root, named
 by a hash of the source and the flags (an edited source is rebuilt), and
 loaded with ctypes. The compiler's report (``-Xptxas -v``: registers,
-shared memory, spills) is kept beside the library as ``<library>.log``.
+shared memory, spills, warnings) is kept beside the library as
+``<library>.log``.
 
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them, so a caller that needs several kernels pays for the slowest build,
@@ -89,7 +90,10 @@ def load(source: Path) -> ctypes.CDLL:
 
 
 def compiler_report(lib: Path) -> List[str]:
-    """The register, shared-memory and spill lines of a library's build."""
+    """The register, spill and performance-warning lines of a library's
+    build (ptxas says there when it serialises wgmma for want of
+    registers)."""
     log = lib.with_name(lib.name + ".log")
     return [line.strip() for line in log.read_text().splitlines()
-            if "registers" in line or "spill" in line]
+            if "registers" in line or "spill" in line
+            or "Performance Loss" in line]

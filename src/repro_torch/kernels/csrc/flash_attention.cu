@@ -1,5 +1,6 @@
-// Hopper (sm_90a) forward flash attention: causal and sliding-window masks,
-// grouped-query heads, tanh logit softcap and a query position offset,
+// Hopper (sm_90a) forward flash attention in float32 on the CUDA cores:
+// causal and sliding-window masks, grouped-query heads, tanh logit softcap
+// and a query position offset,
 //
 //     s   = (q . k) / sqrt(D)                              (f32)
 //     s   = softcap * tanh(s / softcap)          when softcap > 0
@@ -7,7 +8,7 @@
 //     out = softmax(s) . v,  with qpos = q_offset + row
 //
 // taken as an online softmax over 64-key tiles with f32 running max m, sum
-// l and accumulator acc; the output is acc / max(l, 1e-37) in q's dtype.
+// l and accumulator acc; the output is acc / max(l, 1e-37).
 // Query head h reads kv head h / (H / KV); no K/V is repeated.
 //
 // Replaces the TPU kernel `flash_attention_pallas` in
@@ -34,27 +35,27 @@
 //     threads: thread (ty, tx) owns query rows 4ty..4ty+3, keys
 //     tx + 16j (j < 4) of the score tile, and D/16 columns of acc.
 //
+// This is the float32 route: its tolerance (2e-5 against the plain
+// version) leaves no room for TF32 tensor cores. bfloat16 takes the
+// tensor-core kernel in flash_attention_wgmma.cu.
+//
 // Design (simple and right first): one thread block per (64-row query
-// tile, head, batch). Q, K and V tiles are converted to f32 as they are
-// staged in shared memory (Q for the whole sweep); scores and P.V are FMAs
+// tile, head, batch). Q, K and V tiles are staged in shared memory (Q for
+// the whole sweep); scores and P.V are FMAs
 // on CUDA cores with f32 accumulation in a fixed order, and the row
 // max/sum reductions are xor-butterflies over the 16 threads of a row, so
 // two launches give bitwise-equal results. Shared memory per block is
 // 4 * (64 (D+4) [Q] + 64 (D+4) [K] + 64 D [V] + 64 * 68 [P]) bytes:
 // 216,064 at D = 256, under the 232,448 a block may use.
 //
-// What bounds it on an H100: at the gemma2-9b prefill shape (B=4, H=16,
-// KV=8, S=4608, D=256, bf16) the work is 4 B H D (unmasked pairs) ~ 7e11
-// FLOP against 453 MB of Q/K/V/O, so the bound is the 989 TFLOP/s of the
-// bf16 tensor cores (~0.70 ms). This kernel does its FMAs on the CUDA
-// cores (67 TFLOP/s f32) and reads every operand from shared memory, so it
-// lands far above that bound; tensor cores (wgmma), TMA and a pipelined
-// K/V ring are the later design.
+// What bounds it on an H100: 4 B H D FLOP per unmasked (query, key) pair
+// over the 67 TFLOP/s of f32 on the CUDA cores, against Q, K, V and O read
+// or written once. It reads every operand from shared memory, so it lands
+// above that bound.
 //
 // Built without --use_fast_math: expf and tanhf stay the accurate ones.
 // Plain C interface, loaded with ctypes.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -65,22 +66,13 @@ constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kPad = 4;        // floats of row padding (keeps float4 aligned)
 
-enum DtypeCode { kF32 = 0, kBF16 = 1 };
-
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
 }
 
 __device__ __forceinline__ float component(const float4& v, int i) {
@@ -336,26 +328,19 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // q (B, Sq, H, D), k and v (B, Sk, KV, D), out (B, Sq, H, D), all
-// contiguous and of one dtype (0 = float32, 1 = bfloat16). Launches on
-// `stream`; returns cudaGetLastError() of the launch (0 on success). Does
-// not synchronise and allocates nothing.
+// contiguous float32 (bfloat16 takes flash_attention_wgmma.cu). Launches
+// on `stream`; returns cudaGetLastError() of the launch (0 on success).
+// Does not synchronise and allocates nothing.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, int B, int H, int KV, int Sq, int Sk,
-                        int D, int dtype, float scale, int causal, int window,
+                        int D, float scale, int causal, int window,
                         float softcap, int q_offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Sk < 1 ||
       window < 0 || q_offset < 0) {
     return cudaErrorInvalidValue;
   }
-  switch (dtype) {
-    case kF32:
-      return dispatch_d<float>(q, k, v, out, B, H, KV, Sq, Sk, D, scale, causal, window, softcap, q_offset, s);
-    case kBF16:
-      return dispatch_d<__nv_bfloat16>(q, k, v, out, B, H, KV, Sq, Sk, D, scale, causal, window, softcap, q_offset, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dispatch_d<float>(q, k, v, out, B, H, KV, Sq, Sk, D, scale, causal, window, softcap, q_offset, s);
 }
 
 const char* flash_attention_error_string(int code) {

@@ -1,11 +1,24 @@
-"""Build, binding and launch of the Hopper flash-attention kernel.
+"""Build, binding and launch of the Hopper flash-attention kernels.
 
-The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
-``repro.kernels.flash_attention.flash_attention_pallas``; its source says
-what it computes, what bounds it and how it is laid out. It takes the
-models' layout, q (B, Sq, H, D) and k/v (B, Sk, KV, D), contiguous, float32
-or bfloat16, D in ``HEAD_DIMS``. This module builds it with ``kernels.build``
-at first use, checks arguments and launches it on PyTorch's current stream.
+Two hand-written kernels compute one function, and the dtype picks the
+route (``route``):
+
+* ``wgmma`` (``csrc/flash_attention_wgmma.cu``) takes bfloat16 at every
+  head dim: TMA loads into an mbarrier-guarded K/V ring, ``wgmma``
+  tensor-core products and warp specialisation, with P split into two bf16
+  halves so that P.V keeps f32 accuracy;
+* ``cuda-core`` (``csrc/flash_attention.cu``) takes float32: f32 FMAs on the
+  CUDA cores, as exact as the plain version's tolerance asks (TF32 tensor
+  cores would not be).
+
+Both replace the TPU kernel
+``repro.kernels.flash_attention.flash_attention_pallas``; their sources say
+what they compute, what bounds them and how they are laid out. They take
+the models' layout, q (B, Sq, H, D) and k/v (B, Sk, KV, D), contiguous, D
+in ``HEAD_DIMS``. This module builds them with ``kernels.build`` at first
+use, checks arguments and launches on PyTorch's current stream. A kernel
+that fails to build or launch raises: there is no fallback from one route
+to the other.
 
 Nothing here runs at import: the CPU tests import this module on hosts
 without ``nvcc`` or a card.
@@ -22,23 +35,53 @@ import torch
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.build import SHARED_MEMORY_BUDGET
 
-__all__ = ["SOURCE", "BLOCK_Q", "BLOCK_K", "HEAD_DIMS", "DTYPE_CODES",
-           "shared_memory_bytes", "check_args", "flash_attention_cuda"]
+__all__ = ["SOURCE", "WGMMA_SOURCE", "SOURCES", "ROUTES", "BLOCK_Q",
+           "BLOCK_K", "WGMMA_BLOCK_Q", "STAGES", "HEAD_DIMS", "DTYPES",
+           "route", "shared_memory_bytes", "check_args",
+           "flash_attention_cuda"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = _CSRC / "flash_attention.cu"  # the cuda-core route
+WGMMA_SOURCE = _CSRC / "flash_attention_wgmma.cu"  # the wgmma route
+SOURCES = (SOURCE, WGMMA_SOURCE)
+ROUTES = ("wgmma", "cuda-core")
 
-BLOCK_Q = BLOCK_K = 64  # kBQ, kBK in the source
+BLOCK_Q = BLOCK_K = 64  # kBQ, kBK in flash_attention.cu (and kBK of wgmma)
 PAD = 4  # kPad
-HEAD_DIMS = (16, 64, 128, 256)  # the instantiations in the source
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+WGMMA_BLOCK_Q = 128  # kBQ in flash_attention_wgmma.cu: two warpgroups
+STAGES = 2  # kStages: the K/V ring
+_WGMMA_EXTRA = 64 + 1024  # barriers, and slack to align the ring to 1 KB
+HEAD_DIMS = (16, 64, 128, 256)  # the instantiations in both sources
+DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2 ** 31 - 1
 
 
-def shared_memory_bytes(D: int) -> int:
-    """Dynamic shared memory of one block: f32 Q and K tiles (rows padded
-    by 4), the V tile and the P tile."""
-    return 4 * (BLOCK_Q * (D + PAD) + BLOCK_K * (D + PAD) + BLOCK_K * D
-                + BLOCK_Q * (BLOCK_K + PAD))
+def route(dtype, D: int) -> str:
+    """The kernel a call with this dtype and head dim launches: bfloat16
+    takes ``"wgmma"``, float32 ``"cuda-core"``."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} is not one of "
+                         f"{HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "cuda-core"
+    raise ValueError(f"flash_attention: dtype {dtype} is not one of "
+                     f"{sorted(map(str, DTYPES))}")
+
+
+def shared_memory_bytes(D: int, route: str) -> int:
+    """Dynamic shared memory of one block. cuda-core: f32 Q and K tiles
+    (rows padded by 4), the V tile and the P tile. wgmma: bf16 Q for 128
+    rows and a ring of K and V stages, with the barriers and the alignment
+    slack."""
+    if route == "cuda-core":
+        return 4 * (BLOCK_Q * (D + PAD) + BLOCK_K * (D + PAD) + BLOCK_K * D
+                    + BLOCK_Q * (BLOCK_K + PAD))
+    if route == "wgmma":
+        return 2 * (WGMMA_BLOCK_Q * D + 2 * STAGES * BLOCK_K * D) \
+            + _WGMMA_EXTRA
+    raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
 
 
 def check_args(q, k, v, *, causal: bool = True, window: int = 0,
@@ -63,9 +106,9 @@ def check_args(q, k, v, *, causal: bool = True, window: int = 0,
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} is not one of "
                          f"{HEAD_DIMS}")
-    if q.dtype not in DTYPE_CODES:
+    if q.dtype not in DTYPES:
         raise ValueError(f"flash_attention: dtype {q.dtype} is not one of "
-                         f"{sorted(map(str, DTYPE_CODES))}")
+                         f"{sorted(map(str, DTYPES))}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != q.dtype:
             raise ValueError(f"flash_attention: {name} is {t.dtype}, q is "
@@ -82,33 +125,47 @@ def check_args(q, k, v, *, causal: bool = True, window: int = 0,
     if max(H, B) > 65535 or q_offset + Sq > _INT_MAX or Sk > _INT_MAX:
         raise ValueError("flash_attention: H and B must be <= 65535 (grid "
                          "dimensions) and positions must fit int32")
-    need = shared_memory_bytes(D)
+    kernel = route(q.dtype, D)
+    need = shared_memory_bytes(D, kernel)
     if need > SHARED_MEMORY_BUDGET:
-        raise ValueError(f"flash_attention: D={D} needs {need} bytes of "
-                         f"shared memory, above the {SHARED_MEMORY_BUDGET}-"
-                         "byte budget of one block")
+        raise ValueError(f"flash_attention: D={D} on the {kernel} route "
+                         f"needs {need} bytes of shared memory, above the "
+                         f"{SHARED_MEMORY_BUDGET}-byte budget of one block")
+    if kernel == "wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name}'s data must be "
+                                 "16-byte aligned for TMA")
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = kbuild.load(SOURCE)
+def _entry_points(kernel: str):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                        ci, ci, cf, ci, ci, cf, ci, vp]
-    lib.flash_attention_fwd.restype = ci
-    lib.flash_attention_error_string.argtypes = [ci]
-    lib.flash_attention_error_string.restype = ctypes.c_char_p
-    return lib
+    if kernel == "wgmma":
+        lib = kbuild.load(WGMMA_SOURCE)
+        fwd, err = (lib.flash_attention_wgmma_fwd,
+                    lib.flash_attention_wgmma_error_string)
+    else:
+        lib = kbuild.load(SOURCE)
+        fwd, err = lib.flash_attention_fwd, lib.flash_attention_error_string
+    # both: q, k, v, out, B, H, KV, Sq, Sk, D, scale, causal, window,
+    # softcap, q_offset, stream
+    fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, ci, ci, cf,
+                    ci, vp]
+    fwd.restype = ci
+    err.argtypes = [ci]
+    err.restype = ctypes.c_char_p
+    return fwd, err
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0, q_offset: int = 0):
-    """Launch the kernel: q (B, Sq, H, D), k/v (B, Sk, KV, D) CUDA tensors
-    -> (B, Sq, H, D) in q's dtype.
+    """Launch the kernel of ``route(q.dtype, D)``: q (B, Sq, H, D), k/v
+    (B, Sk, KV, D) CUDA tensors -> (B, Sq, H, D) in q's dtype.
 
     Runs on PyTorch's current stream without synchronising. Raises on a
-    CPU tensor, on arguments the kernel does not take, and when the launch
-    is refused.
+    CPU tensor, on arguments the kernel does not take, and when the build
+    or the launch fails.
     """
     check_args(q, k, v, causal=causal, window=window, softcap=softcap,
                q_offset=q_offset)
@@ -117,17 +174,16 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                            f"{q.device}")
     B, Sq, H, D = q.shape
     _, Sk, KV, _ = k.shape
+    kernel = route(q.dtype, D)
     out = torch.empty_like(q)
-    lib = _library()
+    fwd, err = _entry_points(kernel)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         # the scale as the TPU kernel takes it: 1 / D**0.5 rounded to f32
-        rc = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-            KV, Sq, Sk, D, DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D),
-            int(bool(causal)), int(window), float(softcap), int(q_offset),
-            stream)
+        rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, H, KV, Sq, Sk, D, 1.0 / math.sqrt(D), int(bool(causal)),
+                 int(window), float(softcap), int(q_offset), stream)
     if rc != 0:
-        raise RuntimeError("flash_attention kernel launch failed: "
-                           + lib.flash_attention_error_string(rc).decode())
+        raise RuntimeError(f"flash_attention {kernel} kernel launch failed: "
+                           + err(rc).decode())
     return out

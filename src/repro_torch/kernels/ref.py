@@ -39,12 +39,38 @@ def sodda_inner_ref(w0, Xl, yl, mu, gamma, loss: str = "hinge"):
 # attention: chunked online-softmax reference (numerically the flash schedule,
 # memory O(S * chunk)); supports causal, sliding window, GQA, logit softcap.
 # ---------------------------------------------------------------------------
+P_SPLITS = (0, 1, 2)
+
+
+def split_p(p, p_split: int = 0):
+    """The weights P as a tensor-core P.V product sees them (f32 out).
+
+    0: P in f32 (the CUDA-core kernel); 1: P rounded once to bf16 (the
+    textbook Hopper kernel: a control); 2: p_hi + p_lo with p_hi = bf16(p)
+    and p_lo = bf16(p - p_hi), the two bf16 operands the wgmma kernel
+    multiplies into one f32 accumulator. p_hi is within 2^-8 |p| of p,
+    p - p_hi is exact in f32, and p_hi + p_lo is within 2^-16 |p| of p
+    and exact in f32.
+    """
+    if p_split not in P_SPLITS:
+        raise ValueError(f"p_split must be one of {P_SPLITS}, got {p_split}")
+    if p_split == 0:
+        return p
+    hi = p.to(torch.bfloat16).float()
+    if p_split == 1:
+        return hi
+    return hi + (p - hi).to(torch.bfloat16).float()
+
+
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                  softcap: float = 0.0, chunk: int = 512, q_offset: int = 0):
+                  softcap: float = 0.0, chunk: int = 512, q_offset: int = 0,
+                  p_split: int = 0):
     """q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D).
 
     `q_offset`: absolute position of q[0] (for decode: q_offset = cache_len).
     GQA: query head h attends to kv head h // (H // KV).
+    `p_split`: how P enters P.V (``split_p``); the row sums l always take
+    the f32 P, as the kernels do.
 
     The reference's arithmetic, with two differences:
       * the scores q.k are taken in float32, as the TPU kernel and the CUDA
@@ -90,8 +116,8 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         p = torch.exp(s - m_use[..., None])
         alpha = torch.exp(m - m_use)
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
-                                                    vb.float())
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", split_p(p, p_split), vb.float())
         m = m_new
     out = acc / torch.clamp_min(l, 1e-37)[..., None]
     return out.transpose(1, 2).to(q.dtype)

@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 class TolerancePolicy(NamedTuple):
@@ -62,3 +63,14 @@ def assert_objectives_close(f_ref: float, f_got: float,
     bound = policy.obj_rel * max(abs(f_ref), policy.obj_floor)
     assert abs(f_ref - f_got) <= bound, (
         f"{policy.name} {context}: |{f_ref:.6f} - {f_got:.6f}| > {bound:.2e}")
+
+
+def half_ulp_excess(oracle, scale, **outs):
+    """For each bf16 output in `outs`: its largest distance to the f32
+    `oracle` beyond half a bf16 ulp of the oracle, over `scale`. A
+    correctly rounded output scores <= 0; a sound kernel scores at most
+    its f32 summation noise."""
+    exponent = torch.frexp(oracle.abs().clamp_min(2.0 ** -126))[1]
+    half_ulp = torch.exp2((exponent - 9).float())  # bf16 ulp is 2^(e - 8)
+    return {name: float(((o.float() - oracle).abs() - half_ulp).max()) / scale
+            for name, o in outs.items()}

@@ -14,10 +14,13 @@ the softmax (the port's unaligned non-causal case is held against
 ``attention_naive`` only); and its ``attention_ref`` returns NaN for a row
 whose first chunk the window masks entirely.
 
-The one test that needs the card (marked ``gpu``) holds the CUDA kernel
-against the plain version there; it decides inside its body whether to
-skip, and this module imports jax only inside the tests that compare with
-the JAX package.
+Two kernels take the card's calls: bf16 the wgmma one, f32 the CUDA-core
+one (``route``); the tests here pin that choice and each layout's shared
+memory. The one test that needs the card (marked ``gpu``) holds both
+kernels against the plain version there, bf16 also to the rounding rule of
+``chip_smoke.py``; it decides inside its body whether to skip, and this
+module imports jax only inside the tests that compare with the JAX
+package.
 """
 import numpy as np
 import pytest
@@ -26,8 +29,10 @@ import torch
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import flash_attention as kernel
 from repro_torch.kernels import ops, ref
+from repro_torch.testing.tolerances import half_ulp_excess
 
 RTOL = ATOL = 2e-5
+F32_NOISE = 2.0 ** -18  # chip_smoke.py's bf16 rounding rule, over max|v|
 SHAPES = [(1, 4, 4, 128, 64), (2, 4, 2, 256, 64), (1, 8, 2, 128, 128)]
 OPTS = [dict(causal=True), dict(causal=True, window=64),
         dict(causal=True, softcap=30.0), dict(causal=False)]
@@ -219,12 +224,16 @@ def _bad_args(case):
         opts = dict(q_offset=-2)
     elif case == "softcap":
         opts = dict(softcap=-1.0)
+    elif case == "misaligned":  # TMA needs 16-byte aligned data
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        q = torch.zeros(q.numel() + 1, dtype=q.dtype)[1:].view(q.shape)
     return q, k, v, opts
 
 
 @pytest.mark.parametrize("case", ["dtype", "mixed_dtype", "head_dim", "gqa",
                                   "rank", "batch", "kv_shape", "contiguous",
-                                  "empty", "window", "q_offset", "softcap"])
+                                  "empty", "window", "q_offset", "softcap",
+                                  "misaligned"])
 def test_check_args_refuses(case):
     q, k, v, opts = _bad_args(case)
     with pytest.raises(ValueError, match="flash_attention"):
@@ -233,7 +242,7 @@ def test_check_args_refuses(case):
 
 @pytest.mark.parametrize("D", kernel.HEAD_DIMS)
 def test_check_args_takes_every_head_dim_in_both_dtypes(D):
-    for dtype in kernel.DTYPE_CODES:
+    for dtype in kernel.DTYPES:
         q = torch.zeros(1, 3, 4, D, dtype=dtype)
         k = torch.zeros(1, 5, 2, D, dtype=dtype)
         kernel.check_args(q, k, k.clone(), window=4, softcap=50.0,
@@ -241,10 +250,49 @@ def test_check_args_takes_every_head_dim_in_both_dtypes(D):
 
 
 def test_shared_memory_budget_holds_at_head_dim_256():
-    need = kernel.shared_memory_bytes(256)
+    """Both layouts at gemma2's head dim, pinned: f32 tiles on the
+    cuda-core route, bf16 Q and a two-stage K/V ring on the wgmma route."""
+    need = kernel.shared_memory_bytes(256, "cuda-core")
     assert need == 4 * (64 * 260 * 2 + 64 * 256 + 64 * 68) == 216_064
-    assert need <= kernel.SHARED_MEMORY_BUDGET
-    assert kernel.shared_memory_bytes(16) < kernel.shared_memory_bytes(256)
+    wgmma = kernel.shared_memory_bytes(256, "wgmma")
+    assert wgmma == 2 * (128 * 256 + 2 * 2 * 64 * 256) + 64 + 1024 == 197_696
+    assert max(need, wgmma) <= kernel.SHARED_MEMORY_BUDGET
+    assert kernel.shared_memory_bytes(16, "cuda-core") < need
+
+
+@pytest.mark.parametrize("route", kernel.ROUTES)
+@pytest.mark.parametrize("D", kernel.HEAD_DIMS)
+def test_shared_memory_budget_holds_for_every_route_and_head_dim(route, D):
+    need = kernel.shared_memory_bytes(D, route)
+    assert 0 < need <= kernel.SHARED_MEMORY_BUDGET
+    if D > min(kernel.HEAD_DIMS):
+        assert kernel.shared_memory_bytes(D // 2, route) < need
+
+
+@pytest.mark.parametrize("D", kernel.HEAD_DIMS)
+def test_route_picks_wgmma_for_bf16_and_cuda_core_for_f32(D):
+    assert kernel.route(torch.bfloat16, D) == "wgmma"
+    assert kernel.route(torch.float32, D) == "cuda-core"
+    assert {kernel.route(t, D) for t in kernel.DTYPES} == \
+        set(kernel.ROUTES)
+
+
+def test_route_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.route(torch.float64, 64)
+    with pytest.raises(ValueError, match="head dim"):
+        kernel.route(torch.bfloat16, 32)
+    with pytest.raises(ValueError, match="route"):
+        kernel.shared_memory_bytes(64, "tensor-core")
+
+
+def test_sources_are_one_per_route():
+    assert kernel.SOURCES == (kernel.SOURCE, kernel.WGMMA_SOURCE)
+    assert all(src.exists() for src in kernel.SOURCES)
+    text = kernel.WGMMA_SOURCE.read_text()
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor",
+                   "mbarrier.try_wait", "setmaxnreg"):
+        assert needle in text
 
 
 def test_library_path_is_named_by_content(tmp_path):
@@ -267,6 +315,21 @@ def test_build_all_reuses_a_built_library(tmp_path, monkeypatch):
     assert kbuild.build_all([src]) == [lib]  # no compiler is run
 
 
+def test_compiler_report_keeps_registers_spills_and_warnings(tmp_path):
+    lib = tmp_path / "libk_0.so"
+    lib.with_name(lib.name + ".log").write_text(
+        "ptxas info    : Compiling entry function 'k' for 'sm_90a'\n"
+        "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async "
+        "instructions are serialized\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n"
+        "ptxas info    : Compile time = 1.0 ms\n")
+    report = kbuild.compiler_report(lib)
+    assert len(report) == 3
+    assert "Performance Loss" in report[0] and "spill" in report[1]
+    assert report[2].endswith("Used 168 registers, used 1 barriers")
+
+
 def test_build_failure_raises(tmp_path, monkeypatch):
     """No nvcc on the host, or a source nvcc refuses: RuntimeError."""
     monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path / "build")
@@ -279,10 +342,13 @@ def test_build_failure_raises(tmp_path, monkeypatch):
 
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_on_the_card():
-    """Kernel vs plain version on the card: every head dim in f32 (rtol =
-    atol = 2e-5) and bf16 (1e-2), causal, window, softcap, non-causal,
-    unaligned S and a decode offset; two launches agree bitwise and each
-    launch is counted once."""
+    """Kernel vs plain version on the card, causal, window, softcap,
+    non-causal, unaligned S and a decode offset: every head dim in f32 (the
+    cuda-core route; rtol = atol = 2e-5) and bf16 (the wgmma route; 1e-2,
+    and the rounding rule of chip_smoke.py: each output within half a bf16
+    ulp of the plain version on f32 copies plus 2^-18 max|v|, which P
+    rounded to bf16 and scores rounded to bf16 must both fail); two
+    launches agree bitwise and each launch is counted once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: python -m pytest "
                     "-m gpu tests/test_torch_flash_attention.py)")
@@ -307,6 +373,16 @@ def test_cuda_kernel_matches_plain_on_the_card():
             assert torch.equal(a, b), (B, H, KV, S, D, opts)
             torch.testing.assert_close(a.float(), want.float(), rtol=tol,
                                        atol=tol)
+            if a.dtype == torch.bfloat16:
+                f = [t.float() for t in args]
+                ex = half_ulp_excess(
+                    ref.attention_ref(*f, **opts),
+                    float(f[2].abs().max()), kernel=a,
+                    p_bf16=ref.attention_ref(*f, p_split=1, **opts).to(
+                        a.dtype),
+                    scores_bf16=ref.attention_naive(*args, **opts))
+                assert ex["kernel"] <= F32_NOISE, (B, H, KV, S, D, opts, ex)
+                assert min(ex["p_bf16"], ex["scores_bf16"]) > F32_NOISE, ex
     q, k, v = (torch.from_numpy(a).cuda() for a in _qkv(1, 4, 2, 1, 64, 0,
                                                          Sk=150))
     got = ops.flash_attention(q, k, v, q_offset=149, window=64)
