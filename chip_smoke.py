@@ -7,10 +7,11 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
 
 1. prints the card's name and power limit (``nvidia-smi``); fails without
    a CUDA device;
-2. builds the hand-written kernels (``sodda_inner``, ``flash_attention``,
-   ``ssd_scan``) from the sources in the checkout, one ``nvcc`` per source,
-   all at once, and prints the build time and the compiler's register
-   report;
+2. builds the hand-written kernels (``sodda_inner``, ``flash_attention``
+   and ``ssd_scan``, each of the last two in a wgmma source for bf16 and a
+   CUDA-core source for f32) from the sources in the checkout, one
+   ``nvcc`` per source, all at once, and prints the build time and the
+   compiler's register report;
 3. holds ``sodda_inner`` against its plain PyTorch version on the card at the
    Table-1 shapes (15, 64, 1200) for all three losses and at an unaligned
    (2, 8, 100), requires two launches to agree bitwise, and times kernel
@@ -48,10 +49,13 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
 9. holds ``ssd_scan`` against its plain chunked version at the mamba2-130m
    layer shape (B=16, S=2048, H=24, P=64, G=1, N=128), with Mamba-2's dt
    and A and a slow-decay case, at S = 1000 and at G = 2, in f32
-   (rtol = atol = 1e-4) and bf16 (the rounding rule of 6, over max|y|,
-   which a carry-dropping control and a bf16-W control must fail),
-   requires two launches to agree bitwise, prints the inter-chunk share
-   ||y_inter|| / ||y||, and times kernel and plain version beside the bound;
+   (the CUDA-core route, rtol = atol = 1e-4) and bf16 (the wgmma route,
+   the rounding rule of 6 over max|y|, which four controls must fail: the
+   carry dropped, and each f32 operand of the tensor-core products rounded
+   once to bf16: W, the state as C . state reads it, and x_j w_j of the
+   state update), requires two launches to agree bitwise, prints each
+   case's route and the inter-chunk share ||y_inter|| / ||y||, and times
+   kernel and plain version beside the bound;
 10. runs full-depth mamba2-130m in f32 (B=2, 1024 prompt tokens, Mamba-2's
     A_log and dt_bias): the kernel path's prefill logits within 2e-4 of the
     plain path's and of the decode warm-up's last logits (the scan against
@@ -59,11 +63,12 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     2e-4 of the scan's at the same positions;
 11. serves 16 requests of 2048 prompt tokens for 32 tokens each through
     full-depth bf16 mamba2-130m (``serve``, the third main path, with the
-    SSD launch count set to 0 just before it): 24 launches in the prefill
-    and none in the warm-up or decode, finite logits, and prefill time,
-    warm-up time, decode time per token and peak device memory. Then each
-    of the 24 layers' SSD, on the plain path's activations, is held to the
-    rounding rule of 9, both controls failing it.
+    SSD launch counts set to 0 just before it): 24 launches in the
+    prefill, all on the wgmma route, and none in the warm-up or decode,
+    finite logits, and prefill time, warm-up time, decode time per token
+    and peak device memory. Then each of the 24 layers' SSD, on the plain
+    path's activations, is held to the rounding rule of 9, every control
+    failing it.
 
 Exits non-zero if any phase fails. The last three lines of standard output
 are the card line, a JSON ``kernels`` record and a JSON ``ok`` record.
@@ -762,11 +767,13 @@ def attention_as(fn):
 # ---------------------------------------------------------------------------
 # ssd_scan and the mamba2-130m serving path
 # ---------------------------------------------------------------------------
-def ssd_bound_ms(B, S, H, P, G, N, dtype, chunk=ssd_build.CHUNK):
+def ssd_bound_ms(B, S, H, P, G, N, dtype, chunk=64):
     """Least time for one call: x, dt, B, C read once and y written once
     over the HBM rate, vs the chunked work over the dtype's peak: per
     chunk of q steps C.B^T once per group (q^2 N), and per head W.x over
-    j <= i (q(q+1)/2 P) and the two state terms (2 q N P), 2 FLOP each."""
+    j <= i (q(q+1)/2 P) and the two state terms (2 q N P), 2 FLOP each.
+    The chunk is fixed at 64, whatever chunk a kernel takes, so the bound
+    stays one yardstick across kernel designs."""
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = item * (2 * B * S * H * P + B * S * H + 2 * B * S * G * N) \
         + 4 * 2 * H  # A and D in f32
@@ -802,30 +809,43 @@ def ssd_inputs(B, S, H, P, G, N, decay, gen):
             1.0 + normal((H,), 0.5))
 
 
-def ssd_terms(x, dt, A, Bm, Cm, D, w_dtype=None):
+def ssd_terms(x, dt, A, Bm, Cm, D, **splits):
     """The plain chunked SSD on f32 copies, at the kernel's chunk, as
     (y, y_intra + D x, inter share): the f32 oracle, the control that
     drops the state the kernel carries from chunk to chunk (before
-    rounding), and ||y_inter|| / ||y||."""
+    rounding), and ||y_inter|| / ||y||. `splits` go to
+    ``ref.ssd_chunk_terms``: how the f32 operands of the tensor-core
+    products are rounded."""
     f = [t.float() for t in (x, dt, A, Bm, Cm)]
     y_intra, y_inter = kref.ssd_chunk_terms(*f, chunk=ssd_build.CHUNK,
-                                            w_dtype=w_dtype)
+                                            **splits)
     dx = D.float()[None, None, :, None] * f[0]
     y = y_intra + y_inter + dx
     share = float(y_inter.norm() / y.norm())
     return y, y_intra + dx, share
 
 
+# The single-rounding controls: each f32 operand of a tensor-core product
+# rounded once to bf16 (``ref.ssd_chunk_terms``'s splits; the wgmma kernel
+# takes each as hi + lo). On the CPU each fails the rule by 2-50x
+# (tests/test_torch_ssd_split.py).
+SSD_ROUNDING_CONTROLS = {"control_w_bf16": dict(w_split=1),
+                         "control_state_bf16": dict(state_split=1),
+                         "control_update_bf16": dict(update_split=1)}
+
+
 def ssd_excess(x, dt, A, Bm, Cm, D, **outs):
     """The bf16 rounding rule for SSD outputs (`tol.half_ulp_excess` over
-    max|y|), with both controls: the carry dropped, and W rounded to bf16
-    before W . x."""
+    max|y|), with every control: the carry dropped, and each of W, the
+    state as C . state reads it and x_j w_j of the state update rounded
+    once to bf16."""
     oracle, dropped, share = ssd_terms(x, dt, A, Bm, Cm, D)
-    w_bf16, _, _ = ssd_terms(x, dt, A, Bm, Cm, D, w_dtype=torch.bfloat16)
     bf16 = torch.bfloat16
+    controls = {name: ssd_terms(x, dt, A, Bm, Cm, D, **splits)[0].to(bf16)
+                for name, splits in SSD_ROUNDING_CONTROLS.items()}
     ex = tol.half_ulp_excess(oracle, float(oracle.abs().max()),
-                         control_carry=dropped.to(bf16),
-                         control_w_bf16=w_bf16.to(bf16), **outs)
+                             control_carry=dropped.to(bf16), **controls,
+                             **outs)
     return ex, share
 
 
@@ -846,11 +866,16 @@ def phase_ssd():
         for dtype in (f32, bf16):
             args = [t.to(dtype) for t in (x, dt)] + [A] \
                 + [t.to(dtype) for t in (Bm, Cm)] + [D]
+            kind = ssd_build.route(dtype, shape[3], shape[5])
+            tag = f"ssd {name} {shape} {dtype} {decay} ({kind} route)"
+            routes = dict(ops.ssd_scan.route_launches)
             a = ops.ssd_scan(*args, force="cuda")
             b = ops.ssd_scan(*args, force="cuda")
             want = ops.ssd_scan(*args, chunk=256, force="ref")
             torch.cuda.synchronize()
-            tag = f"ssd {name} {shape} {dtype} {decay}"
+            check(ops.ssd_scan.route_launches[kind] == routes[kind] + 2,
+                  f"{tag}: the launches did not take that route ({routes} "
+                  f"-> {ops.ssd_scan.route_launches})")
             check(torch.equal(a, b), f"{tag}: two launches differ")
             check(bool(torch.isfinite(a).all()), f"{tag}: non-finite output")
             if dtype == bf16:
@@ -890,7 +915,7 @@ def phase_ssd():
             f" kernel/bound {ms / bound_ms:.1f}x")
     ms, plain_ms, bound_ms, bound_by = times[bf16]
     return dict(name="ssd_scan", route="cuda",
-                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                source="src/repro_torch/kernels/csrc/ssd_scan_wgmma.cu",
                 replaces="src/repro/kernels/ssd_scan.py:67",
                 launches=None, max_abs_err=max_err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -956,12 +981,14 @@ def phase_ssm_f32():
                          generator=gen, device="cuda")
     batch = {"tokens": toks[:, :P]}
     before = ops.ssd_scan.launches
+    core = ops.ssd_scan.route_launches["cuda-core"]
     logits_k, _ = model.prefill(params, batch)
     torch.cuda.synchronize()
     launches = ops.ssd_scan.launches - before
-    check(launches == cfg.num_layers,
+    check(launches == cfg.num_layers
+          and ops.ssd_scan.route_launches["cuda-core"] - core == launches,
           f"mamba2 f32: {launches} ssd launches in a {cfg.num_layers}-layer "
-          "prefill")
+          "prefill, not all on the cuda-core route")
 
     layers = []
 
@@ -1089,11 +1116,14 @@ def phase_ssm_serve():
 
     torch.cuda.reset_peak_memory_stats()
     ops.ssd_scan.launches = 0  # the main path starts here
+    for kind in ops.ssd_scan.route_launches:
+        ops.ssd_scan.route_launches[kind] = 0
     t0 = time.perf_counter()
     tokens, logits = serve(model, params, prompts, n)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = ops.ssd_scan.launches  # ... and ends here
+    by_route = dict(ops.ssd_scan.route_launches)
     peak = torch.cuda.max_memory_allocated()
 
     check(prefill_launches == cfg.num_layers,
@@ -1102,6 +1132,9 @@ def phase_ssm_serve():
     check(launches == prefill_launches,
           f"mamba2 serve: {launches - prefill_launches} ssd launches in the "
           "warm-up and decode")
+    check(by_route["wgmma"] == launches == cfg.num_layers,
+          f"mamba2 serve: ssd launches by route {by_route}, expected all "
+          f"{cfg.num_layers} on the wgmma route")
     check(tuple(tokens.shape) == (B, n), f"mamba2 serve: tokens "
           f"{tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
@@ -1118,13 +1151,14 @@ def phase_ssm_serve():
         f"end to end {1e3 * total_s:.3f} ms, {B * n / total_s:.1f} generated "
         "tok/s")
     log(f"mamba2 serve ssd launches: {prefill_launches} in the prefill, "
-        f"{launches - prefill_launches} in the warm-up and decode")
+        f"{launches - prefill_launches} in the warm-up and decode; by route "
+        f"{by_route}")
     log(f"mamba2 serve peak device memory {peak / 1e9:.3f} GB; weights "
         f"{weight_bytes / 1e9:.3f} GB bf16")
     log(f"mamba2 serve sample tokens: {tokens[0, :16].tolist()}")
 
     # Every layer's SSD at the main path's shape and dtype, on the
-    # activations the plain path feeds it: the kernel and both controls
+    # activations the plain path feeds it: the kernel and every control
     # against the rounding rule (the plain path goes on unchanged).
     layer_ex = []
 
@@ -1167,7 +1201,7 @@ def main():
 
     t0 = time.perf_counter()
     libs = kbuild.build_all([kernel_build.SOURCE, *flash_build.SOURCES,
-                             ssd_build.SOURCE])
+                             *ssd_build.SOURCES])
     log(f"built {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.2f} s (one nvcc per source, together)")
     for lib in libs:

@@ -12,6 +12,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.sodda_inner import sodda_inner_cuda
+from repro_torch.kernels.ssd_scan import route as ssd_route
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
 FORCES = ("auto", "cuda", "ref")
@@ -77,13 +78,18 @@ def ssd_scan(x, dt, A, Bm, Cm, D=None, chunk: int = 128, force: str = "auto"):
     """x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,G,N) -> y (B,S,H,P).
 
     The Mamba-2 SSD scan plus D . x, rounded once to x's dtype.
-    ``force="auto"`` launches the CUDA kernel for CUDA tensors and runs
+    ``force="auto"`` launches the CUDA kernel of
+    ``kernels.ssd_scan.route(dtype, P, N)`` for CUDA tensors (bf16: the
+    wgmma kernel; f32: the CUDA-core kernel) and runs
     :func:`ref.ssd_chunked_ref` with chunk length `chunk` for CPU tensors;
     ``"cuda"`` requires CUDA tensors; ``"ref"`` runs the plain version on
-    any device. The kernel uses its own chunk (``ssd_scan.CHUNK``); the
+    any device. The kernels use their own chunk (``ssd_scan.CHUNK``); the
     result depends on the chunk only through f32 rounding. A and D are
-    taken in float32; x is read through its strides and nothing is padded.
-    ``ssd_scan.launches`` counts kernel launches.
+    taken in float32; nothing is padded. The wgmma route reads x, B and C
+    with TMA, so they are made contiguous first (a copy only where they are
+    views); the CUDA-core route reads them through their strides.
+    ``ssd_scan.launches`` counts kernel launches, ``ssd_scan.route_launches``
+    the same launches by route.
     """
     if force not in FORCES:
         raise ValueError(f"force must be one of {FORCES}, got {force!r}")
@@ -93,11 +99,16 @@ def ssd_scan(x, dt, A, Bm, Cm, D=None, chunk: int = 128, force: str = "auto"):
     if device != "cuda":
         raise RuntimeError(f"ssd_scan(force={force!r}) launches the CUDA "
                            f"kernel and needs CUDA tensors, got {x.device}")
+    kernel = ssd_route(x.dtype, x.shape[-1], Bm.shape[-1])
+    if kernel == "wgmma":
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
     f32 = torch.float32
     out = ssd_scan_cuda(x, dt, A.to(f32).contiguous(), Bm, Cm,
                         None if D is None else D.to(f32).contiguous())
     ssd_scan.launches += 1
+    ssd_scan.route_launches[kernel] += 1
     return out
 
 
 ssd_scan.launches = 0
+ssd_scan.route_launches = {"wgmma": 0, "cuda-core": 0}

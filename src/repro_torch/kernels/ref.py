@@ -184,7 +184,8 @@ def ssd_ref(x, dt, A, Bm, Cm, D=None):
     return y.to(x.dtype)
 
 
-def ssd_chunk_terms(x, dt, A, Bm, Cm, chunk: int = 256, w_dtype=None):
+def ssd_chunk_terms(x, dt, A, Bm, Cm, chunk: int = 256, w_split: int = 0,
+                    state_split: int = 0, update_split: int = 0):
     """The two f32 terms of the chunked SSD, each (B, S, H, P):
 
       y_intra_i = sum_{j <= i in i's chunk} C_i.B_j exp(cum_i - cum_j) dt_j x_j
@@ -193,9 +194,20 @@ def ssd_chunk_terms(x, dt, A, Bm, Cm, chunk: int = 256, w_dtype=None):
     with cum the inclusive cumsum of dt * A inside each chunk. Every
     exponent is <= 0 (A < 0, dt > 0). A ragged last chunk is zero-padded:
     a row with dt = 0, x = 0 adds nothing, so the pad changes no output.
-    `w_dtype` rounds the intra-chunk weights W to that dtype before W . x
-    (a control: the product a kernel would take in bf16).
+
+    The three f32 operands a bf16 tensor-core kernel must feed to its
+    products are taken as ``split_p`` takes P (0: f32, as the CUDA-core
+    kernel; 1: rounded once to bf16, a control; 2: hi + lo, the wgmma
+    kernel's two bf16 passes into one f32 accumulator):
+    `w_split` the intra-chunk weights W in W . x, `state_split` the carried
+    state as C . state reads it (the state itself stays f32), and
+    `update_split` the operand x_j w_j of the state update
+    sum_j (x_j w_j) outer B_j. The defaults are the f32 arithmetic.
     """
+    for name, split in (("w_split", w_split), ("state_split", state_split),
+                        ("update_split", update_split)):
+        if split not in P_SPLITS:
+            raise ValueError(f"{name} must be one of {P_SPLITS}, got {split}")
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     pad = (-S) % chunk
@@ -218,15 +230,14 @@ def ssd_chunk_terms(x, dt, A, Bm, Cm, chunk: int = 256, w_dtype=None):
     W = (Gm * decay.permute(0, 1, 4, 2, 3)
          * dtc.permute(0, 1, 3, 2)[..., None, :])
     del seg, decay, Gm
-    if w_dtype is not None:
-        W = W.to(w_dtype).float()
-    y_intra = torch.einsum("bnhcj,bnjhp->bnchp", W, xc)
+    y_intra = torch.einsum("bnhcj,bnjhp->bnchp", split_p(W, w_split), xc)
     del W
 
     # each chunk's outgoing state contribution, then the carry across chunks
     last = cum[:, :, -1:]  # (B, NC, 1, H)
     w_state = torch.exp(last - cum) * dtc  # (B, NC, Cn, H)
-    S_c = torch.einsum("bnchp,bnchk->bnhpk", xc * w_state[..., None], Bc)
+    S_c = torch.einsum("bnchp,bnchk->bnhpk",
+                       split_p(xc * w_state[..., None], update_split), Bc)
     state = torch.zeros(Bsz, H, P, N, dtype=torch.float32, device=x.device)
     states_in = []
     for c in range(NC):
@@ -234,7 +245,8 @@ def ssd_chunk_terms(x, dt, A, Bm, Cm, chunk: int = 256, w_dtype=None):
         state = state * torch.exp(last[:, c, 0])[..., None, None] + S_c[:, c]
     states_in = torch.stack(states_in, dim=1)  # (B, NC, H, P, N)
     y_inter = torch.einsum("bnchk,bnhpk->bnchp",
-                           Cc * torch.exp(cum)[..., None], states_in)
+                           Cc * torch.exp(cum)[..., None],
+                           split_p(states_in, state_split))
     return (y_intra.reshape(Bsz, NC * chunk, H, P)[:, :S],
             y_inter.reshape(Bsz, NC * chunk, H, P)[:, :S])
 

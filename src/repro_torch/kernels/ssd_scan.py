@@ -1,14 +1,30 @@
-"""Build, binding and launch of the Hopper Mamba-2 SSD-scan kernel.
+"""Build, binding and launch of the Hopper Mamba-2 SSD-scan kernels.
 
-The kernel (``csrc/ssd_scan.cu``) replaces the TPU kernel
-``repro.kernels.ssd_scan.ssd_scan_pallas`` plus the D skip of its ops
-wrapper; its source says what it computes, what bounds it and how it is
-laid out. It takes the models' layout, x (B, S, H, P), dt (B, S, H) and
-B/C (B, S, G, N), read through their strides (the last axis of x, B and C
-contiguous), float32 or bfloat16, with P in ``HEAD_DIMS`` and N in
-``STATE_DIMS``; A and D are float32 (H,). The output is (B, S, H, P),
-contiguous, in x's dtype. This module builds it with ``kernels.build`` at
-first use, checks arguments and launches it on PyTorch's current stream.
+Two hand-written kernels compute one function, and the dtype picks the
+route (``route``):
+
+* ``wgmma`` (``csrc/ssd_scan_wgmma.cu``) takes bfloat16 at every (P, N):
+  TMA loads of x, B and C into an mbarrier-guarded ring, ``wgmma``
+  tensor-core products and warp specialisation, with the three f32
+  operands of its products (the weights W, the carried state as C . state
+  reads it, and x_j w_j of the state update) each split into two bf16
+  halves, so that every product keeps f32 accuracy;
+* ``cuda-core`` (``csrc/ssd_scan.cu``) takes float32: f32 FMAs on the CUDA
+  cores, as exact as the plain version's 1e-4 asks (TF32 tensor cores
+  would not be).
+
+Both replace the TPU kernel ``repro.kernels.ssd_scan.ssd_scan_pallas`` plus
+the D skip of its ops wrapper; their sources say what they compute, what
+bounds them and how they are laid out. They take the models' layout,
+x (B, S, H, P), dt (B, S, H) and B/C (B, S, G, N), with P in ``HEAD_DIMS``
+and N in ``STATE_DIMS``; A and D are float32 (H,). The cuda-core kernel
+reads x, B and C through their strides (the last axis contiguous); the
+wgmma kernel's TMA needs them contiguous and 16-byte aligned (the ops
+wrapper makes them so). dt is read through its strides by both. The output
+is (B, S, H, P), contiguous, in x's dtype. This module builds the kernels
+with ``kernels.build`` at first use, checks arguments and launches on
+PyTorch's current stream. A kernel that fails to build or launch raises:
+there is no fallback from one route to the other.
 
 Nothing here runs at import: the CPU tests import this module on hosts
 without ``nvcc`` or a card.
@@ -24,24 +40,61 @@ import torch
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.build import SHARED_MEMORY_BUDGET
 
-__all__ = ["SOURCE", "CHUNK", "HEAD_DIMS", "STATE_DIMS", "DTYPE_CODES",
-           "shared_memory_bytes", "check_args", "ssd_scan_cuda"]
+__all__ = ["SOURCE", "WGMMA_SOURCE", "SOURCES", "ROUTES", "CHUNK",
+           "STAGES", "HEADS_PER_BLOCK", "HEAD_DIMS", "STATE_DIMS",
+           "DTYPE_CODES", "route", "shared_memory_bytes", "check_args",
+           "ssd_scan_cuda"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = _CSRC / "ssd_scan.cu"  # the cuda-core route
+WGMMA_SOURCE = _CSRC / "ssd_scan_wgmma.cu"  # the wgmma route
+SOURCES = (SOURCE, WGMMA_SOURCE)
+ROUTES = ("wgmma", "cuda-core")
 
-CHUNK = 64  # kQ in the source: the kernel's own chunk length
-PAD = 4  # kPad
-HEAD_DIMS = (16, 32, 64)  # P: the instantiations in the source
+CHUNK = 64  # kQ in both sources: the kernels' own chunk length
+PAD = 4  # kPad in ssd_scan.cu
+STAGES = 3  # kStages in ssd_scan_wgmma.cu: the x/B/C ring
+HEADS_PER_BLOCK = 2  # kHeads in ssd_scan_wgmma.cu: one consumer warpgroup each
+_WGMMA_WARPS = 4 * HEADS_PER_BLOCK  # consumer warps
+_WGMMA_EXTRA = 64 + 1024  # barriers, and slack to align the ring to 1 KB
+HEAD_DIMS = (16, 32, 64)  # P: the instantiations in both sources
 STATE_DIMS = (16, 32, 64, 128)  # N
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def shared_memory_bytes(P: int, N: int) -> int:
-    """Dynamic shared memory of one block: the B and C tiles and the state
-    (rows padded by 4), the x tile, W (rows padded by 4) and 4 x 64 + 4
-    per-step scalars, all f32."""
-    return 4 * (2 * CHUNK * (N + PAD) + CHUNK * P + CHUNK * (CHUNK + PAD)
-                + P * (N + PAD) + 4 * CHUNK + 4)
+def route(dtype, P: int, N: int) -> str:
+    """The kernel a call with this dtype, head dim and state dim launches:
+    bfloat16 takes ``"wgmma"``, float32 ``"cuda-core"``."""
+    if P not in HEAD_DIMS:
+        raise ValueError(f"ssd_scan: head dim P={P} is not one of {HEAD_DIMS}")
+    if N not in STATE_DIMS:
+        raise ValueError(f"ssd_scan: state dim N={N} is not one of "
+                         f"{STATE_DIMS}")
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "cuda-core"
+    raise ValueError(f"ssd_scan: dtype {dtype} is not one of "
+                     f"{sorted(map(str, DTYPE_CODES))}")
+
+
+def shared_memory_bytes(P: int, N: int, route: str = "cuda-core") -> int:
+    """Dynamic shared memory of one block. cuda-core: the B and C tiles and
+    the state (rows padded by 4), the x tile, W (rows padded by 4) and
+    4 x 64 + 4 per-step scalars, all f32. wgmma: a ring of stages, each
+    the bf16 x tiles of two heads and the B and C tiles of their group;
+    each head's state as two bf16 tiles (hi, lo); each stage's f32 dt of
+    both heads; per consumer warp 2 x 64 f32 of step weights; the
+    barriers and the alignment slack."""
+    if route == "cuda-core":
+        return 4 * (2 * CHUNK * (N + PAD) + CHUNK * P + CHUNK * (CHUNK + PAD)
+                    + P * (N + PAD) + 4 * CHUNK + 4)
+    if route == "wgmma":
+        stage = 2 * (HEADS_PER_BLOCK * CHUNK * P + 2 * CHUNK * N)
+        return (STAGES * stage + HEADS_PER_BLOCK * 2 * 2 * P * N
+                + 4 * STAGES * HEADS_PER_BLOCK * CHUNK
+                + 4 * _WGMMA_WARPS * 2 * CHUNK + _WGMMA_EXTRA)
+    raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
 
 
 def check_args(x, dt, A, Bm, Cm, D=None) -> None:
@@ -91,32 +144,54 @@ def check_args(x, dt, A, Bm, Cm, D=None) -> None:
                              f"{x.device}")
     if B > 65535:
         raise ValueError(f"ssd_scan: B={B} is above 65535 (a grid dimension)")
-    need = shared_memory_bytes(P, N)
+    kernel = route(x.dtype, P, N)
+    need = shared_memory_bytes(P, N, kernel)
     if need > SHARED_MEMORY_BUDGET:
-        raise ValueError(f"ssd_scan: P={P}, N={N} need {need} bytes of "
-                         f"shared memory, above the {SHARED_MEMORY_BUDGET}-"
-                         "byte budget of one block")
+        raise ValueError(f"ssd_scan: P={P}, N={N} on the {kernel} route "
+                         f"need {need} bytes of shared memory, above the "
+                         f"{SHARED_MEMORY_BUDGET}-byte budget of one block")
+    if kernel == "wgmma":
+        if S > 2 ** 31 - 1 - CHUNK:
+            raise ValueError(f"ssd_scan: S={S} does not fit a TMA "
+                             "coordinate")
+        for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+            if not t.is_contiguous():
+                raise ValueError(f"ssd_scan: {name} must be contiguous on "
+                                 "the wgmma route (TMA reads it)")
+            if t.data_ptr() % 16:
+                raise ValueError(f"ssd_scan: {name}'s data must be 16-byte "
+                                 "aligned for TMA")
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = kbuild.load(SOURCE)
+def _entry_points(kernel: str):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                 ci, ci, ci, vp, vp]
-    lib.ssd_scan_fwd.restype = ci
-    lib.ssd_scan_error_string.argtypes = [ci]
-    lib.ssd_scan_error_string.restype = ctypes.c_char_p
-    return lib
+    if kernel == "wgmma":
+        lib = kbuild.load(WGMMA_SOURCE)
+        fwd, err = lib.ssd_scan_wgmma_fwd, lib.ssd_scan_wgmma_error_string
+        # x, dt, A, Bm, Cm, D, out, B, S, H, G, P, N, dt strides, stream
+        fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                        vp, vp]
+    else:
+        lib = kbuild.load(SOURCE)
+        fwd, err = lib.ssd_scan_fwd, lib.ssd_scan_error_string
+        # x, dt, A, Bm, Cm, D, out, B, S, H, G, P, N, dtype, strides, stream
+        fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                        ci, vp, vp]
+    fwd.restype = ci
+    err.argtypes = [ci]
+    err.restype = ctypes.c_char_p
+    return fwd, err
 
 
 def ssd_scan_cuda(x, dt, A, Bm, Cm, D=None):
-    """Launch the kernel: x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,G,N),
-    D (H,) or None, CUDA tensors -> y (B,S,H,P) in x's dtype.
+    """Launch the kernel of ``route(x.dtype, P, N)``: x (B,S,H,P),
+    dt (B,S,H), A (H,), Bm/Cm (B,S,G,N), D (H,) or None, CUDA tensors ->
+    y (B,S,H,P) in x's dtype.
 
     Runs on PyTorch's current stream without synchronising. Raises on a
-    CPU tensor, on arguments the kernel does not take, and when the launch
-    is refused.
+    CPU tensor, on arguments the kernel does not take, and when the build
+    or the launch fails.
     """
     check_args(x, dt, A, Bm, Cm, D)
     if x.device.type != "cuda":
@@ -124,18 +199,25 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, D=None):
                            f"{x.device}")
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
+    kernel = route(x.dtype, P, N)
     out = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
-    strides = (ctypes.c_longlong * 12)(*x.stride()[:3], *dt.stride(),
-                                        *Bm.stride()[:3], *Cm.stride()[:3])
-    lib = _library()
+    fwd, err = _entry_points(kernel)
+    pointers = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), None if D is None else D.data_ptr(),
+                out.data_ptr())
+    if kernel == "wgmma":
+        strides = (ctypes.c_longlong * 3)(*dt.stride())
+        extra = ()
+    else:
+        strides = (ctypes.c_longlong * 12)(*x.stride()[:3], *dt.stride(),
+                                            *Bm.stride()[:3],
+                                            *Cm.stride()[:3])
+        extra = (DTYPE_CODES[x.dtype],)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ssd_scan_fwd(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), None if D is None else D.data_ptr(),
-            out.data_ptr(), B, S, H, G, P, N, DTYPE_CODES[x.dtype],
-            ctypes.cast(strides, ctypes.c_void_p), stream)
+        rc = fwd(*pointers, B, S, H, G, P, N, *extra,
+                 ctypes.cast(strides, ctypes.c_void_p), stream)
     if rc != 0:
-        raise RuntimeError("ssd_scan kernel launch failed: "
-                           + lib.ssd_scan_error_string(rc).decode())
+        raise RuntimeError(f"ssd_scan {kernel} kernel launch failed: "
+                           + err(rc).decode())
     return out

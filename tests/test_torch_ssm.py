@@ -560,13 +560,50 @@ def test_serve_main_runs_mamba2_on_the_cpu(capsys):
 # ---------------------------------------------------------------------------
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_on_the_card():
-    """Kernel vs the plain chunked version on the card, f32 at 1e-4 and
-    bf16 within one bf16 ulp: every instantiated head and state dim,
-    G = 1 and 2, ragged S, D and no D, and a strided x; two launches agree
-    bitwise and each launch is counted once."""
+    """Kernel vs the plain chunked version on the card, at every
+    instantiated head and state dim, G = 1 and 2, ragged S, D and no D,
+    and a strided x in f32 and in bf16. f32 takes the cuda-core route and
+    is held at 1e-4; bf16 takes the wgmma route and is held to the
+    rounding rule of chip_smoke.py: each output within half a bf16 ulp of
+    the f32 result (the plain chunked SSD on f32 copies of the inputs),
+    plus 2^-18 max|y|. Two launches agree bitwise, and each launch is
+    counted once, under the route that ``route`` picks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: python -m pytest "
                     "-m gpu tests/test_torch_ssm.py)")
+
+    def launched(args, D, dtype):
+        """Two launches through ops.ssd_scan: the output, after checking
+        the counts went to the routed kernel."""
+        P, N = args[0].shape[-1], args[3].shape[-1]
+        kind = kernel.route(dtype, P, N)
+        assert kind == ("wgmma" if dtype == torch.bfloat16 else "cuda-core")
+        before = ops.ssd_scan.launches
+        routes = dict(ops.ssd_scan.route_launches)
+        a = ops.ssd_scan(*args, D)
+        b = ops.ssd_scan(*args, D, force="cuda")
+        torch.cuda.synchronize()
+        assert ops.ssd_scan.launches == before + 2
+        assert ops.ssd_scan.route_launches[kind] == routes[kind] + 2
+        assert sum(ops.ssd_scan.route_launches.values()) == \
+            sum(routes.values()) + 2
+        assert torch.equal(a, b), (P, N, dtype)
+        assert a.dtype == dtype and bool(torch.isfinite(a).all())
+        return a
+
+    def held(got, args, D):
+        if got.dtype == torch.float32:
+            want = ops.ssd_scan(*args, D, chunk=32, force="ref")
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+            return
+        f = [a.float() for a in args]
+        y_intra, y_inter = ref.ssd_chunk_terms(*f, chunk=kernel.CHUNK)
+        oracle = y_intra + y_inter
+        if D is not None:
+            oracle = oracle + D[None, None, :, None] * f[0]
+        ex = _half_ulp_excess(got, oracle)
+        assert ex <= 2.0 ** -18, (tuple(got.shape), ex)
+
     cases = [(P, N) for P in kernel.HEAD_DIMS for N in kernel.STATE_DIMS]
     for i, (P, N) in enumerate(cases):
         G = 2 if i % 2 else 1
@@ -576,22 +613,18 @@ def test_cuda_kernel_matches_plain_on_the_card():
             a5 = [a.to(dtype) for a in args[:5]]
             a5[2] = args[2]
             D = args[5] if i % 3 else None
-            before = ops.ssd_scan.launches
-            a = ops.ssd_scan(*a5, D)
-            b = ops.ssd_scan(*a5, D, force="cuda")
-            want = ops.ssd_scan(*a5, D, chunk=32, force="ref")
-            torch.cuda.synchronize()
-            assert ops.ssd_scan.launches == before + 2
-            assert torch.equal(a, b), (shape, dtype)
-            tol = RTOL if dtype == torch.float32 else 2.0 ** -7
-            torch.testing.assert_close(a.float(), want.float(), rtol=tol,
-                                       atol=tol)
+            held(launched(a5, D, dtype), a5, D)
+    # views of wider activations, as a model's projection gives them: read
+    # through strides on the cuda-core route, made contiguous for TMA on
+    # the wgmma route; S = 300 leaves a ragged last chunk
     wide = torch.randn(2, 300, 4 * 64 + 2 * 128 + 4, device="cuda") * 0.3
-    x = wide[..., :256].unflatten(-1, (4, 64))
-    Bm = wide[..., 256:384].unflatten(-1, (1, 128))
-    Cm = wide[..., 384:512].unflatten(-1, (1, 128))
-    dt = torch.nn.functional.softplus(wide[..., 512:] - 4.0)
     A = -torch.linspace(1.0, 8.0, 4, device="cuda")
-    got = ops.ssd_scan(x, dt, A, Bm, Cm)
-    want = ops.ssd_scan(x, dt, A, Bm, Cm, force="ref")
-    torch.testing.assert_close(got, want, rtol=RTOL, atol=RTOL)
+    for dtype in (torch.float32, torch.bfloat16):
+        w = wide.to(dtype)
+        x = w[..., :256].unflatten(-1, (4, 64))
+        Bm = w[..., 256:384].unflatten(-1, (1, 128))
+        Cm = w[..., 384:512].unflatten(-1, (1, 128))
+        dt = torch.nn.functional.softplus(w[..., 512:].float() - 4.0).to(dtype)
+        assert not x.is_contiguous() and not Bm.is_contiguous()
+        args = [x, dt, A, Bm, Cm]
+        held(launched(args, None, dtype), args, None)
