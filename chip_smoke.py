@@ -12,23 +12,31 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
    CUDA-core source for f32) from the sources in the checkout, one
    ``nvcc`` per source, all at once, and prints the build time and the
    compiler's register report;
-3. holds ``sodda_inner`` against its plain PyTorch version on the card at the
-   Table-1 shapes (15, 64, 1200) for all three losses and at an unaligned
-   (2, 8, 100), requires two launches to agree bitwise, and times kernel
-   and plain version with CUDA events beside the kernel's bound;
+3. holds ``sodda_inner`` against its plain PyTorch version on the card for
+   all three losses at the Table-1 widths (15, 64, 1200), (15, 64, 1400)
+   and (15, 64, 1800), at an unaligned (2, 8, 100), at a row pitch that is
+   no multiple of 16 bytes (3, 5, 301), at L = 1, above the register
+   buckets (3, 16, 2100) and at the largest mt the first slice's kernel
+   took, (2, 3, 19344); requires two launches to agree bitwise; times the
+   kernel by a CUDA graph of launches (the kernel alone) beside its bound,
+   the wrapper's host time a call, CUDA events around back-to-back wrapper
+   calls (the earlier method) and the plain version;
 4. runs a small problem on the ``cuda`` backend against the ``reference``
    backend on the CPU, fed the same data and samples;
 5. runs the paper's Table-1 instance (250 000 x 18 000, X = 18.0 GB on the
    card) through ``repro_torch.core.driver.run`` on the ``cuda`` backend —
    the main path, with the launch counts set to 0 just before it — and on
    the ``reference`` backend, checks descent, agreement, launches and peak
-   device memory, and breaks one iteration down by layer; then frees X;
+   device memory, and breaks one iteration down by layer, consume_update
+   into its gather, kernel and concatenation; then frees X;
 6. holds ``flash_attention`` against its plain version at the gemma2-9b
    prefill shape (B=4, H=16, KV=8, S=4608, D=256, bf16) for a local and a
    global layer, at a decode offset, at unaligned bf16 shapes for the other
    head dims (16, 64, 128: causal, non-causal, window + softcap, decode
-   offset) and at unaligned f32 shapes, and times it at the layer shape
-   beside its bound, its plain version and ``scaled_dot_product_attention``.
+   offset), at unaligned f32 shapes and with q, k, v bf16 views whose data
+   is not 16-byte aligned (bitwise the aligned copies' output), and times
+   it at the layer shape beside its bound, its plain version and
+   ``scaled_dot_product_attention``.
    bf16 takes the wgmma kernel, f32 the CUDA-core one. A bf16 output must
    be its f32 value correctly rounded (see ``F32_NOISE``), and two
    controls must fail that rule: scores rounded to bf16, and P rounded to
@@ -54,8 +62,10 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
    carry dropped, and each f32 operand of the tensor-core products rounded
    once to bf16: W, the state as C . state reads it, and x_j w_j of the
    state update), requires two launches to agree bitwise, prints each
-   case's route and the inter-chunk share ||y_inter|| / ||y||, and times
-   kernel and plain version beside the bound;
+   case's route and the inter-chunk share ||y_inter|| / ||y||, runs x, B
+   and C as bf16 views whose data is not 16-byte aligned (bitwise the
+   aligned copies' output), and times kernel and plain version beside the
+   bound;
 10. runs full-depth mamba2-130m in f32 (B=2, 1024 prompt tokens, Mamba-2's
     A_log and dt_bias): the kernel path's prefill logits within 2e-4 of the
     plain path's and of the decode warm-up's last logits (the scan against
@@ -217,10 +227,60 @@ def kernel_bound_ms(B, L, mt):
                                        else "operations")
 
 
+# sodda_inner's cases: the Table-1 widths m_tilde = 1200 (SMALL and the
+# 250k x 18k instance), 1400 (MEDIUM) and 1800 (LARGE); an unaligned mt, a
+# row pitch that is no multiple of 16 bytes (the cp.async copy), L = 1, an
+# mt above the register buckets (wbar in shared memory) and the largest mt
+# the one-block-per-chain kernel of the first slice took at L = 3.
+KERNEL_SHAPES = ((15, 64, 1200), (15, 64, 1400), (15, 64, 1800), (2, 8, 100),
+                 (3, 5, 301), (3, 1, 1200), (3, 16, 2100), (2, 3, 19344))
+GRAPH_LAUNCHES, GRAPH_REPLAYS = 20, 10
+
+
+def graph_ms(fn):
+    """Device time of one fn() by a CUDA graph of GRAPH_LAUNCHES calls,
+    replayed GRAPH_REPLAYS times between CUDA events: the kernels alone,
+    without the host's time per call."""
+    for _ in range(3):
+        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (GRAPH_REPLAYS * GRAPH_LAUNCHES)
+
+
+def host_us(fn, reps=200):
+    """Host time of one fn() call in microseconds (no synchronisation
+    inside the loop)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    spent = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * spent / reps
+
+
 def phase_kernel():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     max_err = 0.0
-    for (B, L, mt) in ((15, 64, 1200), (2, 8, 100)):
+    for (B, L, mt) in KERNEL_SHAPES:
         for loss in ("hinge", "logistic", "squared"):
             args = kernel_inputs(B, L, mt, gen)
             gamma = KERNEL_GAMMA[loss]
@@ -237,17 +297,38 @@ def phase_kernel():
             err = float((a - want).abs().max())
             max_err = max(max_err, err)
             log(f"kernel {loss:8s} {(B, L, mt)}: bitwise across launches, "
-                f"max|kernel-plain| = {err:.3e}")
+                f"max|kernel-plain| = {err:.3e}; bucket "
+                f"{kernel_build.bucket(mt)}, {kernel_build.ring_slots(L, mt)}"
+                f" ring slots, {kernel_build.row_copy(mt, args[1].data_ptr())}"
+                f" row copy, {kernel_build.shared_memory_bytes(L, mt)} bytes "
+                "of shared memory")
 
     B, L, mt = 15, 64, 1200  # Table-1: P*Q chains of L rows, m_tilde wide
     args = kernel_inputs(B, L, mt, gen)
-    ms = cuda_ms(lambda: ops.sodda_inner(*args, 0.01, "hinge",
-                                         force="cuda"), reps=200)
+
+    def launch():
+        return ops.sodda_inner(*args, 0.01, "hinge", force="cuda")
+
+    ms = graph_ms(launch)
+    wrapper_ms = cuda_ms(launch, reps=200)
+    wrapper_host_us = host_us(launch)
     plain_ms = cuda_ms(lambda: ops.sodda_inner(*args, 0.01, "hinge",
                                                force="ref"), reps=10)
     bound_ms, bound_by = kernel_bound_ms(B, L, mt)
-    log(f"kernel sodda_inner (15, 64, 1200) hinge: {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    log(f"kernel sodda_inner (15, 64, 1200) hinge: {ms:.5f} ms (a CUDA graph "
+        f"of {GRAPH_LAUNCHES} launches replayed {GRAPH_REPLAYS} times: the "
+        f"kernel), bound {bound_ms:.5f} ms ({bound_by}), kernel/bound "
+        f"{ms / bound_ms:.1f}x; the wrapper takes {wrapper_host_us:.1f} us "
+        f"of host time a call; plain {plain_ms:.4f} ms")
+    log(f"kernel sodda_inner (15, 64, 1200) hinge, CUDA events around "
+        f"back-to-back wrapper calls (the earlier method): {wrapper_ms:.5f} "
+        "ms")
+    for mt_wide in (1400, 1800):
+        wide = kernel_inputs(B, L, mt_wide, gen)
+        wide_ms = graph_ms(lambda: ops.sodda_inner(*wide, 0.01, "hinge",
+                                                   force="cuda"))
+        log(f"kernel sodda_inner (15, 64, {mt_wide}) hinge: {wide_ms:.5f} ms "
+            f"(CUDA graph), bound {kernel_bound_ms(B, L, mt_wide)[0]:.5f} ms")
     return dict(name="sodda_inner", route="cuda",
                 source="src/repro_torch/kernels/csrc/sodda_inner.cu",
                 replaces="src/repro/kernels/sodda_inner.py:75",
@@ -315,7 +396,51 @@ def phase_breakdown(cfg, X, y, w):
     }
     for name, ms in parts.items():
         log(f"breakdown {name}: {ms:.4f} ms")
+    split = consume_update_split(cfg, X, y, w, mu, smp, gamma)
+    log("breakdown consume_update split: "
+        + ", ".join(f"{name} {ms:.4f} ms" for name, ms in split.items())
+        + f"; sum {sum(split.values()):.4f} ms")
     return parts
+
+
+def consume_update_split(cfg, X, y, w, mu, smp, gamma):
+    """Device time of the three parts of ``sodda.consume_update`` with the
+    kernel (CUDA events, each part alone): the gather of the working sets,
+    the kernel, and the conflict-free concatenation. The parts repeat that
+    function's lines; ``core/sodda.py`` is not changed for it."""
+    P, Q, n, m, L, mt = cfg.P, cfg.Q, cfg.n, cfg.m, cfg.L, cfg.m_tilde
+    dev = X.device
+    p_ar = torch.arange(P, device=dev)
+    q_ar = torch.arange(Q, device=dev)
+
+    def gather():
+        k = smp.pi.T
+        rows = p_ar[:, None, None] * n + smp.J
+        col0 = partition.block_col_start(q_ar[None, :], k, m, mt)
+        cols = col0[..., None] + torch.arange(mt, device=dev)
+        Xl = X[rows[..., :, None], cols[..., None, :]]
+        wb = w.view(Q, P, mt)
+        return (wb[q_ar[None, :], k].reshape(P * Q, mt),
+                Xl.reshape(P * Q, L, mt), y[rows].reshape(P * Q, L),
+                mu.view(Q, P, mt)[q_ar[None, :], k].reshape(P * Q, mt))
+
+    w0, Xl, yl, mu_blk = gather()
+    wL = ops.sodda_inner(w0, Xl, yl, mu_blk, gamma, cfg.loss).view(P, Q, mt)
+
+    def concat():
+        new_wb = w.view(Q, P, mt).clone()
+        new_wb[q_ar.repeat_interleave(P), smp.pi.reshape(-1)] = (
+            wL.transpose(0, 1).reshape(Q * P, mt))
+        return new_wb.view(cfg.M)
+
+    check(torch.equal(concat(), sodda.consume_update(X, y, w, mu, smp, gamma,
+                                                     cfg, True)),
+          "consume_update split: the parts do not give consume_update")
+    return {"gather": cuda_ms(gather, reps=10),
+            "kernel": cuda_ms(lambda: ops.sodda_inner(w0, Xl, yl, mu_blk,
+                                                      gamma, cfg.loss),
+                              reps=10),
+            "concatenation": cuda_ms(concat, reps=10)}
 
 
 def phase_table1(cfg):
@@ -529,6 +654,11 @@ def phase_flash():
         log(f"{tag}: bitwise across launches, max|kernel-plain| = "
             f"{err:.3e}; {rule}")
 
+    offset_view_case("flash", lambda *t: ops.flash_attention(*t,
+                                                            force="cuda"),
+                     flash_inputs(2, 4, 2, 200, 200, 64, bf16, gen),
+                     (0, 1, 2), flash_build.route(bf16, 64))
+
     B, H, KV, D = 4, 16, 8, 256  # one gemma2-9b prefill layer
     q, k, v = flash_inputs(B, H, KV, S, S, D, bf16, gen)
     times = {}
@@ -564,6 +694,33 @@ def phase_flash():
                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                   library_ms=sdpa_ms)
     return record, times
+
+
+def offset_view(t):
+    """`t`'s values in a contiguous view that starts one element into its
+    buffer, so its data is not 16-byte aligned (as a slice of a flat
+    buffer may be)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    check(view.is_contiguous() and view.data_ptr() % 16 != 0,
+          "offset_view: the view is aligned")
+    return view
+
+
+def offset_view_case(name, run, inputs, tma, route):
+    """Unaligned bf16 views of the TMA operands (positions `tma` of
+    `inputs`) through a wgmma route give bitwise the aligned copies' output
+    (ops copies such a view before TMA reads it)."""
+    want = run(*inputs)
+    got = run(*(offset_view(t) if i in tma else t
+                for i, t in enumerate(inputs)))
+    torch.cuda.synchronize()
+    check(route == "wgmma", f"{name} offset view: route {route}, not wgmma")
+    check(torch.equal(got, want), f"{name} offset view: the output differs "
+          "from the aligned copy's")
+    log(f"{name} offset bf16 views (data 2 bytes past 16-byte alignment, "
+        f"{route} route): bitwise the aligned copy's output")
 
 
 def decode_logits(model, params, prompts, tokens, force):
@@ -897,6 +1054,11 @@ def phase_ssd():
             max_err = max(max_err, err)
             log(f"{tag}: bitwise across launches, max|kernel-plain| = "
                 f"{err:.3e}, ||y_inter||/||y|| = {share:.4f}; {rule}")
+
+    x, dt, A, Bm, Cm, D = ssd_inputs(2, 300, 4, P, G, N, "mamba2", gen)
+    offset_view_case("ssd", lambda *t: ops.ssd_scan(*t, force="cuda"),
+                     [x.to(bf16), dt.to(bf16), A, Bm.to(bf16), Cm.to(bf16),
+                      D], (0, 3, 4), ssd_build.route(bf16, P, N))
 
     x, dt, A, Bm, Cm, D = ssd_inputs(B, S, H, P, G, N, "mamba2", gen)
     times = {}

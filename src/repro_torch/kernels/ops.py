@@ -11,11 +11,21 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import route as flash_route
 from repro_torch.kernels.sodda_inner import sodda_inner_cuda
 from repro_torch.kernels.ssd_scan import route as ssd_route
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
 FORCES = ("auto", "cuda", "ref")
+TMA_ALIGNMENT = 16  # bytes: where a TMA operand's data must start
+
+
+def tma_operand(t):
+    """`t` as TMA reads it, contiguous and 16-byte aligned: `t` itself where
+    it already is, else a copy (a strided view, or a contiguous view that
+    starts inside an element group, such as ``buf[1:1 + n].view(...)``)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % TMA_ALIGNMENT == 0 else t.clone()
 
 
 def sodda_inner(w0, Xl, yl, mu, gamma, loss: str = "hinge",
@@ -51,8 +61,9 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     ``force="auto"`` launches the CUDA kernel for CUDA tensors and runs
     :func:`ref.attention_ref` for CPU tensors; ``"cuda"`` requires CUDA
     tensors; ``"ref"`` runs the plain version on any device. Inputs are
-    made contiguous; nothing is padded. ``flash_attention.launches`` counts
-    kernel launches.
+    made contiguous, and on the wgmma route (bf16) 16-byte aligned, with a
+    copy only where they are not (:func:`tma_operand`); nothing is padded.
+    ``flash_attention.launches`` counts kernel launches.
     """
     if force not in FORCES:
         raise ValueError(f"force must be one of {FORCES}, got {force!r}")
@@ -64,7 +75,9 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
         raise RuntimeError(f"flash_attention(force={force!r}) launches the "
                            f"CUDA kernel and needs CUDA tensors, got "
                            f"{q.device}")
-    out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+    operand = (tma_operand if flash_route(q.dtype, q.shape[-1]) == "wgmma"
+               else torch.Tensor.contiguous)
+    out = flash_attention_cuda(operand(q), operand(k), operand(v),
                                causal=causal, window=window, softcap=softcap,
                                q_offset=q_offset)
     flash_attention.launches += 1
@@ -86,8 +99,9 @@ def ssd_scan(x, dt, A, Bm, Cm, D=None, chunk: int = 128, force: str = "auto"):
     any device. The kernels use their own chunk (``ssd_scan.CHUNK``); the
     result depends on the chunk only through f32 rounding. A and D are
     taken in float32; nothing is padded. The wgmma route reads x, B and C
-    with TMA, so they are made contiguous first (a copy only where they are
-    views); the CUDA-core route reads them through their strides.
+    with TMA, so they are made contiguous and 16-byte aligned first (a copy
+    only where they are not: :func:`tma_operand`); the CUDA-core route
+    reads them through their strides.
     ``ssd_scan.launches`` counts kernel launches, ``ssd_scan.route_launches``
     the same launches by route.
     """
@@ -101,7 +115,7 @@ def ssd_scan(x, dt, A, Bm, Cm, D=None, chunk: int = 128, force: str = "auto"):
                            f"kernel and needs CUDA tensors, got {x.device}")
     kernel = ssd_route(x.dtype, x.shape[-1], Bm.shape[-1])
     if kernel == "wgmma":
-        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+        x, Bm, Cm = tma_operand(x), tma_operand(Bm), tma_operand(Cm)
     f32 = torch.float32
     out = ssd_scan_cuda(x, dt, A.to(f32).contiguous(), Bm, Cm,
                         None if D is None else D.to(f32).contiguous())

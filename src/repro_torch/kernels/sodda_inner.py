@@ -21,20 +21,72 @@ import torch
 
 from repro_torch.kernels import build as kbuild
 
-__all__ = ["SOURCE", "THREADS", "SHARED_MEMORY_BUDGET", "LOSS_CODES",
-           "shared_memory_bytes", "check_args", "sodda_inner_cuda"]
+__all__ = ["SOURCE", "SHARED_MEMORY_BUDGET", "LOSS_CODES", "BUCKETS",
+           "MU_BUCKET", "MAX_SLOTS", "SLOT_EXTRA", "pitch", "bucket",
+           "shared_rows", "ring_slots", "shared_memory_bytes", "row_copy",
+           "check_args", "sodda_inner_cuda"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "sodda_inner.cu"
 
-THREADS = 256  # kThreads in the source
+# The source's layout (kMaxSlots, kSlotExtra, kMuBucket and bucket_of
+# there): one block of four warps per chain (the chain, the producer, two
+# d0 helpers) and a ring of row slots in shared memory.
 SHARED_MEMORY_BUDGET = kbuild.SHARED_MEMORY_BUDGET
 LOSS_CODES = {"hinge": 0, "logistic": 1, "squared": 2}
+BUCKETS = (4, 8, 12, 16)  # float4 groups a chain lane holds in registers
+MU_BUCKET = 12  # mu in registers up to this bucket, in shared memory above
+MAX_SLOTS = 8
+SLOT_EXTRA = 32  # bytes a slot: three mbarriers and (d0_i, y_i)
+
+
+def pitch(mt: int) -> int:
+    """Floats a row takes in the ring: mt rounded up to a multiple of 4."""
+    return (mt + 3) // 4 * 4
+
+
+def bucket(mt: int) -> int:
+    """The column bucket the launch instantiates: the float4 groups each
+    lane of the chain warp holds wbar in (mt <= 128 * bucket), or 0 above
+    the largest bucket, where wbar lives in shared memory."""
+    groups = -(-mt // 128)
+    return next((g for g in BUCKETS if groups <= g), 0)
+
+
+def shared_rows(mt: int) -> int:
+    """Rows of mt floats beside the ring: mu above ``MU_BUCKET`` (the
+    largest bucket and 0), and wbar at 0."""
+    g = bucket(mt)
+    return 2 if g == 0 else int(g > MU_BUCKET)
+
+
+def _fixed_bytes(mt: int) -> int:
+    return shared_rows(mt) * 4 * pitch(mt)
+
+
+def ring_slots(L: int, mt: int) -> int:
+    """Row slots in the ring: as many as the budget holds, at most
+    ``MAX_SLOTS`` and at most max(L, 1), rounded down to an even number
+    above 1 (each d0 helper takes the slots of one parity); 0 where not
+    even one fits."""
+    fit = max(0, SHARED_MEMORY_BUDGET - _fixed_bytes(mt)) // (
+        4 * pitch(mt) + SLOT_EXTRA)
+    slots = min(fit, max(L, 1), MAX_SLOTS)
+    return slots - slots % 2 if slots > 1 else slots
 
 
 def shared_memory_bytes(L: int, mt: int) -> int:
-    """Dynamic shared memory of one block: w0, mu, wbar (mt each), d0 (L)
-    and the double-buffered per-warp partials."""
-    return 4 * (3 * mt + L + 2 * (THREADS // 32))
+    """Dynamic shared memory of one block: the ring (a padded row and
+    ``SLOT_EXTRA`` bytes a slot) and the ``shared_rows`` rows of mu and
+    wbar. Where not even one slot fits, what one slot would need."""
+    slots = max(ring_slots(L, mt), 1)
+    return _fixed_bytes(mt) + slots * (4 * pitch(mt) + SLOT_EXTRA)
+
+
+def row_copy(mt: int, data_ptr: int) -> str:
+    """How the producer copies a row of X: ``"bulk"`` (TMA's cp.async.bulk)
+    where the row pitch is a multiple of 16 bytes and X is 16-byte
+    aligned, else ``"cp.async"`` (4 bytes a lane)."""
+    return "bulk" if mt % 4 == 0 and data_ptr % 16 == 0 else "cp.async"
 
 
 def check_args(w0, Xl, yl, mu, loss: str) -> None:
@@ -63,12 +115,11 @@ def check_args(w0, Xl, yl, mu, loss: str) -> None:
         if t.device != Xl.device:
             raise ValueError(f"sodda_inner: {name} is on {t.device}, Xl on "
                              f"{Xl.device}")
-    need = shared_memory_bytes(L, mt)
-    if need > SHARED_MEMORY_BUDGET:
+    if ring_slots(L, mt) < 1:
         raise ValueError(
-            f"sodda_inner: mt={mt}, L={L} needs {need} bytes of shared "
-            f"memory, above the {SHARED_MEMORY_BUDGET}-byte budget of one "
-            "block")
+            f"sodda_inner: mt={mt}, L={L} needs {shared_memory_bytes(L, mt)} "
+            f"bytes of shared memory, above the {SHARED_MEMORY_BUDGET}-byte "
+            "budget of one block")
 
 
 @functools.lru_cache(maxsize=None)
