@@ -29,7 +29,25 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
    the ``reference`` backend, checks descent, agreement, launches and peak
    device memory, and breaks one iteration down by layer, consume_update
    into its gather, kernel and concatenation; then frees X;
-6. holds ``flash_attention`` against its plain version at the gemma2-9b
+6. materialises the ``tiled`` data plane of Table-1 on the card, prints
+   its time and its peak device memory over X (at most 1.1 x X), and holds
+   one tile and one label block bitwise to the same blocks regenerated
+   alone;
+7. holds ``sodda_inner`` at radisa-avg's launch (15, 64, 6000) against its
+   plain version for all three losses, bitwise across launches, and times
+   it by a CUDA graph beside its bound;
+8. runs ``radisa-avg`` and ``async`` for 20 iterations each through
+   ``driver.run`` on that data, with the launch counts set to 0 just
+   before each: 20 launches each, radisa-avg within F32_REDUCTION of its
+   plain path (hinge at each iteration, kernel and plain stepped from the
+   same state, and the hinge trajectory at the objective level against the
+   plain path rounded as the kernel rounds, with fused multiply-adds; a
+   logistic twin's trajectory in full),
+   async at staleness 0 bitwise ``cuda``'s trajectory and at staleness 1
+   within STALENESS of it, descent everywhere; then prints the paper's
+   comparison, SODDA against RADiSA-avg per iteration, per gradient
+   coordinate and per second (no gate), and frees X;
+9. holds ``flash_attention`` against its plain version at the gemma2-9b
    prefill shape (B=4, H=16, KV=8, S=4608, D=256, bf16) for a local and a
    global layer, at a decode offset, at unaligned bf16 shapes for the other
    head dims (16, 64, 128: causal, non-causal, window + softcap, decode
@@ -41,37 +59,37 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
    be its f32 value correctly rounded (see ``F32_NOISE``), and two
    controls must fail that rule: scores rounded to bf16, and P rounded to
    bf16 before P.V (the textbook tensor-core kernel);
-7. runs gemma2-9b at full width, cut to 4 layers, in f32, on 4608-token
-   prompts through ``serve`` with the kernel and with the plain version:
-   prefill logits and 8 decode steps' logits within 2e-4, and 8 greedy
-   tokens identical;
-8. serves 4 requests of 4608 prompt tokens for 32 tokens each through
-   full-depth bf16 gemma2-9b (``repro_torch.launch.serve.serve``, the
-   second main path, with the flash launch count set to 0 just before it):
-   42 launches in the prefill and none in the decode, finite logits, and
-   prefill time, decode time per token and peak device memory. Then each
-   of the 42 layers' attention, on the plain path's activations, is held
-   to the rounding rule of 6 (both controls failing it), and the rms gap of
-   the kernel path's logits to the plain path's to 1.2x the plain path's
-   gap to itself summed in another order;
-9. holds ``ssd_scan`` against its plain chunked version at the mamba2-130m
-   layer shape (B=16, S=2048, H=24, P=64, G=1, N=128), with Mamba-2's dt
-   and A and a slow-decay case, at S = 1000 and at G = 2, in f32
-   (the CUDA-core route, rtol = atol = 1e-4) and bf16 (the wgmma route,
-   the rounding rule of 6 over max|y|, which four controls must fail: the
-   carry dropped, and each f32 operand of the tensor-core products rounded
-   once to bf16: W, the state as C . state reads it, and x_j w_j of the
-   state update), requires two launches to agree bitwise, prints each
-   case's route and the inter-chunk share ||y_inter|| / ||y||, runs x, B
-   and C as bf16 views whose data is not 16-byte aligned (bitwise the
-   aligned copies' output), and times kernel and plain version beside the
-   bound;
-10. runs full-depth mamba2-130m in f32 (B=2, 1024 prompt tokens, Mamba-2's
+10. runs gemma2-9b at full width, cut to 4 layers, in f32, on 4608-token
+    prompts through ``serve`` with the kernel and with the plain version:
+    prefill logits and 8 decode steps' logits within 2e-4, and 8 greedy
+    tokens identical;
+11. serves 4 requests of 4608 prompt tokens for 32 tokens each through
+    full-depth bf16 gemma2-9b (``repro_torch.launch.serve.serve``, the
+    second main path, with the flash launch count set to 0 just before it):
+    42 launches in the prefill and none in the decode, finite logits, and
+    prefill time, decode time per token and peak device memory. Then each
+    of the 42 layers' attention, on the plain path's activations, is held
+    to the rounding rule of 9 (both controls failing it), and the rms gap of
+    the kernel path's logits to the plain path's to 1.2x the plain path's
+    gap to itself summed in another order;
+12. holds ``ssd_scan`` against its plain chunked version at the mamba2-130m
+    layer shape (B=16, S=2048, H=24, P=64, G=1, N=128), with Mamba-2's dt
+    and A and a slow-decay case, at S = 1000 and at G = 2, in f32
+    (the CUDA-core route, rtol = atol = 1e-4) and bf16 (the wgmma route,
+    the rounding rule of 9 over max|y|, which four controls must fail: the
+    carry dropped, and each f32 operand of the tensor-core products rounded
+    once to bf16: W, the state as C . state reads it, and x_j w_j of the
+    state update), requires two launches to agree bitwise, prints each
+    case's route and the inter-chunk share ||y_inter|| / ||y||, runs x, B
+    and C as bf16 views whose data is not 16-byte aligned (bitwise the
+    aligned copies' output), and times kernel and plain version beside the
+    bound;
+13. runs full-depth mamba2-130m in f32 (B=2, 1024 prompt tokens, Mamba-2's
     A_log and dt_bias): the kernel path's prefill logits within 2e-4 of the
     plain path's and of the decode warm-up's last logits (the scan against
     the recurrence), and 8 decode steps' logits, fed random tokens, within
     2e-4 of the scan's at the same positions;
-11. serves 16 requests of 2048 prompt tokens for 32 tokens each through
+14. serves 16 requests of 2048 prompt tokens for 32 tokens each through
     full-depth bf16 mamba2-130m (``serve``, the third main path, with the
     SSD launch counts set to 0 just before it): 24 launches in the
     prefill, all on the wgmma route, and none in the warm-up or decode,
@@ -100,7 +118,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch.configs.gemma2_9b import CONFIG as GEMMA2_9B  # noqa: E402
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M  # noqa: E402
 from repro_torch.configs.sodda_svm import SoddaConfig, TABLE1_250K_18K  # noqa: E402
-from repro_torch.core import driver, losses, partition, sodda  # noqa: E402
+from repro_torch.core import (driver, engine, losses, partition,  # noqa: E402
+                               radisa, sodda)
+from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.data.plane import DenseDataPlane, TiledDataPlane  # noqa: E402
 from repro_torch.data.synthetic import make_svm_data  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_build  # noqa: E402
@@ -510,6 +531,279 @@ def phase_table1(cfg):
         f"{peak / x_bytes:.4f} x X")
     check(peak <= 1.1 * x_bytes, f"peak memory {peak} > 1.1 x X")
     return X, y, st_c.w, launches, ms_c
+
+
+# ---------------------------------------------------------------------------
+# The paper's baseline and the stale-by-one backend over the tiled plane
+# ---------------------------------------------------------------------------
+RADISA_SHAPE = (15, 64, 6000)  # radisa-avg at Table-1: P*Q chains, m wide
+
+
+def plain_run(cfg, X, y, step):
+    """``driver.run``'s loop and ticks around ``step(state) -> state``, for
+    a plain-version step no backend runs."""
+    state = sodda.init_state(SEED, cfg.M, X.device)
+    hist = []
+    for length in driver._chunk_lengths(ITERS, RECORD_EVERY):
+        hist.append(losses.objective(cfg.loss, X, y, state.w))
+        for _ in range(length):
+            state = step(state)
+    hist.append(losses.objective(cfg.loss, X, y, state.w))
+    return state, list(zip(driver.record_ticks(ITERS, RECORD_EVERY),
+                           torch.stack(hist).tolist()))
+
+
+def timed_run(data, cfg, backend, iters=ITERS, record_every=RECORD_EVERY,
+              **options):
+    """``driver.run`` between synchronisations: (state, history, ms per
+    iteration)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, hist = driver.run(SEED, data, cfg, iters, backend,
+                             record_every=record_every, **options)
+    torch.cuda.synchronize()
+    return state, hist, 1e3 * (time.perf_counter() - t0) / iters
+
+
+def inner_loop_fused(loss, w0, Xl, yl, mu, gamma):
+    """``kref.sodda_inner_ref`` with each step's update rounded as fused
+    multiply-adds (``addcmul``, ``add(alpha=)``), as the kernel rounds it:
+    the plain version a hinge trajectory is held to."""
+    wbar = w0
+    for i in range(Xl.shape[-2]):
+        x, yy = Xl[..., i, :], yl[..., i]
+        c = (losses.loss_deriv(loss, (x * wbar).sum(-1), yy)
+             - losses.loss_deriv(loss, (x * w0).sum(-1), yy))
+        wbar = torch.add(wbar, torch.addcmul(mu, c[..., None], x),
+                         alpha=-gamma)
+    return wbar
+
+
+@contextlib.contextmanager
+def radisa_inner_as(fn):
+    """Route ``radisa_avg_step``'s plain chains to fn inside the block."""
+    orig = radisa.inner_loop
+    radisa.inner_loop = fn
+    try:
+        yield
+    finally:
+        radisa.inner_loop = orig
+
+
+def kink_sides(X, y, w_a, w_b):
+    """Rows of X on different sides of the hinge kink y x.w = 1 at w_a and
+    at w_b."""
+    return int(((y * (X @ w_a) < 1) != (y * (X @ w_b) < 1)).sum())
+
+
+def phase_tiled_plane(cfg):
+    """The tiled plane materialised on the card: its time, its peak over X,
+    and one tile and one label block against the same blocks regenerated
+    alone. Also logs whether ``uniform_`` writing into a strided view of X
+    gives the tile's bits (the plane copies from a contiguous temporary,
+    so its bits do not depend on the answer)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    plane = TiledDataPlane(SEED, cfg.N, cfg.M, cfg.P, cfg.Q)
+    t0 = time.perf_counter()
+    X, y = plane.materialize_for("radisa-avg")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    x_bytes = X.numel() * X.element_size()
+    peak = (torch.cuda.max_memory_allocated() - base) / x_bytes
+    log(f"tiled plane {cfg.N} x {cfg.M} on a ({cfg.P}, {cfg.Q}) grid "
+        f"materialised on the card in {seconds:.3f} s; X = "
+        f"{x_bytes / 1e9:.3f} GB, a tile {plane.tile_nbytes / 1e9:.3f} GB; "
+        f"peak {peak:.4f} x X")
+    check(peak <= 1.1, f"tiled plane: peak {peak:.4f} x X > 1.1")
+    n, m = plane.n, plane.m
+    p, q = cfg.P - 2, cfg.Q - 2
+    view = X[p * n:(p + 1) * n, q * m:(q + 1) * m]
+    check(torch.equal(view, plane.x_tile(p, q)),
+          f"tiled plane: tile ({p}, {q}) differs from the tile alone")
+    check(torch.equal(y[(p + 1) * n:(p + 2) * n], plane.y_block(p + 1)),
+          f"tiled plane: label block {p + 1} differs from the block alone")
+    check(bool(torch.isfinite(X[:1000]).all()), "non-finite data")
+    gen = partition.seeded_generator(X.device, SEED, synthetic._X_STREAM, p,
+                                     q)
+    view.uniform_(-1.0, 1.0, generator=gen)
+    view.mul_(float(synthetic.SVM_UNIT_VARIANCE_SCALE))
+    same = torch.equal(view, plane.x_tile(p, q))
+    view.copy_(plane.x_tile(p, q))
+    log(f"tiled plane: tile ({p}, {q}) and label block {p + 1} bitwise "
+        "equal to the blocks regenerated alone; uniform_ into the strided "
+        f"view of X gives the tile's bits: {same}")
+    return X, y
+
+
+def phase_radisa_kernel():
+    """sodda_inner at radisa-avg's Table-1 launch, for all three losses."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    B, L, mt = RADISA_SHAPE
+    for loss in ("hinge", "logistic", "squared"):
+        args = kernel_inputs(B, L, mt, gen)
+        gamma = KERNEL_GAMMA[loss]
+        a = ops.sodda_inner(*args, gamma, loss, force="cuda")
+        b = ops.sodda_inner(*args, gamma, loss, force="cuda")
+        want = ops.sodda_inner(*args, gamma, loss, force="ref")
+        torch.cuda.synchronize()
+        check(torch.equal(a, b),
+              f"sodda_inner {loss} {RADISA_SHAPE}: two launches differ")
+        check(bool(torch.isfinite(a).all()),
+              f"sodda_inner {loss} {RADISA_SHAPE}: non-finite output")
+        torch.testing.assert_close(a, want, rtol=KERNEL_RTOL,
+                                   atol=KERNEL_ATOL)
+        log(f"kernel {loss:8s} {RADISA_SHAPE}: bitwise across launches, "
+            f"max|kernel-plain| = {float((a - want).abs().max()):.3e}; "
+            f"bucket {kernel_build.bucket(mt)}, "
+            f"{kernel_build.ring_slots(L, mt)} ring slots, "
+            f"{kernel_build.row_copy(mt, args[1].data_ptr())} row copy, "
+            f"{kernel_build.shared_memory_bytes(L, mt)} bytes of shared "
+            "memory")
+    args = kernel_inputs(B, L, mt, gen)
+    ms = graph_ms(lambda: ops.sodda_inner(*args, 0.01, "hinge",
+                                          force="cuda"))
+    plain_ms = cuda_ms(lambda: ops.sodda_inner(*args, 0.01, "hinge",
+                                               force="ref"), reps=5)
+    bound_ms, bound_by = kernel_bound_ms(B, L, mt)
+    log(f"kernel sodda_inner {RADISA_SHAPE} hinge: {ms:.5f} ms (CUDA "
+        f"graph), bound {bound_ms:.5f} ms ({bound_by}), kernel/bound "
+        f"{ms / bound_ms:.1f}x; plain {plain_ms:.4f} ms")
+
+
+def phase_radisa_async(cfg, X, y):
+    """radisa-avg and async through ``driver.run`` on the materialised
+    tiled plane (wrapped as a dense plane, so it is not generated again):
+    launches, agreement with the plain path and with ``cuda``, descent,
+    and the paper's SODDA vs RADiSA-avg comparison (a finding, no gate)."""
+    data = DenseDataPlane(X, y, grid=(cfg.P, cfg.Q))
+    for backend in ("radisa-avg", "async", "cuda"):  # warm-up
+        driver.run(SEED, data, cfg, 2, backend, record_every=2)
+
+    ops.sodda_inner.launches = 0  # the radisa-avg path starts here
+    st_r, h_r, ms_r = timed_run(data, cfg, "radisa-avg")
+    launches = ops.sodda_inner.launches  # ... and ends here
+    log(f"radisa-avg: {ms_r:.3f} ms/iteration over {ITERS} iterations "
+        f"(objective every {RECORD_EVERY}); {launches} launches; history "
+        f"{[(t, round(f, 6)) for t, f in h_r]}")
+    check(launches == ITERS,
+          f"radisa-avg launched sodda_inner {launches} times in {ITERS} "
+          "iterations")
+    check(all(math.isfinite(f) for _, f in h_r), f"non-finite {h_r}")
+    check(h_r[-1][1] < h_r[0][1], f"radisa-avg did not descend: {h_r}")
+    # Hinge. (1) Every iteration of that trajectory, stepped from the same
+    # state by the kernel and by the plain version, to F32_REDUCTION in
+    # full. (2) The trajectory, at the objective level, to F32_REDUCTION
+    # against the plain path whose chains round their update as the kernel
+    # does (fused multiply-adds). Hinge's subgradient is a step at
+    # y*z = 1, so that rounding alone moves rows of X across the kink over
+    # 20 iterations; the plain path with unfused updates departs from both,
+    # which is printed beside it, not gated.
+    state, worst = sodda.init_state(SEED, cfg.M, X.device), 0.0
+    for t in range(1, ITERS + 1):
+        k = radisa.radisa_avg_step(state, X, y, cfg, use_kernel=True)
+        p = radisa.radisa_avg_step(state, X, y, cfg, use_kernel=False)
+        tol.assert_trajectories_close([p.w.cpu().numpy()],
+                                      [k.w.cpu().numpy()], tol.F32_REDUCTION,
+                                      f"radisa-avg hinge step {t}")
+        tol.assert_objectives_close(
+            float(losses.objective(cfg.loss, X, y, p.w)),
+            float(losses.objective(cfg.loss, X, y, k.w)), tol.F32_REDUCTION,
+            f"radisa-avg hinge step {t}")
+        worst = max(worst, float((k.w - p.w).abs().max()))
+        state = k
+    check(torch.equal(state.w, st_r.w),
+          "radisa-avg: stepping by hand is not driver.run's trajectory")
+    log(f"radisa-avg hinge: each of the {ITERS} iterations, kernel and plain "
+        "from the same state, within F32_REDUCTION (w and objective); "
+        f"max|w_kernel - w_plain| = {worst:.3e}")
+    with radisa_inner_as(inner_loop_fused):
+        st_f, h_fused = plain_run(cfg, X, y, lambda s: radisa.radisa_avg_step(
+            s, X, y, cfg, use_kernel=False))
+    for (t, f_f), (_, f_k) in zip(h_fused, h_r):
+        tol.assert_objectives_close(f_f, f_k, tol.F32_REDUCTION,
+                                    f"radisa-avg hinge t={t} (fused plain)")
+    st_p, h_plain = plain_run(cfg, X, y, lambda s: radisa.radisa_avg_step(
+        s, X, y, cfg, use_kernel=False))
+
+    def gaps(a, b):
+        floor = tol.F32_REDUCTION.obj_floor
+        return [f"{abs(fa - fb) / max(abs(fa), floor):.2e}"
+                for (_, fa), (_, fb) in zip(a, b)]
+
+    log(f"radisa-avg hinge trajectory: within F32_REDUCTION of the plain "
+        f"path with fused multiply-adds in the chains at every tick, "
+        f"relative gap {gaps(h_fused, h_r)}; the unfused plain path "
+        f"(a finding, not gated) {[round(f, 6) for _, f in h_plain]}, "
+        f"relative gap to the kernel {gaps(h_plain, h_r)}, to the fused "
+        f"plain path {gaps(h_plain, h_fused)} (F32_REDUCTION allows "
+        f"{tol.F32_REDUCTION.obj_rel:.0e}); rows of X on other sides of the "
+        f"hinge kink at the final iterates: kernel vs unfused plain "
+        f"{kink_sides(X, y, st_r.w, st_p.w)}, fused vs unfused plain "
+        f"{kink_sides(X, y, st_f.w, st_p.w)}, kernel vs fused plain "
+        f"{kink_sides(X, y, st_r.w, st_f.w)} of {cfg.N}")
+    lcfg = dataclasses.replace(cfg, name=cfg.name + "-logistic",
+                               loss="logistic")
+    st_l, h_l = driver.run(SEED, data, lcfg, ITERS, "radisa-avg",
+                           record_every=RECORD_EVERY)
+    st_lp, h_lp = plain_run(lcfg, X, y, lambda s: radisa.radisa_avg_step(
+        s, X, y, lcfg, use_kernel=False))
+    tol.assert_trajectories_close([st_lp.w.cpu().numpy()],
+                                  [st_l.w.cpu().numpy()], tol.F32_REDUCTION,
+                                  "radisa-avg logistic final w")
+    for (t, f_p), (_, f_k) in zip(h_lp, h_l):
+        tol.assert_objectives_close(f_p, f_k, tol.F32_REDUCTION,
+                                    f"radisa-avg logistic t={t}")
+    check(h_l[-1][1] < h_l[0][1], f"radisa-avg logistic: no descent {h_l}")
+    log("radisa-avg logistic twin: kernel and plain trajectories within "
+        f"F32_REDUCTION in full, F {h_l[0][1]:.6f} -> {h_l[-1][1]:.6f}")
+
+    sync = engine.make_bundle(cfg, "cuda")
+    stale0 = engine.make_bundle(cfg, "async", staleness=0)
+    state = sodda.init_state(SEED, cfg.M, X.device)
+    carry = stale0.init_carry(state, X, y)
+    for t in range(1, ITERS + 1):
+        state, carry = sync.step(state, X, y), stale0.step(carry, X, y)
+        check(torch.equal(state.w, carry.w),
+              f"async staleness 0 differs from cuda at iteration {t}")
+    st_c, h_c, ms_c = timed_run(data, cfg, "cuda")
+    st_0, h_0, _ = timed_run(data, cfg, "async", staleness=0)
+    check(h_0 == h_c and torch.equal(st_0.w, st_c.w),
+          f"async staleness 0 history {h_0} is not cuda's {h_c}")
+    log(f"async staleness 0: bitwise cuda's trajectory, each of {ITERS} "
+        "iterates and the history")
+    ops.sodda_inner.launches = 0  # the async path starts here
+    _, h_a, ms_a = timed_run(data, cfg, "async")
+    launches_a = ops.sodda_inner.launches  # ... and ends here
+    log(f"async staleness 1: {ms_a:.3f} ms/iteration; {launches_a} "
+        f"launches; history {[(t, round(f, 6)) for t, f in h_a]}")
+    check(launches_a == ITERS,
+          f"async launched sodda_inner {launches_a} times in {ITERS} "
+          "iterations")
+    check(h_a[-1][1] < h_a[0][1], f"async did not descend: {h_a}")
+    tol.assert_objectives_close(h_c[-1][1], h_a[-1][1], tol.STALENESS,
+                                "async staleness 1 vs cuda")
+    log(f"async staleness 1: final objective {h_a[-1][1]:.6f} within "
+        f"STALENESS of cuda's {h_c[-1][1]:.6f}")
+
+    # the paper's comparison: every iteration's objective, by cost and time
+    _, h_s1 = driver.run(SEED, data, cfg, ITERS, "cuda")
+    _, h_r1 = driver.run(SEED, data, cfg, ITERS, "radisa-avg")
+    f_s, f_r = sodda.iteration_flops(cfg), radisa.radisa_avg_iteration_flops(
+        cfg)
+    it_cost = int(ITERS * f_s / f_r)
+    it_wall = min(ITERS, int(ITERS * ms_c / ms_r))
+    log(f"paper comparison (a finding, no gate): cuda (SODDA) "
+        f"{ms_c:.3f} ms/iteration, radisa-avg {ms_r:.3f}; gradient "
+        f"coordinates an iteration {f_s:.4e} vs {f_r:.4e} ({f_r / f_s:.4f}x)")
+    log(f"paper comparison histories: sodda "
+        f"{[round(f, 6) for _, f in h_s1]}; radisa-avg "
+        f"{[round(f, 6) for _, f in h_r1]}")
+    log(f"paper comparison at SODDA's {ITERS} iterations of cost: sodda "
+        f"F = {h_s1[ITERS][1]:.6f}; radisa-avg after {it_cost} iterations "
+        f"(equal gradient coordinates) F = {h_r1[it_cost][1]:.6f}, after "
+        f"{it_wall} (equal wall time) F = {h_r1[it_wall][1]:.6f}")
 
 
 # ---------------------------------------------------------------------------
@@ -1378,7 +1672,13 @@ def main():
     log(f"table1 kernel share of a cuda-backend iteration: "
         f"{record['ms']:.4f} / {ms_c:.3f} ms = {record['ms'] / ms_c:.4%}")
     phase_breakdown(cfg, X, y, w)
-    del X, y, w  # free the 18 GB before the serving phases
+    del X, y, w  # free the 18 GB before the next phase
+    torch.cuda.empty_cache()
+
+    X, y = phase_tiled_plane(cfg)
+    phase_radisa_kernel()
+    phase_radisa_async(cfg, X, y)
+    del X, y  # free the 18 GB before the serving phases
     torch.cuda.empty_cache()
 
     flash_record, times = phase_flash()

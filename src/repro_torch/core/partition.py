@@ -26,6 +26,7 @@ __all__ = [
     "blocks_view",
     "sample_iteration",
     "sample_from_numpy",
+    "seeded_generator",
     "IterationSample",
 ]
 
@@ -79,6 +80,15 @@ def _iteration_seed(seed: int, t: int) -> int:
     return (x ^ (x >> 31)) >> 1
 
 
+def seeded_generator(device, seed: int, *coords: int) -> torch.Generator:
+    """A generator on `device` seeded by a pure function of ``(seed,
+    *coords)``: :func:`_iteration_seed` folded over the coordinates, the
+    counterpart of nested ``fold_in``."""
+    for c in coords:
+        seed = _iteration_seed(seed, c)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def sample_iteration(seed: int, t: int, P: int, Q: int, n: int, M: int,
                      L: int, b_count: int, c_count: int, d_count_local: int,
                      device) -> IterationSample:
@@ -88,8 +98,7 @@ def sample_iteration(seed: int, t: int, P: int, Q: int, n: int, M: int,
     as in the reference. Everything is drawn on `device` from one generator
     seeded by ``(seed, t)``; nothing synchronises with the host.
     """
-    gen = torch.Generator(device=device)
-    gen.manual_seed(_iteration_seed(seed, t))
+    gen = seeded_generator(device, seed, t)
     u = torch.rand(M, generator=gen, device=device)
     mask_b = _exact_count_mask(u, b_count)
     mask_c = _exact_count_mask(u, c_count)  # nested: C ⊆ B

@@ -24,15 +24,33 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.platform import resolve_device
 
-__all__ = ["SoddaState", "init_state", "state_from_numpy", "sodda_step",
-           "consume_update", "snapshot_gradient", "inner_loop",
-           "iteration_flops"]
+__all__ = ["SoddaState", "AsyncSoddaState", "init_state", "init_async_state",
+           "state_from_numpy", "async_state_from_numpy", "sodda_step",
+           "sodda_step_async", "consume_update", "snapshot_gradient",
+           "inner_loop", "iteration_flops"]
 
 
 class SoddaState(NamedTuple):
     w: torch.Tensor  # (M,) current iterate, on the device
     t: int  # 1-based outer iteration (for gamma_t), on the host
     seed: int  # base seed: iteration t's sample is drawn from (seed, t)
+
+
+class AsyncSoddaState(NamedTuple):
+    """The carry of the stale-by-one ``async`` backend: the
+    :class:`SoddaState` fields plus the double-buffered exchange vector.
+    ``mu`` holds the snapshot gradient *issued* during outer iteration t-1
+    (at w^{t-1} under the t-1 sample); iteration t's inner loops consume it
+    while issuing the iteration-t exchange into the next carry."""
+
+    w: torch.Tensor  # (M,) current iterate, on the device
+    t: int  # 1-based outer iteration, on the host
+    seed: int  # base seed
+    mu: torch.Tensor  # (M,) exchange buffer issued one iteration earlier
+
+    def sync_state(self) -> SoddaState:
+        """Drop the exchange buffer (the driver's finalize half)."""
+        return SoddaState(w=self.w, t=self.t, seed=self.seed)
 
 
 def init_state(seed: int, M: int, device) -> SoddaState:
@@ -48,6 +66,17 @@ def state_from_numpy(w, t, seed: int = 0, device=None) -> SoddaState:
         w=torch.tensor(np.asarray(w, np.float32),
                    device=resolve_device(device)),
         t=int(t), seed=int(seed))
+
+
+def async_state_from_numpy(w, t, mu, seed: int = 0,
+                           device=None) -> AsyncSoddaState:
+    """An :class:`AsyncSoddaState` from a reference carry's ``w``, ``t`` and
+    ``mu`` (numpy arrays or numbers); the port's own draws come from
+    ``seed``, as in :func:`state_from_numpy`."""
+    state = state_from_numpy(w, t, seed, device)
+    return AsyncSoddaState(
+        w=state.w, t=state.t, seed=state.seed,
+        mu=torch.tensor(np.asarray(mu, np.float32), device=state.w.device))
 
 
 # ---------------------------------------------------------------------------
@@ -91,12 +120,27 @@ def _gamma(cfg: SoddaConfig, t: int) -> np.float32:
         np.float32(1.0) + np.sqrt(np.float32(max(t - 1, 0))))
 
 
+def _issue(cfg: SoddaConfig, X, y, w, t: int, seed: int,
+           sample: Optional[IterationSample] = None):
+    """The issue half of iteration t: draw the sample (unless `sample` is
+    given) and compute the exchange. One definition shared by the
+    synchronous step, the async step and the async warm-up: the first async
+    iteration is synchronous only because all three issue identically."""
+    b_count, c_count, d_local = _counts(cfg)
+    if sample is None:
+        sample = sample_iteration(seed, t, cfg.P, cfg.Q, cfg.n, cfg.M, cfg.L,
+                                  b_count, c_count, d_local, X.device)
+    return sample, snapshot_gradient(cfg.loss, X, y, w, sample,
+                                     cfg.P * d_local)
+
+
 def consume_update(X, y, w, mu, smp: IterationSample, gamma,
                    cfg: SoddaConfig, use_kernel: bool = False):
     """Steps 10-19 — the *consume* half of an outer iteration.
 
     Gathers the per-(p, q) working sets for the iteration's sample, runs the
-    L-step inner loops against the exchange vector ``mu``, and concatenates
+    L-step inner loops against the exchange vector ``mu`` (fresh in the
+    synchronous step, one iteration stale in the async one), and concatenates
     the updated sub-blocks into the new iterate.
 
     The (P, Q, L, m_tilde) working set is gathered straight out of X with
@@ -142,14 +186,44 @@ def sodda_step(state: SoddaState, X, y, cfg: SoddaConfig,
     """One outer iteration. ``sample`` replaces the iteration's own draw
     (tests feed the reference's sample through it)."""
     t = state.t
-    b_count, c_count, d_local = _counts(cfg)
-    if sample is None:
-        sample = sample_iteration(state.seed, t, cfg.P, cfg.Q, cfg.n, cfg.M,
-                                  cfg.L, b_count, c_count, d_local, X.device)
-    mu = snapshot_gradient(cfg.loss, X, y, state.w, sample, cfg.P * d_local)
+    sample, mu = _issue(cfg, X, y, state.w, t, state.seed, sample)
     w_new = consume_update(X, y, state.w, mu, sample, float(_gamma(cfg, t)),
                            cfg, use_kernel)
     return SoddaState(w=w_new, t=t + 1, seed=state.seed)
+
+
+# ---------------------------------------------------------------------------
+# Stale-by-one outer iteration: the 'async' engine backend. Iteration t
+# consumes the exchange issued at t-1 and issues its own for t+1, so on a
+# mesh the issue half (the snapshot-gradient reduction) would have no
+# consumer in its own iteration.
+# ---------------------------------------------------------------------------
+def sodda_step_async(carry: AsyncSoddaState, X, y, cfg: SoddaConfig,
+                     staleness: int = 1, use_kernel: bool = False,
+                     sample: Optional[IterationSample] = None
+                     ) -> AsyncSoddaState:
+    """One stale-by-one outer iteration on the extended carry: issue this
+    iteration's exchange from the current iterate, run the inner loops
+    against ``carry.mu``. ``staleness=0`` consumes the just-issued buffer
+    instead, which is :func:`sodda_step`'s arithmetic, bitwise. ``sample``
+    replaces the iteration's own draw."""
+    t = carry.t
+    sample, mu_issued = _issue(cfg, X, y, carry.w, t, carry.seed, sample)
+    mu_consumed = carry.mu if staleness else mu_issued
+    w_new = consume_update(X, y, carry.w, mu_consumed, sample,
+                           float(_gamma(cfg, t)), cfg, use_kernel)
+    return AsyncSoddaState(w=w_new, t=t + 1, seed=carry.seed, mu=mu_issued)
+
+
+def init_async_state(state: SoddaState, X, y, cfg: SoddaConfig,
+                     sample: Optional[IterationSample] = None
+                     ) -> AsyncSoddaState:
+    """The warm-up (the driver's carry-init half): issue the exchange for
+    iteration ``state.t`` (under `sample` when given) so the first consume
+    sees a valid buffer. The iterate has not moved yet, so the first async
+    iteration is synchronous; staleness begins at the second."""
+    _, mu = _issue(cfg, X, y, state.w, state.t, state.seed, sample)
+    return AsyncSoddaState(w=state.w, t=state.t, seed=state.seed, mu=mu)
 
 
 # ---------------------------------------------------------------------------

@@ -159,7 +159,11 @@ def test_engine_refuses_unknown_backend():
 
 
 def test_engine_backends():
-    assert engine.available_backends() == ("cuda", "reference")
+    assert engine.available_backends() == ("async", "cuda", "radisa-avg",
+                                           "reference")
+    assert engine.BACKENDS == ("reference", "cuda")
+    assert engine.BASELINE_BACKENDS == ("radisa-avg",)
+    assert engine.ASYNC_BACKENDS == ("async",)
 
 
 def test_step_refuses_data_on_another_device():

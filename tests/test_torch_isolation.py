@@ -11,13 +11,21 @@ import sys
 
 import pytest
 
+import numpy as np
+
 import repro.configs as ref_archs
 from repro.configs import base as ref_base
 from repro.configs import sodda_svm as ref_cfg
+from repro.core import engine as ref_engine
+from repro.data import plane as ref_plane
+from repro.data import synthetic as ref_synthetic
 from repro.testing import tolerances as ref_tol
 import repro_torch.configs as port_archs
 from repro_torch.configs import base as port_base
 from repro_torch.configs import sodda_svm as port_cfg
+from repro_torch.core import engine as port_engine
+from repro_torch.data import plane as port_plane
+from repro_torch.data import synthetic as port_synthetic
 from repro_torch.testing import tolerances as port_tol
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -74,6 +82,7 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.launch.serve, repro_torch.models.model\n"
             "import repro_torch.kernels.flash_attention\n"
             "import repro_torch.kernels.ssd_scan, repro_torch.models.ssm\n"
+            "import repro_torch.core.radisa, repro_torch.data.plane\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -163,3 +172,38 @@ def test_port_registry_is_a_subset_of_the_reference():
     assert set(port_archs.list_archs()) <= set(ref_archs.list_archs())
     with pytest.raises(KeyError, match="known"):
         port_archs.get_config("zamba2-7b")
+
+
+def test_unit_variance_scale_matches_reference():
+    port, ref = (port_synthetic.SVM_UNIT_VARIANCE_SCALE,
+                 ref_synthetic.SVM_UNIT_VARIANCE_SCALE)
+    assert type(port) is type(ref) is np.float32
+    assert port.tobytes() == ref.tobytes()
+
+
+def _reference_names(backends):
+    """The port's backend names as the reference calls them: its 'cuda' is
+    the reference's 'pallas' (the kernel backend)."""
+    return {"pallas" if b == "cuda" else b for b in backends}
+
+
+@pytest.mark.parametrize("group", ["BACKENDS", "BASELINE_BACKENDS",
+                                   "ASYNC_BACKENDS"])
+def test_backend_groups_are_subsets_of_the_reference(group):
+    assert _reference_names(getattr(port_engine, group)) <= \
+        set(getattr(ref_engine, group))
+
+
+def test_backend_registry_is_a_subset_of_the_reference():
+    port = _reference_names(port_engine.available_backends())
+    ref = set(ref_engine.available_backends())
+    assert port <= ref
+    assert port.isdisjoint(set(port_engine.NOT_PORTED) - {"pallas"})
+    assert port | set(port_engine.NOT_PORTED) == ref
+
+
+def test_plane_registry_is_a_subset_of_the_reference():
+    port = set(port_plane.available_planes())
+    assert port <= set(ref_plane.available_planes())
+    assert port | set(port_plane.NOT_PORTED) == \
+        set(ref_plane.available_planes())
