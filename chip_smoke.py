@@ -46,8 +46,32 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
    async at staleness 0 bitwise ``cuda``'s trajectory and at staleness 1
    within STALENESS of it, descent everywhere; then prints the paper's
    comparison, SODDA against RADiSA-avg per iteration, per gradient
-   coordinate and per second (no gate), and frees X;
-9. holds ``flash_attention`` against its plain version at the gemma2-9b
+   coordinate and per second (no gate);
+9. drives ``driver.run_resumable`` on that data (20 iterations, 2
+   segments of 10, the launch counts set to 0 just before each run and
+   read just after): bitwise ``driver.run`` back to back; a ``cuda`` run
+   killed after its first boundary, and one killed at a mid-segment commit
+   (``commit_every=5``, at iteration 15), each resumed bitwise, as are
+   ``async`` at staleness 1 and ``radisa-avg`` killed after a boundary;
+   each run launches the kernel once an iteration it runs, a resume of a
+   completed run never; ``replay_segment`` matches; the checkpoints are
+   read back by hand (json, numpy, zlib) in the reference's layout; and
+   it prints the ms an iteration against ``driver.run``'s, a save's ms and
+   the data fingerprint's seconds;
+10. holds ``sodda_inner`` at (12, 64, 1500) as in 7, then runs
+    ``run_elastic`` on ``cuda``, shrinking P from 5 to 4 at iteration 10:
+    20 launches, bitwise the same composition by hand
+    (``migrate_resumable`` and ``run_resumable`` over ``shrink_plane``),
+    descent;
+11. holds epoch 0 of the ``streaming`` plane bitwise to the tiled X and a
+    one-segment streaming run bitwise to the tiled run, times the static
+    ``cuda`` run and frees X; then streams Table-1 as 4 windows (no tile
+    cache, a window a segment of 5): prefetched at depth 1 and 2, each
+    bitwise a loop here that materialises each window on the main stream
+    with no thread, killed and resumed bitwise, with the ms an iteration,
+    the prefetcher's accounting and the peak over X (at most 2.2 x X at
+    depth 1);
+12. holds ``flash_attention`` against its plain version at the gemma2-9b
    prefill shape (B=4, H=16, KV=8, S=4608, D=256, bf16) for a local and a
    global layer, at a decode offset, at unaligned bf16 shapes for the other
    head dims (16, 64, 128: causal, non-causal, window + softcap, decode
@@ -59,24 +83,24 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
    be its f32 value correctly rounded (see ``F32_NOISE``), and two
    controls must fail that rule: scores rounded to bf16, and P rounded to
    bf16 before P.V (the textbook tensor-core kernel);
-10. runs gemma2-9b at full width, cut to 4 layers, in f32, on 4608-token
+13. runs gemma2-9b at full width, cut to 4 layers, in f32, on 4608-token
     prompts through ``serve`` with the kernel and with the plain version:
     prefill logits and 8 decode steps' logits within 2e-4, and 8 greedy
     tokens identical;
-11. serves 4 requests of 4608 prompt tokens for 32 tokens each through
+14. serves 4 requests of 4608 prompt tokens for 32 tokens each through
     full-depth bf16 gemma2-9b (``repro_torch.launch.serve.serve``, the
     second main path, with the flash launch count set to 0 just before it):
     42 launches in the prefill and none in the decode, finite logits, and
     prefill time, decode time per token and peak device memory. Then each
     of the 42 layers' attention, on the plain path's activations, is held
-    to the rounding rule of 9 (both controls failing it), and the rms gap of
+    to the rounding rule of 12 (both controls failing it), and the rms gap of
     the kernel path's logits to the plain path's to 1.2x the plain path's
     gap to itself summed in another order;
-12. holds ``ssd_scan`` against its plain chunked version at the mamba2-130m
+15. holds ``ssd_scan`` against its plain chunked version at the mamba2-130m
     layer shape (B=16, S=2048, H=24, P=64, G=1, N=128), with Mamba-2's dt
     and A and a slow-decay case, at S = 1000 and at G = 2, in f32
     (the CUDA-core route, rtol = atol = 1e-4) and bf16 (the wgmma route,
-    the rounding rule of 9 over max|y|, which four controls must fail: the
+    the rounding rule of 12 over max|y|, which four controls must fail: the
     carry dropped, and each f32 operand of the tensor-core products rounded
     once to bf16: W, the state as C . state reads it, and x_j w_j of the
     state update), requires two launches to agree bitwise, prints each
@@ -84,18 +108,18 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     and C as bf16 views whose data is not 16-byte aligned (bitwise the
     aligned copies' output), and times kernel and plain version beside the
     bound;
-13. runs full-depth mamba2-130m in f32 (B=2, 1024 prompt tokens, Mamba-2's
+16. runs full-depth mamba2-130m in f32 (B=2, 1024 prompt tokens, Mamba-2's
     A_log and dt_bias): the kernel path's prefill logits within 2e-4 of the
     plain path's and of the decode warm-up's last logits (the scan against
     the recurrence), and 8 decode steps' logits, fed random tokens, within
     2e-4 of the scan's at the same positions;
-14. serves 16 requests of 2048 prompt tokens for 32 tokens each through
+17. serves 16 requests of 2048 prompt tokens for 32 tokens each through
     full-depth bf16 mamba2-130m (``serve``, the third main path, with the
     SSD launch counts set to 0 just before it): 24 launches in the
     prefill, all on the wgmma route, and none in the warm-up or decode,
     finite logits, and prefill time, warm-up time, decode time per token
     and peak device memory. Then each of the 24 layers' SSD, on the plain
-    path's activations, is held to the rounding rule of 9, every control
+    path's activations, is held to the rounding rule of 12, every control
     failing it.
 
 Exits non-zero if any phase fails. The last three lines of standard output
@@ -106,23 +130,29 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
 import types
+import zlib
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 from repro_torch.configs.gemma2_9b import CONFIG as GEMMA2_9B  # noqa: E402
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M  # noqa: E402
+from repro_torch import checkpoint  # noqa: E402
 from repro_torch.configs.sodda_svm import SoddaConfig, TABLE1_250K_18K  # noqa: E402
 from repro_torch.core import (driver, engine, losses, partition,  # noqa: E402
                                radisa, sodda)
 from repro_torch.data import synthetic  # noqa: E402
-from repro_torch.data.plane import DenseDataPlane, TiledDataPlane  # noqa: E402
+from repro_torch.data.plane import (DenseDataPlane,  # noqa: E402
+                                    StreamingDataPlane, TiledDataPlane)
 from repro_torch.data.synthetic import make_svm_data  # noqa: E402
+from repro_torch.distributed import run_elastic, shrink_plane  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -637,10 +667,12 @@ def phase_tiled_plane(cfg):
     return X, y
 
 
-def phase_radisa_kernel():
-    """sodda_inner at radisa-avg's Table-1 launch, for all three losses."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    B, L, mt = RADISA_SHAPE
+def phase_kernel_at(shape, seed):
+    """sodda_inner at one launch shape of a path, for all three losses:
+    bitwise across launches, within tolerance of the plain version, and
+    timed by a CUDA graph beside its bound. Returns the hinge time in ms."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    B, L, mt = shape
     for loss in ("hinge", "logistic", "squared"):
         args = kernel_inputs(B, L, mt, gen)
         gamma = KERNEL_GAMMA[loss]
@@ -649,12 +681,12 @@ def phase_radisa_kernel():
         want = ops.sodda_inner(*args, gamma, loss, force="ref")
         torch.cuda.synchronize()
         check(torch.equal(a, b),
-              f"sodda_inner {loss} {RADISA_SHAPE}: two launches differ")
+              f"sodda_inner {loss} {shape}: two launches differ")
         check(bool(torch.isfinite(a).all()),
-              f"sodda_inner {loss} {RADISA_SHAPE}: non-finite output")
+              f"sodda_inner {loss} {shape}: non-finite output")
         torch.testing.assert_close(a, want, rtol=KERNEL_RTOL,
                                    atol=KERNEL_ATOL)
-        log(f"kernel {loss:8s} {RADISA_SHAPE}: bitwise across launches, "
+        log(f"kernel {loss:8s} {shape}: bitwise across launches, "
             f"max|kernel-plain| = {float((a - want).abs().max()):.3e}; "
             f"bucket {kernel_build.bucket(mt)}, "
             f"{kernel_build.ring_slots(L, mt)} ring slots, "
@@ -667,9 +699,15 @@ def phase_radisa_kernel():
     plain_ms = cuda_ms(lambda: ops.sodda_inner(*args, 0.01, "hinge",
                                                force="ref"), reps=5)
     bound_ms, bound_by = kernel_bound_ms(B, L, mt)
-    log(f"kernel sodda_inner {RADISA_SHAPE} hinge: {ms:.5f} ms (CUDA "
+    log(f"kernel sodda_inner {shape} hinge: {ms:.5f} ms (CUDA "
         f"graph), bound {bound_ms:.5f} ms ({bound_by}), kernel/bound "
         f"{ms / bound_ms:.1f}x; plain {plain_ms:.4f} ms")
+    return ms
+
+
+def phase_radisa_kernel():
+    """sodda_inner at radisa-avg's Table-1 launch."""
+    phase_kernel_at(RADISA_SHAPE, SEED + 1)
 
 
 def phase_radisa_async(cfg, X, y):
@@ -804,6 +842,381 @@ def phase_radisa_async(cfg, X, y):
         f"F = {h_s1[ITERS][1]:.6f}; radisa-avg after {it_cost} iterations "
         f"(equal gradient coordinates) F = {h_r1[it_cost][1]:.6f}, after "
         f"{it_wall} (equal wall time) F = {h_r1[it_wall][1]:.6f}")
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints, resumable runs, the streaming plane and elastic rescale
+# ---------------------------------------------------------------------------
+RESUME_SEGMENT = 10  # phase_resumable: 2 segments of the 20 iterations
+STREAM_SEGMENT = 5  # phase_streaming: 4 windows in 20 iterations
+ELASTIC_P = 4  # phase_elastic: the grid after one partition is lost
+ELASTIC_SHAPE = (ELASTIC_P * TABLE1_250K_18K.Q, TABLE1_250K_18K.L,
+                 TABLE1_250K_18K.M // (ELASTIC_P * TABLE1_250K_18K.Q))
+CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_checkpoints")
+# the reference's resume-guard stamp (src/repro/core/driver.py,
+# run_resumable's `want`), read from the manifest without the port's code
+STAMP_KEYS = ("history", "backend", "record_every", "segment_iters",
+              "options", "data", "streaming", "key")
+
+
+class Killed(RuntimeError):
+    """An injected kill."""
+
+
+def kill_at(step):
+    def seam(done):
+        if done == step:
+            raise Killed(f"injected kill at iteration {done}")
+    return seam
+
+
+def ckpt_dir(name):
+    path = os.path.join(CKPT_ROOT, name)
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def launched(fn, *args, **kwargs):
+    """fn(*args, **kwargs) with the sodda_inner launch count set to 0 just
+    before it: (result, launches, seconds). The run's seconds start at its
+    first segment (after a synchronisation there), so they leave out the
+    resume guard's data fingerprint, and end synchronised."""
+    t_first = []
+
+    def first_segment(done):
+        if not t_first:
+            torch.cuda.synchronize()
+            t_first.append(time.perf_counter())
+        if chained is not None:
+            chained(done)
+
+    chained = kwargs.pop("on_segment_start", None)
+    if fn in (driver.run_resumable, run_elastic):
+        kwargs["on_segment_start"] = first_segment
+    torch.cuda.synchronize()
+    ops.sodda_inner.launches = 0  # this run starts here
+    t0 = time.perf_counter()
+    try:
+        out = fn(*args, **kwargs)
+    finally:
+        launches = ops.sodda_inner.launches  # ... and ends here
+    torch.cuda.synchronize()
+    return out, launches, time.perf_counter() - (t_first or [t0])[0]
+
+
+def same_run(a, b, what):
+    (s_a, h_a), (s_b, h_b) = a, b
+    check(h_a == h_b, f"{what}: histories differ: {h_a} vs {h_b}")
+    check(torch.equal(s_a.w, s_b.w) and s_a.t == s_b.t,
+          f"{what}: final iterates differ")
+
+
+def read_manifest_by_hand(step_dir):
+    """A checkpoint read back with the reference's manifest layout, by
+    json, numpy and zlib alone: the leaf names, files, dtypes, shapes and
+    crc of every leaf, and the guard stamp. Returns the leaves."""
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        man = json.load(f)
+    check(os.path.exists(os.path.join(step_dir, "_COMMITTED")),
+          f"{step_dir}: no _COMMITTED marker")
+    leaves = {}
+    for name, meta in man["leaves"].items():
+        check(meta["file"] == name + ".0.npy",
+              f"leaf {name}: file {meta['file']}")
+        arr = np.load(os.path.join(step_dir, meta["file"]))
+        check(str(arr.dtype) == meta["dtype"]
+              and list(arr.shape) == meta["shape"]
+              and zlib.crc32(arr.tobytes()) & 0xFFFFFFFF == meta["crc"],
+              f"leaf {name}: dtype/shape/crc do not match the manifest")
+        leaves[name] = arr
+    check(set(STAMP_KEYS) <= set(man["extra"]),
+          f"stamp {sorted(man['extra'])} lacks {STAMP_KEYS}")
+    return man, leaves
+
+
+def phase_resumable(cfg, X, y):
+    """run_resumable at Table-1 over the tiled plane's data: bitwise
+    driver.run back to back; killed after a boundary and at a mid-segment
+    commit, then resumed, bitwise (cuda; async at staleness 1 and
+    radisa-avg after a boundary); no recomputation on a resume of a
+    completed run; replay_segment; the checkpoint read back by hand in the
+    reference's layout; and the times of the driver, a save and the data
+    fingerprint."""
+    data = DenseDataPlane(X, y, grid=(cfg.P, cfg.Q))
+    kw = dict(segment_iters=RESUME_SEGMENT, record_every=RECORD_EVERY)
+    one, n_one, s_one = launched(driver.run, SEED, data, cfg, ITERS, "cuda",
+                                 record_every=RECORD_EVERY)
+    d_full = ckpt_dir("resumable-cuda")
+    full, n_full, s_full = launched(driver.run_resumable, SEED, data, cfg,
+                                    ITERS, "cuda", checkpoint_dir=d_full, **kw)
+    check(n_one == n_full == ITERS,
+          f"launches: driver.run {n_one}, run_resumable {n_full}")
+    same_run(full, one, "run_resumable vs driver.run (cuda)")
+    ms_one, ms_full = 1e3 * s_one / ITERS, 1e3 * s_full / ITERS
+    log(f"resumable: run_resumable (cuda, {ITERS // RESUME_SEGMENT} segments"
+        f" of {RESUME_SEGMENT}) bitwise driver.run in w and history; "
+        f"{ms_full:.3f} ms/iteration against driver.run's {ms_one:.3f} "
+        f"({100 * (ms_full / ms_one - 1):+.2f}%); {n_full} launches each")
+
+    def kill_and_resume(backend, name, killed_kw, resumed_kw, done_at,
+                        want, **options):
+        d = ckpt_dir(name)
+        ops.sodda_inner.launches = 0
+        try:
+            driver.run_resumable(SEED, data, cfg, ITERS, backend,
+                                 checkpoint_dir=d, **kw, **killed_kw,
+                                 **options)
+            fail(f"{name}: the injected kill did not fire")
+        except Killed:
+            pass
+        check(ops.sodda_inner.launches == done_at,
+              f"{name}: the killed run launched {ops.sodda_inner.launches}"
+              f" times in {done_at} iterations")
+        check(checkpoint.latest_step(d) == done_at,
+              f"{name}: latest commit {checkpoint.committed_steps(d)}, "
+              f"expected {done_at}")
+        got, n, _ = launched(driver.run_resumable, SEED, data, cfg, ITERS,
+                             backend, checkpoint_dir=d, **kw, **resumed_kw,
+                             **options)
+        check(n == ITERS - done_at,
+              f"{name}: resume launched {n}, expected {ITERS - done_at}")
+        same_run(got, want, f"{name}: resumed vs uninterrupted")
+        log(f"resumable: {name}: killed at {done_at}, resumed with {n} "
+            "launches, bitwise the uninterrupted run")
+        return d
+
+    kill_and_resume("cuda", "cuda-boundary",
+                    dict(on_segment=kill_at(RESUME_SEGMENT)), {},
+                    RESUME_SEGMENT, full)
+    mid = RESUME_SEGMENT + RECORD_EVERY
+    d_mid = kill_and_resume("cuda", "cuda-commit",
+                            dict(commit_every=RECORD_EVERY,
+                                 on_commit=kill_at(mid)),
+                            dict(commit_every=RECORD_EVERY), mid, full)
+    for backend, options in (("async", {"staleness": 1}), ("radisa-avg", {})):
+        ref_run, n, _ = launched(driver.run_resumable, SEED, data, cfg,
+                                 ITERS, backend,
+                                 checkpoint_dir=ckpt_dir(backend + "-full"),
+                                 **kw, **options)
+        check(n == ITERS, f"{backend}: {n} launches in {ITERS} iterations")
+        kill_and_resume(backend, backend + "-boundary",
+                        dict(on_segment=kill_at(RESUME_SEGMENT)), {},
+                        RESUME_SEGMENT, ref_run, **options)
+
+    again, n, _ = launched(driver.run_resumable, SEED, data, cfg, ITERS,
+                           "cuda", checkpoint_dir=d_full, **kw)
+    check(n == 0, f"resume of a completed run launched {n} times")
+    same_run(again, full, "resume of a completed run")
+    rep, n, _ = launched(driver.replay_segment, SEED, data, cfg, "cuda",
+                         checkpoint_dir=d_mid, **kw)
+    check(rep.get("match") is True and n == rep["end"] - rep["start"],
+          f"replay_segment: {rep}, {n} launches")
+    log(f"resumable: a resume of the completed run launched 0 times; "
+        f"replay_segment {rep} with {n} launches")
+
+    man, leaves = read_manifest_by_hand(
+        os.path.join(d_full, f"step_{ITERS:010d}"))
+    check(list(man["leaves"]) == [".w", ".t", ".key"]
+          and [str(leaves[k].dtype) for k in (".w", ".t", ".key")]
+          == ["float32", "int32", "uint32"],
+          f"leaves {[(k, v['dtype']) for k, v in man['leaves'].items()]}")
+    check(leaves[".key"].tolist() == [0, SEED] and int(leaves[".t"]) ==
+          ITERS + 1 and np.array_equal(leaves[".w"],
+                                       full[0].w.cpu().numpy()),
+          "the checkpoint does not hold the run's final state")
+    check(man["extra"]["backend"] == "cuda"
+          and man["extra"]["key"] == [0, SEED],
+          f"stamp {man['extra']['backend']!r}, key {man['extra']['key']}")
+    _, async_leaves = read_manifest_by_hand(os.path.join(
+        CKPT_ROOT, "async-full", f"step_{ITERS:010d}"))
+    check(list(async_leaves) == [".w", ".t", ".key", ".mu"],
+          f"async leaves {list(async_leaves)}")
+    log("resumable: the checkpoints read back by hand in the reference's "
+        "layout: leaves .w float32, .t int32, .key uint32 [0, seed] (and "
+        ".mu for async), files <leaf>.0.npy, crc and the guard stamp "
+        f"{STAMP_KEYS} all as the reference writes them")
+
+    record = sodda.carry_record(full[0])
+    save_s = []
+    for k in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(ckpt_dir("save"), ITERS + k,
+                                   sodda.carry_record(full[0]),
+                                   extra={"history": full[1]})
+        save_s.append(time.perf_counter() - t0)
+    fp_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        driver._data_fingerprint(data)
+        fp_s.append(time.perf_counter() - t0)
+    log(f"resumable: a checkpoint save ({record.w.nbytes / 1e3:.1f} KB of w,"
+        f" the iterate copied from the card) {1e3 * min(save_s):.3f} ms "
+        f"(min of 5; mean {1e3 * sum(save_s) / 5:.3f}); _data_fingerprint "
+        f"(a {data.tile_nbytes / 1e9:.3f} GB tile to the host, hashed) "
+        f"{fp_s[0]:.3f} / {fp_s[1]:.3f} s")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+
+
+def threadless_stream_run(plane, cfg, iters, segment_iters):
+    """The streaming run as a loop that materialises each window on the
+    calling thread's stream, no prefetcher: what the driver's prefetched
+    run must give bitwise."""
+    bundle = engine.make_bundle(cfg, "cuda")
+    carry, hist = sodda.init_state(SEED, cfg.M, plane.device), []
+    for done in range(0, iters, segment_iters):
+        Xw, yw = plane.at_epoch(done // segment_iters).materialize()
+        for it in range(done, min(done + segment_iters, iters)):
+            if it % RECORD_EVERY == 0:
+                hist.append(losses.objective(cfg.loss, Xw, yw, carry.w))
+            carry = bundle.step(carry, Xw, yw)
+    hist.append(losses.objective(cfg.loss, Xw, yw, carry.w))
+    return carry, list(zip(driver.record_ticks(iters, RECORD_EVERY),
+                           torch.stack(hist).tolist()))
+
+
+def stream_plane(cfg):
+    """The streaming Table-1 plane with no tile cache."""
+    return StreamingDataPlane(SEED, cfg.N, cfg.M, cfg.P, cfg.Q,
+                              resident_tile_budget=0)
+
+
+def phase_streaming_anchor(cfg, X, y):
+    """The streaming plane against the tiled plane's X: epoch 0 bitwise,
+    a one-segment streaming run bitwise the tiled run, and the static cuda
+    run's ms an iteration (returned)."""
+    stream = stream_plane(cfg)
+    Xs, ys = stream.materialize_for("cuda")
+    check(torch.equal(Xs, X) and torch.equal(ys, y),
+          "streaming epoch 0 is not the tiled plane's data")
+    del Xs, ys
+    data = DenseDataPlane(X, y, grid=(cfg.P, cfg.Q))
+    kw = dict(segment_iters=STREAM_SEGMENT, record_every=RECORD_EVERY)
+    one_tiled = driver.run(SEED, data, cfg, STREAM_SEGMENT, "cuda",
+                           record_every=RECORD_EVERY)
+    one_stream = driver.run_resumable(SEED, stream, cfg, STREAM_SEGMENT,
+                                      "cuda", checkpoint_dir=ckpt_dir("one"),
+                                      **kw)
+    same_run(one_stream, one_tiled, "one-segment streaming vs tiled run")
+    (_, _), n_static, s_static = launched(driver.run, SEED, data, cfg, ITERS,
+                                          "cuda", record_every=RECORD_EVERY)
+    ms_static = 1e3 * s_static / ITERS
+    log(f"streaming: epoch 0 bitwise the tiled plane's X and y; a "
+        f"one-segment streaming run bitwise the tiled run; static cuda "
+        f"{ms_static:.3f} ms/iteration ({n_static} launches)")
+    return ms_static
+
+
+def phase_streaming(cfg, ms_static):
+    """The streaming Table-1 plane (no tile cache, a window a segment),
+    with no X resident beside it: prefetched runs at depth 1 and 2, and a
+    run of the plane and the driver at their defaults (tile cache on),
+    bitwise the threadless loop; a kill and resume bitwise; ms an iteration
+    against the static cuda run's, the prefetcher's accounting and the peak
+    memory over X (at most 2.2 x X at depth 1)."""
+    stream = stream_plane(cfg)
+    kw = dict(segment_iters=STREAM_SEGMENT, record_every=RECORD_EVERY)
+    x_bytes = 4 * cfg.N * cfg.M
+    plain = threadless_stream_run(stream, cfg, ITERS, STREAM_SEGMENT)
+    runs = {}
+    # depth 1 and 2 without the tile cache, then the plane and the driver
+    # at their defaults (the cache's budget, depth 1)
+    cases = [("depth 1", stream, {"prefetch_depth": 1}),
+             ("depth 2", stream, {"prefetch_depth": 2}),
+             ("defaults", StreamingDataPlane(SEED, cfg.N, cfg.M, cfg.P,
+                                             cfg.Q), {})]
+    for name, plane, opts in cases:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        stats = {}
+        got, n, secs = launched(driver.run_resumable, SEED, plane, cfg,
+                                ITERS, "cuda",
+                                checkpoint_dir=ckpt_dir(name.replace(" ", "")),
+                                stream_stats=stats, **opts, **kw)
+        peak = (torch.cuda.max_memory_allocated() - base) / x_bytes
+        check(n == ITERS, f"streaming {name}: {n} launches")
+        same_run(got, plain, f"streaming {name} vs threadless loop")
+        runs[name] = got
+        log(f"streaming {name}: bitwise the threadless loop; "
+            f"{1e3 * secs / ITERS:.3f} ms/iteration against static "
+            f"{ms_static:.3f}; {n} launches; place_s "
+            f"{stats['place_s']:.4f}, wait_s {stats['wait_s']:.4f}, "
+            f"overlap_ratio {stats['overlap_ratio']:.4f}, consumed "
+            f"{stats['consumed']}, cold_misses {stats['cold_misses']}, "
+            f"queue_high_water {stats['queue_high_water']}; tile cache "
+            f"{stats['cache']} of budget {plane.resident_tile_budget}; peak "
+            f"{peak:.4f} x X; history "
+            f"{[(t, round(f, 6)) for t, f in got[1]]}")
+        if name != "depth 2":
+            check(peak <= 2.2, f"streaming {name}: peak {peak:.4f} x X > 2.2")
+        del plane
+    check(runs["depth 1"][1][-1][1] < runs["depth 1"][1][0][1],
+          "streaming: no descent")
+
+    d = ckpt_dir("stream-kill")
+    try:
+        driver.run_resumable(SEED, stream, cfg, ITERS, "cuda",
+                             checkpoint_dir=d,
+                             on_segment=kill_at(2 * STREAM_SEGMENT), **kw)
+        fail("streaming: the injected kill did not fire")
+    except Killed:
+        pass
+    got, n, _ = launched(driver.run_resumable, SEED, stream, cfg, ITERS,
+                         "cuda", checkpoint_dir=d, **kw)
+    check(n == ITERS - 2 * STREAM_SEGMENT, f"streaming resume: {n} launches")
+    same_run(got, runs["depth 1"], "streaming killed and resumed")
+    log(f"streaming: killed at {2 * STREAM_SEGMENT} (epoch 2 being "
+        f"prefetched), resumed with {n} launches, bitwise")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+
+
+def phase_elastic(cfg, X, y):
+    """run_elastic on cuda at Table-1, P 5 -> 4 at iteration 10: the
+    kernel at the shrunk launch first, then the trajectory against the
+    same composition by hand (migrate_resumable and run_resumable over
+    shrink_plane), bitwise, and descent."""
+    ms = phase_kernel_at(ELASTIC_SHAPE, SEED + 2)
+    data = DenseDataPlane(X, y, grid=(cfg.P, cfg.Q))
+    kw = dict(segment_iters=RESUME_SEGMENT, record_every=RECORD_EVERY)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (st, hist, report), n, secs = launched(
+        run_elastic, SEED, data, cfg, ITERS, "cuda",
+        checkpoint_dir=ckpt_dir("elastic"),
+        lose_partition_at=RESUME_SEGMENT, new_P=ELASTIC_P, **kw)
+    above = (torch.cuda.max_memory_allocated() - base) / (4 * cfg.N * cfg.M)
+    check(n == ITERS, f"elastic: {n} launches in {ITERS} iterations")
+    new_cfg = report["new_cfg"]
+    check(new_cfg.P == ELASTIC_P and
+          (new_cfg.P * new_cfg.Q, new_cfg.L, new_cfg.m_tilde) ==
+          ELASTIC_SHAPE, f"elastic: shrunk to {new_cfg}")
+    s1, h1 = driver.run_resumable(SEED, data, cfg, RESUME_SEGMENT, "cuda",
+                                  checkpoint_dir=ckpt_dir("hand-1"), **kw)
+    survivors = shrink_plane(data, ELASTIC_P)
+    d2 = ckpt_dir("hand-2")
+    driver.migrate_resumable(SEED, survivors, new_cfg, RESUME_SEGMENT, s1,
+                             "cuda", checkpoint_dir=d2, history=h1[:-1],
+                             **kw)
+    by_hand = driver.run_resumable(SEED, survivors, new_cfg, ITERS, "cuda",
+                                   checkpoint_dir=d2, **kw)
+    same_run((st, hist), by_hand, "elastic vs by hand")
+    f = dict(hist)
+    check(f[ITERS] < f[RESUME_SEGMENT] < f[0],
+          f"elastic: the objective does not descend: {hist}")
+    log(f"elastic: P {cfg.P} -> {ELASTIC_P} at {RESUME_SEGMENT}, kernel "
+        f"launches {n} (the last {ITERS - RESUME_SEGMENT} at "
+        f"{ELASTIC_SHAPE}, {ms:.5f} ms each by a CUDA graph); bitwise the "
+        "composition by hand (migrate_resumable + run_resumable over "
+        f"shrink_plane); history {[(t, round(v, 6)) for t, v in hist]}; "
+        f"{secs:.3f} s from the first segment (the survivors are a row view "
+        f"of X, placed with no copy); peak {above:.4f} x X above X")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1678,8 +2091,12 @@ def main():
     X, y = phase_tiled_plane(cfg)
     phase_radisa_kernel()
     phase_radisa_async(cfg, X, y)
-    del X, y  # free the 18 GB before the serving phases
+    phase_resumable(cfg, X, y)
+    phase_elastic(cfg, X, y)
+    ms_static = phase_streaming_anchor(cfg, X, y)
+    del X, y  # free the 18 GB before the streaming and serving phases
     torch.cuda.empty_cache()
+    phase_streaming(cfg, ms_static)
 
     flash_record, times = phase_flash()
     phase_cut_depth()

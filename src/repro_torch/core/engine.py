@@ -52,6 +52,8 @@ __all__ = [
     "make_step",
     "make_bundle",
     "make_objective",
+    "rescale_bundle",
+    "rescale_config",
     "run",
     "init_state",
     "iteration_flops",
@@ -253,6 +255,39 @@ def make_bundle(cfg: SoddaConfig, backend: str = "reference", *, device=None,
         return bundle.step(carry, X, y, sample)
 
     return bundle._replace(step=step)
+
+
+def rescale_config(cfg: SoddaConfig, new_P: int) -> SoddaConfig:
+    """`cfg` on a rescaled observation grid: ``P=new_P`` and the same
+    per-partition ``n`` (a shrink drops the lost partitions' rows, a grow
+    adds the new partitions'); ``m_tilde`` re-splits to
+    ``M // (Q * new_P)`` and pi_q is redrawn next iteration. The reference's
+    ``rescale_bundle`` names and checks the new config the same way."""
+    if new_P < 1:
+        raise ValueError(
+            f"rescale_bundle needs new_P >= 1, got {new_P}")
+    if cfg.M % (cfg.Q * new_P):
+        raise ValueError(
+            f"cannot rescale to P={new_P}: M={cfg.M} must split into "
+            f"Q*P={cfg.Q * new_P} equal sub-blocks (m_tilde would not be "
+            "integral)")
+    return dataclasses.replace(cfg, name=f"{cfg.name}-P{new_P}", P=new_P)
+
+
+def rescale_bundle(cfg: SoddaConfig, backend: str, new_P: int, *,
+                   device=None, mesh=None, **options):
+    """The reference's elastic-rescale seam: ``(new_cfg, new_mesh, bundle)``
+    with ``new_cfg = rescale_config(cfg, new_P)`` and the bundle built on
+    it. The port's backends run on one device, so ``new_mesh`` is None and
+    a mesh raises ``ValueError``. `options` are the run's engine options,
+    revalidated against the rebuilt backend."""
+    if mesh is not None:
+        raise ValueError(
+            f"backend {backend!r} runs on one device and takes no mesh; "
+            "the mesh backends are not ported yet")
+    new_cfg = rescale_config(cfg, new_P)
+    return new_cfg, None, make_bundle(new_cfg, backend, device=device,
+                                      **options)
 
 
 def make_step(cfg: SoddaConfig, backend: str = "reference", *, device=None,

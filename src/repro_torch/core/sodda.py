@@ -24,10 +24,12 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.platform import resolve_device
 
-__all__ = ["SoddaState", "AsyncSoddaState", "init_state", "init_async_state",
-           "state_from_numpy", "async_state_from_numpy", "sodda_step",
-           "sodda_step_async", "consume_update", "snapshot_gradient",
-           "inner_loop", "iteration_flops"]
+__all__ = ["SoddaState", "AsyncSoddaState", "SoddaRecord",
+           "AsyncSoddaRecord", "init_state", "init_async_state",
+           "state_from_numpy", "async_state_from_numpy", "seed_key",
+           "key_seed", "carry_record", "carry_from_record", "record_template",
+           "sodda_step", "sodda_step_async", "consume_update",
+           "snapshot_gradient", "inner_loop", "iteration_flops"]
 
 
 class SoddaState(NamedTuple):
@@ -77,6 +79,92 @@ def async_state_from_numpy(w, t, mu, seed: int = 0,
     return AsyncSoddaState(
         w=state.w, t=state.t, seed=state.seed,
         mu=torch.tensor(np.asarray(mu, np.float32), device=state.w.device))
+
+
+# ---------------------------------------------------------------------------
+# The carry as a checkpoint holds it: the reference's fields, in its order.
+#
+# A checkpoint shared across the two packages carries *state*, not draws:
+# the iterate, the step counter, the base key and (async) the exchange
+# buffer. The port draws iteration t's sample from (seed, t) through torch
+# generators, the reference from its key through threefry, so a run
+# continued in the other package is a valid SODDA run from that state but
+# not the same trajectory unless its draws are replayed (``sampler``).
+# ---------------------------------------------------------------------------
+class SoddaRecord(NamedTuple):
+    """A :class:`SoddaState` as the reference's ``SoddaState`` stores it:
+    leaves ``.w`` (M,) f32, ``.t`` int32 and ``.key`` uint32 (2,)."""
+
+    w: np.ndarray
+    t: np.int32
+    key: np.ndarray
+
+
+class AsyncSoddaRecord(NamedTuple):
+    """An :class:`AsyncSoddaState` as the reference's ``AsyncSoddaState``
+    stores it: :class:`SoddaRecord`'s leaves plus ``.mu`` (M,) f32."""
+
+    w: np.ndarray
+    t: np.int32
+    key: np.ndarray
+    mu: np.ndarray
+
+
+def seed_key(seed: int) -> np.ndarray:
+    """The reference's base key of the port's `seed`: ``[0, seed]`` as
+    uint32, exactly ``jax.random.PRNGKey(seed)`` for 0 <= seed < 2**32.
+    PRNGKey truncates a larger seed (``PRNGKey(2**40 + 3)`` is ``[0, 3]``),
+    so such a seed has no key of its own and is refused."""
+    seed = int(seed)
+    if not 0 <= seed < 2 ** 32:
+        raise ValueError(
+            f"seed {seed} has no reference key: a checkpointed run needs "
+            "0 <= seed < 2**32 (PRNGKey keeps only the low 32 bits)")
+    return np.array([0, seed], dtype=np.uint32)
+
+
+def key_seed(key) -> int:
+    """The port's seed of a reference base key ``[0, seed]``. A key whose
+    first word is nonzero (a ``split`` or ``fold_in`` key) is no
+    ``PRNGKey(seed)`` and is refused."""
+    key = np.asarray(key)
+    if key.shape != (2,) or key.dtype != np.uint32:
+        raise ValueError(
+            f"expected a uint32 (2,) PRNG key, got {key.dtype} {key.shape}")
+    if int(key[0]) != 0:
+        raise ValueError(
+            f"key {key.tolist()} is not PRNGKey(seed) for any seed (its "
+            "first word is nonzero): the port has no seed for it")
+    return int(key[1])
+
+
+def carry_record(carry):
+    """The checkpoint record of a ``SoddaState`` or ``AsyncSoddaState``."""
+    w = carry.w.detach().cpu().numpy()
+    t, key = np.int32(carry.t), seed_key(carry.seed)
+    if isinstance(carry, AsyncSoddaState):
+        return AsyncSoddaRecord(w=w, t=t, key=key,
+                                mu=carry.mu.detach().cpu().numpy())
+    return SoddaRecord(w=w, t=t, key=key)
+
+
+def record_template(extended: bool):
+    """The structure of a carry's record (values unused): with ``mu`` for
+    the stale-by-one carry when `extended`."""
+    zeros = np.zeros(0, np.float32)
+    base = dict(w=zeros, t=np.int32(0), key=seed_key(0))
+    return AsyncSoddaRecord(mu=zeros, **base) if extended \
+        else SoddaRecord(**base)
+
+
+def carry_from_record(record, device):
+    """The carry a record holds, on `device`: ``t`` a Python int, the seed
+    from the key (:func:`key_seed`)."""
+    seed = key_seed(record.key)
+    if isinstance(record, AsyncSoddaRecord):
+        return async_state_from_numpy(record.w, record.t, record.mu, seed,
+                                      device)
+    return state_from_numpy(record.w, record.t, seed, device)
 
 
 # ---------------------------------------------------------------------------

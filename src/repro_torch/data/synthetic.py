@@ -19,17 +19,22 @@ generators, not the same bits. Two generation paths:
   1/sqrt(3), so unit variance is ``X * sqrt(3)``, a per-tile operation.
   A block's bits depend on the device it is drawn on (the CPU and CUDA
   generators differ), never on the grid.
+* the **stream** functions (:func:`stream_epoch_seed`,
+  :func:`svm_stream_tile_x`, :func:`svm_stream_label_block`) behind the
+  ``streaming`` plane: epoch e is the tile scheme re-run under the epoch's
+  seed, fresh observations labelled against the same planted z.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.partition import seeded_generator
+from repro_torch.core.partition import _iteration_seed, seeded_generator
 from repro_torch.platform import resolve_device
 
 __all__ = ["SVM_UNIT_VARIANCE_SCALE", "make_svm_data", "svm_tile_x",
-           "svm_feature_block_z", "svm_label_block"]
+           "svm_feature_block_z", "svm_label_block", "stream_epoch_seed",
+           "svm_stream_tile_x", "svm_stream_label_block"]
 
 # exact unit-variance scale for U[-1, 1] (std = 1/sqrt(3)), in f32
 SVM_UNIT_VARIANCE_SCALE = np.float32(1.7320508075688772)
@@ -112,5 +117,49 @@ def svm_label_block(seed: int, p: int, n: int, Q: int, m: int,
     y = torch.sign(zdot)
     y = torch.where(y == 0, torch.ones_like(y), y)
     gen = seeded_generator(device, seed, _FLIP_STREAM, p)
+    flips = torch.rand(n, generator=gen, device=device) < flip_prob
+    return torch.where(flips, -y, y)
+
+
+# ---------------------------------------------------------------------------
+# Epoch-reshuffled stream generation: the path of the `streaming` data
+# plane. Epoch e is the tile scheme above re-run under the epoch's seed —
+# fresh observations every epoch, drawn against the SAME planted separator z.
+# ---------------------------------------------------------------------------
+def stream_epoch_seed(seed: int, epoch: int) -> int:
+    """The base seed of stream epoch `epoch`: `seed` itself at epoch 0 (so
+    the stream's first window is bitwise the ``tiled`` plane's data), and
+    the epoch folded in by ``partition._iteration_seed`` (the counterpart of
+    ``fold_in``) at every later epoch: a pure function of (seed, epoch)."""
+    if epoch < 0:
+        raise ValueError(f"stream epoch must be >= 0, got {epoch}")
+    return int(seed) if epoch == 0 else _iteration_seed(seed, epoch)
+
+
+def svm_stream_tile_x(seed: int, epoch: int, p: int, q: int, n: int, m: int,
+                      standardize: bool = True, device=None):
+    """The (n, m) feature tile of worker (p, q) at stream epoch `epoch`."""
+    return svm_tile_x(stream_epoch_seed(seed, epoch), p, q, n, m,
+                      standardize=standardize, device=device)
+
+
+def svm_stream_label_block(seed: int, epoch: int, p: int, n: int, Q: int,
+                           m: int, flip_prob: float = 0.01, device=None):
+    """The (n,) label block of partition p at stream epoch `epoch`.
+
+    The rows and the flips come from the epoch's seed, the planted
+    separator's blocks from the *base* seed: every epoch labels its new rows
+    against the same z. At epoch 0 this is :func:`svm_label_block`,
+    bitwise."""
+    device = resolve_device(device)
+    eseed = stream_epoch_seed(seed, epoch)
+    zdot = torch.zeros(n, dtype=torch.float32, device=device)
+    for q in range(Q):
+        zdot = zdot + svm_tile_x(eseed, p, q, n, m, standardize=False,
+                                 device=device) \
+            @ svm_feature_block_z(seed, q, m, device=device)
+    y = torch.sign(zdot)
+    y = torch.where(y == 0, torch.ones_like(y), y)
+    gen = seeded_generator(device, eseed, _FLIP_STREAM, p)
     flips = torch.rand(n, generator=gen, device=device) < flip_prob
     return torch.where(flips, -y, y)

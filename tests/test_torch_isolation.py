@@ -207,3 +207,69 @@ def test_plane_registry_is_a_subset_of_the_reference():
     assert port <= set(ref_plane.available_planes())
     assert port | set(port_plane.NOT_PORTED) == \
         set(ref_plane.available_planes())
+
+
+def test_importing_the_resumable_layers_loads_no_jax():
+    """The checkpoint, resumable-run, streaming and fault-tolerance layers
+    import without jax or repro at run time too."""
+    code = ("import sys\n"
+            "import repro_torch.checkpoint, repro_torch.distributed\n"
+            "import repro_torch.testing.faults, repro_torch.core.driver\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_checkpoint_step_regex_matches_reference():
+    from repro.checkpoint import checkpoint as ref_ckpt
+    from repro_torch.checkpoint import checkpoint as port_ckpt
+    assert port_ckpt._STEP_RE.pattern == ref_ckpt._STEP_RE.pattern
+    assert port_ckpt._STEP_RE.flags == ref_ckpt._STEP_RE.flags
+
+
+def _dict_keys_assigned(path, function, name):
+    """The constant keys of the dict literal assigned to `name` inside
+    `function` in the source file `path`."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for fn in ast.walk(tree):
+        if isinstance(fn, ast.FunctionDef) and fn.name == function:
+            for node in ast.walk(fn):
+                if (isinstance(node, ast.Assign)
+                        and isinstance(node.value, ast.Dict)
+                        and any(getattr(t, "id", None) == name
+                                for t in node.targets)):
+                    return [k.value for k in node.value.keys]
+    raise AssertionError(f"no dict {name!r} in {function} of {path}")
+
+
+def test_resume_guard_stamp_keys_match_reference():
+    from repro_torch.core import driver as port_driver
+    ref = _dict_keys_assigned(
+        os.path.join(ROOT, "src", "repro", "core", "driver.py"),
+        "run_resumable", "want")
+    port = list(port_driver._stamp("reference", 1, 2, (), "fp", False, 0))
+    assert port == ref
+
+
+def _code_of(module):
+    """A module's AST dump with every docstring removed."""
+    import inspect
+    tree = ast.parse(inspect.getsource(module))
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef)) \
+                and node.body and isinstance(node.body[0], ast.Expr) \
+                and isinstance(node.body[0].value, ast.Constant) \
+                and isinstance(node.body[0].value.value, str):
+            node.body = node.body[1:]
+    return ast.dump(tree)
+
+
+def test_faults_copy_matches_reference():
+    from repro.testing import faults as ref_faults
+    from repro_torch.testing import faults as port_faults
+    assert _code_of(port_faults) == _code_of(ref_faults)
