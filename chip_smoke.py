@@ -71,7 +71,29 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     with no thread, killed and resumed bitwise, with the ms an iteration,
     the prefetcher's accounting and the peak over X (at most 2.2 x X at
     depth 1);
-12. holds ``flash_attention`` against its plain version at the gemma2-9b
+12. runs Table-1 doubly distributed, before the streaming windows: on the
+    tiled plane's X it records ``cuda``'s iterate at every iteration, the
+    exchange of iterations 1 and 10, ``async`` at staleness 1 and the
+    logistic twin; frees X; holds ``sodda_inner`` at the mesh's launch
+    (1, 64, 1200), one chain a rank, as in 7; then spawns a 5 x 3 grid of
+    15 ranks sharing the card over gloo (each draws only its 1.2 GB tile)
+    for one spawn of every mesh run, 20 iterations each, objective every
+    5, the launch counts set to 0 just before each run in each rank:
+    ``shard_map+cuda`` (the mesh's main path), ``async-mesh`` at staleness
+    0 and 1, the int8 wires, the delta all-reduce, and ``run_resumable``
+    interrupted at its seam and resumed. It holds every rank's w and
+    history bitwise equal; one launch a rank an iteration, a resume only
+    its own; ``consume_local`` bitwise ``consume_update``; every step from
+    ``cuda``'s iterate and the trajectory (hinge, and the logistic twin)
+    within F32_REDUCTION of ``cuda``; staleness 0 bitwise, staleness 1
+    within STALENESS of ``async``; the int8 wires within QUANTIZED; the
+    resume bitwise, rank 0 alone writing; and prints the ms an iteration,
+    each collective's payload beside ``iteration_collective_bytes``, the
+    ranks' summed peak over X, the card's used memory, a ``shard_map+cuda``
+    iteration by layer (the engine's bundle, the device synchronised
+    around each collective) and one all-reduce of n f32 over all 15 ranks.
+    Then a 1 x 1 grid over NCCL, bitwise ``cuda`` on the same data;
+13. holds ``flash_attention`` against its plain version at the gemma2-9b
    prefill shape (B=4, H=16, KV=8, S=4608, D=256, bf16) for a local and a
    global layer, at a decode offset, at unaligned bf16 shapes for the other
    head dims (16, 64, 128: causal, non-causal, window + softcap, decode
@@ -83,24 +105,24 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
    be its f32 value correctly rounded (see ``F32_NOISE``), and two
    controls must fail that rule: scores rounded to bf16, and P rounded to
    bf16 before P.V (the textbook tensor-core kernel);
-13. runs gemma2-9b at full width, cut to 4 layers, in f32, on 4608-token
+14. runs gemma2-9b at full width, cut to 4 layers, in f32, on 4608-token
     prompts through ``serve`` with the kernel and with the plain version:
     prefill logits and 8 decode steps' logits within 2e-4, and 8 greedy
     tokens identical;
-14. serves 4 requests of 4608 prompt tokens for 32 tokens each through
+15. serves 4 requests of 4608 prompt tokens for 32 tokens each through
     full-depth bf16 gemma2-9b (``repro_torch.launch.serve.serve``, the
     second main path, with the flash launch count set to 0 just before it):
     42 launches in the prefill and none in the decode, finite logits, and
     prefill time, decode time per token and peak device memory. Then each
     of the 42 layers' attention, on the plain path's activations, is held
-    to the rounding rule of 12 (both controls failing it), and the rms gap of
+    to the rounding rule of 13 (both controls failing it), and the rms gap of
     the kernel path's logits to the plain path's to 1.2x the plain path's
     gap to itself summed in another order;
-15. holds ``ssd_scan`` against its plain chunked version at the mamba2-130m
+16. holds ``ssd_scan`` against its plain chunked version at the mamba2-130m
     layer shape (B=16, S=2048, H=24, P=64, G=1, N=128), with Mamba-2's dt
     and A and a slow-decay case, at S = 1000 and at G = 2, in f32
     (the CUDA-core route, rtol = atol = 1e-4) and bf16 (the wgmma route,
-    the rounding rule of 12 over max|y|, which four controls must fail: the
+    the rounding rule of 13 over max|y|, which four controls must fail: the
     carry dropped, and each f32 operand of the tensor-core products rounded
     once to bf16: W, the state as C . state reads it, and x_j w_j of the
     state update), requires two launches to agree bitwise, prints each
@@ -108,18 +130,18 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     and C as bf16 views whose data is not 16-byte aligned (bitwise the
     aligned copies' output), and times kernel and plain version beside the
     bound;
-16. runs full-depth mamba2-130m in f32 (B=2, 1024 prompt tokens, Mamba-2's
+17. runs full-depth mamba2-130m in f32 (B=2, 1024 prompt tokens, Mamba-2's
     A_log and dt_bias): the kernel path's prefill logits within 2e-4 of the
     plain path's and of the decode warm-up's last logits (the scan against
     the recurrence), and 8 decode steps' logits, fed random tokens, within
     2e-4 of the scan's at the same positions;
-17. serves 16 requests of 2048 prompt tokens for 32 tokens each through
+18. serves 16 requests of 2048 prompt tokens for 32 tokens each through
     full-depth bf16 mamba2-130m (``serve``, the third main path, with the
     SSD launch counts set to 0 just before it): 24 launches in the
     prefill, all on the wgmma route, and none in the warm-up or decode,
     finite logits, and prefill time, warm-up time, decode time per token
     and peak device memory. Then each of the 24 layers' SSD, on the plain
-    path's activations, is held to the rounding rule of 12, every control
+    path's activations, is held to the rounding rule of 13, every control
     failing it.
 
 Exits non-zero if any phase fails. The last three lines of standard output
@@ -1220,6 +1242,382 @@ def phase_elastic(cfg, X, y):
 
 
 # ---------------------------------------------------------------------------
+# The doubly-distributed mesh over torch.distributed: 15 ranks on one card
+# ---------------------------------------------------------------------------
+MESH_SHAPE = (1, TABLE1_250K_18K.L, TABLE1_250K_18K.m_tilde)  # a chain a rank
+MESH_CONSUME_TS = (1, 10)  # consume_local held to consume_update at these t
+MESH_TIMEOUT_S = 600
+MESH_DEVICE = "cuda:0"  # every rank's device: the one card, shared
+NCCL_CFG = SoddaConfig(name="smoke-nccl-1x1", P=1, Q=1, n=20_000, m=1200,
+                       L=64, lr0=0.05)
+MESH_TRANSPORT = ("gloo process group; every collective on the rank's "
+                  "cuda:0 tensors (gloo stages them through host memory "
+                  "itself)")
+
+
+def phase_mesh_refs(cfg, X, y):
+    """The single-device runs the mesh is held to, on the tiled plane's X
+    (the data every rank's tile is drawn from): cuda's iterate at every
+    iteration (stepped by hand, bitwise driver.run) and its history; the
+    exchange mu of the iterations consume_local is held at; async at
+    staleness 1; and the logistic twin on cuda."""
+    data = DenseDataPlane(X, y, grid=(cfg.P, cfg.Q))
+    sync = engine.make_bundle(cfg, "cuda")
+    state = sodda.init_state(SEED, cfg.M, X.device)
+    ws, consume = [state.w.cpu().numpy()], []
+    for t in range(1, ITERS + 1):
+        if t in MESH_CONSUME_TS:
+            _, mu = sodda._issue(cfg, X, y, state.w, t, SEED)
+            consume.append((ws[-1], mu.cpu().numpy(), t, True))
+        state = sync.step(state, X, y)
+        ws.append(state.w.cpu().numpy())
+    st_c, h_c = driver.run(SEED, data, cfg, ITERS, "cuda",
+                           record_every=RECORD_EVERY)
+    check(np.array_equal(st_c.w.cpu().numpy(), ws[-1]),
+          "mesh refs: stepping cuda by hand is not driver.run's trajectory")
+    st_a, h_a = driver.run(SEED, data, cfg, ITERS, "async",
+                           record_every=RECORD_EVERY)
+    lcfg = dataclasses.replace(cfg, name=cfg.name + "-logistic",
+                               loss="logistic")
+    st_l, h_l = driver.run(SEED, data, lcfg, ITERS, "cuda",
+                           record_every=RECORD_EVERY)
+    return dict(ws=ws, h_c=h_c, consume=consume, h_a=h_a, lcfg=lcfg, h_l=h_l,
+                w_l=st_l.w.cpu().numpy())
+
+
+def mesh_runs(ckpt):
+    """The spawn's runs on Table-1, in order: a warm-up, the main path
+    (shard_map+cuda), async-mesh at staleness 0 and 1, the int8 wires, the
+    delta all-reduce, and run_resumable interrupted at its seam and
+    resumed."""
+    def run(backend="shard_map+cuda", iters=ITERS, **options):
+        return dict(backend=backend, iters=iters, record_every=RECORD_EVERY,
+                    seed=SEED, options=options)
+
+    resumable = dict(checkpoint_dir=ckpt, segment_iters=RESUME_SEGMENT)
+    return {"warm-up": run(iters=RECORD_EVERY),
+            "shard_map+cuda": run(),
+            "async-mesh/0": run("async-mesh", staleness=0),
+            "async-mesh/1": run("async-mesh", staleness=1),
+            "int8": run(compress_z=True, compress_mu=True),
+            "delta-psum": run(gather_deltas=False),
+            "interrupted": dict(run(), resumable=dict(
+                resumable, interrupt_at=RESUME_SEGMENT)),
+            "resumed": dict(run(), resumable=resumable)}
+
+
+def hold_mesh_trajectory(name, h_ref, h, w_ref, w):
+    """F32_REDUCTION of a mesh run against its reference at every tick and
+    on the final iterate; (held, relative gaps by tick)."""
+    floor = tol.F32_REDUCTION.obj_floor
+    gaps = [abs(fa - fb) / max(abs(fa), floor)
+            for (_, fa), (_, fb) in zip(h_ref, h)]
+    scale = max(float(np.abs(w_ref).max()), 1.0)
+    w_gap = float(np.abs(w_ref - w).max())
+    held = (max(gaps) <= tol.F32_REDUCTION.obj_rel and
+            w_gap <= tol.F32_REDUCTION.w_rel * scale)
+    log(f"mesh {name}: max relative objective gap "
+        f"{max(gaps):.3e} by tick {[f'{g:.2e}' for g in gaps]}, "
+        f"max|dw| {w_gap:.3e} (F32_REDUCTION allows "
+        f"{tol.F32_REDUCTION.obj_rel:.0e} and "
+        f"{tol.F32_REDUCTION.w_rel * scale:.3e}): "
+        f"{'held' if held else 'DEPARTS'}")
+    return held, gaps
+
+
+MESH_COLLECTIVES = ("all_reduce", "all_gather_cat")  # the Mesh's methods
+
+
+def mesh_breakdown_rank(cfg, spec, device):
+    """A mesh rank's wall time of each layer of a ``shard_map+cuda``
+    iteration, over ITERS iterations of the engine's own bundle from w = 0
+    with the objective at every one; the first iteration is left out of the
+    means. The mesh's collectives are wrapped to synchronise the device
+    before and after each call (every rank runs the same collectives in the
+    same order), so the time to a collective is the compute that feeds it
+    and the time in it is the collective's; ``after delta`` is the
+    scatter of the gathered blocks. Then the time of one all-reduce of n
+    f32 over the whole group (200 KB at Table-1). Returns (mean ms by
+    layer, that all-reduce's mean ms, the final w gathered to (M,))."""
+    import torch.distributed as dist
+
+    from repro_torch.testing import multiprocess as mp
+
+    device = mp._device(device)
+    mesh = engine.make_mesh_for(cfg, device)
+    X, y = mp._plane(spec, device).materialize_for("shard_map+cuda",
+                                                   mesh=mesh, device=device)
+    bundle = engine.make_bundle(cfg, "shard_map+cuda", device=device,
+                                mesh=mesh)
+    totals, clock = {}, {"last": 0.0, "on": False}
+
+    def stamp(name):
+        mp._sync(device)
+        now = time.perf_counter()
+        if clock["on"]:
+            totals[name] = totals.get(name, 0.0) + now - clock["last"]
+        clock["last"] = now
+
+    def timed(method):
+        def call(t, axis, *args, tag=None, **kwargs):
+            stamp(f"compute to {tag}")
+            out = method(t, axis, *args, tag=tag, **kwargs)
+            stamp(f"{tag} {method.__name__} over {axis}")
+            return out
+        return call
+
+    for name in MESH_COLLECTIVES:
+        setattr(mesh, name, timed(getattr(mesh, name)))
+    try:
+        carry = bundle.init_carry(sodda.init_state(SEED, cfg.M, device), X, y)
+        for t in range(1, ITERS + 1):
+            clock["on"] = t > 1
+            stamp("between iterations")
+            carry = bundle.step(carry, X, y)
+            stamp("after delta")
+            bundle.objective(X, y, carry.w)
+            stamp("after objective")
+        clock["on"] = False
+        w = bundle.finalize(carry).w
+    finally:
+        for name in MESH_COLLECTIVES:
+            delattr(mesh, name)
+    means = {k: 1e3 * v / (ITERS - 1) for k, v in totals.items()
+             if k != "between iterations"}
+    z = torch.ones(cfg.n, device=device)
+    for _ in range(3):
+        dist.all_reduce(z)
+    mp._sync(device)
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        dist.all_reduce(z)
+    mp._sync(device)
+    world_ms = 1e3 * (time.perf_counter() - t0) / ITERS
+    return means, world_ms, w.cpu().numpy()
+
+
+def phase_mesh(cfg, refs):
+    """Table-1 on a 5 x 3 grid of 15 ranks sharing the card over gloo, one
+    spawn (see the module docstring, 12). Returns the kernel's time at the
+    mesh launch (1, 64, 1200) by a CUDA graph."""
+    from repro_torch.core import distributed as cdist
+    from repro_torch.testing import multiprocess as mp
+
+    ms_b1 = phase_kernel_at(MESH_SHAPE, SEED + 3)
+    bound_b1, by_b1 = kernel_bound_ms(*MESH_SHAPE)
+    torch.cuda.empty_cache()
+    world = cfg.P * cfg.Q
+    spec = ("tiled", SEED, cfg.N, cfg.M, cfg.P, cfg.Q)
+    d = ckpt_dir("mesh")
+    runs = mesh_runs(d)
+    jobs = [(mp.rank_runs, (cfg, spec, list(runs.values()), MESH_DEVICE)),
+            (mp.rank_runs, (refs["lcfg"], spec,
+                            [runs["shard_map+cuda"]], MESH_DEVICE)),
+            (mp.rank_steps, (cfg, spec, "shard_map+cuda", refs["ws"][:-1],
+                             list(range(1, ITERS + 1)), SEED, None, None,
+                             MESH_DEVICE)),
+            (mp.rank_consume, (cfg, spec, refs["consume"], SEED,
+                               MESH_DEVICE)),
+            (mesh_breakdown_rank, (cfg, spec, MESH_DEVICE))]
+    t0 = time.perf_counter()
+    launch = mp.launch_coordinated(mp.rank_batch, world, (jobs,),
+                                   backend="gloo", timeout=MESH_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    check(launch.exit_codes == {}, f"mesh ranks died: {launch.exit_codes}")
+    ranks = launch.results
+    res = [dict(zip(runs, r[0])) for r in ranks]  # per rank, by run name
+    logistic = [r[1][0] for r in ranks]
+    entered, joined = (max(st[k] for st in launch.stamps)
+                       for k in ("entered", "joined"))
+    log(f"mesh: {cfg.P} x {cfg.Q} grid, {world} ranks on one card, "
+        f"transport: {MESH_TRANSPORT}; one spawn of {spawn_s:.1f} s: the "
+        f"last rank up (interpreter and imports) at {entered:.1f} s, in the "
+        f"process group at {joined:.1f} s, then the tile draws and every "
+        "run below")
+
+    # every rank returns the same state and history, bitwise
+    for name in runs:
+        for r in range(1, world):
+            a, b = res[0][name], res[r][name]
+            check(a["history"] == b["history"] and a["t"] == b["t"] and
+                  (a["w"] is None or np.array_equal(a["w"], b["w"])),
+                  f"mesh {name}: rank {r} differs from rank 0")
+    for r in range(1, world):
+        check(np.array_equal(logistic[r]["w"], logistic[0]["w"]) and
+              logistic[r]["history"] == logistic[0]["history"],
+              f"mesh logistic: rank {r} differs from rank 0")
+
+    # one launch a rank an iteration; a resume launches only its own
+    want = {"warm-up": RECORD_EVERY, "interrupted": RESUME_SEGMENT,
+            "resumed": ITERS - RESUME_SEGMENT}
+    for name in runs:
+        n = [res[r][name]["launches"] for r in range(world)]
+        check(n == [want.get(name, ITERS)] * world,
+              f"mesh {name}: sodda_inner launches by rank {n}")
+    log(f"mesh launches: every rank launched sodda_inner at {MESH_SHAPE} "
+        f"once an iteration: {ITERS} in each {ITERS}-iteration run, "
+        f"{RESUME_SEGMENT} before the interruption and "
+        f"{ITERS - RESUME_SEGMENT} in the resume")
+
+    main = res[0]["shard_map+cuda"]
+    # consume_local bitwise consume_update from the same w and mu
+    for (w, mu, t, _), got in zip(refs["consume"], ranks[0][3]):
+        check(np.array_equal(got, refs["ws"][t]),
+              f"mesh consume_local at t={t} is not consume_update, bitwise "
+              f"(max|d| {float(np.abs(got - refs['ws'][t]).max()):.3e})")
+    log(f"mesh consume_local: bitwise consume_update (cuda) from the same w "
+        f"and mu at t = {MESH_CONSUME_TS}")
+    # every step from cuda's state, to F32_REDUCTION
+    worst = 0.0
+    for t, got in enumerate(ranks[0][2], start=1):
+        tol.assert_trajectories_close([refs["ws"][t]], [got],
+                                      tol.F32_REDUCTION,
+                                      f"mesh step {t} from cuda's w^{t - 1}")
+        worst = max(worst, float(np.abs(got - refs["ws"][t]).max()))
+    log(f"mesh steps: each of the {ITERS} iterations, stepped by the mesh "
+        f"from cuda's iterate, within F32_REDUCTION of cuda's step; "
+        f"max|dw| {worst:.3e}")
+    # the trajectory against cuda (hinge), and the logistic twin in full
+    held, _ = hold_mesh_trajectory("shard_map+cuda vs cuda (hinge)",
+                                   refs["h_c"], main["history"],
+                                   refs["ws"][-1], main["w"])
+    held_l, _ = hold_mesh_trajectory(
+        "shard_map+cuda vs cuda (logistic twin)", refs["h_l"],
+        logistic[0]["history"], refs["w_l"], logistic[0]["w"])
+    check(held_l, "mesh logistic twin departs from cuda")
+    if not held:
+        X, y = TiledDataPlane(SEED, cfg.N, cfg.M, cfg.P, cfg.Q).materialize()
+        w_c, w_m = (torch.tensor(v, device="cuda")
+                    for v in (refs["ws"][-1], main["w"]))
+        log(f"mesh hinge: rows of X on other sides of the hinge kink at the "
+            f"final iterates, mesh vs cuda: {kink_sides(X, y, w_m, w_c)} of "
+            f"{cfg.N}; every step from the same state held, the logistic "
+            "twin held in full (a finding: the mesh sums z over "
+            f"{cfg.Q} partial GEMVs)")
+        del X, y, w_c, w_m
+        torch.cuda.empty_cache()
+    for name in runs:
+        h = res[0][name]["history"]
+        if h is not None:
+            check(all(math.isfinite(f) for _, f in h) and h[-1][1] < h[0][1],
+                  f"mesh {name}: no descent or non-finite {h}")
+
+    # async-mesh: staleness 0 bitwise, staleness 1 within STALENESS
+    a0, a1 = res[0]["async-mesh/0"], res[0]["async-mesh/1"]
+    check(a0["history"] == main["history"] and
+          np.array_equal(a0["w"], main["w"]),
+          "async-mesh at staleness 0 is not shard_map+cuda, bitwise")
+    tol.assert_objectives_close(refs["h_a"][-1][1], a1["history"][-1][1],
+                                tol.STALENESS, "async-mesh/1 vs async")
+    log(f"mesh async-mesh: staleness 0 bitwise shard_map+cuda; staleness 1 "
+        f"F {a1['history'][-1][1]:.6f} within STALENESS of async's "
+        f"{refs['h_a'][-1][1]:.6f}")
+    # the wires: int8 within QUANTIZED, the delta all-reduce F32_REDUCTION
+    q8, dp = res[0]["int8"], res[0]["delta-psum"]
+    tol.assert_objectives_close(main["history"][-1][1], q8["history"][-1][1],
+                                tol.QUANTIZED, "mesh int8 wires")
+    held_d, _ = hold_mesh_trajectory("delta all-reduce vs all-gather",
+                                     main["history"], dp["history"],
+                                     main["w"], dp["w"])
+    check(held_d, "mesh delta all-reduce departs from the all-gather")
+    log(f"mesh int8 wires: F {q8['history'][-1][1]:.6f} within QUANTIZED of "
+        f"the exact run's {main['history'][-1][1]:.6f}")
+
+    # interrupted at the seam and resumed: bitwise, rank 0 alone wrote
+    it, rs = res[0]["interrupted"], res[0]["resumed"]
+    check(it["interrupted"] == RESUME_SEGMENT and
+          rs["history"] == main["history"] and
+          np.array_equal(rs["w"], main["w"]),
+          "mesh resume is not the uninterrupted run, bitwise")
+    saves = [(res[r]["interrupted"]["saves"], res[r]["resumed"]["saves"])
+             for r in range(world)]
+    check(saves == [(1, 1)] + [(0, 0)] * (world - 1),
+          f"mesh checkpoint saves by rank: {saves}")
+    _, leaves = read_manifest_by_hand(os.path.join(
+        d, f"step_{ITERS:010d}"))
+    check(np.array_equal(leaves[".w"], main["w"]),
+          "mesh checkpoint: w is not the run's final iterate")
+    log(f"mesh resumable: interrupted after its commit at {RESUME_SEGMENT} "
+        "and resumed in the same ranks, bitwise the uninterrupted run; rank "
+        "0 alone saved (one save a boundary), the checkpoint in the "
+        "reference's layout")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+
+    # what the card measured: time, payload, memory (reported, no limit)
+    x_bytes = 4 * cfg.N * cfg.M
+    peak = sum(res[r]["shard_map+cuda"]["peak"] or 0 for r in range(world))
+    used = max(res[r]["shard_map+cuda"]["device_used"] or 0
+               for r in range(world))
+    for name in ("shard_map+cuda", "async-mesh/1", "int8", "delta-psum"):
+        secs = [res[r][name]["seconds"] for r in range(world)]
+        log(f"mesh {name}: {1e3 * secs[0] / ITERS:.3f} ms/iteration on rank "
+            f"0 ({1e3 * max(secs) / ITERS:.3f} slowest rank), {ITERS} "
+            f"iterations with the objective every {RECORD_EVERY}")
+    for name, flags in (("shard_map+cuda", {}),
+                        ("int8", dict(compress_z=True, compress_mu=True)),
+                        ("delta-psum", dict(gather_deltas=False))):
+        pay = res[0][name]["payload"]
+        per_it = {k: pay.get(k, 0) / ITERS for k in ("z", "mu", "delta")}
+        ring = cdist.iteration_collective_bytes(cfg, **flags)
+        log(f"mesh {name} payload a rank an iteration (bytes handed to "
+            f"each collective): {per_it}; ring volume "
+            f"(iteration_collective_bytes) {ring}; objective "
+            f"{pay.get('objective', 0)} and final gather "
+            f"{pay.get('gather', 0)} bytes a run")
+    log(f"mesh memory: the ranks' max_memory_allocated sum to "
+        f"{peak / 1e9:.3f} GB = {peak / x_bytes:.4f} x X "
+        f"(X = {x_bytes / 1e9:.3f} GB); the card's used memory at the end "
+        f"of the run (every context) {used / 1e9:.3f} GB")
+    breakdown, world_ms, w_b = ranks[0][4]
+    check(np.array_equal(w_b, main["w"]),
+          "mesh breakdown: its timed run does not give shard_map+cuda's "
+          "iterate")
+    slowest = {k: max(r[4][0][k] for r in ranks) for k in breakdown}
+    step = [k for k in breakdown if "objective" not in k]
+    log("mesh breakdown of a shard_map+cuda iteration on rank 0, the "
+        "engine's bundle with the device synchronised around each "
+        "collective, mean of iterations 2-20 (slowest rank in brackets): "
+        + ", ".join(f"{k} {v:.3f} ({slowest[k]:.3f}) ms"
+                    for k, v in breakdown.items())
+        + f"; the step {sum(breakdown[k] for k in step):.3f} ms; its "
+        "iterate bitwise the run's")
+    log(f"mesh: an all-reduce of {cfg.n} f32 ({4 * cfg.n} bytes) over all "
+        f"{world} ranks on cuda:0 tensors, mean of {ITERS}: "
+        f"{world_ms:.3f} ms on rank 0")
+    log(f"mesh kernel at {MESH_SHAPE}: {ms_b1:.5f} ms by a CUDA graph, bound "
+        f"{bound_b1:.5f} ms ({by_b1}), {ms_b1 / bound_b1:.1f}x; "
+        f"{world} launches an iteration across the ranks")
+    return ms_b1
+
+
+def phase_nccl():
+    """The mesh path on one rank over NCCL (a 1 x 1 grid), bitwise cuda on
+    the same data: the only NCCL run one card allows."""
+    from repro_torch.testing import multiprocess as mp
+
+    cfg = NCCL_CFG
+    spec = ("tiled", SEED, cfg.N, cfg.M, 1, 1)
+    plane = TiledDataPlane(*spec[1:])
+    st, hist = driver.run(SEED, plane, cfg, ITERS, "cuda",
+                          record_every=RECORD_EVERY)
+    run = dict(backend="shard_map+cuda", iters=ITERS,
+               record_every=RECORD_EVERY, seed=SEED)
+    launch = mp.launch_coordinated(mp.rank_runs, 1, (cfg, spec, [run],
+                                                     MESH_DEVICE),
+                                   backend="nccl", timeout=300)
+    check(launch.exit_codes == {}, f"nccl rank died: {launch.exit_codes}")
+    got = launch.results[0][0]
+    check(got["launches"] == ITERS,
+          f"nccl 1x1: {got['launches']} launches in {ITERS} iterations")
+    check(got["history"] == hist and
+          np.array_equal(got["w"], st.w.cpu().numpy()),
+          f"nccl 1x1 mesh is not cuda, bitwise: {got['history']} vs {hist}")
+    log(f"mesh 1 x 1 over NCCL ({cfg.N} x {cfg.M}): bitwise the cuda "
+        f"backend on the same data, w and history; {ITERS} launches; "
+        f"transport: NCCL on cuda:0 tensors")
+
+
+# ---------------------------------------------------------------------------
 # flash_attention and the gemma2-9b serving path
 # ---------------------------------------------------------------------------
 def attention_pairs(Sq, Sk, causal=True, window=0, q_offset=0):
@@ -2094,8 +2492,11 @@ def main():
     phase_resumable(cfg, X, y)
     phase_elastic(cfg, X, y)
     ms_static = phase_streaming_anchor(cfg, X, y)
-    del X, y  # free the 18 GB before the streaming and serving phases
+    mesh_refs = phase_mesh_refs(cfg, X, y)
+    del X, y  # free the 18 GB before the mesh, streaming and serving phases
     torch.cuda.empty_cache()
+    phase_mesh(cfg, mesh_refs)
+    phase_nccl()
     phase_streaming(cfg, ms_static)
 
     flash_record, times = phase_flash()

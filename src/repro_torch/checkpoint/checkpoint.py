@@ -159,6 +159,10 @@ def _to_numpy(leaf) -> np.ndarray:
 
 def save_checkpoint(directory: str, step: int, tree,
                     extra: Optional[dict] = None, keep: int = 3) -> str:
+    """Write `tree` as committed step `step` of `directory`, crash-atomic
+    (tmp + rename + commit marker), keeping the newest `keep` steps.
+    ``save_checkpoint.saves`` counts the saves this process made (a mesh
+    run's rank 0 alone saves)."""
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:010d}")
     tmp = final + ".tmp"
@@ -185,7 +189,11 @@ def save_checkpoint(directory: str, step: int, tree,
         shutil.rmtree(final)
     os.replace(tmp, final)
     _gc(directory, keep)
+    save_checkpoint.saves += 1
     return final
+
+
+save_checkpoint.saves = 0
 
 
 def latest_step(directory: str) -> Optional[int]:

@@ -49,6 +49,19 @@ a segment (the reference does it from inside its compiled scan through an
 ``io_callback``; here it is a host-side save in the loop, one sync each).
 An exception from ``on_commit`` propagates at once: the commit it follows
 has landed, and nothing after it.
+
+Mesh runs
+---------
+On a mesh backend (``engine.MESH_BACKENDS``) every rank of the process
+group calls the same entry point with the same arguments. The plane places
+each rank's own tile, the carry holds the rank's feature block of w, the
+objective is the distributed one, and ``finalize`` gathers w to (M,) once,
+at the end, so every rank returns the same state and history, bitwise. A
+checkpoint gathers the carry (a collective), rank 0 alone writes it in the
+unchanged format, and a barrier follows every commit; every rank restores
+from the same directory. The resume guard's data fingerprint hashes tile
+(0, 0) and label block 0, which rank 0 holds: it is computed there and
+broadcast, so every rank checks the same stamp.
 """
 from __future__ import annotations
 
@@ -59,10 +72,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.sodda_svm import SoddaConfig
-from repro_torch.core import engine, losses
-from repro_torch.core.sodda import (SoddaState, carry_from_record,
-                                    carry_record, init_state,
-                                    record_template, seed_key)
+from repro_torch.core import engine
+from repro_torch.core.sodda import (SoddaState, init_state, record_template,
+                                    seed_key)
 from repro_torch.data.plane import as_data_plane
 from repro_torch.platform import resolve_device
 
@@ -87,23 +99,25 @@ def _chunk_lengths(iters: int, record_every: int) -> Tuple[int, ...]:
     return (record_every,) * n_full + ((rem,) if rem else ())
 
 
-def _checked_bundle(data, cfg: SoddaConfig, backend: str, device, options):
+def _checked_bundle(data, cfg: SoddaConfig, backend: str, device, options,
+                    mesh=None):
     """Coerce `data` to a plane, check it against `cfg`, and build the
-    backend's bundle on `device`: the front half every entry point
-    shares."""
+    backend's bundle on `device` (on `mesh` for a mesh backend): the front
+    half every entry point shares."""
     plane = as_data_plane(data)
     if (plane.N, plane.M) != (cfg.N, cfg.M):
         raise ValueError(
             f"data shapes X ({plane.N}, {plane.M}), y ({plane.N},) do not "
             f"match cfg {cfg.name!r} ({cfg.N}, {cfg.M})")
-    return plane, engine.make_bundle(cfg, backend, device=device, **options)
+    return plane, engine.make_bundle(cfg, backend, device=device, mesh=mesh,
+                                     **options)
 
 
-def _chunks(bundle, carry, X, y, cfg, lengths, fs, sampler):
+def _chunks(bundle, carry, X, y, lengths, fs, sampler):
     """Run chunks of `lengths` steps from `carry`, writing the objective at
     each chunk's entry iterate into `fs` (on the device)."""
     for k, length in enumerate(lengths):
-        fs[k] = losses.objective(cfg.loss, X, y, carry.w)
+        fs[k] = bundle.objective(X, y, carry.w)
         for _ in range(length):
             sample = None if sampler is None else sampler(carry.t)
             carry = bundle.step(carry, X, y, sample)
@@ -119,33 +133,37 @@ def _warm_carry(bundle, state, X, y, sampler):
 
 def run(seed: int, data, cfg: SoddaConfig, iters: int,
         backend: str = "reference", *, record_every: int = 1, device=None,
-        sampler: Optional[Callable[[int], Any]] = None, **options):
+        mesh=None, sampler: Optional[Callable[[int], Any]] = None,
+        **options):
     """Run `iters` outer iterations of `backend` on `device`.
 
     ``data`` is a ``DataPlane`` or an ``(X, y)`` pair, placed on `device`
     (default: the CUDA device; ``RuntimeError`` without one) by
     ``materialize_for``; data on another device is refused, never copied.
-    ``options`` are the engine options (``staleness``, ...).
-    ``sampler(t)``, when given, supplies iteration t's draw instead of the
-    port's own, as the backend's step takes it (an ``IterationSample``; the
-    row draw J for ``radisa-avg``); the warm-up of ``async`` gets
-    ``sampler(1)``, the sample its first exchange is issued under. It is
-    the test seam that replays the reference's draws. Returns
+    ``options`` are the engine options (``staleness``, ...); a mesh
+    backend runs on `mesh` (built over the live process group when None),
+    every rank calling with the same arguments. ``sampler(t)``, when given,
+    supplies iteration t's draw instead of the port's own, as the
+    backend's step takes it (an ``IterationSample``; the row draw J for
+    ``radisa-avg``); the warm-up of ``async`` gets ``sampler(1)``, the
+    sample its first exchange is issued under. It is the test seam that
+    replays the reference's draws. Returns
     ``(final_state, [(t, F(w^t))])`` with the objective at
     :func:`record_ticks`.
     """
     ticks = record_ticks(iters, record_every)
     device = resolve_device(device)
-    plane, bundle = _checked_bundle(data, cfg, backend, device, options)
-    X, y = plane.materialize_for(backend, device=device)
+    plane, bundle = _checked_bundle(data, cfg, backend, device, options,
+                                    mesh)
+    X, y = plane.materialize_for(backend, mesh=bundle.mesh, device=device)
 
     hist = torch.empty(len(ticks), dtype=torch.float32, device=device)
     carry = _warm_carry(bundle, init_state(seed, cfg.M, device), X, y,
                         sampler)
-    carry = _chunks(bundle, carry, X, y, cfg,
-                    _chunk_lengths(iters, record_every), hist, sampler)
+    carry = _chunks(bundle, carry, X, y, _chunk_lengths(iters, record_every),
+                    hist, sampler)
+    hist[-1] = bundle.objective(X, y, carry.w)
     state = bundle.finalize(carry)
-    hist[-1] = losses.objective(cfg.loss, X, y, state.w)
     return state, list(zip(ticks, hist.tolist()))  # the one host sync
 
 
@@ -180,19 +198,32 @@ def _host_bytes(t) -> bytes:
     return t.detach().cpu().numpy().tobytes()
 
 
-def _data_fingerprint(plane) -> str:
+def _fingerprint(N, M, P, Q, x00, y0) -> str:
+    h = hashlib.sha256()
+    h.update(repr((N, M, P, Q)).encode())
+    h.update(_host_bytes(x00))
+    h.update(_host_bytes(y0))
+    return h.hexdigest()
+
+
+def _data_fingerprint(plane, mesh=None, placed=None) -> str:
     """A content fingerprint of a data plane for the resume guard, as the
     reference computes it: the grid metadata, then the bytes of the
     epoch-0 tile (0, 0) and of label block 0. Content only, no plane kind:
     dense and tiled planes of the same data resume each other; a streaming
     plane is fingerprinted at epoch 0, since its cursor is trajectory
-    state (stamped as ``stream_epoch``), not data identity."""
+    state (stamped as ``stream_epoch``), not data identity.
+
+    On a `mesh` the grid is the mesh's and tile (0, 0) is rank 0's own
+    `placed` pair: rank 0 hashes it and broadcasts the stamp (a
+    collective)."""
+    if mesh is not None:
+        stamp = (_fingerprint(plane.N, plane.M, *mesh.shape, *placed)
+                 if mesh.rank == 0 else None)
+        return mesh.broadcast_object(stamp)
     plane = plane.at_epoch(0)  # no-op for static planes
-    h = hashlib.sha256()
-    h.update(repr((plane.N, plane.M, plane.P, plane.Q)).encode())
-    h.update(_host_bytes(plane.x_tile(0, 0)))
-    h.update(_host_bytes(plane.y_block(0)))
-    return h.hexdigest()
+    return _fingerprint(plane.N, plane.M, plane.P, plane.Q, plane.x_tile(0, 0),
+                        plane.y_block(0))
 
 
 def _validate_segmenting(iters: int, segment_iters: int, record_every: int,
@@ -280,21 +311,45 @@ def _check_resume(checkpoint_dir, latest, iters, want, streaming,
             "written; refusing to resume")
 
 
-def _restore_carry(checkpoint_dir, backend, device, step=None):
-    """``(done, carry, history)`` of a committed checkpoint."""
+def _restore_carry(checkpoint_dir, backend, bundle, step=None):
+    """``(done, carry, history)`` of a committed checkpoint (every rank of
+    a mesh reads the same files)."""
     from repro_torch.checkpoint import restore_checkpoint
 
     done, record, extra = restore_checkpoint(
         checkpoint_dir, record_template(backend in engine.ASYNC_BACKENDS),
         step=step)
     hist = [(int(t), float(f)) for t, f in extra.get("history", [])]
-    return done, carry_from_record(record, device), hist
+    return done, bundle.restore(record), hist
+
+
+def _committer(bundle, manager):
+    """``commit(step, carry, extra, boundary)``: the carry's record (a
+    gather on a mesh, on every rank) written by rank 0 alone, then a
+    barrier on a mesh so no rank runs ahead of the write. A boundary off
+    the segment cadence (the end of a shorter last segment) is not
+    saved."""
+    from repro_torch.distributed import multihost
+
+    mesh = bundle.mesh
+
+    def commit(step, carry, extra, boundary):
+        if boundary and step % manager.every:
+            return  # the run's last, partial segment: no boundary to save
+        record = bundle.record(carry)
+        if mesh is None or mesh.rank == 0:
+            manager.save(step, record, extra=extra)
+        if mesh is not None:
+            multihost.barrier()
+
+    return commit
 
 
 def run_resumable(seed: int, data, cfg: SoddaConfig, iters: int,
                   backend: str = "reference", *, checkpoint_dir: str,
                   segment_iters: int, record_every: int = 1, device=None,
-                  keep: int = 3, commit_every: int = 0, on_commit=None,
+                  mesh=None, keep: int = 3, commit_every: int = 0,
+                  on_commit=None,
                   on_segment=None, on_segment_start=None,
                   stream_stats=None, prefetch_depth: int = 1,
                   sampler: Optional[Callable[[int], Any]] = None,
@@ -319,7 +374,7 @@ def run_resumable(seed: int, data, cfg: SoddaConfig, iters: int,
     ``commit_every > 0`` (a multiple of ``record_every`` dividing
     ``segment_iters``) commits every ``commit_every`` iterations inside a
     segment too, and ``on_commit(iters_done)`` is called after each such
-    commit. ``sampler`` and `device` are :func:`run`'s. Returns
+    commit. ``sampler``, `device` and `mesh` are :func:`run`'s. Returns
     ``(final_state, [(t, F(w^t))])``, :func:`run`'s contract.
     """
     from repro_torch.checkpoint import CheckpointManager, latest_step
@@ -328,18 +383,25 @@ def run_resumable(seed: int, data, cfg: SoddaConfig, iters: int,
     _validate_segmenting(iters, segment_iters, record_every, commit_every)
     device = resolve_device(device)
     opt_key = tuple(sorted(options.items()))
-    plane, bundle = _checked_bundle(data, cfg, backend, device, options)
+    plane, bundle = _checked_bundle(data, cfg, backend, device, options,
+                                    mesh)
     seed_key(seed)  # a seed with no reference key cannot be checkpointed
-    streaming = plane.is_streaming
+    streaming, mesh = plane.is_streaming, bundle.mesh
+    X = y = None
+    if mesh is not None:
+        # a rank's own tile: placed first, since rank 0 fingerprints it
+        X, y = plane.materialize_for(backend, mesh=mesh, device=device)
     want = _stamp(backend, record_every, segment_iters, opt_key,
-                  _data_fingerprint(plane), streaming, seed)
-    manager = CheckpointManager(checkpoint_dir, every=segment_iters,
-                                keep=keep)
+                  _data_fingerprint(plane, mesh, (X, y)), streaming, seed)
+    commit = _committer(bundle, CheckpointManager(
+        checkpoint_dir, every=segment_iters, keep=keep))
     prefetch = None
     if streaming:
         prefetch = StreamPrefetcher(
             lambda e: plane.materialize_for(backend, device=device, epoch=e),
             depth=prefetch_depth, device=device)
+    elif X is None:
+        X, y = plane.materialize_for(backend, device=device)
 
     def stamp(done_now, hist_now):
         extra = {"history": [[t, f] for t, f in hist_now], **want}
@@ -353,8 +415,8 @@ def run_resumable(seed: int, data, cfg: SoddaConfig, iters: int,
         latest = latest_step(checkpoint_dir)
         if latest is None:
             # epoch 0 is both segment 0's window and the warm-up window
-            X, y = (prefetch.consume(0) if streaming
-                    else plane.materialize_for(backend, device=device))
+            if streaming:
+                X, y = prefetch.consume(0)
             carry = _warm_carry(bundle, init_state(seed, cfg.M, device), X,
                                 y, sampler)
             done, hist = 0, []
@@ -362,9 +424,7 @@ def run_resumable(seed: int, data, cfg: SoddaConfig, iters: int,
             _check_resume(checkpoint_dir, latest, iters, want, streaming,
                           segment_iters, record_every)
             done, carry, hist = _restore_carry(checkpoint_dir, backend,
-                                               device)
-            if not streaming:
-                X, y = plane.materialize_for(backend, device=device)
+                                               bundle)
 
         while done < iters:
             if on_segment_start is not None:
@@ -389,7 +449,7 @@ def run_resumable(seed: int, data, cfg: SoddaConfig, iters: int,
                              dtype=torch.float32, device=device)
             off = k = 0
             for lens, commits in groups:
-                carry = _chunks(bundle, carry, X, y, cfg, lens,
+                carry = _chunks(bundle, carry, X, y, lens,
                                 fs[k:k + len(lens)], sampler)
                 k += len(lens)
                 off += sum(lens)
@@ -399,15 +459,13 @@ def run_resumable(seed: int, data, cfg: SoddaConfig, iters: int,
                     commit_hist = hist + [
                         (done + j * record_every, f)
                         for j, f in enumerate(fs[:k].tolist())]
-                    manager.save(step, carry_record(carry),
-                                 extra=stamp(step, commit_hist))
+                    commit(step, carry, stamp(step, commit_hist), False)
                     if on_commit is not None:
                         on_commit(step)
             hist += [(done + t, f) for t, f in
                      zip(range(0, seg, record_every), fs.tolist())]
             done += seg
-            manager.maybe_save(done, carry_record(carry),
-                               extra=stamp(done, hist))
+            commit(done, carry, stamp(done, hist), True)
             if on_segment is not None:
                 on_segment(done)
 
@@ -419,10 +477,8 @@ def run_resumable(seed: int, data, cfg: SoddaConfig, iters: int,
             if stream_stats is not None:
                 stream_stats.update(prefetch.stats())
                 stream_stats["cache"] = plane.cache_stats
-        final = bundle.finalize(carry)
-        hist.append((iters, float(losses.objective(cfg.loss, X, y,
-                                                   final.w))))
-        return final, hist
+        hist.append((iters, float(bundle.objective(X, y, carry.w))))
+        return bundle.finalize(carry), hist
     finally:
         if prefetch is not None:
             prefetch.close()
@@ -431,7 +487,7 @@ def run_resumable(seed: int, data, cfg: SoddaConfig, iters: int,
 def migrate_resumable(seed: int, data, cfg: SoddaConfig, done: int, state,
                       backend: str = "reference", *, checkpoint_dir: str,
                       segment_iters: int, record_every: int = 1,
-                      device=None, history=(), keep: int = 3,
+                      device=None, mesh=None, history=(), keep: int = 3,
                       sampler: Optional[Callable[[int], Any]] = None,
                       **options):
     """Seed `checkpoint_dir` with a committed checkpoint at iteration `done`
@@ -448,6 +504,7 @@ def migrate_resumable(seed: int, data, cfg: SoddaConfig, done: int, state,
     """
     from repro_torch.checkpoint import save_checkpoint
 
+    engine.require_no_elastic_mesh(backend, mesh)
     _validate_segmenting(max(done, 0), segment_iters, record_every)
     if done < 0 or done % segment_iters:
         raise ValueError(
@@ -469,15 +526,15 @@ def migrate_resumable(seed: int, data, cfg: SoddaConfig, done: int, state,
                       state.seed)}
     if plane.is_streaming:
         extra["stream_epoch"] = done // segment_iters
-    save_checkpoint(checkpoint_dir, done, carry_record(carry), extra=extra,
+    save_checkpoint(checkpoint_dir, done, bundle.record(carry), extra=extra,
                     keep=keep)
     return carry
 
 
 def restore_resumable_state(seed: int, data, cfg: SoddaConfig,
                             backend: str = "reference", *,
-                            checkpoint_dir: str, device=None, step=None,
-                            **options):
+                            checkpoint_dir: str, device=None, mesh=None,
+                            step=None, **options):
     """``(done, SoddaState, history)`` of a committed checkpoint written by
     :func:`run_resumable` (the latest one unless ``step`` picks another),
     the carry finalized to the P-independent ``SoddaState``: the handle the
@@ -485,8 +542,8 @@ def restore_resumable_state(seed: int, data, cfg: SoddaConfig,
     data is checked against `cfg` but not placed (only the record's
     structure is needed)."""
     device = resolve_device(device)
-    _, bundle = _checked_bundle(data, cfg, backend, device, options)
-    done, carry, hist = _restore_carry(checkpoint_dir, backend, device,
+    _, bundle = _checked_bundle(data, cfg, backend, device, options, mesh)
+    done, carry, hist = _restore_carry(checkpoint_dir, backend, bundle,
                                        step=step)
     return done, bundle.finalize(carry), hist
 
@@ -494,7 +551,8 @@ def restore_resumable_state(seed: int, data, cfg: SoddaConfig,
 def replay_segment(seed: int, data, cfg: SoddaConfig,
                    backend: str = "reference", *, checkpoint_dir: str,
                    segment_iters: int, record_every: int = 1, device=None,
-                   step=None, sampler: Optional[Callable[[int], Any]] = None,
+                   mesh=None, step=None,
+                   sampler: Optional[Callable[[int], Any]] = None,
                    **options):
     """Re-execute the span between two committed checkpoints and check the
     result against the committed carry, bitwise: the verification half of
@@ -513,7 +571,8 @@ def replay_segment(seed: int, data, cfg: SoddaConfig,
 
     _validate_segmenting(segment_iters, segment_iters, record_every)
     device = resolve_device(device)
-    plane, bundle = _checked_bundle(data, cfg, backend, device, options)
+    plane, bundle = _checked_bundle(data, cfg, backend, device, options,
+                                    mesh)
     steps = committed_steps(checkpoint_dir)
     end = step if step is not None else (steps[-1] if steps else None)
     report = {"replayed": False, "start": None, "end": end, "match": None}
@@ -535,15 +594,15 @@ def replay_segment(seed: int, data, cfg: SoddaConfig,
         return report
 
     X, y = plane.materialize_for(
-        backend, device=device,
+        backend, mesh=bundle.mesh, device=device,
         epoch=start // segment_iters if plane.is_streaming else None)
-    _, carry, _ = _restore_carry(checkpoint_dir, backend, device, step=start)
+    _, carry, _ = _restore_carry(checkpoint_dir, backend, bundle, step=start)
     lens = _chunk_lengths(end - start, record_every)
     fs = torch.empty(len(lens), dtype=torch.float32, device=device)
-    carry = _chunks(bundle, carry, X, y, cfg, lens, fs, sampler)
-    _, committed, _ = _restore_carry(checkpoint_dir, backend, device,
+    carry = _chunks(bundle, carry, X, y, lens, fs, sampler)
+    _, committed, _ = _restore_carry(checkpoint_dir, backend, bundle,
                                      step=end)
     match = all(np.array_equal(a, b) for a, b in
-                zip(carry_record(carry), carry_record(committed)))
+                zip(bundle.record(carry), bundle.record(committed)))
     report.update(replayed=True, match=bool(match))
     return report

@@ -7,27 +7,40 @@ the iteration's own draw; tests replay the reference's draws through it).
 
 Backends
 --------
-``reference``   plain PyTorch inner loop (``core.sodda.inner_loop``)
-``cuda``        the hand-written Hopper inner kernel
-                (``kernels.ops.sodda_inner``), the counterpart of the
-                reference's ``pallas`` backend
-``radisa-avg``  the paper's baseline (``core.radisa.radisa_avg_step``),
-                its m-wide chains through the same kernel; its ``sample``
-                is the (P, Q, L) row draw J
-``async``       the stale-by-one exchange (``core.sodda.sodda_step_async``)
-                on the extended carry ``AsyncSoddaState``, through the
-                kernel; ``staleness=0`` is the synchronous step, bitwise
+``reference``      plain PyTorch inner loop (``core.sodda.inner_loop``)
+``cuda``           the hand-written Hopper inner kernel
+                   (``kernels.ops.sodda_inner``), the counterpart of the
+                   reference's ``pallas`` backend
+``radisa-avg``     the paper's baseline (``core.radisa.radisa_avg_step``),
+                   its m-wide chains through the same kernel; its
+                   ``sample`` is the (P, Q, L) row draw J
+``async``          the stale-by-one exchange (``core.sodda.sodda_step_async``)
+                   on the extended carry ``AsyncSoddaState``, through the
+                   kernel; ``staleness=0`` is the synchronous step, bitwise
+``shard_map``      the doubly-distributed step on a (P, Q) mesh of process
+                   ranks (``core.distributed``), plain inner loop
+``shard_map+cuda`` the same through the kernel, one chain a rank: the
+                   counterpart of ``shard_map+pallas``
+``async-mesh``     the stale-by-one exchange on the mesh, the reduction
+                   over ``data`` left pending under the next chain,
+                   through the kernel
 
-``radisa-avg`` and ``async`` pass ``use_kernel=True``: ``ops.sodda_inner``
-launches the kernel for CUDA tensors and takes the plain version only for
-CPU tensors. The reference's mesh backends are not ported yet and raise
-``ValueError``.
+The mesh backends take ``X, y`` as the rank's tile and label block
+(``DataPlane.materialize_for(mesh=)``) and carry the rank's feature block
+of w; their bundle gathers it back to (M,) on every rank. Without a
+``mesh`` they build one over the live process group (:func:`make_mesh_for`).
+``radisa-avg``, ``async`` and the kernel mesh backends pass
+``use_kernel=True``: ``ops.sodda_inner`` launches the kernel for CUDA
+tensors and takes the plain version only for CPU tensors. The reference's
+``pallas`` and ``shard_map+pallas`` raise ``ValueError`` naming their
+``cuda`` counterparts.
 
 Options (``EngineOptions``) that a backend cannot affect raise
 ``ValueError``, as in the reference, so a silent no-op can never pass for a
-measured ablation: ``mesh``, the int8 compression flags,
-``gather_deltas=False``, ``staleness`` (except on ``async``), and
-``block_l`` (the Hopper kernel has no L tiling).
+measured ablation: on the single-device backends ``mesh``, the int8
+compression flags and ``gather_deltas=False``; ``staleness`` except on
+``async`` and ``async-mesh``; and ``block_l`` everywhere (the Hopper kernel
+has no L tiling).
 """
 from __future__ import annotations
 
@@ -36,14 +49,16 @@ import functools
 from typing import Callable, Dict, NamedTuple, Optional
 
 from repro_torch.configs.sodda_svm import SoddaConfig
-from repro_torch.core import losses, radisa, sodda
-from repro_torch.core.sodda import SoddaState, init_state, iteration_flops  # noqa: F401 (re-export)
+from repro_torch.core import distributed, losses, radisa, sodda
+from repro_torch.core.sodda import (SoddaState, carry_from_record,  # noqa: F401 (re-export)
+                                    carry_record, init_state, iteration_flops)
 from repro_torch.platform import check_on_device, resolve_device
 
 __all__ = [
     "BACKENDS",
     "BASELINE_BACKENDS",
     "ASYNC_BACKENDS",
+    "MESH_BACKENDS",
     "NOT_PORTED",
     "EngineOptions",
     "StepBundle",
@@ -51,6 +66,7 @@ __all__ = [
     "register_backend",
     "make_step",
     "make_bundle",
+    "make_mesh_for",
     "make_objective",
     "rescale_bundle",
     "rescale_config",
@@ -62,10 +78,10 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class EngineOptions:
-    """The reference's backend-orthogonal knobs. The port's backends run on
-    one device with an untiled kernel, and all but ``async`` exchange
-    synchronously, so each knob is refused where it is set away from its
-    default and cannot act."""
+    """The reference's backend-orthogonal knobs. The wire options act only
+    on the mesh backends, ``staleness`` only on the stale-by-one ones and
+    ``block_l`` nowhere (the Hopper kernel is untiled), so each knob is
+    refused where it is set away from its default and cannot act."""
 
     mesh: Optional[object] = None
     gather_deltas: bool = True
@@ -91,7 +107,8 @@ class EngineOptions:
         if self.staleness is not None:
             raise ValueError(
                 f"backend {backend!r} exchanges synchronously; staleness is "
-                "only meaningful for the stale-by-one backend ('async')")
+                "only meaningful for the stale-by-one backends ('async', "
+                "'async-mesh')")
 
     def require_no_l_tiling(self, backend: str):
         if self.block_l is not None:
@@ -115,19 +132,29 @@ class StepBundle(NamedTuple):
     ``finalize(step(...step(init_carry(state, X, y), X, y)...))``. The
     synchronous backends carry the plain ``SoddaState`` (identity halves);
     ``async`` carries ``AsyncSoddaState``, whose warm-up issues the first
-    exchange under `sample` (iteration ``state.t``'s, when replayed)."""
+    exchange under `sample` (iteration ``state.t``'s, when replayed).
+
+    :func:`make_bundle` fills the rest: ``objective(X, y, carry.w)`` (the
+    distributed objective on a mesh), ``record`` and ``restore`` (a carry
+    to and from its checkpoint record, collectives on a mesh) and the
+    ``mesh`` the step runs on (None on one device)."""
 
     step: Callable  # (carry, X, y, sample=None) -> carry
     init_carry: Callable  # (SoddaState, X, y, sample=None) -> carry
     finalize: Callable  # carry -> SoddaState
+    objective: Optional[Callable] = None  # (X, y, carry.w) -> 0-d tensor
+    record: Optional[Callable] = None  # carry -> SoddaRecord
+    restore: Optional[Callable] = None  # SoddaRecord -> carry
+    mesh: Optional[object] = None
 
 
 BackendFactory = Callable[[SoddaConfig, EngineOptions], Callable]
 
 _REGISTRY: Dict[str, BackendFactory] = {}
 
-# Backends of the reference that the port has not reached yet.
-NOT_PORTED = ("pallas", "shard_map", "shard_map+pallas", "async-mesh")
+# Backends of the reference that the port names otherwise: the kernel
+# backends run the Hopper kernel, so they are called after it.
+NOT_PORTED = {"pallas": "cuda", "shard_map+pallas": "shard_map+cuda"}
 
 
 def register_backend(name: str):
@@ -211,18 +238,63 @@ def _async(cfg: SoddaConfig, opts: EngineOptions) -> StepBundle:
     return StepBundle(step=step, init_carry=init_carry, finalize=finalize)
 
 
+def make_mesh_for(cfg: SoddaConfig, device=None):
+    """A (data=P, model=Q) mesh for `cfg`'s grid over the live process
+    group (``repro_torch.distributed.multihost.initialize``), on `device`
+    (default: the CUDA device). ``ValueError`` when the group does not have
+    P * Q ranks. Its row and column groups are the process's own
+    (``multihost.subgroup``): a second mesh of the grid makes no new
+    group."""
+    return distributed.Mesh(cfg.P, cfg.Q, resolve_device(device))
+
+
+def _mesh_halves(backend: str, opts: EngineOptions):
+    opts.require_no_l_tiling(backend)
+    return dict(gather_deltas=opts.gather_deltas,
+                compress_mu=opts.compress_mu, compress_z=opts.compress_z,
+                use_kernel=backend != "shard_map")
+
+
+def _mesh_bundle(backend: str):
+    def factory(cfg: SoddaConfig, opts: EngineOptions) -> StepBundle:
+        opts.require_synchronous(backend)
+        return StepBundle(**distributed.make_distributed_bundle(
+            opts.mesh, cfg, **_mesh_halves(backend, opts)))
+
+    return factory
+
+
+register_backend("shard_map")(_mesh_bundle("shard_map"))
+register_backend("shard_map+cuda")(_mesh_bundle("shard_map+cuda"))
+
+
+@register_backend("async-mesh")
+def _async_mesh(cfg: SoddaConfig, opts: EngineOptions) -> StepBundle:
+    """The stale-by-one exchange on the mesh: iteration t's reduction over
+    ``data`` is left pending under its chain and consumed at t+1. The
+    chains run through ``ops.sodda_inner`` (the kernel on CUDA tensors), as
+    the port's ``async`` does. ``staleness=0`` is ``shard_map+cuda``,
+    bitwise."""
+    return StepBundle(**distributed.make_distributed_async_bundle(
+        opts.mesh, cfg, staleness=opts.resolve_staleness(),
+        **_mesh_halves("async-mesh", opts)))
+
+
 BACKENDS = ("reference", "cuda")
 BASELINE_BACKENDS = ("radisa-avg",)
-ASYNC_BACKENDS = ("async",)
+ASYNC_BACKENDS = ("async", "async-mesh")
+# backends that run on a (data, model) mesh of process ranks and take the
+# mesh option (built over the live process group when omitted)
+MESH_BACKENDS = ("shard_map", "shard_map+cuda", "async-mesh")
 
 
 def _factory(backend: str) -> BackendFactory:
     if backend in NOT_PORTED:
-        hint = " (its kernel counterpart is 'cuda')" if backend == "pallas" \
-            else ""
         raise ValueError(
-            f"backend {backend!r} of the JAX reference is not ported yet"
-            f"{hint}; available: {available_backends()}")
+            f"backend {backend!r} of the JAX reference is not ported yet "
+            f"under that name: it runs the Pallas kernel, and its "
+            f"counterpart here is {NOT_PORTED[backend]!r}, through the "
+            f"Hopper kernel. Available: {available_backends()}")
     try:
         return _REGISTRY[backend]
     except KeyError:
@@ -238,9 +310,13 @@ def make_bundle(cfg: SoddaConfig, backend: str = "reference", *, device=None,
                 block_l: Optional[int] = None) -> StepBundle:
     """Build the :class:`StepBundle` for `backend` on `device` (default:
     the CUDA device; ``RuntimeError`` without one). The step raises
-    ``ValueError`` when handed data that lies on another device."""
+    ``ValueError`` when handed data that lies on another device. A mesh
+    backend runs on `mesh` (built over the live process group when None),
+    which must have `cfg`'s grid and lie on `device`."""
     device = resolve_device(device)
     factory = _factory(backend)
+    if backend in MESH_BACKENDS:
+        mesh = _checked_mesh(cfg, mesh, device)
     opts = EngineOptions(mesh=mesh, gather_deltas=gather_deltas,
                          compress_mu=compress_mu, compress_z=compress_z,
                          staleness=staleness, block_l=block_l)
@@ -248,6 +324,14 @@ def make_bundle(cfg: SoddaConfig, backend: str = "reference", *, device=None,
     bundle = made if isinstance(made, StepBundle) else StepBundle(
         step=made, init_carry=lambda state, X, y, sample=None: state,
         finalize=lambda carry: carry)
+    if mesh is not None:  # a mesh backend: the factory gave record/restore
+        bundle = bundle._replace(
+            mesh=mesh, objective=distributed.distributed_objective(mesh, cfg))
+    else:
+        bundle = bundle._replace(
+            objective=functools.partial(losses.objective, cfg.loss),
+            record=carry_record,
+            restore=functools.partial(carry_from_record, device=device))
 
     def step(carry, X, y, sample=None):
         check_on_device("X", X, device)
@@ -255,6 +339,18 @@ def make_bundle(cfg: SoddaConfig, backend: str = "reference", *, device=None,
         return bundle.step(carry, X, y, sample)
 
     return bundle._replace(step=step)
+
+
+def _checked_mesh(cfg: SoddaConfig, mesh, device):
+    mesh = make_mesh_for(cfg, device) if mesh is None else mesh
+    if tuple(mesh.shape) != (cfg.P, cfg.Q):
+        raise ValueError(
+            f"mesh {tuple(mesh.shape)} does not match cfg {cfg.name!r} grid "
+            f"({cfg.P}, {cfg.Q})")
+    if mesh.device != device:
+        raise ValueError(f"mesh is on {mesh.device}, but this run is on "
+                         f"{device}")
+    return mesh
 
 
 def rescale_config(cfg: SoddaConfig, new_P: int) -> SoddaConfig:
@@ -278,16 +374,26 @@ def rescale_bundle(cfg: SoddaConfig, backend: str, new_P: int, *,
                    device=None, mesh=None, **options):
     """The reference's elastic-rescale seam: ``(new_cfg, new_mesh, bundle)``
     with ``new_cfg = rescale_config(cfg, new_P)`` and the bundle built on
-    it. The port's backends run on one device, so ``new_mesh`` is None and
-    a mesh raises ``ValueError``. `options` are the run's engine options,
-    revalidated against the rebuilt backend."""
-    if mesh is not None:
-        raise ValueError(
-            f"backend {backend!r} runs on one device and takes no mesh; "
-            "the mesh backends are not ported yet")
+    it. ``new_mesh`` is None: the elastic rescale runs on one device, and
+    a mesh, or a mesh backend, raises ``ValueError`` (the elastic mesh
+    rescale, which would rebuild the process group on the survivors, is
+    not ported). `options` are the run's engine options, revalidated
+    against the rebuilt backend."""
+    require_no_elastic_mesh(backend, mesh)
     new_cfg = rescale_config(cfg, new_P)
     return new_cfg, None, make_bundle(new_cfg, backend, device=device,
                                       **options)
+
+
+def require_no_elastic_mesh(backend: str, mesh=None):
+    """``ValueError`` for an elastic rescale on a mesh: rescaling a mesh
+    run would rebuild its process group on the surviving ranks, and that
+    elastic mesh rescale is not ported."""
+    if mesh is not None or backend in MESH_BACKENDS:
+        raise ValueError(
+            f"backend {backend!r}: the elastic rescale runs on one device "
+            "and takes no mesh; the elastic mesh rescale (rebuilding the "
+            "process group on the surviving ranks) is not ported")
 
 
 def make_step(cfg: SoddaConfig, backend: str = "reference", *, device=None,
@@ -306,23 +412,29 @@ def make_step(cfg: SoddaConfig, backend: str = "reference", *, device=None,
 def make_objective(cfg: SoddaConfig, backend: str = "reference", *,
                    mesh=None, data=None, device=None):
     """Objective ``F(X, y, w)`` as `backend` sees it: the exact
-    single-device objective for every ported backend.
+    single-device objective, or on a mesh backend the distributed one,
+    ``F(X_loc, y_loc, w_loc)`` (the same value on every rank; `mesh` is
+    built over the live process group when None).
 
     With ``data`` (a ``repro_torch.data.plane.DataPlane`` or an ``(X, y)``
     pair), the returned callable is the closed objective ``F(w)``: the
-    plane is materialized once on `device` (default: the CUDA device) and
-    bound in.
+    plane is materialized once on `device` (default: the CUDA device),
+    a mesh rank's own tile only, and bound in.
     """
     _factory(backend)
-    if mesh is not None:
+    if backend in MESH_BACKENDS:
+        mesh = _checked_mesh(cfg, mesh, resolve_device(device))
+        obj = distributed.distributed_objective(mesh, cfg)
+    elif mesh is not None:
         raise ValueError(
             f"backend {backend!r} runs on one device and takes no mesh")
-    obj = functools.partial(losses.objective, cfg.loss)
+    else:
+        obj = functools.partial(losses.objective, cfg.loss)
     if data is None:
         return obj
     from repro_torch.data.plane import as_data_plane
     X, y = as_data_plane(data).materialize_for(
-        backend, device=resolve_device(device))
+        backend, mesh=mesh, device=resolve_device(device))
     return functools.partial(obj, X, y)
 
 

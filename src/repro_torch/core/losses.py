@@ -56,9 +56,14 @@ def loss_deriv(name: str, z, y):
 
 
 def objective(name: str, X, y, w, l2: float = 0.0):
-    """F(w) = mean_i l(x_i w, y_i) + (l2/2)||w||^2, a 0-d device tensor."""
+    """F(w) = mean_i l(x_i w, y_i) + (l2/2)||w||^2, a 0-d device tensor.
+
+    The mean is the sum divided by N, the order the mesh objective takes
+    (its partial sums all-reduced before the one division), so a 1 x 1 mesh
+    records this value bitwise; CUDA's ``mean`` multiplies by 1/N instead.
+    """
     z = X @ w
-    val = loss_value(name, z, y).mean()
+    val = loss_value(name, z, y).sum() / z.shape[0]
     if l2:
         val = val + 0.5 * l2 * torch.dot(w, w)
     return val

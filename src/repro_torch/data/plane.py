@@ -10,8 +10,9 @@ primitive:
 * **per-tile access**: :meth:`DataPlane.x_tile` / :meth:`DataPlane.y_block`
   return one block without touching the others;
 * **placement**: :meth:`DataPlane.materialize_for` gives the ``(X, y)`` a
-  backend's step consumes, on one device. Every ported backend runs on one
-  device, so they all consume the same placement.
+  backend's step consumes: the assembled global pair on one device, or on
+  a mesh (``repro_torch.core.distributed.Mesh``) the rank's own tile and
+  label block, ``(x_tile(p, q), y_block(p))``, drawn alone.
 
 Three implementations:
 
@@ -32,7 +33,9 @@ Three implementations:
                resident; ``resident_tile_budget`` bounds a tile cache with
                regenerate-on-miss.
 
-No plane takes a mesh: the mesh backends are not ported.
+The ``dense`` and ``tiled`` planes take a mesh; ``streaming`` on a mesh
+raises ``ValueError``: a rank's window prefetch over the mesh is not
+ported yet.
 
 Materializing assembles X in one preallocated ``(N, M)`` buffer on the
 device, each tile written into its slice, so at most one tile-sized
@@ -176,6 +179,15 @@ class DataPlane(abc.ABC):
                 f"{epoch}, only the single window at epoch 0")
         return self
 
+    def regridded(self, P: int, Q: int) -> "DataPlane":
+        """This plane's data on a (P, Q) tile grid. Generated tiles are
+        functions of their grid, so only planes wrapping tensors regrid;
+        the others raise ``ValueError``."""
+        raise ValueError(
+            f"{type(self).__name__} generates its tiles on the ({self.P}, "
+            f"{self.Q}) grid and cannot serve a ({P}, {Q}) one; build the "
+            "plane on the run's grid")
+
     def materialize(self):
         """Assembled global ``(X, y)`` on the plane's device: each tile
         copied into its slice of one preallocated buffer, row-major, so at
@@ -194,24 +206,34 @@ class DataPlane(abc.ABC):
 
     def materialize_for(self, backend: str, mesh=None, epoch=None,
                         device=None):
-        """``(X, y)`` placed the way `backend`'s step consumes them: on
-        `device` (default: the plane's own device). Every ported backend
-        runs on one device, so the placement is the same for all; a mesh
-        raises ``ValueError``, and so does a device the plane's data does
-        not lie on (it is never copied across devices). ``epoch`` selects
-        a window (:meth:`at_epoch`)."""
-        if mesh is not None:
+        """``(X, y)`` placed the way `backend`'s step consumes them, on
+        `device` (default: the plane's own device): the assembled global
+        pair, or with a `mesh` this rank's ``(x_tile(p, q), y_block(p))``
+        and nothing else (the label block first, so its generation's tile
+        temporaries are gone before the rank's tile exists). Which backends
+        take a mesh is the engine's rule, checked when their bundle is
+        built. A device the plane's data does not lie on raises
+        ``ValueError`` (data is never copied across devices), and so does a
+        streaming plane on a mesh. ``epoch`` selects a window
+        (:meth:`at_epoch`)."""
+        if mesh is not None and self.is_streaming:
             raise ValueError(
-                f"backend {backend!r}: the port's data planes place data on "
-                "one device and take no mesh (the mesh backends are not "
-                "ported yet)")
+                f"backend {backend!r}: the streaming plane on a mesh is not "
+                "ported yet (each rank would prefetch its own tile of every "
+                "window); use a dense or tiled plane")
         plane = self if epoch is None else self.at_epoch(epoch)
         device = plane.device if device is None else resolve_device(device)
         if plane.device != device:
             raise ValueError(
                 f"{type(plane).__name__} lies on {plane.device}, but this "
                 f"run is on {device}")
-        return plane.materialize()
+        if mesh is None:
+            return plane.materialize()
+        if tuple(mesh.shape) != (plane.P, plane.Q):
+            plane = plane.regridded(*mesh.shape)
+        p, q = mesh.get_coordinate()
+        y = plane.y_block(p)
+        return plane.x_tile(p, q), y
 
 
 @register_plane("dense")
@@ -245,6 +267,9 @@ class DenseDataPlane(DataPlane):
         X, y = TiledDataPlane(seed, N, M, P, Q, flip_prob=flip_prob,
                               device=device).materialize()
         return cls(X, y, grid=(P, Q))
+
+    def regridded(self, P: int, Q: int) -> "DenseDataPlane":
+        return DenseDataPlane(self._X, self._y, grid=(P, Q))
 
     def x_tile(self, p: int, q: int):
         n, m = self.n, self.m

@@ -605,6 +605,7 @@ def run_elastic(seed, data, cfg, iters: int, backend: str = "reference", *,
     """
     from repro_torch.core import driver, engine
 
+    engine.require_no_elastic_mesh(backend, options.get("mesh"))
     sup = supervisor if supervisor is not None else SegmentSupervisor()
     new_P = cfg.P - 1 if new_P is None else new_P
     plane = as_data_plane(data)
@@ -724,6 +725,7 @@ def run_elastic_auto(seed, data, cfg, iters: int,
     """
     from repro_torch.core import driver, engine
 
+    engine.require_no_elastic_mesh(backend, options.get("mesh"))
     if supervisor is None:
         sup = SegmentSupervisor(straggler_patience=patience,
                                 straggler_action="rescale")

@@ -118,8 +118,11 @@ def test_placement_rules():
     assert plane.at_epoch(0) is plane
     with pytest.raises(ValueError, match="static"):
         plane.at_epoch(1)
-    with pytest.raises(ValueError, match="take no mesh"):
-        plane.materialize_for("reference", mesh=object())
+    # a single-device backend refuses a mesh before its data is placed
+    cfg = port_configs.SoddaConfig(P=2, Q=3, n=4, m=2, L=2)
+    with pytest.raises(ValueError, match="takes no mesh"):
+        driver.run(0, plane, cfg, 1, "reference", mesh=object(),
+                   device="cpu")
     with pytest.raises(ValueError, match="but this run is on meta"):
         plane.materialize_for("reference", device="meta")
     X, y = plane.materialize_for("cuda", epoch=0)
@@ -279,8 +282,8 @@ def test_engine_objective_and_run():
                        closed(w))
     with pytest.raises(ValueError, match="takes no mesh"):
         engine.make_objective(cfg, "reference", mesh=object())
-    with pytest.raises(ValueError, match="not ported yet"):
-        engine.make_objective(cfg, "shard_map")
+    with pytest.raises(ValueError, match="multihost.initialize"):
+        engine.make_objective(cfg, "shard_map", device="cpu")  # no group
     with pytest.raises(ValueError, match="unknown backend"):
         engine.make_objective(cfg, "tpu")
     s1, h1 = engine.run(2, plane, cfg, 3, "radisa-avg", device="cpu")

@@ -159,11 +159,14 @@ def test_engine_refuses_unknown_backend():
 
 
 def test_engine_backends():
-    assert engine.available_backends() == ("async", "cuda", "radisa-avg",
-                                           "reference")
+    assert engine.available_backends() == (
+        "async", "async-mesh", "cuda", "radisa-avg", "reference",
+        "shard_map", "shard_map+cuda")
     assert engine.BACKENDS == ("reference", "cuda")
     assert engine.BASELINE_BACKENDS == ("radisa-avg",)
-    assert engine.ASYNC_BACKENDS == ("async",)
+    assert engine.ASYNC_BACKENDS == ("async", "async-mesh")
+    assert engine.MESH_BACKENDS == ("shard_map", "shard_map+cuda",
+                                    "async-mesh")
 
 
 def test_step_refuses_data_on_another_device():

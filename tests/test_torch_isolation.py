@@ -183,12 +183,14 @@ def test_unit_variance_scale_matches_reference():
 
 def _reference_names(backends):
     """The port's backend names as the reference calls them: its 'cuda' is
-    the reference's 'pallas' (the kernel backend)."""
-    return {"pallas" if b == "cuda" else b for b in backends}
+    the reference's 'pallas' (the kernel backend), its 'shard_map+cuda'
+    the reference's 'shard_map+pallas'."""
+    renamed = {port: ref for ref, port in port_engine.NOT_PORTED.items()}
+    return {renamed.get(b, b) for b in backends}
 
 
 @pytest.mark.parametrize("group", ["BACKENDS", "BASELINE_BACKENDS",
-                                   "ASYNC_BACKENDS"])
+                                   "ASYNC_BACKENDS", "MESH_BACKENDS"])
 def test_backend_groups_are_subsets_of_the_reference(group):
     assert _reference_names(getattr(port_engine, group)) <= \
         set(getattr(ref_engine, group))
@@ -198,7 +200,7 @@ def test_backend_registry_is_a_subset_of_the_reference():
     port = _reference_names(port_engine.available_backends())
     ref = set(ref_engine.available_backends())
     assert port <= ref
-    assert port.isdisjoint(set(port_engine.NOT_PORTED) - {"pallas"})
+    assert set(port_engine.NOT_PORTED) <= port  # ported under a cuda name
     assert port | set(port_engine.NOT_PORTED) == ref
 
 
