@@ -92,7 +92,38 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     ranks' summed peak over X, the card's used memory, a ``shard_map+cuda``
     iteration by layer (the engine's bundle, the device synchronised
     around each collective) and one all-reduce of n f32 over all 15 ranks.
-    Then a 1 x 1 grid over NCCL, bitwise ``cuda`` on the same data;
+    Then a 1 x 1 grid over NCCL, bitwise ``cuda`` on the same data.
+    Then the elastic rescale and the streaming plane on the mesh: with X
+    still resident it records the single-device ``run_elastic`` runs
+    (``cuda`` shrinking P from 5 to 4 at 10 and growing back at 15,
+    ``async`` at staleness 1, the logistic twin) and the tile digests of
+    the 4 stream windows' slices; holds ``sodda_inner`` at the shrunk
+    mesh's launch (1, 64, 1500) as in 7; then spawns the 15 ranks and 6
+    spare processes for one spawn of: ``shard_map+cuda`` streaming 4
+    windows a segment of 5 at prefetch depth 1 and one window's run, each
+    rank's tile of every window, the static runs beside them, then
+    ``run_elastic`` shrinking to 4 x 3 at 10 and regrowing to 5 x 3 at 15
+    (the lost row leaves the group, the survivors re-form it, 3 spares
+    join as the regrown row; a fault after its last commit), the same by
+    hand (``run_resumable``, the group re-formed, ``rescale_bundle``,
+    ``migrate_resumable``, ``run_resumable``), the shrink with a fault
+    after a commit in each phase and by hand, ``run_elastic_auto`` with
+    the last rank's segment from 5 read as 30 s slow, ``async-mesh`` and
+    the logistic twin, the launch counts set to 0 just before each run in
+    each process. It holds every rank's w, history and report bitwise
+    equal; the planned departures and regrown ranks that held nothing;
+    one launch a rank an iteration (5 at (1, 64, 1500) on the 4 x 3 grid,
+    none on a resume of a completed phase); each run bitwise its
+    composition by hand, the faulted runs and the straggler's shrink
+    bitwise the planned ones; the hinge runs against ``cuda``'s and the
+    logistic twin within F32_REDUCTION, ``async-mesh`` within STALENESS
+    of ``async``; one window's stream bitwise the tiled mesh run and each
+    placed tile the window's slice by digest; and prints the ms an
+    iteration by segment, the seconds from a rescale's commit to the
+    first segment on the re-formed group and until the regrown ranks hold
+    their tiles, the streaming ms an iteration against the static run's,
+    each rank's ``place_s``, ``wait_s`` and ``overlap_ratio`` and the
+    memory;
 13. holds ``flash_attention`` against its plain version at the gemma2-9b
    prefill shape (B=4, H=16, KV=8, S=4608, D=256, bf16) for a local and a
    global layer, at a decode offset, at unaligned bf16 shapes for the other
@@ -188,6 +219,7 @@ from repro_torch.models import attention as mattn  # noqa: E402
 from repro_torch.models import ssm as mssm  # noqa: E402
 from repro_torch.models.params import tree_leaves  # noqa: E402
 from repro_torch.testing import tolerances as tol  # noqa: E402
+from repro_torch.testing.multiprocess import tile_digest  # noqa: E402
 
 ITERS = 20  # outer iterations of each Table-1 run
 RECORD_EVERY = 5
@@ -1618,6 +1650,612 @@ def phase_nccl():
 
 
 # ---------------------------------------------------------------------------
+# The elastic rescale and the streaming plane on the mesh: one spawn of the
+# 15 ranks and 6 spares for the regrown rows
+# ---------------------------------------------------------------------------
+MESH_LOSE, MESH_REGROW = 10, 15  # the lost row leaves at 10, returns at 15
+MESH_SHRUNK_SHAPE = (1, TABLE1_250K_18K.L,
+                     TABLE1_250K_18K.M // (ELASTIC_P * TABLE1_250K_18K.Q))
+# run_elastic_auto: the last rank's supervisor clock (a FakeClock, as every
+# rank's) reads the segment from 5 as 30 s slow; the group's max makes it
+# every rank's straggler, flagged at the boundary at 10 against the one
+# segment before it
+MESH_STRAGGLER = (TABLE1_250K_18K.P * TABLE1_250K_18K.Q - 1, RECORD_EVERY,
+                  30.0)
+MESH_POLICY = dict(window=3, warmup=1)
+MESH_WINDOWS = ITERS // STREAM_SEGMENT
+
+
+class RegrowableRows(DenseDataPlane):
+    """The tiled plane's X, resident, as a dense plane that can regrow:
+    its lost partitions regenerate from the tiled plane's seed."""
+
+    def __init__(self, X, y, grid, seed, flip_prob=0.01):
+        super().__init__(X, y, grid=grid)
+        self.seed, self.flip_prob = seed, flip_prob
+
+
+def phase_mesh_elastic_refs(cfg, X, y):
+    """The single-device elastic runs the mesh's are held to, on the
+    tiled plane's X: run_elastic on cuda shrinking P 5 -> 4 at 10 (and
+    growing back at 15), on async at staleness 1, and the logistic twin's
+    shrink; plus, window by window, the tile digests of each stream
+    window's (p, q) slices and cuda's stream run (hinge: its iterate at
+    every iteration, the states the streaming mesh steps from; and the
+    logistic twin)."""
+    data = RegrowableRows(X, y, (cfg.P, cfg.Q), SEED)
+    kw = dict(segment_iters=STREAM_SEGMENT, record_every=RECORD_EVERY,
+              lose_partition_at=MESH_LOSE, new_P=ELASTIC_P)
+    lcfg = dataclasses.replace(cfg, name=cfg.name + "-logistic",
+                               loss="logistic")
+    # cuda's trajectory on the shrunk grid, a step at a time from w^10:
+    # the states the mesh steps from on the re-formed 4 x 3 group
+    state, _ = driver.run(SEED, data, cfg, MESH_LOSE, "cuda",
+                          record_every=RECORD_EVERY)
+    new_cfg = engine.rescale_config(cfg, ELASTIC_P)
+    Xs, ys = shrink_plane(data, ELASTIC_P).materialize()
+    shrunk = engine.make_bundle(new_cfg, "cuda")
+    ws = [state.w.cpu().numpy()]
+    for _ in range(MESH_LOSE, ITERS):
+        state = shrunk.step(state, Xs, ys)
+        ws.append(state.w.cpu().numpy())
+    del Xs, ys
+    refs = {"steps": ws}
+    for name, run_cfg, backend, extra in (
+            ("shrink", cfg, "cuda", {}),
+            ("grow", cfg, "cuda", dict(regrow_at=MESH_REGROW,
+                                       regrow_P=cfg.P)),
+            ("async", cfg, "async", dict(staleness=1)),
+            ("logistic", lcfg, "cuda", {})):
+        st, hist, report = run_elastic(
+            SEED, data, run_cfg, ITERS, backend,
+            checkpoint_dir=ckpt_dir("elastic-ref-" + name), **kw, **extra)
+        refs[name] = dict(w=st.w.cpu().numpy(), history=hist,
+                          events=report["events"], cfg=run_cfg)
+        torch.cuda.empty_cache()
+    del data
+    stream = stream_plane(cfg)
+    n, m = cfg.n, cfg.m
+    digests = []
+    # threadless_stream_run's loop for both losses, a window at a time
+    runs = {c.loss: dict(cfg=c, bundle=engine.make_bundle(c, "cuda"),
+                         state=sodda.init_state(SEED, cfg.M, X.device),
+                         ws=[], hist=[]) for c in (cfg, lcfg)}
+    for e in range(MESH_WINDOWS):
+        Xw, yw = stream.at_epoch(e).materialize()
+        digests.append({(p, q): (tile_digest(Xw[p * n:(p + 1) * n,
+                                                q * m:(q + 1) * m]),
+                                 tile_digest(yw[p * n:(p + 1) * n]))
+                        for p in range(cfg.P) for q in range(cfg.Q)})
+        for r in runs.values():
+            for it in range(e * STREAM_SEGMENT, (e + 1) * STREAM_SEGMENT):
+                r["ws"].append(r["state"].w.cpu().numpy())
+                if it % RECORD_EVERY == 0:
+                    r["hist"].append(losses.objective(r["cfg"].loss, Xw, yw,
+                                                      r["state"].w))
+                r["state"] = r["bundle"].step(r["state"], Xw, yw)
+        if e == MESH_WINDOWS - 1:
+            for r in runs.values():
+                r["hist"].append(losses.objective(r["cfg"].loss, Xw, yw,
+                                                  r["state"].w))
+        del Xw, yw
+        torch.cuda.empty_cache()
+    refs["digests"] = digests
+    for name, r in (("stream", runs[cfg.loss]),
+                    ("stream-logistic", runs[lcfg.loss])):
+        refs[name] = dict(
+            ws=r["ws"] + [r["state"].w.cpu().numpy()],
+            history=list(zip(driver.record_ticks(ITERS, RECORD_EVERY),
+                             torch.stack(r["hist"]).tolist())))
+    check(np.array_equal(ws[-1], refs["shrink"]["w"]),
+          "mesh elastic refs: cuda stepped on the survivors is not "
+          "run_elastic's trajectory")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    log(f"mesh elastic refs: run_elastic on cuda (P {cfg.P} -> {ELASTIC_P} at "
+        f"{MESH_LOSE}, and back to {cfg.P} at {MESH_REGROW}), async at "
+        f"staleness 1 and the logistic twin, segments of {STREAM_SEGMENT}; "
+        f"tile digests of the {MESH_WINDOWS} stream windows' slices")
+    return refs
+
+
+def mesh_elastic_runs(root, lcfg, ws):
+    """The spawn's elastic runs, in order (``rank_elastic``): the main
+    shrink-then-grow run (a fault after its last commit), its composition
+    by hand, the shrink with a fault in each of its phases and by hand,
+    the straggler's automatic shrink, async-mesh, the logistic twin, and
+    a step from each of cuda's states `ws` on the re-formed 4 x 3 group."""
+    def run(kind, name, backend="shard_map+cuda", **extra):
+        base = dict(kind=kind, backend=backend, iters=ITERS,
+                    record_every=RECORD_EVERY, seed=SEED,
+                    segment_iters=STREAM_SEGMENT, new_P=ELASTIC_P,
+                    checkpoint_dir=os.path.join(root, name))
+        if kind != "auto":
+            base["lose_at"] = MESH_LOSE
+        return dict(base, **extra)
+
+    grow = dict(regrow_at=MESH_REGROW, regrow_P=TABLE1_250K_18K.P)
+    return {"grow": run("elastic", "grow", faults={ITERS: 1}, **grow),
+            "hand-grow": run("by-hand", "hand-grow", **grow),
+            "shrink": run("elastic", "shrink",
+                          faults={RECORD_EVERY: 1, MESH_REGROW: 1}),
+            "hand": run("by-hand", "hand"),
+            "auto": run("auto", "auto", straggler=MESH_STRAGGLER,
+                        policy=MESH_POLICY, patience=1),
+            "async": run("elastic", "async", "async-mesh",
+                         options={"staleness": 1}),
+            "logistic": run("elastic", "logistic", cfg=lcfg),
+            "steps": run("steps", "steps", ws=ws[:-1],
+                         ts=list(range(MESH_LOSE + 1, ITERS + 1)))}
+
+
+def mesh_resumable(root, name, iters):
+    """A ``shard_map+cuda`` ``run_resumable`` of ``rank_runs`` in segments
+    of 5 (a window a segment on a streaming plane, prefetch depth 1)."""
+    return dict(backend="shard_map+cuda", iters=iters,
+                record_every=RECORD_EVERY, seed=SEED,
+                resumable=dict(checkpoint_dir=os.path.join(root, name),
+                               segment_iters=STREAM_SEGMENT,
+                               prefetch_depth=1))
+
+
+def segment_ms(run):
+    """ms an iteration of a run from its first segment's start to its
+    last segment's end (its timeline), set-up left out as phase_streaming
+    leaves it out."""
+    at = {(e, d): t for e, d, t, _ in run["timeline"]}
+    last = max(d for e, d in at if e == "end")
+    return 1e3 * (at[("end", last)] - at[("start", 0)]) / last
+
+
+def mesh_elastic_spawn(cfg, refs):
+    """One spawn of the 5 x 3 grid and 6 spares over gloo on the card:
+    the streaming runs, each rank's tile of every window, the static runs
+    they are compared with, a step from each of cuda's stream states on
+    its window, then the elastic runs. Returns what the phases read."""
+    from repro_torch.testing import multiprocess as mp
+
+    world = cfg.P * cfg.Q
+    root = ckpt_dir("mesh-elastic")
+    stream_spec = ("streaming", SEED, cfg.N, cfg.M, cfg.P, cfg.Q)
+    tiled_spec = ("tiled", SEED, cfg.N, cfg.M, cfg.P, cfg.Q)
+    lcfg = refs["logistic"]["cfg"]
+    streams = [mesh_resumable(root, "stream", ITERS),
+               mesh_resumable(root, "one-window", STREAM_SEGMENT)]
+    statics = [mesh_resumable(root, "static", ITERS),
+               mesh_resumable(root, "static-one", STREAM_SEGMENT)]
+    elastic = mesh_elastic_runs(root, lcfg, refs["steps"])
+    spares = sum((r["regrow_P"] - ELASTIC_P) * cfg.Q
+                 for r in elastic.values() if "regrow_at" in r)
+    ws = refs["stream"]["ws"]
+    steps = [(mp.rank_steps, (
+        cfg, stream_spec, "shard_map+cuda",
+        ws[e * STREAM_SEGMENT:(e + 1) * STREAM_SEGMENT],
+        list(range(e * STREAM_SEGMENT + 1, (e + 1) * STREAM_SEGMENT + 1)),
+        SEED,
+        None, None, MESH_DEVICE, e)) for e in range(MESH_WINDOWS)]
+    jobs = [(mp.rank_runs, (cfg, stream_spec, streams, MESH_DEVICE)),
+            (mp.rank_runs, (lcfg, stream_spec,
+                            [mesh_resumable(root, "logistic", ITERS)],
+                            MESH_DEVICE)),
+            (mp.rank_tiles, (cfg, stream_spec, list(range(MESH_WINDOWS)),
+                             MESH_DEVICE)),
+            (mp.rank_runs, (cfg, tiled_spec, statics, MESH_DEVICE)),
+            *steps,
+            (mp.rank_elastic, (cfg, tiled_spec, list(elastic.values()),
+                               MESH_DEVICE))]
+    free, total = torch.cuda.mem_get_info()
+    log(f"mesh elastic spawn: the card's used memory before it "
+        f"{(total - free) / 1e9:.3f} GB (this process: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved)")
+    t0 = time.perf_counter()
+    launch = mp.launch_coordinated(mp.rank_batch, world, (jobs,),
+                                   backend="gloo", spares=spares,
+                                   timeout=MESH_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    check(launch.exit_codes == {},
+          f"mesh elastic spawn: processes died: {launch.exit_codes}"
+          + raised(launch))
+    ranks = launch.results[:world]
+    log(f"mesh elastic spawn: {world} ranks and {spares} spares on one card "
+        f"over gloo, {spawn_s:.1f} s: the last process up at "
+        f"{max(st['entered'] for st in launch.stamps):.1f} s, the last rank "
+        f"in the group at "
+        f"{max(st['joined'] for st in launch.stamps[:world]):.1f} s, then "
+        "every run below")
+    return dict(
+        launch=launch, world=world, spares=spares,
+        stream={"stream": [r[0][0] for r in ranks],
+                "one-window": [r[0][1] for r in ranks],
+                "logistic": [r[1][0] for r in ranks],
+                "static": [r[3][0] for r in ranks],
+                "static-one": [r[3][1] for r in ranks]},
+        tiles=[r[2] for r in ranks],
+        steps=np.concatenate([ranks[0][4 + e] for e in range(MESH_WINDOWS)]),
+        steps_equal=all(np.array_equal(r[4 + e], ranks[0][4 + e])
+                        for r in ranks for e in range(MESH_WINDOWS)),
+        elastic={name: [res[-1][k] if res[-1] is not None else None
+                        for res in launch.results]
+                 for k, name in enumerate(elastic)})
+
+
+def raised(launch):
+    """What the processes of a failed launch raised: each one's last
+    traceback line, and in full the first traceback that is not a peer's
+    closed connection (the consequence of another process's fault)."""
+    if not launch.errors:
+        return ""
+    lines = {r: tb.strip().splitlines()[-1] for r, tb in launch.errors.items()}
+    cause = [r for r, line in sorted(lines.items())
+             if "Connection closed" not in line and
+             "Connection reset" not in line] or sorted(lines)
+    return (f"; raised: {lines}; process {cause[0]}:\n"
+            f"{launch.errors[cause[0]]}")
+
+
+def same_on_every_rank(name, results):
+    """The finished results of a run: every one's w, history and report
+    bitwise equal. Returns them."""
+    done = [r for r in results if r is not None and r.get("left") is None]
+    for r in done[1:]:
+        check(r["history"] == done[0]["history"] and
+              np.array_equal(r["w"], done[0]["w"]) and
+              r.get("report") == done[0].get("report"),
+              f"mesh {name}: a rank differs from rank 0")
+    return done
+
+
+def phase_mesh_elastic(cfg, spawn, refs):
+    """run_elastic, run_elastic_auto and the composition by hand on the
+    5 x 3 mesh, shrunk to 4 x 3 at 10 (the kernel at (1, 64, 1500)) and
+    regrown at 15 (see the module docstring, 12)."""
+    world, launch = spawn["world"], spawn["launch"]
+    runs = dict(spawn["elastic"])
+    steps = runs.pop("steps")
+    lost = list(range(ELASTIC_P * cfg.Q, world))
+    shrinks = [3 * k for k in range(len(runs) + 1)]  # and the steps'
+    check(launch.departed == {r: shrinks for r in lost},
+          f"mesh elastic: planned departures {launch.departed}, expected "
+          f"ranks {lost} at generations {shrinks}")
+
+    # each step on the re-formed 4 x 3 group from cuda's state
+    steps = [r["steps"] for r in steps[:world] if r["left"] is None]
+    check(len(steps) == ELASTIC_P * cfg.Q and
+          all(np.array_equal(s, steps[0]) for s in steps),
+          "mesh elastic steps: the survivors differ")
+    worst = 0.0
+    for k, got in enumerate(steps[0]):
+        want = refs["steps"][k + 1]
+        tol.assert_trajectories_close(
+            [want], [got], tol.F32_REDUCTION,
+            f"mesh step {MESH_LOSE + k + 1} on the 4 x 3 grid")
+        worst = max(worst, float(np.abs(got - want).max()))
+    log(f"mesh elastic steps: each of iterations {MESH_LOSE + 1}-{ITERS}, "
+        "stepped on the re-formed 4 x 3 group from cuda's iterate on the "
+        f"survivors, within F32_REDUCTION of cuda's step; max|dw| "
+        f"{worst:.3e}")
+
+    done = {name: same_on_every_rank("elastic " + name, res)
+            for name, res in runs.items()}
+    for name, res in runs.items():
+        grows = name in ("grow", "hand-grow")
+        want = world if grows else ELASTIC_P * cfg.Q
+        check(len(done[name]) == want and
+              all(r["world"] == want for r in done[name]),
+              f"mesh elastic {name}: {len(done[name])} ranks finished")
+        left = [r for r in res[:world] if r["left"] is not None]
+        check([r["left"] for r in left] == [MESH_LOSE] * len(lost),
+              f"mesh elastic {name}: lost ranks left at "
+              f"{[r['left'] for r in left]}")
+        # one launch a rank an iteration run: the lost row's 10 before it
+        # left, a regrown rank's 5, and none on a resume of a completed
+        # phase (the faults after the last commits)
+        n = [r["launches"] for r in res if r is not None]
+        expect = [ITERS] * (ELASTIC_P * cfg.Q) + [MESH_LOSE] * len(lost) + (
+            [ITERS - MESH_REGROW] * (world - ELASTIC_P * cfg.Q)
+            if grows else [])
+        check(n == expect, f"mesh elastic {name}: sodda_inner launches by "
+              f"process {n}, expected {expect}")
+        for r in done[name]:
+            at = {(e, d): n for e, d, _, n in r["timeline"]}
+            if ("end", MESH_REGROW) in at and ("start", MESH_LOSE) in at:
+                k = at[("end", MESH_REGROW)] - at[("start", MESH_LOSE)]
+                check(k == MESH_REGROW - MESH_LOSE,
+                      f"mesh elastic {name}: {k} launches on the 4 x 3 grid")
+    check(done["grow"][0]["report"]["new_cfg"].m_tilde == MESH_SHRUNK_SHAPE[2],
+          f"mesh elastic: shrunk m_tilde "
+          f"{done['grow'][0]['report']['new_cfg'].m_tilde}")
+    log(f"mesh elastic launches: every rank launched sodda_inner once an "
+        f"iteration it ran: 20 a survivor, {MESH_LOSE} a lost rank before "
+        f"it left, {ITERS - MESH_REGROW} a regrown rank, the "
+        f"{MESH_REGROW - MESH_LOSE} on the 4 x 3 grid at {MESH_SHRUNK_SHAPE};"
+        " none on a resume of a completed phase")
+
+    spares = launch.results[world:]
+    held = [r for res in spares for r in res[-1] if r is not None]
+    check(len(held) == spawn["spares"] and
+          all(r["held"] == {"group": False, "cuda": False} for r in held),
+          f"mesh elastic: regrown ranks held {[r['held'] for r in held]}")
+    log(f"mesh elastic: ranks {lost} left the group at every shrink (exit "
+        f"0, a planned departure); the {spawn['spares']} regrown ranks "
+        "joined holding no group and no device context, each for one run")
+
+    for a, b in (("grow", "hand-grow"), ("shrink", "hand"), ("auto", "hand")):
+        x, z = done[a][0], done[b][0]
+        check(x["history"] == z["history"] and np.array_equal(x["w"], z["w"]),
+              f"mesh elastic {a} is not {b}, bitwise")
+    events = done["shrink"][0]["report"]["events"]
+    check([e for e in events if e.startswith("restart")] ==
+          [f"restart#1@{RECORD_EVERY}:Preemption",
+           f"restart#1@{MESH_REGROW}:Preemption"],
+          f"mesh elastic shrink: events {events}")
+    auto = done["auto"][0]["report"]
+    check(auto["rescaled"] and auto["boundary"] == MESH_LOSE and
+          f"straggler@{MESH_LOSE}:{MESH_STRAGGLER[2]:.3f}s" in auto["events"],
+          f"mesh elastic auto: {auto}")
+    log("mesh elastic: run_elastic bitwise its composition by hand "
+        "(run_resumable, the group re-formed, rescale_bundle, "
+        "migrate_resumable, run_resumable) for the shrink and the "
+        "shrink-then-grow; faults after commits in every phase retried "
+        "bitwise; the straggler (rank "
+        f"{MESH_STRAGGLER[0]}'s segment from {MESH_STRAGGLER[1]}) shrunk away "
+        f"at {MESH_LOSE} on every rank alike, bitwise the planned shrink; "
+        f"events {auto['events']}")
+
+    held_s, _ = hold_mesh_trajectory(
+        "elastic shrink vs cuda run_elastic (hinge)",
+        refs["shrink"]["history"], done["shrink"][0]["history"],
+        refs["shrink"]["w"], done["shrink"][0]["w"])
+    held_g, _ = hold_mesh_trajectory(
+        "elastic shrink-then-grow vs cuda run_elastic (hinge)",
+        refs["grow"]["history"], done["grow"][0]["history"],
+        refs["grow"]["w"], done["grow"][0]["w"])
+    held_l, _ = hold_mesh_trajectory(
+        "elastic shrink vs cuda run_elastic (logistic twin)",
+        refs["logistic"]["history"], done["logistic"][0]["history"],
+        refs["logistic"]["w"], done["logistic"][0]["w"])
+    check(held_l, "mesh elastic logistic twin departs from cuda")
+    if not (held_s and held_g):
+        log("mesh elastic hinge: a finding, the hinge trajectory parts from "
+            "cuda's (queue C); the logistic twin held in full")
+    for name in ("shrink", "grow"):
+        got, want = ([e for e in events if e.startswith("rescale")]
+                     for events in (done[name][0]["report"]["events"],
+                                    refs[name]["events"]))
+        check(got == want, f"mesh elastic {name}: rescale events {got}, "
+              f"run_elastic's {want}")
+    a1 = done["async"][0]["history"][-1][1]
+    tol.assert_objectives_close(refs["async"]["history"][-1][1], a1,
+                                tol.STALENESS, "elastic async-mesh vs async")
+    log(f"mesh elastic async-mesh: F {a1:.6f} within STALENESS of async's "
+        f"{refs['async']['history'][-1][1]:.6f} under the same shrink")
+    for name, r in done.items():
+        h = r[0]["history"]
+        check(all(math.isfinite(f) for _, f in h) and h[-1][1] < h[0][1],
+              f"mesh elastic {name}: no descent or non-finite {h}")
+
+    # what the card measured: segment times, the rebuilds, memory
+    main = done["grow"][0]
+    at = {(e, d): t for e, d, t, _ in main["timeline"]}
+    seg = [(d, 1e3 * (at[("end", d + STREAM_SEGMENT)] - at[("start", d)]) /
+            STREAM_SEGMENT) for d in range(0, ITERS, STREAM_SEGMENT)]
+    shrink_s = at[("start", MESH_LOSE)] - at[("end", MESH_LOSE)]
+    grow_s = at[("start", MESH_REGROW)] - at[("end", MESH_REGROW)]
+    regrown = [r for r in runs["grow"][world:] if r is not None]
+    joined_s = max(
+        {(e, d): t for e, d, t, _ in r["timeline"]}[("start", MESH_REGROW)]
+        for r in regrown) - at[("end", MESH_REGROW)]
+    x_bytes = 4 * cfg.N * cfg.M
+    peak = sum(r["peak"] or 0 for r in runs["grow"] if r is not None)
+    used = max(r["device_used"] or 0 for r in runs["grow"] if r is not None)
+    rendezvous = [h["end"] - h["start"]
+                  for st in launch.stamps[:ELASTIC_P * cfg.Q]
+                  for h in st["history"] if h["event"] == "joined"
+                  and h["generation"] in (1, 2)]
+    log("mesh elastic shrink-then-grow (rank 0, shard_map+cuda): ms an "
+        "iteration by segment, " + ", ".join(
+            f"[{d}, {d + STREAM_SEGMENT}) {ms:.3f}" for d, ms in seg)
+        + f" (5 x 3, 5 x 3, 4 x 3, 5 x 3); {shrink_s:.3f} s from the commit "
+        f"at {MESH_LOSE} to the first segment on the 4 x 3 group (barrier, "
+        "the lost row's departure, teardown, rendezvous, rescale_bundle, "
+        f"migration, placement), {grow_s:.3f} s from the commit at "
+        f"{MESH_REGROW} to the first on the regrown group; the regrown "
+        f"ranks in the group with their tiles {joined_s:.3f} s after that "
+        f"commit; each rendezvous {min(rendezvous):.3f}-"
+        f"{max(rendezvous):.3f} s; the ranks' max_memory_allocated sum to "
+        f"{peak / 1e9:.3f} GB = {peak / x_bytes:.4f} x X; the card's used "
+        f"memory {used / 1e9:.3f} GB")
+    # the rebuilds' parts, timed in the run (SegmentSupervisor.rebuilds)
+    for r in main["rebuilds"]:
+        log(f"mesh elastic rebuild at {r['at']} onto {r['grid'][0]} x "
+            f"{r['grid'][1]} (rank 0, timed in the run): "
+            f"{r['reform_s']:.3f} s from the commit to the new group "
+            f"(barrier, departures, teardown; the rendezvous itself "
+            f"{r['rendezvous_s']:.3f} s), {r['mesh_s']:.3f} s the mesh and "
+            f"bundle, {r['migrate_s']:.3f} s the migration (the fingerprint "
+            "of the resident tile, the save, the barrier), then "
+            f"{at[('start', r['at'])] - r['end']:.3f} s the phase's set-up "
+            "to its first segment (the resident tile and the kept stamp: "
+            "no tile drawn, none hashed)")
+    for r in regrown:
+        b = r["rebuilds"][0]
+        start = {(e, d): t for e, d, t, _ in r["timeline"]}[
+            ("start", MESH_REGROW)]
+        log(f"mesh elastic regrown rank: rendezvous {b['rendezvous_s']:.3f} "
+            f"s (waiting from launch for the survivors' commit at "
+            f"{MESH_REGROW}), the mesh and bundle {b['mesh_s']:.3f} s, the "
+            f"migration {b['migrate_s']:.3f} s, then {start - b['end']:.3f} "
+            "s drawing its own tile and warming up to its first segment")
+    for name, res in done.items():
+        at = {}
+        for e, d, t, _ in res[0]["timeline"]:
+            at.setdefault((e, d), t)  # a retried boundary: its first pass
+        segs = [1e3 * (at[("end", d + STREAM_SEGMENT)] - at[("start", d)])
+                / STREAM_SEGMENT for d in range(0, ITERS, STREAM_SEGMENT)
+                if ("start", d) in at and ("end", d + STREAM_SEGMENT) in at]
+        segs = [f"{ms:.3f}" for ms in segs]
+        secs = max(r["seconds"] for r in res if r["held"] is None)
+        log(f"mesh elastic {name}: ms an iteration by segment of 5 on rank "
+            f"0 {segs}; {secs:.3f} s for the run (the slowest rank of the "
+            "launch's group; set-up, rescales and retries included)")
+
+
+def phase_mesh_elastic_killed(cfg, spawn):
+    """The shrink-then-grow run killed after its commit at 15, inside the
+    shrunk phase (every survivor exits), then rerun in a second spawn with
+    the regrown row's spares: bitwise the uninterrupted run, no launch on
+    a resume of a completed phase."""
+    from repro_torch.testing import multiprocess as mp
+
+    world, survivors = cfg.P * cfg.Q, ELASTIC_P * cfg.Q
+    run = dict(kind="elastic", backend="shard_map+cuda", iters=ITERS,
+               record_every=RECORD_EVERY, seed=SEED,
+               segment_iters=STREAM_SEGMENT, new_P=ELASTIC_P,
+               lose_at=MESH_LOSE, regrow_at=MESH_REGROW, regrow_P=cfg.P,
+               checkpoint_dir=ckpt_dir("mesh-killed"))
+    spec = ("tiled", SEED, cfg.N, cfg.M, cfg.P, cfg.Q)
+    out, secs = [], []
+    for kill, spares in ((MESH_REGROW, 0), (None, world - survivors)):
+        t0 = time.perf_counter()
+        out.append(mp.launch_coordinated(
+            mp.rank_elastic, world,
+            (cfg, spec, [dict(run, kill_at=kill)], MESH_DEVICE),
+            backend="gloo", spares=spares, timeout=MESH_TIMEOUT_S))
+        secs.append(time.perf_counter() - t0)
+    killed, rerun = out
+    check(killed.exit_codes == {r: mp.KILL_EXIT_CODE
+                                for r in range(survivors)},
+          f"mesh elastic kill: exit codes {killed.exit_codes}"
+          + raised(killed))
+    check(rerun.exit_codes == {}, f"mesh elastic rerun: processes died "
+          f"{rerun.exit_codes}" + raised(rerun))
+    want = same_on_every_rank("elastic grow", spawn["elastic"]["grow"])[0]
+    got = [res[0] for res in rerun.results]
+    done = same_on_every_rank("elastic rerun", got)
+    check(len(done) == world and done[0]["history"] == want["history"] and
+          np.array_equal(done[0]["w"], want["w"]),
+          "mesh elastic: the run killed at 15 and rerun is not the "
+          "uninterrupted run, bitwise")
+    n = [r["launches"] for r in got]
+    expect = ([ITERS - MESH_REGROW] * survivors + [0] * (world - survivors)
+              + [ITERS - MESH_REGROW] * (world - survivors))
+    check(n == expect, f"mesh elastic rerun: sodda_inner launches {n}, "
+          f"expected {expect}")
+    log(f"mesh elastic kill and rerun: the shrink-then-grow run killed "
+        f"after its commit at {MESH_REGROW} ({survivors} survivors exited "
+        f"{mp.KILL_EXIT_CODE}, the lost row had left at {MESH_LOSE}), "
+        f"{secs[0]:.1f} s; rerun with {world - survivors} spares, "
+        f"{secs[1]:.1f} s: bitwise the uninterrupted run, launches "
+        f"{n} (none for the completed phases)")
+
+
+def phase_mesh_streaming(cfg, spawn):
+    """The streaming plane on the 5 x 3 mesh: 4 windows a segment of 5 at
+    depth 1, against the static mesh run of the same spawn and the
+    single-device stream (see the module docstring, 12)."""
+    world, runs = spawn["world"], spawn["stream"]
+    done = {name: same_on_every_rank(name, res)
+            for name, res in runs.items()}
+    for name, n in (("stream", ITERS), ("one-window", STREAM_SEGMENT),
+                    ("logistic", ITERS), ("static", ITERS),
+                    ("static-one", STREAM_SEGMENT)):
+        got = [r["launches"] for r in done[name]]
+        check(got == [n] * world,
+              f"mesh streaming {name}: sodda_inner launches {got}")
+    one, static_one = done["one-window"][0], done["static-one"][0]
+    check(one["history"] == static_one["history"] and
+          np.array_equal(one["w"], static_one["w"]),
+          "mesh streaming: window 0 is not the tiled mesh run, bitwise")
+    for rank, tiles in enumerate(spawn["tiles"]):
+        for e, got in enumerate(tiles):
+            # digests from the card (arrays when the ranks ran on the CPU)
+            got = tuple(g if isinstance(g, int) else
+                        tile_digest(torch.as_tensor(g)) for g in got)
+            check(got == spawn["refs"]["digests"][e][divmod(rank, cfg.Q)],
+                  f"mesh streaming: rank {rank}'s tile of window {e} is not "
+                  "the single-device window's slice")
+    log(f"mesh streaming: every rank bitwise equal; {ITERS} launches a rank "
+        f"({STREAM_SEGMENT} for one window); one window's run bitwise the "
+        "tiled mesh run; each rank's tile and label block of every window "
+        "bitwise (by digest on the card) the single-device window's slice")
+
+    # each step of the stream from cuda's state, on its window, to
+    # F32_REDUCTION: the gate the hinge trajectory's parting leaves
+    refs = spawn["refs"]
+    check(spawn["steps_equal"], "mesh streaming steps: the ranks differ")
+    worst = 0.0
+    for t, got in enumerate(spawn["steps"], start=1):
+        want = refs["stream"]["ws"][t]
+        tol.assert_trajectories_close(
+            [want], [got], tol.F32_REDUCTION,
+            f"mesh streaming step {t} from cuda's w^{t - 1}")
+        worst = max(worst, float(np.abs(got - want).max()))
+    log(f"mesh streaming steps: each of the {ITERS} iterations, stepped on "
+        "the 5 x 3 mesh from cuda's stream iterate on its window's tiles, "
+        f"within F32_REDUCTION of cuda's step; max|dw| {worst:.3e}")
+    stream, logistic = done["stream"][0], done["logistic"][0]
+    held, _ = hold_mesh_trajectory(
+        "streaming vs the single-device stream (hinge)",
+        refs["stream"]["history"], stream["history"],
+        refs["stream"]["ws"][-1], stream["w"])
+    held_l, _ = hold_mesh_trajectory(
+        "streaming vs the single-device stream (logistic twin)",
+        refs["stream-logistic"]["history"], logistic["history"],
+        refs["stream-logistic"]["ws"][-1], logistic["w"])
+    check(held_l, "mesh streaming logistic twin departs from the "
+          "single-device stream")
+    if not held:
+        log("mesh streaming hinge: a finding, the hinge trajectory parts "
+            "from the single-device stream's (queue C); each step from the "
+            "same state held above, the logistic twin in full")
+    for run in (stream, logistic):
+        h = run["history"]
+        check(all(math.isfinite(f) for _, f in h) and h[-1][1] < h[0][1],
+              f"mesh streaming: no descent or non-finite {h}")
+
+    x_bytes = 4 * cfg.N * cfg.M
+    ms = [segment_ms(r) for r in done["stream"]]
+    ms_static = [segment_ms(r) for r in done["static"]]
+    setup = [r["seconds"] - segment_ms(r) * ITERS / 1e3
+             for r in done["stream"]]
+    peak = sum((r["peak"] or 0) - (r["allocated"] or 0)
+               for r in done["stream"])
+    used = max(r["device_used"] or 0 for r in done["stream"])
+    stats = [r["stream"] for r in done["stream"]]
+    log(f"mesh streaming: {ms[0]:.3f} ms an iteration on rank 0 "
+        f"({max(ms):.3f} slowest) against the static mesh run's "
+        f"{ms_static[0]:.3f} ({max(ms_static):.3f}) in the same spawn, "
+        "both run_resumable in segments of 5 timed from the first segment's"
+        f" start; the set-up before it (the resume guard's fingerprint on "
+        f"rank 0, window 0 placed cold) {setup[0]:.3f} s on rank 0; "
+        "place_s / wait_s / overlap_ratio by rank: "
+        + "; ".join(f"{s['place_s']:.4f} / {s['wait_s']:.4f} / "
+                    f"{s['overlap_ratio']:.4f}" for s in stats)
+        + f"; the ranks' max_memory_allocated above their start sum to "
+        f"{peak / 1e9:.3f} GB = {peak / x_bytes:.4f} x X (predicted <= 2.2);"
+        f" the card's used memory {used / 1e9:.3f} GB; history "
+        f"{[(t, round(f, 6)) for t, f in stream['history']]}")
+
+
+def phase_mesh_elastic_streaming(cfg, refs):
+    """The kernel at the shrunk mesh launch, then one spawn for both
+    phases."""
+    ms = phase_kernel_at(MESH_SHRUNK_SHAPE, SEED + 4)
+    bound, by = kernel_bound_ms(*MESH_SHRUNK_SHAPE)
+    log(f"mesh kernel at {MESH_SHRUNK_SHAPE}: {ms:.5f} ms by a CUDA graph, "
+        f"bound {bound:.5f} ms ({by}), {ms / bound:.1f}x; "
+        f"{ELASTIC_P * TABLE1_250K_18K.Q} launches an iteration across the "
+        "4 x 3 grid")
+    torch.cuda.empty_cache()
+    spawn = mesh_elastic_spawn(cfg, refs)
+    spawn["refs"] = refs
+    phase_mesh_streaming(cfg, spawn)
+    phase_mesh_elastic(cfg, spawn, refs)
+    phase_mesh_elastic_killed(cfg, spawn)
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # flash_attention and the gemma2-9b serving path
 # ---------------------------------------------------------------------------
 def attention_pairs(Sq, Sk, causal=True, window=0, q_offset=0):
@@ -2493,10 +3131,12 @@ def main():
     phase_elastic(cfg, X, y)
     ms_static = phase_streaming_anchor(cfg, X, y)
     mesh_refs = phase_mesh_refs(cfg, X, y)
+    elastic_refs = phase_mesh_elastic_refs(cfg, X, y)
     del X, y  # free the 18 GB before the mesh, streaming and serving phases
     torch.cuda.empty_cache()
     phase_mesh(cfg, mesh_refs)
     phase_nccl()
+    phase_mesh_elastic_streaming(cfg, elastic_refs)
     phase_streaming(cfg, ms_static)
 
     flash_record, times = phase_flash()

@@ -71,6 +71,11 @@ class Mesh:
     ``multihost.subgroup`` (made on the first mesh of the grid, shared by
     the later ones). ``payload`` counts the bytes
     this rank hands to each collective, by tag.
+
+    A mesh lives as long as its process group: ``multihost.shutdown``
+    (a rescale re-forming the group) first calls :meth:`release`, which
+    waits every exchange still pending on it and drops its groups. A
+    rescaled run builds a new mesh over the re-formed group.
     """
 
     def __init__(self, P: int, Q: int, device):
@@ -100,7 +105,9 @@ class Mesh:
             if p == self.p:
                 groups["model"] = g
         self._groups = groups
+        self._pending = []  # async all-reduces issued, not yet settled
         self.payload = collections.Counter()
+        multihost.hold(self)
 
     # -- DeviceMesh-style accessors ----------------------------------------
     mesh_dim_names = AXES
@@ -113,7 +120,25 @@ class Mesh:
         return (self.p, self.q)
 
     def get_group(self, axis):
+        if self._groups is None:
+            raise RuntimeError(
+                f"this {self.P}x{self.Q} mesh was released with its process "
+                "group; a re-formed group needs a new mesh")
         return self._groups[AXES[axis] if isinstance(axis, int) else axis]
+
+    def settle(self):
+        """Wait every asynchronous all-reduce issued on this mesh (an
+        ``async-mesh`` exchange still in flight)."""
+        pending, self._pending = self._pending, []
+        for work in pending:
+            work.wait()
+
+    def release(self):
+        """Settle, then drop the row and column groups: called by
+        ``multihost.shutdown`` before the group ends."""
+        if self._groups is not None:
+            self.settle()
+            self._groups = None
 
     def size(self, axis) -> int:
         return self.shape[AXES.index(axis) if isinstance(axis, str) else axis]
@@ -127,8 +152,12 @@ class Mesh:
         """In-place all-reduce of `t` over `axis`; the ``Work`` handle when
         `async_op`."""
         self._count(tag, axis, t)
-        return dist.all_reduce(t, op=op, group=self.get_group(axis),
+        work = dist.all_reduce(t, op=op, group=self.get_group(axis),
                                async_op=async_op)
+        if async_op:
+            self._pending = [w for w in self._pending if not w.is_completed()]
+            self._pending.append(work)
+        return work
 
     def all_gather_cat(self, t, axis, tag=None):
         """The `axis` group's tensors, concatenated along dim 0 in group
@@ -156,6 +185,14 @@ class Mesh:
         box = [obj]
         dist.broadcast_object_list(box, src=0)
         return box[0]
+
+    def max_over_group(self, value: float) -> float:
+        """The largest of every rank's `value`, on every rank (an f64
+        all-reduce over the whole group)."""
+        t = torch.tensor([float(value)], dtype=torch.float64,
+                         device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t.item())
 
     def block(self, v, axis="model"):
         """This rank's block of a global vector: q's m-block of an (M,)

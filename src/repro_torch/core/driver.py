@@ -59,13 +59,19 @@ objective is the distributed one, and ``finalize`` gathers w to (M,) once,
 at the end, so every rank returns the same state and history, bitwise. A
 checkpoint gathers the carry (a collective), rank 0 alone writes it in the
 unchanged format, and a barrier follows every commit; every rank restores
-from the same directory. The resume guard's data fingerprint hashes tile
-(0, 0) and label block 0, which rank 0 holds: it is computed there and
-broadcast, so every rank checks the same stamp.
+from the same directory. The resume guard's data fingerprint hashes the
+mesh's grid and epoch-0 tile (0, 0) and label block 0, which rank 0 holds:
+it is computed there and broadcast, so every rank checks the same stamp.
+A ``streaming`` plane runs on a mesh too: each rank's prefetcher places
+only its own tile and label block of the next window, and no rank ever
+holds another's. :func:`migrate_resumable` runs on a mesh over a re-formed
+group (the elastic rescale): rank 0's state is the one migrated, so a
+regrown rank, which holds none, passes ``state=None``.
 """
 from __future__ import annotations
 
 import hashlib
+import weakref
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
@@ -206,6 +212,10 @@ def _fingerprint(N, M, P, Q, x00, y0) -> str:
     return h.hexdigest()
 
 
+# rank 0's resume-guard stamps of seed-derived planes on a mesh, by grid
+_MESH_STAMPS = weakref.WeakKeyDictionary()
+
+
 def _data_fingerprint(plane, mesh=None, placed=None) -> str:
     """A content fingerprint of a data plane for the resume guard, as the
     reference computes it: the grid metadata, then the bytes of the
@@ -214,12 +224,25 @@ def _data_fingerprint(plane, mesh=None, placed=None) -> str:
     plane is fingerprinted at epoch 0, since its cursor is trajectory
     state (stamped as ``stream_epoch``), not data identity.
 
-    On a `mesh` the grid is the mesh's and tile (0, 0) is rank 0's own
-    `placed` pair: rank 0 hashes it and broadcasts the stamp (a
-    collective)."""
+    On a `mesh` the grid is the mesh's and tile (0, 0) is rank 0's own:
+    its `placed` pair when that is the epoch-0 window, else drawn alone at
+    epoch 0. Rank 0 hashes it and broadcasts the stamp (a collective), so
+    stamps of other grids and of a stream's later windows never meet. A
+    seed-derived plane's data is a function of its seed, so rank 0 keeps
+    its stamp by grid while the plane lives: an elastic phase's migration
+    and run hash their tile once."""
     if mesh is not None:
-        stamp = (_fingerprint(plane.N, plane.M, *mesh.shape, *placed)
-                 if mesh.rank == 0 else None)
+        stamp = None
+        if mesh.rank == 0:
+            kept = (_MESH_STAMPS.setdefault(plane, {})
+                    if plane.generation_seed is not None else {})
+            stamp = kept.get(tuple(mesh.shape))
+            if stamp is None:
+                if placed is None:
+                    placed = plane.materialize_for("fingerprint", mesh=mesh,
+                                                   epoch=0)
+                stamp = _fingerprint(plane.N, plane.M, *mesh.shape, *placed)
+                kept[tuple(mesh.shape)] = stamp
         return mesh.broadcast_object(stamp)
     plane = plane.at_epoch(0)  # no-op for static planes
     return _fingerprint(plane.N, plane.M, plane.P, plane.Q, plane.x_tile(0, 0),
@@ -388,17 +411,21 @@ def run_resumable(seed: int, data, cfg: SoddaConfig, iters: int,
     seed_key(seed)  # a seed with no reference key cannot be checkpointed
     streaming, mesh = plane.is_streaming, bundle.mesh
     X = y = None
-    if mesh is not None:
+    if mesh is not None and not streaming:
         # a rank's own tile: placed first, since rank 0 fingerprints it
         X, y = plane.materialize_for(backend, mesh=mesh, device=device)
     want = _stamp(backend, record_every, segment_iters, opt_key,
-                  _data_fingerprint(plane, mesh, (X, y)), streaming, seed)
+                  _data_fingerprint(plane, mesh,
+                                    None if X is None else (X, y)),
+                  streaming, seed)
     commit = _committer(bundle, CheckpointManager(
         checkpoint_dir, every=segment_iters, keep=keep))
     prefetch = None
     if streaming:
+        # on a mesh each rank's windows are its own tile and label block
         prefetch = StreamPrefetcher(
-            lambda e: plane.materialize_for(backend, device=device, epoch=e),
+            lambda e: plane.materialize_for(backend, mesh=mesh, device=device,
+                                            epoch=e),
             depth=prefetch_depth, device=device)
     elif X is None:
         X, y = plane.materialize_for(backend, device=device)
@@ -501,10 +528,16 @@ def migrate_resumable(seed: int, data, cfg: SoddaConfig, done: int, state,
     checkpoint is stamped with the new run's resume guard. ``done`` must be
     a segment boundary; ``history`` is the trajectory recorded so far.
     Returns the carry it saved.
+
+    On a mesh backend every rank of the (re-formed) group calls it: rank
+    0's `state` is broadcast (a regrown rank passes ``state=None``), each
+    rank places its own tile where the warm-up or the fingerprint reads
+    it, and rank 0 alone writes (with its `history`), then every rank
+    passes a barrier.
     """
     from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.distributed import multihost
 
-    engine.require_no_elastic_mesh(backend, mesh)
     _validate_segmenting(max(done, 0), segment_iters, record_every)
     if done < 0 or done % segment_iters:
         raise ValueError(
@@ -512,22 +545,35 @@ def migrate_resumable(seed: int, data, cfg: SoddaConfig, done: int, state,
             f"(non-negative multiple of segment_iters={segment_iters})")
     device = resolve_device(device)
     opt_key = tuple(sorted(options.items()))
-    plane, bundle = _checked_bundle(data, cfg, backend, device, options)
-    # only the async warm-up reads the data; the other carries are the state
+    plane, bundle = _checked_bundle(data, cfg, backend, device, options,
+                                    mesh)
+    mesh = bundle.mesh
+    if mesh is not None:
+        w, t, s = mesh.broadcast_object(
+            (state.w.cpu().numpy(), int(state.t), int(state.seed))
+            if mesh.rank == 0 else None)
+        state = SoddaState(w=torch.from_numpy(w), t=t, seed=s)
+    # only the async warm-up reads the data (and rank 0's fingerprint its
+    # tile); the other carries are the state
     X = y = None
     if backend in engine.ASYNC_BACKENDS:
-        X, y = plane.materialize_for(backend, device=device)
+        X, y = plane.materialize_for(backend, mesh=mesh, device=device)
     start = SoddaState(w=state.w.to(device), t=int(state.t),
                        seed=int(state.seed))
     carry = _warm_carry(bundle, start, X, y, sampler)
     extra = {"history": [[int(t), float(f)] for t, f in history],
              **_stamp(backend, record_every, segment_iters, opt_key,
-                      _data_fingerprint(plane), plane.is_streaming,
-                      state.seed)}
+                      _data_fingerprint(
+                          plane, mesh, None if X is None or
+                          plane.is_streaming else (X, y)),
+                      plane.is_streaming, state.seed)}
     if plane.is_streaming:
         extra["stream_epoch"] = done // segment_iters
-    save_checkpoint(checkpoint_dir, done, bundle.record(carry), extra=extra,
-                    keep=keep)
+    record = bundle.record(carry)
+    if mesh is None or mesh.rank == 0:
+        save_checkpoint(checkpoint_dir, done, record, extra=extra, keep=keep)
+    if mesh is not None:
+        multihost.barrier()
     return carry
 
 

@@ -374,26 +374,19 @@ def rescale_bundle(cfg: SoddaConfig, backend: str, new_P: int, *,
                    device=None, mesh=None, **options):
     """The reference's elastic-rescale seam: ``(new_cfg, new_mesh, bundle)``
     with ``new_cfg = rescale_config(cfg, new_P)`` and the bundle built on
-    it. ``new_mesh`` is None: the elastic rescale runs on one device, and
-    a mesh, or a mesh backend, raises ``ValueError`` (the elastic mesh
-    rescale, which would rebuild the process group on the survivors, is
-    not ported). `options` are the run's engine options, revalidated
-    against the rebuilt backend."""
-    require_no_elastic_mesh(backend, mesh)
+    it. A mesh backend gets the fresh ``(new_P, Q)`` mesh over the live
+    process group, which the caller has re-formed with ``new_P * Q``
+    ranks (``repro_torch.distributed.multihost.reinitialize``: a group
+    cannot drop or take ranks in place), or runs on `mesh` when given; a
+    group or a mesh of another grid raises ``ValueError``. Single-device
+    backends get ``new_mesh=None`` and take no mesh. `options` are the
+    run's engine options, revalidated against the rebuilt backend."""
     new_cfg = rescale_config(cfg, new_P)
-    return new_cfg, None, make_bundle(new_cfg, backend, device=device,
-                                      **options)
-
-
-def require_no_elastic_mesh(backend: str, mesh=None):
-    """``ValueError`` for an elastic rescale on a mesh: rescaling a mesh
-    run would rebuild its process group on the surviving ranks, and that
-    elastic mesh rescale is not ported."""
-    if mesh is not None or backend in MESH_BACKENDS:
-        raise ValueError(
-            f"backend {backend!r}: the elastic rescale runs on one device "
-            "and takes no mesh; the elastic mesh rescale (rebuilding the "
-            "process group on the surviving ranks) is not ported")
+    if backend in MESH_BACKENDS:
+        mesh = _checked_mesh(new_cfg, mesh, resolve_device(device))
+    bundle = make_bundle(new_cfg, backend, device=device, mesh=mesh,
+                         **options)
+    return new_cfg, bundle.mesh, bundle
 
 
 def make_step(cfg: SoddaConfig, backend: str = "reference", *, device=None,

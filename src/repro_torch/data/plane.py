@@ -33,9 +33,10 @@ Three implementations:
                resident; ``resident_tile_budget`` bounds a tile cache with
                regenerate-on-miss.
 
-The ``dense`` and ``tiled`` planes take a mesh; ``streaming`` on a mesh
-raises ``ValueError``: a rank's window prefetch over the mesh is not
-ported yet.
+Every plane takes a mesh: a rank places its own block pair
+(:meth:`DataPlane.place_tile`), of the window under the cursor for
+``streaming``, so a rank's prefetcher builds only its share of the next
+window and no rank ever holds another's.
 
 Materializing assembles X in one preallocated ``(N, M)`` buffer on the
 device, each tile written into its slice, so at most one tile-sized
@@ -46,6 +47,7 @@ from __future__ import annotations
 
 import abc
 import copy
+import functools
 import threading
 import time
 from collections import OrderedDict
@@ -208,19 +210,12 @@ class DataPlane(abc.ABC):
                         device=None):
         """``(X, y)`` placed the way `backend`'s step consumes them, on
         `device` (default: the plane's own device): the assembled global
-        pair, or with a `mesh` this rank's ``(x_tile(p, q), y_block(p))``
-        and nothing else (the label block first, so its generation's tile
-        temporaries are gone before the rank's tile exists). Which backends
-        take a mesh is the engine's rule, checked when their bundle is
-        built. A device the plane's data does not lie on raises
-        ``ValueError`` (data is never copied across devices), and so does a
-        streaming plane on a mesh. ``epoch`` selects a window
-        (:meth:`at_epoch`)."""
-        if mesh is not None and self.is_streaming:
-            raise ValueError(
-                f"backend {backend!r}: the streaming plane on a mesh is not "
-                "ported yet (each rank would prefetch its own tile of every "
-                "window); use a dense or tiled plane")
+        pair, or with a `mesh` this rank's :meth:`place_tile` and nothing
+        else. Which backends take a mesh is the engine's rule, checked when
+        their bundle is built. A device the plane's data does not lie on
+        raises ``ValueError`` (data is never copied across devices), and so
+        does a mesh of another grid than a generated plane's. ``epoch``
+        selects a window (:meth:`at_epoch`)."""
         plane = self if epoch is None else self.at_epoch(epoch)
         device = plane.device if device is None else resolve_device(device)
         if plane.device != device:
@@ -231,9 +226,14 @@ class DataPlane(abc.ABC):
             return plane.materialize()
         if tuple(mesh.shape) != (plane.P, plane.Q):
             plane = plane.regridded(*mesh.shape)
-        p, q = mesh.get_coordinate()
-        y = plane.y_block(p)
-        return plane.x_tile(p, q), y
+        return plane.place_tile(*mesh.get_coordinate())
+
+    def place_tile(self, p: int, q: int):
+        """Worker (p, q)'s ``(x_tile(p, q), y_block(p))``: the label block
+        first, so its generation's tile temporaries are gone before the
+        worker's tile exists."""
+        y = self.y_block(p)
+        return self.x_tile(p, q), y
 
 
 @register_plane("dense")
@@ -335,7 +335,8 @@ class StreamingDataPlane(DataPlane):
       most ``resident_tile_budget`` blocks (X tiles and y blocks alike;
       default two windows' worth, ``2 * (P * Q + P)``; 0 disables it) and
       are regenerated on a miss. :meth:`materialize` writes each tile
-      straight into the window and leaves the cache alone.
+      straight into the window and leaves the cache alone, and so does a
+      mesh rank's :meth:`place_tile`.
 
     :meth:`at_epoch` returns a view with the cursor moved (shared cache and
     stats), the handle :class:`StreamPrefetcher` places the next window
@@ -476,6 +477,23 @@ class StreamingDataPlane(DataPlane):
         return self._assemble(lambda p, q: self._make_x(e, p, q),
                               lambda p: self._make_y(e, p))
 
+    def place_tile(self, p: int, q: int):
+        """A mesh rank's share of the window under the cursor, generated
+        past the cache for the reason :meth:`materialize` gives: the placed
+        pair is the resident copy."""
+        if not (0 <= p < self.P and 0 <= q < self.Q):
+            raise IndexError(f"tile ({p}, {q}) outside grid "
+                             f"({self.P}, {self.Q})")
+        e = self._epoch
+        y = self._make_y(e, p)
+        return self._make_x(e, p, q), y
+
+
+@functools.lru_cache(maxsize=None)
+def _side_stream(device: torch.device):
+    """The prefetchers' side stream on `device` (made once a process)."""
+    return torch.cuda.Stream(device=device)
+
 
 class StreamPrefetcher:
     """Double-buffered issue/consume feed over a streaming plane's epochs.
@@ -488,7 +506,10 @@ class StreamPrefetcher:
     of the same epoch are free.
 
     On a CUDA `device` the worker generates on a side ``torch.cuda.Stream``
-    (the default stream would queue the window behind the segment's work),
+    (the default stream would queue the window behind the segment's work;
+    one a device, shared by the process's prefetchers: the caching
+    allocator keeps freed blocks per stream, so a later prefetcher reuses
+    an earlier one's window memory instead of reserving its own),
     records an event when the window is written and waits on it before the
     job returns, so ``place_s`` is generation time. :meth:`consume` makes
     the current stream wait on that event and calls ``record_stream`` on X
@@ -508,7 +529,7 @@ class StreamPrefetcher:
         self._place = place
         self.depth = int(depth)
         self._device = None if device is None else torch.device(device)
-        self._side = (torch.cuda.Stream(device=self._device)
+        self._side = (_side_stream(self._device)
                       if self._device is not None
                       and self._device.type == "cuda" else None)
         self._pool = ThreadPoolExecutor(max_workers=1,

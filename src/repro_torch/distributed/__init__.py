@@ -1,5 +1,5 @@
-"""Fault tolerance for single-device runs: supervision, straggler policy
-and elastic rescale."""
+"""Fault tolerance for single-device and mesh runs: supervision, straggler
+policy and elastic rescale (``multihost`` re-forms a mesh run's group)."""
 from repro_torch.distributed.fault_tolerance import (
     GrownDataPlane,
     SegmentSupervisor,
@@ -11,6 +11,7 @@ from repro_torch.distributed.fault_tolerance import (
     rescale_plan,
     run_elastic,
     run_elastic_auto,
+    run_elastic_regrown,
     shrink_plane,
     suggest_commit_every,
 )
@@ -27,5 +28,6 @@ __all__ = [
     "regrow_plane",
     "run_elastic",
     "run_elastic_auto",
+    "run_elastic_regrown",
     "suggest_commit_every",
 ]

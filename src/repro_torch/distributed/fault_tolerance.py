@@ -1,8 +1,8 @@
 """Fault tolerance: supervised runs with checkpoint/restart, straggler
 detection and elastic rescale, wired into the resumable driver.
 
-Counterpart of ``repro.distributed.fault_tolerance`` for the port's
-single-device backends. The failure signals are injected deterministically
+Counterpart of ``repro.distributed.fault_tolerance``, on one device and
+on the mesh backends. The failure signals are injected deterministically
 by ``repro_torch.testing.faults`` through the driver's segment seams.
 Restart-safety comes from the step-atomic checkpoints plus the
 deterministic data (a tile and a sample are pure functions of the seed and
@@ -32,9 +32,28 @@ Three layers, bottom up:
   tiles (:func:`regrow_plane`). ``run_elastic_auto`` lets the supervisor's
   straggler response choose the shrink boundary. A rescaled run is another
   optimization problem, held to the same-optimum ``STALENESS`` policy.
+
+On a mesh backend every rank of the P * Q process group runs the same
+call. A group cannot drop or take ranks while it lives, so at a rescale
+boundary, after its commit and a barrier, the ranks of the lost rows
+(the tail ranks ``new_P * Q ..``) leave the group and return a report
+that says so, and the survivors, which keep their rank, coordinates and
+resident tile (a shrink moves no data), join a fresh generation of the
+run's rendezvous (``multihost.reinitialize``) with ``new_P * Q`` ranks;
+``engine.rescale_bundle`` builds the new mesh over it. A grow re-forms
+the group once more with ``regrow_P * Q`` ranks: the survivors and the
+regrown ranks, each running :func:`run_elastic_regrown`, which joins
+holding no state and draws its own tile. The supervisor's segment time is
+the slowest rank's and its response rank 0's, so every rank decides and
+logs alike. A survivor's tile stays resident because the run places its
+plane through a :class:`ResidentPlane`, whose placed pair the survivor and
+grown views hand back, and rank 0 stamps each phase's data once
+(``driver``'s fingerprint of a seed-derived plane is kept by grid). Each
+rank notes each rebuild's parts in ``SegmentSupervisor.rebuilds``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -48,8 +67,10 @@ from repro_torch.data.plane import DataPlane, DenseDataPlane, as_data_plane
 
 __all__ = ["StragglerPolicy", "StragglerRescale", "TrainSupervisor",
            "SegmentSupervisor", "SurvivorDataPlane", "GrownDataPlane",
+           "ResidentPlane",
            "rescale_plan", "shrink_plane", "regrow_plane", "run_elastic",
-           "run_elastic_auto", "suggest_commit_every"]
+           "run_elastic_auto", "run_elastic_regrown",
+           "suggest_commit_every"]
 
 
 @dataclasses.dataclass
@@ -248,6 +269,12 @@ class SegmentSupervisor:
 
     ``sleep`` and ``clock`` are injectable so the fault-injection suite runs
     with a fake clock and zero real sleeping (``repro_torch.testing.faults``).
+
+    On a mesh a segment's time is the slowest rank's (a max all-reduce over
+    the group) and whether to respond is rank 0's decision, broadcast, so
+    every rank flags, responds and logs alike. :attr:`rebuilds` holds, for
+    each rescale of a mesh run, this rank's wall-clock parts of the
+    group's rebuild (:func:`_rebuilt`).
     """
 
     def __init__(self, max_restarts: int = 3, backoff_base_s: float = 0.05,
@@ -286,6 +313,9 @@ class SegmentSupervisor:
         self._last_committed: Optional[int] = None
         self._streak = 0  # consecutive flagged segments
         self.events: List[str] = []
+        # this rank's rescale rebuilds on a mesh, timed (rank-local: not
+        # shared, unlike events)
+        self.rebuilds: List[dict] = []
 
     def backoff_delay(self, attempt: int) -> float:
         """Backoff before retry ``attempt`` (1-based):
@@ -333,8 +363,11 @@ class SegmentSupervisor:
         and chained to the caller's callbacks, which remain the
         fault-injection points.
         """
-        from repro_torch.core import driver
+        from repro_torch.core import driver, engine
 
+        if backend in engine.MESH_BACKENDS and kwargs.get("mesh") is None:
+            kwargs["mesh"] = engine.make_mesh_for(cfg, kwargs.get("device"))
+        mesh = kwargs.get("mesh")
         self._last_committed = latest_step(checkpoint_dir)
         t_ref = [self.clock()]
 
@@ -345,6 +378,8 @@ class SegmentSupervisor:
 
         def _end(done):
             dt = self.clock() - t_ref[0]
+            if mesh is not None:
+                dt = mesh.max_over_group(dt)  # the slowest rank's segment
             if self.straggler.record(dt):
                 self.events.append(f"straggler@{done}:{dt:.3f}s")
                 self._streak += 1
@@ -352,8 +387,11 @@ class SegmentSupervisor:
                     self.on_straggler(done, dt)
             else:
                 self._streak = 0
-            respond = (self.straggler_patience
-                       and self._streak >= self.straggler_patience)
+            respond = bool(self.straggler_patience
+                           and self._streak >= self.straggler_patience)
+            if mesh is not None and self.straggler_patience:
+                respond = mesh.broadcast_object(
+                    respond if mesh.rank == 0 else None)
             if on_segment is not None:
                 on_segment(done)
             if respond:
@@ -378,6 +416,22 @@ class SegmentSupervisor:
                 if delay is None:
                     raise
                 self.sleep(delay)
+
+    def share(self, mesh):
+        """Rank 0's supervision state (events, restart counts, straggler
+        window and streak) on every rank of `mesh`, a collective: a rank
+        that joins a re-formed group mid-run (a regrown one) starts from
+        the run's state, so every rank goes on deciding alike."""
+        state = mesh.broadcast_object(
+            dict(events=list(self.events), restarts=self.restarts,
+                 total_restarts=self.total_restarts, streak=self._streak,
+                 durations=list(self.straggler._durations))
+            if mesh.rank == 0 else None)
+        self.events = state["events"]
+        self.restarts = state["restarts"]
+        self.total_restarts = state["total_restarts"]
+        self._streak = state["streak"]
+        self.straggler._durations = state["durations"]
 
     def _respond(self, done, seed, data, cfg, backend, checkpoint_dir,
                  kwargs):
@@ -429,7 +483,9 @@ class SurvivorDataPlane(DataPlane):
     Pure delegation: every surviving tile and label block is the base
     plane's own (bitwise), so for a seed-derived plane a survivor view
     equals a fresh plane built on the smaller grid. Not a registered plane:
-    it is a view over one, never built from a seed.
+    it is a view over one, never built from a seed. Placed on a
+    ``(new_P, Q)`` mesh, a surviving rank's tile is its base's (p, q)
+    tile: the one it held before the shrink, when the base keeps it.
     """
 
     def __init__(self, base, new_P: int):
@@ -441,10 +497,13 @@ class SurvivorDataPlane(DataPlane):
         self.device = base.device
         self.dtype = base.dtype
 
-    def x_tile(self, p: int, q: int):
+    def _check(self, p: int, q: int):
         if not (0 <= p < self.P and 0 <= q < self.Q):
             raise IndexError(f"tile ({p}, {q}) outside surviving grid "
                              f"({self.P}, {self.Q})")
+
+    def x_tile(self, p: int, q: int):
+        self._check(p, q)
         return self._base.x_tile(p, q)
 
     def y_block(self, p: int):
@@ -452,6 +511,13 @@ class SurvivorDataPlane(DataPlane):
             raise IndexError(f"row block {p} outside surviving grid "
                              f"P={self.P}")
         return self._base.y_block(p)
+
+    def place_tile(self, p: int, q: int):
+        """The base's placement of worker (p, q): over a
+        :class:`ResidentPlane` the pair the survivor placed before the
+        shrink."""
+        self._check(p, q)
+        return self._base.place_tile(p, q)
 
     def materialize(self):
         """Over a resident ``dense`` base the survivors are X's leading
@@ -493,6 +559,9 @@ class GrownDataPlane(DataPlane):
     alone, never by the grid, so a regrown partition is bitwise the one a
     fresh plane on the ``(new_P, Q)`` grid holds.
 
+    Placed on a ``(new_P, Q)`` mesh, a survivor's tile is its base's and a
+    regrown rank generates its own, bitwise the lost one's.
+
     Only seed-derived static planes can grow: a plane without a
     ``generation_seed`` has no recipe for rows it never held, and a
     streaming plane's windows advance with the cursor; both raise
@@ -518,10 +587,13 @@ class GrownDataPlane(DataPlane):
         self.device = base.device
         self.dtype = base.dtype
 
-    def x_tile(self, p: int, q: int):
+    def _check(self, p: int, q: int):
         if not (0 <= p < self.P and 0 <= q < self.Q):
             raise IndexError(f"tile ({p}, {q}) outside grown grid "
                              f"({self.P}, {self.Q})")
+
+    def x_tile(self, p: int, q: int):
+        self._check(p, q)
         if p < self._base.P:
             return self._base.x_tile(p, q)
         return synthetic.svm_tile_x(self.generation_seed, p, q, self.n,
@@ -536,6 +608,14 @@ class GrownDataPlane(DataPlane):
             self.generation_seed, p, self.n, self.Q, self.m,
             flip_prob=self.flip_prob, device=self.device)
 
+    def place_tile(self, p: int, q: int):
+        """A survivor's placement is its base's (the pair it holds); a
+        regrown worker draws its own."""
+        self._check(p, q)
+        if p < self._base.P:
+            return self._base.place_tile(p, q)
+        return super().place_tile(p, q)
+
     @property
     def generation_seed(self):
         """Delegated, so a grown plane can shrink or grow again bitwise."""
@@ -544,6 +624,73 @@ class GrownDataPlane(DataPlane):
     @property
     def flip_prob(self):
         return self._base.flip_prob
+
+
+class ResidentPlane(DataPlane):
+    """A static plane whose mesh placement stays on the rank: the first
+    :meth:`place_tile` of worker (p, q) draws the pair and every later one
+    returns it, until :meth:`release`. Everything else is the base's.
+
+    A mesh :func:`run_elastic` places its plane through one, and the
+    survivor and grown views (:func:`shrink_plane`, :func:`regrow_plane`)
+    hand a survivor's placement back to it, so each phase, migration and
+    fingerprint of a survivor reads the tile it placed at the start: a
+    shrink moves and regenerates no data.
+    """
+
+    def __init__(self, base):
+        if base.is_streaming:
+            raise TypeError("a streaming plane's placement changes with the "
+                            "window: only a static plane stays resident")
+        self._base = base
+        self._init_grid(base.N, base.M, base.P, base.Q)
+        self.device = base.device
+        self.dtype = base.dtype
+        self._placed = {}
+
+    def x_tile(self, p: int, q: int):
+        return self._base.x_tile(p, q)
+
+    def y_block(self, p: int):
+        return self._base.y_block(p)
+
+    def materialize(self):
+        return self._base.materialize()
+
+    def regridded(self, P: int, Q: int):
+        return self._base.regridded(P, Q)
+
+    def place_tile(self, p: int, q: int):
+        if (p, q) not in self._placed:
+            self._placed[(p, q)] = self._base.place_tile(p, q)
+        return self._placed[(p, q)]
+
+    def release(self):
+        """Drop the kept placements (their device memory with them)."""
+        self._placed.clear()
+
+    @property
+    def generation_seed(self):
+        return self._base.generation_seed
+
+    @property
+    def flip_prob(self):
+        return self._base.flip_prob
+
+
+@contextlib.contextmanager
+def _resident(plane, mesh):
+    """`plane` as a :class:`ResidentPlane` for the block on a mesh (a
+    static plane; a streaming one, and a run on one device, as it is),
+    released when the block ends."""
+    if mesh is None or plane.is_streaming:
+        yield plane
+        return
+    resident = ResidentPlane(plane)
+    try:
+        yield resident
+    finally:
+        resident.release()
 
 
 def regrow_plane(data, new_P: int):
@@ -563,53 +710,11 @@ def _check_elastic_plane(plane, cfg):
             "cfg's grid")
 
 
-def run_elastic(seed, data, cfg, iters: int, backend: str = "reference", *,
-                checkpoint_dir: str, segment_iters: int,
-                lose_partition_at: int, new_P: Optional[int] = None,
-                regrow_at: Optional[int] = None,
-                regrow_P: Optional[int] = None,
-                record_every: int = 1, keep: int = 3, device=None,
-                commit_every: int = 0,
-                supervisor: Optional[SegmentSupervisor] = None,
-                on_segment: Optional[Callable] = None,
-                on_segment_start: Optional[Callable] = None,
-                sampler: Optional[Callable] = None, **options):
-    """A SODDA run that survives losing an observation partition mid-run.
-
-    Phase 1 runs (supervised) to ``lose_partition_at``, a segment
-    boundary, under ``cfg``'s full ``P``. The loss is handled as a live
-    rescale: :func:`rescale_plan` plans the shrink to ``new_P`` (default
-    ``P - 1``), :func:`repro_torch.core.engine.rescale_config` rescales the
-    config (each phase's driver builds its own bundle), and the finalized
-    ``SoddaState`` (the ``(M,)`` iterate, the step counter and the seed:
-    P-independent) is re-seeded as a committed checkpoint in the shrunk run's directory
-    through :func:`repro_torch.core.driver.migrate_resumable` (the async
-    carry gets a fresh warm-up exchange there). Phase 2 resumes it to
-    ``iters`` on the surviving data.
-
-    With ``regrow_at`` (a later segment boundary) the run grows back to
-    ``regrow_P`` partitions (default ``cfg.P``): :func:`regrow_plane`
-    regenerates the regrown partitions bitwise from the generation seed,
-    and the carry migrates again.
-
-    All phases run under one :class:`SegmentSupervisor`, each keeps the
-    driver's bitwise kill-and-resume contract (``commit_every`` included),
-    and ``on_segment`` / ``on_segment_start`` reach every phase.
-    ``sampler(t)`` reaches every phase's driver and migration: it is
-    :func:`repro_torch.core.driver.run`'s replay seam, and since ``t``
-    fixes the phase (the shrink's first step is ``lose_partition_at + 1``),
-    one sampler can serve the draws of every grid. Returns
-    ``(final_state, history, report)``: the history at the uninterrupted
-    run's ticks (each phase's objectives over its own data), and the plans,
-    moved rows, rescaled configs and planes and the supervisor's events.
-    """
-    from repro_torch.core import driver, engine
-
-    engine.require_no_elastic_mesh(backend, options.get("mesh"))
-    sup = supervisor if supervisor is not None else SegmentSupervisor()
+def _check_elastic_args(cfg, iters, segment_iters, lose_partition_at, new_P,
+                        regrow_at, regrow_P):
+    """``(new_P, regrow_P)`` of a valid :func:`run_elastic` call, with
+    their defaults; ``ValueError`` otherwise."""
     new_P = cfg.P - 1 if new_P is None else new_P
-    plane = as_data_plane(data)
-    _check_elastic_plane(plane, cfg)
     if not 1 <= new_P < cfg.P:
         raise ValueError(
             f"a partition loss shrinks the grid: need 1 <= new_P < {cfg.P}, "
@@ -640,67 +745,305 @@ def run_elastic(seed, data, cfg, iters: int, backend: str = "reference", *,
     elif regrow_P is not None:
         raise ValueError("regrow_P without regrow_at: pass the boundary "
                          "the capacity returns at")
+    return new_P, regrow_P
 
+
+def _reform(mesh, world: int, generation: int) -> bool:
+    """This rank's move at a rescale boundary of a mesh run, once the
+    boundary is committed: every rank passes a barrier, then the ranks at
+    and above `world` leave the group (False) and the others join
+    generation `generation` of the run's rendezvous with `world` ranks,
+    each as its own rank (True). A shrink drops the tail rows, so a
+    survivor keeps its coordinates and its resident tile."""
+    from repro_torch.distributed import multihost
+
+    multihost.barrier()
+    if mesh.rank >= world:
+        multihost.leave()
+        return False
+    multihost.reinitialize(world, mesh.rank, generation=generation)
+    return True
+
+
+def _shrink(cfg, backend, new_P, mesh, generation, device, options):
+    """``(new_cfg, new_mesh)`` after a shrink to ``new_P`` partitions: on
+    a mesh the group re-formed at `generation` and the new mesh over it
+    (None on one device); None for a rank of a lost row, which has left."""
+    from repro_torch.core import engine
+
+    if mesh is None:
+        return engine.rescale_config(cfg, new_P), None
+    if not _reform(mesh, new_P * cfg.Q, generation):
+        return None
+    new_cfg, new_mesh, _ = engine.rescale_bundle(cfg, backend, new_P,
+                                                 device=device, **options)
+    return new_cfg, new_mesh
+
+
+def _unmigrated(directory, mesh=None) -> bool:
+    """True while `directory` holds no committed checkpoint: rank 0's
+    reading, broadcast, on a mesh (every rank then migrates, or none)."""
+    fresh = latest_step(directory) is None
+    if mesh is None:
+        return fresh
+    return mesh.broadcast_object(fresh if mesh.rank == 0 else None)
+
+
+def _rebuilt(sup, at, mesh, t0, t_mesh):
+    """Note on `sup` this rank's parts of the group's rebuild at boundary
+    `at` onto `mesh`, wall-clock seconds from `t0`, the boundary's commit:
+    ``reform_s`` until this rank is in the new group (the barrier, the lost
+    row's departure, the old group's teardown and the rendezvous, whose own
+    share is ``rendezvous_s``), ``mesh_s`` for the new mesh and bundle
+    (ending at `t_mesh`) and ``migrate_s`` for the migration (rank 0's
+    fingerprint, the save, the barrier). ``end`` is the wall time it
+    finished: the next segment's start, less it, is that phase's set-up
+    (placement, fingerprint, carry)."""
+    from repro_torch.distributed import multihost
+
+    join, end = multihost.history()[-1], time.time()
+    sup.rebuilds.append(dict(
+        at=at, grid=tuple(mesh.shape), start=t0, end=end,
+        reform_s=join["end"] - t0,
+        rendezvous_s=join["end"] - join["start"],
+        mesh_s=t_mesh - join["end"], migrate_s=end - t_mesh))
+
+
+def _regrow(sup, seed, survivors, new_cfg, state, hist, iters, backend, *,
+            regrow_at, regrow_P, checkpoint_dir, rank, generation, common,
+            phase, options):
+    """The grow phase of :func:`run_elastic` (and of a regrown rank's
+    :func:`run_elastic_regrown`): rescale to ``regrow_P`` partitions at
+    committed boundary ``regrow_at``, the carry migrated, and run on to
+    `iters`. On a mesh (`rank` given) every rank first joins `generation`
+    of the group with ``regrow_P * Q`` ranks as `rank` and takes rank 0's
+    supervision state; a regrown rank comes with ``state=None``. Returns
+    ``(state, history, report entries)``."""
+    from repro_torch.core import driver, engine
+    from repro_torch.distributed import multihost
+
+    grow_plan, regrown = rescale_plan(new_cfg.P, regrow_P, new_cfg.n)
+    sup.events.append(
+        f"rescale@{regrow_at}:P{new_cfg.P}->P{regrow_P} ({regrown} rows "
+        "regrown from the generation seed)")
+    grow_cfg, grow_mesh = engine.rescale_config(new_cfg, regrow_P), None
+    t0 = time.time()
+    if rank is not None:
+        multihost.barrier()  # the survivors' boundary is committed
+        multihost.reinitialize(regrow_P * new_cfg.Q, rank,
+                               generation=generation)
+        grow_cfg, grow_mesh, _ = engine.rescale_bundle(
+            new_cfg, backend, regrow_P, device=common["device"], **options)
+        sup.share(grow_mesh)
+    t_mesh = time.time()
+    grown = regrow_plane(survivors, regrow_P)
+    # "-regrown" keeps this directory distinct from d_full even when
+    # capacity returns to the original P
+    d_grown = os.path.join(checkpoint_dir, f"P{regrow_P}-regrown")
+    if _unmigrated(d_grown, grow_mesh):
+        driver.migrate_resumable(
+            seed, grown, grow_cfg, regrow_at, state, backend,
+            checkpoint_dir=d_grown, history=hist[:-1], mesh=grow_mesh,
+            **common, **options)
+    if grow_mesh is not None:
+        _rebuilt(sup, regrow_at, grow_mesh, t0, t_mesh)
+    state, hist = sup.run_resumable(
+        seed, grown, grow_cfg, iters, backend, checkpoint_dir=d_grown,
+        mesh=grow_mesh, **phase, **common, **options)
+    return state, hist, dict(grow_plan=grow_plan, regrown_rows=regrown,
+                             grow_cfg=grow_cfg, grown=grown)
+
+
+def _on_mesh(backend, cfg, mesh, device):
+    """The run's mesh (built over the live group when None) for a mesh
+    backend, else None; and the generation of its group."""
+    from repro_torch.core import engine
+    from repro_torch.distributed import multihost
+
+    if backend not in engine.MESH_BACKENDS:
+        return mesh, None
+    if mesh is None:
+        mesh = engine.make_mesh_for(cfg, device)
+    return mesh, multihost.generation()
+
+
+def run_elastic(seed, data, cfg, iters: int, backend: str = "reference", *,
+                checkpoint_dir: str, segment_iters: int,
+                lose_partition_at: int, new_P: Optional[int] = None,
+                regrow_at: Optional[int] = None,
+                regrow_P: Optional[int] = None,
+                record_every: int = 1, keep: int = 3, device=None,
+                mesh=None, commit_every: int = 0,
+                supervisor: Optional[SegmentSupervisor] = None,
+                on_segment: Optional[Callable] = None,
+                on_segment_start: Optional[Callable] = None,
+                sampler: Optional[Callable] = None, **options):
+    """A SODDA run that survives losing an observation partition mid-run.
+
+    Phase 1 runs (supervised) to ``lose_partition_at``, a segment
+    boundary, under ``cfg``'s full ``P``. The loss is handled as a live
+    rescale: :func:`rescale_plan` plans the shrink to ``new_P`` (default
+    ``P - 1``), :func:`repro_torch.core.engine.rescale_config` rescales the
+    config (each phase's driver builds its own bundle), and the finalized
+    ``SoddaState`` (the ``(M,)`` iterate, the step counter and the seed:
+    P-independent) is re-seeded as a committed checkpoint in the shrunk run's directory
+    through :func:`repro_torch.core.driver.migrate_resumable` (the async
+    carry gets a fresh warm-up exchange there). Phase 2 resumes it to
+    ``iters`` on the surviving data.
+
+    With ``regrow_at`` (a later segment boundary) the run grows back to
+    ``regrow_P`` partitions (default ``cfg.P``): :func:`regrow_plane`
+    regenerates the regrown partitions bitwise from the generation seed,
+    and the carry migrates again.
+
+    On a mesh backend (``mesh``, or one built over the live group) every
+    rank of the group calls this, and the group is re-formed at each
+    rescale (module docstring): the shrink over generation ``g + 1`` of
+    the rendezvous and the grow over ``g + 2``, where ``g`` is the group's
+    generation at the call, which the regrown ranks'
+    :func:`run_elastic_regrown` joins. A rank of a lost row leaves at the
+    shrink and returns ``(None, history so far, report)`` with
+    ``report["left"]`` the boundary.
+
+    All phases run under one :class:`SegmentSupervisor`, each keeps the
+    driver's bitwise kill-and-resume contract (``commit_every`` included),
+    and ``on_segment`` / ``on_segment_start`` reach every phase.
+    ``sampler(t)`` reaches every phase's driver and migration: it is
+    :func:`repro_torch.core.driver.run`'s replay seam, and since ``t``
+    fixes the phase (the shrink's first step is ``lose_partition_at + 1``),
+    one sampler can serve the draws of every grid. Returns
+    ``(final_state, history, report)``: the history at the uninterrupted
+    run's ticks (each phase's objectives over its own data), and the plans,
+    moved rows, rescaled configs and planes and the supervisor's events.
+    """
+    from repro_torch.core import driver
+
+    sup = supervisor if supervisor is not None else SegmentSupervisor()
+    plane = as_data_plane(data)
+    _check_elastic_plane(plane, cfg)
+    new_P, regrow_P = _check_elastic_args(cfg, iters, segment_iters,
+                                          lose_partition_at, new_P,
+                                          regrow_at, regrow_P)
     plan, moved = rescale_plan(cfg.P, new_P, cfg.n)  # validates the shrink
+    mesh, gen = _on_mesh(backend, cfg, mesh, device)
 
     d_full = os.path.join(checkpoint_dir, f"P{cfg.P}")
     d_shrunk = os.path.join(checkpoint_dir, f"P{new_P}")
 
     common = dict(segment_iters=segment_iters, record_every=record_every,
                   keep=keep, device=device, sampler=sampler)
-    seams = {"on_segment": on_segment, "on_segment_start": on_segment_start}
-    state1, hist1 = sup.run_resumable(
-        seed, plane, cfg, lose_partition_at, backend, checkpoint_dir=d_full,
-        commit_every=commit_every, **common, **seams, **options)
-    sup.events.append(
-        f"rescale@{lose_partition_at}:P{cfg.P}->P{new_P} ({moved} rows "
-        "absorbable; dropped here)")
+    phase = {"commit_every": commit_every, "on_segment": on_segment,
+             "on_segment_start": on_segment_start}
+    with _resident(plane, mesh) as plane:
+        state1, hist1 = sup.run_resumable(
+            seed, plane, cfg, lose_partition_at, backend,
+            checkpoint_dir=d_full, mesh=mesh, **phase, **common, **options)
+        sup.events.append(
+            f"rescale@{lose_partition_at}:P{cfg.P}->P{new_P} ({moved} rows "
+            "absorbable; dropped here)")
+        report = {"plan": plan, "moved_rows": moved}
 
+        t0 = time.time()
+        shrunk = _shrink(cfg, backend, new_P, mesh,
+                         None if gen is None else gen + 1, device, options)
+        if shrunk is None:
+            return None, hist1, dict(report, left=lose_partition_at,
+                                     events=list(sup.events))
+        new_cfg, new_mesh = shrunk
+        t_mesh = time.time()
+        survivors = shrink_plane(plane, new_P)
+        if _unmigrated(d_shrunk, new_mesh):
+            # strip the boundary objective (measured over the full data):
+            # the shrunk run re-records that tick over the surviving data
+            driver.migrate_resumable(
+                seed, survivors, new_cfg, lose_partition_at, state1, backend,
+                checkpoint_dir=d_shrunk, history=hist1[:-1], mesh=new_mesh,
+                **common, **options)
+        if new_mesh is not None:
+            _rebuilt(sup, lose_partition_at, new_mesh, t0, t_mesh)
+        phase2_end = iters if regrow_at is None else regrow_at
+        state, hist = sup.run_resumable(
+            seed, survivors, new_cfg, phase2_end, backend,
+            checkpoint_dir=d_shrunk, mesh=new_mesh, **phase, **common,
+            **options)
+        report.update(new_cfg=new_cfg, survivors=survivors)
+        if regrow_at is not None:
+            state, hist, grow = _regrow(
+                sup, seed, survivors, new_cfg, state, hist, iters, backend,
+                regrow_at=regrow_at, regrow_P=regrow_P,
+                checkpoint_dir=checkpoint_dir,
+                rank=None if new_mesh is None else new_mesh.rank,
+                generation=None if gen is None else gen + 2, common=common,
+                phase=phase, options=options)
+            report.update(grow)
+        report["events"] = list(sup.events)
+        return state, hist, report
+
+
+def run_elastic_regrown(seed, data, cfg, iters: int,
+                        backend: str = "shard_map", *, checkpoint_dir: str,
+                        segment_iters: int, lose_partition_at: int,
+                        regrow_at: int, rank: int, generation: int,
+                        new_P: Optional[int] = None,
+                        regrow_P: Optional[int] = None,
+                        record_every: int = 1, keep: int = 3, device=None,
+                        commit_every: int = 0,
+                        supervisor: Optional[SegmentSupervisor] = None,
+                        on_segment: Optional[Callable] = None,
+                        on_segment_start: Optional[Callable] = None,
+                        sampler: Optional[Callable] = None, **options):
+    """A regrown rank's half of a mesh :func:`run_elastic` that grows: the
+    same arguments, plus its `rank` in the grown group (one of
+    ``new_P * Q .. regrow_P * Q - 1``) and the `generation` the survivors
+    re-form at (their group's generation at the call, plus 2).
+
+    The process joins that group holding no tile, no carry and no group
+    of the run (a fresh process, or a spare that has stood by;
+    ``multihost.stand_by``), takes rank 0's supervision state, draws its
+    own tile of the regrown data (``regrow_plane``), joins the migration
+    with ``state=None`` and runs the grown phase with the survivors.
+    Returns what the survivors' :func:`run_elastic` returns."""
+    from repro_torch.core import engine
+
+    if backend not in engine.MESH_BACKENDS:
+        raise ValueError(
+            f"backend {backend!r} runs on one device: only a mesh run "
+            "regrows ranks")
+    if regrow_at is None:
+        raise ValueError("a regrown rank joins at regrow_at")
+    sup = supervisor if supervisor is not None else SegmentSupervisor()
+    plane = as_data_plane(data)
+    _check_elastic_plane(plane, cfg)
+    new_P, regrow_P = _check_elastic_args(cfg, iters, segment_iters,
+                                          lose_partition_at, new_P,
+                                          regrow_at, regrow_P)
+    if not new_P * cfg.Q <= rank < regrow_P * cfg.Q:
+        raise ValueError(
+            f"a regrown rank is one of {new_P * cfg.Q}..{regrow_P * cfg.Q - 1}"
+            f" (the regrown rows), got {rank}")
+    plan, moved = rescale_plan(cfg.P, new_P, cfg.n)
     new_cfg = engine.rescale_config(cfg, new_P)
     survivors = shrink_plane(plane, new_P)
-    if latest_step(d_shrunk) is None:
-        # strip the boundary objective (measured over the full data); the
-        # shrunk run re-records that tick over the surviving data
-        driver.migrate_resumable(
-            seed, survivors, new_cfg, lose_partition_at, state1, backend,
-            checkpoint_dir=d_shrunk, history=hist1[:-1], **common,
-            **options)
-    phase2_end = iters if regrow_at is None else regrow_at
-    state, hist = sup.run_resumable(
-        seed, survivors, new_cfg, phase2_end, backend,
-        checkpoint_dir=d_shrunk, commit_every=commit_every, **common,
-        **seams, **options)
-    report = {"plan": plan, "moved_rows": moved, "new_cfg": new_cfg,
-              "survivors": survivors}
-    if regrow_at is not None:
-        grow_plan, regrown = rescale_plan(new_P, regrow_P, cfg.n)
-        sup.events.append(
-            f"rescale@{regrow_at}:P{new_P}->P{regrow_P} ({regrown} rows "
-            "regrown from the generation seed)")
-        grow_cfg = engine.rescale_config(new_cfg, regrow_P)
-        grown = regrow_plane(survivors, regrow_P)
-        # "-regrown" keeps this directory distinct from d_full even when
-        # capacity returns to the original P
-        d_grown = os.path.join(checkpoint_dir, f"P{regrow_P}-regrown")
-        if latest_step(d_grown) is None:
-            driver.migrate_resumable(
-                seed, grown, grow_cfg, regrow_at, state, backend,
-                checkpoint_dir=d_grown, history=hist[:-1], **common,
-                **options)
-        state, hist = sup.run_resumable(
-            seed, grown, grow_cfg, iters, backend, checkpoint_dir=d_grown,
-            commit_every=commit_every, **common, **seams, **options)
-        report.update(grow_plan=grow_plan, regrown_rows=regrown,
-                      grow_cfg=grow_cfg, grown=grown)
-    report["events"] = list(sup.events)
-    return state, hist, report
+    common = dict(segment_iters=segment_iters, record_every=record_every,
+                  keep=keep, device=device, sampler=sampler)
+    phase = {"commit_every": commit_every, "on_segment": on_segment,
+             "on_segment_start": on_segment_start}
+    state, hist, grow = _regrow(
+        sup, seed, survivors, new_cfg, None, [], iters, backend,
+        regrow_at=regrow_at, regrow_P=regrow_P,
+        checkpoint_dir=checkpoint_dir, rank=rank, generation=generation,
+        common=common, phase=phase, options=options)
+    return state, hist, dict(plan=plan, moved_rows=moved, new_cfg=new_cfg,
+                             survivors=survivors, **grow,
+                             events=list(sup.events))
 
 
 def run_elastic_auto(seed, data, cfg, iters: int,
                      backend: str = "reference", *, checkpoint_dir: str,
                      segment_iters: int, new_P: Optional[int] = None,
                      patience: int = 2, record_every: int = 1,
-                     keep: int = 3, device=None, commit_every: int = 0,
+                     keep: int = 3, device=None, mesh=None,
+                     commit_every: int = 0,
                      supervisor: Optional[SegmentSupervisor] = None,
                      on_segment: Optional[Callable] = None,
                      on_segment_start: Optional[Callable] = None,
@@ -718,14 +1061,16 @@ def run_elastic_auto(seed, data, cfg, iters: int,
     ``new_P`` (default ``P - 1``) as :func:`run_elastic` does, and
     finishes on the surviving data under the same supervisor. A run that
     never triggers the response completes on the full grid and reports
-    ``rescaled=False``. ``sampler`` is :func:`run_elastic`'s. Returns
+    ``rescaled=False``. ``sampler`` and ``mesh`` are :func:`run_elastic`'s:
+    on a mesh the slowest rank's segment time decides, every rank raises
+    and handles the rescale at the same boundary, and the ranks of the lost
+    rows leave there (``report["left"]``). Returns
     ``(final_state, history, report)``;
     ``report["rescaled"]`` says whether the response fired and
     ``report["boundary"]`` where.
     """
-    from repro_torch.core import driver, engine
+    from repro_torch.core import driver
 
-    engine.require_no_elastic_mesh(backend, options.get("mesh"))
     if supervisor is None:
         sup = SegmentSupervisor(straggler_patience=patience,
                                 straggler_action="rescale")
@@ -742,44 +1087,61 @@ def run_elastic_auto(seed, data, cfg, iters: int,
         raise ValueError(
             f"the straggler response shrinks the grid: need 1 <= new_P < "
             f"{cfg.P}, got {new_P}")
+    mesh, gen = _on_mesh(backend, cfg, mesh, device)
 
     d_full = os.path.join(checkpoint_dir, f"P{cfg.P}")
     d_shrunk = os.path.join(checkpoint_dir, f"P{new_P}")
     common = dict(segment_iters=segment_iters, record_every=record_every,
                   keep=keep, device=device, sampler=sampler)
     seams = {"on_segment": on_segment, "on_segment_start": on_segment_start}
-    try:
-        state, hist = sup.run_resumable(
-            seed, plane, cfg, iters, backend, checkpoint_dir=d_full,
-            commit_every=commit_every, **common, **seams, **options)
-        return state, hist, {"rescaled": False, "events": list(sup.events)}
-    except StragglerRescale as sig:
-        boundary = sig.iters_done
+    with _resident(plane, mesh) as plane:
+        try:
+            state, hist = sup.run_resumable(
+                seed, plane, cfg, iters, backend, checkpoint_dir=d_full,
+                mesh=mesh, commit_every=commit_every, **common, **seams,
+                **options)
+            return state, hist, {"rescaled": False,
+                                 "events": list(sup.events)}
+        except StragglerRescale as sig:
+            boundary = sig.iters_done
 
-    # The decision fired right after the boundary commit, so the latest
-    # committed state *is* the boundary; restore it as the migration seed.
-    done, state1, hist1 = driver.restore_resumable_state(
-        seed, plane, cfg, backend, checkpoint_dir=d_full, device=device,
-        step=boundary, **options)
-    plan, moved = rescale_plan(cfg.P, new_P, cfg.n)
-    sup.events.append(
-        f"rescale@{boundary}:P{cfg.P}->P{new_P} (straggler response; "
-        f"{moved} rows absorbable, dropped here)")
-    new_cfg = engine.rescale_config(cfg, new_P)
-    survivors = shrink_plane(plane, new_P)
-    if latest_step(d_shrunk) is None:
-        # stamped histories stop before the boundary tick, so nothing to
-        # strip (unlike run_elastic's fresh-run history)
-        driver.migrate_resumable(
-            seed, survivors, new_cfg, boundary, state1, backend,
-            checkpoint_dir=d_shrunk, history=hist1, **common, **options)
-    state, hist = sup.run_resumable(
-        seed, survivors, new_cfg, iters, backend, checkpoint_dir=d_shrunk,
-        commit_every=commit_every, **common, **seams, **options)
-    report = {"rescaled": True, "boundary": boundary, "plan": plan,
-              "moved_rows": moved, "new_cfg": new_cfg,
-              "survivors": survivors, "events": list(sup.events)}
-    return state, hist, report
+        # The decision fired right after the boundary commit, so the latest
+        # committed state *is* the boundary; restore it as the migration
+        # seed.
+        done, state1, hist1 = driver.restore_resumable_state(
+            seed, plane, cfg, backend, checkpoint_dir=d_full, device=device,
+            mesh=mesh, step=boundary, **options)
+        plan, moved = rescale_plan(cfg.P, new_P, cfg.n)
+        sup.events.append(
+            f"rescale@{boundary}:P{cfg.P}->P{new_P} (straggler response; "
+            f"{moved} rows absorbable, dropped here)")
+        report = {"rescaled": True, "boundary": boundary, "plan": plan,
+                  "moved_rows": moved}
+        t0 = time.time()
+        shrunk = _shrink(cfg, backend, new_P, mesh,
+                         None if gen is None else gen + 1, device, options)
+        if shrunk is None:
+            return None, hist1, dict(report, left=boundary,
+                                     events=list(sup.events))
+        new_cfg, new_mesh = shrunk
+        t_mesh = time.time()
+        survivors = shrink_plane(plane, new_P)
+        if _unmigrated(d_shrunk, new_mesh):
+            # stamped histories stop before the boundary tick, so nothing to
+            # strip (unlike run_elastic's fresh-run history)
+            driver.migrate_resumable(
+                seed, survivors, new_cfg, boundary, state1, backend,
+                checkpoint_dir=d_shrunk, history=hist1, mesh=new_mesh,
+                **common, **options)
+        if new_mesh is not None:
+            _rebuilt(sup, boundary, new_mesh, t0, t_mesh)
+        state, hist = sup.run_resumable(
+            seed, survivors, new_cfg, iters, backend,
+            checkpoint_dir=d_shrunk, mesh=new_mesh,
+            commit_every=commit_every, **common, **seams, **options)
+        report.update(new_cfg=new_cfg, survivors=survivors,
+                      events=list(sup.events))
+        return state, hist, report
 
 
 def suggest_commit_every(supervision: dict, *, max_overhead: float = 0.25,

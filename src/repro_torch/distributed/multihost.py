@@ -18,6 +18,13 @@ this module turns such coordinated processes into one process group:
   made once (a mesh's row and column groups).
 * :func:`fetch_local` — a rank-local tensor gathered over a group to one
   numpy array, the same on every rank.
+* :func:`reinitialize` / :func:`leave` / :func:`stand_by` — re-forming the
+  group of an elastic run: a group cannot drop or take members while it
+  lives, so at a rescale the departing ranks :func:`leave` and the others
+  join a fresh *generation* of the run's rendezvous
+  (:func:`generation_address`) with the new world size, over the backend
+  the run started with; a spare process (:func:`stand_by`) knows the
+  rendezvous but joins no group until a grow calls it in.
 
 The reference's placement helpers (``local_device_slice``,
 ``put_sharded``, ``connect_mesh_collectives``) place ``jax.Array`` shards
@@ -28,7 +35,9 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Dict, Optional, Tuple
+import time
+import weakref
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +57,13 @@ __all__ = [
     "subgroup",
     "fetch_local",
     "shutdown",
+    "generation_address",
+    "generation",
+    "reinitialize",
+    "leave",
+    "stand_by",
+    "hold",
+    "history",
 ]
 
 COORDINATOR_ENV = "REPRO_COORDINATOR"
@@ -68,6 +84,17 @@ _INITIALIZED: Optional[Tuple[str, int, int, str]] = None
 # still referenced past the group's end aborts the process at its exit)
 _SUBGROUPS: Dict[Tuple[int, ...], object] = {}
 _SUBGROUPS_OF = None
+
+# the run's rendezvous as its first group met on it, and the backend:
+# (init_method of generation 0, backend), set by initialize or stand_by
+_RENDEZVOUS: Optional[Tuple[str, str]] = None
+# the generation of the last group this process joined (None: none yet)
+_GENERATION: Optional[int] = None
+# objects holding sub-groups of the live group (a mesh's row and column
+# groups), released by shutdown before the group is destroyed
+_HOLDERS = weakref.WeakSet()
+# this process's joins and planned departures, in order
+_HISTORY: List[dict] = []
 
 
 def _resolve(explicit, env_name, cast):
@@ -143,11 +170,22 @@ def initialize(coordinator_address: Optional[str] = None,
             "a torch.distributed process group is already up outside "
             "multihost.initialize")
     init_method = _init_method(coord)
+    _join(init_method, nproc, pid, backend, 0)
+    return True
+
+
+def _join(init_method, nproc, pid, backend, gen):
+    global _INITIALIZED, _RENDEZVOUS, _GENERATION
+    t0 = time.time()
     dist.init_process_group(
         backend, init_method=init_method, world_size=nproc, rank=pid,
         timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S))
     _INITIALIZED = (init_method, nproc, pid, backend)
-    return True
+    if gen == 0:
+        _RENDEZVOUS = (init_method, backend)
+    _GENERATION = gen
+    _HISTORY.append({"event": "joined", "generation": gen, "world": nproc,
+                     "rank": pid, "start": t0, "end": time.time()})
 
 
 def is_initialized() -> bool:
@@ -156,13 +194,122 @@ def is_initialized() -> bool:
 
 
 def shutdown() -> None:
-    """Leave the process group :func:`initialize` joined (no-op without
-    one)."""
-    global _INITIALIZED
+    """Leave the process group :func:`initialize` (or
+    :func:`reinitialize`) joined (no-op without one): the objects that
+    :func:`hold` its sub-groups release them, the sub-groups are dropped,
+    then the group is destroyed."""
+    global _INITIALIZED, _SUBGROUPS_OF
     if _INITIALIZED is not None:
+        for holder in list(_HOLDERS):
+            holder.release()
+        _HOLDERS.clear()
         _SUBGROUPS.clear()
+        _SUBGROUPS_OF = None
         dist.destroy_process_group()
         _INITIALIZED = None
+
+
+def hold(holder) -> None:
+    """Register `holder` (an object keeping sub-groups of the live group,
+    such as a mesh) so that :func:`shutdown` calls ``holder.release()``
+    before it destroys the group: no sub-group is referenced past the
+    group's end. Held weakly."""
+    _HOLDERS.add(holder)
+
+
+def generation_address(address: str, generation: int) -> str:
+    """The rendezvous of generation `generation` of a run whose first group
+    met at `address`: the address itself for generation 0; after it, a
+    ``file://`` store's path with ``.g<generation>`` appended, or a
+    ``tcp://host:port`` address's port plus `generation`. A generation is
+    used once, so no group ever meets on a store a dead group left."""
+    address = _init_method(address)
+    if generation < 0:
+        raise ValueError(f"generation must be >= 0, got {generation}")
+    if generation == 0:
+        return address
+    if address.startswith("file://"):
+        return f"{address}.g{generation}"
+    if address.startswith("tcp://"):
+        host, _, port = address[len("tcp://"):].rpartition(":")
+        return f"tcp://{host}:{int(port) + generation}"
+    raise ValueError(
+        f"no generations for rendezvous {address!r}: a tcp:// or file:// "
+        "address re-forms a group")
+
+
+def generation() -> Optional[int]:
+    """The generation of the live group, or of the last one this process
+    joined (0 for :func:`initialize`'s); None if it joined none."""
+    return _GENERATION
+
+
+def stand_by(coordinator_address: Optional[str] = None, *,
+             backend: str) -> None:
+    """A spare process: note the run's rendezvous (default:
+    ``REPRO_COORDINATOR``) and process-group backend, and join no group.
+    A grow later calls it into a generation with :func:`reinitialize`;
+    until then it holds no group."""
+    global _RENDEZVOUS
+    coord = _resolve(coordinator_address, COORDINATOR_ENV, str)
+    if coord is None:
+        raise ValueError(
+            f"stand_by needs a coordinator_address (or {COORDINATOR_ENV})")
+    if _INITIALIZED is not None:
+        raise RuntimeError("a process in a group is not a spare")
+    _RENDEZVOUS = (_init_method(coord), backend)
+
+
+def reinitialize(num_processes: int, process_id: int, *,
+                 generation: int) -> None:
+    """Re-form the run's group: leave the live group (if any, through
+    :func:`shutdown`) and join generation `generation` of the run's
+    rendezvous as rank `process_id` of `num_processes`, over the backend
+    the run started with.
+
+    Blocks until every rank of the new group has joined, at most
+    :data:`DEFAULT_TIMEOUT_S` (which also bounds each collective of the
+    new group, and covers a regrown process's start: 15 ranks of one H100
+    machine took ~19 s to come up). A rendezvous that does not
+    complete raises; the process is then in no group, never in the old
+    one. `generation` must be newer than every generation this process
+    joined."""
+    if _RENDEZVOUS is None:
+        raise RuntimeError(
+            "no rendezvous to re-form on: multihost.initialize (or "
+            "stand_by, for a spare) must run first")
+    if _GENERATION is not None and generation <= _GENERATION:
+        raise ValueError(
+            f"generation {generation} is not newer than the last joined "
+            f"({_GENERATION}): a generation's rendezvous is used once")
+    if not 0 <= process_id < num_processes:
+        raise ValueError(
+            f"process_id={process_id} outside [0, num_processes="
+            f"{num_processes})")
+    shutdown()
+    base, backend = _RENDEZVOUS
+    _join(generation_address(base, generation), int(num_processes),
+          int(process_id), backend, int(generation))
+
+
+def leave() -> None:
+    """A planned departure: this rank leaves the live group (a rescale
+    dropped it) and records it; the group's other ranks re-form without
+    it. Not a failure: the process goes on, in no group."""
+    if _INITIALIZED is None:
+        raise RuntimeError("leave: this process is in no group")
+    left = {"event": "left", "generation": _GENERATION,
+            "world": dist.get_world_size(), "rank": dist.get_rank()}
+    shutdown()
+    _HISTORY.append(dict(left, end=time.time()))
+
+
+def history() -> List[dict]:
+    """This process's joins (``event`` "joined": ``generation``,
+    ``world``, ``rank``, and the wall-clock ``start`` and ``end`` of the
+    rendezvous) and planned departures (``event`` "left", ``end``), in
+    order."""
+    return [dict(h) for h in _HISTORY]
 
 
 def process_count() -> int:

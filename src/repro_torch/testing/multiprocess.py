@@ -13,6 +13,13 @@ result back pickled (numpy arrays, numbers, lists and dicts). A rank is a
 child of this process: on the CPU the ranks share its cores, on one card
 they share the card (gloo), one card a rank is NCCL's case.
 
+An elastic run re-forms its group while it runs (``multihost``): a rank
+of a lost row *leaves* (a planned departure: it returns a result that says
+so and exits 0, which the harness never counts as a death), and a grow
+calls in *spares*: ``spares=k`` starts k more processes beside the
+``world`` ranks, which join no group (``multihost.stand_by``) until a grow
+makes them ranks. ``Launch.departed`` lists the planned departures.
+
 The harness is crash-friendly: a rank that exits with a code of its own
 (``os._exit``, the kill tests) is returned with that code, and the others
 are returned with theirs: a collective with a dead peer raises in them
@@ -24,8 +31,9 @@ with its traceback. A wall-clock timeout kills every
 rank and raises ``TimeoutError``. No rank outlives the call.
 
 The rank entry points (:func:`rank_batch`, :func:`rank_runs`,
-:func:`rank_steps`, :func:`rank_consume`, :func:`rank_compressed`,
-:func:`rank_exit`) live here so that a rank imports only ``repro_torch``,
+:func:`rank_elastic`, :func:`rank_tiles`, :func:`rank_steps`,
+:func:`rank_consume`, :func:`rank_compressed`, :func:`rank_exit`) live
+here so that a rank imports only ``repro_torch``,
 never the caller's module (a test module imports JAX). Each takes the
 rank's ``device`` (default: the CUDA device, raising without one); a run
 on the CPU is one the caller asks for.
@@ -44,15 +52,17 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-__all__ = ["KILL_EXIT_CODE", "GRACE_S", "Interrupted", "Launch", "RankFailure",
-           "launch_coordinated",
-           "rank_batch", "rank_runs", "rank_steps", "rank_consume",
-           "rank_compressed", "rank_exit"]
+__all__ = ["KILL_EXIT_CODE", "GRACE_S", "SPARE_ENV", "Interrupted", "Launch",
+           "RankFailure", "launch_coordinated", "spare_index", "tile_digest",
+           "rank_batch", "rank_runs", "rank_elastic", "rank_tiles",
+           "rank_steps", "rank_consume", "rank_compressed", "rank_exit"]
 
 KILL_EXIT_CODE = 17  # the exit code of a rank killed at a seam on purpose
 # seconds the survivors of a rank's death get to fail on their own before
 # they are killed (a collective with a dead peer may block)
 GRACE_S = 10.0
+# set in a spare process to its index among the launch's spares
+SPARE_ENV = "REPRO_SPARE_INDEX"
 
 
 class RankFailure(RuntimeError):
@@ -68,8 +78,14 @@ class Launch(NamedTuple):
     exit_codes: Dict[int, int]  # ranks that exited non-zero: their codes
     # per rank that returned: seconds from the launch to its entry (the
     # interpreter up, its imports done), to its joining the group, to fn's
-    # return
-    stamps: List[Optional[Dict[str, float]]]
+    # return, and its joins and departures (multihost.history)
+    stamps: List[Optional[Dict[str, Any]]]
+    # processes that left a group on purpose (a rescale dropped their row):
+    # the generations they left, per launch index
+    departed: Dict[int, List[int]] = {}
+    # the traceback of each process that raised, per launch index (also
+    # when another died, which leaves no RankFailure to carry them)
+    errors: Dict[int, str] = {}
 
 
 def _result_path(tmp, rank):
@@ -77,9 +93,9 @@ def _result_path(tmp, rank):
 
 
 def _rank_main(rank, world, tmp, backend, t_launch):
-    """A spawned rank: read the job, join the group, run ``fn(*args)``,
-    write the result (or the traceback) and its time stamps to its file,
-    leave the group."""
+    """A spawned process: read the job, join the group (a spare stands
+    by instead), run ``fn(*args)``, write the result (or the traceback)
+    and its time stamps to its file, leave the group."""
     from repro_torch.distributed import multihost
 
     stamps = {"entered": time.time() - t_launch}
@@ -88,15 +104,24 @@ def _rank_main(rank, world, tmp, backend, t_launch):
     torch.set_num_threads(1)
     os.environ.update({
         multihost.COORDINATOR_ENV: "file://" + os.path.join(tmp, "store"),
-        multihost.NUM_PROCESSES_ENV: str(world),
-        multihost.PROCESS_ID_ENV: str(rank)})
+        multihost.NUM_PROCESSES_ENV: str(world)})
+    if rank < world:
+        os.environ[multihost.PROCESS_ID_ENV] = str(rank)
+    else:
+        os.environ[SPARE_ENV] = str(rank - world)
     try:
-        multihost.initialize(backend=backend)
-        stamps["joined"] = time.time() - t_launch
+        if rank < world:
+            multihost.initialize(backend=backend)
+            stamps["joined"] = time.time() - t_launch
+        else:
+            multihost.stand_by(backend=backend)
         payload = ("ok", fn(*args))
         stamps["done"] = time.time() - t_launch
     except Exception:  # reported to the parent, then exit 1
         payload = ("error", traceback.format_exc())
+    stamps["history"] = [{k: v - t_launch if k in ("start", "end") else v
+                          for k, v in h.items()}
+                         for h in multihost.history()]
     payload += (stamps,)
     with open(_result_path(tmp, rank) + ".tmp", "wb") as f:
         pickle.dump(payload, f)
@@ -107,22 +132,27 @@ def _rank_main(rank, world, tmp, backend, t_launch):
 
 
 def launch_coordinated(fn, world: int, args=(), *, backend: str,
-                       timeout: float = 300.0) -> Launch:
+                       spares: int = 0, timeout: float = 300.0) -> Launch:
     """Run ``fn(*args)`` on `world` spawned ranks joined in one process
-    group over `backend` (``"gloo"`` or ``"nccl"``, never picked here).
+    group over `backend` (``"gloo"`` or ``"nccl"``, never picked here), and
+    on `spares` more processes that stand by in no group (launch indices
+    ``world ..``; :func:`spare_index` tells a spare its own).
 
     `fn` must be importable by path from a module that does not import JAX
     (the entry points of this module are). Returns :class:`Launch`: each
-    rank's return value, and the exit codes of the ranks that exited
-    non-zero (a rank left blocked after another exited is killed after
-    :data:`GRACE_S` seconds and reported with ``-SIGKILL``). Raises
-    :class:`RankFailure` if a rank raised while no rank died without a
+    process's return value, and the exit codes of the processes that
+    exited non-zero (one left blocked after another exited is killed after
+    :data:`GRACE_S` seconds and reported with ``-SIGKILL``); a planned
+    departure exits 0 and is listed in ``departed``. Raises
+    :class:`RankFailure` if a process raised while none died without a
     result, and ``TimeoutError`` after `timeout` seconds of wall time.
     """
     import multiprocessing
 
     if world < 1:
         raise ValueError(f"world must be >= 1, got {world}")
+    if spares < 0:
+        raise ValueError(f"spares must be >= 0, got {spares}")
     ctx = multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="repro_torch_launch_")
     # the job goes through a file, not the spawn pipe: a rank reads its
@@ -133,7 +163,7 @@ def launch_coordinated(fn, world: int, args=(), *, backend: str,
     t_launch = time.time()
     procs = [ctx.Process(target=_rank_main, name=f"rank{r}",
                          args=(r, world, tmp, backend, t_launch))
-             for r in range(world)]
+             for r in range(world + spares)]
     try:
         for p in procs:
             p.start()
@@ -155,8 +185,8 @@ def launch_coordinated(fn, world: int, args=(), *, backend: str,
             if p.is_alive():
                 p.kill()
             p.join()
-        results, stamps, errors, died = [], [], [], False
-        for r in range(world):
+        results, stamps, errors, died = [], [], {}, False
+        for r in range(world + spares):
             path = _result_path(tmp, r)
             if not os.path.exists(path):
                 results.append(None)
@@ -166,15 +196,21 @@ def launch_coordinated(fn, world: int, args=(), *, backend: str,
             with open(path, "rb") as f:
                 status, value, stamp = pickle.load(f)
             if status == "error":
-                errors.append(f"rank {r}:\n{value}")
+                errors[r] = value
                 value = None
             results.append(value)
             stamps.append(stamp)
         if errors and not died:
-            raise RankFailure("\n".join(errors))
+            raise RankFailure("\n".join(f"rank {r}:\n{tb}"
+                                        for r, tb in errors.items()))
+        departed = {r: [h["generation"] for h in st["history"]
+                        if h["event"] == "left"]
+                    for r, st in enumerate(stamps) if st is not None}
         return Launch(results=results,
                       exit_codes={r: p.exitcode for r, p in enumerate(procs)
-                                  if p.exitcode != 0}, stamps=stamps)
+                                  if p.exitcode != 0}, stamps=stamps,
+                      departed={r: g for r, g in departed.items() if g},
+                      errors=errors)
     finally:
         for p in procs:
             if p.is_alive():
@@ -202,15 +238,43 @@ def _tiled_plane(spec, device):
 
 
 def _plane(spec, device):
-    """``("tiled", seed, N, M, P, Q)`` or ``("dense", X, y)`` as a plane on
-    `device`."""
-    from repro_torch.data.plane import DenseDataPlane
+    """``("tiled", seed, N, M, P, Q)``, ``("streaming", seed, N, M, P, Q)``,
+    ``("dense", X, y)`` or ``("windows", [(X, y), ...], (P, Q))`` as a
+    plane on `device` (a dense one on the spec's grid when it carries one:
+    ``("dense", X, y, (P, Q))``; the windows as a stream on the grid)."""
+    from repro_torch.data.plane import DenseDataPlane, StreamingDataPlane
 
     if spec[0] == "tiled":
         return _tiled_plane(tuple(spec), device)
-    X, y = spec[1:]
+    if spec[0] == "streaming":
+        return StreamingDataPlane(*spec[1:], device=device)
+    if spec[0] == "windows":
+        return _windows_plane(*spec[1:], device)
+    X, y, *grid = spec[1:]
     return DenseDataPlane(torch.tensor(X, device=device),
-                          torch.tensor(y, device=device))
+                          torch.tensor(y, device=device), *grid)
+
+
+def _windows_plane(windows, grid, device):
+    """Given ``(X, y)`` windows as a stream on `grid`: epoch e is the e-th
+    pair, a dense plane (another implementation's windows, fed to the
+    ranks)."""
+    from repro_torch.data.plane import DenseDataPlane
+
+    class _Windows(DenseDataPlane):
+        is_streaming = True
+        cache_stats: dict = {}
+
+        def __init__(self, epoch):
+            X, y = windows[epoch]
+            super().__init__(torch.tensor(X, device=device),
+                             torch.tensor(y, device=device), grid)
+            self.epoch = epoch
+
+        def at_epoch(self, epoch):
+            return self if epoch == self.epoch else _Windows(epoch)
+
+    return _Windows(0)
 
 
 def _sampler(samples, device):
@@ -240,10 +304,42 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _release(device):
+    """Hand the rank's cached device blocks back after a run: ranks that
+    share one card would otherwise each keep what their last run freed,
+    and a later run of another rank could not get it."""
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def spare_index() -> Optional[int]:
+    """This process's index among the launch's spares, or None for a
+    rank of the launch's group."""
+    raw = os.environ.get(SPARE_ENV)
+    return None if raw in (None, "") else int(raw)
+
+
+def tile_digest(t) -> int:
+    """A 64-bit digest of a 4-byte-element tensor's bits, computed on its
+    device in chunks (each word weighted by an odd multiple of its
+    position, summed modulo 2**64): equal tensors give equal digests on
+    any device, and a tile need not cross to the host to be compared."""
+    bits = t.detach().contiguous().view(-1).view(torch.int32)
+    total, chunk = 0, 1 << 24
+    for start in range(0, bits.numel(), chunk):
+        part = bits[start:start + chunk].to(torch.int64)
+        k = torch.arange(start, start + part.numel(), dtype=torch.int64,
+                         device=part.device)
+        total += int((part * (2 * k + 1)).sum())
+    return total % (1 << 64)
+
+
 def rank_batch(jobs):
-    """``[fn(*args) for fn, args in jobs]`` in one rank: several entry
-    points in one spawn."""
-    return [fn(*args) for fn, args in jobs]
+    """``[fn(*args) for fn, args in jobs]`` in one process: several entry
+    points in one spawn. A spare runs only :func:`rank_elastic` (the one
+    that calls it in) and returns None for the others."""
+    return [fn(*args) if spare_index() is None or fn is rank_elastic
+            else None for fn, args in jobs]
 
 
 def rank_runs(cfg, plane_spec, runs, device=None):
@@ -253,17 +349,22 @@ def rank_runs(cfg, plane_spec, runs, device=None):
     A run is a dict: ``backend``, ``iters``, ``record_every``, ``seed``,
     optional ``options`` (engine options), ``samples`` (replayed draws) and
     ``resumable`` (``run_resumable``'s ``checkpoint_dir``,
-    ``segment_iters`` and ``commit_every``; ``kill_at``, a boundary after
+    ``segment_iters``, ``commit_every`` and ``prefetch_depth``; ``replay``,
+    to run ``replay_segment`` over the latest committed span after it, its
+    report the result's ``replay``; ``kill_at``, a boundary after
     whose commit every rank exits with :data:`KILL_EXIT_CODE`, or
     ``interrupt_at``, one after whose commit every rank raises
     :class:`Interrupted`, recorded as the result's ``interrupted`` while
     the process goes on to the next run). A result holds the final
-    ``w``, ``t`` and ``history``, the kernel ``launches`` of the run, the
+    ``w``, ``t`` and ``history``, a resumable run's ``timeline`` (as
+    :func:`rank_elastic`'s), the kernel ``launches`` of the run, the
     ``payload`` bytes by collective, the run's wall ``seconds`` (device
-    synchronised), the rank's ``peak`` device bytes allocated in the run
-    and the card's ``device_used`` bytes at its end (every process's
-    memory on the card), and the checkpoint ``saves`` it made. The kernel
-    launch count is set to 0 just before each run and read just after.
+    synchronised), the rank's device bytes allocated when the run starts
+    (``allocated``) and at its ``peak``, the card's ``device_used`` bytes
+    at its end (every process's memory on the card), the checkpoint
+    ``saves`` it made and, over a streaming plane, the prefetcher's
+    ``stream`` accounting. The kernel launch count is set to 0 just before
+    each run and read just after.
     """
     from repro_torch.checkpoint.checkpoint import save_checkpoint
     from repro_torch.core import driver, engine
@@ -278,12 +379,15 @@ def rank_runs(cfg, plane_spec, runs, device=None):
                   sampler=_sampler(run.get("samples"), device),
                   **run.get("options", {}))
         before, saves = dict(mesh.payload), save_checkpoint.saves
-        if device.type == "cuda":
+        cuda = device.type == "cuda"
+        if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         _sync(device)
+        allocated = torch.cuda.memory_allocated(device) if cuda else None
+        stream, timeline = {}, []
         ops.sodda_inner.launches = 0  # this run starts here
         t0 = time.perf_counter()
-        res, interrupted = run.get("resumable"), None
+        res, interrupted, replay = run.get("resumable"), None, None
         state, hist = None, None
         if res is None:
             state, hist = driver.run(run["seed"], plane, cfg, run["iters"],
@@ -291,48 +395,362 @@ def rank_runs(cfg, plane_spec, runs, device=None):
         else:
             def on_segment(done, kill_at=res.get("kill_at"),
                            interrupt_at=res.get("interrupt_at")):
+                end(done)
                 if done == kill_at:
                     os._exit(KILL_EXIT_CODE)
                 if done == interrupt_at:
                     raise Interrupted(f"interrupted at iteration {done}")
 
+            end = _marker(device, timeline, "end")
             try:
                 state, hist = driver.run_resumable(
                     run["seed"], plane, cfg, run["iters"], run["backend"],
                     checkpoint_dir=res["checkpoint_dir"],
                     segment_iters=res["segment_iters"],
                     commit_every=res.get("commit_every", 0),
-                    on_segment=on_segment, **kw)
+                    prefetch_depth=res.get("prefetch_depth", 1),
+                    stream_stats=stream, on_segment=on_segment,
+                    on_segment_start=_marker(device, timeline, "start"),
+                    **kw)
             except Interrupted:
                 interrupted = res["interrupt_at"]
         launches = ops.sodda_inner.launches  # ... and ends here
         _sync(device)
         seconds = time.perf_counter() - t0
         payload = {k: v - before.get(k, 0) for k, v in mesh.payload.items()}
-        cuda = device.type == "cuda"
+        memory = _memory(device, allocated)
+        if res is not None and res.get("replay") and interrupted is None:
+            replay = driver.replay_segment(
+                run["seed"], plane, cfg, run["backend"],
+                checkpoint_dir=res["checkpoint_dir"],
+                segment_iters=res["segment_iters"], **kw)
+        _release(device)
         out.append(dict(
             w=None if state is None else state.w.cpu().numpy(),
             t=None if state is None else state.t, history=hist,
             interrupted=interrupted, launches=launches, payload=payload,
             saves=save_checkpoint.saves - saves, seconds=seconds,
-            rank=mesh.rank,
-            peak=torch.cuda.max_memory_allocated(device) if cuda else None,
-            device_used=(lambda free, total: total - free)(
-                *torch.cuda.mem_get_info(device)) if cuda else None))
+            rank=mesh.rank, stream=stream, replay=replay,
+            timeline=timeline, **memory))
     return out
 
 
+def _memory(device, allocated):
+    """The rank's device bytes at a run's start (`allocated`) and peak
+    since, and the card's used bytes now (every process's); None on the
+    CPU."""
+    if device.type != "cuda":
+        return dict(allocated=None, peak=None, device_used=None)
+    free, total = torch.cuda.mem_get_info(device)
+    return dict(allocated=allocated,
+                peak=torch.cuda.max_memory_allocated(device),
+                device_used=total - free)
+
+
+def rank_tiles(cfg, plane_spec, epochs, device=None):
+    """This rank's placed ``(tile, label block)`` of each window in
+    `epochs` (None for a static plane's one), as ``materialize_for(mesh=)``
+    places them: numpy arrays on the CPU, :func:`tile_digest` pairs on the
+    card (a 1.2 GB tile is compared where it lies)."""
+    from repro_torch.core import engine
+
+    device = _device(device)
+    mesh = engine.make_mesh_for(cfg, device)
+    plane = _plane(plane_spec, device)
+    out = []
+    for e in epochs:
+        X, y = plane.materialize_for("shard_map", mesh=mesh, epoch=e,
+                                     device=device)
+        out.append((X.numpy(), y.numpy()) if device.type == "cpu"
+                   else (tile_digest(X), tile_digest(y)))
+        del X, y
+        _release(device)
+    return out
+
+
+def _regrown_by(cfg, runs):
+    """``{run index: the spare indices its grow calls in}``: each grow
+    takes ``(regrow_P - new_P) * Q`` spares, in run order, and no spare
+    serves two runs."""
+    roles, taken = {}, 0
+    for k, run in enumerate(runs):
+        if run.get("regrow_at") is not None:
+            n = (run.get("regrow_P", cfg.P) - run.get("new_P", cfg.P - 1)) \
+                * cfg.Q
+            roles[k] = list(range(taken, taken + n))
+            taken += n
+    return roles
+
+
+def _chain(seams):
+    def seam(done):
+        for fn in seams:
+            fn(done)
+    return seam
+
+
+def _marker(device, timeline, event):
+    """A segment seam appending ``(event, iters_done, wall time, kernel
+    launches so far)`` to `timeline`, the device synchronised first."""
+    from repro_torch.kernels import ops
+
+    def seam(done):
+        _sync(device)
+        timeline.append((event, done, time.time(), ops.sodda_inner.launches))
+    return seam
+
+
+def rank_elastic(cfg, plane_spec, runs, device=None):
+    """Every elastic run of `runs` in order, in this process; per run a
+    result dict, or None for a spare that run does not call in. The last
+    job of a :func:`rank_batch`: the group changes under it.
+
+    A run is a dict: ``kind`` (``"elastic"``: ``run_elastic``;
+    ``"auto"``: ``run_elastic_auto``; ``"by-hand"``: the same rescales
+    composed from the public seams, ``run_resumable`` to the boundary, the
+    group re-formed (``multihost.leave`` or ``reinitialize``),
+    ``engine.rescale_bundle``, ``migrate_resumable``, ``run_resumable``,
+    and again for a grow; ``"steps"``: the group re-formed on the shrunk
+    grid and one step from each of ``ws`` at ``ts``, the result's
+    ``steps``), ``backend``, ``iters``, ``record_every``,
+    ``seed``, ``segment_iters``, ``checkpoint_dir``, ``cfg`` (this run's
+    config, of the launch's grid; default `cfg`), ``new_P`` and the
+    shrink's ``lose_at`` (not for ``auto``), optional ``regrow_at`` and
+    ``regrow_P``, ``options`` (engine options), ``samples`` (replayed
+    draws), ``plane`` (this run's plane spec), ``faults`` (``{iters_done:
+    count}``: a ``FaultInjector`` at every rank's ``on_segment``, which the
+    supervisor retries), ``kill_at`` (a boundary after whose commit every
+    rank still in the group exits with :data:`KILL_EXIT_CODE`), and for
+    ``auto`` ``straggler`` = ``(rank, iters_done, seconds)`` (every rank's
+    supervisor reads a ``FakeClock``; that rank's is advanced by
+    `seconds` at ``on_segment_start(iters_done)``), ``policy``
+    (``StragglerPolicy`` arguments) and ``patience``.
+
+    Each run starts on the full P x Q group: run 0 on the launch's, run k
+    on generation 3k, which every process of the launch's group joins (a
+    lost rank of an earlier run too); a run's rescales use generations
+    3k + 1 and 3k + 2. A grow's regrown ranks are the launch's spares,
+    each serving one run (:func:`_regrown_by`): a spare joins holding no
+    tile, no carry, no group and no device context. A result holds the
+    final ``w``, ``t``,
+    ``history`` and ``report`` (its planes dropped), ``left`` (the
+    boundary a lost rank left at, else None), the group's ``world`` at the
+    end, the kernel ``launches`` and wall ``seconds`` of the run, a
+    ``timeline`` of ``(event, iters_done, wall time, launches so far)`` at
+    every segment seam (device synchronised), the supervisor's timed
+    ``rebuilds`` of the group (empty for ``by-hand``), for a regrown rank
+    what it ``held`` before it joined, and the memory of
+    :func:`rank_runs`.
+    """
+    from repro_torch.distributed import multihost
+
+    spare, roles = spare_index(), _regrown_by(cfg, runs)
+    if spare is None:
+        device = _device(device)  # a spare takes the card when it joins
+    out = []
+    for k, run in enumerate(runs):
+        if spare is None:
+            if k > 0:
+                multihost.reinitialize(
+                    cfg.P * cfg.Q,
+                    int(os.environ[multihost.PROCESS_ID_ENV]),
+                    generation=3 * k)
+            out.append(_elastic_run(run.get("cfg", cfg), plane_spec, run,
+                                    device, 3 * k))
+        elif spare in roles.get(k, ()):
+            rank = run.get("new_P", cfg.P - 1) * cfg.Q + \
+                roles[k].index(spare)
+            out.append(_elastic_run(run.get("cfg", cfg), plane_spec, run,
+                                    device, 3 * k, regrown_rank=rank))
+        else:
+            out.append(None)
+    return out
+
+
+def _elastic_run(cfg, plane_spec, run, device, gen, regrown_rank=None):
+    """One run of :func:`rank_elastic` from generation `gen` (a regrown
+    rank's from its join)."""
+    from repro_torch.core import engine
+    from repro_torch.distributed import fault_tolerance as ft
+    from repro_torch.distributed import multihost
+    from repro_torch.kernels import ops
+    from repro_torch.testing import faults
+
+    held = None
+    if regrown_rank is not None:
+        # what the spare holds before it joins: no group, no device context
+        held = dict(group=multihost.is_initialized(),
+                    cuda=torch.cuda.is_initialized())
+        device = _device(device)
+    if run["kind"] == "steps":
+        return _shrunk_steps(cfg, plane_spec, run, device, gen)
+    plane = _plane(run.get("plane", plane_spec), device)
+    cuda = device.type == "cuda"
+    timeline = []
+    starts = [_marker(device, timeline, "start")]
+    ends = [_marker(device, timeline, "end")]
+    if run.get("kill_at") is not None:
+        ends.append(lambda done: os._exit(KILL_EXIT_CODE)
+                    if done == run["kill_at"] else None)
+    if run.get("faults"):
+        ends.append(faults.FaultInjector(run["faults"]))
+    sup = ft.SegmentSupervisor()
+    if run["kind"] == "auto":
+        clock = faults.FakeClock()
+        sup = ft.SegmentSupervisor(
+            straggler=ft.StragglerPolicy(**run.get("policy", {})),
+            straggler_patience=run.get("patience", 1),
+            straggler_action="rescale", clock=clock)
+        rank, at, seconds = run["straggler"]
+        if multihost.process_index() == rank:
+            starts.append(faults.ClockAdvancer(clock, {at: seconds}))
+    kw = dict(segment_iters=run["segment_iters"],
+              record_every=run["record_every"], device=device,
+              sampler=_sampler(run.get("samples"), device),
+              **run.get("options", {}))
+    seams = dict(on_segment_start=_chain(starts), on_segment=_chain(ends))
+    shrink = dict(new_P=run.get("new_P", cfg.P - 1))
+    if run.get("regrow_at") is not None:
+        shrink.update(regrow_at=run["regrow_at"],
+                      regrow_P=run.get("regrow_P", cfg.P))
+    args = (run["seed"], plane, cfg, run["iters"], run["backend"])
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    _sync(device)
+    allocated = torch.cuda.memory_allocated(device) if cuda else None
+    ops.sodda_inner.launches = 0  # this run starts here
+    t0 = time.perf_counter()
+    if run["kind"] == "by-hand":
+        state, hist, report = _by_hand(args, run, shrink, kw, seams, gen,
+                                       regrown_rank)
+    elif regrown_rank is not None:
+        state, hist, report = ft.run_elastic_regrown(
+            *args, checkpoint_dir=run["checkpoint_dir"],
+            lose_partition_at=run["lose_at"], rank=regrown_rank,
+            generation=gen + 2, supervisor=sup, **shrink, **kw, **seams)
+    elif run["kind"] == "auto":
+        state, hist, report = ft.run_elastic_auto(
+            *args, checkpoint_dir=run["checkpoint_dir"],
+            new_P=shrink["new_P"], supervisor=sup,
+            mesh=engine.make_mesh_for(cfg, device), **kw, **seams)
+    else:
+        state, hist, report = ft.run_elastic(
+            *args, checkpoint_dir=run["checkpoint_dir"],
+            lose_partition_at=run["lose_at"], supervisor=sup,
+            mesh=engine.make_mesh_for(cfg, device), **shrink, **kw,
+            **seams)
+    launches = ops.sodda_inner.launches  # ... and ends here
+    _sync(device)
+    seconds, memory = time.perf_counter() - t0, _memory(device, allocated)
+    _release(device)
+    return dict(
+        w=None if state is None else state.w.cpu().numpy(),
+        t=None if state is None else state.t, history=hist,
+        report={k: v for k, v in report.items()
+                if k not in ("survivors", "grown")},
+        left=report.get("left"), launches=launches,
+        seconds=seconds, timeline=timeline, held=held,
+        rebuilds=sup.rebuilds,
+        world=multihost.process_count() if multihost.is_initialized()
+        else None, **memory)
+
+
+def _shrunk_steps(cfg, plane_spec, run, device, gen):
+    """The lost row leaves and the survivors re-form the group as a
+    rescale does, then :func:`rank_steps` of the run's backend on the
+    ``(new_P, Q)`` grid over the tiled spec on that grid (its tiles are
+    bitwise the survivors'): a survivor's result holds the (M,) iterates
+    after one step from each ``(ws[i], ts[i])``."""
+    from repro_torch.core import engine
+    from repro_torch.distributed import multihost
+
+    new_P, rank = run.get("new_P", cfg.P - 1), multihost.process_index()
+    multihost.barrier()
+    if rank >= new_P * cfg.Q:
+        multihost.leave()
+        return dict(left=run["lose_at"], steps=None, world=None)
+    multihost.reinitialize(new_P * cfg.Q, rank, generation=gen + 1)
+    new_cfg = engine.rescale_config(cfg, new_P)
+    kind, seed, _, M, _, Q = plane_spec
+    steps = rank_steps(new_cfg, (kind, seed, new_cfg.N, M, new_P, Q),
+                       run["backend"], run["ws"], run["ts"], seed=run["seed"],
+                       options=run.get("options"), device=device)
+    return dict(left=None, steps=steps, world=multihost.process_count())
+
+
+def _by_hand(args, run, shrink, kw, seams, gen, regrown_rank):
+    """``run_elastic``'s rescales composed by hand on the mesh from the
+    public seams (see :func:`rank_elastic`); its ``(state, history,
+    report)``, a lost rank's ``(None, history, {"left": boundary})``."""
+    from repro_torch.core import driver, engine
+    from repro_torch.distributed import fault_tolerance as ft
+    from repro_torch.distributed import multihost
+
+    seed, plane, cfg, iters, backend = args
+    device, lose_at = kw["device"], run["lose_at"]
+    new_P, regrow_at = shrink["new_P"], shrink.get("regrow_at")
+    options = run.get("options", {})
+    root = run["checkpoint_dir"]
+    survivors = ft.shrink_plane(plane, new_P)
+    report = {}
+    if regrown_rank is None:
+        mesh = engine.make_mesh_for(cfg, device)
+        state, hist = driver.run_resumable(
+            seed, plane, cfg, lose_at, backend, mesh=mesh,
+            checkpoint_dir=os.path.join(root, f"P{cfg.P}"), **kw, **seams)
+        multihost.barrier()
+        if mesh.rank >= new_P * cfg.Q:
+            multihost.leave()
+            return None, hist, {"left": lose_at}
+        multihost.reinitialize(new_P * cfg.Q, mesh.rank, generation=gen + 1)
+        new_cfg, new_mesh, _ = engine.rescale_bundle(
+            cfg, backend, new_P, device=device, **options)
+        d = os.path.join(root, f"P{new_P}")
+        driver.migrate_resumable(seed, survivors, new_cfg, lose_at, state,
+                                 backend, checkpoint_dir=d,
+                                 history=hist[:-1], mesh=new_mesh,
+                                 **kw)
+        state, hist = driver.run_resumable(
+            seed, survivors, new_cfg, iters if regrow_at is None else
+            regrow_at, backend, checkpoint_dir=d, mesh=new_mesh, **kw,
+            **seams)
+        report["new_cfg"] = new_cfg
+        if regrow_at is None:
+            return state, hist, report
+        multihost.barrier()
+        rank = new_mesh.rank
+    else:
+        new_cfg, state, hist = engine.rescale_config(cfg, new_P), None, []
+        rank = regrown_rank
+    regrow_P = shrink["regrow_P"]
+    multihost.reinitialize(regrow_P * cfg.Q, rank, generation=gen + 2)
+    grow_cfg, grow_mesh, _ = engine.rescale_bundle(
+        new_cfg, backend, regrow_P, device=device, **options)
+    grown = ft.regrow_plane(survivors, regrow_P)
+    d = os.path.join(root, f"P{regrow_P}-regrown")
+    driver.migrate_resumable(seed, grown, grow_cfg, regrow_at, state,
+                             backend, checkpoint_dir=d, history=hist[:-1],
+                             mesh=grow_mesh, **kw)
+    state, hist = driver.run_resumable(seed, grown, grow_cfg, iters, backend,
+                                       checkpoint_dir=d, mesh=grow_mesh,
+                                       **kw, **seams)
+    report.update(new_cfg=new_cfg, grow_cfg=grow_cfg)
+    return state, hist, report
+
+
 def rank_steps(cfg, plane_spec, backend, ws, ts, seed=0, samples=None,
-               options=None, device=None):
+               options=None, device=None, epoch=0):
     """One step of `backend` from each ``(ws[i], ts[i])`` (an (M,) iterate
-    and its step counter): the (M,) iterates after them, as an array."""
+    and its step counter) on window `epoch` of the plane: the (M,) iterates
+    after them, as an array."""
     from repro_torch.core import engine
     from repro_torch.core.sodda import SoddaState
 
     device = _device(device)
     mesh = engine.make_mesh_for(cfg, device)
-    X, y = _plane(plane_spec, device).materialize_for(backend, mesh=mesh,
-                                                      device=device)
+    X, y = _plane(plane_spec, device).materialize_for(
+        backend, mesh=mesh, device=device, epoch=epoch)
     bundle = engine.make_bundle(cfg, backend, device=device, mesh=mesh,
                                 **(options or {}))
     sampler = _sampler(samples, device)
@@ -343,7 +761,10 @@ def rank_steps(cfg, plane_spec, backend, ws, ts, seed=0, samples=None,
         sample = None if sampler is None else sampler(int(t))
         carry = bundle.init_carry(state, X, y, sample)
         out.append(bundle.finalize(bundle.step(carry, X, y, sample)).w)
-    return torch.stack(out).cpu().numpy()
+    out = torch.stack(out).cpu().numpy()
+    del X, y
+    _release(device)
+    return out
 
 
 def rank_consume(cfg, plane_spec, cases, seed=0, device=None):

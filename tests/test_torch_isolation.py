@@ -226,6 +226,25 @@ def test_importing_the_resumable_layers_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_importing_the_mesh_and_elastic_layers_loads_no_jax():
+    """The mesh, its group re-forming, the elastic layer on it and the
+    harness its ranks and spares run under import without jax or repro
+    at run time too."""
+    code = ("import sys\n"
+            "import repro_torch.core.distributed\n"
+            "import repro_torch.distributed.multihost\n"
+            "import repro_torch.distributed.fault_tolerance\n"
+            "import repro_torch.testing.multiprocess\n"
+            "import repro_torch.optim.grad_compression\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_checkpoint_step_regex_matches_reference():
     from repro.checkpoint import checkpoint as ref_ckpt
     from repro_torch.checkpoint import checkpoint as port_ckpt

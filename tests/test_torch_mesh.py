@@ -44,7 +44,7 @@ from repro_torch.configs import sodda_svm as port_configs
 from repro_torch.core import distributed as port_distributed
 from repro_torch.core import driver, engine, partition, sodda
 from repro_torch.data.plane import make_plane
-from repro_torch.distributed import run_elastic
+from repro_torch.distributed import run_elastic, run_elastic_regrown
 from repro_torch.testing import multiprocess as mp
 
 KEY_SEED = 1  # the JAX draws' PRNGKey, made inside the tests
@@ -348,11 +348,39 @@ def test_a_mesh_backend_without_a_process_group_raises():
 
 
 def test_the_streaming_plane_on_a_mesh_raises():
+    """What a streaming plane on a mesh still refuses: a mesh of another
+    grid (its tiles are functions of the grid), a negative epoch and data
+    on another device."""
+    cfg = port_configs.SoddaConfig(P=2, Q=2, n=80, m=16, L=6)
+    stream = make_plane("streaming", 0, cfg.N, cfg.M, 1, 2, device="cpu")
+    with pytest.raises(ValueError, match="cannot serve"):
+        stream.materialize_for("shard_map", mesh=_fake_mesh(cfg))
+    stream = make_plane("streaming", 0, cfg.N, cfg.M, cfg.P, cfg.Q,
+                        device="cpu")
+    with pytest.raises(ValueError, match="epoch must be >= 0"):
+        stream.materialize_for("shard_map", mesh=_fake_mesh(cfg), epoch=-1)
+    with pytest.raises(ValueError, match="lies on cpu"):
+        stream.materialize_for("shard_map", mesh=_fake_mesh(cfg),
+                               device=torch.device("meta"))
+
+
+@pytest.mark.parametrize("coord", [(0, 0), (1, 1)])
+@pytest.mark.parametrize("epoch", [None, 0, 2])
+def test_the_streaming_plane_places_a_rank_tile_on_a_mesh(coord, epoch):
+    """A rank's placement of window e is the (p, q) slice of the
+    single-device window e, bitwise, drawn alone and past the tile cache."""
     cfg = port_configs.SoddaConfig(P=2, Q=2, n=80, m=16, L=6)
     stream = make_plane("streaming", 0, cfg.N, cfg.M, cfg.P, cfg.Q,
                         device="cpu")
-    with pytest.raises(ValueError, match="streaming plane on a mesh"):
-        stream.materialize_for("shard_map", mesh=_fake_mesh(cfg))
+    mesh = types.SimpleNamespace(shape=(cfg.P, cfg.Q),
+                                 device=torch.device("cpu"),
+                                 get_coordinate=lambda: coord)
+    X, y = stream.materialize_for("shard_map", mesh=mesh, epoch=epoch)
+    Xw, yw = stream.at_epoch(epoch or 0).materialize()
+    (p, q), n, m = coord, cfg.n, cfg.m
+    assert torch.equal(X, Xw[p * n:(p + 1) * n, q * m:(q + 1) * m])
+    assert torch.equal(y, yw[p * n:(p + 1) * n])
+    assert stream.cache_stats == {"hits": 0, "misses": 0, "resident": 0}
 
 
 def test_a_tiled_plane_of_another_grid_raises_on_a_mesh():
@@ -363,22 +391,41 @@ def test_a_tiled_plane_of_another_grid_raises_on_a_mesh():
 
 
 def test_elastic_calls_with_a_mesh_raise(tmp_path):
+    """The errors an elastic mesh rescale still raises, before any group
+    is touched: an m_tilde that would not be whole, a boundary off the
+    segment cadence, a mesh of another grid (or on a single-device
+    backend), and a regrown rank outside the regrown rows."""
     cfg = port_configs.SoddaConfig(P=2, Q=2, n=80, m=16, L=6)
     plane = make_plane("tiled", 0, cfg.N, cfg.M, cfg.P, cfg.Q, device="cpu")
     state = sodda.init_state(0, cfg.M, "cpu")
+    d = str(tmp_path)
     calls = [
-        lambda: engine.rescale_bundle(cfg, "shard_map", 1, device="cpu"),
-        lambda: engine.rescale_bundle(cfg, "cuda", 1, device="cpu",
-                                      mesh=_fake_mesh(cfg)),
-        lambda: run_elastic(0, plane, cfg, 4, "shard_map",
-                            checkpoint_dir=str(tmp_path), segment_iters=2,
-                            lose_partition_at=2, device="cpu"),
-        lambda: driver.migrate_resumable(0, plane, cfg, 0, state, "async-mesh",
-                                         checkpoint_dir=str(tmp_path),
-                                         segment_iters=2, device="cpu"),
+        ("not be integral",
+         lambda: engine.rescale_bundle(cfg, "shard_map", 3, device="cpu")),
+        ("not be integral",
+         lambda: engine.rescale_bundle(cfg, "async-mesh", 3, device="cpu")),
+        ("segment boundary",
+         lambda: run_elastic(0, plane, cfg, 4, "shard_map", checkpoint_dir=d,
+                             segment_iters=2, lose_partition_at=3,
+                             device="cpu")),
+        ("segment boundary",
+         lambda: driver.migrate_resumable(0, plane, cfg, 1, state,
+                                          "async-mesh", checkpoint_dir=d,
+                                          segment_iters=2, device="cpu")),
+        ("does not match",
+         lambda: engine.rescale_bundle(cfg, "shard_map", 1, device="cpu",
+                                       mesh=_fake_mesh(cfg))),
+        ("takes no mesh",
+         lambda: engine.rescale_bundle(cfg, "cuda", 1, device="cpu",
+                                       mesh=_fake_mesh(cfg))),
+        ("regrown rows",
+         lambda: run_elastic_regrown(0, plane, cfg, 6, "shard_map",
+                                     checkpoint_dir=d, segment_iters=2,
+                                     lose_partition_at=2, regrow_at=4,
+                                     rank=0, generation=2, device="cpu")),
     ]
-    for call in calls:
-        with pytest.raises(ValueError, match="elastic mesh rescale"):
+    for match, call in calls:
+        with pytest.raises(ValueError, match=match):
             call()
 
 
