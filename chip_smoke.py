@@ -115,23 +115,31 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     one launch a rank an iteration (5 at (1, 64, 1500) on the 4 x 3 grid,
     none on a resume of a completed phase); each run bitwise its
     composition by hand, the faulted runs and the straggler's shrink
-    bitwise the planned ones; the hinge runs against ``cuda``'s and the
-    logistic twin within F32_REDUCTION, ``async-mesh`` within STALENESS
-    of ``async``; one window's stream bitwise the tiled mesh run and each
-    placed tile the window's slice by digest; and prints the ms an
-    iteration by segment, the seconds from a rescale's commit to the
-    first segment on the re-formed group and until the regrown ranks hold
-    their tiles, the streaming ms an iteration against the static run's,
-    each rank's ``place_s``, ``wait_s`` and ``overlap_ratio`` and the
-    memory;
+    bitwise the planned ones; the logistic twin within F32_REDUCTION of
+    ``cuda``'s (the hinge runs against ``cuda``'s are printed),
+    ``async-mesh`` within STALENESS of ``async``; one window's stream
+    bitwise the tiled mesh run and each placed tile the window's slice by
+    digest; and prints the ms an iteration by segment, the seconds from a
+    rescale's commit to the first segment on the re-formed group and
+    until the regrown ranks hold their tiles, the streaming ms an
+    iteration against the static run's, each rank's ``place_s``,
+    ``wait_s`` and ``overlap_ratio`` and the memory. Each hinge mesh
+    trajectory (the static run, the shrink, the shrink-then-grow, the
+    stream) is held to F32_REDUCTION against the single-device plain path
+    summed in the mesh's order
+    (``testing.mesh_order.snapshot_gradient_in_mesh_order``: z over the Q
+    partial GEMVs and mu over the P partial products, as gloo's ring adds
+    them);
 13. holds ``flash_attention`` against its plain version at the gemma2-9b
    prefill shape (B=4, H=16, KV=8, S=4608, D=256, bf16) for a local and a
-   global layer, at a decode offset, at unaligned bf16 shapes for the other
-   head dims (16, 64, 128: causal, non-causal, window + softcap, decode
-   offset), at unaligned f32 shapes and with q, k, v bf16 views whose data
-   is not 16-byte aligned (bitwise the aligned copies' output), and times
-   it at the layer shape beside its bound, its plain version and
-   ``scaled_dot_product_attention``.
+   global layer, at a decode offset, at zamba2-7b's shared attention layer
+   (4, 32, 32, 4096, 112) and a phi3-mini layer (head dim 96), at
+   unaligned bf16 shapes for the other head dims (16, 64, 96, 112, 128:
+   causal, non-causal, window + softcap, decode offset), at unaligned f32
+   shapes (D = 64, 96, 112) and with q, k, v bf16 views whose data is not
+   16-byte aligned (bitwise the aligned copies' output), and times it at
+   the gemma2, zamba2 and phi3-mini layer shapes beside its bound, its
+   plain version and ``scaled_dot_product_attention``.
    bf16 takes the wgmma kernel, f32 the CUDA-core one. A bf16 output must
    be its f32 value correctly rounded (see ``F32_NOISE``), and two
    controls must fail that rule: scores rounded to bf16, and P rounded to
@@ -151,7 +159,8 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     gap to itself summed in another order;
 16. holds ``ssd_scan`` against its plain chunked version at the mamba2-130m
     layer shape (B=16, S=2048, H=24, P=64, G=1, N=128), with Mamba-2's dt
-    and A and a slow-decay case, at S = 1000 and at G = 2, in f32
+    and A and a slow-decay case, at S = 1000, at G = 2 and at zamba2-7b's
+    layer shape (4, 4096, 112, 64, 1, 64), in f32
     (the CUDA-core route, rtol = atol = 1e-4) and bf16 (the wgmma route,
     the rounding rule of 13 over max|y|, which four controls must fail: the
     carry dropped, and each f32 operand of the tensor-core products rounded
@@ -160,7 +169,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     case's route and the inter-chunk share ||y_inter|| / ||y||, runs x, B
     and C as bf16 views whose data is not 16-byte aligned (bitwise the
     aligned copies' output), and times kernel and plain version beside the
-    bound;
+    bound at the mamba2 and zamba2 layer shapes;
 17. runs full-depth mamba2-130m in f32 (B=2, 1024 prompt tokens, Mamba-2's
     A_log and dt_bias): the kernel path's prefill logits within 2e-4 of the
     plain path's and of the decode warm-up's last logits (the scan against
@@ -173,7 +182,24 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     finite logits, and prefill time, warm-up time, decode time per token
     and peak device memory. Then each of the 24 layers' SSD, on the plain
     path's activations, is held to the rounding rule of 13, every control
-    failing it.
+    failing it;
+19. runs zamba2-7b at full width, cut to 12 layers (2 sites of the shared
+    attention + MLP block), in f32 (B=2, 256 prompt tokens, Mamba-2's
+    A_log and dt_bias): every flash launch (D = 112, the CUDA-core route)
+    and every SSD launch on the plain path's activations within 1e-4 of
+    its plain version, and the kernel path's prefill logits and the
+    decode warm-up's last logits against the plain path's, their rms gaps
+    within 2x the floor (the plain path at chunk 64), a carry-dropping
+    control outside it;
+20. serves full-size bf16 zamba2-7b (81 layers, 13 sites; ``serve``, the
+    fourth main path, with the flash and SSD launch counts set to 0 just
+    before each call and read just after): the prefill alone on 4 x 4096
+    prompt tokens (13 flash launches at D = 112 and 81 SSD launches, all
+    on the wgmma routes; its time and peak memory), then a whole serve
+    call on 4 x 256 prompt tokens fed through decode and 32 generated
+    (the same launches in its prefill, none in the warm-up or decode;
+    prefill, warm-up and decode times, peak memory), and prints each
+    kernel's share of the 4 x 4096 prefill.
 
 Exits non-zero if any phase fails. The last three lines of standard output
 are the card line, a JSON ``kernels`` record and a JSON ``ok`` record.
@@ -197,6 +223,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 from repro_torch.configs.gemma2_9b import CONFIG as GEMMA2_9B  # noqa: E402
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M  # noqa: E402
+from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2_7B  # noqa: E402
 from repro_torch import checkpoint  # noqa: E402
 from repro_torch.configs.sodda_svm import SoddaConfig, TABLE1_250K_18K  # noqa: E402
 from repro_torch.core import (driver, engine, losses, partition,  # noqa: E402
@@ -212,6 +239,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import sodda_inner as kernel_build  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_build  # noqa: E402
+from repro_torch.launch import serve as serve_module  # noqa: E402
 from repro_torch.launch.serve import (make_serve_steps, serve,  # noqa: E402
                                       warm_up)
 from repro_torch.models import Model, transformer  # noqa: E402
@@ -219,6 +247,8 @@ from repro_torch.models import attention as mattn  # noqa: E402
 from repro_torch.models import ssm as mssm  # noqa: E402
 from repro_torch.models.params import tree_leaves  # noqa: E402
 from repro_torch.testing import tolerances as tol  # noqa: E402
+from repro_torch.testing.mesh_order import (  # noqa: E402
+    snapshot_as, snapshot_gradient_in_mesh_order)
 from repro_torch.testing.multiprocess import tile_digest  # noqa: E402
 
 ITERS = 20  # outer iterations of each Table-1 run
@@ -260,6 +290,17 @@ FLOOR_FACTOR = 2.0
 # 2048: the context of the Mamba-2 paper's language-model runs
 SSM_SERVE_B, SSM_SERVE_PROMPT, SSM_SERVE_GEN = 16, 2048, 32
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 4608, 32  # 4608 = 36 x 128 > 4096
+# zamba2-7b: the shared attention's flash layer (B, H, KV, S, S, D) at the
+# serving prefill, and phi3-mini's (head dim 96, the same kernel layout)
+ZAMBA2_FLASH = (4, 32, 32, 4096, 4096, 112)
+PHI3_FLASH = (4, 32, 32, 4096, 4096, 96)
+ZAMBA2_SSD = (4, 4096, 112, 64, 1, 64)  # (B, S, H, P, G, N) of its prefill
+# the serving cell: 4 x 4096 prompt tokens prefilled alone (the time to the
+# first token), then a whole serve call on 4 x 256 fed through decode
+# (eager decode costs ~81 layers of launches a position) and 32 generated
+HYB_B, HYB_PROMPT, HYB_SERVE_PROMPT, HYB_GEN = 4, 4096, 256, 32
+# the exactness cell: full width, 12 layers (2 shared-block sites), f32
+HYB_F32_LAYERS, HYB_F32_B, HYB_F32_PROMPT = 12, 2, 256
 CUT_DEPTH_LAYERS, CUT_DEPTH_B, CUT_DEPTH_GEN = 4, 2, 8
 # Full depth in bf16: the rms gap of the kernel path's last-token logits to
 # the plain path's, against the plain path's gap to itself summed in
@@ -286,6 +327,7 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
 
 
 def card_line():
@@ -1313,8 +1355,25 @@ def phase_mesh_refs(cfg, X, y):
                                loss="logistic")
     st_l, h_l = driver.run(SEED, data, lcfg, ITERS, "cuda",
                            record_every=RECORD_EVERY)
+    with snapshot_as(snapshot_gradient_in_mesh_order(cfg.n, cfg.m)):
+        st_o, h_o = driver.run(SEED, data, cfg, ITERS, "cuda",
+                               record_every=RECORD_EVERY)
     return dict(ws=ws, h_c=h_c, consume=consume, h_a=h_a, lcfg=lcfg, h_l=h_l,
-                w_l=st_l.w.cpu().numpy())
+                w_l=st_l.w.cpu().numpy(), h_o=h_o, w_o=st_o.w.cpu().numpy())
+
+
+def hold_in_mesh_order(name, h_ref, h, w_ref, w):
+    """A hinge mesh trajectory against the single-device plain path summed
+    in the mesh's order (``snapshot_gradient_in_mesh_order``: z over the Q
+    partial GEMVs, mu over the P partial products, as gloo's ring adds
+    them), to F32_REDUCTION (ROADMAP C1); also says whether it is
+    bitwise."""
+    held, _ = hold_mesh_trajectory(name + " in the mesh's summation order",
+                                   h_ref, h, w_ref, w)
+    log(f"mesh {name}: final iterate bitwise the plain path in the mesh's "
+        f"order: {bool(np.array_equal(w_ref, w))}")
+    check(held, f"mesh {name} departs from the single-device plain path "
+          "in the mesh's summation order")
 
 
 def mesh_runs(ckpt):
@@ -1517,6 +1576,8 @@ def phase_mesh(cfg, refs):
         "shard_map+cuda vs cuda (logistic twin)", refs["h_l"],
         logistic[0]["history"], refs["w_l"], logistic[0]["w"])
     check(held_l, "mesh logistic twin departs from cuda")
+    hold_in_mesh_order("shard_map+cuda vs cuda (hinge)", refs["h_o"],
+                       main["history"], refs["w_o"], main["w"])
     if not held:
         X, y = TiledDataPlane(SEED, cfg.N, cfg.M, cfg.P, cfg.Q).materialize()
         w_c, w_m = (torch.tensor(v, device="cuda")
@@ -1701,15 +1762,21 @@ def phase_mesh_elastic_refs(cfg, X, y):
         ws.append(state.w.cpu().numpy())
     del Xs, ys
     refs = {"steps": ws}
-    for name, run_cfg, backend, extra in (
-            ("shrink", cfg, "cuda", {}),
-            ("grow", cfg, "cuda", dict(regrow_at=MESH_REGROW,
-                                       regrow_P=cfg.P)),
-            ("async", cfg, "async", dict(staleness=1)),
-            ("logistic", lcfg, "cuda", {})):
-        st, hist, report = run_elastic(
-            SEED, data, run_cfg, ITERS, backend,
-            checkpoint_dir=ckpt_dir("elastic-ref-" + name), **kw, **extra)
+    in_order = snapshot_gradient_in_mesh_order(cfg.n, cfg.m)
+    grow = dict(regrow_at=MESH_REGROW, regrow_P=cfg.P)
+    for name, run_cfg, backend, extra, snapshot in (
+            ("shrink", cfg, "cuda", {}, sodda.snapshot_gradient),
+            ("grow", cfg, "cuda", grow, sodda.snapshot_gradient),
+            ("async", cfg, "async", dict(staleness=1),
+             sodda.snapshot_gradient),
+            ("logistic", lcfg, "cuda", {}, sodda.snapshot_gradient),
+            ("shrink-order", cfg, "cuda", {}, in_order),
+            ("grow-order", cfg, "cuda", grow, in_order)):
+        with snapshot_as(snapshot):
+            st, hist, report = run_elastic(
+                SEED, data, run_cfg, ITERS, backend,
+                checkpoint_dir=ckpt_dir("elastic-ref-" + name), **kw,
+                **extra)
         refs[name] = dict(w=st.w.cpu().numpy(), history=hist,
                           events=report["events"], cfg=run_cfg)
         torch.cuda.empty_cache()
@@ -1718,9 +1785,13 @@ def phase_mesh_elastic_refs(cfg, X, y):
     n, m = cfg.n, cfg.m
     digests = []
     # threadless_stream_run's loop for both losses, a window at a time
-    runs = {c.loss: dict(cfg=c, bundle=engine.make_bundle(c, "cuda"),
-                         state=sodda.init_state(SEED, cfg.M, X.device),
-                         ws=[], hist=[]) for c in (cfg, lcfg)}
+    runs = {name: dict(cfg=c, bundle=engine.make_bundle(c, "cuda"),
+                       state=sodda.init_state(SEED, cfg.M, X.device),
+                       ws=[], hist=[], snapshot=snapshot)
+            for name, c, snapshot in (
+                ("stream", cfg, sodda.snapshot_gradient),
+                ("stream-logistic", lcfg, sodda.snapshot_gradient),
+                ("stream-order", cfg, in_order))}
     for e in range(MESH_WINDOWS):
         Xw, yw = stream.at_epoch(e).materialize()
         digests.append({(p, q): (tile_digest(Xw[p * n:(p + 1) * n,
@@ -1733,7 +1804,8 @@ def phase_mesh_elastic_refs(cfg, X, y):
                 if it % RECORD_EVERY == 0:
                     r["hist"].append(losses.objective(r["cfg"].loss, Xw, yw,
                                                       r["state"].w))
-                r["state"] = r["bundle"].step(r["state"], Xw, yw)
+                with snapshot_as(r["snapshot"]):
+                    r["state"] = r["bundle"].step(r["state"], Xw, yw)
         if e == MESH_WINDOWS - 1:
             for r in runs.values():
                 r["hist"].append(losses.objective(r["cfg"].loss, Xw, yw,
@@ -1741,8 +1813,7 @@ def phase_mesh_elastic_refs(cfg, X, y):
         del Xw, yw
         torch.cuda.empty_cache()
     refs["digests"] = digests
-    for name, r in (("stream", runs[cfg.loss]),
-                    ("stream-logistic", runs[lcfg.loss])):
+    for name, r in runs.items():
         refs[name] = dict(
             ws=r["ws"] + [r["state"].w.cpu().numpy()],
             history=list(zip(driver.record_ticks(ITERS, RECORD_EVERY),
@@ -2015,6 +2086,12 @@ def phase_mesh_elastic(cfg, spawn, refs):
         refs["logistic"]["history"], done["logistic"][0]["history"],
         refs["logistic"]["w"], done["logistic"][0]["w"])
     check(held_l, "mesh elastic logistic twin departs from cuda")
+    for name, label in (("shrink", "elastic shrink"),
+                        ("grow", "elastic shrink-then-grow")):
+        hold_in_mesh_order(f"{label} vs cuda run_elastic (hinge)",
+                           refs[name + "-order"]["history"],
+                           done[name][0]["history"],
+                           refs[name + "-order"]["w"], done[name][0]["w"])
     if not (held_s and held_g):
         log("mesh elastic hinge: a finding, the hinge trajectory parts from "
             "cuda's (queue C); the logistic twin held in full")
@@ -2204,6 +2281,9 @@ def phase_mesh_streaming(cfg, spawn):
         refs["stream-logistic"]["ws"][-1], logistic["w"])
     check(held_l, "mesh streaming logistic twin departs from the "
           "single-device stream")
+    hold_in_mesh_order("streaming vs the single-device stream (hinge)",
+                       refs["stream-order"]["history"], stream["history"],
+                       refs["stream-order"]["ws"][-1], stream["w"])
     if not held:
         log("mesh streaming hinge: a finding, the hinge trajectory parts "
             "from the single-device stream's (queue C); each step from the "
@@ -2342,8 +2422,14 @@ def phase_flash():
         ("gemma2 decode offset", (4, 16, 8, 1, S, 256), bf16,
          dict(window=4096, softcap=50.0, q_offset=S - 1)),
     ]
-    # every other bf16 head dim the wgmma kernel instantiates, unaligned
-    for D in (16, 64, 128):
+    # zamba2-7b's shared attention layer and a phi3-mini layer (head dims
+    # 112 and 96, on the 128 layout zero-padded inside the kernel)
+    cases += [
+        ("zamba2 shared layer", ZAMBA2_FLASH, bf16, dict()),
+        ("phi3-mini layer", PHI3_FLASH, bf16, dict()),
+    ]
+    # every other bf16 head dim the wgmma kernel takes, unaligned
+    for D in (16, 64, 96, 112, 128):
         cases += [
             (f"bf16 D={D} causal", (2, 4, 2, 200, 200, D), bf16, dict()),
             (f"bf16 D={D} non-causal", (2, 4, 2, 200, 200, D), bf16,
@@ -2362,6 +2448,14 @@ def phase_flash():
         ("unaligned decode offset", (2, 4, 2, 1, 200, 64), f32,
          dict(window=64, softcap=30.0, q_offset=199)),
     ]
+    for D in (96, 112):  # the padded head dims on the cuda-core route
+        cases += [
+            (f"f32 D={D} causal", (2, 4, 2, 200, 200, D), f32, dict()),
+            (f"f32 D={D} window+softcap", (2, 4, 2, 200, 200, D), f32,
+             dict(window=64, softcap=30.0)),
+            (f"f32 D={D} decode offset", (2, 4, 2, 1, 200, D), f32,
+             dict(window=64, softcap=30.0, q_offset=199)),
+        ]
     max_err = 0.0
     for name, (B, H, KV, Sq, Sk, D), dtype, opts in cases:
         q, k, v = flash_inputs(B, H, KV, Sq, Sk, D, dtype, gen)
@@ -2377,8 +2471,8 @@ def phase_flash():
                              control=attention_bf16_scores(q, k, v, **opts))
             # The plain version takes 1 / sqrt(D) rounded to bf16, as the
             # reference does; the kernels and the oracle take it in f32. At
-            # D = 128 the two differ (sqrt(128) is no bf16 number), so there
-            # the plain version is shown, not held.
+            # D = 96, 112 and 128 the two differ (their square roots are no
+            # bf16 numbers), so there the plain version is shown, not held.
             held = {name: e for name, e in ex.items()
                     if name != "plain" or bf16_scale_is_exact(D)}
             check_excess(tag, held)
@@ -2428,6 +2522,31 @@ def phase_flash():
     log(f"flash global-layer shape, causal, GQA, no softcap: torch "
         f"scaled_dot_product_attention {sdpa_ms:.4f} ms, the kernel "
         f"{same_ms:.4f} ms")
+    del q, k, v, qt, kt, vt
+    # the padded head dims at their layers' shapes: causal, no softcap, the
+    # function scaled_dot_product_attention computes too
+    by_dim = {}
+    for name, (B, H, KV, Sq, Sk, D) in (("zamba2 shared layer", ZAMBA2_FLASH),
+                                         ("phi3-mini layer", PHI3_FLASH)):
+        q, k, v = flash_inputs(B, H, KV, Sq, Sk, D, bf16, gen)
+        d_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, force="cuda"),
+                       reps=5, warmup=1)
+        d_plain = cuda_ms(lambda: ops.flash_attention(q, k, v, force="ref"),
+                          reps=2, warmup=1)
+        d_bound, d_by = flash_bound_ms(B, H, KV, Sq, Sk, D, bf16)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        d_sdpa = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), reps=10, warmup=2)
+        by_dim[D] = dict(shape=[B, H, KV, Sq, Sk, D], ms=d_ms,
+                         plain_ms=d_plain, bound_ms=d_bound, bound_by=d_by,
+                         library_ms=d_sdpa, launches=None)
+        log(f"flash {name} {(B, H, KV, Sq, D)} bf16 causal: kernel "
+            f"{d_ms:.4f} ms, plain {d_plain:.4f} ms, bound {d_bound:.5f} ms "
+            f"({d_by}), kernel/bound {d_ms / d_bound:.1f}x; torch "
+            f"scaled_dot_product_attention {d_sdpa:.4f} ms; layout head dim "
+            f"{flash_build.layout_head_dim(D)}")
+        del q, k, v, qt, kt, vt
     ms, plain_ms, bound_ms, bound_by = times["global"]
     record = dict(name="flash_attention", route="cuda",
                   source="src/repro_torch/kernels/csrc/"
@@ -2435,7 +2554,8 @@ def phase_flash():
                   replaces="src/repro/kernels/flash_attention.py:74",
                   launches=None, max_abs_err=max_err, ms=ms,
                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                  library_ms=sdpa_ms)
+                  library_ms=sdpa_ms,
+                  head_dims={str(D): r for D, r in by_dim.items()})
     return record, times
 
 
@@ -2759,6 +2879,7 @@ def phase_ssd():
         ("slow decay", (B, S, H, P, G, N), "slow"),
         ("unaligned S=1000", (B, 1000, H, P, G, N), "mamba2"),
         ("G=2", (4, S, H, P, 2, N), "mamba2"),
+        ("zamba2 layer", ZAMBA2_SSD, "mamba2"),
     ]
     max_err = 0.0
     for name, shape, decay in cases:
@@ -2803,32 +2924,40 @@ def phase_ssd():
                      [x.to(bf16), dt.to(bf16), A, Bm.to(bf16), Cm.to(bf16),
                       D], (0, 3, 4), ssd_build.route(bf16, P, N))
 
-    x, dt, A, Bm, Cm, D = ssd_inputs(B, S, H, P, G, N, "mamba2", gen)
     times = {}
-    for dtype in (bf16, f32):
-        args = [t.to(dtype) for t in (x, dt)] + [A] \
-            + [t.to(dtype) for t in (Bm, Cm)] + [D]
-        ms = cuda_ms(lambda: ops.ssd_scan(*args, force="cuda"), reps=10,
-                     warmup=2)
-        plain_ms = cuda_ms(lambda: ops.ssd_scan(*args, chunk=256,
-                                                force="ref"),
-                           reps=3, warmup=1)
-        bound_ms, bound_by = ssd_bound_ms(B, S, H, P, G, N, dtype)
-        times[dtype] = (ms, plain_ms, bound_ms, bound_by)
-        log(f"ssd mamba2 layer {SSD_SHAPE} {dtype}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}),"
-            f" kernel/bound {ms / bound_ms:.1f}x")
-    ms, plain_ms, bound_ms, bound_by = times[bf16]
+    for layer, shape in (("mamba2 layer", SSD_SHAPE),
+                         ("zamba2 layer", ZAMBA2_SSD)):
+        x, dt, A, Bm, Cm, D = ssd_inputs(*shape, "mamba2", gen)
+        for dtype in (bf16, f32):
+            args = [t.to(dtype) for t in (x, dt)] + [A] \
+                + [t.to(dtype) for t in (Bm, Cm)] + [D]
+            ms = cuda_ms(lambda: ops.ssd_scan(*args, force="cuda"), reps=10,
+                         warmup=2)
+            plain_ms = cuda_ms(lambda: ops.ssd_scan(*args, chunk=256,
+                                                    force="ref"),
+                               reps=3, warmup=1)
+            bound_ms, bound_by = ssd_bound_ms(*shape, dtype)
+            times[layer, dtype] = (ms, plain_ms, bound_ms, bound_by)
+            log(f"ssd {layer} {shape} {dtype}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+                f"kernel/bound {ms / bound_ms:.1f}x")
+        del x, dt, A, Bm, Cm, D, args
+    ms, plain_ms, bound_ms, bound_by = times["mamba2 layer", bf16]
+    z_ms, z_plain, z_bound, z_by = times["zamba2 layer", bf16]
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_scan_wgmma.cu",
                 replaces="src/repro/kernels/ssd_scan.py:67",
                 launches=None, max_abs_err=max_err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
+                library_ms=None,
+                shapes={"zamba2 layer": dict(
+                    shape=list(ZAMBA2_SSD), ms=z_ms, plain_ms=z_plain,
+                    bound_ms=z_bound, bound_by=z_by, library_ms=None,
+                    launches=None)})
 
 
-def mamba2_params(model, seed):
-    """Weights from `seed`, with A_log = log U[1, 16] and dt_bias =
+def ssm_params(model, seed):
+    """Weights of an SSM or hybrid model from `seed`, with A_log = log U[1, 16] and dt_bias =
     softplus^-1(log-uniform [1e-3, 1e-1]) per layer and head, as Mamba-2
     initialises them: the template's A_log = 1, dt_bias = 0 decay the state
     to 0 within a chunk, so no check could see the carry."""
@@ -2878,7 +3007,7 @@ def phase_ssm_f32():
     cfg = MAMBA2_130M
     B, P, n = SSM_F32_B, SSM_F32_PROMPT, SSM_F32_FED
     model = Model(cfg, param_dtype=torch.float32)
-    params = mamba2_params(model, SEED)
+    params = ssm_params(model, SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     # the prompt, the fed tokens, and more, so the scan over all of them
     # keeps the reference's S % chunk == 0
@@ -2987,7 +3116,7 @@ def phase_ssm_serve():
     cfg = MAMBA2_130M
     B, P, n = SSM_SERVE_B, SSM_SERVE_PROMPT, SSM_SERVE_GEN
     model = Model(cfg)  # bf16 weights on the card
-    params = mamba2_params(model, SEED)
+    params = ssm_params(model, SEED)
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in tree_leaves(params))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -3093,6 +3222,244 @@ def phase_ssm_serve():
     return launches, 1e3 * prefill_s
 
 
+# ---------------------------------------------------------------------------
+# zamba2-7b: the hybrid family's serving path (flash at D = 112, the SSD)
+# ---------------------------------------------------------------------------
+def counts():
+    """The flash and SSD launch counts and the SSD's by route, now."""
+    return (ops.flash_attention.launches, ops.ssd_scan.launches,
+            dict(ops.ssd_scan.route_launches))
+
+
+def zero_counts():
+    ops.flash_attention.launches = 0
+    ops.ssd_scan.launches = 0
+    for kind in ops.ssd_scan.route_launches:
+        ops.ssd_scan.route_launches[kind] = 0
+
+
+def phase_hybrid_f32():
+    """zamba2-7b at full width, cut to 12 layers (2 sites of the shared
+    block), in f32. Every flash launch (D = 112, the cuda-core route) and
+    every SSD launch, on the plain path's activations, within SSD_F32_TOL
+    of its plain version (a carry-dropping control must fail that for the
+    SSD). At the logits, the kernel path's prefill and the decode warm-up's
+    last logits over the same prompt, against the plain path: their rms
+    gaps within FLOOR_FACTOR of the floor (the plain path with the SSD at
+    the kernel's chunk length), the carry-dropping control outside it."""
+    cfg = dataclasses.replace(ZAMBA2_7B, num_layers=HYB_F32_LAYERS)
+    sites = transformer.n_attn_sites(cfg)
+    B, P = HYB_F32_B, HYB_F32_PROMPT
+    model = Model(cfg, param_dtype=torch.float32)
+    params = ssm_params(model, SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    toks = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks}
+    f0, s0, r0 = counts()
+    logits_k, _ = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    f1, s1, r1 = counts()
+    check(f1 - f0 == sites and s1 - s0 == cfg.num_layers
+          and r1["cuda-core"] - r0["cuda-core"] == cfg.num_layers,
+          f"zamba2 f32: {f1 - f0} flash and {s1 - s0} ssd launches ({r0} -> "
+          f"{r1}) in a {cfg.num_layers}-layer prefill with {sites} sites, "
+          "expected every ssd launch on the cuda-core route")
+    check(flash_build.route(torch.float32, cfg.resolved_head_dim)
+          == "cuda-core", "zamba2 f32: flash does not take the cuda-core "
+          "route")
+
+    flash_gaps, ssd_gaps = [], []
+
+    def held_flash(q, k, v, force, **opts):
+        out = flash_wrapper(q, k, v, force=force, **opts)
+        kern = flash_wrapper(q, k, v, force="cuda", **opts)
+        torch.testing.assert_close(kern, out, rtol=SSD_F32_TOL,
+                                   atol=SSD_F32_TOL)
+        flash_gaps.append(float((kern - out).abs().max()))
+        return out
+
+    def held_ssd(x, dt, A, Bm, Cm, D, chunk, force):
+        out = ssd_wrapper(x, dt, A, Bm, Cm, D, chunk=chunk, force=force)
+        kern = ssd_wrapper(x, dt, A, Bm, Cm, D, force="cuda")
+        dropped = ssd_carry_dropped(x, dt, A, Bm, Cm, D)
+        torch.testing.assert_close(kern, out, rtol=SSD_F32_TOL,
+                                   atol=SSD_F32_TOL)
+        over = (dropped - out).abs() - (SSD_F32_TOL + SSD_F32_TOL * out.abs())
+        check(float(over.max()) > 0, f"zamba2 f32 layer {len(ssd_gaps)}: the "
+              "carry-dropping control passes the f32 tolerance")
+        ssd_gaps.append((float((kern - out).abs().max()),
+                         float((dropped - out).abs().max())))
+        return out
+
+    with attention_as(held_flash) as flash_wrapper, \
+            ssd_as(held_ssd) as ssd_wrapper:
+        logits_r, _ = model.prefill(params, batch, force="ref")
+    check(len(flash_gaps) == sites and len(ssd_gaps) == cfg.num_layers,
+          f"zamba2 f32: {len(flash_gaps)} flash and {len(ssd_gaps)} ssd "
+          "calls held")
+    log(f"zamba2-7b f32 ({cfg.num_layers} layers, {sites} sites, full width, "
+        f"B={B}, prompt {P}) every launch on the plain path's activations: "
+        f"flash D={cfg.resolved_head_dim} max|kernel-plain| "
+        f"{max(flash_gaps):.3e}, ssd max|kernel-plain| "
+        f"{max(k for k, _ in ssd_gaps):.3e} (tol {SSD_F32_TOL}); the ssd "
+        f"carry-dropping control min {min(c for _, c in ssd_gaps):.3e} off")
+
+    with ssd_as(ssd_at_chunk(ssd_build.CHUNK)):
+        logits_f, _ = model.prefill(params, batch, force="ref")
+    with ssd_as(ssd_carry_dropped):
+        logits_c, _ = model.prefill(params, batch, force="ref")
+    warm, _ = warm_up(model, params, toks, model.cache_template(B, P))
+    torch.cuda.synchronize()
+    for name, x in (("kernel", logits_k), ("plain", logits_r),
+                    ("warm", warm)):
+        check(bool(torch.isfinite(x).all()), f"zamba2 f32: {name} non-finite")
+    gaps = {"kernel path": gap_stats(logits_k, logits_r),
+            "decode warm-up": gap_stats(warm, logits_r),
+            "floor: plain at chunk 64": gap_stats(logits_f, logits_r),
+            "control: carry dropped": gap_stats(logits_c, logits_r)}
+    floor = gaps["floor: plain at chunk 64"]["rms"]
+    log(f"zamba2-7b f32 prefill last-token logits against the plain path "
+        f"(chunk {min(cfg.ssm_chunk, P)}), max / rms / entries over "
+        f"rtol=atol={MODEL_TOL} / rms over the floor's: "
+        + "; ".join(f"{k} {g['max']:.3e} / {g['rms']:.3e} / {g['over']} / "
+                    f"{g['rms'] / floor:.3f}" for k, g in gaps.items())
+        + f" (limit {FLOOR_FACTOR} x the floor's rms; logits max|.| "
+          f"{float(logits_r.abs().max()):.2f})")
+    for k, g in gaps.items():
+        if k.startswith("floor"):
+            continue
+        if k.startswith("control"):
+            check(g["rms"] > FLOOR_FACTOR * floor,
+                  f"zamba2 f32: the {k} control is within {FLOOR_FACTOR} x "
+                  f"the floor ({g}, floor {floor})")
+        else:
+            check(g["rms"] <= FLOOR_FACTOR * floor,
+                  f"zamba2 f32: {k} rms gap {g['rms']} > {FLOOR_FACTOR} x "
+                  f"the floor {floor}")
+    log(f"zamba2-7b f32 greedy token of the prefill / warm-up: "
+        f"{logits_k.argmax(-1).tolist()} / {warm.argmax(-1).tolist()}")
+
+
+@contextlib.contextmanager
+def timed_warm_up(marks):
+    """Time the warm-up inside ``serve`` (synchronised at its start and end)
+    and note the launch counts when it starts."""
+    orig = serve_module.warm_up
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        marks["start"], marks["counts"] = time.perf_counter(), counts()
+        out = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        marks["end"] = time.perf_counter()
+        return out
+
+    serve_module.warm_up = timed
+    try:
+        yield marks
+    finally:
+        serve_module.warm_up = orig
+
+
+def phase_hybrid_serve():
+    """The fourth main path: full-size bf16 zamba2-7b serving a batch. The
+    prefill alone on 4 x 4096 prompt tokens (13 flash launches at D = 112
+    and 81 SSD launches, all on the wgmma routes), then a whole serve call
+    on 4 x 256 prompt tokens fed through decode and 32 generated (the same
+    launches in its prefill, none in the warm-up or decode)."""
+    cfg = ZAMBA2_7B
+    sites = transformer.n_attn_sites(cfg)
+    model = Model(cfg)  # bf16 weights on the card
+    t0 = time.perf_counter()
+    params = ssm_params(model, SEED)
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    log(f"zamba2 serve: {model.param_count()} parameters "
+        f"({weight_bytes / 1e9:.3f} GB bf16) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s; {cfg.num_layers} layers, "
+        f"{sites} sites of the shared block")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    prompts = torch.randint(0, cfg.vocab_size, (HYB_B, HYB_PROMPT),
+                            generator=gen, device="cuda")
+    serve(model, params, prompts[:, :HYB_SERVE_PROMPT], 1)  # handles, library
+    d_route = flash_build.route(torch.bfloat16, cfg.resolved_head_dim)
+    check(d_route == "wgmma", f"zamba2 serve: flash route {d_route}")
+
+    # time to the first token: the prefill alone on 4 x 4096
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()  # the prefill's path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, logits = serve(model, params, prompts, 1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre_flash, pre_ssd, pre_routes = counts()  # ... and ends here
+    pre_peak = torch.cuda.max_memory_allocated()
+    check(pre_flash == sites and pre_ssd == cfg.num_layers
+          and pre_routes["wgmma"] == cfg.num_layers,
+          f"zamba2 serve prefill: {pre_flash} flash and {pre_ssd} ssd "
+          f"launches ({pre_routes}), expected {sites} and {cfg.num_layers} "
+          "on the wgmma route")
+    check(tuple(logits.shape) == (HYB_B, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()),
+          "zamba2 serve: prefill logits not finite or of the wrong shape")
+
+    # the main path: a whole serve call, its warm-up timed inside
+    short = prompts[:, :HYB_SERVE_PROMPT]
+    del logits
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()  # the main path starts here
+    torch.cuda.synchronize()
+    with timed_warm_up({}) as marks:
+        t0 = time.perf_counter()
+        tokens, first_logits = serve(model, params, short, HYB_GEN)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    flash_n, ssd_n, routes = counts()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    check("counts" in marks, "zamba2 serve: no warm-up ran")
+    in_prefill = marks["counts"][:2]
+    check(in_prefill == (sites, cfg.num_layers)
+          and routes["wgmma"] == cfg.num_layers,
+          f"zamba2 serve: {in_prefill} flash and ssd launches in its "
+          f"prefill ({routes}), expected {(sites, cfg.num_layers)} on the "
+          "wgmma route")
+    check((flash_n, ssd_n) == in_prefill,
+          f"zamba2 serve: {flash_n - in_prefill[0]} flash and "
+          f"{ssd_n - in_prefill[1]} ssd launches in the warm-up and decode")
+    check(tuple(tokens.shape) == (HYB_B, HYB_GEN)
+          and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          f"zamba2 serve: tokens {tuple(tokens.shape)} or out of the "
+          "vocabulary")
+    check(bool(torch.isfinite(first_logits).all()),
+          "zamba2 serve: prefill logits not finite")
+    steps = HYB_GEN - 1
+    P = HYB_SERVE_PROMPT
+    pre256_s = marks["start"] - t0
+    warm_s = marks["end"] - marks["start"]
+    decode_s = total_s - (marks["end"] - t0)
+    log(f"zamba2 serve {HYB_B} x {HYB_PROMPT} prompt tokens, prefill alone "
+        f"(time to the first token): {1e3 * prefill_s:.3f} ms "
+        f"({HYB_B * HYB_PROMPT / prefill_s:.1f} prompt tok/s); peak device "
+        f"memory {pre_peak / 1e9:.3f} GB")
+    log(f"zamba2 serve {HYB_B} x {P} prompt tokens, {HYB_GEN} generated "
+        f"each: prefill {1e3 * pre256_s:.3f} ms, decode warm-up over the "
+        f"prompt {1e3 * warm_s:.3f} ms ({1e3 * warm_s / P:.3f} ms a "
+        f"position), decode {1e3 * decode_s / steps:.3f} ms/token over "
+        f"{steps} steps; serve end to end {1e3 * total_s:.3f} ms; peak "
+        f"device memory {peak / 1e9:.3f} GB; weights "
+        f"{weight_bytes / 1e9:.3f} GB")
+    log(f"zamba2 serve launches: flash {in_prefill[0]} (D="
+        f"{cfg.resolved_head_dim}, {d_route} route) and ssd {in_prefill[1]} "
+        f"({routes}) in the prefill, {flash_n - in_prefill[0]} and "
+        f"{ssd_n - in_prefill[1]} in the warm-up and decode")
+    log(f"zamba2 serve sample tokens: {tokens[0, :16].tolist()}")
+    return dict(flash=flash_n, ssd=ssd_n, prefill_ms=1e3 * prefill_s)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA "
@@ -3160,6 +3527,27 @@ def main():
         f"{MAMBA2_130M.num_layers} x {ssd_record['ms']:.4f} ms = "
         f"{ssd_ms:.3f} / {ssm_prefill_ms:.3f} ms = "
         f"{ssd_ms / ssm_prefill_ms:.2%}")
+
+    torch.cuda.empty_cache()
+    phase_hybrid_f32()
+    torch.cuda.empty_cache()
+    hybrid = phase_hybrid_serve()
+    z_flash = flash_record["head_dims"]["112"]
+    z_ssd = ssd_record["shapes"]["zamba2 layer"]
+    z_flash["launches"], z_ssd["launches"] = hybrid["flash"], hybrid["ssd"]
+    flash_record["launches_by_path"] = {
+        "gemma2-9b serve": flash_record["launches"],
+        "zamba2-7b serve": hybrid["flash"]}
+    ssd_record["launches_by_path"] = {
+        "mamba2-130m serve": ssd_record["launches"],
+        "zamba2-7b serve": hybrid["ssd"]}
+    f_ms = hybrid["flash"] * z_flash["ms"]
+    s_ms = hybrid["ssd"] * z_ssd["ms"]
+    log(f"zamba2 serve kernel shares of the 4 x {HYB_PROMPT} prefill "
+        f"({hybrid['prefill_ms']:.3f} ms): flash {hybrid['flash']} x "
+        f"{z_flash['ms']:.4f} ms = {f_ms:.3f} ms ({f_ms / hybrid['prefill_ms']:.2%}), "
+        f"ssd {hybrid['ssd']} x {z_ssd['ms']:.4f} ms = {s_ms:.3f} ms "
+        f"({s_ms / hybrid['prefill_ms']:.2%})")
 
     print(card)
     print(json.dumps({"kernels": [record, flash_record, ssd_record]}))

@@ -7,13 +7,15 @@ list of known ones, as the reference's registry does.
 """
 import dataclasses
 
-from repro_torch.configs import gemma2_9b, mamba2_130m
+from repro_torch.configs import gemma2_9b, mamba2_130m, zamba2_7b
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig
 
-_REGISTRY = {m.CONFIG.name: m.CONFIG for m in (gemma2_9b, mamba2_130m)}
+_REGISTRY = {m.CONFIG.name: m.CONFIG
+             for m in (gemma2_9b, mamba2_130m, zamba2_7b)}
 
 # short aliases: --arch gemma2_9b as well as --arch gemma2-9b
-_ALIASES = {"gemma2_9b": "gemma2-9b", "mamba2_130m": "mamba2-130m"}
+_ALIASES = {"gemma2_9b": "gemma2-9b", "mamba2_130m": "mamba2-130m",
+            "zamba2_7b": "zamba2-7b"}
 
 
 def list_archs():

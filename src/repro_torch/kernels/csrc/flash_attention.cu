@@ -48,6 +48,14 @@
 // 4 * (64 (D+4) [Q] + 64 (D+4) [K] + 64 D [V] + 64 * 68 [P]) bytes:
 // 216,064 at D = 256, under the 232,448 a block may use.
 //
+// Head dims 96 and 112 run the D = 128 layout (float4 column groups of 64),
+// instantiated with the true head dim DT as a second template parameter:
+// the tiles are staged from the true-DT rows with columns DT..127
+// zero-filled, and only the columns below DT are stored. Zero columns add
+// exact zeros to q . k, the padded accumulator columns are never stored,
+// and the scale is 1 / sqrt(DT) from the host, so the result is the
+// unpadded function. At DT = D the column tests fold away at compile time.
+//
 // What bounds it on an H100: 4 B H D FLOP per unmasked (query, key) pair
 // over the 67 TFLOP/s of f32 on the CUDA cores, against Q, K, V and O read
 // or written once. It reads every operand from shared memory, so it lands
@@ -109,9 +117,10 @@ struct Layout {
   }
 };
 
-// Stage rows [row0, row0 + 64) of one head of a (B, S, NH, D) tensor as f32
-// at `dst` (row stride `stride`), zero-filling rows at or past S.
-template <typename T, int D>
+// Stage rows [row0, row0 + 64) of one head of a (B, S, NH, DT) tensor as
+// f32 at `dst` (row stride `stride`) in the layout of head dim D >= DT,
+// zero-filling rows at or past S and columns at or past DT.
+template <typename T, int D, int DT>
 __device__ __forceinline__ void stage_tile(float* dst, int stride,
                                            const T* __restrict__ src, int b,
                                            int S, int NH, int head, int row0) {
@@ -121,20 +130,21 @@ __device__ __forceinline__ void stage_tile(float* dst, int stride,
     const int d = idx % D;
     const int row = row0 + r;
     float x = 0.0f;
-    if (row < S) {
-      x = to_float(src[((static_cast<size_t>(b) * S + row) * NH + head) * D + d]);
+    if (row < S && (DT == D || d < DT)) {
+      x = to_float(src[((static_cast<size_t>(b) * S + row) * NH + head) * DT + d]);
     }
     dst[r * stride + d] = x;
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DT>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int H,
                        int KV, int Sq, int Sk, float scale, int causal,
                        int window, float softcap, int q_offset) {
   using Lay = Layout<D>;
+  static_assert(DT <= D, "true head dim within the layout");
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);  // kBQ x kQS
   float* k_s = q_s + kBQ * Lay::kQS;             // kBK x kQS
@@ -157,7 +167,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int kt_begin = 0;
   if (window > 0 && qmin - window + 1 > 0) kt_begin = (qmin - window + 1) / kBK;
 
-  stage_tile<T, D>(q_s, Lay::kQS, q, b, Sq, H, h, q0);
+  stage_tile<T, D, DT>(q_s, Lay::kQS, q, b, Sq, H, h, q0);
 
   float m[4], l[4], acc[4][Lay::kDC];
 #pragma unroll
@@ -171,8 +181,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's readers of k_s, v_s, p_s are done
-    stage_tile<T, D>(k_s, Lay::kQS, k, b, Sk, KV, kvh, k0);
-    stage_tile<T, D>(v_s, D, v, b, Sk, KV, kvh, k0);
+    stage_tile<T, D, DT>(k_s, Lay::kQS, k, b, Sk, KV, kvh, k0);
+    stage_tile<T, D, DT>(v_s, D, v, b, Sk, KV, kvh, k0);
     __syncthreads();
 
     // s[i][j] = q[4ty + i] . k[tx + 16j]
@@ -280,24 +290,29 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + 4 * ty + i;
     if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-37f);
-    T* o = out + ((static_cast<size_t>(b) * Sq + row) * H + h) * D;
+    T* o = out + ((static_cast<size_t>(b) * Sq + row) * H + h) * DT;
 #pragma unroll
-    for (int e = 0; e < Lay::kDC; ++e) o[Lay::col(tx, e)] = from_float<T>(acc[i][e] / denom);
+    for (int e = 0; e < Lay::kDC; ++e) {
+      const int c = Lay::col(tx, e);
+      if (DT == D || c < DT) o[c] = from_float<T>(acc[i][e] / denom);
+    }
   }
 }
 
-template <typename T, int D>
+// The kernel of layout head dim D on tensors of true head dim DT <= D.
+template <typename T, int D, int DT = D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int H, int KV, int Sq, int Sk, float scale,
                    int causal, int window, float softcap, int q_offset,
                    cudaStream_t stream) {
   constexpr size_t smem = Layout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_attention_kernel<T, D, DT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel<T, D, DT><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), H, KV, Sq, Sk, scale,
       causal, window, softcap, q_offset);
@@ -314,6 +329,10 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out,
       return launch<T, 16>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     case 64:
       return launch<T, 64>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
+    case 96:
+      return launch<T, 128, 96>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
+    case 112:
+      return launch<T, 128, 112>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     case 128:
       return launch<T, 128>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     case 256:
@@ -328,7 +347,8 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // q (B, Sq, H, D), k and v (B, Sk, KV, D), out (B, Sq, H, D), all
-// contiguous float32 (bfloat16 takes flash_attention_wgmma.cu). Launches
+// contiguous float32 (bfloat16 takes flash_attention_wgmma.cu), D in {16,
+// 64, 96, 112, 128, 256} (96 and 112 on the 128 layout). Launches
 // on `stream`; returns cudaGetLastError() of the launch (0 on success).
 // Does not synchronise and allocates nothing.
 int flash_attention_fwd(const void* q, const void* k, const void* v,

@@ -65,6 +65,17 @@
 // barriers and up to 1 KB to align the ring to the swizzle's 1024 bytes:
 // 197,696 bytes at D = 256.
 //
+// Head dims 96 and 112 (phi3-mini, zamba2-7b) run the D = 128 layout, padded
+// inside the kernel, with the true head dim DT as a second template
+// parameter: the TMA maps declare DT as the inner extent, with true-DT
+// strides (192 and 224 bytes, multiples of 16), so the second 64-column box
+// reads columns DT..127 as zeros (out-of-bounds fill), and the epilogue
+// stores only the columns below DT. Zero q and k columns add nothing to
+// q . k, the padded v columns land in accumulator columns that are never
+// stored, and the scale is 1 / sqrt(DT) from the host: the result is the
+// unpadded function, at 14% (112) or 33% (96) more MMA work and no copy on
+// the host. At DT = D the instantiation is the unpadded kernel.
+//
 // Plain C interface, loaded with ctypes. The TMA descriptors are encoded on
 // the host with cuTensorMapEncodeTiled, reached through the runtime's
 // driver entry point, so the library does not link libcuda.
@@ -90,7 +101,7 @@ template <int D>
 struct Cfg {
   static constexpr int kE = D < 64 ? D : 64;  // bf16 in one swizzled row
   static constexpr int kSW = 2 * kE;          // its bytes: 128 or 32
-  static_assert(kSW == 128 || kSW == 32, "head dim 16, 64, 128 or 256");
+  static_assert(kSW == 128 || kSW == 32, "layout head dim 16, 64, 128 or 256");
   static constexpr int kChunks = D / kE;      // swizzled column blocks
   static constexpr int kKSteps = D / 16;      // k16 steps of Q.K^T
   static constexpr int kStepsPerChunk = kE / 16;
@@ -305,7 +316,7 @@ __device__ __forceinline__ void tile_range(int qmin, int qmax, int Sk,
   if (window > 0 && qmin - window + 1 > 0) begin = (qmin - window + 1) / kBK;
 }
 
-template <int D>
+template <int D, int DT>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -314,6 +325,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    int Sq, int Sk, float scale, int causal, int window,
                    float softcap, int q_offset) {
   using C = Cfg<D>;
+  static_assert(DT <= D && DT % 8 == 0, "true head dim within the layout");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + kAlign - 1) & ~(kAlign - 1);
@@ -509,16 +521,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (lane == 0) mbar_arrive(empty + 8 * stage);
     }
 
-    // out = acc / max(l, 1e-37), rounded once to bf16
+    // out = acc / max(l, 1e-37), rounded once to bf16; the columns below
+    // DT (the true head dim, a multiple of 8) only
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = my_row + 8 * i;
       if (!active || row >= Sq) continue;
       const float denom = fmaxf(l[i], 1e-37f);
       __nv_bfloat16* dst =
-          out + ((static_cast<size_t>(b) * Sq + row) * H + h) * D + 2 * qd;
+          out + ((static_cast<size_t>(b) * Sq + row) * H + h) * DT + 2 * qd;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DT / 8; ++j) {
         *reinterpret_cast<uint32_t*>(dst + 8 * j) =
             pack_bf16(o[4 * j + 2 * i] / denom, o[4 * j + 2 * i + 1] / denom);
       }
@@ -556,6 +569,8 @@ EncodeTiled encode_fn() {
 
 // A TMA descriptor for one (B, S, NH, D) bf16 tensor: boxes of `rows` rows
 // of one head and E columns, swizzled as the wgmma descriptors read them.
+// D is the tensor's true head dim: at 96 and 112 the last box of a row runs
+// past it, and TMA fills those columns with zeros.
 cudaError_t encode(CUtensorMap* map, const void* ptr, int B, int S, int NH,
                    int D, int rows) {
   EncodeTiled fn = encode_fn();
@@ -579,26 +594,28 @@ cudaError_t encode(CUtensorMap* map, const void* ptr, int B, int S, int NH,
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
+// The kernel of layout head dim D on tensors of true head dim DT (DT <= D;
+// DT < D zero-pads the columns DT..D-1 inside the kernel).
+template <int D, int DT = D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int H, int KV, int Sq, int Sk, float scale,
                    int causal, int window, float softcap, int q_offset,
                    cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
-  cudaError_t err = encode(&tm_q, q, B, Sq, H, D, kBQ);
-  if (err == cudaSuccess) err = encode(&tm_k, k, B, Sk, KV, D, kBK);
-  if (err == cudaSuccess) err = encode(&tm_v, v, B, Sk, KV, D, kBK);
+  cudaError_t err = encode(&tm_q, q, B, Sq, H, DT, kBQ);
+  if (err == cudaSuccess) err = encode(&tm_k, k, B, Sk, KV, DT, kBK);
+  if (err == cudaSuccess) err = encode(&tm_v, v, B, Sk, KV, DT, kBK);
   if (err != cudaSuccess) return err;
   constexpr uint32_t smem = Cfg<D>::kBytes;
-  err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+  err = cudaFuncSetAttribute(flash_wgmma_kernel<D, DT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long blocks =
       static_cast<long long>((Sq + kBQ - 1) / kBQ) * H * B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  flash_wgmma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem,
-                          stream>>>(
+  flash_wgmma_kernel<D, DT><<<static_cast<unsigned>(blocks), kThreads, smem,
+                              stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), B, H, KV, Sq, Sk,
       scale, causal, window, softcap, q_offset);
   return cudaGetLastError();
@@ -609,7 +626,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // q (B, Sq, H, D), k and v (B, Sk, KV, D), out (B, Sq, H, D), all
-// contiguous bf16 with 16-byte aligned data, D in {16, 64, 128, 256}.
+// contiguous bf16 with 16-byte aligned data, D in {16, 64, 96, 112, 128,
+// 256} (96 and 112 on the 128 layout).
 // Launches on `stream`; returns cudaGetLastError() of the launch (0 on
 // success), or the error of encoding a TMA descriptor. Does not synchronise
 // and allocates nothing.
@@ -627,6 +645,10 @@ int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v,
       return launch<16>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     case 64:
       return launch<64>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
+    case 96:
+      return launch<128, 96>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
+    case 112:
+      return launch<128, 112>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     case 128:
       return launch<128>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     case 256:

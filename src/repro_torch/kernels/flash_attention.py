@@ -15,8 +15,11 @@ Both replace the TPU kernel
 ``repro.kernels.flash_attention.flash_attention_pallas``; their sources say
 what they compute, what bounds them and how they are laid out. They take
 the models' layout, q (B, Sq, H, D) and k/v (B, Sk, KV, D), contiguous, D
-in ``HEAD_DIMS``. This module builds them with ``kernels.build`` at first
-use, checks arguments and launches on PyTorch's current stream. A kernel
+in ``HEAD_DIMS``. Head dims 96 and 112 run the 128 layout with the columns
+past D zero-filled inside the kernel (``layout_head_dim``): no copy is made
+on the host, and the result is the unpadded function. This module builds
+them with ``kernels.build`` at first use, checks arguments and launches on
+PyTorch's current stream. A kernel
 that fails to build or launch raises: there is no fallback from one route
 to the other.
 
@@ -37,7 +40,7 @@ from repro_torch.kernels.build import SHARED_MEMORY_BUDGET
 
 __all__ = ["SOURCE", "WGMMA_SOURCE", "SOURCES", "ROUTES", "BLOCK_Q",
            "BLOCK_K", "WGMMA_BLOCK_Q", "STAGES", "HEAD_DIMS", "DTYPES",
-           "route", "shared_memory_bytes", "check_args",
+           "route", "layout_head_dim", "shared_memory_bytes", "check_args",
            "flash_attention_cuda"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -51,7 +54,11 @@ PAD = 4  # kPad
 WGMMA_BLOCK_Q = 128  # kBQ in flash_attention_wgmma.cu: two warpgroups
 STAGES = 2  # kStages: the K/V ring
 _WGMMA_EXTRA = 64 + 1024  # barriers, and slack to align the ring to 1 KB
-HEAD_DIMS = (16, 64, 128, 256)  # the instantiations in both sources
+# head dim -> the layout its instantiation runs (``launch<..., layout, D>``
+# in both sources' switch): 96 and 112 (phi3-mini, zamba2-7b) run the 128
+# layout, whose columns past D the kernels fill with zeros and never store
+_LAYOUT = {16: 16, 64: 64, 96: 128, 112: 128, 128: 128, 256: 256}
+HEAD_DIMS = tuple(_LAYOUT)
 DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2 ** 31 - 1
 
@@ -70,11 +77,19 @@ def route(dtype, D: int) -> str:
                      f"{sorted(map(str, DTYPES))}")
 
 
+def layout_head_dim(D: int) -> int:
+    """The head dim of the layout a call with head dim D runs: 128 for 96
+    and 112, D itself otherwise (also for a D that no kernel takes, whose
+    layout ``shared_memory_bytes`` still sizes)."""
+    return _LAYOUT.get(D, D)
+
+
 def shared_memory_bytes(D: int, route: str) -> int:
-    """Dynamic shared memory of one block. cuda-core: f32 Q and K tiles
-    (rows padded by 4), the V tile and the P tile. wgmma: bf16 Q for 128
-    rows and a ring of K and V stages, with the barriers and the alignment
-    slack."""
+    """Dynamic shared memory of one block, in the layout of
+    ``layout_head_dim(D)``. cuda-core: f32 Q and K tiles (rows padded by
+    4), the V tile and the P tile. wgmma: bf16 Q for 128 rows and a ring of
+    K and V stages, with the barriers and the alignment slack."""
+    D = layout_head_dim(D)
     if route == "cuda-core":
         return 4 * (BLOCK_Q * (D + PAD) + BLOCK_K * (D + PAD) + BLOCK_K * D
                     + BLOCK_Q * (BLOCK_K + PAD))

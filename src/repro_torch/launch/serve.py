@@ -2,16 +2,18 @@
 
 Counterpart of ``repro.launch.serve``. ``serve`` answers a batch of
 requests: it prefills the prompts (one kernel launch per layer: flash
-attention for the dense family, the SSD scan for the SSM family), builds
-the decode cache, and decodes greedily one token at a time. The dense
-family copies the prefill keys and values into a cache sized for the
-whole generation. The SSM family's prefill builds no decode state, as in
-the reference, whose serving CLI feeds the prompt token by token through
-decode: ``warm_up`` does the same. The CLI serves a batch of random
-prompts through it:
+attention for the dense family, the SSD scan for the SSM family; the
+hybrid family launches the SSD scan in every layer and flash attention at
+every site of its shared block), builds the decode cache, and decodes
+greedily one token at a time. The dense family copies the prefill keys and
+values into a cache sized for the whole generation. The SSM and hybrid
+families' prefill builds no decode state, as in the reference, whose
+serving CLI feeds the prompt token by token through decode: ``warm_up``
+does the same. The CLI serves a batch of random prompts through it:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b --reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
 
 (on the CUDA device; ``--device cpu`` runs it on the CPU). ``--no-reduced``
 serves the full-size configuration.
@@ -41,8 +43,9 @@ def make_serve_steps(model: Model, force: str = "auto"):
 
 def warm_up(model: Model, params, prompts, cache):
     """Feed prompts (B, P) through decode, positions 0 ... P-1, into
-    `cache` (updated in place): the SSM family's decode state after the
-    prompt. Returns (logits (B, Vp) f32 of the last position, cache)."""
+    `cache` (updated in place): the SSM and hybrid families' decode state
+    after the prompt. Returns (logits (B, Vp) f32 of the last position,
+    cache)."""
     B, P = prompts.shape
     for i in range(P):
         pos = torch.full((B,), i, dtype=torch.long, device=prompts.device)
@@ -58,10 +61,13 @@ def serve(model: Model, params, prompts, gen_len: int, force: str = "auto"):
     The first token comes from the prefill logits, each further one from a
     decode step, so there are gen_len - 1 decode steps over a cache of
     P + gen_len positions; gen_len = 1 is the prefill alone (the time to
-    the first token). For the SSM family the cache is built by
-    ``warm_up`` (P decode steps) when gen_len > 1. `force` goes to the
-    layers' kernel wrapper in prefill. Nothing here synchronises with the
-    host.
+    the first token). For the SSM and hybrid families the cache is built
+    by ``warm_up`` (P decode steps) when gen_len > 1; past 2 x the
+    hybrid family's window (P + gen_len positions) its attention cache is a
+    ring of the window's slots, and decode sees the last `window` positions
+    only, while the prefill that gives the first token attends to all of
+    them, as the reference's serving steps do. `force` goes to the layers'
+    kernel wrapper in prefill. Nothing here synchronises with the host.
     """
     if gen_len < 1:
         raise ValueError(f"gen_len must be >= 1, got {gen_len}")

@@ -11,6 +11,12 @@ and is not ported yet.
 
 Unlike the reference, decode writes the new key and value into the cache
 in place (``_write_cache``), so one copy of the cache lives on the device.
+Decode also masks a cache slot by the position it holds, not by its index:
+a ring of S slots (the hybrid family's long-context cache) holds position
+pos - ((pos - slot) mod S) in slot `slot`. The reference compares pos with
+the slot index (``repro.models.attention.decode_attn_heads``), which masks
+out the newest keys of a ring once pos >= S; the two agree on a
+full-length cache, where slot and position are one.
 """
 from __future__ import annotations
 
@@ -90,11 +96,27 @@ def attn_forward(p, h, cfg: ArchConfig, positions, *, window: int = 0,
     return _out_proj(out, p["wo"]), (k, v)
 
 
+def decode_mask(pos, S: int, window: int = 0):
+    """(B, S) bool: the slots of an S-slot decode cache that the query at
+    `pos` (B,) sees. Slot `slot` holds position pos - ((pos - slot) mod S)
+    (negative: not written yet; pos itself sits in slot pos % S, so every
+    held position is <= pos); a key is seen when that position is written
+    and, with a `window`, within it."""
+    slot = torch.arange(S, device=pos.device)
+    kpos = pos[:, None] - (pos[:, None] - slot[None, :]) % S  # (B,S)
+    mask = kpos >= 0
+    if window > 0:
+        mask = mask & (pos[:, None] - kpos < window)
+    return mask
+
+
 def decode_attn_heads(p, h, cfg: ArchConfig, cache_k, cache_v, pos,
-                      window: int = 0):
+                      window: int = 0, mask=None):
     """'heads' decode: h (B,1,d); cache (B,S,KV,hd), written in place at
     ``pos[0] % S``; pos (B,) on the device (read there, never on the host).
-    Returns the attention output (B,1,d) and the (updated) cache."""
+    The keys seen are ``mask`` (B,S), by default ``decode_mask(pos, S,
+    window)``: a decode step builds it once for all its layers. Returns
+    the attention output (B,1,d) and the (updated) cache."""
     q, k_new, v_new = qkv(p, h, cfg, pos[:, None])
     _write_cache(cache_k, k_new, pos)
     _write_cache(cache_v, v_new, pos)
@@ -108,10 +130,8 @@ def decode_attn_heads(p, h, cfg: ArchConfig, cache_k, cache_v, pos,
     s = s.reshape(B, H, 1, S) / math.sqrt(hd)
     if cfg.attn_logit_softcap:
         s = cfg.attn_logit_softcap * torch.tanh(s / cfg.attn_logit_softcap)
-    kpos = torch.arange(S, device=pos.device)
-    mask = kpos[None, :] <= pos[:, None]  # (B,S)
-    if window > 0:
-        mask = mask & (pos[:, None] - kpos[None, :] < window)
+    if mask is None:
+        mask = decode_mask(pos, S, window)
     s = torch.where(mask[:, None, None], s, -1e30)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bjgs,bsjk->bjgk", w.view(B, KV, group, S),

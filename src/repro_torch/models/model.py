@@ -36,10 +36,15 @@ class Model(nn.Module):
                                        dtype or self.param_dtype))
 
     def _fixup(self, params):
-        """Zero the padded q-head wo rows (exact head padding)."""
+        """Zero the padded q-head wo rows (exact head padding): the stacked
+        layers' attention, or the hybrid family's shared block's."""
         cfg = self.cfg
         if cfg.family == "ssm" or attention.padded_heads(cfg) == cfg.num_heads:
             return params
+        if cfg.family == "hybrid":
+            shared = params["shared"]
+            return dict(params, shared=dict(
+                shared, attn=attention.zero_padded_wo(cfg, shared["attn"])))
         layers = dict(params["layers"])
         layers["attn"] = attention.zero_padded_wo(cfg, layers["attn"])
         return dict(params, layers=layers)
@@ -50,17 +55,22 @@ class Model(nn.Module):
     # -- entry points ----------------------------------------------------
     def prefill(self, params, batch, force: str = "auto"):
         """batch {'tokens': (B,S)} -> (last-position logits (B,Vp) f32,
-        cache {'k', 'v': (L,B,S,KV,hd)}, or None for the SSM family, whose
-        prefill builds no decode state, as in the reference)."""
+        cache {'k', 'v': (L,B,S,KV,hd)}, or None for the SSM and hybrid
+        families, whose prefill builds no decode state, as in the
+        reference). The hybrid family's shared attention is not windowed
+        here, as in the reference's prefill."""
         logits, cache = transformer.forward(
             params, batch["tokens"], self.cfg,
-            collect_cache=self.cfg.family != "ssm", last_only=True,
-            force=force)
+            collect_cache=self.cfg.family not in ("ssm", "hybrid"),
+            last_only=True, force=force)
         return logits[:, -1], cache
 
     def decode(self, params, cache, tokens, pos):
         """tokens (B,1), pos (B,) -> (logits (B,Vp) f32, cache). The cache
-        is updated in place."""
+        is updated in place. The hybrid family's cache decides its window:
+        a ring of the window's slots (``cache_template`` past 2 x the
+        window) sees the last `window` positions, a full-length cache all
+        of them."""
         return transformer.decode_step(params, cache, tokens, pos, self.cfg)
 
     # -- caches ----------------------------------------------------------
@@ -69,13 +79,25 @@ class Model(nn.Module):
         """A zeroed KV cache {'k', 'v': (L,B,seq,KV,hd)} on the model's
         device, in `dtype` (default: the parameter dtype). For the SSM
         family {'state': (L,B,nh,hd,N), 'conv': (L,B,k-1,C)}, f32 whatever
-        `dtype`, and independent of `seq`."""
+        `dtype`, and independent of `seq`. For the hybrid family that SSM
+        cache and {'ak', 'av': (sites,B,s_attn,KV,hd)} in `dtype`, where
+        s_attn is the reference's rule: `seq`, or, for long-context serving
+        (`seq` > 2 x the window), a ring of ``cfg.sliding_window`` slots,
+        over which decode sees the last `window` positions."""
         cfg = self.cfg
-        if cfg.family == "ssm":
-            return ssm.ssm_cache_template(cfg, batch, self.device,
-                                          layers=(cfg.num_layers,))
-        shape = (cfg.num_layers, batch, seq, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
         dt = dtype or self.param_dtype
+        kv = (batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+        if cfg.family in ("ssm", "hybrid"):
+            out = ssm.ssm_cache_template(cfg, batch, self.device,
+                                         layers=(cfg.num_layers,))
+            if cfg.family == "hybrid":
+                window = cfg.sliding_window
+                s_attn = min(seq, window) if seq > 2 * window else seq
+                shape = (transformer.n_attn_sites(cfg), batch, s_attn) \
+                    + kv[2:]
+                out["ak"] = torch.zeros(shape, dtype=dt, device=self.device)
+                out["av"] = torch.zeros(shape, dtype=dt, device=self.device)
+            return out
+        shape = (cfg.num_layers,) + kv
         return {"k": torch.zeros(shape, dtype=dt, device=self.device),
                 "v": torch.zeros(shape, dtype=dt, device=self.device)}

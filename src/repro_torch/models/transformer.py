@@ -1,13 +1,19 @@
-"""Model assembly for the dense transformer and SSM families: templates,
-the prefill forward (cache construction) and decode (cache consumption).
+"""Model assembly for the dense transformer, SSM and hybrid families:
+templates, the prefill forward (cache construction) and decode (cache
+consumption).
 
 Counterpart of ``repro.models.transformer``. The reference scans over a
 stacked ``(L, ...)`` parameter tree; here a Python loop over layers indexes
 the stacked parameters as views. gemma2's local/global alternation is a
 per-layer window: even layers see ``cfg.sliding_window`` keys, odd layers
 all of them. An SSM layer is a pre-normed Mamba-2 block with a residual.
-Rematerialisation is a training matter and is left out. The MoE and hybrid
-families are not ported yet (ROADMAP A).
+The hybrid family (zamba2) is the SSM stack with one shared attention + MLP
+block (``params['shared']``, no post-norms) applied after SSM layer i
+wherever (i + 1) % ``cfg.attn_every`` == 0; its window is
+``cfg.sliding_window`` under ``long_context`` only (or, in decode, a ring
+cache of the window's slots), and decode keeps one KV cache per
+application site. Rematerialisation is a training matter and is
+left out. The MoE family is not ported yet (ROADMAP A).
 """
 from __future__ import annotations
 
@@ -23,10 +29,6 @@ from repro_torch.models.params import ParamSpec, tree_map_specs
 
 def check_family(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port does not run."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid family is not ported yet (ROADMAP A: "
-            "hybrid family)")
     if cfg.num_experts:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers are not ported yet (ROADMAP A: MoE "
@@ -43,7 +45,7 @@ def _norm(d):
 def layer_template(cfg: ArchConfig) -> dict:
     check_family(cfg)
     d = cfg.d_model
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         return {"ln": _norm(d), "ssm": ssm.ssm_template(cfg)}
     t = {"ln1": _norm(d), "attn": attention.attn_template(cfg),
          "ln2": _norm(d), "mlp": mlp.mlp_template(d, cfg.d_ff)}
@@ -62,7 +64,25 @@ def model_template(cfg: ArchConfig) -> dict:
     t["layers"] = tree_map_specs(
         lambda s: ParamSpec((L,) + s.shape, ("layers",) + s.axes, s.init,
                             s.scale), layer_template(cfg))
+    if cfg.family == "hybrid":
+        t["shared"] = shared_block_template(cfg)
     return t
+
+
+def shared_block_template(cfg: ArchConfig) -> dict:
+    """The hybrid family's one attention + MLP block, shared by every site."""
+    d = cfg.d_model
+    return {"ln1": _norm(d), "attn": attention.attn_template(cfg),
+            "ln2": _norm(d), "mlp": mlp.mlp_template(d, cfg.d_ff)}
+
+
+def n_attn_sites(cfg: ArchConfig) -> int:
+    return cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+
+
+def is_attn_site(cfg: ArchConfig, i: int) -> bool:
+    """Whether the hybrid family's shared block follows SSM layer `i`."""
+    return (i + 1) % cfg.attn_every == 0
 
 
 def layer_params(layers: dict, i: int) -> dict:
@@ -117,26 +137,32 @@ def _ssm_block(lp, h, cfg: ArchConfig, force: str):
 # Prefill forward
 # ---------------------------------------------------------------------------
 def forward(params, tokens, cfg: ArchConfig, *, collect_cache: bool = False,
-            last_only: bool = False, force: str = "auto"):
+            last_only: bool = False, force: str = "auto",
+            long_context: bool = False):
     """tokens (B,S) -> (logits (B,S,Vp) f32, cache or None).
 
     With `collect_cache`, cache is {'k', 'v': (L,B,S,KV,hd)} in the
-    activations' dtype, filled layer by layer; the SSM family builds no
-    cache here (None), as in the reference. With `last_only`, logits are
-    computed for the last position only: (B,1,Vp). `force` goes to the
-    layer's kernel wrapper (``kernels.ops.flash_attention`` or
-    ``kernels.ops.ssd_scan``).
+    activations' dtype, filled layer by layer; the SSM and hybrid families
+    build no cache here (None), as in the reference. With `last_only`,
+    logits are computed for the last position only: (B,1,Vp). `force` goes
+    to the layer's kernel wrapper (``kernels.ops.flash_attention`` or
+    ``kernels.ops.ssd_scan``). `long_context` gives the hybrid family's
+    shared attention its sliding window.
     """
     check_family(cfg)
     h = _embed(params, tokens, cfg)
-    if cfg.family == "ssm":
+    B, S = tokens.shape
+    positions = torch.arange(S, device=h.device).expand(B, S)
+    if cfg.family in ("ssm", "hybrid"):
+        window = cfg.sliding_window if long_context else 0
         for i in range(cfg.num_layers):
             h = _ssm_block(layer_params(params["layers"], i), h, cfg, force)
+            if cfg.family == "hybrid" and is_attn_site(cfg, i):
+                h, _ = _attn_block(params["shared"], h, cfg, positions,
+                                   window, force)
         if last_only:
             h = h[:, -1:]
         return _logits(params, h, cfg), None
-    B, S = tokens.shape
-    positions = torch.arange(S, device=h.device).expand(B, S)
     L = cfg.num_layers
     cache = None
     if collect_cache:
@@ -157,30 +183,53 @@ def forward(params, tokens, cfg: ArchConfig, *, collect_cache: bool = False,
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
-def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
+def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
+                long_context: bool = False):
     """tokens (B,1), pos (B,) -> (logits (B,Vp), cache).
 
     cache: {'k': (L,B,S,KV,hd), 'v': (L,B,S,KV,hd)}, updated in place at
     position ``pos[0] % S`` of every layer and returned; for the SSM family
     {'state': (L,B,nh,hd,N), 'conv': (L,B,k-1,C)}, updated in place (`pos`
-    is not read: the state holds the position).
+    is not read: the state holds the position); for the hybrid family the
+    SSM cache and {'ak', 'av': (sites,B,S,KV,hd)}, site s's keys and values
+    written in place at ``pos[0] % S``. `long_context` gives the hybrid
+    family's shared attention its sliding window, as the reference's flag
+    does; a ring cache of the window's slots (``Model.cache_template`` past
+    2 x the window) holds the last `window` positions only, so it windows
+    the attention whatever the flag. The attention mask is built once a
+    step (``attention.decode_mask``), not once a layer.
     """
     check_family(cfg)
     h = _embed(params, tokens, cfg)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
+        if cfg.family == "hybrid":
+            mask = attention.decode_mask(
+                pos, cache["ak"].shape[2],
+                cfg.sliding_window if long_context else 0)
+        site = 0
         for i in range(cfg.num_layers):
             lp = layer_params(params["layers"], i)
             y, _ = ssm.ssm_decode_step(
                 lp["ssm"], rms_norm(h, lp["ln"], cfg.norm_eps), cfg,
                 {"state": cache["state"][i], "conv": cache["conv"][i]})
             h = h + y
+            if cfg.family == "hybrid" and is_attn_site(cfg, i):
+                sp = params["shared"]
+                a, _ = attention.decode_attn_heads(
+                    sp["attn"], rms_norm(h, sp["ln1"], cfg.norm_eps), cfg,
+                    cache["ak"][site], cache["av"][site], pos, mask=mask)
+                h = _mlp_half(sp, h + a, cfg)
+                site += 1
         return _logits(params, h, cfg)[:, 0], cache
+    S = cache["k"].shape[2]
+    masks = {w: attention.decode_mask(pos, S, w)
+             for w in {layer_window(cfg, i) for i in range(cfg.num_layers)}}
     for i in range(cfg.num_layers):
         lp = layer_params(params["layers"], i)
         x = rms_norm(h, lp["ln1"], cfg.norm_eps)
         a, _ = attention.decode_attn_heads(lp["attn"], x, cfg, cache["k"][i],
                                            cache["v"][i], pos,
-                                           window=layer_window(cfg, i))
+                                           mask=masks[layer_window(cfg, i)])
         if "ln1post" in lp:
             a = rms_norm(a, lp["ln1post"], cfg.norm_eps)
         h = _mlp_half(lp, h + a, cfg)

@@ -22,6 +22,8 @@ kernels against the plain version there, bf16 also to the rounding rule of
 module imports jax only inside the tests that compare with the JAX
 package.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -33,7 +35,10 @@ from repro_torch.testing.tolerances import half_ulp_excess
 
 RTOL = ATOL = 2e-5
 F32_NOISE = 2.0 ** -18  # chip_smoke.py's bf16 rounding rule, over max|v|
-SHAPES = [(1, 4, 4, 128, 64), (2, 4, 2, 256, 64), (1, 8, 2, 128, 128)]
+# the reference's test shapes, then phi3-mini's head dim 96 and zamba2-7b's
+# 112 (H = KV, as zamba2's shared attention has it)
+SHAPES = [(1, 4, 4, 128, 64), (2, 4, 2, 256, 64), (1, 8, 2, 128, 128),
+          (1, 4, 2, 128, 96), (2, 4, 4, 128, 112)]
 OPTS = [dict(causal=True), dict(causal=True, window=64),
         dict(causal=True, softcap=30.0), dict(causal=False)]
 OPT_IDS = ["causal", "window64", "softcap30", "noncausal"]
@@ -277,6 +282,25 @@ def test_route_picks_wgmma_for_bf16_and_cuda_core_for_f32(D):
         set(kernel.ROUTES)
 
 
+@pytest.mark.parametrize("D", kernel.HEAD_DIMS)
+def test_the_sources_take_every_head_dim(D):
+    """Each source's switch launches D on the instantiation of the layout
+    ``layout_head_dim`` names, with D as its true head dim, and has no case
+    the table lacks; 96 and 112 run the 128 layout, with its shared
+    memory."""
+    L = kernel.layout_head_dim(D)
+    for src in kernel.SOURCES:
+        cases = {int(c): (int(lay), int(dt or lay)) for c, lay, dt in
+                 re.findall(r"case (\d+):\s*return launch<(?:T, )?(\d+)"
+                            r"(?:, (\d+))?>", src.read_text())}
+        assert sorted(cases) == sorted(kernel.HEAD_DIMS), src.name
+        assert cases[D] == (L, D), (src.name, D)
+    assert L == (128 if D in (96, 112) else D) and L in kernel.HEAD_DIMS
+    for route in kernel.ROUTES:
+        assert kernel.shared_memory_bytes(D, route) == \
+            kernel.shared_memory_bytes(L, route)
+
+
 def test_route_refuses_what_no_kernel_takes():
     with pytest.raises(ValueError, match="dtype"):
         kernel.route(torch.float64, 64)
@@ -343,7 +367,8 @@ def test_build_failure_raises(tmp_path, monkeypatch):
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_on_the_card():
     """Kernel vs plain version on the card, causal, window, softcap,
-    non-causal, unaligned S and a decode offset: every head dim in f32 (the
+    non-causal, unaligned S and a decode offset: every head dim (96 and 112
+    zero-padded to the 128 layout inside the kernels) in f32 (the
     cuda-core route; rtol = atol = 2e-5) and bf16 (the wgmma route; 1e-2,
     and the rounding rule of chip_smoke.py: each output within half a bf16
     ulp of the plain version on f32 copies plus 2^-18 max|v|, which P
@@ -357,7 +382,12 @@ def test_cuda_kernel_matches_plain_on_the_card():
              ((1, 4, 4, 130, 16), dict(causal=True, window=40)),
              ((1, 8, 2, 256, 128), dict(causal=True, softcap=30.0)),
              ((1, 16, 8, 300, 256), dict(causal=True, window=100,
-                                         softcap=50.0))]
+                                         softcap=50.0)),
+             ((2, 4, 4, 200, 112), dict(causal=True)),
+             ((1, 8, 2, 190, 112), dict(causal=True, window=70,
+                                        softcap=30.0)),
+             ((2, 4, 2, 200, 96), dict(causal=False)),
+             ((1, 4, 4, 170, 96), dict(causal=True, window=50))]
     for (B, H, KV, S, D), opts in cases:
         for dtype, tol in ((np.float32, 2e-5), (np.float32, None)):
             args = [torch.from_numpy(a).cuda()

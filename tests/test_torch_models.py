@@ -73,14 +73,15 @@ def _port_flat(template, fields, prefix=""):
 
 @pytest.mark.parametrize("arch,reduce",
                          [(ARCH, True), (ARCH, False),
-                          ("mamba2-130m", True), ("mamba2-130m", False)],
+                          ("mamba2-130m", True), ("mamba2-130m", False),
+                          ("zamba2-7b", True), ("zamba2-7b", False)],
                          ids=["reduced", "full", "mamba2-reduced",
-                              "mamba2-full"])
+                              "mamba2-full", "zamba2-reduced", "zamba2-full"])
 def test_template_matches_reference(arch, reduce):
     """Names, shapes, axes, initializers and count equal the reference's,
-    for the full gemma2-9b and mamba2-130m templates too (nothing is
-    initialised); mamba2's tree is {embed, final_norm, layers: {ln, ssm:
-    13 leaves}}."""
+    for the full gemma2-9b, mamba2-130m and zamba2-7b templates too
+    (nothing is initialised); mamba2's tree is {embed, final_norm, layers:
+    {ln, ssm: 13 leaves}}, zamba2's adds unembed and the shared block."""
     from repro.models import transformer as jax_transformer
     jcfg = jax_get_config(arch)
     cfg = get_config(arch)
@@ -98,6 +99,11 @@ def test_template_matches_reference(arch, reduce):
         assert sorted(pt) == ["embed", "final_norm", "layers"]
         assert sorted(pt["layers"]) == ["ln", "ssm"]
         assert len(pt["layers"]["ssm"]) == 13
+    if cfg.family == "hybrid":
+        assert sorted(pt) == ["embed", "final_norm", "layers", "shared",
+                              "unembed"]
+        assert sorted(pt["layers"]) == ["ln", "ssm"]
+        assert sorted(pt["shared"]) == ["attn", "ln1", "ln2", "mlp"]
 
 
 def test_full_gemma2_size():
@@ -346,12 +352,19 @@ def test_model_defaults_to_the_card():
                                     dict(num_experts=8, experts_per_token=2)],
                          ids=["ssm", "hybrid", "moe"])
 def test_unported_families_raise(change):
-    """Hybrid and MoE raise, naming ROADMAP. The ssm family is ported: its
-    case now builds reduced mamba2."""
+    """MoE raises, naming ROADMAP. The ssm and hybrid families are ported:
+    their cases now build reduced mamba2 and reduced zamba2."""
     if change is None:
         cfg = reduced_config(get_config("mamba2-130m"))
         model = Model(cfg, device="cpu")
         assert model.cfg.family == "ssm" and "ssm" in model.template["layers"]
+        return
+    if change.get("family") == "hybrid":
+        cfg = reduced_config(get_config("zamba2-7b"))
+        model = Model(cfg, device="cpu")
+        assert model.cfg.family == "hybrid"
+        assert "ssm" in model.template["layers"]
+        assert "attn" in model.template["shared"]
         return
     cfg = dataclasses.replace(reduced_config(get_config(ARCH)), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -359,8 +372,9 @@ def test_unported_families_raise(change):
 
 
 def test_registry_holds_the_ported_archs_only():
-    assert list_archs() == ["gemma2-9b", "mamba2-130m"]
+    assert list_archs() == ["gemma2-9b", "mamba2-130m", "zamba2-7b"]
     assert get_config("gemma2_9b") is get_config("gemma2-9b")
     assert get_config("mamba2_130m") is get_config("mamba2-130m")
+    assert get_config("zamba2_7b") is get_config("zamba2-7b")
     with pytest.raises(KeyError, match="gemma2-9b"):
         get_config("phi3-mini-3.8b")
