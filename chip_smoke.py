@@ -9,7 +9,8 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
    a CUDA device;
 2. builds the hand-written kernels (``sodda_inner``, ``flash_attention``
    and ``ssd_scan``, each of the last two in a wgmma source for bf16 and a
-   CUDA-core source for f32) from the sources in the checkout, one
+   CUDA-core source for f32, and the SSD scan's backward) from the sources
+   in the checkout, one
    ``nvcc`` per source, all at once, and prints the build time and the
    compiler's register report;
 3. holds ``sodda_inner`` against its plain PyTorch version on the card for
@@ -199,7 +200,31 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     call on 4 x 256 prompt tokens fed through decode and 32 generated
     (the same launches in its prefill, none in the warm-up or decode;
     prefill, warm-up and decode times, peak memory), and prints each
-    kernel's share of the 4 x 4096 prefill.
+    kernel's share of the 4 x 4096 prefill;
+21. holds the SSD scan's backward kernel (``ops.ssd_scan_bwd``) against
+    its plain gradient (autograd through the chunked scan in f32 at chunk
+    64) at mamba2-130m's training layer (8, 2048, 24, 64, 1, 128) in f32
+    and bf16 and at zamba2-7b's (2, 4096, 112, 64, 1, 64) in f32: every
+    leaf within 1e-5 of its max in f32, the rounding rule of 13 in bf16,
+    a control (each 64-step chunk differentiated alone: no dstate carried)
+    failing it on every leaf the state reaches; two launches bitwise; and
+    times it beside its bound and the plain version;
+22. trains mamba2-130m on the card, f32: (a) cut to 4 layers at full
+    width (2 x 1024 tokens), the kernel path's loss and every gradient
+    leaf within F32_REDUCTION of the plain path's, the carry-dropping
+    control outside, and remat='full' bitwise remat='none' with twice the
+    forward launches; (b) full size, 20 adamw steps of ``make_train_step``
+    on 8 x 2048 tokens from ``TokenPipeline(seed=0)`` (the training main
+    path, the launch counts set to 0 just before each run and read after
+    each step: 24 forward and 24 backward SSD launches a step, no flash),
+    twice, and one step at accum_steps=2 (48 + 48): ms a step, tokens/s,
+    peak memory, a falling loss, the two runs compared bitwise; (c) the
+    CLI's SODDA-SVRG loop for 20 steps (2 gradients a step, 3 at the
+    refresh); (d) the CLI (``python -m repro_torch.launch.train``) in a
+    fresh process, killed (SIGKILL) once it logs step 13, three steps past
+    its checkpoint at step 10, then a fresh process resuming from step 10
+    to 20: params and losses bitwise (b)'s; (e) a CUDA flash call
+    whose q requires grad raises.
 
 Exits non-zero if any phase fails. The last three lines of standard output
 are the card line, a JSON ``kernels`` record and a JSON ``ok`` record.
@@ -210,8 +235,10 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 import types
 import zlib
@@ -240,6 +267,9 @@ from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import sodda_inner as kernel_build  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_build  # noqa: E402
 from repro_torch.launch import serve as serve_module  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.data.tokens import TokenPipeline  # noqa: E402
+from repro_torch.launch import train as train_module  # noqa: E402
 from repro_torch.launch.serve import (make_serve_steps, serve,  # noqa: E402
                                       warm_up)
 from repro_torch.models import Model, transformer  # noqa: E402
@@ -2841,7 +2871,7 @@ def ssd_terms(x, dt, A, Bm, Cm, D, **splits):
                                             **splits)
     dx = D.float()[None, None, :, None] * f[0]
     y = y_intra + y_inter + dx
-    share = float(y_inter.norm() / y.norm())
+    share = float(y_inter.detach().norm() / y.detach().norm())
     return y, y_intra + dx, share
 
 
@@ -3460,6 +3490,447 @@ def phase_hybrid_serve():
     return dict(flash=flash_n, ssd=ssd_n, prefill_ms=1e3 * prefill_s)
 
 
+# ---------------------------------------------------------------------------
+# Training: the SSD scan's backward kernel, then mamba2-130m trained
+# on the card through make_train_step, the SODDA-SVRG loop and the CLI
+# ---------------------------------------------------------------------------
+# (label, (B, S, H, P, G, N), dtypes): mamba2-130m's training layer (8 x 2048
+# tokens a step) and zamba2-7b's (2 x 4096)
+SSD_BWD_CASES = (("mamba2 training layer", (8, 2048, 24, 64, 1, 128),
+                  (torch.float32, torch.bfloat16)),
+                 ("zamba2 layer", (2, 4096, 112, 64, 1, 64),
+                  (torch.float32,)))
+SSD_BWD_LEAVES = ("dx", "ddt", "dA", "dBm", "dCm", "dD")
+# f32: each gradient leaf within SSD_BWD_F32_TOL x its largest entry of the
+# plain gradient (autograd through the chunked scan in f32, at the
+# kernel's chunk of 64). The kernel sums the same terms in another order:
+# 64-term products inside a chunk, 32-64 chunks of carried state, and per
+# head partials of dB and dC summed over 24-112 heads; f32 sums of that
+# length move the last few bits, ~1e-6 of the largest entry, and 1e-5
+# leaves a margin of ~10. bf16: the rounding rule of the forward
+# (F32_NOISE), the dA and dD leaves (f32) at SSD_BWD_F32_TOL. The control
+# (each 64-step chunk differentiated alone: no state, so no dstate,
+# carried across a boundary) must fail it on every leaf but dD, which
+# is sum dy * x and does not see the state.
+SSD_BWD_F32_TOL = 1e-5
+SSD_BWD_CARRY_LEAVES = ("dx", "ddt", "dA", "dBm", "dCm")
+# phase_train: (a) the exactness cell, 4 layers at full width, f32; (b)-(d)
+# full-size mamba2-130m, f32 as the reference's CLI trains it, 8 x 2048
+# tokens a step from TokenPipeline(seed=0), the CLI's init (model.init(0))
+TRAIN_CUT_LAYERS, TRAIN_CUT_B, TRAIN_CUT_S = 4, 2, 1024
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 2048, 20, 3e-4
+# (d): the CLI checkpoints every TRAIN_CKPT_EVERY steps and is killed
+# (SIGKILL) once it logs step TRAIN_KILL_AT, three steps past a checkpoint
+TRAIN_CKPT_EVERY, TRAIN_KILL_AT = 10, 13
+# SODDA-SVRG's step is a plain gradient step on the variance-reduced
+# gradient: the CLI's 3e-4 moves this loss too little in 20 steps to see
+# (on the CPU at full width, 2 layers, 2 x 256 tokens: 1e-2 falls, 1e-3
+# barely), so the phase takes 1e-2.
+SODDA_LR = 1e-2
+
+
+def ssd_bwd_bound_ms(B, S, H, P, G, N, dtype, chunk=64):
+    """Least time for one backward call: x, dt, B, C, dy read once and dx,
+    ddt, dB, dC written once (A, D, dA, dD in f32) over the HBM rate, vs
+    its chunked work over the dtype's peak (the CUDA cores' f32 rate for
+    f32; bf16 inputs are computed in f32 but bounded at the bf16 tensor
+    rate, as the forward's are): per chunk of q steps C.B^T once per group
+    over j <= i (q(q+1)/2 N), and per head dy.x^T and W^T.dy (q(q+1)/2 P
+    each), dG.B and dG^T.C (q(q+1)/2 N each), the three state terms
+    dS.B, dy.S0 and x.dS and the two carries, state and dS (5 q N P),
+    2 FLOP each. The chunk is fixed at 64, as ``ssd_bound_ms``'s."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = item * (3 * B * S * H * P + 2 * B * S * H + 4 * B * S * G * N) \
+        + 4 * 4 * H
+    flops = 0
+    for c0 in range(0, S, chunk):
+        q = min(chunk, S - c0)
+        tri = q * (q + 1) // 2
+        flops += 2 * (B * G * tri * N
+                      + B * H * (tri * (2 * P + 2 * N) + 5 * q * N * P))
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def ssd_grads_alone(x, dt, A, Bm, Cm, D, dy, chunk=64):
+    """The control: the plain gradient (f32) with each chunk differentiated
+    alone, so no state and no dstate cross a chunk boundary."""
+    B, S = x.shape[:2]
+
+    def cut(t):
+        return t.float().reshape(B * S // chunk, chunk, *t.shape[2:])
+
+    grads = kref.ssd_chunked_grads(cut(x), cut(dt), A, cut(Bm), cut(Cm), D,
+                                   cut(dy), chunk=chunk)
+    return [g.reshape(B, S, *g.shape[2:]) if g.dim() > 1 else g
+            for g in grads]
+
+
+def leaf_paths(tree, prefix=()):
+    """The key path of every leaf of a nested dict, in sorted key order
+    (``tree_leaves``'s)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k],
+                                                             prefix + (k,))]
+    return [prefix]
+
+
+def rel_gap(a, b):
+    """max |a - b| over max |b|, in f32."""
+    return float((a.float() - b).abs().max() / b.abs().max())
+
+
+def phase_ssd_backward():
+    """The SSD scan's backward kernel against its plain gradient at
+    mamba2's training layer (f32 and bf16) and zamba2's (f32), its
+    carry-dropping control outside the rule, bitwise across two launches,
+    and its time beside its bound and the plain version's."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    max_err, times = 0.0, {}
+    for name, shape, dtypes in SSD_BWD_CASES:
+        x, dt, A, Bm, Cm, D = ssd_inputs(*shape, "mamba2", gen)
+        dy = torch.randn(x.shape, generator=gen, device="cuda")
+        for dtype in dtypes:
+            args = [t.to(dtype) for t in (x, dt)] + [A] \
+                + [t.to(dtype) for t in (Bm, Cm)] + [D, dy.to(dtype)]
+            # the oracle and the control on f32 copies of the inputs as
+            # the kernel reads them
+            f = [t.float() for t in args]
+            want = kref.ssd_chunked_grads(*f, chunk=ssd_build.CHUNK)
+            alone = ssd_grads_alone(*f)
+            tag = f"ssd backward {name} {shape} {dtype}"
+            before = ops.ssd_scan_bwd.launches
+            a = ops.ssd_scan_bwd(*args, force="cuda")
+            b = ops.ssd_scan_bwd(*args, force="cuda")
+            torch.cuda.synchronize()
+            check(ops.ssd_scan_bwd.launches == before + 2,
+                  f"{tag}: {ops.ssd_scan_bwd.launches - before} launches")
+            check(all(torch.equal(p, q) for p, q in zip(a, b)),
+                  f"{tag}: two launches differ")
+            check(all(bool(torch.isfinite(g).all()) for g in a),
+                  f"{tag}: non-finite gradients")
+            check([g.dtype for g in a] == [dtype, dtype, f32, dtype, dtype,
+                                           f32], f"{tag}: dtypes "
+                  f"{[g.dtype for g in a]}")
+            parts = []
+            for leaf, g, w, c in zip(SSD_BWD_LEAVES, a, want, alone):
+                err = rel_gap(g, w)
+                if dtype == f32:  # bf16's absolute gaps are its rounding
+                    max_err = max(max_err, float((g - w).abs().max()))
+                if g.dtype == f32:
+                    ctrl = rel_gap(c, w)
+                    check(err <= SSD_BWD_F32_TOL,
+                          f"{tag}: {leaf} {err:.3e} of its max off the "
+                          f"plain gradient (tol {SSD_BWD_F32_TOL})")
+                    limit = SSD_BWD_F32_TOL
+                else:
+                    ex = tol.half_ulp_excess(w, float(w.abs().max()),
+                                             kernel=g,
+                                             control=c.to(dtype))
+                    err, ctrl = ex["kernel"], ex["control"]
+                    check(err <= F32_NOISE, f"{tag}: {leaf} beyond half a "
+                          f"bf16 ulp by {err:.3e} of its max (limit "
+                          f"{F32_NOISE:.3e})")
+                    limit = F32_NOISE
+                if leaf in SSD_BWD_CARRY_LEAVES:
+                    check(ctrl > limit, f"{tag}: {leaf}: the carry-dropping "
+                          f"control passes ({ctrl:.3e} <= {limit:.3e})")
+                parts.append(f"{leaf} {err:.3e} (control {ctrl:.3e})")
+            rule = (f"of each leaf's max (limit {SSD_BWD_F32_TOL:.3e})"
+                    if dtype == f32 else
+                    f"excess over half a bf16 ulp / max (limit "
+                    f"{F32_NOISE:.3e}), dA and dD of their max (limit "
+                    f"{SSD_BWD_F32_TOL:.3e})")
+            log(f"{tag}: bitwise across launches; kernel vs plain {rule}: "
+                + ", ".join(parts))
+        for dtype in dtypes:
+            args = [t.to(dtype) for t in (x, dt)] + [A] \
+                + [t.to(dtype) for t in (Bm, Cm)] + [D, dy.to(dtype)]
+            ms = cuda_ms(lambda: ops.ssd_scan_bwd(*args, force="cuda"),
+                         reps=5, warmup=1)
+            plain_ms = cuda_ms(lambda: ops.ssd_scan_bwd(*args, force="ref"),
+                               reps=2, warmup=1)
+            bound_ms, bound_by = ssd_bwd_bound_ms(*shape, dtype)
+            times[name, dtype] = (ms, plain_ms, bound_ms, bound_by)
+            log(f"ssd backward {name} {shape} {dtype}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                f"({bound_by}), kernel/bound {ms / bound_ms:.1f}x")
+        del x, dt, A, Bm, Cm, D, dy, want, alone, a, b, args, f
+        torch.cuda.empty_cache()
+    ms, plain_ms, bound_ms, bound_by = times["mamba2 training layer", f32]
+    shapes = {}
+    for (name, dtype), (t, p, bd, by) in times.items():
+        if (name, dtype) != ("mamba2 training layer", f32):
+            shapes[f"{name} {str(dtype).replace('torch.', '')}"] = dict(
+                ms=t, plain_ms=p, bound_ms=bd, bound_by=by, library_ms=None)
+    return dict(name="ssd_scan_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                replaces="none: port only; the reference differentiates its "
+                         "plain jnp scan, src/repro/models/ssm.py:49",
+                launches=None, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                shape=list(SSD_BWD_CASES[0][1]), shapes=shapes)
+
+
+def train_counts():
+    """(ssd forward, ssd backward, flash) launch counts, now."""
+    return (ops.ssd_scan.launches, ops.ssd_scan_bwd.launches,
+            ops.flash_attention.launches)
+
+
+def zero_train_counts():
+    zero_counts()
+    ops.ssd_scan_bwd.launches = 0
+
+
+def train_steps(model, steps, accum=1):
+    """`steps` steps of make_train_step (adamw, TRAIN_LR) from the CLI's
+    init on TokenPipeline(seed=0) at TRAIN_B x TRAIN_S, the launch counts
+    set to 0 just before: (params, losses, ms of each step, launches of
+    each step, peak device memory)."""
+    step_fn, opt = train_module.make_train_step(
+        model, ShapeConfig("chip", "train", TRAIN_S, TRAIN_B),
+        train_module.TrainSettings(optimizer="adamw", lr=TRAIN_LR,
+                                   accum_steps=accum))
+    params = model.init(0)
+    opt_state = opt.init(params)
+    pipe = TokenPipeline(seed=0, batch=TRAIN_B, seq_len=TRAIN_S,
+                         vocab_size=model.cfg.vocab_size)
+    losses, ms, launches = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_counts()  # the training path starts here
+    for step in range(steps):
+        before = train_counts()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, pipe.next(),
+                                             step)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        launches.append(tuple(n - m for n, m in zip(train_counts(), before)))
+    return params, losses, ms, launches, torch.cuda.max_memory_allocated()
+
+
+def phase_train():
+    """Training on the card: (a) the 4-layer exactness cell against the
+    plain path, remat bitwise; (b) 20 adamw steps of full-size mamba2-130m
+    through make_train_step, twice (the second run bitwise the first), and
+    one step with accum_steps=2; (c) the CLI's SODDA-SVRG loop; (d) the
+    CLI killed after its checkpoint at step 10 and resumed in a fresh
+    process, against (b); (e) flash refuses a gradient."""
+    f32 = torch.float32
+    # (a) exactness: the kernel path's loss and gradients against the plain
+    # path's, the carry-dropping control outside; remat bitwise
+    cfg = dataclasses.replace(MAMBA2_130M, num_layers=TRAIN_CUT_LAYERS)
+    L = cfg.num_layers
+    model = Model(cfg, param_dtype=f32)
+    params = ssm_params(model, SEED)
+    batch = TokenPipeline(seed=1, batch=TRAIN_CUT_B, seq_len=TRAIN_CUT_S,
+                          vocab_size=cfg.vocab_size).next()
+    c0 = train_counts()
+    loss_k, _, g_k = train_module.loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    c1 = train_counts()
+    check((c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2]) == (L, L, 0),
+          f"train (a): launches {[b - a for a, b in zip(c0, c1)]}, expected "
+          f"{L} forward and {L} backward ssd, 0 flash")
+    loss_r, _, g_r = train_module.loss_and_grads(model, params, batch,
+                                                 force="ref")
+    with ssd_as(ssd_carry_dropped):
+        loss_c, _, g_c = train_module.loss_and_grads(model, params, batch,
+                                                     force="ref")
+    names = [".".join(p) for p in leaf_paths(g_r)]
+    gaps = {n: rel_gap(k, r) for n, k, r in
+            zip(names, tree_leaves(g_k), tree_leaves(g_r))}
+    ctrl = {n: rel_gap(c, r) for n, c, r in
+            zip(names, tree_leaves(g_c), tree_leaves(g_r))}
+    worst = max(gaps, key=gaps.get)
+    log(f"train (a) mamba2-130m f32, {L} layers at full width, "
+        f"{TRAIN_CUT_B} x {TRAIN_CUT_S} tokens: loss kernel "
+        f"{float(loss_k):.6f}"
+        f" plain {float(loss_r):.6f} control {float(loss_c):.6f}; every "
+        f"gradient leaf within {max(gaps.values()):.3e} of its max ({worst}; "
+        f"tol {tol.F32_REDUCTION.w_rel}); the carry-dropping control "
+        f"{max(ctrl.values()):.3e} ({max(ctrl, key=ctrl.get)})")
+    check(abs(float(loss_k) - float(loss_r))
+          <= tol.F32_REDUCTION.obj_rel * abs(float(loss_r)),
+          f"train (a): loss {float(loss_k)} vs plain {float(loss_r)}")
+    check(max(gaps.values()) <= tol.F32_REDUCTION.w_rel,
+          f"train (a): gradient gaps {gaps}")
+    check(max(ctrl.values()) > tol.F32_REDUCTION.w_rel,
+          f"train (a): the carry-dropping control passes ({ctrl})")
+    remat = Model(cfg, param_dtype=f32, remat="full")
+    c0 = train_counts()
+    loss_m, _, g_m = train_module.loss_and_grads(remat, params, batch)
+    torch.cuda.synchronize()
+    c1 = train_counts()
+    check((c1[0] - c0[0], c1[1] - c0[1]) == (2 * L, L),
+          f"train (a) remat: launches {[b - a for a, b in zip(c0, c1)]}, "
+          f"expected {2 * L} forward and {L} backward")
+    check(torch.equal(loss_m, loss_k) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(g_m), tree_leaves(g_k))),
+        "train (a): remat='full' changes the gradients")
+    log(f"train (a) remat='full': gradients bitwise remat='none', "
+        f"{c1[0] - c0[0]} forward and {c1[1] - c0[1]} backward ssd launches")
+    del model, remat, params, g_k, g_r, g_c, g_m
+    torch.cuda.empty_cache()
+
+    # (b) adamw on full-size mamba2-130m: the training main path
+    cfg = MAMBA2_130M
+    L = cfg.num_layers
+    model = Model(cfg, param_dtype=f32)
+    runs = [train_steps(model, TRAIN_STEPS) for _ in range(2)]
+    params, losses, ms, launches, peak = runs[0]
+    want = (L, L, 0)
+    check(all(n == want for run in runs for n in run[3]),
+          f"train (b): launches a step {runs[0][3]}, expected {want} "
+          "(ssd forward, ssd backward, flash)")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"train (b): the loss does not fall: {losses}")
+    bitwise = runs[1][1] == losses and all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(runs[1][0]), tree_leaves(params)))
+    step_ms = float(np.median(ms[-10:] + runs[1][2][-10:]))
+    tokens = TRAIN_B * TRAIN_S
+    log(f"train (b) mamba2-130m f32 adamw lr {TRAIN_LR}, {TRAIN_B} x "
+        f"{TRAIN_S} tokens a step, {TRAIN_STEPS} steps twice: "
+        f"{step_ms:.3f} ms a step (median of the last 10 of each run; "
+        f"runs' medians {np.median(ms[-10:]):.3f} / "
+        f"{np.median(runs[1][2][-10:]):.3f}; first step {ms[0]:.3f}), "
+        f"{tokens / (step_ms / 1e3):.1f} tokens/s, peak device memory "
+        f"{peak / 1e9:.3f} GB; loss step 0 {losses[0]:.4f}, step "
+        f"{TRAIN_STEPS - 1} {losses[-1]:.4f}; launches a step {want}; the "
+        f"second run {'bitwise' if bitwise else 'NOT bitwise'} the first")
+    if not bitwise:
+        spread = max(float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(runs[1][0]), tree_leaves(params)))
+        log(f"train (b): two uninterrupted runs part by {spread:.3e} "
+            f"(losses {runs[1][1]} vs {losses})")
+    del runs
+    torch.cuda.empty_cache()
+    _, acc_losses, acc_ms, acc_launches, acc_peak = train_steps(
+        model, 1, accum=2)
+    check(acc_launches == [(2 * L, 2 * L, 0)],
+          f"train (b) accum 2: launches {acc_launches}, expected "
+          f"{(2 * L, 2 * L, 0)}")
+    log(f"train (b) accum_steps=2: one step {acc_ms[0]:.3f} ms (the first "
+        f"of its run), launches {acc_launches[0]}, loss {acc_losses[0]:.4f}"
+        f", peak {acc_peak / 1e9:.3f} GB")
+    torch.cuda.empty_cache()
+
+    # (c) the CLI's SODDA-SVRG loop
+    pipe = TokenPipeline(seed=0, batch=TRAIN_B, seq_len=TRAIN_S,
+                         vocab_size=cfg.vocab_size)
+    sodda_params = model.init(0)
+    torch.cuda.synchronize()
+    zero_train_counts()
+    t0 = time.perf_counter()
+    _, s_losses = train_module.sodda_loop(model, sodda_params, pipe,
+                                          TRAIN_STEPS, SODDA_LR,
+                                          log=lambda _: None)
+    torch.cuda.synchronize()
+    s_ms = 1e3 * (time.perf_counter() - t0) / TRAIN_STEPS
+    s_counts = train_counts()
+    grads = 2 * TRAIN_STEPS + 1  # a refresh at step 0
+    check(s_counts == (grads * L, grads * L, 0),
+          f"train (c): launches {s_counts}, expected {grads} gradients of "
+          f"{L} forward and {L} backward ssd launches")
+    check(all(math.isfinite(x) for x in s_losses)
+          and s_losses[-1] < s_losses[0],
+          f"train (c): the SODDA-SVRG loss does not fall: {s_losses}")
+    log(f"train (c) SODDA-SVRG (the CLI's loop, refresh at step 0, lr "
+        f"{SODDA_LR}): {s_ms:.3f} ms a step (the mean of {TRAIN_STEPS}; "
+        f"2 gradients a step, 3 at the refresh), launches {s_counts} "
+        f"(ssd forward, backward, flash) = {grads} gradients; loss step 0 "
+        f"{s_losses[0]:.4f}, step {TRAIN_STEPS - 1} {s_losses[-1]:.4f}")
+    del sodda_params
+    torch.cuda.empty_cache()
+
+    # (d) kill and resume: the CLI in a fresh process, killed by SIGKILL
+    # once it logs step 13 (steps 10-13 past its step-10 checkpoint
+    # uncommitted), then a fresh process resumes to 20; against (b)'s
+    # first run
+    ckpt_path = ckpt_dir("train")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           cfg.name, "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--lr",
+           str(TRAIN_LR), "--ckpt_dir", ckpt_path, "--ckpt_every",
+           str(TRAIN_CKPT_EVERY), "--log_every", "1", "--steps",
+           str(TRAIN_STEPS)]
+    env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    watchdog = threading.Timer(600, proc.kill)
+    watchdog.start()
+    killed_after, lines = None, []
+    for line in proc.stdout:
+        lines.append(line)
+        if line.startswith(f"step {TRAIN_KILL_AT:5d} "):
+            proc.send_signal(signal.SIGKILL)
+            killed_after = TRAIN_KILL_AT
+            break
+    proc.stdout.close()
+    proc.wait()
+    watchdog.cancel()
+    check(killed_after is not None and proc.returncode == -signal.SIGKILL,
+          f"train (d): the first process was not killed at step "
+          f"{TRAIN_KILL_AT} (exit {proc.returncode}):\n"
+          f"{''.join(lines)[-4000:]}")
+    committed = checkpoint.latest_step(ckpt_path)
+    check(committed == TRAIN_CKPT_EVERY, f"train (d): the killed run's last "
+          f"checkpoint is at {committed}, not {TRAIN_CKPT_EVERY}")
+    proc = subprocess.run(cmd + ["--resume"], env=env, capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"train (d): --resume exited "
+          f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+          f"{proc.stderr[-4000:]}")
+    resume_s = time.perf_counter() - t0
+    check(f"resumed at step {TRAIN_CKPT_EVERY}" in proc.stdout,
+          f"train (d): the second process did not resume: {proc.stdout}")
+    template = {"params": params,
+                "opt_state": train_module.make_optimizer(
+                    train_module.TrainSettings()).init(params)}
+    step, tree, extra = checkpoint.restore_checkpoint(ckpt_path, template)
+    check(step == TRAIN_STEPS, f"train (d): last checkpoint at {step}")
+    resumed = [torch.from_numpy(np.array(a)) for a in
+               tree_leaves(tree["params"])]
+    final = [p.cpu() for p in tree_leaves(params)]
+    gap = max(float((a - b).abs().max()) for a, b in zip(resumed, final))
+    same = extra["losses"] == losses and gap == 0.0
+    log(f"train (d) the CLI killed (SIGKILL) after step {TRAIN_KILL_AT}, "
+        f"past its checkpoint at step {TRAIN_CKPT_EVERY}, and resumed from "
+        f"it in a fresh process to {TRAIN_STEPS} "
+        f"({resume_s:.1f} s for both processes): params max|resumed - "
+        f"uninterrupted| {gap:.3e}, losses "
+        f"{'equal' if extra['losses'] == losses else 'differ'}")
+    if bitwise:
+        check(same, "train (d): the resumed run is not bitwise the "
+              f"uninterrupted one (gap {gap}, losses {extra['losses']} vs "
+              f"{losses})")
+    else:
+        check(gap <= spread, f"train (d): the resume parts by {gap}, "
+              f"beyond two uninterrupted runs' {spread}")
+    shutil.rmtree(ckpt_path, ignore_errors=True)
+
+    # (e) flash attention on the card refuses a gradient it cannot give
+    q = torch.randn(1, 128, 2, 64, device="cuda", requires_grad=True)
+    k = torch.randn(1, 128, 2, 64, device="cuda")
+    try:
+        ops.flash_attention(q, k, k)
+    except RuntimeError as e:
+        check("A3b" in str(e), f"train (e): another error: {e}")
+        log(f"train (e) a CUDA flash call whose q requires grad raises: {e}")
+    else:
+        fail("train (e): a CUDA flash call whose q requires grad returned "
+             "an output detached from autograd")
+    return dict(step_ms=step_ms, launches=launches[0], sodda_ms=s_ms,
+                sodda_launches=s_counts, peak=peak)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA "
@@ -3548,6 +4019,23 @@ def main():
         f"{z_flash['ms']:.4f} ms = {f_ms:.3f} ms ({f_ms / hybrid['prefill_ms']:.2%}), "
         f"ssd {hybrid['ssd']} x {z_ssd['ms']:.4f} ms = {s_ms:.3f} ms "
         f"({s_ms / hybrid['prefill_ms']:.2%})")
+
+    torch.cuda.empty_cache()
+    bwd_record = phase_ssd_backward()
+    torch.cuda.empty_cache()
+    train = phase_train()
+    fwd, bwd, _ = train["launches"]
+    ssd_record["launches_by_path"]["mamba2-130m train step"] = fwd
+    bwd_record["launches"] = bwd
+    bwd_record["launches_by_path"] = {
+        "mamba2-130m train step": bwd,
+        "mamba2-130m SODDA-SVRG, 20 steps": train["sodda_launches"][1]}
+    ssd_record["backward"] = bwd_record
+    log(f"train ssd kernel share of a step ({train['step_ms']:.3f} ms): "
+        f"{fwd} forward launches (f32, the cuda-core route) and {bwd} x "
+        f"{bwd_record['ms']:.4f} ms backward = "
+        f"{bwd * bwd_record['ms']:.3f} ms "
+        f"({bwd * bwd_record['ms'] / train['step_ms']:.2%}) in backward")
 
     print(card)
     print(json.dumps({"kernels": [record, flash_record, ssd_record]}))

@@ -14,7 +14,8 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.flash_attention import route as flash_route
 from repro_torch.kernels.sodda_inner import sodda_inner_cuda
 from repro_torch.kernels.ssd_scan import route as ssd_route
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
 
 FORCES = ("auto", "cuda", "ref")
 TMA_ALIGNMENT = 16  # bytes: where a TMA operand's data must start
@@ -63,6 +64,9 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     tensors; ``"ref"`` runs the plain version on any device. Inputs are
     made contiguous, and on the wgmma route (bf16) 16-byte aligned, with a
     copy only where they are not (:func:`tma_operand`); nothing is padded.
+    The kernels have no backward yet: a CUDA call in grad mode whose q, k
+    or v requires grad raises ``RuntimeError`` rather than return an output
+    detached from autograd.
     ``flash_attention.launches`` counts kernel launches.
     """
     if force not in FORCES:
@@ -75,6 +79,12 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
         raise RuntimeError(f"flash_attention(force={force!r}) launches the "
                            f"CUDA kernel and needs CUDA tensors, got "
                            f"{q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention: the CUDA kernels have no "
+                           "backward yet (ROADMAP A3b), so their output "
+                           "would be detached from autograd; call it under "
+                           "torch.no_grad(), or with force='ref' to "
+                           "differentiate the plain version")
     operand = (tma_operand if flash_route(q.dtype, q.shape[-1]) == "wgmma"
                else torch.Tensor.contiguous)
     out = flash_attention_cuda(operand(q), operand(k), operand(v),
@@ -102,6 +112,11 @@ def ssd_scan(x, dt, A, Bm, Cm, D=None, chunk: int = 128, force: str = "auto"):
     with TMA, so they are made contiguous and 16-byte aligned first (a copy
     only where they are not: :func:`tma_operand`); the CUDA-core route
     reads them through their strides.
+
+    A kernel launch goes through a ``torch.autograd.Function`` whose
+    backward is the backward kernel (:func:`ssd_scan_bwd`) on the operands
+    the forward kernel read; the plain version is differentiated by
+    autograd.
     ``ssd_scan.launches`` counts kernel launches, ``ssd_scan.route_launches``
     the same launches by route.
     """
@@ -113,16 +128,63 @@ def ssd_scan(x, dt, A, Bm, Cm, D=None, chunk: int = 128, force: str = "auto"):
     if device != "cuda":
         raise RuntimeError(f"ssd_scan(force={force!r}) launches the CUDA "
                            f"kernel and needs CUDA tensors, got {x.device}")
-    kernel = ssd_route(x.dtype, x.shape[-1], Bm.shape[-1])
-    if kernel == "wgmma":
-        x, Bm, Cm = tma_operand(x), tma_operand(Bm), tma_operand(Cm)
     f32 = torch.float32
-    out = ssd_scan_cuda(x, dt, A.to(f32).contiguous(), Bm, Cm,
-                        None if D is None else D.to(f32).contiguous())
-    ssd_scan.launches += 1
-    ssd_scan.route_launches[kernel] += 1
-    return out
+    return _SsdScan.apply(x, dt, A.to(f32).contiguous(), Bm, Cm,
+                          None if D is None else D.to(f32).contiguous())
 
 
 ssd_scan.launches = 0
 ssd_scan.route_launches = {"wgmma": 0, "cuda-core": 0}
+
+
+class _SsdScan(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D):
+        kernel = ssd_route(x.dtype, x.shape[-1], Bm.shape[-1])
+        if kernel == "wgmma":
+            x, Bm, Cm = tma_operand(x), tma_operand(Bm), tma_operand(Cm)
+        out = ssd_scan_cuda(x, dt, A, Bm, Cm, D)
+        ssd_scan.launches += 1
+        ssd_scan.route_launches[kernel] += 1
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ssd_scan_bwd(*ctx.saved_tensors, dy.contiguous())
+
+
+def ssd_scan_bwd(x, dt, A, Bm, Cm, D, dy, force: str = "auto"):
+    """The gradients of ``ssd_scan``'s y for its inputs, given dy
+    (B,S,H,P): (dx, ddt, dA, dBm, dCm, dD), dx, ddt, dBm and dCm in x's
+    dtype, dA and dD float32, dD None when D is.
+
+    ``force="auto"`` launches the backward kernel
+    (``kernels.ssd_scan.ssd_scan_bwd_cuda``) for CUDA tensors and runs
+    :func:`ref.ssd_chunked_grads` (autograd through the plain chunked
+    version at the kernel's chunk length) for CPU tensors; ``"cuda"``
+    requires CUDA tensors; ``"ref"`` runs the plain version on any device.
+    A and D are taken in float32. ``ssd_scan_bwd.launches`` counts kernel
+    launches.
+    """
+    if force not in FORCES:
+        raise ValueError(f"force must be one of {FORCES}, got {force!r}")
+    device = x.device.type
+    if force == "ref" or (force == "auto" and device == "cpu"):
+        return ref.ssd_chunked_grads(x, dt, A, Bm, Cm, D, dy,
+                                     chunk=SSD_CHUNK)
+    if device != "cuda":
+        raise RuntimeError(f"ssd_scan_bwd(force={force!r}) launches the "
+                           f"CUDA kernel and needs CUDA tensors, got "
+                           f"{x.device}")
+    f32 = torch.float32
+    out = ssd_scan_bwd_cuda(x, dt, A.to(f32).contiguous(), Bm, Cm,
+                            None if D is None else D.to(f32).contiguous(),
+                            dy)
+    ssd_scan_bwd.launches += 1
+    return out
+
+
+ssd_scan_bwd.launches = 0

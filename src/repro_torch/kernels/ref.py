@@ -153,12 +153,19 @@ def attention_naive(q, k, v, *, causal=True, window=0, softcap=0.0,
 # and the chunked form the kernel computes (``models/ssm.py::ssd_chunked``
 # of the reference). Head h reads B/C group h // (H // G).
 # ---------------------------------------------------------------------------
-def _group_heads(m, H: int):
-    """(B, S, G, N) -> (B, S, H, N) f32: head h reads group h // (H // G)."""
+def _group_heads(m, H: int, dtype=torch.float32):
+    """(B, S, G, N) -> (B, S, H, N) in `dtype`: head h reads group
+    h // (H // G)."""
     G = m.shape[2]
     if H % G:
         raise ValueError(f"ssd: H={H} is not a multiple of G={G}")
-    return m.float().repeat_interleave(H // G, dim=2)
+    return m.to(dtype).repeat_interleave(H // G, dim=2)
+
+
+def _ssd_dtype(x):
+    """The chunked SSD's compute dtype: float32, or float64 for float64
+    inputs (the gradient checks at float64)."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def ssd_ref(x, dt, A, Bm, Cm, D=None):
@@ -203,6 +210,7 @@ def ssd_chunk_terms(x, dt, A, Bm, Cm, chunk: int = 256, w_split: int = 0,
     state as C . state reads it (the state itself stays f32), and
     `update_split` the operand x_j w_j of the state update
     sum_j (x_j w_j) outer B_j. The defaults are the f32 arithmetic.
+    Inputs of float64 are computed in float64 (``_ssd_dtype``).
     """
     for name, split in (("w_split", w_split), ("state_split", state_split),
                         ("update_split", update_split)):
@@ -213,19 +221,26 @@ def ssd_chunk_terms(x, dt, A, Bm, Cm, chunk: int = 256, w_split: int = 0,
     pad = (-S) % chunk
     NC = (S + pad) // chunk
 
-    def chunks(t):  # (B, S, ...) -> (B, NC, chunk, ...) f32
-        t = t.float()
+    ct = _ssd_dtype(x)
+
+    def chunks(t):  # (B, S, ...) -> (B, NC, chunk, ...) in ct
+        t = t.to(ct)
         if pad:
             t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
         return t.reshape(Bsz, NC, chunk, *t.shape[2:])
 
     xc, dtc = chunks(x), chunks(dt)
-    Bc, Cc = chunks(_group_heads(Bm, H)), chunks(_group_heads(Cm, H))
-    cum = torch.cumsum(dtc * A.float(), dim=2)  # (B, NC, Cn, H), <= 0
+    Bc, Cc = chunks(_group_heads(Bm, H, ct)), chunks(_group_heads(Cm, H, ct))
+    cum = torch.cumsum(dtc * A.to(ct), dim=2)  # (B, NC, Cn, H), <= 0
     seg = cum[:, :, :, None] - cum[:, :, None]  # (B, NC, Cn_i, Cn_j, H)
     causal = torch.ones(chunk, chunk, dtype=torch.bool,
                         device=x.device).tril()[None, None, :, :, None]
-    decay = torch.where(causal, torch.exp(seg), 0.0)
+    # the exponent is masked before the exp: above the diagonal seg is a
+    # large positive sum whose exp overflows, and autograd through a
+    # masked inf multiplies inf by 0 (the reference's models/ssm.py:67
+    # does, and its gradient is NaN from a chunk of 32-64). The causal
+    # entries take the same exp values, so the forward is unchanged.
+    decay = torch.exp(torch.where(causal, seg, -math.inf))
     Gm = torch.einsum("bnchk,bnjhk->bnhcj", Cc, Bc)  # (B, NC, H, Cn, Cn)
     W = (Gm * decay.permute(0, 1, 4, 2, 3)
          * dtc.permute(0, 1, 3, 2)[..., None, :])
@@ -238,7 +253,7 @@ def ssd_chunk_terms(x, dt, A, Bm, Cm, chunk: int = 256, w_split: int = 0,
     w_state = torch.exp(last - cum) * dtc  # (B, NC, Cn, H)
     S_c = torch.einsum("bnchp,bnchk->bnhpk",
                        split_p(xc * w_state[..., None], update_split), Bc)
-    state = torch.zeros(Bsz, H, P, N, dtype=torch.float32, device=x.device)
+    state = torch.zeros(Bsz, H, P, N, dtype=ct, device=x.device)
     states_in = []
     for c in range(NC):
         states_in.append(state)
@@ -263,5 +278,26 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D=None, chunk: int = 256):
     y_intra, y_inter = ssd_chunk_terms(x, dt, A, Bm, Cm, chunk)
     y = y_intra + y_inter
     if D is not None:
-        y = y + D.float()[None, None, :, None] * x.float()
+        ct = _ssd_dtype(x)
+        y = y + D.to(ct)[None, None, :, None] * x.to(ct)
     return y.to(x.dtype)
+
+
+def ssd_chunked_grads(x, dt, A, Bm, Cm, D, dy, chunk: int = 64):
+    """The plain version of the SSD scan's backward: autograd through
+    :func:`ssd_chunked_ref` on f32 copies of the inputs (f64 for f64
+    inputs), given dy (B,S,H,P). Returns (dx, ddt, dA, dBm, dCm, dD): dx,
+    ddt, dBm and dCm rounded once to x's dtype, dA and dD in the compute
+    dtype (float32), dD None when D is."""
+    ct = _ssd_dtype(x)
+    leaves = [t.detach().to(ct).requires_grad_()
+              for t in (x, dt, A, Bm, Cm)]
+    d = None if D is None else D.detach().to(ct).requires_grad_()
+    with torch.enable_grad():
+        y = ssd_chunked_ref(*leaves, d, chunk=chunk)
+        grads = torch.autograd.grad(y, leaves + ([] if d is None else [d]),
+                                    dy.to(ct))
+    dx, ddt, dA, dB, dC = grads[:5]
+    dt_ = x.dtype
+    return (dx.to(dt_), ddt.to(dt_), dA, dB.to(dt_), dC.to(dt_),
+            None if d is None else grads[5])

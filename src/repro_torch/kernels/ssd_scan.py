@@ -15,7 +15,10 @@ route (``route``):
 
 Both replace the TPU kernel ``repro.kernels.ssd_scan.ssd_scan_pallas`` plus
 the D skip of its ops wrapper; their sources say what they compute, what
-bounds them and how they are laid out. They take the models' layout,
+bounds them and how they are laid out. A third, ``csrc/ssd_scan_bwd.cu``,
+takes both dtypes and computes the scan's gradients (``ssd_scan_bwd_cuda``):
+the reference has no counterpart, since it differentiates its plain
+chunked scan, and the port's training path runs the forward kernel. They take the models' layout,
 x (B, S, H, P), dt (B, S, H) and B/C (B, S, G, N), with P in ``HEAD_DIMS``
 and N in ``STATE_DIMS``; A and D are float32 (H,). The cuda-core kernel
 reads x, B and C through their strides (the last axis contiguous); the
@@ -40,15 +43,17 @@ import torch
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.build import SHARED_MEMORY_BUDGET
 
-__all__ = ["SOURCE", "WGMMA_SOURCE", "SOURCES", "ROUTES", "CHUNK",
-           "STAGES", "HEADS_PER_BLOCK", "HEAD_DIMS", "STATE_DIMS",
-           "DTYPE_CODES", "route", "shared_memory_bytes", "check_args",
-           "ssd_scan_cuda"]
+__all__ = ["SOURCE", "WGMMA_SOURCE", "BWD_SOURCE", "SOURCES", "ROUTES",
+           "CHUNK", "STAGES", "HEADS_PER_BLOCK", "HEAD_DIMS", "STATE_DIMS",
+           "DTYPE_CODES", "route", "shared_memory_bytes",
+           "bwd_shared_memory_bytes", "check_args", "check_bwd_args",
+           "ssd_scan_cuda", "ssd_scan_bwd_cuda"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = _CSRC / "ssd_scan.cu"  # the cuda-core route
 WGMMA_SOURCE = _CSRC / "ssd_scan_wgmma.cu"  # the wgmma route
-SOURCES = (SOURCE, WGMMA_SOURCE)
+BWD_SOURCE = _CSRC / "ssd_scan_bwd.cu"  # the gradients, both dtypes
+SOURCES = (SOURCE, WGMMA_SOURCE, BWD_SOURCE)
 ROUTES = ("wgmma", "cuda-core")
 
 CHUNK = 64  # kQ in both sources: the kernels' own chunk length
@@ -97,8 +102,18 @@ def shared_memory_bytes(P: int, N: int, route: str = "cuda-core") -> int:
     raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
 
 
-def check_args(x, dt, A, Bm, Cm, D=None) -> None:
-    """Raise ``ValueError`` on anything the kernel does not take."""
+def bwd_shared_memory_bytes(P: int, N: int) -> int:
+    """Dynamic shared memory of one block of the backward's per-chunk
+    kernel (its largest): the x and dy tiles, the B and C tiles, the
+    entering state and the leaving state's gradient (rows padded by 4),
+    W, dG and M (rows padded by 4), nine per-step vectors, a block sum's
+    256 floats and 4 scalars, all f32."""
+    return 4 * (2 * CHUNK * P + 2 * CHUNK * (N + PAD) + 2 * P * (N + PAD)
+                + 3 * CHUNK * (CHUNK + PAD) + 9 * CHUNK + 256 + 4)
+
+
+def _check_common(x, dt, A, Bm, Cm, D) -> None:
+    """The checks the forward and the backward kernels share."""
     if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 4 or Cm.dim() != 4:
         raise ValueError(f"ssd_scan: x, dt, Bm, Cm must be 4-D, 3-D, 4-D, "
                          f"4-D, got {tuple(x.shape)}, {tuple(dt.shape)}, "
@@ -144,6 +159,13 @@ def check_args(x, dt, A, Bm, Cm, D=None) -> None:
                              f"{x.device}")
     if B > 65535:
         raise ValueError(f"ssd_scan: B={B} is above 65535 (a grid dimension)")
+
+
+def check_args(x, dt, A, Bm, Cm, D=None) -> None:
+    """Raise ``ValueError`` on anything the kernel does not take."""
+    _check_common(x, dt, A, Bm, Cm, D)
+    B, S, H, P = x.shape
+    N = Bm.shape[3]
     kernel = route(x.dtype, P, N)
     need = shared_memory_bytes(P, N, kernel)
     if need > SHARED_MEMORY_BUDGET:
@@ -161,6 +183,31 @@ def check_args(x, dt, A, Bm, Cm, D=None) -> None:
             if t.data_ptr() % 16:
                 raise ValueError(f"ssd_scan: {name}'s data must be 16-byte "
                                  "aligned for TMA")
+
+
+def check_bwd_args(x, dt, A, Bm, Cm, D, dy) -> None:
+    """Raise ``ValueError`` on anything the backward kernel does not take.
+    It reads x, dt, B, C and dy through their strides in either dtype."""
+    _check_common(x, dt, A, Bm, Cm, D)
+    if tuple(dy.shape) != tuple(x.shape) or dy.dtype != x.dtype:
+        raise ValueError(f"ssd_scan_bwd: dy must be {tuple(x.shape)} "
+                         f"{x.dtype} like x, got {tuple(dy.shape)} "
+                         f"{dy.dtype}")
+    if dy.stride(-1) != 1:
+        raise ValueError("ssd_scan_bwd: the last axis of dy must be "
+                         "contiguous")
+    if dy.device != x.device:
+        raise ValueError(f"ssd_scan_bwd: dy is on {dy.device}, x on "
+                         f"{x.device}")
+    S, P, N = x.shape[1], x.shape[3], Bm.shape[3]
+    if -(-S // CHUNK) > 65535:
+        raise ValueError(f"ssd_scan_bwd: S={S} gives more than 65535 chunks "
+                         "(a grid dimension)")
+    need = bwd_shared_memory_bytes(P, N)
+    if need > SHARED_MEMORY_BUDGET:
+        raise ValueError(f"ssd_scan_bwd: P={P}, N={N} need {need} bytes of "
+                         f"shared memory, above the {SHARED_MEMORY_BUDGET}-"
+                         "byte budget of one block")
 
 
 @functools.lru_cache(maxsize=None)
@@ -221,3 +268,68 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, D=None):
         raise RuntimeError(f"ssd_scan {kernel} kernel launch failed: "
                            + err(rc).decode())
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry_point():
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib = kbuild.load(BWD_SOURCE)
+    fn, err = lib.ssd_scan_bwd, lib.ssd_scan_bwd_error_string
+    # x, dt, A, Bm, Cm, D, dy; dx, ddt, dA, dB, dC, dD; states, dstates,
+    # dB_part, dC_part, dA_part, dD_part; B, S, H, G, P, N, dtype; strides,
+    # stream
+    fn.argtypes = [vp] * 19 + [ci] * 7 + [vp, vp]
+    fn.restype = ci
+    err.argtypes = [ci]
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
+def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, D, dy):
+    """Launch the backward kernel: the gradients of ``ssd_scan_cuda``'s
+    y (B,S,H,P) for its inputs x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm
+    (B,S,G,N), D (H,) or None, given dy (B,S,H,P), all CUDA tensors ->
+    (dx, ddt, dA, dBm, dCm, dD): dx, ddt, dBm and dCm contiguous in x's
+    dtype, dA and dD (H,) float32, dD None when D is.
+
+    Computed in f32 from the inputs as read (any dtype the forward takes,
+    through their strides) and rounded once. Deterministic: two launches
+    give bitwise the same gradients. Allocates its outputs and an f32
+    scratch of 2 x (B, H, ceil(S/64), P, N) states and 2 x (B, S, H, N)
+    partials. Runs on PyTorch's current stream without synchronising.
+    Raises on a CPU tensor, on arguments the kernel does not take, and
+    when the build or the launch fails.
+    """
+    check_bwd_args(x, dt, A, Bm, Cm, D, dy)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"ssd_scan_bwd_cuda needs CUDA tensors, got "
+                           f"{x.device}")
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    NC = -(-S // CHUNK)
+    f32 = torch.float32
+
+    def empty(*shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device=x.device)
+
+    dx, ddt = empty(B, S, H, P, dtype=x.dtype), empty(B, S, H, dtype=x.dtype)
+    dB, dC = empty(B, S, G, N, dtype=x.dtype), empty(B, S, G, N, dtype=x.dtype)
+    dA, dD = empty(H), (None if D is None else empty(H))
+    states, dstates = empty(B, H, NC, P, N), empty(B, H, NC, P, N)
+    dB_part, dC_part = empty(B, S, H, N), empty(B, S, H, N)
+    dA_part, dD_part = empty(B, NC, H), empty(B, NC, H)
+    fn, err = _bwd_entry_point()
+    pointers = [t.data_ptr() if t is not None else None for t in (
+        x, dt, A, Bm, Cm, D, dy, dx, ddt, dA, dB, dC, dD, states, dstates,
+        dB_part, dC_part, dA_part, dD_part)]
+    strides = (ctypes.c_longlong * 15)(*x.stride()[:3], *dt.stride(),
+                                        *Bm.stride()[:3], *Cm.stride()[:3],
+                                        *dy.stride()[:3])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(*pointers, B, S, H, G, P, N, DTYPE_CODES[x.dtype],
+                ctypes.cast(strides, ctypes.c_void_p), stream)
+    if rc != 0:
+        raise RuntimeError("ssd_scan backward kernel launch failed: "
+                           + err(rc).decode())
+    return dx, ddt, dA, dB, dC, dD

@@ -1,9 +1,11 @@
-"""Model facade: config, template, device and the serving entry points.
+"""Model facade: config, template, device and the training and serving
+entry points.
 
 Counterpart of ``repro.models.model.Model``. Parameters are a nested dict
 of tensors passed to each entry point, as in the reference; the module
-holds the configuration, the template, the device and the parameter dtype.
-It runs on the CUDA device unless the caller passes ``device="cpu"``.
+holds the configuration, the template, the device, the parameter dtype and
+the rematerialisation policy. It runs on the CUDA device unless the caller
+passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -20,11 +22,20 @@ from repro_torch.platform import DeviceLike, resolve_device
 
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
-                 param_dtype=torch.bfloat16):
+                 param_dtype=torch.bfloat16, remat: str = "none"):
+        """`remat` is ``loss``'s layer checkpointing
+        (``transformer.REMATS``). The reference defaults to "dots", an XLA
+        policy; eager PyTorch has none ("dots" checkpoints whole blocks, as
+        "full"), and the gradients are the same bits either way, so the
+        default here is "none"."""
         super().__init__()
+        if remat not in transformer.REMATS:
+            raise ValueError(f"remat must be one of {transformer.REMATS}, "
+                             f"got {remat!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.param_dtype = param_dtype
+        self.remat = remat
         self.template = transformer.model_template(cfg)
 
     # -- parameters ------------------------------------------------------
@@ -53,6 +64,15 @@ class Model(nn.Module):
         return count_params(self.template)
 
     # -- entry points ----------------------------------------------------
+    def loss(self, params, batch, force: str = "auto"):
+        """batch {'tokens', 'targets': (B,S)} -> (loss, {'ce', 'aux'}), f32
+        scalars that autograd differentiates (``transformer.loss_fn``, with
+        this model's `remat`). On the card the SSD scan's gradient is its
+        backward kernel; flash attention has no backward kernel yet, so the
+        dense and hybrid families raise there (ROADMAP A3b)."""
+        return transformer.loss_fn(params, batch, self.cfg,
+                                   remat=self.remat, force=force)
+
     def prefill(self, params, batch, force: str = "auto"):
         """batch {'tokens': (B,S)} -> (last-position logits (B,Vp) f32,
         cache {'k', 'v': (L,B,S,KV,hd)}, or None for the SSM and hybrid

@@ -52,6 +52,20 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_unflatten(template, leaves):
+    """`template`'s nested dict with its leaves taken in order from
+    `leaves`, in sorted key order (the inverse of `tree_leaves`)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        return next(it)
+
+    return build(template)
+
+
 def _std(spec: ParamSpec) -> float:
     """Fan-in scaled std; embeddings at 1; a stacked 'layers' axis does not
     count toward fan-in (the reference's ``_init_one``)."""

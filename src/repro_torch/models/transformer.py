@@ -12,18 +12,22 @@ block (``params['shared']``, no post-norms) applied after SSM layer i
 wherever (i + 1) % ``cfg.attn_every`` == 0; its window is
 ``cfg.sliding_window`` under ``long_context`` only (or, in decode, a ring
 cache of the window's slots), and decode keeps one KV cache per
-application site. Rematerialisation is a training matter and is
-left out. The MoE family is not ported yet (ROADMAP A).
+application site. The training loss (``loss_fn``) runs the same forward;
+``remat`` checkpoints each layer (``torch.utils.checkpoint``), trading
+memory for a second forward in the backward. The MoE family is not ported
+yet (ROADMAP A).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, mlp, ssm
-from repro_torch.models.layers import embed_tokens, rms_norm, unembed
+from repro_torch.models.layers import (cross_entropy, embed_tokens, rms_norm,
+                                       unembed)
 from repro_torch.models.params import ParamSpec, tree_map_specs
 
 
@@ -133,12 +137,35 @@ def _ssm_block(lp, h, cfg: ArchConfig, force: str):
                                force=force)
 
 
+REMATS = ("none", "full", "dots", "collectives")
+
+
+def _remat(fn, remat: str):
+    """`fn` run as the reference's ``_maybe_remat`` asks. "none": as it is.
+    "full": checkpointed (``torch.utils.checkpoint``, non-reentrant): its
+    activations are dropped after the forward and recomputed in the
+    backward. "dots": the reference's XLA policy saves matmul outputs and
+    recomputes the rest; eager PyTorch has no such policy, so it
+    checkpoints the whole block as "full" does. "collectives" saves the
+    tensor-parallel all-reduce outputs, which belong to the mesh work
+    (ROADMAP A6), and raises."""
+    if remat == "none":
+        return fn
+    if remat in ("full", "dots"):
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if remat == "collectives":
+        raise NotImplementedError("remat='collectives' saves the tensor-"
+                                  "parallel block outputs; the mesh layouts "
+                                  "are not ported yet (ROADMAP A6)")
+    raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
+
+
 # ---------------------------------------------------------------------------
-# Prefill forward
+# Train / prefill forward
 # ---------------------------------------------------------------------------
 def forward(params, tokens, cfg: ArchConfig, *, collect_cache: bool = False,
             last_only: bool = False, force: str = "auto",
-            long_context: bool = False):
+            long_context: bool = False, remat: str = "none"):
     """tokens (B,S) -> (logits (B,S,Vp) f32, cache or None).
 
     With `collect_cache`, cache is {'k', 'v': (L,B,S,KV,hd)} in the
@@ -147,19 +174,24 @@ def forward(params, tokens, cfg: ArchConfig, *, collect_cache: bool = False,
     logits are computed for the last position only: (B,1,Vp). `force` goes
     to the layer's kernel wrapper (``kernels.ops.flash_attention`` or
     ``kernels.ops.ssd_scan``). `long_context` gives the hybrid family's
-    shared attention its sliding window.
+    shared attention its sliding window. `remat` (``REMATS``) checkpoints
+    each layer and each hybrid site (``_remat``); it changes what the
+    backward keeps and recomputes, not a value.
     """
     check_family(cfg)
     h = _embed(params, tokens, cfg)
     B, S = tokens.shape
     positions = torch.arange(S, device=h.device).expand(B, S)
+    ssm_block = _remat(lambda lp, x: _ssm_block(lp, x, cfg, force), remat)
+    attn_block = _remat(
+        lambda lp, x, window: _attn_block(lp, x, cfg, positions, window,
+                                          force), remat)
     if cfg.family in ("ssm", "hybrid"):
         window = cfg.sliding_window if long_context else 0
         for i in range(cfg.num_layers):
-            h = _ssm_block(layer_params(params["layers"], i), h, cfg, force)
+            h = ssm_block(layer_params(params["layers"], i), h)
             if cfg.family == "hybrid" and is_attn_site(cfg, i):
-                h, _ = _attn_block(params["shared"], h, cfg, positions,
-                                   window, force)
+                h, _ = attn_block(params["shared"], h, window)
         if last_only:
             h = h[:, -1:]
         return _logits(params, h, cfg), None
@@ -170,14 +202,30 @@ def forward(params, tokens, cfg: ArchConfig, *, collect_cache: bool = False,
         cache = {"k": torch.empty(shape, dtype=h.dtype, device=h.device),
                  "v": torch.empty(shape, dtype=h.dtype, device=h.device)}
     for i in range(L):
-        h, (k, v) = _attn_block(layer_params(params["layers"], i), h, cfg,
-                                positions, layer_window(cfg, i), force)
+        h, (k, v) = attn_block(layer_params(params["layers"], i), h,
+                               layer_window(cfg, i))
         if cache is not None:
             cache["k"][i].copy_(k)
             cache["v"][i].copy_(v)
     if last_only:
         h = h[:, -1:]
     return _logits(params, h, cfg), cache
+
+
+def loss_fn(params, batch, cfg: ArchConfig, *, remat: str = "none",
+            aux_weight: float = 0.01, force: str = "auto"):
+    """The training loss: `forward` on batch['tokens'] (B,S), then the mean
+    cross entropy of its logits against batch['targets'] (B,S) over the
+    true vocabulary (the padded entries masked), plus `aux_weight` x the
+    auxiliary loss, which is 0 for the families the port runs (the MoE
+    load-balancing loss is the reference's only one). Returns
+    (loss, {'ce', 'aux'}), f32 scalars. `remat` and `force` go to
+    `forward`. Frontend embeddings (the vlm family) wait for ROADMAP A2."""
+    logits, _ = forward(params, batch["tokens"], cfg, remat=remat,
+                        force=force)
+    ce = cross_entropy(logits, batch["targets"], cfg.vocab_size)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

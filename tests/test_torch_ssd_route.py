@@ -83,7 +83,8 @@ def test_the_wgmma_source_instantiates_what_check_args_takes():
 
 
 def test_both_sources_are_built_and_listed():
-    assert kernel.SOURCES == (kernel.SOURCE, kernel.WGMMA_SOURCE)
+    assert kernel.SOURCES == (kernel.SOURCE, kernel.WGMMA_SOURCE,
+                              kernel.BWD_SOURCE)
     assert all(s.exists() for s in kernel.SOURCES)
     assert kernel.SOURCE.name == "ssd_scan.cu"
 
