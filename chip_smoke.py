@@ -201,14 +201,20 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     (the same launches in its prefill, none in the warm-up or decode;
     prefill, warm-up and decode times, peak memory), and prints each
     kernel's share of the 4 x 4096 prefill;
-21. holds the SSD scan's backward kernel (``ops.ssd_scan_bwd``) against
-    its plain gradient (autograd through the chunked scan in f32 at chunk
-    64) at mamba2-130m's training layer (8, 2048, 24, 64, 1, 128) in f32
-    and bf16 and at zamba2-7b's (2, 4096, 112, 64, 1, 64) in f32: every
-    leaf within 1e-5 of its max in f32, the rounding rule of 13 in bf16,
-    a control (each 64-step chunk differentiated alone: no dstate carried)
-    failing it on every leaf the state reaches; two launches bitwise; and
-    times it beside its bound and the plain version;
+21. holds the SSD scan's backward kernel (``ops.ssd_scan_bwd``, on the
+    tensor cores) against its plain gradient (autograd through the
+    chunked scan in f32 at chunk 64) at mamba2-130m's training layer (8,
+    2048, 24, 64, 1, 128) in f32 and bf16, at zamba2-7b's (2, 4096, 112,
+    64, 1, 64) in f32 and at an unaligned (4, 1000, 8, 16, 2, 16) in both:
+    every leaf within 1e-5 of its max in f32, the rounding rule of 13 in
+    bf16, two controls failing it on every leaf the state or a product
+    reaches (each 64-step chunk differentiated alone: no dstate carried;
+    the kernel's decomposition with every product operand rounded once
+    to bf16, ``ref.ssd_bwd_decomposed``, where the kernel splits an f32
+    operand into three pieces); two launches bitwise; and times it at
+    the two layers beside the earlier CUDA-core design's time, its bound
+    (the CUDA cores' f32 rate for f32), the tensor-core route's bound (its
+    split products at the bf16 rate) and the plain version;
 22. trains mamba2-130m on the card, f32: (a) cut to 4 layers at full
     width (2 x 1024 tokens), the kernel path's loss and every gradient
     leaf within F32_REDUCTION of the plain path's, the carry-dropping
@@ -230,10 +236,12 @@ Exits non-zero if any phase fails. The last three lines of standard output
 are the card line, a JSON ``kernels`` record and a JSON ``ok`` record.
 """
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -358,6 +366,80 @@ def check(cond, msg):
     if not cond:
         fail(msg)
 
+
+
+# prctl(2): orphans of this process's descendants are handed to it
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def adopt_orphans():
+    """Make this process the reaper of its descendants' orphans, so a
+    process left behind by a child that was killed stays below it, where
+    ``stop_descendants`` finds it."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        fail(f"prctl(PR_SET_CHILD_SUBREAPER) failed: errno "
+             f"{ctypes.get_errno()}")
+
+
+def descendants():
+    """{pid: command line} of every process below this one, zombies too."""
+    parent, me = {}, os.getpid()
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:  # exited meanwhile
+            continue
+        parent[int(entry)] = int(stat[stat.rindex(")") + 2:].split()[1])
+    below, grew = set(), True
+    while grew:
+        new = {p for p, pp in parent.items()
+               if (pp == me or pp in below) and p not in below}
+        below |= new
+        grew = bool(new)
+    out = {}
+    for pid in sorted(below):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        out[pid] = cmd.strip() or "(zombie)"
+    return out
+
+
+def stop_descendants():
+    """Stop every process this one started that is still there: the
+    multiprocessing resource tracker of the mesh spawns by its own
+    shutdown, then anything else by SIGKILL, each reaped. Logs and
+    returns the command lines of those it had to kill."""
+    from multiprocessing import resource_tracker
+
+    resource_tracker._resource_tracker._stop()
+    killed = {}
+    for _ in range(100):
+        left = descendants()
+        if not left:
+            if killed:
+                log(f"stopped {len(killed)} processes left at the end: "
+                    f"{list(killed.values())}")
+            return list(killed.values())
+        for pid, cmd in left.items():
+            killed.setdefault(pid, cmd)
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+        while True:  # reap: every orphan is a child of this process
+            try:
+                pid, _ = os.waitpid(-1, os.WNOHANG)
+            except ChildProcessError:
+                break
+            if pid == 0:
+                break
+        time.sleep(0.05)
+    fail(f"processes still running after SIGKILL: {descendants()}")
 
 
 def card_line():
@@ -3141,6 +3223,28 @@ def ssd_as(fn):
         mssm.kops = orig
 
 
+@contextlib.contextmanager
+def tma_copies():
+    """Count ``ops.tma_operand``'s calls inside the block, and the copies
+    it makes (a strided or misaligned operand) with their bytes."""
+    seen = dict(calls=0, copies=0, bytes=0)
+    orig = ops.tma_operand
+
+    def counted(t):
+        out = orig(t)
+        seen["calls"] += 1
+        if out is not t:
+            seen["copies"] += 1
+            seen["bytes"] += out.numel() * out.element_size()
+        return out
+
+    ops.tma_operand = counted
+    try:
+        yield seen
+    finally:
+        ops.tma_operand = orig
+
+
 def phase_ssm_serve():
     """The third main path: full-depth bf16 mamba2-130m serving a batch."""
     cfg = MAMBA2_130M
@@ -3499,7 +3603,21 @@ def phase_hybrid_serve():
 SSD_BWD_CASES = (("mamba2 training layer", (8, 2048, 24, 64, 1, 128),
                   (torch.float32, torch.bfloat16)),
                  ("zamba2 layer", (2, 4096, 112, 64, 1, 64),
-                  (torch.float32,)))
+                  (torch.float32,)),
+                 ("unaligned", (4, 1000, 8, 16, 2, 16),
+                  (torch.float32, torch.bfloat16)),
+                 ("unaligned, 3 heads a group", (1, 333, 6, 32, 2, 32),
+                  (torch.float32, torch.bfloat16)))
+# the (H, G) of the sweep over every (P, N) the kernel is built for, at a
+# ragged S: an odd number of heads a group (the last pair of heads leaves
+# one consumer warpgroup idle) and one head a group (H == G)
+SSD_BWD_SWEEP_S, SSD_BWD_SWEEP_HG = 200, ((6, 2), (6, 6))
+# the cases timed beside their bounds (the unaligned one is not a layer)
+SSD_BWD_TIMED = ("mamba2 training layer", "zamba2 layer")
+# the kernel's earlier CUDA-core design at mamba2's training layer, f32
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): the time the tensor-core
+# kernel replaces
+SSD_BWD_CUDA_CORE_MS = 3.5675
 SSD_BWD_LEAVES = ("dx", "ddt", "dA", "dBm", "dCm", "dD")
 # f32: each gradient leaf within SSD_BWD_F32_TOL x its largest entry of the
 # plain gradient (autograd through the chunked scan in f32, at the
@@ -3514,6 +3632,13 @@ SSD_BWD_LEAVES = ("dx", "ddt", "dA", "dBm", "dCm", "dD")
 # is sum dy * x and does not see the state.
 SSD_BWD_F32_TOL = 1e-5
 SSD_BWD_CARRY_LEAVES = ("dx", "ddt", "dA", "dBm", "dCm")
+# The split control: the kernel's decomposition with every operand of its
+# tensor-core products rounded once to bf16 (``ref.ssd_bwd_decomposed``
+# with one piece each, computed on the card in f32), where the kernel
+# takes three pieces of an f32 operand. It must fail the rule on every
+# leaf a product feeds (all but dD; tests/test_torch_ssd_bwd_split.py
+# shows it on the CPU).
+SSD_BWD_SPLIT_LEAVES = SSD_BWD_CARRY_LEAVES
 # phase_train: (a) the exactness cell, 4 layers at full width, f32; (b)-(d)
 # full-size mamba2-130m, f32 as the reference's CLI trains it, 8 x 2048
 # tokens a step from TokenPipeline(seed=0), the CLI's init (model.init(0))
@@ -3554,17 +3679,47 @@ def ssd_bwd_bound_ms(B, S, H, P, G, N, dtype, chunk=64):
                                        else "bytes")
 
 
+def ssd_bwd_tc_bound_ms(B, S, H, P, G, N, dtype, chunk=64):
+    """The same least time for the tensor-core route: the bytes of
+    ``ssd_bwd_bound_ms`` against the chunked work as its bf16 tensor-core
+    products take it (989 TFLOP/s): each product of two f32 operands as
+    six piece products, a bf16 input's with an f32 operand as three and
+    two bf16 inputs' (C.B^T, dy.x^T) as one (``ref.ssd_bwd_decomposed``:
+    f32 inputs take three pieces, bf16 one, f32 intermediates three)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = item * (3 * B * S * H * P + 2 * B * S * H + 4 * B * S * G * N) \
+        + 4 * 4 * H
+    k_in = ssd_build.bwd_in_pieces(dtype)
+    pairs = [(a, b) for a in range(3) for b in range(3) if a + b <= 2]
+    in_in = sum(1 for a, b in pairs if a < k_in and b < k_in)
+    in_mid = sum(1 for a, b in pairs if a < k_in)
+    flops = 0
+    for c0 in range(0, S, chunk):
+        q = min(chunk, S - c0)
+        tri = q * (q + 1) // 2
+        flops += 2 * (in_in * (B * G * tri * N + B * H * tri * P)
+                      + in_mid * B * H * (tri * (P + 2 * N)
+                                          + 5 * q * N * P))
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def ssd_grads_alone(x, dt, A, Bm, Cm, D, dy, chunk=64):
     """The control: the plain gradient (f32) with each chunk differentiated
-    alone, so no state and no dstate cross a chunk boundary."""
+    alone, so no state and no dstate cross a chunk boundary. A ragged S is
+    padded with zero steps (dt = 0, x = dy = 0: they add to no gradient)."""
     B, S = x.shape[:2]
+    pad = -S % chunk
 
     def cut(t):
-        return t.float().reshape(B * S // chunk, chunk, *t.shape[2:])
+        t = torch.nn.functional.pad(t.float(), (0, 0) * (t.dim() - 2)
+                                    + (0, pad))
+        return t.reshape(B * (S + pad) // chunk, chunk, *t.shape[2:])
 
     grads = kref.ssd_chunked_grads(cut(x), cut(dt), A, cut(Bm), cut(Cm), D,
                                    cut(dy), chunk=chunk)
-    return [g.reshape(B, S, *g.shape[2:]) if g.dim() > 1 else g
+    return [g.reshape(B, S + pad, *g.shape[2:])[:, :S] if g.dim() > 1 else g
             for g in grads]
 
 
@@ -3584,9 +3739,13 @@ def rel_gap(a, b):
 
 def phase_ssd_backward():
     """The SSD scan's backward kernel against its plain gradient at
-    mamba2's training layer (f32 and bf16) and zamba2's (f32), its
-    carry-dropping control outside the rule, bitwise across two launches,
-    and its time beside its bound and the plain version's."""
+    mamba2's training layer (f32 and bf16), zamba2's (f32) and two
+    unaligned cases (P 16, N 16, G 2 and P 32, N 32, 3 heads a group,
+    ragged S; both dtypes), then over every (P, N) it is built for, its
+    carry-dropping control and its split control (every product operand
+    rounded once to bf16) outside the rule, bitwise across two launches,
+    and its time beside the earlier CUDA-core design's, its two bounds and
+    the plain version's."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     f32, bf16 = torch.float32, torch.bfloat16
     max_err, times = 0.0, {}
@@ -3596,11 +3755,12 @@ def phase_ssd_backward():
         for dtype in dtypes:
             args = [t.to(dtype) for t in (x, dt)] + [A] \
                 + [t.to(dtype) for t in (Bm, Cm)] + [D, dy.to(dtype)]
-            # the oracle and the control on f32 copies of the inputs as
+            # the oracle and the controls on f32 copies of the inputs as
             # the kernel reads them
             f = [t.float() for t in args]
             want = kref.ssd_chunked_grads(*f, chunk=ssd_build.CHUNK)
             alone = ssd_grads_alone(*f)
+            single = kref.ssd_bwd_decomposed(*f, in_pieces=1, mid_pieces=1)
             tag = f"ssd backward {name} {shape} {dtype}"
             before = ops.ssd_scan_bwd.launches
             a = ops.ssd_scan_bwd(*args, force="cuda")
@@ -3616,12 +3776,13 @@ def phase_ssd_backward():
                                            f32], f"{tag}: dtypes "
                   f"{[g.dtype for g in a]}")
             parts = []
-            for leaf, g, w, c in zip(SSD_BWD_LEAVES, a, want, alone):
+            for leaf, g, w, c, sp in zip(SSD_BWD_LEAVES, a, want, alone,
+                                         single):
                 err = rel_gap(g, w)
                 if dtype == f32:  # bf16's absolute gaps are its rounding
                     max_err = max(max_err, float((g - w).abs().max()))
                 if g.dtype == f32:
-                    ctrl = rel_gap(c, w)
+                    ctrl, split = rel_gap(c, w), rel_gap(sp, w)
                     check(err <= SSD_BWD_F32_TOL,
                           f"{tag}: {leaf} {err:.3e} of its max off the "
                           f"plain gradient (tol {SSD_BWD_F32_TOL})")
@@ -3629,8 +3790,10 @@ def phase_ssd_backward():
                 else:
                     ex = tol.half_ulp_excess(w, float(w.abs().max()),
                                              kernel=g,
-                                             control=c.to(dtype))
-                    err, ctrl = ex["kernel"], ex["control"]
+                                             control=c.to(dtype),
+                                             split=sp.to(dtype))
+                    err, ctrl, split = ex["kernel"], ex["control"], \
+                        ex["split"]
                     check(err <= F32_NOISE, f"{tag}: {leaf} beyond half a "
                           f"bf16 ulp by {err:.3e} of its max (limit "
                           f"{F32_NOISE:.3e})")
@@ -3638,7 +3801,12 @@ def phase_ssd_backward():
                 if leaf in SSD_BWD_CARRY_LEAVES:
                     check(ctrl > limit, f"{tag}: {leaf}: the carry-dropping "
                           f"control passes ({ctrl:.3e} <= {limit:.3e})")
-                parts.append(f"{leaf} {err:.3e} (control {ctrl:.3e})")
+                if leaf in SSD_BWD_SPLIT_LEAVES:
+                    check(split > limit, f"{tag}: {leaf}: the single-"
+                          f"rounding split control passes ({split:.3e} <= "
+                          f"{limit:.3e})")
+                parts.append(f"{leaf} {err:.3e} (carry control {ctrl:.3e},"
+                             f" split control {split:.3e})")
             rule = (f"of each leaf's max (limit {SSD_BWD_F32_TOL:.3e})"
                     if dtype == f32 else
                     f"excess over half a bf16 ulp / max (limit "
@@ -3646,33 +3814,92 @@ def phase_ssd_backward():
                     f"{SSD_BWD_F32_TOL:.3e})")
             log(f"{tag}: bitwise across launches; kernel vs plain {rule}: "
                 + ", ".join(parts))
-        for dtype in dtypes:
-            args = [t.to(dtype) for t in (x, dt)] + [A] \
-                + [t.to(dtype) for t in (Bm, Cm)] + [D, dy.to(dtype)]
-            ms = cuda_ms(lambda: ops.ssd_scan_bwd(*args, force="cuda"),
-                         reps=5, warmup=1)
-            plain_ms = cuda_ms(lambda: ops.ssd_scan_bwd(*args, force="ref"),
-                               reps=2, warmup=1)
-            bound_ms, bound_by = ssd_bwd_bound_ms(*shape, dtype)
-            times[name, dtype] = (ms, plain_ms, bound_ms, bound_by)
-            log(f"ssd backward {name} {shape} {dtype}: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-                f"({bound_by}), kernel/bound {ms / bound_ms:.1f}x")
-        del x, dt, A, Bm, Cm, D, dy, want, alone, a, b, args, f
+            del want, alone, single, a, b, f
+        if name in SSD_BWD_TIMED:
+            for dtype in dtypes:
+                args = [t.to(dtype) for t in (x, dt)] + [A] \
+                    + [t.to(dtype) for t in (Bm, Cm)] + [D, dy.to(dtype)]
+                ms = cuda_ms(lambda: ops.ssd_scan_bwd(*args, force="cuda"),
+                             reps=10, warmup=2)
+                plain_ms = cuda_ms(lambda: ops.ssd_scan_bwd(*args,
+                                                            force="ref"),
+                                   reps=2, warmup=1)
+                bound_ms, bound_by = ssd_bwd_bound_ms(*shape, dtype)
+                tc_ms, tc_by = ssd_bwd_tc_bound_ms(*shape, dtype)
+                times[name, dtype] = (ms, plain_ms, bound_ms, bound_by,
+                                      tc_ms, tc_by)
+                log(f"ssd backward {name} {shape} {dtype}: kernel {ms:.4f} "
+                    f"ms, plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms "
+                    f"({bound_by}, the CUDA cores' f32 rate for f32), "
+                    f"kernel/bound {ms / bound_ms:.2f}x; the tensor-core "
+                    f"route's bound {tc_ms:.5f} ms ({tc_by}, its split "
+                    f"products at 989 TFLOP/s), kernel/that "
+                    f"{ms / tc_ms:.2f}x")
+        del x, dt, A, Bm, Cm, D, dy, args
         torch.cuda.empty_cache()
-    ms, plain_ms, bound_ms, bound_by = times["mamba2 training layer", f32]
+    worst = {(f32, f32): (0.0,), (bf16, bf16): (0.0,), (bf16, f32): (0.0,)}
+    for P in ssd_build.HEAD_DIMS:
+        for N in ssd_build.STATE_DIMS:
+            for H, G in SSD_BWD_SWEEP_HG:
+                shape = (1, SSD_BWD_SWEEP_S, H, P, G, N)
+                x, dt, A, Bm, Cm, D = ssd_inputs(*shape, "mamba2", gen)
+                dy = torch.randn(x.shape, generator=gen, device="cuda")
+                for dtype in (f32, bf16):
+                    args = [t.to(dtype) for t in (x, dt)] + [A] \
+                        + [t.to(dtype) for t in (Bm, Cm)] + [D, dy.to(dtype)]
+                    # in f64: at a few heads the f32 plain dA is itself
+                    # up to ~5e-6 of its max off
+                    want = kref.ssd_chunked_grads(
+                        *[t.double() for t in args], chunk=ssd_build.CHUNK)
+                    a = ops.ssd_scan_bwd(*args, force="cuda")
+                    b = ops.ssd_scan_bwd(*args, force="cuda")
+                    tag = f"ssd backward sweep {shape} {dtype}"
+                    check(all(torch.equal(p, q) for p, q in zip(a, b)),
+                          f"{tag}: two launches differ")
+                    for leaf, g, w in zip(SSD_BWD_LEAVES, a, want):
+                        check(bool(torch.isfinite(g).all()),
+                              f"{tag}: {leaf} not finite")
+                        if g.dtype == f32:
+                            err, limit = rel_gap(g, w), SSD_BWD_F32_TOL
+                        else:
+                            err = tol.half_ulp_excess(
+                                w, float(w.abs().max()), kernel=g)["kernel"]
+                            limit = F32_NOISE
+                        check(err <= limit, f"{tag}: {leaf} {err:.3e} "
+                              f"(limit {limit:.3e})")
+                        worst[dtype, g.dtype] = max(
+                            worst[dtype, g.dtype], (err, leaf, shape))
+    log(f"ssd backward sweep over every (P, N) in {ssd_build.HEAD_DIMS} x "
+        f"{ssd_build.STATE_DIMS} at S {SSD_BWD_SWEEP_S}, (H, G) in "
+        f"{SSD_BWD_SWEEP_HG}, against the plain gradient in f64: bitwise "
+        f"across launches; worst (gap, leaf, shape): f32 {worst[f32, f32]} "
+        f"of its max (limit {SSD_BWD_F32_TOL:.3e}); bf16 inputs "
+        f"{worst[bf16, bf16]} excess over half a bf16 ulp / max (limit "
+        f"{F32_NOISE:.3e}), their f32 dA, dD {worst[bf16, f32]} of the "
+        f"max (limit {SSD_BWD_F32_TOL:.3e})")
+    ms, plain_ms, bound_ms, bound_by, tc_ms, tc_by = times[
+        "mamba2 training layer", f32]
+    log(f"ssd backward at mamba2's training layer, f32: {ms:.4f} ms against "
+        f"the earlier CUDA-core design's {SSD_BWD_CUDA_CORE_MS} ms "
+        f"({SSD_BWD_CUDA_CORE_MS / ms:.2f}x), the f32 bound {bound_ms:.5f} ms "
+        f"({ms / bound_ms:.2f}x) and the tensor-core route's {tc_ms:.5f} ms "
+        f"({ms / tc_ms:.2f}x)")
     shapes = {}
-    for (name, dtype), (t, p, bd, by) in times.items():
+    for (name, dtype), (t, p, bd, by, tb, tby) in times.items():
         if (name, dtype) != ("mamba2 training layer", f32):
             shapes[f"{name} {str(dtype).replace('torch.', '')}"] = dict(
-                ms=t, plain_ms=p, bound_ms=bd, bound_by=by, library_ms=None)
+                ms=t, plain_ms=p, bound_ms=bd, bound_by=by,
+                tensor_core_bound_ms=tb, tensor_core_bound_by=tby,
+                library_ms=None)
     return dict(name="ssd_scan_bwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
                 replaces="none: port only; the reference differentiates its "
                          "plain jnp scan, src/repro/models/ssm.py:49",
                 launches=None, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                shape=list(SSD_BWD_CASES[0][1]), shapes=shapes)
+                bound_ms=bound_ms, bound_by=bound_by,
+                tensor_core_bound_ms=tc_ms, tensor_core_bound_by=tc_by,
+                library_ms=None, shape=list(SSD_BWD_CASES[0][1]),
+                shapes=shapes)
 
 
 def train_counts():
@@ -3732,12 +3959,21 @@ def phase_train():
     batch = TokenPipeline(seed=1, batch=TRAIN_CUT_B, seq_len=TRAIN_CUT_S,
                           vocab_size=cfg.vocab_size).next()
     c0 = train_counts()
-    loss_k, _, g_k = train_module.loss_and_grads(model, params, batch)
-    torch.cuda.synchronize()
+    with tma_copies() as seen:
+        loss_k, _, g_k = train_module.loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
     c1 = train_counts()
     check((c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2]) == (L, L, 0),
           f"train (a): launches {[b - a for a, b in zip(c0, c1)]}, expected "
           f"{L} forward and {L} backward ssd, 0 flash")
+    # the backward reads x, B, C (saved by the f32 forward) and dy by TMA:
+    # the model hands them over contiguous and aligned, so none is copied
+    check(seen["calls"] == 4 * L and seen["copies"] == 0,
+          f"train (a): tma_operand {seen}, expected {4 * L} calls (x, B, C, "
+          f"dy a layer) and no copy")
+    log(f"train (a): the backward's TMA operands (x, B, C, dy of {L} "
+        f"layers): {seen['calls']} calls, {seen['copies']} copies "
+        f"({seen['bytes']} bytes)")
     loss_r, _, g_r = train_module.loss_and_grads(model, params, batch,
                                                  force="ref")
     with ssd_as(ssd_carry_dropped):
@@ -3862,15 +4098,22 @@ def phase_train():
     env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "src"))
     t0 = time.perf_counter()
+    # a session of its own: the kill takes the CLI's whole process group
     proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    watchdog = threading.Timer(600, proc.kill)
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+    def kill_cli():
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+
+    watchdog = threading.Timer(600, kill_cli)
     watchdog.start()
     killed_after, lines = None, []
     for line in proc.stdout:
         lines.append(line)
         if line.startswith(f"step {TRAIN_KILL_AT:5d} "):
-            proc.send_signal(signal.SIGKILL)
+            kill_cli()
             killed_after = TRAIN_KILL_AT
             break
     proc.stdout.close()
@@ -3935,6 +4178,21 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA "
              "device")
+    adopt_orphans()
+    try:
+        card, kernels = run()
+    finally:
+        stop_descendants()
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def run():
+    """Every phase in order; returns the card line and the kernels'
+    records."""
     # full f32 GEMVs and no TF32 anywhere in the port
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3948,8 +4206,13 @@ def main():
     log(f"built {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.2f} s (one nvcc per source, together)")
     for lib in libs:
-        for line in kbuild.compiler_report(lib):
+        report = kbuild.compiler_report(lib)
+        for line in report:
             log(f"  nvcc {lib.name}: {line}")
+        lost = [line for line in report if "Performance Loss" in line
+                or re.search(r"[1-9]\d* bytes spill", line)]
+        check(not lost, f"{lib.name}: ptxas spills or serialises wgmma: "
+              f"{lost[:4]}")
 
     record = phase_kernel()
     phase_small()
@@ -4037,11 +4300,7 @@ def main():
         f"{bwd * bwd_record['ms']:.3f} ms "
         f"({bwd * bwd_record['ms'] / train['step_ms']:.2%}) in backward")
 
-    print(card)
-    print(json.dumps({"kernels": [record, flash_record, ssd_record]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    return card, [record, flash_record, ssd_record]
 
 
 if __name__ == "__main__":

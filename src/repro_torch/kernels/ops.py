@@ -166,8 +166,10 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, dy, force: str = "auto"):
     :func:`ref.ssd_chunked_grads` (autograd through the plain chunked
     version at the kernel's chunk length) for CPU tensors; ``"cuda"``
     requires CUDA tensors; ``"ref"`` runs the plain version on any device.
-    A and D are taken in float32. ``ssd_scan_bwd.launches`` counts kernel
-    launches.
+    A and D are taken in float32; the kernel reads x, B, C and dy with
+    TMA, so they are made contiguous and 16-byte aligned first (a copy
+    only where they are not: :func:`tma_operand`). ``ssd_scan_bwd.launches``
+    counts kernel launches.
     """
     if force not in FORCES:
         raise ValueError(f"force must be one of {FORCES}, got {force!r}")
@@ -180,9 +182,10 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, dy, force: str = "auto"):
                            f"CUDA kernel and needs CUDA tensors, got "
                            f"{x.device}")
     f32 = torch.float32
-    out = ssd_scan_bwd_cuda(x, dt, A.to(f32).contiguous(), Bm, Cm,
+    out = ssd_scan_bwd_cuda(tma_operand(x), dt, A.to(f32).contiguous(),
+                            tma_operand(Bm), tma_operand(Cm),
                             None if D is None else D.to(f32).contiguous(),
-                            dy)
+                            tma_operand(dy))
     ssd_scan_bwd.launches += 1
     return out
 

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import losses
+from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK
 
 
 def sodda_inner_ref(w0, Xl, yl, mu, gamma, loss: str = "hinge"):
@@ -301,3 +302,148 @@ def ssd_chunked_grads(x, dt, A, Bm, Cm, D, dy, chunk: int = 64):
     dt_ = x.dtype
     return (dx.to(dt_), ddt.to(dt_), dA, dB.to(dt_), dC.to(dt_),
             None if d is None else grads[5])
+
+
+# pieces of one operand of the backward kernel's bf16 tensor-core products
+BWD_PIECES = (0, 1, 2, 3)
+
+
+def bf16_pieces(v, pieces: int):
+    """`v` as the sum of its first `pieces` bf16 pieces: p0 = bf16(v),
+    p1 = bf16(v - p0), p2 = bf16(v - p0 - p1), each residual exact in the
+    working dtype. Three pieces hold an f32 value exactly (8 + 8 + 8
+    significant bits); two are within 2^-16 |v| of it; one is a single
+    rounding. Returns the list of pieces (``pieces = 0``: ``[v]``, the
+    operand unsplit)."""
+    if pieces not in BWD_PIECES:
+        raise ValueError(f"pieces must be one of {BWD_PIECES}, got {pieces}")
+    if pieces == 0:
+        return [v]
+    out, rest = [], v
+    for _ in range(pieces):
+        p = rest.to(torch.bfloat16).to(v.dtype)
+        out.append(p)
+        rest = rest - p
+    return out
+
+
+def _split_product(eq, a, b, pa, pb):
+    """einsum(eq, a, b) as the backward kernel's tensor cores form it: the
+    sum of the products of piece a of `a` and piece b of `b` with
+    a + b <= 2 (pa, pb pieces; 0 for unsplit), the smallest first."""
+    ap, bp = bf16_pieces(a, pa), bf16_pieces(b, pb)
+    out = None
+    for s in (2, 1, 0):
+        for i in range(min(s + 1, len(ap))):
+            j = s - i
+            if j < len(bp):
+                t = torch.einsum(eq, ap[i], bp[j])
+                out = t if out is None else out + t
+    return out
+
+
+def ssd_bwd_decomposed(x, dt, A, Bm, Cm, D, dy, in_pieces: int = 0,
+                       mid_pieces: int = 0):
+    """The backward kernel's decomposition (``csrc/ssd_scan_bwd.cu``'s
+    note), in the inputs' dtype: (dx, ddt, dA, dBm, dCm, dD), dD None when
+    D is. Each product is taken as the kernel's tensor cores take it: an
+    operand that is an input (x, dy, B, C) in `in_pieces` bf16 pieces, one
+    that the kernel computes in f32 (the states and their gradients, the
+    weights W, dG, and the weighted rows u x, E dy of the carries) in
+    `mid_pieces` (``bf16_pieces``; 0 leaves every operand unsplit, the
+    plain decomposition). The kernel takes (3, 3) for f32 inputs and
+    (1, 3) for bf16; (1, 1) is the single-rounding control. The chunk is
+    the kernel's, ``ssd_scan.CHUNK``.
+
+      S0 (state entering a chunk) and dS (gradient of the state leaving
+      it) by the two sweeps; then per chunk and head
+      G^T = B C^T, dW^T = x dy^T, L_ji = exp(cum_i - cum_j) (j <= i),
+      W^T = G^T L dt_j, dG^T = dW^T L dt_j, M^T = dW^T L G^T,
+      dx = W^T dy + u_j raw + D dy with raw = dS B^T (per 64-wide tile of
+      N, summed), du_j = x_j . raw_j,
+      dC^T += B^T dG^T + E_i (S0^T dy^T), q_i = E_i C_i . (S0^T dy^T)_i,
+      dB^T += C^T dG + u_j (dS^T x^T), summed over the group's heads in
+      ascending order; dcum, its suffix sums, ddt and dA as the note.
+    """
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+    chunk = SSD_CHUNK
+    rep, NC = H // G, -(-S // chunk)
+    pad = NC * chunk - S
+    ct = x.dtype if x.dtype == torch.float64 else torch.float32
+    pi, pm = in_pieces, mid_pieces
+
+    def chunks(t):
+        t = F.pad(t.to(ct), (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(B, NC, chunk, *t.shape[2:])
+
+    xc, dtc, dyc = chunks(x), chunks(dt), chunks(dy)
+    Bc, Cc = chunks(Bm), chunks(Cm)  # (B, NC, Q, G, N)
+    hg = torch.arange(H, device=x.device) // rep
+    Bh, Ch = Bc[:, :, :, hg], Cc[:, :, :, hg]  # per head
+    A = A.to(ct)
+    cum = torch.cumsum(dtc * A, 2)  # (B, NC, Q, H)
+    last = cum[:, :, -1]
+    eu = torch.exp(last[:, :, None] - cum)
+    u, E, el = eu * dtc, torch.exp(cum), torch.exp(last)
+    # the sweeps: scale the carry by exp(last), then add the chunk's product
+    S0 = torch.zeros(B, NC, H, P, N, dtype=ct, device=x.device)
+    dS = torch.zeros_like(S0)
+    st = torch.zeros(B, H, P, N, dtype=ct, device=x.device)
+    for c in range(NC):
+        S0[:, c] = st
+        st = st * el[:, c, :, None, None] + _split_product(
+            "bjhp,bjhn->bhpn", xc[:, c] * u[:, c, ..., None], Bh[:, c],
+            pm, pi)
+    st = torch.zeros_like(st)
+    for c in reversed(range(NC)):
+        dS[:, c] = st
+        st = st * el[:, c, :, None, None] + _split_product(
+            "bihp,bihn->bhpn", dyc[:, c] * E[:, c, ..., None], Ch[:, c],
+            pm, pi)
+    # the per-chunk terms, rows j of the transposed products
+    cumh = cum.permute(0, 1, 3, 2)  # (B, NC, H, Q)
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()  # [i][j], j <= i
+    Lt = torch.exp(torch.where(causal.T, cumh[..., None, :]
+                               - cumh[..., :, None], -math.inf))  # [j][i]
+    dtj = dtc.permute(0, 1, 3, 2)[..., :, None]  # dt_j on rows j
+    Gt = _split_product("bcjgn,bcign->bcgji", Bc, Cc, pi, pi)[:, :, hg]
+    dWt = _split_product("bcjhp,bcihp->bchji", xc, dyc, pi, pi)
+    Wt, Tt = Gt * Lt * dtj, dWt * Lt
+    dGt, Mt = Tt * dtj, Tt * Gt
+    dx = _split_product("bchji,bcihp->bcjhp", Wt, dyc, pm, pi)
+    raw = 0
+    for n0 in range(0, N, 64):
+        raw = raw + _split_product("bchpn,bcjhn->bcjhp",
+                                   dS[..., n0:n0 + 64],
+                                   Bh[..., n0:n0 + 64], pm, pi)
+    dx = dx + u[..., None] * raw
+    if D is not None:
+        dx = dx + D.to(ct)[:, None] * dyc
+    du = (xc * raw).sum(-1)
+    dCi = _split_product("bchpn,bcihp->bcihn", S0, dyc, pm, pi)
+    q = E * (Ch * dCi).sum(-1)
+    dBi = _split_product("bchpn,bcjhp->bcjhn", dS, xc, pm, pi)
+    dCh = (_split_product("bcjhn,bchji->bcihn", Bh, dGt, pi, pm)
+           + E[..., None] * dCi)
+    dBh = (_split_product("bcihn,bchji->bcjhn", Ch, dGt, pi, pm)
+           + u[..., None] * dBi)
+    colm = Mt.sum(-1).permute(0, 1, 3, 2)  # sum_i M_ij, on rows j
+    rowm = (Mt * dtj).sum(-2).permute(0, 1, 3, 2)  # sum_j M_ij dt_j
+    dcum = rowm - dtc * colm + q - du * u
+    dcum[:, :, -1] += (du * u).sum(2) + el * (dS * S0).sum((-1, -2))
+    suffix = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    ddt = colm + du * eu + A * suffix
+
+    def unchunk(t):
+        return t.reshape(B, NC * chunk, *t.shape[3:])[:, :S]
+
+    dB = torch.zeros(B, NC, chunk, G, N, dtype=ct, device=x.device)
+    dC = torch.zeros_like(dB)
+    for h in range(H):  # the group's heads, ascending
+        dB[:, :, :, h // rep] += dBh[:, :, :, h]
+        dC[:, :, :, h // rep] += dCh[:, :, :, h]
+    return (unchunk(dx), unchunk(ddt), (dtc * suffix).sum((0, 1, 2)),
+            unchunk(dB), unchunk(dC),
+            None if D is None else (dyc * xc).sum((0, 1, 2, 4)))

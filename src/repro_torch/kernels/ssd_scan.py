@@ -16,7 +16,9 @@ route (``route``):
 Both replace the TPU kernel ``repro.kernels.ssd_scan.ssd_scan_pallas`` plus
 the D skip of its ops wrapper; their sources say what they compute, what
 bounds them and how they are laid out. A third, ``csrc/ssd_scan_bwd.cu``,
-takes both dtypes and computes the scan's gradients (``ssd_scan_bwd_cuda``):
+takes both dtypes and computes the scan's gradients (``ssd_scan_bwd_cuda``) on
+the tensor cores (TMA loads, ``wgmma`` products with every f32 operand
+split into three bf16 pieces, the group's heads summed inside a block):
 the reference has no counterpart, since it differentiates its plain
 chunked scan, and the port's training path runs the forward kernel. They take the models' layout,
 x (B, S, H, P), dt (B, S, H) and B/C (B, S, G, N), with P in ``HEAD_DIMS``
@@ -46,7 +48,9 @@ from repro_torch.kernels.build import SHARED_MEMORY_BUDGET
 __all__ = ["SOURCE", "WGMMA_SOURCE", "BWD_SOURCE", "SOURCES", "ROUTES",
            "CHUNK", "STAGES", "HEADS_PER_BLOCK", "HEAD_DIMS", "STATE_DIMS",
            "DTYPE_CODES", "route", "shared_memory_bytes",
-           "bwd_shared_memory_bytes", "check_args", "check_bwd_args",
+           "BWD_MID_PIECES", "bwd_in_pieces", "bwd_sums_shape",
+           "bwd_shared_memory_bytes",
+           "check_args", "check_bwd_args",
            "ssd_scan_cuda", "ssd_scan_bwd_cuda"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -102,14 +106,53 @@ def shared_memory_bytes(P: int, N: int, route: str = "cuda-core") -> int:
     raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
 
 
-def bwd_shared_memory_bytes(P: int, N: int) -> int:
-    """Dynamic shared memory of one block of the backward's per-chunk
-    kernel (its largest): the x and dy tiles, the B and C tiles, the
-    entering state and the leaving state's gradient (rows padded by 4),
-    W, dG and M (rows padded by 4), nine per-step vectors, a block sum's
-    256 floats and 4 scalars, all f32."""
-    return 4 * (2 * CHUNK * P + 2 * CHUNK * (N + PAD) + 2 * P * (N + PAD)
-                + 3 * CHUNK * (CHUNK + PAD) + 9 * CHUNK + 256 + 4)
+BWD_MID_PIECES = 3  # kMid in ssd_scan_bwd.cu: pieces of an f32 operand
+_ALIGN = 1024  # kAlign: every tile starts on the 128-byte swizzle's repeat
+
+
+def _up(v: int) -> int:
+    return -(-v // _ALIGN) * _ALIGN
+
+
+def bwd_sums_shape(B: int, S: int, G: int, N: int) -> tuple:
+    """The f32 scratch of the per-chunk kernel's running sums of dB and dC
+    over a group's heads (N = 128 only, where they do not fit the
+    registers): per block (b, chunk, group) and consumer warpgroup, 2 n
+    tiles x 2 sums x 16 fragment registers x 128 threads."""
+    if N != 128:
+        raise ValueError(f"ssd_scan_bwd: the sums scratch is for N = 128, "
+                         f"got N={N}")
+    return (B, -(-S // CHUNK), G, 2, 2, 2, 16, 128)
+
+
+def bwd_in_pieces(dtype) -> int:
+    """bf16 pieces the backward kernel splits an input tile into: 3 hold an
+    f32 exactly, a bf16 is its own one (``In<T>`` in the source)."""
+    return 3 if dtype == torch.float32 else 1
+
+
+def bwd_shared_memory_bytes(P: int, N: int, dtype=torch.float32) -> dict:
+    """Dynamic shared memory of one block of each of the backward's two
+    large kernels (``SweepCfg`` and ``ChunkCfg`` in the source), every
+    region 1 KB aligned, plus the barriers and the alignment slack.
+
+    sweep: a two-stage ring, each stage two heads' x or dy rows and the
+    group's B or C rows as loaded; the B or C rows as bf16 pieces; the dt
+    of both heads a stage; per consumer warp 2 x 64 f32 of scan values.
+    chunk: one staging slot (B or C rows, or a head's x and dy rows); B
+    and C as pieces (at least 64 columns, zero past N); x and dy as
+    pieces; dG^T as three pieces, each two 32-column halves; the f32 dx
+    tile (rows padded by 4); the per-step vectors and partial sums."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    k_in = bwd_in_pieces(dtype)
+    nt = max(N, 64)
+    sweep = (2 * _up(CHUNK * (2 * P + N) * item) + k_in * _up(CHUNK * N * 2)
+             + 4 * 2 * 2 * CHUNK + 4 * 8 * 2 * CHUNK + 64 + _ALIGN)
+    chunk = (_up(max(CHUNK * N, 2 * CHUNK * P) * item)
+             + 2 * k_in * _up(CHUNK * nt * 2) + 2 * k_in * _up(CHUNK * P * 2)
+             + BWD_MID_PIECES * CHUNK * 64 * 2 + 4 * CHUNK * (P + 4)
+             + 4 * (23 * CHUNK + 16) + 64 + _ALIGN)
+    return {"sweep": sweep, "chunk": chunk}
 
 
 def _check_common(x, dt, A, Bm, Cm, D) -> None:
@@ -187,7 +230,9 @@ def check_args(x, dt, A, Bm, Cm, D=None) -> None:
 
 def check_bwd_args(x, dt, A, Bm, Cm, D, dy) -> None:
     """Raise ``ValueError`` on anything the backward kernel does not take.
-    It reads x, dt, B, C and dy through their strides in either dtype."""
+    It reads x, B, C and dy with TMA (contiguous, 16-byte aligned data;
+    ``ops.ssd_scan_bwd`` hands them over so) and dt through its strides,
+    in either dtype."""
     _check_common(x, dt, A, Bm, Cm, D)
     if tuple(dy.shape) != tuple(x.shape) or dy.dtype != x.dtype:
         raise ValueError(f"ssd_scan_bwd: dy must be {tuple(x.shape)} "
@@ -199,12 +244,22 @@ def check_bwd_args(x, dt, A, Bm, Cm, D, dy) -> None:
     if dy.device != x.device:
         raise ValueError(f"ssd_scan_bwd: dy is on {dy.device}, x on "
                          f"{x.device}")
-    S, P, N = x.shape[1], x.shape[3], Bm.shape[3]
-    if -(-S // CHUNK) > 65535:
-        raise ValueError(f"ssd_scan_bwd: S={S} gives more than 65535 chunks "
-                         "(a grid dimension)")
-    need = bwd_shared_memory_bytes(P, N)
-    if need > SHARED_MEMORY_BUDGET:
+    S, G, P, N = x.shape[1], Bm.shape[2], x.shape[3], Bm.shape[3]
+    if S > 2 ** 31 - 1 - CHUNK:
+        raise ValueError(f"ssd_scan_bwd: S={S} does not fit a TMA "
+                         "coordinate")
+    if G > 65535:
+        raise ValueError(f"ssd_scan_bwd: G={G} is above 65535 (a grid "
+                         "dimension)")
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm), ("dy", dy)):
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_scan_bwd: {name} must be contiguous "
+                             "(TMA reads it)")
+        if t.data_ptr() % 16:
+            raise ValueError(f"ssd_scan_bwd: {name}'s data must be 16-byte "
+                             "aligned for TMA")
+    need = bwd_shared_memory_bytes(P, N, x.dtype)
+    if max(need.values()) > SHARED_MEMORY_BUDGET:
         raise ValueError(f"ssd_scan_bwd: P={P}, N={N} need {need} bytes of "
                          f"shared memory, above the {SHARED_MEMORY_BUDGET}-"
                          "byte budget of one block")
@@ -276,9 +331,8 @@ def _bwd_entry_point():
     lib = kbuild.load(BWD_SOURCE)
     fn, err = lib.ssd_scan_bwd, lib.ssd_scan_bwd_error_string
     # x, dt, A, Bm, Cm, D, dy; dx, ddt, dA, dB, dC, dD; states, dstates,
-    # dB_part, dC_part, dA_part, dD_part; B, S, H, G, P, N, dtype; strides,
-    # stream
-    fn.argtypes = [vp] * 19 + [ci] * 7 + [vp, vp]
+    # dA_part, dD_part, sums; B, S, H, G, P, N, dtype; dt strides, stream
+    fn.argtypes = [vp] * 18 + [ci] * 7 + [vp, vp]
     fn.restype = ci
     err.argtypes = [ci]
     err.restype = ctypes.c_char_p
@@ -292,13 +346,18 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, D, dy):
     (dx, ddt, dA, dBm, dCm, dD): dx, ddt, dBm and dCm contiguous in x's
     dtype, dA and dD (H,) float32, dD None when D is.
 
-    Computed in f32 from the inputs as read (any dtype the forward takes,
-    through their strides) and rounded once. Deterministic: two launches
-    give bitwise the same gradients. Allocates its outputs and an f32
-    scratch of 2 x (B, H, ceil(S/64), P, N) states and 2 x (B, S, H, N)
-    partials. Runs on PyTorch's current stream without synchronising.
-    Raises on a CPU tensor, on arguments the kernel does not take, and
-    when the build or the launch fails.
+    Computed to f32 accuracy from the inputs as read (x, B, C and dy
+    contiguous and 16-byte aligned, dt through its strides) and rounded
+    once. Deterministic: two launches give bitwise the same gradients.
+    Allocates its outputs and an f32 scratch: the state entering and the
+    gradient of the state leaving each 64-step chunk, 2 x (B, H,
+    ceil(S/64), P, N), 2 x (B, ceil(S/64), H) partials of dA and dD, and
+    at N = 128 the dB and dC sums over a group's heads
+    (``bwd_sums_shape``: per block, where they do not fit the registers;
+    no per-head partial).
+    Runs on PyTorch's current stream without synchronising. Raises on a
+    CPU tensor, on arguments the kernel does not take, and when the build
+    or the launch fails.
     """
     check_bwd_args(x, dt, A, Bm, Cm, D, dy)
     if x.device.type != "cuda":
@@ -316,15 +375,13 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, D, dy):
     dB, dC = empty(B, S, G, N, dtype=x.dtype), empty(B, S, G, N, dtype=x.dtype)
     dA, dD = empty(H), (None if D is None else empty(H))
     states, dstates = empty(B, H, NC, P, N), empty(B, H, NC, P, N)
-    dB_part, dC_part = empty(B, S, H, N), empty(B, S, H, N)
     dA_part, dD_part = empty(B, NC, H), empty(B, NC, H)
+    sums = empty(*bwd_sums_shape(B, S, G, N)) if N == 128 else None
     fn, err = _bwd_entry_point()
     pointers = [t.data_ptr() if t is not None else None for t in (
         x, dt, A, Bm, Cm, D, dy, dx, ddt, dA, dB, dC, dD, states, dstates,
-        dB_part, dC_part, dA_part, dD_part)]
-    strides = (ctypes.c_longlong * 15)(*x.stride()[:3], *dt.stride(),
-                                        *Bm.stride()[:3], *Cm.stride()[:3],
-                                        *dy.stride()[:3])
+        dA_part, dD_part, sums)]
+    strides = (ctypes.c_longlong * 3)(*dt.stride())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(*pointers, B, S, H, G, P, N, DTYPE_CODES[x.dtype],

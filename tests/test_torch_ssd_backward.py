@@ -6,13 +6,16 @@ it is held to ``torch.autograd.gradcheck`` at float64 on tiny shapes, as
 the backward of an autograd function whose forward is the plain scan.
 Then the kernel's own decomposition (a forward sweep storing the state
 entering each 64-step chunk, a reverse sweep storing the gradient of the
-state leaving it, and the per-chunk terms of the source's note), written
-out in float64 below, is held to that plain gradient at 1e-9 relative to
-each leaf's max, so the arithmetic the kernel runs is checked on the CPU.
-``ops.ssd_scan_bwd`` takes the plain version for CPU tensors and counts
-nothing. The one test that needs the card (marked ``gpu``) holds the
-kernel against the plain version there; it decides inside its body
-whether to skip.
+state leaving it, and the per-chunk terms of the source's note, taken as
+the kernel takes them: transposed products, raw = dS B^T in 64-wide
+tiles of N, dB and dC summed over a group's heads in ascending order),
+``ref.ssd_bwd_decomposed`` unsplit in float64, is held to that plain
+gradient at 1e-9 relative to each leaf's max, so the arithmetic the
+kernel runs is checked on the CPU (its bf16 splits:
+``tests/test_torch_ssd_bwd_split.py``). ``ops.ssd_scan_bwd`` takes the
+plain version for CPU tensors and counts nothing. The one test that needs
+the card (marked ``gpu``) holds the kernel against the plain version
+there; it decides inside its body whether to skip.
 """
 import numpy as np
 import pytest
@@ -84,74 +87,6 @@ def test_plain_gradient_types_and_no_d():
     assert g[5] is None and all(t.dtype == torch.float32 for t in g[:5])
 
 
-def mirror_grads(x, dt, A, Bm, Cm, D, dy, Q=64):
-    """The backward kernel's decomposition in float64 (the source's note):
-    the two sweeps, then every per-chunk term, then the sums over heads."""
-    B, S, H, P = x.shape
-    G, N = Bm.shape[2:]
-    rep, NC = H // G, -(-S // Q)
-    pad = NC * Q - S
-
-    def chunks(t):
-        t = torch.nn.functional.pad(t.to(F64), (0, 0) * (t.dim() - 2)
-                                    + (0, pad))
-        return t.reshape(B, NC, Q, *t.shape[2:])
-
-    xc, dtc, dyc = chunks(x), chunks(dt), chunks(dy)
-    Bc = chunks(Bm.repeat_interleave(rep, 2))
-    Cc = chunks(Cm.repeat_interleave(rep, 2))
-    A = A.to(F64)
-    cum = torch.cumsum(dtc * A, 2)  # (B, NC, Q, H)
-    last = cum[:, :, -1]
-    eu = torch.exp(last[:, :, None] - cum)
-    u, E, el = eu * dtc, torch.exp(cum), torch.exp(last)
-    # 1. the sweeps: the state entering each chunk, and dS of the leaving one
-    S0 = torch.zeros(B, NC, H, P, N, dtype=F64)
-    dS = torch.zeros_like(S0)
-    st = torch.zeros(B, H, P, N, dtype=F64)
-    for c in range(NC):
-        S0[:, c] = st
-        st = st * el[:, c, :, None, None] + torch.einsum(
-            "bjhp,bjhn->bhpn", xc[:, c], Bc[:, c] * u[:, c, ..., None])
-    st = torch.zeros(B, H, P, N, dtype=F64)
-    for c in reversed(range(NC)):
-        dS[:, c] = st
-        st = st * el[:, c, :, None, None] + torch.einsum(
-            "bihp,bihn->bhpn", dyc[:, c], Cc[:, c] * E[:, c, ..., None])
-    # 2. the per-chunk terms
-    cumh = cum.permute(0, 1, 3, 2)
-    causal = torch.ones(Q, Q, dtype=torch.bool).tril()
-    L = torch.exp(torch.where(causal, cumh[..., :, None] - cumh[..., None, :],
-                              -torch.inf))
-    dth = dtc.permute(0, 1, 3, 2)[..., None, :]
-    Gm = torch.einsum("bcihn,bcjhn->bchij", Cc, Bc)
-    T = torch.einsum("bcihp,bcjhp->bchij", dyc, xc) * L
-    W, dG, M = Gm * L * dth, T * dth, T * Gm
-    raw = torch.einsum("bcjhn,bchpn->bcjhp", Bc, dS)
-    dx = (torch.einsum("bchij,bcihp->bcjhp", W, dyc) + u[..., None] * raw
-          + D.to(F64)[:, None] * dyc)
-    du = (xc * raw).sum(-1)
-    inter = E[..., None] * torch.einsum("bcihp,bchpn->bcihn", dyc, S0)
-    dC = torch.einsum("bchij,bcjhn->bcihn", dG, Bc) + inter
-    dB = (torch.einsum("bchij,bcihn->bcjhn", dG, Cc)
-          + u[..., None] * torch.einsum("bcjhp,bchpn->bcjhn", xc, dS))
-    colm = M.sum(-2).permute(0, 1, 3, 2)
-    dcum = ((M * dth).sum(-1).permute(0, 1, 3, 2) - dtc * colm
-            + (Cc * inter).sum(-1) - du * u)
-    dcum[:, :, -1] += (du * u).sum(2) + el * (dS * S0).sum((-1, -2))
-    dlog = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
-    ddt = colm + du * eu + A * dlog
-
-    def unchunk(t):
-        return t.reshape(B, NC * Q, *t.shape[3:])[:, :S]
-
-    def by_group(t):
-        return unchunk(t).reshape(B, S, G, rep, N).sum(3)
-
-    return (unchunk(dx), unchunk(ddt), (dtc * dlog).sum((0, 1, 2)),
-            by_group(dB), by_group(dC), (dyc * xc).sum((0, 1, 2, 4)))
-
-
 @pytest.mark.parametrize("shape", [
     (2, 150, 4, 16, 2, 16),  # a ragged last chunk, two heads a group
     (1, 128, 3, 8, 1, 8),  # every head in one group
@@ -160,7 +95,7 @@ def test_the_kernels_formulas_equal_the_plain_gradient(shape):
     x, dt, A, Bm, Cm, D, dy = _inputs(*shape, dtype=F64, seed=1)
     A = A * 0.05  # a slow decay: the carried state and its gradient matter
     want = ref.ssd_chunked_grads(x, dt, A, Bm, Cm, D, dy, chunk=64)
-    got = mirror_grads(x, dt, A, Bm, Cm, D, dy)
+    got = ref.ssd_bwd_decomposed(x, dt, A, Bm, Cm, D, dy)
     for name, g, w in zip(NAMES, got, want):
         err = float((g - w).abs().max() / w.abs().max())
         assert err <= MIRROR_TOL, (name, err)
@@ -213,25 +148,51 @@ def test_check_bwd_args_refuses_what_the_kernel_does_not_take():
                               dy.transpose(2, 3).contiguous().transpose(2, 3))
     with pytest.raises(ValueError, match="head dim"):
         kernel.check_bwd_args(x[..., :8], dt, A, Bm, Cm, D, dy[..., :8])
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.check_bwd_args(x.transpose(1, 2).contiguous().transpose(1, 2),
+                              dt, A, Bm, Cm, D, dy)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.empty(Bm.numel() + 1)
+        kernel.check_bwd_args(x, dt, A, Bm, flat[1:].view(Bm.shape), D, dy)
     with pytest.raises(RuntimeError, match="CUDA"):
         kernel.ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, D, dy)
 
 
 def test_every_shape_fits_the_shared_memory_budget():
     from repro_torch.kernels.build import SHARED_MEMORY_BUDGET
-    for P in kernel.HEAD_DIMS:
-        for N in kernel.STATE_DIMS:
-            assert kernel.bwd_shared_memory_bytes(P, N) <= SHARED_MEMORY_BUDGET
-    # the largest, as the source's note gives it
-    assert kernel.bwd_shared_memory_bytes(64, 128) == 223_504
+    for dtype in kernel.DTYPE_CODES:
+        for P in kernel.HEAD_DIMS:
+            for N in kernel.STATE_DIMS:
+                need = kernel.bwd_shared_memory_bytes(P, N, dtype)
+                assert max(need.values()) <= SHARED_MEMORY_BUDGET, need
+    # the largest, as the source's SweepCfg and ChunkCfg lay it out
+    assert kernel.bwd_shared_memory_bytes(64, 128) == {"sweep": 186_432,
+                                                       "chunk": 229_248}
+
+
+def test_the_sums_scratch_is_per_group_not_per_head():
+    """At N = 128 the per-chunk kernel keeps its dB and dC sums in an f32
+    scratch of 2 tiles x 2 sums x 16 registers x 128 threads per block and
+    warpgroup: (B, chunks, G, ...), no H axis."""
+    assert kernel.bwd_sums_shape(8, 2048, 1, 128) == (8, 32, 1, 2, 2, 2,
+                                                       16, 128)
+    assert kernel.bwd_sums_shape(2, 130, 3, 128)[:3] == (2, 3, 3)
+    with pytest.raises(ValueError, match="N = 128"):
+        kernel.bwd_sums_shape(8, 2048, 1, 64)
 
 
 def test_the_source_is_listed_and_deterministic_by_construction():
     code = kernel.BWD_SOURCE.read_text()
     assert kernel.BWD_SOURCE in kernel.SOURCES
     assert "atomicAdd" not in code and "__expf" not in code
+    assert "_part" not in code.replace("dA_part", "").replace("dD_part", "")
     assert f"constexpr int kQ = {kernel.CHUNK};" in code
-    assert f"constexpr int kPad = {kernel.PAD};" in code
+    assert f"constexpr int kMid = {kernel.BWD_MID_PIECES};" in code
+    # three bf16 pieces for an f32 input, one for a bf16
+    assert "struct In<float> {\n  static constexpr int kPieces = 3;" in code
+    # the products are wgmma, the loads TMA
+    assert "wgmma.mma_async.sync.aligned" in code
+    assert "cp.async.bulk.tensor" in code
     for P in kernel.HEAD_DIMS:
         assert f"dispatch_n<T, {P}>" in code
     for N in kernel.STATE_DIMS:
@@ -239,11 +200,17 @@ def test_the_source_is_listed_and_deterministic_by_construction():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 300, 4, 64, 1, 128),
+                                   (2, 150, 4, 16, 2, 16),
+                                   (1, 333, 6, 32, 2, 32),
+                                   (1, 200, 3, 64, 3, 64)],
+                         ids=["P64N128", "P16N16-G2-ragged",
+                              "P32N32-rep3-ragged", "P64N64-H=G-ragged"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_on_the_card(dtype):
+def test_kernel_matches_plain_on_the_card(dtype, shape):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    args = [t.cuda() for t in _inputs(2, 300, 4, 64, 1, 128, seed=3)]
+    args = [t.cuda() for t in _inputs(*shape, seed=3)]
     x, dt, A, Bm, Cm, D, dy = args
     cast = [t.to(dtype) for t in (x, dt)] + [A] + \
         [t.to(dtype) for t in (Bm, Cm)] + [D, dy.to(dtype)]
