@@ -8,8 +8,9 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
 1. prints the card's name and power limit (``nvidia-smi``); fails without
    a CUDA device;
 2. builds the hand-written kernels (``sodda_inner``, ``flash_attention``
-   and ``ssd_scan``, each of the last two in a wgmma source for bf16 and a
-   CUDA-core source for f32, and the SSD scan's backward) from the sources
+   and ``ssd_scan``, each of the last two in a wgmma source for bf16 and
+   one for f32 (flash's on the CUDA cores, the SSD scan's on the tensor
+   cores), and the SSD scan's backward) from the sources
    in the checkout, one
    ``nvcc`` per source, all at once, and prints the build time and the
    compiler's register report;
@@ -159,18 +160,25 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     the kernel path's logits to the plain path's to 1.2x the plain path's
     gap to itself summed in another order;
 16. holds ``ssd_scan`` against its plain chunked version at the mamba2-130m
-    layer shape (B=16, S=2048, H=24, P=64, G=1, N=128), with Mamba-2's dt
-    and A and a slow-decay case, at S = 1000, at G = 2 and at zamba2-7b's
-    layer shape (4, 4096, 112, 64, 1, 64), in f32
-    (the CUDA-core route, rtol = atol = 1e-4) and bf16 (the wgmma route,
-    the rounding rule of 13 over max|y|, which four controls must fail: the
-    carry dropped, and each f32 operand of the tensor-core products rounded
-    once to bf16: W, the state as C . state reads it, and x_j w_j of the
-    state update), requires two launches to agree bitwise, prints each
-    case's route and the inter-chunk share ||y_inter|| / ||y||, runs x, B
-    and C as bf16 views whose data is not 16-byte aligned (bitwise the
-    aligned copies' output), and times kernel and plain version beside the
-    bound at the mamba2 and zamba2 layer shapes;
+    serving layer shape (B=16, S=2048, H=24, P=64, G=1, N=128), with
+    Mamba-2's dt and A and a slow-decay case, at the training layer (8,
+    2048, 24, 64, 1, 128), at S = 1000, at an unaligned (4, 1000, 8, 16, 2,
+    16), at (1, 333, 6, 32, 2, 32) (3 heads a group), at G = 2 and at
+    zamba2-7b's layer shape (4, 4096, 112, 64, 1, 64), in f32 (the
+    wgmma-f32 route, rtol = atol = 1e-4, and within 1e-5 of max|y| off the
+    plain chunked SSD in f64, which two controls must fail: the carry
+    dropped, and every operand of the tensor-core products rounded once to
+    bf16) and bf16 (the wgmma route, the rounding rule of 13 over max|y|,
+    which four controls must fail: the carry dropped, and each f32 operand
+    of the tensor-core products rounded once to bf16: W, the state as
+    C . state reads it, and x_j w_j of the state update), requires two
+    launches to agree bitwise, prints each case's route and the
+    inter-chunk share ||y_inter|| / ||y||, runs x, B and C as views whose
+    data is not 16-byte aligned in both dtypes (bitwise the aligned
+    copies' output), and times kernel and plain version beside the bound
+    (the least of the work at the dtype's peak and as the split
+    tensor-core products take it) at the mamba2 serving and training and
+    the zamba2 layer shapes;
 17. runs full-depth mamba2-130m in f32 (B=2, 1024 prompt tokens, Mamba-2's
     A_log and dt_bias): the kernel path's prefill logits within 2e-4 of the
     plain path's and of the decode warm-up's last logits (the scan against
@@ -319,6 +327,20 @@ MODEL_TOL = 2e-4
 # F32_NOISE's, over max|y|.
 SSD_F32_TOL = 1e-4
 SSD_SHAPE = (16, 2048, 24, 64, 1, 128)  # (B, S, H, P, G, N): a serving layer
+SSD_TRAIN_SHAPE = (8, 2048, 24, 64, 1, 128)  # mamba2-130m's training layer
+# The f32 route runs on the bf16 tensor cores (every operand in three bf16
+# pieces), so beside the 1e-4 rule each f32 output is held within
+# SSD_F32_ORACLE_TOL x max|y| of the f64 oracle (the plain chunked SSD on
+# f64 copies, at the kernel's chunk). The CPU emulation of the kernel's
+# pieces is ~1e-8 off (tests/test_torch_ssd_fwd_split.py). Two controls must
+# fail it: the carry dropped, and every operand of the tensor-core products
+# rounded once to bf16 (``ref.ssd_chunk_terms(in_pieces=1, mid_pieces=1)``,
+# 3e-4 to 1.3e-3 on the CPU).
+SSD_F32_ORACLE_TOL = 1e-5
+# the f32 route's earlier CUDA-core design (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md §5-6): the times the tensor-core kernel replaces
+SSD_F32_CUDA_CORE_MS = {"mamba2 training layer": 2.167,
+                        "mamba2 layer": 3.3041, "zamba2 layer": 5.0282}
 SSM_F32_B, SSM_F32_PROMPT, SSM_F32_FED = 2, 1024, 8
 # Full-depth f32 mamba2: the plain path against itself at another chunk
 # length (the same function summed in another order) moves single logits
@@ -2659,6 +2681,29 @@ def phase_flash():
             f"scaled_dot_product_attention {d_sdpa:.4f} ms; layout head dim "
             f"{flash_build.layout_head_dim(D)}")
         del q, k, v, qt, kt, vt
+    # the f32 route (csrc/flash_attention.cu, the CUDA cores) at zamba2's
+    # shared layer, causal: the shape of the f32 exactness cells, on no
+    # timed main path
+    B, H, KV, Sq, Sk, D = ZAMBA2_FLASH
+    q, k, v = flash_inputs(B, H, KV, Sq, Sk, D, f32, gen)
+    f_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, force="cuda"),
+                   reps=3, warmup=1)
+    f_plain = cuda_ms(lambda: ops.flash_attention(q, k, v, force="ref"),
+                      reps=2, warmup=1)
+    f_bound, f_by = flash_bound_ms(B, H, KV, Sq, Sk, D, f32)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    f_sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), reps=5, warmup=2)
+    f32_record = dict(shape=list(ZAMBA2_FLASH), route=flash_build.route(f32, D),
+                      source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                      ms=f_ms, plain_ms=f_plain, bound_ms=f_bound,
+                      bound_by=f_by, library_ms=f_sdpa, launches=None)
+    log(f"flash zamba2 shared layer {(B, H, KV, Sq, D)} f32 causal "
+        f"({f32_record['route']} route): kernel {f_ms:.4f} ms, plain "
+        f"{f_plain:.4f} ms, bound {f_bound:.5f} ms ({f_by}), kernel/bound "
+        f"{f_ms / f_bound:.1f}x; torch scaled_dot_product_attention in f32 "
+        f"{f_sdpa:.4f} ms")
+    del q, k, v, qt, kt, vt
     ms, plain_ms, bound_ms, bound_by = times["global"]
     record = dict(name="flash_attention", route="cuda",
                   source="src/repro_torch/kernels/csrc/"
@@ -2667,7 +2712,8 @@ def phase_flash():
                   launches=None, max_abs_err=max_err, ms=ms,
                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                   library_ms=sdpa_ms,
-                  head_dims={str(D): r for D, r in by_dim.items()})
+                  head_dims={str(D): r for D, r in by_dim.items()},
+                  f32=f32_record)
     return record, times
 
 
@@ -2684,18 +2730,21 @@ def offset_view(t):
 
 
 def offset_view_case(name, run, inputs, tma, route):
-    """Unaligned bf16 views of the TMA operands (positions `tma` of
-    `inputs`) through a wgmma route give bitwise the aligned copies' output
-    (ops copies such a view before TMA reads it)."""
+    """Unaligned views of the TMA operands (positions `tma` of `inputs`)
+    through a wgmma route give bitwise the aligned copies' output (ops
+    copies such a view before TMA reads it)."""
     want = run(*inputs)
     got = run(*(offset_view(t) if i in tma else t
                 for i, t in enumerate(inputs)))
     torch.cuda.synchronize()
-    check(route == "wgmma", f"{name} offset view: route {route}, not wgmma")
+    check(route.startswith("wgmma"),
+          f"{name} offset view: route {route}, not a wgmma one")
     check(torch.equal(got, want), f"{name} offset view: the output differs "
           "from the aligned copy's")
-    log(f"{name} offset bf16 views (data 2 bytes past 16-byte alignment, "
-        f"{route} route): bitwise the aligned copy's output")
+    item = inputs[tma[0]].element_size()
+    log(f"{name} offset {inputs[tma[0]].dtype} views (data {item} bytes past "
+        f"16-byte alignment, {route} route): bitwise the aligned copy's "
+        "output")
 
 
 def decode_logits(model, params, prompts, tokens, force):
@@ -2920,6 +2969,46 @@ def ssd_bound_ms(B, S, H, P, G, N, dtype, chunk=64):
                                        else "bytes")
 
 
+def ssd_fwd_tc_bound_ms(B, S, H, P, G, N, dtype, chunk=64):
+    """The same least time for the tensor-core routes: the bytes of
+    ``ssd_bound_ms`` against its chunked work as the bf16 tensor-core
+    products take it (989 TFLOP/s). f32: every product of two f32
+    operands as six piece products (three pieces each, a + b <= 2;
+    ``ref.ssd_chunk_terms(in_pieces=3, mid_pieces=3)``); bf16: C.B^T as
+    one, each product with an f32 operand split hi + lo as two."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = item * (2 * B * S * H * P + B * S * H + 2 * B * S * G * N) \
+        + 4 * 2 * H
+    k_in, k_mid = (3, 3) if dtype == torch.float32 else (1, 2)
+    in_in = sum(1 for a in range(k_in) for b in range(k_in) if a + b <= 2)
+    in_mid = sum(1 for a in range(k_mid) for b in range(k_in) if a + b <= 2)
+    flops = 0
+    for c0 in range(0, S, chunk):
+        q = min(chunk, S - c0)
+        flops += 2 * (in_in * B * G * q * q * N
+                      + in_mid * B * H * (q * (q + 1) // 2 * P
+                                          + 2 * q * N * P))
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def bound_keys(dtype, plain, tc):
+    """A record's bound keys from the function's work at its dtype's own
+    peak (`plain`: f32 on the CUDA cores, bf16 on the tensor cores) and as
+    the split tensor-core products take it (`tc`), each (ms, by).
+    ``bound_ms`` is the least of the two: for f32 the tensor-core one (six
+    piece products at 989 TFLOP/s take less time than one at 67), kept
+    beside the CUDA-core figure; for bf16 the unsplit work, kept beside the
+    split products' figure."""
+    (p_ms, p_by), (t_ms, t_by) = plain, tc
+    if dtype == torch.float32:
+        return dict(bound_ms=t_ms, bound_by=t_by, cuda_core_bound_ms=p_ms,
+                    cuda_core_bound_by=p_by)
+    return dict(bound_ms=p_ms, bound_by=p_by, tensor_core_bound_ms=t_ms,
+                tensor_core_bound_by=t_by)
+
+
 def ssd_inputs(B, S, H, P, G, N, decay, gen):
     """x, dt, A, Bm, Cm, D on the card, f32. "mamba2": A = -U[1, 16] and
     dt log-uniform in [1e-3, 1e-1], as Mamba-2 initialises them; "slow":
@@ -2941,17 +3030,17 @@ def ssd_inputs(B, S, H, P, G, N, decay, gen):
             1.0 + normal((H,), 0.5))
 
 
-def ssd_terms(x, dt, A, Bm, Cm, D, **splits):
-    """The plain chunked SSD on f32 copies, at the kernel's chunk, as
-    (y, y_intra + D x, inter share): the f32 oracle, the control that
-    drops the state the kernel carries from chunk to chunk (before
-    rounding), and ||y_inter|| / ||y||. `splits` go to
-    ``ref.ssd_chunk_terms``: how the f32 operands of the tensor-core
-    products are rounded."""
-    f = [t.float() for t in (x, dt, A, Bm, Cm)]
+def ssd_terms(x, dt, A, Bm, Cm, D, dtype=torch.float32, **splits):
+    """The plain chunked SSD on copies in `dtype` (f32, or f64 for the f32
+    route's oracle), at the kernel's chunk, as (y, y_intra + D x, inter
+    share): the oracle, the control that drops the state the kernel
+    carries from chunk to chunk (before rounding), and ||y_inter|| /
+    ||y||. `splits` go to ``ref.ssd_chunk_terms``: how the operands of the
+    tensor-core products are rounded."""
+    f = [t.to(dtype) for t in (x, dt, A, Bm, Cm)]
     y_intra, y_inter = kref.ssd_chunk_terms(*f, chunk=ssd_build.CHUNK,
                                             **splits)
-    dx = D.float()[None, None, :, None] * f[0]
+    dx = D.to(dtype)[None, None, :, None] * f[0]
     y = y_intra + y_inter + dx
     share = float(y_inter.detach().norm() / y.detach().norm())
     return y, y_intra + dx, share
@@ -2981,19 +3070,43 @@ def ssd_excess(x, dt, A, Bm, Cm, D, **outs):
     return ex, share
 
 
+def ssd_f32_oracle_gaps(x, dt, A, Bm, Cm, D, out):
+    """The f32 route's rule: |y - oracle| / max|oracle| of the kernel's
+    output and of both controls, the oracle the plain chunked SSD in f64:
+    the carry dropped, and every operand of the tensor-core products
+    rounded once to bf16. Computed one at a time: f64 at zamba2's layer
+    takes GBs."""
+    oracle, dropped, _ = ssd_terms(x, dt, A, Bm, Cm, D, dtype=torch.float64)
+    scale = float(oracle.abs().max())
+    gaps = {"kernel": float((out.double() - oracle).abs().max()) / scale,
+            "control_carry": float((dropped - oracle).abs().max()) / scale}
+    del dropped
+    single, _, _ = ssd_terms(x, dt, A, Bm, Cm, D, dtype=torch.float64,
+                             in_pieces=1, mid_pieces=1)
+    gaps["control_bf16_operands"] = float((single - oracle).abs().max()) \
+        / scale
+    return gaps
+
+
 def phase_ssd():
-    """ssd_scan against its plain version at the mamba2-130m layer shape."""
+    """ssd_scan against its plain version at the mamba2-130m layer shapes
+    (serving and training), zamba2's and unaligned ones, in both dtypes."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     f32, bf16 = torch.float32, torch.bfloat16
     B, S, H, P, G, N = SSD_SHAPE
     cases = [
         ("mamba2 layer", (B, S, H, P, G, N), "mamba2"),
         ("slow decay", (B, S, H, P, G, N), "slow"),
+        ("mamba2 training layer", SSD_TRAIN_SHAPE, "mamba2"),
         ("unaligned S=1000", (B, 1000, H, P, G, N), "mamba2"),
+        ("unaligned P16 N16 G2", (4, 1000, 8, 16, 2, 16), "mamba2"),
+        # 3 heads a group: the block of the last pair has one head, and the
+        # second consumer warpgroup computes on zeros through every barrier
+        ("odd heads a group P32 N32", (1, 333, 6, 32, 2, 32), "mamba2"),
         ("G=2", (4, S, H, P, 2, N), "mamba2"),
         ("zamba2 layer", ZAMBA2_SSD, "mamba2"),
     ]
-    max_err = 0.0
+    max_err, worst_f32 = 0.0, 0.0
     for name, shape, decay in cases:
         x, dt, A, Bm, Cm, D = ssd_inputs(*shape, decay, gen)
         for dtype in (f32, bf16):
@@ -3024,20 +3137,40 @@ def phase_ssd():
                 gap = float((dropped - oracle).abs().max())
                 check(gap > 10 * SSD_F32_TOL,
                       f"{tag}: dropping the carry moves y by only {gap}")
+                del oracle, dropped
+                gaps = ssd_f32_oracle_gaps(*args, a)
+                check(gaps["kernel"] <= SSD_F32_ORACLE_TOL,
+                      f"{tag}: {gaps['kernel']:.3e} of max|y| off the f64 "
+                      f"oracle, above {SSD_F32_ORACLE_TOL}")
+                for control in ("control_carry", "control_bf16_operands"):
+                    check(gaps[control] > SSD_F32_ORACLE_TOL,
+                          f"{tag}: the {control} is only "
+                          f"{gaps[control]:.3e} of max|y| off the f64 "
+                          "oracle: the rule cannot see it")
+                worst_f32 = max(worst_f32, gaps["kernel"])
                 rule = (f"tol {SSD_F32_TOL}; the carry-dropping control is "
-                        f"{gap:.3e} off")
+                        f"{gap:.3e} off; off the f64 oracle / max|y|: "
+                        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+                        + f" (limit {SSD_F32_ORACLE_TOL})")
             err = float((a.float() - want.float()).abs().max())
             max_err = max(max_err, err)
             log(f"{tag}: bitwise across launches, max|kernel-plain| = "
                 f"{err:.3e}, ||y_inter||/||y|| = {share:.4f}; {rule}")
 
+    log(f"ssd f32 route ({ssd_build.route(f32, P, N)}): every case within "
+        f"{worst_f32:.3e} of max|y| off the f64 oracle (limit "
+        f"{SSD_F32_ORACLE_TOL}), both controls outside it")
+
     x, dt, A, Bm, Cm, D = ssd_inputs(2, 300, 4, P, G, N, "mamba2", gen)
-    offset_view_case("ssd", lambda *t: ops.ssd_scan(*t, force="cuda"),
-                     [x.to(bf16), dt.to(bf16), A, Bm.to(bf16), Cm.to(bf16),
-                      D], (0, 3, 4), ssd_build.route(bf16, P, N))
+    for dtype in (bf16, f32):
+        offset_view_case("ssd", lambda *t: ops.ssd_scan(*t, force="cuda"),
+                         [x.to(dtype), dt.to(dtype), A, Bm.to(dtype),
+                          Cm.to(dtype), D], (0, 3, 4),
+                         ssd_build.route(dtype, P, N))
 
     times = {}
     for layer, shape in (("mamba2 layer", SSD_SHAPE),
+                         ("mamba2 training layer", SSD_TRAIN_SHAPE),
                          ("zamba2 layer", ZAMBA2_SSD)):
         x, dt, A, Bm, Cm, D = ssd_inputs(*shape, "mamba2", gen)
         for dtype in (bf16, f32):
@@ -3048,24 +3181,39 @@ def phase_ssd():
             plain_ms = cuda_ms(lambda: ops.ssd_scan(*args, chunk=256,
                                                     force="ref"),
                                reps=3, warmup=1)
-            bound_ms, bound_by = ssd_bound_ms(*shape, dtype)
-            times[layer, dtype] = (ms, plain_ms, bound_ms, bound_by)
-            log(f"ssd {layer} {shape} {dtype}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
-                f"kernel/bound {ms / bound_ms:.1f}x")
+            plain = ssd_bound_ms(*shape, dtype)
+            tc = ssd_fwd_tc_bound_ms(*shape, dtype)
+            bounds = bound_keys(dtype, plain, tc)
+            times[layer, dtype] = dict(
+                shape=list(shape), ms=ms, plain_ms=plain_ms, **bounds,
+                library_ms=None, launches=None)
+            other, (o_ms, o_by) = (("CUDA-core bound", plain) if dtype == f32
+                                   else ("split products' bound", tc))
+            before = ("" if dtype == bf16 else
+                      f", the CUDA-core design {SSD_F32_CUDA_CORE_MS[layer]}"
+                      f" ms ({SSD_F32_CUDA_CORE_MS[layer] / ms:.2f}x)")
+            log(f"ssd {layer} {shape} {dtype} ({ssd_build.route(dtype, P, N)}"
+                f" route): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bounds['bound_ms']:.5f} ms ({bounds['bound_by']}), "
+                f"kernel/bound {ms / bounds['bound_ms']:.1f}x; the {other} "
+                f"{o_ms:.5f} ms ({o_by}), kernel/that {ms / o_ms:.1f}x"
+                f"{before}")
         del x, dt, A, Bm, Cm, D, args
-    ms, plain_ms, bound_ms, bound_by = times["mamba2 layer", bf16]
-    z_ms, z_plain, z_bound, z_by = times["zamba2 layer", bf16]
+    top = times["mamba2 layer", bf16]
+    f32_record = dict(times["mamba2 training layer", f32],
+                      source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                      route=ssd_build.route(f32, P, N), max_f32_oracle_gap=
+                      worst_f32, shapes={
+                          layer: times[layer, f32]
+                          for layer in ("mamba2 layer", "zamba2 layer")})
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_scan_wgmma.cu",
                 replaces="src/repro/kernels/ssd_scan.py:67",
-                launches=None, max_abs_err=max_err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None,
-                shapes={"zamba2 layer": dict(
-                    shape=list(ZAMBA2_SSD), ms=z_ms, plain_ms=z_plain,
-                    bound_ms=z_bound, bound_by=z_by, library_ms=None,
-                    launches=None)})
+                launches=None, max_abs_err=max_err, ms=top["ms"],
+                plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                bound_by=top["bound_by"], library_ms=None,
+                shapes={"zamba2 layer": times["zamba2 layer", bf16]},
+                f32=f32_record)
 
 
 def ssm_params(model, seed):
@@ -3127,14 +3275,16 @@ def phase_ssm_f32():
                          generator=gen, device="cuda")
     batch = {"tokens": toks[:, :P]}
     before = ops.ssd_scan.launches
-    core = ops.ssd_scan.route_launches["cuda-core"]
+    f32_route = ssd_build.route(torch.float32, cfg.ssm_head_dim,
+                                cfg.ssm_state)
+    core = ops.ssd_scan.route_launches[f32_route]
     logits_k, _ = model.prefill(params, batch)
     torch.cuda.synchronize()
     launches = ops.ssd_scan.launches - before
-    check(launches == cfg.num_layers
-          and ops.ssd_scan.route_launches["cuda-core"] - core == launches,
+    check(f32_route == "wgmma-f32" and launches == cfg.num_layers
+          and ops.ssd_scan.route_launches[f32_route] - core == launches,
           f"mamba2 f32: {launches} ssd launches in a {cfg.num_layers}-layer "
-          "prefill, not all on the cuda-core route")
+          f"prefill, not all on the wgmma-f32 route ({f32_route})")
 
     layers = []
 
@@ -3395,10 +3545,10 @@ def phase_hybrid_f32():
     torch.cuda.synchronize()
     f1, s1, r1 = counts()
     check(f1 - f0 == sites and s1 - s0 == cfg.num_layers
-          and r1["cuda-core"] - r0["cuda-core"] == cfg.num_layers,
+          and r1["wgmma-f32"] - r0["wgmma-f32"] == cfg.num_layers,
           f"zamba2 f32: {f1 - f0} flash and {s1 - s0} ssd launches ({r0} -> "
           f"{r1}) in a {cfg.num_layers}-layer prefill with {sites} sites, "
-          "expected every ssd launch on the cuda-core route")
+          "expected every ssd launch on the wgmma-f32 route")
     check(flash_build.route(torch.float32, cfg.resolved_head_dim)
           == "cuda-core", "zamba2 f32: flash does not take the cuda-core "
           "route")
@@ -3824,17 +3974,18 @@ def phase_ssd_backward():
                 plain_ms = cuda_ms(lambda: ops.ssd_scan_bwd(*args,
                                                             force="ref"),
                                    reps=2, warmup=1)
-                bound_ms, bound_by = ssd_bwd_bound_ms(*shape, dtype)
-                tc_ms, tc_by = ssd_bwd_tc_bound_ms(*shape, dtype)
-                times[name, dtype] = (ms, plain_ms, bound_ms, bound_by,
-                                      tc_ms, tc_by)
+                plain = ssd_bwd_bound_ms(*shape, dtype)
+                tc = ssd_bwd_tc_bound_ms(*shape, dtype)
+                times[name, dtype] = dict(ms=ms, plain_ms=plain_ms,
+                                          **bound_keys(dtype, plain, tc),
+                                          library_ms=None)
                 log(f"ssd backward {name} {shape} {dtype}: kernel {ms:.4f} "
-                    f"ms, plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms "
-                    f"({bound_by}, the CUDA cores' f32 rate for f32), "
-                    f"kernel/bound {ms / bound_ms:.2f}x; the tensor-core "
-                    f"route's bound {tc_ms:.5f} ms ({tc_by}, its split "
-                    f"products at 989 TFLOP/s), kernel/that "
-                    f"{ms / tc_ms:.2f}x")
+                    f"ms, plain {plain_ms:.4f} ms; the function's work at "
+                    f"the dtype's peak (the CUDA cores' f32 rate for f32) "
+                    f"{plain[0]:.5f} ms ({plain[1]}), kernel/that "
+                    f"{ms / plain[0]:.2f}x; the tensor-core route's split "
+                    f"products at 989 TFLOP/s {tc[0]:.5f} ms ({tc[1]}), "
+                    f"kernel/that {ms / tc[0]:.2f}x; bound_ms the least")
         del x, dt, A, Bm, Cm, D, dy, args
         torch.cuda.empty_cache()
     worst = {(f32, f32): (0.0,), (bf16, bf16): (0.0,), (bf16, f32): (0.0,)}
@@ -3877,29 +4028,23 @@ def phase_ssd_backward():
         f"{worst[bf16, bf16]} excess over half a bf16 ulp / max (limit "
         f"{F32_NOISE:.3e}), their f32 dA, dD {worst[bf16, f32]} of the "
         f"max (limit {SSD_BWD_F32_TOL:.3e})")
-    ms, plain_ms, bound_ms, bound_by, tc_ms, tc_by = times[
-        "mamba2 training layer", f32]
+    top = times["mamba2 training layer", f32]
+    ms = top["ms"]
     log(f"ssd backward at mamba2's training layer, f32: {ms:.4f} ms against "
         f"the earlier CUDA-core design's {SSD_BWD_CUDA_CORE_MS} ms "
-        f"({SSD_BWD_CUDA_CORE_MS / ms:.2f}x), the f32 bound {bound_ms:.5f} ms "
-        f"({ms / bound_ms:.2f}x) and the tensor-core route's {tc_ms:.5f} ms "
-        f"({ms / tc_ms:.2f}x)")
-    shapes = {}
-    for (name, dtype), (t, p, bd, by, tb, tby) in times.items():
-        if (name, dtype) != ("mamba2 training layer", f32):
-            shapes[f"{name} {str(dtype).replace('torch.', '')}"] = dict(
-                ms=t, plain_ms=p, bound_ms=bd, bound_by=by,
-                tensor_core_bound_ms=tb, tensor_core_bound_by=tby,
-                library_ms=None)
+        f"({SSD_BWD_CUDA_CORE_MS / ms:.2f}x), the bound (the tensor-core "
+        f"route's) {top['bound_ms']:.5f} ms ({ms / top['bound_ms']:.2f}x) "
+        f"and the CUDA cores' {top['cuda_core_bound_ms']:.5f} ms "
+        f"({ms / top['cuda_core_bound_ms']:.2f}x)")
+    shapes = {f"{name} {str(dtype).replace('torch.', '')}": rec
+              for (name, dtype), rec in times.items()
+              if (name, dtype) != ("mamba2 training layer", f32)}
     return dict(name="ssd_scan_bwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
                 replaces="none: port only; the reference differentiates its "
                          "plain jnp scan, src/repro/models/ssm.py:49",
-                launches=None, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by,
-                tensor_core_bound_ms=tc_ms, tensor_core_bound_by=tc_by,
-                library_ms=None, shape=list(SSD_BWD_CASES[0][1]),
-                shapes=shapes)
+                launches=None, max_abs_err=max_err, **top,
+                shape=list(SSD_BWD_CASES[0][1]), shapes=shapes)
 
 
 def train_counts():
@@ -3966,14 +4111,16 @@ def phase_train():
     check((c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2]) == (L, L, 0),
           f"train (a): launches {[b - a for a, b in zip(c0, c1)]}, expected "
           f"{L} forward and {L} backward ssd, 0 flash")
-    # the backward reads x, B, C (saved by the f32 forward) and dy by TMA:
-    # the model hands them over contiguous and aligned, so none is copied
-    check(seen["calls"] == 4 * L and seen["copies"] == 0,
-          f"train (a): tma_operand {seen}, expected {4 * L} calls (x, B, C, "
-          f"dy a layer) and no copy")
-    log(f"train (a): the backward's TMA operands (x, B, C, dy of {L} "
-        f"layers): {seen['calls']} calls, {seen['copies']} copies "
-        f"({seen['bytes']} bytes)")
+    # the f32 forward reads B, C by TMA and x at its fragments' places, the
+    # backward x, B, C (saved by the forward) and dy by TMA: the model hands
+    # them over contiguous and aligned, so none is copied
+    check(seen["calls"] == 7 * L and seen["copies"] == 0,
+          f"train (a): tma_operand {seen}, expected {7 * L} calls (x, B, C "
+          "of the forward and x, B, C, dy of the backward a layer) and no "
+          "copy")
+    log(f"train (a): the forward's and the backward's TMA operands (x, B, "
+        f"C; x, B, C, dy of {L} layers): {seen['calls']} calls, "
+        f"{seen['copies']} copies ({seen['bytes']} bytes)")
     loss_r, _, g_r = train_module.loss_and_grads(model, params, batch,
                                                  force="ref")
     with ssd_as(ssd_carry_dropped):
@@ -4025,6 +4172,13 @@ def phase_train():
     check(all(n == want for run in runs for n in run[3]),
           f"train (b): launches a step {runs[0][3]}, expected {want} "
           "(ssd forward, ssd backward, flash)")
+    f32_route = ssd_build.route(f32, cfg.ssm_head_dim, cfg.ssm_state)
+    check(f32_route == "wgmma-f32" and ops.ssd_scan.route_launches
+          == {"wgmma": 0, "wgmma-f32": ops.ssd_scan.launches}
+          and ops.ssd_scan.launches == TRAIN_STEPS * L,
+          f"train (b): ssd forward launches by route "
+          f"{ops.ssd_scan.route_launches} in the second run's "
+          f"{ops.ssd_scan.launches}, expected all on wgmma-f32")
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
           f"train (b): the loss does not fall: {losses}")
     bitwise = runs[1][1] == losses and all(torch.equal(a, b) for a, b in zip(
@@ -4289,13 +4443,15 @@ def run():
     train = phase_train()
     fwd, bwd, _ = train["launches"]
     ssd_record["launches_by_path"]["mamba2-130m train step"] = fwd
+    ssd_record["f32"]["launches"] = fwd  # every one on the wgmma-f32 route
+    ssd_record["f32"]["launches_by_path"] = {"mamba2-130m train step": fwd}
     bwd_record["launches"] = bwd
     bwd_record["launches_by_path"] = {
         "mamba2-130m train step": bwd,
         "mamba2-130m SODDA-SVRG, 20 steps": train["sodda_launches"][1]}
     ssd_record["backward"] = bwd_record
     log(f"train ssd kernel share of a step ({train['step_ms']:.3f} ms): "
-        f"{fwd} forward launches (f32, the cuda-core route) and {bwd} x "
+        f"{fwd} forward launches (f32, the wgmma-f32 route) and {bwd} x "
         f"{bwd_record['ms']:.4f} ms backward = "
         f"{bwd * bwd_record['ms']:.3f} ms "
         f"({bwd * bwd_record['ms'] / train['step_ms']:.2%}) in backward")

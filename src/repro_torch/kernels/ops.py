@@ -103,15 +103,15 @@ def ssd_scan(x, dt, A, Bm, Cm, D=None, chunk: int = 128, force: str = "auto"):
     The Mamba-2 SSD scan plus D . x, rounded once to x's dtype.
     ``force="auto"`` launches the CUDA kernel of
     ``kernels.ssd_scan.route(dtype, P, N)`` for CUDA tensors (bf16: the
-    wgmma kernel; f32: the CUDA-core kernel) and runs
+    wgmma kernel; f32: the wgmma-f32 kernel) and runs
     :func:`ref.ssd_chunked_ref` with chunk length `chunk` for CPU tensors;
     ``"cuda"`` requires CUDA tensors; ``"ref"`` runs the plain version on
     any device. The kernels use their own chunk (``ssd_scan.CHUNK``); the
     result depends on the chunk only through f32 rounding. A and D are
-    taken in float32; nothing is padded. The wgmma route reads x, B and C
-    with TMA, so they are made contiguous and 16-byte aligned first (a copy
-    only where they are not: :func:`tma_operand`); the CUDA-core route
-    reads them through their strides.
+    taken in float32; nothing is padded. Both routes read B and C with TMA
+    (and x with TMA or at their fragments' places), so x, B and C are made
+    contiguous and 16-byte aligned first (a copy only where they are not:
+    :func:`tma_operand`).
 
     A kernel launch goes through a ``torch.autograd.Function`` whose
     backward is the backward kernel (:func:`ssd_scan_bwd`) on the operands
@@ -134,7 +134,7 @@ def ssd_scan(x, dt, A, Bm, Cm, D=None, chunk: int = 128, force: str = "auto"):
 
 
 ssd_scan.launches = 0
-ssd_scan.route_launches = {"wgmma": 0, "cuda-core": 0}
+ssd_scan.route_launches = {"wgmma": 0, "wgmma-f32": 0}
 
 
 class _SsdScan(torch.autograd.Function):
@@ -143,8 +143,7 @@ class _SsdScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, D):
         kernel = ssd_route(x.dtype, x.shape[-1], Bm.shape[-1])
-        if kernel == "wgmma":
-            x, Bm, Cm = tma_operand(x), tma_operand(Bm), tma_operand(Cm)
+        x, Bm, Cm = tma_operand(x), tma_operand(Bm), tma_operand(Cm)
         out = ssd_scan_cuda(x, dt, A, Bm, Cm, D)
         ssd_scan.launches += 1
         ssd_scan.route_launches[kernel] += 1

@@ -57,10 +57,10 @@ def split_p(p, p_split: int = 0):
         raise ValueError(f"p_split must be one of {P_SPLITS}, got {p_split}")
     if p_split == 0:
         return p
-    hi = p.to(torch.bfloat16).float()
-    if p_split == 1:
-        return hi
-    return hi + (p - hi).to(torch.bfloat16).float()
+    out, *rest = bf16_pieces(p, p_split)
+    for piece in rest:
+        out = out + piece
+    return out
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -193,7 +193,8 @@ def ssd_ref(x, dt, A, Bm, Cm, D=None):
 
 
 def ssd_chunk_terms(x, dt, A, Bm, Cm, chunk: int = 256, w_split: int = 0,
-                    state_split: int = 0, update_split: int = 0):
+                    state_split: int = 0, update_split: int = 0,
+                    in_pieces: int = 0, mid_pieces: int = 0):
     """The two f32 terms of the chunked SSD, each (B, S, H, P):
 
       y_intra_i = sum_{j <= i in i's chunk} C_i.B_j exp(cum_i - cum_j) dt_j x_j
@@ -204,19 +205,40 @@ def ssd_chunk_terms(x, dt, A, Bm, Cm, chunk: int = 256, w_split: int = 0,
     a row with dt = 0, x = 0 adds nothing, so the pad changes no output.
 
     The three f32 operands a bf16 tensor-core kernel must feed to its
-    products are taken as ``split_p`` takes P (0: f32, as the CUDA-core
-    kernel; 1: rounded once to bf16, a control; 2: hi + lo, the wgmma
-    kernel's two bf16 passes into one f32 accumulator):
+    products are taken as ``split_p`` takes P (0: f32; 1: rounded once to
+    bf16, a control; 2: hi + lo, the bf16 wgmma kernel's two bf16 passes
+    into one f32 accumulator):
     `w_split` the intra-chunk weights W in W . x, `state_split` the carried
     state as C . state reads it (the state itself stays f32), and
     `update_split` the operand x_j w_j of the state update
-    sum_j (x_j w_j) outer B_j. The defaults are the f32 arithmetic.
+    sum_j (x_j w_j) outer B_j.
+
+    Or `in_pieces` and `mid_pieces` (not both families at once) take
+    every product as the f32 kernel's
+    tensor cores take it (``csrc/ssd_scan.cu``; ``_split_product``): an
+    input operand (x, B, C) in `in_pieces` bf16 pieces, one computed in
+    f32 (W, the carried state, x_j w_j) in `mid_pieces` (``bf16_pieces``;
+    the kernel takes (3, 3), (1, 1) is the single-rounding control).
+    C . state is taken as (C exp(cum)) . state, C exp(cum) in `in_pieces`:
+    the kernel splits C and scales the product's rows after it, which
+    leaves out terms of the same size. The defaults are the f32
+    arithmetic.
     Inputs of float64 are computed in float64 (``_ssd_dtype``).
     """
     for name, split in (("w_split", w_split), ("state_split", state_split),
                         ("update_split", update_split)):
         if split not in P_SPLITS:
             raise ValueError(f"{name} must be one of {P_SPLITS}, got {split}")
+    for name, pieces in (("in_pieces", in_pieces),
+                         ("mid_pieces", mid_pieces)):
+        if pieces not in BWD_PIECES:
+            raise ValueError(f"{name} must be one of {BWD_PIECES}, got "
+                             f"{pieces}")
+    if (w_split or state_split or update_split) and (in_pieces or
+                                                      mid_pieces):
+        raise ValueError("the *_split options (the bf16 kernel) and "
+                         "in_pieces/mid_pieces (the f32 kernel) do not mix")
+    pi, pm = in_pieces, mid_pieces
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     pad = (-S) % chunk
@@ -242,27 +264,29 @@ def ssd_chunk_terms(x, dt, A, Bm, Cm, chunk: int = 256, w_split: int = 0,
     # does, and its gradient is NaN from a chunk of 32-64). The causal
     # entries take the same exp values, so the forward is unchanged.
     decay = torch.exp(torch.where(causal, seg, -math.inf))
-    Gm = torch.einsum("bnchk,bnjhk->bnhcj", Cc, Bc)  # (B, NC, H, Cn, Cn)
+    Gm = _split_product("bnchk,bnjhk->bnhcj", Cc, Bc, pi, pi)  # (B, NC, H, Cn, Cn)
     W = (Gm * decay.permute(0, 1, 4, 2, 3)
          * dtc.permute(0, 1, 3, 2)[..., None, :])
     del seg, decay, Gm
-    y_intra = torch.einsum("bnhcj,bnjhp->bnchp", split_p(W, w_split), xc)
+    y_intra = _split_product("bnhcj,bnjhp->bnchp", split_p(W, w_split), xc,
+                             pm, pi)
     del W
 
     # each chunk's outgoing state contribution, then the carry across chunks
     last = cum[:, :, -1:]  # (B, NC, 1, H)
     w_state = torch.exp(last - cum) * dtc  # (B, NC, Cn, H)
-    S_c = torch.einsum("bnchp,bnchk->bnhpk",
-                       split_p(xc * w_state[..., None], update_split), Bc)
+    S_c = _split_product("bnchp,bnchk->bnhpk",
+                         split_p(xc * w_state[..., None], update_split), Bc,
+                         pm, pi)
     state = torch.zeros(Bsz, H, P, N, dtype=ct, device=x.device)
     states_in = []
     for c in range(NC):
         states_in.append(state)
         state = state * torch.exp(last[:, c, 0])[..., None, None] + S_c[:, c]
     states_in = torch.stack(states_in, dim=1)  # (B, NC, H, P, N)
-    y_inter = torch.einsum("bnchk,bnhpk->bnchp",
-                           Cc * torch.exp(cum)[..., None],
-                           split_p(states_in, state_split))
+    y_inter = _split_product("bnchk,bnhpk->bnchp",
+                             Cc * torch.exp(cum)[..., None],
+                             split_p(states_in, state_split), pi, pm)
     return (y_intra.reshape(Bsz, NC * chunk, H, P)[:, :S],
             y_inter.reshape(Bsz, NC * chunk, H, P)[:, :S])
 
@@ -304,7 +328,7 @@ def ssd_chunked_grads(x, dt, A, Bm, Cm, D, dy, chunk: int = 64):
             None if d is None else grads[5])
 
 
-# pieces of one operand of the backward kernel's bf16 tensor-core products
+# pieces of one operand of the f32 kernels' bf16 tensor-core products
 BWD_PIECES = (0, 1, 2, 3)
 
 
@@ -328,7 +352,7 @@ def bf16_pieces(v, pieces: int):
 
 
 def _split_product(eq, a, b, pa, pb):
-    """einsum(eq, a, b) as the backward kernel's tensor cores form it: the
+    """einsum(eq, a, b) as the f32 kernels' tensor cores form it: the
     sum of the products of piece a of `a` and piece b of `b` with
     a + b <= 2 (pa, pb pieces; 0 for unsplit), the smallest first."""
     ap, bp = bf16_pieces(a, pa), bf16_pieces(b, pb)

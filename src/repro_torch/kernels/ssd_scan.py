@@ -1,17 +1,18 @@
 """Build, binding and launch of the Hopper Mamba-2 SSD-scan kernels.
 
 Two hand-written kernels compute one function, and the dtype picks the
-route (``route``):
+route (``route``); both run every product on the bf16 tensor cores
+(``wgmma``), with TMA loads of B and C and warp specialisation:
 
 * ``wgmma`` (``csrc/ssd_scan_wgmma.cu``) takes bfloat16 at every (P, N):
-  TMA loads of x, B and C into an mbarrier-guarded ring, ``wgmma``
-  tensor-core products and warp specialisation, with the three f32
-  operands of its products (the weights W, the carried state as C . state
-  reads it, and x_j w_j of the state update) each split into two bf16
-  halves, so that every product keeps f32 accuracy;
-* ``cuda-core`` (``csrc/ssd_scan.cu``) takes float32: f32 FMAs on the CUDA
-  cores, as exact as the plain version's 1e-4 asks (TF32 tensor cores
-  would not be).
+  a TMA ring of x, B and C, with the three f32 operands of its products
+  (the weights W, the carried state as C . state reads it, and x_j w_j of
+  the state update) each split into two bf16 halves, so that every product
+  keeps f32 accuracy;
+* ``wgmma-f32`` (``csrc/ssd_scan.cu``) takes float32: every operand of a
+  product, the f32 inputs x, B and C too, goes in as three bf16 pieces
+  (products of pieces a + b <= 2), each product into a fresh accumulator
+  added in f32, so the result keeps f32 accuracy (TF32 would not).
 
 Both replace the TPU kernel ``repro.kernels.ssd_scan.ssd_scan_pallas`` plus
 the D skip of its ops wrapper; their sources say what they compute, what
@@ -22,10 +23,10 @@ split into three bf16 pieces, the group's heads summed inside a block):
 the reference has no counterpart, since it differentiates its plain
 chunked scan, and the port's training path runs the forward kernel. They take the models' layout,
 x (B, S, H, P), dt (B, S, H) and B/C (B, S, G, N), with P in ``HEAD_DIMS``
-and N in ``STATE_DIMS``; A and D are float32 (H,). The cuda-core kernel
-reads x, B and C through their strides (the last axis contiguous); the
-wgmma kernel's TMA needs them contiguous and 16-byte aligned (the ops
-wrapper makes them so). dt is read through its strides by both. The output
+and N in ``STATE_DIMS``; A and D are float32 (H,). TMA needs x, B and C
+contiguous and 16-byte aligned (the ops wrapper makes them so; the f32
+kernel reads x with plain loads at its fragments' places, which takes the
+same layout). dt is read through its strides by both. The output
 is (B, S, H, P), contiguous, in x's dtype. This module builds the kernels
 with ``kernels.build`` at first use, checks arguments and launches on
 PyTorch's current stream. A kernel that fails to build or launch raises:
@@ -46,34 +47,39 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.build import SHARED_MEMORY_BUDGET
 
 __all__ = ["SOURCE", "WGMMA_SOURCE", "BWD_SOURCE", "SOURCES", "ROUTES",
-           "CHUNK", "STAGES", "HEADS_PER_BLOCK", "HEAD_DIMS", "STATE_DIMS",
-           "DTYPE_CODES", "route", "shared_memory_bytes",
+           "CHUNK", "STAGES", "HEADS_PER_BLOCK", "PIECES", "HEAD_DIMS",
+           "STATE_DIMS", "DTYPE_CODES", "route", "shared_memory_bytes",
            "BWD_MID_PIECES", "bwd_in_pieces", "bwd_sums_shape",
            "bwd_shared_memory_bytes",
            "check_args", "check_bwd_args",
            "ssd_scan_cuda", "ssd_scan_bwd_cuda"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = _CSRC / "ssd_scan.cu"  # the cuda-core route
+SOURCE = _CSRC / "ssd_scan.cu"  # the wgmma-f32 route
 WGMMA_SOURCE = _CSRC / "ssd_scan_wgmma.cu"  # the wgmma route
 BWD_SOURCE = _CSRC / "ssd_scan_bwd.cu"  # the gradients, both dtypes
 SOURCES = (SOURCE, WGMMA_SOURCE, BWD_SOURCE)
-ROUTES = ("wgmma", "cuda-core")
+ROUTES = ("wgmma", "wgmma-f32")
 
 CHUNK = 64  # kQ in both sources: the kernels' own chunk length
-PAD = 4  # kPad in ssd_scan.cu
 STAGES = 3  # kStages in ssd_scan_wgmma.cu: the x/B/C ring
-HEADS_PER_BLOCK = 2  # kHeads in ssd_scan_wgmma.cu: one consumer warpgroup each
+HEADS_PER_BLOCK = 2  # kHeads in both sources: one consumer warpgroup each
+PIECES = 3  # kPieces in ssd_scan.cu: bf16 pieces of an f32 operand
 _WGMMA_WARPS = 4 * HEADS_PER_BLOCK  # consumer warps
 _WGMMA_EXTRA = 64 + 1024  # barriers, and slack to align the ring to 1 KB
 HEAD_DIMS = (16, 32, 64)  # P: the instantiations in both sources
 STATE_DIMS = (16, 32, 64, 128)  # N
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # ssd_scan_bwd.cu's
+_ALIGN = 1024  # kAlign: every tile starts on the 128-byte swizzle's repeat
+
+
+def _up(v: int) -> int:
+    return -(-v // _ALIGN) * _ALIGN
 
 
 def route(dtype, P: int, N: int) -> str:
     """The kernel a call with this dtype, head dim and state dim launches:
-    bfloat16 takes ``"wgmma"``, float32 ``"cuda-core"``."""
+    bfloat16 takes ``"wgmma"``, float32 ``"wgmma-f32"``."""
     if P not in HEAD_DIMS:
         raise ValueError(f"ssd_scan: head dim P={P} is not one of {HEAD_DIMS}")
     if N not in STATE_DIMS:
@@ -82,22 +88,31 @@ def route(dtype, P: int, N: int) -> str:
     if dtype == torch.bfloat16:
         return "wgmma"
     if dtype == torch.float32:
-        return "cuda-core"
+        return "wgmma-f32"
     raise ValueError(f"ssd_scan: dtype {dtype} is not one of "
                      f"{sorted(map(str, DTYPE_CODES))}")
 
 
-def shared_memory_bytes(P: int, N: int, route: str = "cuda-core") -> int:
-    """Dynamic shared memory of one block. cuda-core: the B and C tiles and
-    the state (rows padded by 4), the x tile, W (rows padded by 4) and
-    4 x 64 + 4 per-step scalars, all f32. wgmma: a ring of stages, each
-    the bf16 x tiles of two heads and the B and C tiles of their group;
-    each head's state as two bf16 tiles (hi, lo); each stage's f32 dt of
-    both heads; per consumer warp 2 x 64 f32 of step weights; the
-    barriers and the alignment slack."""
-    if route == "cuda-core":
-        return 4 * (2 * CHUNK * (N + PAD) + CHUNK * P + CHUNK * (CHUNK + PAD)
-                    + P * (N + PAD) + 4 * CHUNK + 4)
+def shared_memory_bytes(P: int, N: int, route: str = "wgmma-f32") -> int:
+    """Dynamic shared memory of one block. wgmma-f32: one staging slot (the
+    group's B and C rows in f32 as TMA loads them, and both heads' dt);
+    B and C as three bf16 piece tiles each; each head's W as three piece
+    tiles; per head 4 x 64 + 4 f32 of step vectors; each head's y_inter
+    parked (32 f32 a consumer thread), in C's piece tiles at N = 128 and in
+    32 KB of its own below; the barriers and the alignment slack (the tiles
+    1 KB aligned; P takes no room). wgmma: a
+    ring of stages, each the bf16 x tiles of two heads and the B and C
+    tiles of their group; each head's state as two bf16 tiles (hi, lo);
+    each stage's f32 dt of both heads; per consumer warp 2 x 64 f32 of
+    step weights; the barriers and the alignment slack."""
+    if route == "wgmma-f32":
+        stage = _up(2 * CHUNK * N * 4 + 4 * HEADS_PER_BLOCK * CHUNK)
+        piece = _up(CHUNK * N * 2)
+        parked = HEADS_PER_BLOCK * 32 * 128 * 4
+        return (stage + 2 * PIECES * piece
+                + HEADS_PER_BLOCK * PIECES * _up(CHUNK * CHUNK * 2)
+                + 4 * HEADS_PER_BLOCK * (4 * CHUNK + 4)
+                + (0 if PIECES * piece >= parked else parked) + 64 + _ALIGN)
     if route == "wgmma":
         stage = 2 * (HEADS_PER_BLOCK * CHUNK * P + 2 * CHUNK * N)
         return (STAGES * stage + HEADS_PER_BLOCK * 2 * 2 * P * N
@@ -107,11 +122,6 @@ def shared_memory_bytes(P: int, N: int, route: str = "cuda-core") -> int:
 
 
 BWD_MID_PIECES = 3  # kMid in ssd_scan_bwd.cu: pieces of an f32 operand
-_ALIGN = 1024  # kAlign: every tile starts on the 128-byte swizzle's repeat
-
-
-def _up(v: int) -> int:
-    return -(-v // _ALIGN) * _ALIGN
 
 
 def bwd_sums_shape(B: int, S: int, G: int, N: int) -> tuple:
@@ -184,10 +194,6 @@ def _check_common(x, dt, A, Bm, Cm, D) -> None:
     for name, t in (("dt", dt), ("Bm", Bm), ("Cm", Cm)):
         if t.dtype != x.dtype:
             raise ValueError(f"ssd_scan: {name} is {t.dtype}, x is {x.dtype}")
-    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"ssd_scan: the last axis of {name} must be "
-                             "contiguous")
     for name, t in (("A", A), ("D", D)):
         if t is None:
             continue
@@ -215,17 +221,15 @@ def check_args(x, dt, A, Bm, Cm, D=None) -> None:
         raise ValueError(f"ssd_scan: P={P}, N={N} on the {kernel} route "
                          f"need {need} bytes of shared memory, above the "
                          f"{SHARED_MEMORY_BUDGET}-byte budget of one block")
-    if kernel == "wgmma":
-        if S > 2 ** 31 - 1 - CHUNK:
-            raise ValueError(f"ssd_scan: S={S} does not fit a TMA "
-                             "coordinate")
-        for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
-            if not t.is_contiguous():
-                raise ValueError(f"ssd_scan: {name} must be contiguous on "
-                                 "the wgmma route (TMA reads it)")
-            if t.data_ptr() % 16:
-                raise ValueError(f"ssd_scan: {name}'s data must be 16-byte "
-                                 "aligned for TMA")
+    if S > 2 ** 31 - 1 - CHUNK:
+        raise ValueError(f"ssd_scan: S={S} does not fit a TMA coordinate")
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_scan: {name} must be contiguous on the "
+                             f"{kernel} route (TMA reads it)")
+        if t.data_ptr() % 16:
+            raise ValueError(f"ssd_scan: {name}'s data must be 16-byte "
+                             "aligned for TMA")
 
 
 def check_bwd_args(x, dt, A, Bm, Cm, D, dy) -> None:
@@ -271,15 +275,11 @@ def _entry_points(kernel: str):
     if kernel == "wgmma":
         lib = kbuild.load(WGMMA_SOURCE)
         fwd, err = lib.ssd_scan_wgmma_fwd, lib.ssd_scan_wgmma_error_string
-        # x, dt, A, Bm, Cm, D, out, B, S, H, G, P, N, dt strides, stream
-        fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                        vp, vp]
     else:
         lib = kbuild.load(SOURCE)
         fwd, err = lib.ssd_scan_fwd, lib.ssd_scan_error_string
-        # x, dt, A, Bm, Cm, D, out, B, S, H, G, P, N, dtype, strides, stream
-        fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                        ci, vp, vp]
+    # x, dt, A, Bm, Cm, D, out, B, S, H, G, P, N, dt strides, stream
+    fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp]
     fwd.restype = ci
     err.argtypes = [ci]
     err.restype = ctypes.c_char_p
@@ -307,17 +307,10 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, D=None):
     pointers = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                 Cm.data_ptr(), None if D is None else D.data_ptr(),
                 out.data_ptr())
-    if kernel == "wgmma":
-        strides = (ctypes.c_longlong * 3)(*dt.stride())
-        extra = ()
-    else:
-        strides = (ctypes.c_longlong * 12)(*x.stride()[:3], *dt.stride(),
-                                            *Bm.stride()[:3],
-                                            *Cm.stride()[:3])
-        extra = (DTYPE_CODES[x.dtype],)
+    strides = (ctypes.c_longlong * 3)(*dt.stride())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fwd(*pointers, B, S, H, G, P, N, *extra,
+        rc = fwd(*pointers, B, S, H, G, P, N,
                  ctypes.cast(strides, ctypes.c_void_p), stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan {kernel} kernel launch failed: "

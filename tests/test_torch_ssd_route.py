@@ -1,15 +1,16 @@
 """The two SSD-scan routes, checked on the CPU.
 
 ``kernels.ssd_scan.route`` sends bfloat16 to the wgmma kernel
-(``csrc/ssd_scan_wgmma.cu``) and float32 to the CUDA-core kernel
-(``csrc/ssd_scan.cu``) at every head dim P and state dim N the sources
-instantiate, and refuses anything else. Each route's shared memory fits
-one block; the wgmma source instantiates every (P, N) that ``check_args``
-takes for bf16 and needs x, B and C contiguous and 16-byte aligned (the
-ops wrapper makes them so). On CPU tensors ``ops.ssd_scan`` still takes the
-plain version and counts nothing, whatever the dtype. The kernels
-themselves run only on the card (``tests/test_torch_ssm.py``, marked
-``gpu``). ``check_args`` taking every instantiation in both dtypes is
+(``csrc/ssd_scan_wgmma.cu``) and float32 to the wgmma-f32 kernel
+(``csrc/ssd_scan.cu``, three bf16 pieces an operand) at every head dim P
+and state dim N the sources instantiate, and refuses anything else. Each
+route's shared memory fits one block; the wgmma source instantiates every
+(P, N) that ``check_args`` takes for bf16, and both routes need x, B and C
+contiguous and 16-byte aligned (the ops wrapper makes them so). On CPU
+tensors ``ops.ssd_scan`` still takes the plain version and counts nothing,
+whatever the dtype. The kernels themselves run only on the card
+(``tests/test_torch_ssm.py``, marked ``gpu``). ``check_args`` taking every
+instantiation in both dtypes, and the f32 source instantiating it, is
 held in ``tests/test_torch_ssm.py``.
 """
 import re
@@ -27,7 +28,7 @@ BF16, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize("P", kernel.HEAD_DIMS)
 def test_route_by_dtype_at_every_instantiation(P, N):
     assert kernel.route(BF16, P, N) == "wgmma"
-    assert kernel.route(F32, P, N) == "cuda-core"
+    assert kernel.route(F32, P, N) == "wgmma-f32"
 
 
 @pytest.mark.parametrize("args, match", [
@@ -54,7 +55,22 @@ def test_each_routes_shared_memory_fits_one_block(route):
         assert need[(64, 128)] == (3 * (2 * 8192 + 2 * 16384) + 2 * 2 * 16384
                                    + 1536 + 4096 + 64 + 1024) == 219_712
     else:
-        assert need[(64, 128)] == 136_208
+        # a staging slot (f32 B and C, both heads' dt), B and C as three
+        # bf16 pieces each, each head's W as three, the step vectors,
+        # barriers and alignment slack; P takes no room
+        assert need[(64, 128)] == (2 * 32768 + 1024 + 2 * 3 * 16384
+                                   + 2 * 3 * 8192 + 2 * 1040 + 64 + 1024) \
+            == 217_184
+        # below N = 128 C's pieces cannot hold the two heads' parked
+        # y_inter (32 KB), which takes a region of its own; P takes no room
+        for N, bytes_ in ((16, 106_592), (32, 127_072), (64, 168_032),
+                          (128, 217_184)):
+            stage = -(-(2 * 64 * N * 4 + 512) // 1024) * 1024
+            piece = -(-(64 * N * 2) // 1024) * 1024
+            parked = 0 if 3 * piece >= 32768 else 32768
+            assert bytes_ == (stage + 6 * piece + 6 * 8192 + 2080 + parked
+                              + 64 + 1024)
+            assert all(need[(P, N)] == bytes_ for P in kernel.HEAD_DIMS)
     with pytest.raises(ValueError, match="route"):
         kernel.shared_memory_bytes(64, 128, "tensor-core")
 
@@ -98,28 +114,30 @@ def _args(P=16, N=16, dtype=BF16, S=5, G=2):
 
 @pytest.mark.parametrize("which", [0, 3, 4])
 def test_check_args_wants_contiguous_x_b_c_on_the_wgmma_route(which):
-    """TMA reads x, B and C: a view with strided rows is refused on the
-    wgmma route, and taken on the cuda-core route."""
-    for dtype, refused in ((BF16, True), (F32, False)):
+    """TMA reads B and C (and x on the bf16 route; the f32 kernel reads x
+    at its fragments' places in the contiguous layout): a view with
+    strided rows is refused on both wgmma routes."""
+    for dtype in (BF16, F32):
         args = _args(dtype=dtype)
         t = args[which]
         wide = torch.zeros(*t.shape[:-1], 2 * t.shape[-1], dtype=dtype)
         args[which] = wide[..., :t.shape[-1]]
-        if refused:
-            with pytest.raises(ValueError, match="contiguous"):
-                kernel.check_args(*args)
-        else:
+        with pytest.raises(ValueError, match=f"contiguous on the "
+                           f"{kernel.route(dtype, 16, 16)} route"):
             kernel.check_args(*args)
 
 
-def test_check_args_wants_16_byte_aligned_data_on_the_wgmma_route():
-    args = _args()
-    flat = torch.zeros(args[0].numel() + 1, dtype=BF16)
-    args[0] = flat[1:].view(args[0].shape)  # contiguous, 2 bytes off
-    with pytest.raises(ValueError, match="aligned"):
-        kernel.check_args(*args)
-    args[0] = args[0].float()  # the cuda-core route reads any alignment
-    kernel.check_args(*[a.float() if a.dtype == BF16 else a for a in args])
+@pytest.mark.parametrize("which", [0, 3, 4])
+def test_check_args_wants_16_byte_aligned_data_on_the_wgmma_route(which):
+    """A contiguous view one element into its buffer (2 bytes off in bf16,
+    4 in f32) is refused on both routes."""
+    for dtype in (BF16, F32):
+        args = _args(dtype=dtype)
+        t = args[which]
+        flat = torch.zeros(t.numel() + 1, dtype=dtype)
+        args[which] = flat[1:].view(t.shape)
+        with pytest.raises(ValueError, match="aligned"):
+            kernel.check_args(*args)
 
 
 def test_ops_on_cpu_takes_the_plain_version_and_counts_nothing_in_bf16():
