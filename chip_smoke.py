@@ -10,8 +10,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
 2. builds the hand-written kernels (``sodda_inner``, ``flash_attention``
    and ``ssd_scan``, each of the last two in a wgmma source for bf16 and
    one for f32 (flash's on the CUDA cores, the SSD scan's on the tensor
-   cores), and the SSD scan's backward) from the sources
-   in the checkout, one
+   cores), and each one's backward) from the sources in the checkout, one
    ``nvcc`` per source, all at once, and prints the build time and the
    compiler's register report;
 3. holds ``sodda_inner`` against its plain PyTorch version on the card for
@@ -223,7 +222,22 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     the two layers beside the earlier CUDA-core design's time, its bound
     (the CUDA cores' f32 rate for f32), the tensor-core route's bound (its
     split products at the bf16 rate) and the plain version;
-22. trains mamba2-130m on the card, f32: (a) cut to 4 layers at full
+22. holds the flash-attention backward kernel (``ops.flash_attention_bwd``,
+    on the CUDA cores) against its plain version (``ref.attention_grads``)
+    on the out and lse of the card's forward kernel (whose out must be
+    bitwise the forward's without lse, its lse within 1e-5 of the plain
+    one) at gemma2-9b's local and global training layers (1, 16, 8, 4608,
+    256, softcap 50), zamba2-7b's (1, 32, 32, 4608, 112) with and without
+    its long-context window, a phi3-mini layer (head dim 96), D = 16, 64
+    and 128, a decode offset over an unaligned key range and rows that see
+    no key, each in f32 (every gradient within 1e-5 of its max) and bf16
+    (the rounding rule of 13), the control (dS rounded once to bf16 before
+    the dQ and dK products) failing both on dq and dk; two launches
+    bitwise; and times it at the three training layers beside its bound,
+    the plain version and the backward of ``scaled_dot_product_attention``
+    (causal, no softcap, k and v expanded), and the f32 forward with its
+    lse at gemma2's layers;
+23. trains mamba2-130m on the card, f32: (a) cut to 4 layers at full
     width (2 x 1024 tokens), the kernel path's loss and every gradient
     leaf within F32_REDUCTION of the plain path's, the carry-dropping
     control outside, and remat='full' bitwise remat='none' with twice the
@@ -237,8 +251,19 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     refresh); (d) the CLI (``python -m repro_torch.launch.train``) in a
     fresh process, killed (SIGKILL) once it logs step 13, three steps past
     its checkpoint at step 10, then a fresh process resuming from step 10
-    to 20: params and losses bitwise (b)'s; (e) a CUDA flash call
-    whose q requires grad raises.
+    to 20: params and losses bitwise (b)'s; then dense and hybrid
+    training through the flash backward, f32, full width: (e) gemma2-9b
+    cut to 4 layers (2 local, 2 global) and (f) zamba2-7b cut to 12 (2
+    sites of the shared block), 1 x 4608 tokens a step: 5 adamw steps
+    twice (the second run bitwise the first, the loss falling) and one
+    step at accum_steps=2 over 2 x 4608, with ms a step, tokens/s, peak
+    memory and exact launch counts (gemma2 4 + 4 flash, no SSD; zamba2 12
+    + 12 SSD, 2 + 2 flash); then the exactness cell at 1 x 4608 tokens
+    (zamba2 2048; wq and wk scaled for unit-std scores), the loss and
+    every gradient leaf within F32_REDUCTION of the plain path, a control
+    outside it (gemma2: the softcap's derivative dropped from the
+    backward; zamba2: the causal mask dropped from it), remat='full'
+    bitwise remat='none' with the forwards relaunched.
 
 Exits non-zero if any phase fails. The last three lines of standard output
 are the card line, a JSON ``kernels`` record and a JSON ``ok`` record.
@@ -3802,6 +3827,21 @@ TRAIN_CKPT_EVERY, TRAIN_KILL_AT = 10, 13
 # (on the CPU at full width, 2 layers, 2 x 256 tokens: 1e-2 falls, 1e-3
 # barely), so the phase takes 1e-2.
 SODDA_LR = 1e-2
+# (e), (f): gemma2-9b and zamba2-7b at full width and cut depth, f32,
+# ATTN_TRAIN_STEPS adamw steps at TRAIN_LR of B x ATTN_TRAIN_S tokens from
+# TokenPipeline(seed=0), and a step over 2 x ATTN_TRAIN_S by accum_steps=2;
+# the exactness cells at 1 x ATTN_TRAIN_S. At 9B width neither fits one
+# card at full depth with adamw's state in f32. B = 1: on an H100 (80 GB) a
+# 2 x 4608 step ran gemma2 out of memory (its f32 logits over a 256 000
+# vocabulary) and took zamba2 to 72.964 GB, past the cell's 72 GB limit.
+GEMMA2_TRAIN_LAYERS, GEMMA2_TRAIN_B = 4, 1
+ZAMBA2_TRAIN_LAYERS, ZAMBA2_TRAIN_B = 12, 1
+# zamba2's exactness cell on 2048 tokens: at 4608 the plain path (the
+# chunked SSD and attention, differentiated by autograd) ran the card out
+# of memory
+ZAMBA2_EXACT_S = 2048
+ATTN_TRAIN_STEPS = 5
+QK_GAIN = 4.0  # the exactness cells' wq and wk over the template's
 
 
 def ssd_bwd_bound_ms(B, S, H, P, G, N, dtype, chunk=64):
@@ -4047,29 +4087,291 @@ def phase_ssd_backward():
                 shape=list(SSD_BWD_CASES[0][1]), shapes=shapes)
 
 
+# ---------------------------------------------------------------------------
+# flash attention's backward, and dense and hybrid training
+# ---------------------------------------------------------------------------
+ATTN_TRAIN_S = 4608  # the training cells' sequence: > 4096, so gemma2's
+# local layers' window masks
+# (label, (B, H, KV, Sq, Sk, D), options): gemma2-9b's two training layers
+# and zamba2-7b's (its shared block; training gives it no window: the
+# reference's long_context is a serving flag) at phase_train's 1 x 4608
+# tokens a step, the same zamba2 layer under its long-context window, a
+# phi3-mini layer (head dim 96), the other head dims, a decode-style offset
+# over an unaligned key range, and rows that see no key (lse -inf); each
+# in f32 and bf16
+FLASH_BWD_CASES = (
+    ("gemma2 local training layer", (1, 16, 8, 4608, 4608, 256),
+     dict(window=4096, softcap=50.0)),
+    ("gemma2 global training layer", (1, 16, 8, 4608, 4608, 256),
+     dict(softcap=50.0)),
+    ("zamba2 training layer", (1, 32, 32, 4608, 4608, 112), dict()),
+    ("zamba2 long-context window", (1, 32, 32, 4608, 4608, 112),
+     dict(window=4096)),
+    ("phi3-mini layer", (1, 32, 32, 4096, 4096, 96), dict()),
+    ("D=16 window+softcap", (2, 8, 4, 1000, 1000, 16),
+     dict(window=300, softcap=30.0)),
+    ("D=64 non-causal", (2, 8, 2, 1000, 1000, 64), dict(causal=False)),
+    ("D=128 window+softcap", (2, 8, 4, 1000, 1000, 128),
+     dict(window=300, softcap=30.0)),
+    ("unaligned decode offset", (2, 4, 2, 200, 333, 64),
+     dict(window=64, softcap=30.0, q_offset=133)),
+    ("rows that see no key", (1, 4, 2, 70, 100, 64),
+     dict(window=40, q_offset=120)),
+)
+# timed beside the bound, the plain version and SDPA's backward
+FLASH_BWD_TIMED = ("gemma2 local training layer",
+                   "gemma2 global training layer", "zamba2 training layer")
+# f32: each of dq, dk, dv within FLASH_BWD_F32_TOL x its largest entry of
+# the plain backward (ref.attention_grads on the same q, k, v, out, lse and
+# dout), which sums the same terms in another order (4608 keys a row, up to
+# 4608 queries a key, 2 heads a group); bf16: the rounding rule of the
+# forward (F32_NOISE) against the plain backward on f32 copies. The control
+# (dS rounded once to bf16 before the dQ and dK products, as a textbook
+# tensor-core kernel takes it) must fail either rule on dq and dk.
+FLASH_BWD_F32_TOL = 1e-5
+FLASH_BWD_LEAVES = ("dq", "dk", "dv")
+FLASH_BWD_CONTROL_LEAVES = ("dq", "dk")
+
+
+def flash_bwd_bound_ms(B, H, KV, Sq, Sk, D, dtype, **mask):
+    """Least time for one backward call: five products of 2 D FLOP per
+    unmasked pair (S, dP, dV, dQ, dK) over the dtype's peak, vs q, out,
+    dout, k, v and lse read once and dq, dk, dv written once over the HBM
+    rate."""
+    flops = 10.0 * B * H * D * attention_pairs(Sq, Sk, **mask)
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = item * (4 * B * Sq * H * D + 4 * B * Sk * KV * D) \
+        + 4 * B * H * Sq
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def mask_opts(opts):
+    """The mask's part of a flash case's options (``attention_pairs``)."""
+    return {k: v for k, v in opts.items()
+            if k in ("causal", "window", "q_offset")}
+
+
+def sdpa_bwd_ms(q, k, v, dout, reps):
+    """Device ms of the backward of one torch
+    ``scaled_dot_product_attention`` call (causal, no softcap, k and v
+    expanded to every query head) on these inputs: a yardstick only."""
+    group = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (t.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+              .requires_grad_() for t in (k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                           is_causal=True)
+    grad = dout.transpose(1, 2).contiguous()
+    ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), grad,
+                                             retain_graph=True),
+                 reps=reps, warmup=1)
+    del out, qt, kt, vt, grad
+    return ms
+
+
+def phase_flash_backward():
+    """The flash-attention backward kernel against its plain version
+    (``ref.attention_grads``) on every FLASH_BWD_CASES case in f32 and
+    bf16, its out and lse from the card's forward kernel (whose out must
+    be bitwise the forward's without lse): f32 within FLASH_BWD_F32_TOL of
+    each gradient's max, bf16 the rounding rule, the dS-in-bf16 control
+    failing both on dq and dk; two launches bitwise; its time beside its
+    bound, the plain version's and SDPA's backward at the training
+    layers; the f32 forward with its lse at gemma2's training layers."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    f32, bf16 = torch.float32, torch.bfloat16
+    lib = kbuild.library_path(flash_build.BWD_SOURCE)
+    for line in kbuild.compiler_report(lib):
+        log(f"flash backward nvcc {lib.name}: {line}")
+    max_err, times, fwd_times = 0.0, {}, {}
+    for name, shape, opts in FLASH_BWD_CASES:
+        B, H, KV, Sq, Sk, D = shape
+        q32, k32, v32 = flash_inputs(B, H, KV, Sq, Sk, D, f32, gen)
+        dout32 = torch.randn(q32.shape, generator=gen, device="cuda")
+        for dtype in (f32, bf16):
+            q, k, v, dout = (t.to(dtype) for t in (q32, k32, v32, dout32))
+            tag = f"flash backward {name} {shape} {dtype} {opts}"
+            out, lse = flash_build.flash_attention_cuda(q, k, v,
+                                                        return_lse=True,
+                                                        **opts)
+            plain_out = flash_build.flash_attention_cuda(q, k, v, **opts)
+            f = [t.float() for t in (q, k, v, out)]
+            _, want_lse = kref.attention_ref(*f[:3], return_lse=True,
+                                             **opts)
+            torch.cuda.synchronize()
+            check(torch.equal(out, plain_out), f"{tag}: the forward's output "
+                  "with lse differs from its output without")
+            dead = torch.isinf(want_lse)
+            check(torch.equal(torch.isinf(lse), dead)
+                  and bool((lse[dead] < 0).all()),
+                  f"{tag}: lse is -inf on other rows than the plain one's")
+            lse_gap = float((lse[~dead] - want_lse[~dead]).abs().max()) \
+                if bool((~dead).any()) else 0.0
+            check(lse_gap <= 1e-5, f"{tag}: lse {lse_gap:.3e} off the plain "
+                  "version's (limit 1e-5)")
+            before = ops.flash_attention_bwd.launches
+            a = ops.flash_attention_bwd(q, k, v, out, lse, dout,
+                                        force="cuda", **opts)
+            b = ops.flash_attention_bwd(q, k, v, out, lse, dout,
+                                        force="cuda", **opts)
+            want = kref.attention_grads(*f, lse, dout.float(), **opts)
+            ctrl = kref.attention_grads(*f, lse, dout.float(), ds_split=1,
+                                        **opts)
+            torch.cuda.synchronize()
+            check(ops.flash_attention_bwd.launches == before + 2,
+                  f"{tag}: {ops.flash_attention_bwd.launches - before} "
+                  "launches")
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"{tag}: two launches differ")
+            check([g.dtype for g in a] == [dtype] * 3,
+                  f"{tag}: dtypes {[g.dtype for g in a]}")
+            check(all(bool(torch.isfinite(g).all()) for g in a),
+                  f"{tag}: non-finite gradients")
+            if bool(dead.any()):
+                rows = dead[0, 0]  # the same rows in every head
+                check(bool((a[0][:, rows] == 0).all()),
+                      f"{tag}: a row that sees no key has a nonzero dq")
+            parts = []
+            for leaf, g, w, c in zip(FLASH_BWD_LEAVES, a, want, ctrl):
+                scale = float(w.abs().max())
+                if dtype == f32:
+                    err, c_err = rel_gap(g, w), rel_gap(c, w)
+                    max_err = max(max_err, float((g - w).abs().max()))
+                    limit = FLASH_BWD_F32_TOL
+                else:
+                    ex = tol.half_ulp_excess(w, scale, kernel=g,
+                                             control=c.to(dtype))
+                    err, c_err, limit = ex["kernel"], ex["control"], \
+                        F32_NOISE
+                check(err <= limit, f"{tag}: {leaf} {err:.3e} (limit "
+                      f"{limit:.3e})")
+                if leaf in FLASH_BWD_CONTROL_LEAVES:
+                    check(c_err > limit, f"{tag}: {leaf}: the dS-in-bf16 "
+                          f"control passes ({c_err:.3e} <= {limit:.3e})")
+                parts.append(f"{leaf} {err:.3e} (control {c_err:.3e})")
+            rule = (f"of each gradient's max (limit {FLASH_BWD_F32_TOL:.0e})"
+                    if dtype == f32 else "excess over half a bf16 ulp / max "
+                    f"(limit {F32_NOISE:.3e})")
+            log(f"{tag}: out bitwise without lse, lse within {lse_gap:.3e}, "
+                f"{int(dead.sum())} rows -inf; bitwise across launches; "
+                f"kernel vs plain {rule}: " + ", ".join(parts))
+            if name in FLASH_BWD_TIMED:
+                ms = cuda_ms(lambda: ops.flash_attention_bwd(
+                    q, k, v, out, lse, dout, force="cuda", **opts),
+                    reps=3, warmup=1)
+                plain_ms = cuda_ms(lambda: ops.flash_attention_bwd(
+                    q, k, v, out, lse, dout, force="ref", **opts),
+                    reps=1, warmup=1)
+                bound = flash_bwd_bound_ms(*shape, dtype, **mask_opts(opts))
+                rec = dict(shape=list(shape), options=opts, ms=ms,
+                           plain_ms=plain_ms, bound_ms=bound[0],
+                           bound_by=bound[1], launches=None)
+                if opts.get("window", 0) == 0:
+                    # the function SDPA computes too: causal, no softcap
+                    nocap = dict(opts, softcap=0.0)
+                    o2, l2 = flash_build.flash_attention_cuda(
+                        q, k, v, return_lse=True, **nocap)
+                    rec["same_function_ms"] = cuda_ms(
+                        lambda: ops.flash_attention_bwd(
+                            q, k, v, o2, l2, dout, force="cuda", **nocap),
+                        reps=3, warmup=1)
+                    rec["library_ms"] = sdpa_bwd_ms(q, k, v, dout, reps=3)
+                    del o2, l2
+                else:
+                    rec["library_ms"] = None
+                times[name, dtype] = rec
+                log(f"flash backward {name} {shape} {dtype}: kernel "
+                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{bound[0]:.5f} ms ({bound[1]}), kernel/bound "
+                    f"{ms / bound[0]:.1f}x"
+                    + (f"; causal without softcap: kernel "
+                       f"{rec['same_function_ms']:.4f} ms, torch "
+                       f"scaled_dot_product_attention's backward (k, v "
+                       f"expanded) {rec['library_ms']:.4f} ms"
+                       if rec["library_ms"] is not None else ""))
+                if dtype == f32 and name.startswith("gemma2"):
+                    # the forward route training launches: f32, with lse
+                    f_ms = cuda_ms(lambda: flash_build.flash_attention_cuda(
+                        q, k, v, return_lse=True, **opts), reps=3, warmup=1)
+                    f_bound = flash_bound_ms(B, H, KV, Sq, Sk, D, f32,
+                                             **mask_opts(opts))
+                    fwd_times[name] = dict(shape=list(shape), options=opts,
+                                           ms=f_ms, bound_ms=f_bound[0],
+                                           bound_by=f_bound[1])
+                    log(f"flash forward {name} {shape} f32 with lse "
+                        f"(cuda-core route): {f_ms:.4f} ms, bound "
+                        f"{f_bound[0]:.5f} ms ({f_bound[1]})")
+            del a, b, want, ctrl, f, out, lse, plain_out
+        del q32, k32, v32, dout32, q, k, v, dout
+        torch.cuda.empty_cache()
+    top = times["gemma2 global training layer", f32]
+    shapes = {f"{name} {str(dtype).replace('torch.', '')}": rec
+              for (name, dtype), rec in times.items()
+              if (name, dtype) != ("gemma2 global training layer", f32)}
+    record = dict(name="flash_attention_bwd", route="cuda",
+                  source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                  replaces="none: port only; the reference differentiates "
+                           "its plain attention, src/repro/kernels/ref.py:40",
+                  launches=None, max_abs_err=max_err, ms=top["ms"],
+                  plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                  bound_by=top["bound_by"], library_ms=top["library_ms"],
+                  same_function_ms=top["same_function_ms"],
+                  shape=top["shape"], shapes=shapes)
+    return record, fwd_times
+
+
+def control_attention(**grad_opts):
+    """A model attention (for ``attention_as``) on the plain path whose
+    backward is wrong: ``ref.attention_grads`` with `grad_opts` over the
+    forward's options (``softcap_grad=False``: the cap's derivative
+    dropped; ``causal=False``: the causal mask dropped from the
+    backward's mask)."""
+    class Control(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, opts):
+            out, lse = kref.attention_ref(q, k, v, return_lse=True, **opts)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.opts = opts
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            grads = kref.attention_grads(*ctx.saved_tensors,
+                                         dout.contiguous(),
+                                         **dict(ctx.opts, **grad_opts))
+            return (*grads, None)
+
+    return lambda q, k, v, force, **opts: Control.apply(q, k, v, opts)
+
+
 def train_counts():
-    """(ssd forward, ssd backward, flash) launch counts, now."""
+    """(ssd forward, ssd backward, flash forward, flash backward) launch
+    counts, now."""
     return (ops.ssd_scan.launches, ops.ssd_scan_bwd.launches,
-            ops.flash_attention.launches)
+            ops.flash_attention.launches, ops.flash_attention_bwd.launches)
 
 
 def zero_train_counts():
     zero_counts()
     ops.ssd_scan_bwd.launches = 0
+    ops.flash_attention_bwd.launches = 0
 
 
-def train_steps(model, steps, accum=1):
+def train_steps(model, steps, accum=1, batch=TRAIN_B, seq=TRAIN_S):
     """`steps` steps of make_train_step (adamw, TRAIN_LR) from the CLI's
-    init on TokenPipeline(seed=0) at TRAIN_B x TRAIN_S, the launch counts
-    set to 0 just before: (params, losses, ms of each step, launches of
-    each step, peak device memory)."""
+    init on TokenPipeline(seed=0) at batch x seq, the launch counts set to
+    0 just before: (params, losses, ms of each step, launches of each
+    step, peak device memory)."""
     step_fn, opt = train_module.make_train_step(
-        model, ShapeConfig("chip", "train", TRAIN_S, TRAIN_B),
+        model, ShapeConfig("chip", "train", seq, batch),
         train_module.TrainSettings(optimizer="adamw", lr=TRAIN_LR,
                                    accum_steps=accum))
     params = model.init(0)
     opt_state = opt.init(params)
-    pipe = TokenPipeline(seed=0, batch=TRAIN_B, seq_len=TRAIN_S,
+    pipe = TokenPipeline(seed=0, batch=batch, seq_len=seq,
                          vocab_size=model.cfg.vocab_size)
     losses, ms, launches = [], [], []
     torch.cuda.synchronize()
@@ -4087,13 +4389,174 @@ def train_steps(model, steps, accum=1):
     return params, losses, ms, launches, torch.cuda.max_memory_allocated()
 
 
+def attention_params(params, block):
+    """`params` with the attention's wq and wk in ``params[block]``
+    ("layers", or the hybrid's "shared") scaled by QK_GAIN: the template's
+    fan-in init (d_model x the padded heads) gives scores of std 1/16,
+    where the softcap's derivative is 1 within ~2e-6 and no check could
+    see it; scaled, the scores have unit std, as the kernel checks' inputs
+    give them."""
+    for name in ("wq", "wk"):
+        params[block]["attn"][name].mul_(QK_GAIN)
+    return params
+
+
+def attention_train_cell(tag, cfg, exact_params, control, control_name, B,
+                         exact_s):
+    """A dense or hybrid model at full width and cut depth, f32, through
+    the flash forward and backward kernels: ATTN_TRAIN_STEPS adamw steps
+    of make_train_step at B x ATTN_TRAIN_S, twice (the second bitwise the
+    first), one step at accum_steps=2 over 2 x ATTN_TRAIN_S, then the
+    exactness cell (1 x `exact_s` tokens, the weights of `exact_params`)
+    against the plain path, `control` (a wrong backward)
+    outside F32_REDUCTION, remat="full" bitwise remat="none". The steps
+    come first, on a freshly emptied cache: the plain path's many
+    differently sized tensors leave the caching allocator's segments cut
+    up, and gemma2's step (62.4 GB of an 80 GB card) then found no 4.4 GiB
+    block among 20.7 GiB of free cached memory. Returns the step's
+    figures and its launches a micro-batch."""
+    f32 = torch.float32
+    L = cfg.num_layers
+    hybrid = cfg.family == "hybrid"
+    sites = transformer.n_attn_sites(cfg) if hybrid else L
+    ssd = L if hybrid else 0
+    # (ssd forward, ssd backward, flash forward, flash backward)
+    want = (ssd, ssd, sites, sites)
+    label = (f"train ({tag}) {cfg.name} f32, {L} layers at full width"
+             + (f" ({sites} shared-block sites)" if hybrid else ""))
+    model = Model(cfg, param_dtype=f32)
+    torch.cuda.empty_cache()
+    # the training path: ATTN_TRAIN_STEPS adamw steps, twice
+    first = train_steps(model, ATTN_TRAIN_STEPS, batch=B, seq=ATTN_TRAIN_S)
+    params, losses, ms, launches, peak = first
+    kept = [p.cpu() for p in tree_leaves(params)]
+    del first, params
+    torch.cuda.empty_cache()
+    params2, losses2, ms2, launches2, _ = train_steps(
+        model, ATTN_TRAIN_STEPS, batch=B, seq=ATTN_TRAIN_S)
+    bitwise = losses2 == losses and all(
+        torch.equal(a, b.cpu()) for a, b in zip(kept, tree_leaves(params2)))
+    del params2, kept
+    torch.cuda.empty_cache()
+    check(all(n == want for n in launches + launches2),
+          f"{label}: launches a step {launches}, {launches2}, expected "
+          f"{want}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{label}: the loss does not fall: {losses}")
+    check(bitwise, f"{label}: two runs differ: losses {losses} vs "
+          f"{losses2}")
+    step_ms = float(np.median(ms[1:] + ms2[1:]))
+    tokens = B * ATTN_TRAIN_S
+    log(f"{label} adamw lr {TRAIN_LR}, {B} x {ATTN_TRAIN_S} tokens a step, "
+        f"{ATTN_TRAIN_STEPS} steps twice: {step_ms:.3f} ms a step (median "
+        f"of steps 1-{ATTN_TRAIN_STEPS - 1} of both runs; first steps "
+        f"{ms[0]:.3f} / {ms2[0]:.3f}), {tokens / (step_ms / 1e3):.1f} "
+        f"tokens/s, peak device memory {peak / 1e9:.3f} GB; loss step 0 "
+        f"{losses[0]:.4f}, step {ATTN_TRAIN_STEPS - 1} {losses[-1]:.4f}; "
+        f"launches a step {want}; the second run bitwise the first")
+    _, acc_losses, acc_ms, acc_launches, acc_peak = train_steps(
+        model, 1, accum=2, batch=2, seq=ATTN_TRAIN_S)
+    want_acc = tuple(2 * n for n in want)
+    check(acc_launches == [want_acc], f"{label} accum 2: launches "
+          f"{acc_launches}, expected {want_acc}")
+    check(math.isfinite(acc_losses[0]), f"{label} accum 2: loss "
+          f"{acc_losses}")
+    log(f"{label} accum_steps=2 over 2 x {ATTN_TRAIN_S} tokens: one step "
+        f"{acc_ms[0]:.3f} ms (the first of its run), launches "
+        f"{acc_launches[0]}, loss {acc_losses[0]:.4f}, peak "
+        f"{acc_peak / 1e9:.3f} GB")
+    torch.cuda.empty_cache()
+
+    # exactness: the kernel path against the plain path on 1 x exact_s
+    params = exact_params(model)
+    batch = TokenPipeline(seed=1, batch=1, seq_len=exact_s,
+                          vocab_size=cfg.vocab_size).next()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = train_counts()
+    loss_k, _, g_k = train_module.loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    c1 = train_counts()
+    exact_peak = torch.cuda.max_memory_allocated()
+    got = tuple(b - a for a, b in zip(c0, c1))
+    check(got == want, f"{label}: launches {got}, expected {want} (ssd "
+          "forward, ssd backward, flash forward, flash backward)")
+    remat = Model(cfg, param_dtype=f32, remat="full")
+    c0 = train_counts()
+    loss_m, _, g_m = train_module.loss_and_grads(remat, params, batch)
+    torch.cuda.synchronize()
+    c1 = train_counts()
+    got_m = tuple(b - a for a, b in zip(c0, c1))
+    want_m = (2 * ssd, ssd, 2 * sites, sites)
+    check(got_m == want_m, f"{label} remat: launches {got_m}, expected "
+          f"{want_m}")
+    check(torch.equal(loss_m, loss_k) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(g_m), tree_leaves(g_k))),
+        f"{label}: remat='full' changes the gradients")
+    del g_m
+    loss_r, _, g_r = train_module.loss_and_grads(model, params, batch,
+                                                 force="ref")
+    names = [".".join(p) for p in leaf_paths(g_r)]
+    gaps = {n: rel_gap(k, r) for n, k, r in
+            zip(names, tree_leaves(g_k), tree_leaves(g_r))}
+    del g_k
+    with attention_as(control):
+        loss_c, _, g_c = train_module.loss_and_grads(model, params, batch,
+                                                     force="ref")
+    ctrl = {n: rel_gap(c, r) for n, c, r in
+            zip(names, tree_leaves(g_c), tree_leaves(g_r))}
+    del g_c, g_r, params
+    torch.cuda.empty_cache()
+    worst = max(gaps, key=gaps.get)
+    log(f"{label}, 1 x {exact_s} tokens: loss kernel "
+        f"{float(loss_k):.6f} plain {float(loss_r):.6f} control "
+        f"{float(loss_c):.6f}; every gradient leaf within "
+        f"{gaps[worst]:.3e} of its max ({worst}; tol "
+        f"{tol.F32_REDUCTION.w_rel}); the control ({control_name}) "
+        f"{max(ctrl.values()):.3e} ({max(ctrl, key=ctrl.get)}); launches "
+        f"{got}, remat='full' {got_m} and bitwise; peak "
+        f"{exact_peak / 1e9:.3f} GB")
+    check(abs(float(loss_k) - float(loss_r))
+          <= tol.F32_REDUCTION.obj_rel * abs(float(loss_r)),
+          f"{label}: loss {float(loss_k)} vs plain {float(loss_r)}")
+    check(gaps[worst] <= tol.F32_REDUCTION.w_rel,
+          f"{label}: gradient gaps {gaps}")
+    check(max(ctrl.values()) > tol.F32_REDUCTION.w_rel,
+          f"{label}: the control ({control_name}) passes ({ctrl})")
+    return dict(name=cfg.name, step_ms=step_ms, launches=want,
+                tokens_per_s=tokens / (step_ms / 1e3), peak=peak,
+                losses=losses, exact_gap=gaps[worst],
+                control_gap=max(ctrl.values()))
+
+
+def train_attention_cells():
+    """phase_train's (e) gemma2-9b and (f) zamba2-7b cells
+    (``attention_train_cell``): {"gemma2": ..., "zamba2": ...}."""
+    return dict(
+        gemma2=attention_train_cell(
+            "e", dataclasses.replace(GEMMA2_9B,
+                                     num_layers=GEMMA2_TRAIN_LAYERS),
+            lambda m: attention_params(m.init(SEED), "layers"),
+            control_attention(softcap_grad=False),
+            "the softcap's derivative dropped", GEMMA2_TRAIN_B,
+            ATTN_TRAIN_S),
+        zamba2=attention_train_cell(
+            "f", dataclasses.replace(ZAMBA2_7B,
+                                     num_layers=ZAMBA2_TRAIN_LAYERS),
+            lambda m: attention_params(ssm_params(m, SEED), "shared"),
+            control_attention(causal=False),
+            "the causal mask dropped", ZAMBA2_TRAIN_B, ZAMBA2_EXACT_S))
+
+
 def phase_train():
-    """Training on the card: (a) the 4-layer exactness cell against the
-    plain path, remat bitwise; (b) 20 adamw steps of full-size mamba2-130m
-    through make_train_step, twice (the second run bitwise the first), and
-    one step with accum_steps=2; (c) the CLI's SODDA-SVRG loop; (d) the
-    CLI killed after its checkpoint at step 10 and resumed in a fresh
-    process, against (b); (e) flash refuses a gradient."""
+    """Training on the card: (a) mamba2-130m's 4-layer exactness cell
+    against the plain path, remat bitwise; (b) 20 adamw steps of
+    full-size mamba2-130m through make_train_step, twice (the second run
+    bitwise the first), and one step with accum_steps=2; (c) the CLI's
+    SODDA-SVRG loop; (d) the CLI killed after its checkpoint at step 10
+    and resumed in a fresh process, against (b); then through the flash
+    backward (``attention_train_cell``): (e) gemma2-9b cut to 4 layers and
+    (f) zamba2-7b cut to 12, at full width."""
     f32 = torch.float32
     # (a) exactness: the kernel path's loss and gradients against the plain
     # path's, the carry-dropping control outside; remat bitwise
@@ -4108,7 +4571,7 @@ def phase_train():
         loss_k, _, g_k = train_module.loss_and_grads(model, params, batch)
         torch.cuda.synchronize()
     c1 = train_counts()
-    check((c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2]) == (L, L, 0),
+    check(tuple(b - a for a, b in zip(c0, c1)) == (L, L, 0, 0),
           f"train (a): launches {[b - a for a, b in zip(c0, c1)]}, expected "
           f"{L} forward and {L} backward ssd, 0 flash")
     # the f32 forward reads B, C by TMA and x at its fragments' places, the
@@ -4168,10 +4631,10 @@ def phase_train():
     model = Model(cfg, param_dtype=f32)
     runs = [train_steps(model, TRAIN_STEPS) for _ in range(2)]
     params, losses, ms, launches, peak = runs[0]
-    want = (L, L, 0)
+    want = (L, L, 0, 0)
     check(all(n == want for run in runs for n in run[3]),
           f"train (b): launches a step {runs[0][3]}, expected {want} "
-          "(ssd forward, ssd backward, flash)")
+          "(ssd forward, ssd backward, flash forward, flash backward)")
     f32_route = ssd_build.route(f32, cfg.ssm_head_dim, cfg.ssm_state)
     check(f32_route == "wgmma-f32" and ops.ssd_scan.route_launches
           == {"wgmma": 0, "wgmma-f32": ops.ssd_scan.launches}
@@ -4203,9 +4666,9 @@ def phase_train():
     torch.cuda.empty_cache()
     _, acc_losses, acc_ms, acc_launches, acc_peak = train_steps(
         model, 1, accum=2)
-    check(acc_launches == [(2 * L, 2 * L, 0)],
+    check(acc_launches == [(2 * L, 2 * L, 0, 0)],
           f"train (b) accum 2: launches {acc_launches}, expected "
-          f"{(2 * L, 2 * L, 0)}")
+          f"{(2 * L, 2 * L, 0, 0)}")
     log(f"train (b) accum_steps=2: one step {acc_ms[0]:.3f} ms (the first "
         f"of its run), launches {acc_launches[0]}, loss {acc_losses[0]:.4f}"
         f", peak {acc_peak / 1e9:.3f} GB")
@@ -4225,7 +4688,7 @@ def phase_train():
     s_ms = 1e3 * (time.perf_counter() - t0) / TRAIN_STEPS
     s_counts = train_counts()
     grads = 2 * TRAIN_STEPS + 1  # a refresh at step 0
-    check(s_counts == (grads * L, grads * L, 0),
+    check(s_counts == (grads * L, grads * L, 0, 0),
           f"train (c): launches {s_counts}, expected {grads} gradients of "
           f"{L} forward and {L} backward ssd launches")
     check(all(math.isfinite(x) for x in s_losses)
@@ -4234,8 +4697,9 @@ def phase_train():
     log(f"train (c) SODDA-SVRG (the CLI's loop, refresh at step 0, lr "
         f"{SODDA_LR}): {s_ms:.3f} ms a step (the mean of {TRAIN_STEPS}; "
         f"2 gradients a step, 3 at the refresh), launches {s_counts} "
-        f"(ssd forward, backward, flash) = {grads} gradients; loss step 0 "
-        f"{s_losses[0]:.4f}, step {TRAIN_STEPS - 1} {s_losses[-1]:.4f}")
+        f"(ssd forward, backward, flash forward, backward) = {grads} "
+        f"gradients; loss step 0 {s_losses[0]:.4f}, step {TRAIN_STEPS - 1} "
+        f"{s_losses[-1]:.4f}")
     del sodda_params
     torch.cuda.empty_cache()
 
@@ -4313,19 +4777,45 @@ def phase_train():
               f"beyond two uninterrupted runs' {spread}")
     shutil.rmtree(ckpt_path, ignore_errors=True)
 
-    # (e) flash attention on the card refuses a gradient it cannot give
-    q = torch.randn(1, 128, 2, 64, device="cuda", requires_grad=True)
-    k = torch.randn(1, 128, 2, 64, device="cuda")
-    try:
-        ops.flash_attention(q, k, k)
-    except RuntimeError as e:
-        check("A3b" in str(e), f"train (e): another error: {e}")
-        log(f"train (e) a CUDA flash call whose q requires grad raises: {e}")
-    else:
-        fail("train (e): a CUDA flash call whose q requires grad returned "
-             "an output detached from autograd")
+    # (e), (f): dense and hybrid training through the flash backward
+    cells = train_attention_cells()
     return dict(step_ms=step_ms, launches=launches[0], sodda_ms=s_ms,
-                sodda_launches=s_counts, peak=peak)
+                sodda_launches=s_counts, peak=peak, **cells)
+
+
+def flash_training_records(flash_record, bwd_record, train_fwd, train):
+    """Fill the flash records' launches on the dense and hybrid training
+    paths (f32: the cuda-core forward route, with lse, and the backward)
+    and log the kernels' share of each step."""
+    by_path = {f"{train[m]['name']} train step": train[m]["launches"][2]
+               for m in ("gemma2", "zamba2")}
+    f32_rec = flash_record["f32"]
+    f32_rec["launches"] = train["gemma2"]["launches"][2]
+    f32_rec["launches_by_path"] = by_path
+    f32_rec["training"] = train_fwd
+    bwd_record["launches"] = train["gemma2"]["launches"][3]
+    bwd_record["launches_by_path"] = {
+        f"{train[m]['name']} train step": train[m]["launches"][3]
+        for m in ("gemma2", "zamba2")}
+    # a layer's kernel ms at the training shapes (gemma2: half its layers
+    # local, half global)
+    shapes = dict(bwd_record["shapes"],
+                  **{"gemma2 global training layer float32": bwd_record})
+    bwd_ms = {"gemma2": np.mean([shapes[f"gemma2 {w} training layer "
+                                        "float32"]["ms"]
+                                 for w in ("local", "global")]),
+              "zamba2": shapes["zamba2 training layer float32"]["ms"]}
+    fwd_ms = {"gemma2": np.mean([r["ms"] for r in train_fwd.values()]),
+              "zamba2": None}
+    for m, cell in ((m, train[m]) for m in ("gemma2", "zamba2")):
+        b_ms = cell["launches"][3] * bwd_ms[m]
+        log(f"train {cell['name']} flash backward share of a step "
+            f"({cell['step_ms']:.3f} ms): {cell['launches'][3]} x "
+            f"{bwd_ms[m]:.4f} ms = {b_ms:.3f} ms "
+            f"({b_ms / cell['step_ms']:.2%})"
+            + (f"; f32 forward {cell['launches'][2]} x {fwd_ms[m]:.4f} ms "
+               f"({cell['launches'][2] * fwd_ms[m] / cell['step_ms']:.2%})"
+               if fwd_ms[m] else ""))
 
 
 def main():
@@ -4440,8 +4930,10 @@ def run():
     torch.cuda.empty_cache()
     bwd_record = phase_ssd_backward()
     torch.cuda.empty_cache()
+    flash_bwd_record, flash_train_fwd = phase_flash_backward()
+    torch.cuda.empty_cache()
     train = phase_train()
-    fwd, bwd, _ = train["launches"]
+    fwd, bwd = train["launches"][:2]
     ssd_record["launches_by_path"]["mamba2-130m train step"] = fwd
     ssd_record["f32"]["launches"] = fwd  # every one on the wgmma-f32 route
     ssd_record["f32"]["launches_by_path"] = {"mamba2-130m train step": fwd}
@@ -4456,7 +4948,9 @@ def run():
         f"{bwd * bwd_record['ms']:.3f} ms "
         f"({bwd * bwd_record['ms'] / train['step_ms']:.2%}) in backward")
 
-    return card, [record, flash_record, ssd_record]
+    flash_training_records(flash_record, flash_bwd_record, flash_train_fwd,
+                           train)
+    return card, [record, flash_record, ssd_record, flash_bwd_record]
 
 
 if __name__ == "__main__":

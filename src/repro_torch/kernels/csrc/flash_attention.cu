@@ -8,7 +8,10 @@
 //     out = softmax(s) . v,  with qpos = q_offset + row
 //
 // taken as an online softmax over 64-key tiles with f32 running max m, sum
-// l and accumulator acc; the output is acc / max(l, 1e-37).
+// l and accumulator acc; the output is acc / max(l, 1e-37). When asked
+// (`lse` not null: training), each row's log-sum-exp m + log(max(l, 1e-37))
+// goes to lse (B, H, Sq) f32 for the backward kernel
+// (flash_attention_bwd.cu); a row that sees no key gets -inf.
 // Query head h reads kv head h / (H / KV); no K/V is repeated.
 //
 // Replaces the TPU kernel `flash_attention_pallas` in
@@ -140,9 +143,10 @@ __device__ __forceinline__ void stage_tile(float* dst, int stride,
 template <typename T, int D, int DT>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int H,
-                       int KV, int Sq, int Sk, float scale, int causal,
-                       int window, float softcap, int q_offset) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int H, int KV, int Sq, int Sk,
+                       float scale, int causal, int window, float softcap,
+                       int q_offset) {
   using Lay = Layout<D>;
   static_assert(DT <= D, "true head dim within the layout");
   extern __shared__ float4 smem4[];
@@ -290,6 +294,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + 4 * ty + i;
     if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-37f);
+    // m and l are the same in the 16 threads of a row
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + row] = m[i] + logf(denom);
     T* o = out + ((static_cast<size_t>(b) * Sq + row) * H + h) * DT;
 #pragma unroll
     for (int e = 0; e < Lay::kDC; ++e) {
@@ -302,7 +309,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // The kernel of layout head dim D on tensors of true head dim DT <= D.
 template <typename T, int D, int DT = D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int H, int KV, int Sq, int Sk, float scale,
+                   float* lse, int B, int H, int KV, int Sq, int Sk,
+                   float scale,
                    int causal, int window, float softcap, int q_offset,
                    cudaStream_t stream) {
   constexpr size_t smem = Layout<D>::kBytes;
@@ -314,29 +322,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<T, D, DT><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, KV, Sq, Sk, scale,
-      causal, window, softcap, q_offset);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, H, KV, Sq, Sk,
+      scale, causal, window, softcap, q_offset);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out,
-                       int B, int H, int KV, int Sq, int Sk, int D,
+                       float* lse, int B, int H, int KV, int Sq, int Sk, int D,
                        float scale, int causal, int window, float softcap,
                        int q_offset, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
+      return launch<T, 16>(q, k, v, out, lse, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     case 64:
-      return launch<T, 64>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
+      return launch<T, 64>(q, k, v, out, lse, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     case 96:
-      return launch<T, 128, 96>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
+      return launch<T, 128, 96>(q, k, v, out, lse, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     case 112:
-      return launch<T, 128, 112>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
+      return launch<T, 128, 112>(q, k, v, out, lse, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     case 128:
-      return launch<T, 128>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
+      return launch<T, 128>(q, k, v, out, lse, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     case 256:
-      return launch<T, 256>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
+      return launch<T, 256>(q, k, v, out, lse, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -348,19 +356,20 @@ extern "C" {
 
 // q (B, Sq, H, D), k and v (B, Sk, KV, D), out (B, Sq, H, D), all
 // contiguous float32 (bfloat16 takes flash_attention_wgmma.cu), D in {16,
-// 64, 96, 112, 128, 256} (96 and 112 on the 128 layout). Launches
-// on `stream`; returns cudaGetLastError() of the launch (0 on success).
-// Does not synchronise and allocates nothing.
+// 64, 96, 112, 128, 256} (96 and 112 on the 128 layout); lse (B, H, Sq)
+// float32, or null when no backward follows. Launches on `stream`; returns
+// cudaGetLastError() of the launch (0 on success). Does not synchronise
+// and allocates nothing.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        void* out, int B, int H, int KV, int Sq, int Sk,
-                        int D, float scale, int causal, int window,
+                        void* out, void* lse, int B, int H, int KV, int Sq,
+                        int Sk, int D, float scale, int causal, int window,
                         float softcap, int q_offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Sk < 1 ||
       window < 0 || q_offset < 0) {
     return cudaErrorInvalidValue;
   }
-  return dispatch_d<float>(q, k, v, out, B, H, KV, Sq, Sk, D, scale, causal, window, softcap, q_offset, s);
+  return dispatch_d<float>(q, k, v, out, static_cast<float*>(lse), B, H, KV, Sq, Sk, D, scale, causal, window, softcap, q_offset, s);
 }
 
 const char* flash_attention_error_string(int code) {

@@ -9,7 +9,10 @@
 //
 // taken as an online softmax over 64-key tiles with f32 running max m, sum
 // l and accumulator acc; the output is acc / max(l, 1e-37), rounded once to
-// bf16. Query head h reads kv head h / (H / KV); no K/V is repeated.
+// bf16, and, when asked (`lse` not null: training), each row's f32
+// log-sum-exp m + log(max(l, 1e-37)) to lse (B, H, Sq) for the backward
+// kernel (flash_attention_bwd.cu). Query head h reads kv head h / (H / KV);
+// no K/V is repeated.
 //
 // Replaces the TPU kernel `flash_attention_pallas` in
 // src/repro/kernels/flash_attention.py (`_flash_kernel` at line 27,
@@ -321,9 +324,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
-                   __nv_bfloat16* __restrict__ out, int B, int H, int KV,
-                   int Sq, int Sk, float scale, int causal, int window,
-                   float softcap, int q_offset) {
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   int B, int H, int KV, int Sq, int Sk, float scale,
+                   int causal, int window, float softcap, int q_offset) {
   using C = Cfg<D>;
   static_assert(DT <= D && DT % 8 == 0, "true head dim within the layout");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -528,6 +531,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int row = my_row + 8 * i;
       if (!active || row >= Sq) continue;
       const float denom = fmaxf(l[i], 1e-37f);
+      // m and l are the same in the 4 lanes (qd) of a row
+      if (lse != nullptr && qd == 0)
+        lse[(static_cast<size_t>(b) * H + h) * Sq + row] = m[i] + logf(denom);
       __nv_bfloat16* dst =
           out + ((static_cast<size_t>(b) * Sq + row) * H + h) * DT + 2 * qd;
 #pragma unroll
@@ -598,7 +604,8 @@ cudaError_t encode(CUtensorMap* map, const void* ptr, int B, int S, int NH,
 // DT < D zero-pads the columns DT..D-1 inside the kernel).
 template <int D, int DT = D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int H, int KV, int Sq, int Sk, float scale,
+                   float* lse, int B, int H, int KV, int Sq, int Sk,
+                   float scale,
                    int causal, int window, float softcap, int q_offset,
                    cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
@@ -616,8 +623,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   flash_wgmma_kernel<D, DT><<<static_cast<unsigned>(blocks), kThreads, smem,
                               stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), B, H, KV, Sq, Sk,
-      scale, causal, window, softcap, q_offset);
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), lse, B, H, KV, Sq,
+      Sk, scale, causal, window, softcap, q_offset);
   return cudaGetLastError();
 }
 
@@ -627,14 +634,16 @@ extern "C" {
 
 // q (B, Sq, H, D), k and v (B, Sk, KV, D), out (B, Sq, H, D), all
 // contiguous bf16 with 16-byte aligned data, D in {16, 64, 96, 112, 128,
-// 256} (96 and 112 on the 128 layout).
+// 256} (96 and 112 on the 128 layout); lse (B, H, Sq) float32, or null
+// when no backward follows.
 // Launches on `stream`; returns cudaGetLastError() of the launch (0 on
 // success), or the error of encoding a TMA descriptor. Does not synchronise
 // and allocates nothing.
 int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v,
-                              void* out, int B, int H, int KV, int Sq, int Sk,
-                              int D, float scale, int causal, int window,
-                              float softcap, int q_offset, void* stream) {
+                              void* out, void* lse, int B, int H, int KV,
+                              int Sq, int Sk, int D, float scale, int causal,
+                              int window, float softcap, int q_offset,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Sk < 1 ||
       window < 0 || q_offset < 0) {
@@ -642,17 +651,17 @@ int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v,
   }
   switch (D) {
     case 16:
-      return launch<16>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
+      return launch<16>(q, k, v, out, static_cast<float*>(lse), B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     case 64:
-      return launch<64>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
+      return launch<64>(q, k, v, out, static_cast<float*>(lse), B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     case 96:
-      return launch<128, 96>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
+      return launch<128, 96>(q, k, v, out, static_cast<float*>(lse), B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     case 112:
-      return launch<128, 112>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
+      return launch<128, 112>(q, k, v, out, static_cast<float*>(lse), B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     case 128:
-      return launch<128>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
+      return launch<128>(q, k, v, out, static_cast<float*>(lse), B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     case 256:
-      return launch<256>(q, k, v, out, B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
+      return launch<256>(q, k, v, out, static_cast<float*>(lse), B, H, KV, Sq, Sk, scale, causal, window, softcap, q_offset, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,7 +1,7 @@
 """Build, binding and launch of the Hopper flash-attention kernels.
 
-Two hand-written kernels compute one function, and the dtype picks the
-route (``route``):
+Two hand-written forward kernels compute one function, and the dtype picks
+the route (``route``):
 
 * ``wgmma`` (``csrc/flash_attention_wgmma.cu``) takes bfloat16 at every
   head dim: TMA loads into an mbarrier-guarded K/V ring, ``wgmma``
@@ -13,7 +13,11 @@ route (``route``):
 
 Both replace the TPU kernel
 ``repro.kernels.flash_attention.flash_attention_pallas``; their sources say
-what they compute, what bounds them and how they are laid out. They take
+what they compute, what bounds them and how they are laid out. On request
+(``return_lse``) each also writes its rows' log-sum-exp, which the third
+source, the backward (``csrc/flash_attention_bwd.cu``: dq, dk and dv on the
+CUDA cores, both dtypes; ``flash_attention_bwd_cuda``), reads. The reference
+has no backward kernel: JAX differentiates its plain path. All three take
 the models' layout, q (B, Sq, H, D) and k/v (B, Sk, KV, D), contiguous, D
 in ``HEAD_DIMS``. Head dims 96 and 112 run the 128 layout with the columns
 past D zero-filled inside the kernel (``layout_head_dim``): no copy is made
@@ -21,7 +25,7 @@ on the host, and the result is the unpadded function. This module builds
 them with ``kernels.build`` at first use, checks arguments and launches on
 PyTorch's current stream. A kernel
 that fails to build or launch raises: there is no fallback from one route
-to the other.
+to the other, or to the plain version.
 
 Nothing here runs at import: the CPU tests import this module on hosts
 without ``nvcc`` or a card.
@@ -38,15 +42,18 @@ import torch
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.build import SHARED_MEMORY_BUDGET
 
-__all__ = ["SOURCE", "WGMMA_SOURCE", "SOURCES", "ROUTES", "BLOCK_Q",
-           "BLOCK_K", "WGMMA_BLOCK_Q", "STAGES", "HEAD_DIMS", "DTYPES",
-           "route", "layout_head_dim", "shared_memory_bytes", "check_args",
-           "flash_attention_cuda"]
+__all__ = ["SOURCE", "WGMMA_SOURCE", "BWD_SOURCE", "SOURCES", "ROUTES",
+           "BLOCK_Q", "BLOCK_K", "WGMMA_BLOCK_Q", "STAGES", "BWD_BLOCK_Q",
+           "HEAD_DIMS", "DTYPES", "route", "layout_head_dim",
+           "shared_memory_bytes", "bwd_block_k", "bwd_shared_memory_bytes",
+           "check_args", "check_bwd_args", "flash_attention_cuda",
+           "flash_attention_bwd_cuda"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = _CSRC / "flash_attention.cu"  # the cuda-core route
 WGMMA_SOURCE = _CSRC / "flash_attention_wgmma.cu"  # the wgmma route
-SOURCES = (SOURCE, WGMMA_SOURCE)
+BWD_SOURCE = _CSRC / "flash_attention_bwd.cu"  # the gradients, both dtypes
+SOURCES = (SOURCE, WGMMA_SOURCE, BWD_SOURCE)
 ROUTES = ("wgmma", "cuda-core")
 
 BLOCK_Q = BLOCK_K = 64  # kBQ, kBK in flash_attention.cu (and kBK of wgmma)
@@ -54,6 +61,8 @@ PAD = 4  # kPad
 WGMMA_BLOCK_Q = 128  # kBQ in flash_attention_wgmma.cu: two warpgroups
 STAGES = 2  # kStages: the K/V ring
 _WGMMA_EXTRA = 64 + 1024  # barriers, and slack to align the ring to 1 KB
+BWD_BLOCK_Q = 64  # kBQ in flash_attention_bwd.cu
+BWD_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # its `dtype`
 # head dim -> the layout its instantiation runs (``launch<..., layout, D>``
 # in both sources' switch): 96 and 112 (phi3-mini, zamba2-7b) run the 128
 # layout, whose columns past D the kernels fill with zeros and never store
@@ -99,9 +108,31 @@ def shared_memory_bytes(D: int, route: str) -> int:
     raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
 
 
-def check_args(q, k, v, *, causal: bool = True, window: int = 0,
-               softcap: float = 0.0, q_offset: int = 0) -> None:
-    """Raise ``ValueError`` on anything the kernel does not take."""
+def bwd_block_k(D: int) -> int:
+    """Keys of a tile in the backward's kernels (``Layout::kBK``): 32 in
+    the 256 layout, whose f32 tiles would not fit at 64, else 64."""
+    return 32 if layout_head_dim(D) == 256 else 64
+
+
+def bwd_shared_memory_bytes(D: int) -> dict:
+    """Dynamic shared memory of one block of each of the backward's two
+    large kernels, in the layout of ``layout_head_dim(D)`` (both dtypes are
+    staged in f32; rows padded by 4 floats). ``dkdv``: K and V of its key
+    tile, Q and dO of a query tile, P^T and dS^T (keys x 64 queries), lse
+    and Delta of the query tile. ``dq``: Q and dO of its query tile, K and
+    V of a key tile, dS (64 queries x the key tile)."""
+    L, bk = layout_head_dim(D), bwd_block_k(D)
+    rs = L + PAD
+    return {"dkdv": 4 * (2 * bk * rs + 2 * BWD_BLOCK_Q * rs
+                         + 2 * bk * (BWD_BLOCK_Q + PAD) + 2 * BWD_BLOCK_Q),
+            "dq": 4 * (2 * BWD_BLOCK_Q * rs + 2 * bk * rs
+                       + BWD_BLOCK_Q * (bk + PAD))}
+
+
+def _check_qkv(q, k, v, *, window: int, softcap: float,
+               q_offset: int) -> None:
+    """The checks every kernel of this module makes on q, k, v and the
+    mask's arguments."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be 4-D, got "
@@ -140,6 +171,13 @@ def check_args(q, k, v, *, causal: bool = True, window: int = 0,
     if max(H, B) > 65535 or q_offset + Sq > _INT_MAX or Sk > _INT_MAX:
         raise ValueError("flash_attention: H and B must be <= 65535 (grid "
                          "dimensions) and positions must fit int32")
+
+
+def check_args(q, k, v, *, causal: bool = True, window: int = 0,
+               softcap: float = 0.0, q_offset: int = 0) -> None:
+    """Raise ``ValueError`` on anything the forward kernel does not take."""
+    _check_qkv(q, k, v, window=window, softcap=softcap, q_offset=q_offset)
+    D = q.shape[-1]
     kernel = route(q.dtype, D)
     need = shared_memory_bytes(D, kernel)
     if need > SHARED_MEMORY_BUDGET:
@@ -153,6 +191,39 @@ def check_args(q, k, v, *, causal: bool = True, window: int = 0,
                                  "16-byte aligned for TMA")
 
 
+def check_bwd_args(q, k, v, out, lse, dout, *, causal: bool = True,
+                   window: int = 0, softcap: float = 0.0,
+                   q_offset: int = 0) -> None:
+    """Raise ``ValueError`` on anything the backward kernel does not take:
+    q, k, v as the forward takes them (no alignment asked: the backward
+    reads no operand by TMA), out and dout shaped, typed and placed as q,
+    lse (B, H, Sq) float32, all contiguous."""
+    _check_qkv(q, k, v, window=window, softcap=softcap, q_offset=q_offset)
+    B, Sq, H, D = q.shape
+    for name, t in (("out", out), ("dout", dout)):
+        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention backward: {name} must be "
+                             f"{q.dtype} of q's shape {tuple(q.shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention backward: lse must be float32 "
+                         f"(B={B}, H={H}, Sq={Sq}), got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    for name, t in (("out", out), ("lse", lse), ("dout", dout)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention backward: {name} must be "
+                             "contiguous")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention backward: {name} is on "
+                             f"{t.device}, q on {q.device}")
+    for part, need in bwd_shared_memory_bytes(D).items():
+        if need > SHARED_MEMORY_BUDGET:
+            raise ValueError(f"flash_attention backward: D={D} needs {need} "
+                             f"bytes of shared memory in its {part} kernel, "
+                             f"above the {SHARED_MEMORY_BUDGET}-byte budget "
+                             "of one block")
+
+
 @functools.lru_cache(maxsize=None)
 def _entry_points(kernel: str):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -163,10 +234,10 @@ def _entry_points(kernel: str):
     else:
         lib = kbuild.load(SOURCE)
         fwd, err = lib.flash_attention_fwd, lib.flash_attention_error_string
-    # both: q, k, v, out, B, H, KV, Sq, Sk, D, scale, causal, window,
+    # both: q, k, v, out, lse, B, H, KV, Sq, Sk, D, scale, causal, window,
     # softcap, q_offset, stream
-    fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, ci, ci, cf,
-                    ci, vp]
+    fwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, ci, ci,
+                    cf, ci, vp]
     fwd.restype = ci
     err.argtypes = [ci]
     err.restype = ctypes.c_char_p
@@ -174,9 +245,13 @@ def _entry_points(kernel: str):
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
-                         softcap: float = 0.0, q_offset: int = 0):
+                         softcap: float = 0.0, q_offset: int = 0,
+                         return_lse: bool = False):
     """Launch the kernel of ``route(q.dtype, D)``: q (B, Sq, H, D), k/v
-    (B, Sk, KV, D) CUDA tensors -> (B, Sq, H, D) in q's dtype.
+    (B, Sk, KV, D) CUDA tensors -> (B, Sq, H, D) in q's dtype; with
+    `return_lse`, (out, lse), lse (B, H, Sq) float32 each row's
+    log-sum-exp, as ``ref.attention_ref(return_lse=True)`` gives it (the
+    backward's input). Without it the kernel writes no lse.
 
     Runs on PyTorch's current stream without synchronising. Raises on a
     CPU tensor, on arguments the kernel does not take, and when the build
@@ -191,14 +266,71 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     _, Sk, KV, _ = k.shape
     kernel = route(q.dtype, D)
     out = torch.empty_like(q)
+    lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+           if return_lse else None)
     fwd, err = _entry_points(kernel)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         # the scale as the TPU kernel takes it: 1 / D**0.5 rounded to f32
         rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, H, KV, Sq, Sk, D, 1.0 / math.sqrt(D), int(bool(causal)),
-                 int(window), float(softcap), int(q_offset), stream)
+                 None if lse is None else lse.data_ptr(), B, H, KV, Sq, Sk,
+                 D, 1.0 / math.sqrt(D), int(bool(causal)), int(window),
+                 float(softcap), int(q_offset), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention {kernel} kernel launch failed: "
                            + err(rc).decode())
-    return out
+    return (out, lse) if return_lse else out
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry_point():
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = kbuild.load(BWD_SOURCE)
+    fn, err = lib.flash_attention_bwd, lib.flash_attention_bwd_error_string
+    # q, k, v, out, dout, lse, delta, dq, dk, dv, B, H, KV, Sq, Sk, D, dtype,
+    # scale, causal, window, softcap, q_offset, stream
+    fn.argtypes = [vp] * 10 + [ci] * 7 + [cf, ci, ci, cf, ci, vp]
+    fn.restype = ci
+    err.argtypes = [ci]
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
+def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0,
+                             q_offset: int = 0):
+    """Launch the backward kernel: the gradients (dq, dk, dv) of
+    ``flash_attention_cuda``'s output for q (B, Sq, H, D) and k, v (B, Sk,
+    KV, D), given that output `out`, its `lse` (``return_lse``) and dout
+    (B, Sq, H, D), all CUDA tensors; each gradient in its input's dtype
+    and shape.
+
+    Computed in f32 on the CUDA cores from the inputs as given and rounded
+    once (``csrc/flash_attention_bwd.cu``); ``ref.attention_grads`` is its
+    plain twin. Deterministic: no atomics, so two launches give bitwise
+    the same gradients. Allocates its outputs and a (B, H, Sq) f32 scratch
+    for rowsum(dout * out). Runs on PyTorch's current stream without
+    synchronising. Raises on a CPU tensor, on arguments the kernel does
+    not take, and when the build or a launch fails.
+    """
+    check_bwd_args(q, k, v, out, lse, dout, causal=causal, window=window,
+                   softcap=softcap, q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention_bwd_cuda needs CUDA tensors, "
+                           f"got {q.device}")
+    B, Sq, H, D = q.shape
+    _, Sk, KV, _ = k.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    fn, err = _bwd_entry_point()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(*(t.data_ptr() for t in (q, k, v, out, dout, lse, delta, dq,
+                                         dk, dv)),
+                B, H, KV, Sq, Sk, D, BWD_DTYPE_CODES[q.dtype],
+                1.0 / math.sqrt(D), int(bool(causal)), int(window),
+                float(softcap), int(q_offset), stream)
+    if rc != 0:
+        raise RuntimeError("flash_attention backward kernel launch failed: "
+                           + err(rc).decode())
+    return dq, dk, dv

@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.flash_attention import route as flash_route
 from repro_torch.kernels.sodda_inner import sodda_inner_cuda
 from repro_torch.kernels.ssd_scan import route as ssd_route
@@ -64,10 +65,12 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     tensors; ``"ref"`` runs the plain version on any device. Inputs are
     made contiguous, and on the wgmma route (bf16) 16-byte aligned, with a
     copy only where they are not (:func:`tma_operand`); nothing is padded.
-    The kernels have no backward yet: a CUDA call in grad mode whose q, k
-    or v requires grad raises ``RuntimeError`` rather than return an output
-    detached from autograd.
-    ``flash_attention.launches`` counts kernel launches.
+    A kernel call in grad mode whose q, k or v requires grad goes through a
+    ``torch.autograd.Function`` (``_FlashAttention``): the forward kernel
+    also writes its rows' log-sum-exp, and the backward is the backward
+    kernel (:func:`flash_attention_bwd`); any other kernel call writes no
+    log-sum-exp. The plain version is differentiated by autograd.
+    ``flash_attention.launches`` counts forward kernel launches.
     """
     if force not in FORCES:
         raise ValueError(f"force must be one of {FORCES}, got {force!r}")
@@ -80,21 +83,78 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                            f"CUDA kernel and needs CUDA tensors, got "
                            f"{q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention: the CUDA kernels have no "
-                           "backward yet (ROADMAP A3b), so their output "
-                           "would be detached from autograd; call it under "
-                           "torch.no_grad(), or with force='ref' to "
-                           "differentiate the plain version")
-    operand = (tma_operand if flash_route(q.dtype, q.shape[-1]) == "wgmma"
-               else torch.Tensor.contiguous)
-    out = flash_attention_cuda(operand(q), operand(k), operand(v),
-                               causal=causal, window=window, softcap=softcap,
+        return _FlashAttention.apply(q, k, v, causal, window, softcap,
+                                     q_offset)
+    out = flash_attention_cuda(*_flash_operands(q, k, v), causal=causal,
+                               window=window, softcap=softcap,
                                q_offset=q_offset)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def _flash_operands(q, k, v):
+    """q, k, v as the forward kernel of their route reads them."""
+    operand = (tma_operand if flash_route(q.dtype, q.shape[-1]) == "wgmma"
+               else torch.Tensor.contiguous)
+    return operand(q), operand(k), operand(v)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset):
+        q, k, v = _flash_operands(q, k, v)
+        opts = dict(causal=causal, window=window, softcap=softcap,
+                    q_offset=q_offset)
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True, **opts)
+        flash_attention.launches += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = flash_attention_bwd(*ctx.saved_tensors, dout.contiguous(),
+                                    **ctx.opts)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad)) + (None,) * 4
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0,
+                        q_offset: int = 0, force: str = "auto"):
+    """The gradients (dq, dk, dv) of ``flash_attention``'s output for q
+    (B,Sq,H,D) and k, v (B,Sk,KV,D), given that output `out`, its rows'
+    log-sum-exp `lse` (B,H,Sq) f32 and dout (B,Sq,H,D); each gradient in
+    its input's dtype.
+
+    ``force="auto"`` launches the backward kernel
+    (``kernels.flash_attention.flash_attention_bwd_cuda``) for CUDA tensors
+    and runs :func:`ref.attention_grads` for CPU tensors; ``"cuda"``
+    requires CUDA tensors; ``"ref"`` runs the plain version on any device.
+    ``flash_attention_bwd.launches`` counts kernel launches.
+    """
+    if force not in FORCES:
+        raise ValueError(f"force must be one of {FORCES}, got {force!r}")
+    opts = dict(causal=causal, window=window, softcap=softcap,
+                q_offset=q_offset)
+    device = q.device.type
+    if force == "ref" or (force == "auto" and device == "cpu"):
+        return ref.attention_grads(q, k, v, out, lse, dout, **opts)
+    if device != "cuda":
+        raise RuntimeError(f"flash_attention_bwd(force={force!r}) launches "
+                           f"the CUDA kernel and needs CUDA tensors, got "
+                           f"{q.device}")
+    grads = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **opts)
+    flash_attention_bwd.launches += 1
+    return grads
+
+
+flash_attention_bwd.launches = 0
 
 
 def ssd_scan(x, dt, A, Bm, Cm, D=None, chunk: int = 128, force: str = "auto"):

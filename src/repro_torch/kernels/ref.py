@@ -65,13 +65,17 @@ def split_p(p, p_split: int = 0):
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                   softcap: float = 0.0, chunk: int = 512, q_offset: int = 0,
-                  p_split: int = 0):
+                  p_split: int = 0, return_lse: bool = False):
     """q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D).
 
     `q_offset`: absolute position of q[0] (for decode: q_offset = cache_len).
     GQA: query head h attends to kv head h // (H // KV).
     `p_split`: how P enters P.V (``split_p``); the row sums l always take
     the f32 P, as the kernels do.
+    `return_lse`: also return each row's log-sum-exp of its scores,
+    lse = m + log(max(l, 1e-37)) in f32, (B, H, Sq): what the kernels save
+    for the backward (``attention_grads``); -inf for a row that sees no
+    key. The output is the same either way.
 
     The reference's arithmetic, with two differences:
       * the scores q.k are taken in float32, as the TPU kernel and the CUDA
@@ -121,18 +125,96 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
             "bhqk,bkhd->bhqd", split_p(p, p_split), vb.float())
         m = m_new
     out = acc / torch.clamp_min(l, 1e-37)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
+    out = out.transpose(1, 2).to(q.dtype)
+    if return_lse:
+        return out, m + torch.log(torch.clamp_min(l, 1e-37))
+    return out
+
+
+def attention_grads(q, k, v, out, lse, dout, *, causal: bool = True,
+                    window: int = 0, softcap: float = 0.0, q_offset: int = 0,
+                    chunk: int = 512, ds_split: int = 0,
+                    softcap_grad: bool = True):
+    """The gradients of ``attention_ref``'s output for q, k and v, given
+    its output `out`, its log-sum-exp `lse` (``return_lse``) and dout
+    (B, Sq, H, D): (dq, dk, dv), each in its input's dtype and shape.
+
+    The backward kernel's twin (``csrc/flash_attention_bwd.cu``), in f32,
+    over `chunk` keys at a time with the FlashAttention-2 recurrence:
+
+        Delta = rowsum(dout * out)
+        P     = exp(s - lse)           (0 where the mask masks)
+        dV    = P^T . dout,            dP = dout . V^T
+        dS    = P * (dP - Delta) * (1 - (s / softcap)^2)
+        dQ    = scale dS . K,          dK = scale dS^T . Q
+
+    s the capped score, its cap's derivative 1 - tanh^2 applied before
+    the scale; dK and dV summed over each group's query heads (GQA). The
+    scale is ``attention_ref``'s, the mask too (scale, softcap, mask).
+
+    Two options exist for controls only: `ds_split` takes dS as
+    ``split_p`` takes P before the dQ and dK products (1: rounded once to
+    bf16, as a textbook tensor-core kernel takes it), and
+    ``softcap_grad=False`` drops the cap's derivative.
+    """
+    B, Sq, H, D = q.shape
+    _, Sk, KV, _ = k.shape
+    if H % KV:
+        raise ValueError(f"attention_grads: H={H} is not a multiple of "
+                         f"KV={KV}")
+    group = H // KV
+    scale = 1.0 / torch.tensor(math.sqrt(D), dtype=torch.float32).to(q.dtype)
+    scale = scale.to(q.device).float()
+    qh = q.float().transpose(1, 2)  # (B, H, Sq, D)
+    kh = k.float().repeat_interleave(group, dim=2).transpose(1, 2)
+    vh = v.float().repeat_interleave(group, dim=2).transpose(1, 2)
+    doh = dout.float().transpose(1, 2)
+    delta = (doh * out.float().transpose(1, 2)).sum(-1)  # (B, H, Sq)
+    lse = lse.float()
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    dq = torch.zeros_like(qh)
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    for c0 in range(0, Sk, chunk):
+        kb, vb = kh[:, :, c0:c0 + chunk], vh[:, :, c0:c0 + chunk]
+        kpos = c0 + torch.arange(kb.shape[2], device=q.device)
+        s = torch.einsum("bhqd,bhkd->bhqk", qh, kb) * scale
+        if softcap > 0:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        mask = torch.ones(Sq, kb.shape[2], dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window > 0:
+            mask &= qpos[:, None] - kpos[None, :] < window
+        p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
+        dv[:, :, c0:c0 + chunk] = torch.einsum("bhqk,bhqd->bhkd", p, doh)
+        dp = torch.einsum("bhqd,bhkd->bhqk", doh, vb)
+        ds = p * (dp - delta[..., None])
+        if softcap > 0 and softcap_grad:
+            ds = ds * (1.0 - t * t)
+        ds = split_p(ds, ds_split)
+        dq += torch.einsum("bhqk,bhkd->bhqd", ds, kb)
+        dk[:, :, c0:c0 + chunk] = torch.einsum("bhqk,bhqd->bhkd", ds,
+                                               qh) * scale
+    dq = (dq * scale).transpose(1, 2).to(q.dtype)
+
+    def by_kv_head(g):  # (B, H, Sk, D) -> (B, Sk, KV, D), the group summed
+        return g.view(B, KV, group, Sk, D).sum(2).transpose(1, 2)
+
+    return dq, by_kv_head(dk).to(k.dtype), by_kv_head(dv).to(v.dtype)
 
 
 def attention_naive(q, k, v, *, causal=True, window=0, softcap=0.0,
                     q_offset=0):
-    """O(S^2)-memory textbook attention — oracle for attention_ref itself."""
+    """O(S^2)-memory textbook attention — oracle for attention_ref itself.
+    Computed in f32, or in f64 for f64 inputs (the gradient checks)."""
     B, Sq, H, D = q.shape
     _, Sk, KV, _ = k.shape
     group = H // KV
+    ct = torch.promote_types(q.dtype, torch.float32)
     k = k.repeat_interleave(group, dim=2)
     v = v.repeat_interleave(group, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(D)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).to(ct) / math.sqrt(D)
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
     qpos = q_offset + torch.arange(Sq, device=q.device)
@@ -144,7 +226,7 @@ def attention_naive(q, k, v, *, causal=True, window=0, softcap=0.0,
         mask &= qpos[:, None] - kpos[None] < window
     s = s.masked_fill(~mask, -math.inf)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(ct)).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -311,7 +311,9 @@ def test_route_refuses_what_no_kernel_takes():
 
 
 def test_sources_are_one_per_route():
-    assert kernel.SOURCES == (kernel.SOURCE, kernel.WGMMA_SOURCE)
+    """One forward source per route, and the backward's (both dtypes)."""
+    assert kernel.SOURCES == (kernel.SOURCE, kernel.WGMMA_SOURCE,
+                              kernel.BWD_SOURCE)
     assert all(src.exists() for src in kernel.SOURCES)
     text = kernel.WGMMA_SOURCE.read_text()
     for needle in ("wgmma.mma_async", "cp.async.bulk.tensor",

@@ -373,12 +373,34 @@ def test_plain_ssd_gradient_is_finite_at_every_chunk():
 
 
 @pytest.mark.gpu
-def test_flash_attention_on_the_card_refuses_a_gradient():
+def test_flash_attention_gradient_on_the_card_matches_the_plain_one():
+    """A CUDA flash call whose q, k and v require grad goes through the
+    forward kernel (with its log-sum-exp) and the backward kernel: one
+    launch each, and every gradient within 1e-5 of its max of autograd
+    through the plain version, in f32, at a gemma2-like local layer (GQA,
+    window, softcap 50, unaligned S) and a zamba2-like one (D = 112)."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    q = torch.randn(1, 64, 2, 64, device="cuda", requires_grad=True)
-    k = torch.randn(1, 64, 2, 64, device="cuda")
-    with pytest.raises(RuntimeError, match="A3b"):
-        ops.flash_attention(q, k, k)
-    with torch.no_grad():
-        assert ops.flash_attention(q, k, k).shape == q.shape
+        pytest.skip("needs a CUDA device (run on the card: python -m pytest "
+                    "-m gpu tests/test_torch_train.py)")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for (B, H, KV, S, D), opts in (
+            ((2, 4, 2, 200, 256), dict(window=64, softcap=50.0)),
+            ((1, 4, 4, 190, 112), dict())):
+        q = torch.randn(B, S, H, D, generator=g, device="cuda")
+        k = torch.randn(B, S, KV, D, generator=g, device="cuda")
+        v = torch.randn(B, S, KV, D, generator=g, device="cuda")
+        dout = torch.randn(B, S, H, D, generator=g, device="cuda")
+        grads = []
+        for force in ("auto", "ref"):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            f0, b0 = ops.flash_attention.launches, \
+                ops.flash_attention_bwd.launches
+            out = ops.flash_attention(*leaves, force=force, **opts)
+            grads.append(torch.autograd.grad(out, leaves, dout))
+            if force == "auto":
+                assert (ops.flash_attention.launches - f0,
+                        ops.flash_attention_bwd.launches - b0) == (1, 1)
+        for got, want in zip(*grads):
+            assert got.dtype == want.dtype == torch.float32
+            assert float((got - want).abs().max()) <= \
+                1e-5 * float(want.abs().max())
