@@ -271,6 +271,7 @@ are the card line, a JSON ``kernels`` record and a JSON ``ok`` record.
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -4125,12 +4126,17 @@ FLASH_BWD_TIMED = ("gemma2 local training layer",
 # the plain backward (ref.attention_grads on the same q, k, v, out, lse and
 # dout), which sums the same terms in another order (4608 keys a row, up to
 # 4608 queries a key, 2 heads a group); bf16: the rounding rule of the
-# forward (F32_NOISE) against the plain backward on f32 copies. The control
-# (dS rounded once to bf16 before the dQ and dK products, as a textbook
-# tensor-core kernel takes it) must fail either rule on dq and dk.
+# forward (F32_NOISE) against the plain backward on f32 copies. Controls:
+# dS rounded once to bf16 before the dQ and dK products (as a textbook
+# tensor-core kernel takes it) must fail either rule on dq and dk; in f32,
+# every tensor-core operand rounded once to bf16 (the split control,
+# ``ref.attention_grads(in_pieces=1, mid_pieces=1)``) must fail the f32 rule
+# on every leaf; in bf16, P rounded once to bf16 before dV must fail the
+# rounding rule on dv.
 FLASH_BWD_F32_TOL = 1e-5
 FLASH_BWD_LEAVES = ("dq", "dk", "dv")
 FLASH_BWD_CONTROL_LEAVES = ("dq", "dk")
+FLASH_BWD_P_CONTROL_LEAVES = ("dv",)
 
 
 def flash_bwd_bound_ms(B, H, KV, Sq, Sk, D, dtype, **mask):
@@ -4146,6 +4152,43 @@ def flash_bwd_bound_ms(B, H, KV, Sq, Sk, D, dtype, **mask):
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def flash_bwd_tc_bound_ms(B, H, KV, Sq, Sk, D, dtype, **mask):
+    """The same least time as the tensor-core kernel takes the products:
+    the bytes of ``flash_bwd_bound_ms`` against the five products as bf16
+    piece products at 989 TFLOP/s. f32: six piece products each (three
+    pieces an operand, a + b <= 2); bf16: S and dP as one, dV, dK and dQ
+    as two (P and dS in two halves). The recomputation of S and dP in the
+    dQ kernel is the design's, not the function's, and is not counted."""
+    products = 6 * 5 if dtype == torch.float32 else 1 + 1 + 2 * 3
+    flops = 2.0 * products * B * H * D * attention_pairs(Sq, Sk, **mask)
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = item * (4 * B * Sq * H * D + 4 * B * Sk * KV * D) \
+        + 4 * B * H * Sq
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def kernel_registers(lib):
+    """{instantiation: registers} from a library's ptxas report, names as
+    ``flash_bwd_dkdv<float, 256>``."""
+    regs, current = {}, None
+    for line in lib.with_name(lib.name + ".log").read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            current = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            k = re.search(r"(flash_bwd_\w+?)I(f|13__nv_bfloat16)(?:Li(\d+))?E",
+                          current)
+            name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}"
+                    + (f", {k.group(3)}" if k.group(3) else "") + ">"
+                    if k else current)
+            regs[name] = int(m.group(1))
+    return regs
 
 
 def mask_opts(opts):
@@ -4186,6 +4229,10 @@ def phase_flash_backward():
     lib = kbuild.library_path(flash_build.BWD_SOURCE)
     for line in kbuild.compiler_report(lib):
         log(f"flash backward nvcc {lib.name}: {line}")
+    registers = kernel_registers(lib)
+    log(f"flash backward registers by instantiation: {registers}")
+    check(len([n for n in registers if "dkdv" in n or "_dq" in n]) == 16,
+          f"flash backward: {len(registers)} instantiations in the report")
     max_err, times, fwd_times = 0.0, {}, {}
     for name, shape, opts in FLASH_BWD_CASES:
         B, H, KV, Sq, Sk, D = shape
@@ -4220,6 +4267,12 @@ def phase_flash_backward():
             want = kref.attention_grads(*f, lse, dout.float(), **opts)
             ctrl = kref.attention_grads(*f, lse, dout.float(), ds_split=1,
                                         **opts)
+            # f32: every tensor-core operand rounded once to bf16; bf16: P
+            # rounded once before dV
+            ctrl2 = kref.attention_grads(
+                *f, lse, dout.float(), **opts,
+                **(dict(in_pieces=1, mid_pieces=1) if dtype == f32
+                   else dict(p_split=1)))
             torch.cuda.synchronize()
             check(ops.flash_attention_bwd.launches == before + 2,
                   f"{tag}: {ops.flash_attention_bwd.launches - before} "
@@ -4235,27 +4288,38 @@ def phase_flash_backward():
                 check(bool((a[0][:, rows] == 0).all()),
                       f"{tag}: a row that sees no key has a nonzero dq")
             parts = []
-            for leaf, g, w, c in zip(FLASH_BWD_LEAVES, a, want, ctrl):
+            c2_name = "split" if dtype == f32 else "P-in-bf16"
+            c2_leaves = (FLASH_BWD_LEAVES if dtype == f32
+                         else FLASH_BWD_P_CONTROL_LEAVES)
+            for leaf, g, w, c, c2 in zip(FLASH_BWD_LEAVES, a, want, ctrl,
+                                         ctrl2):
                 scale = float(w.abs().max())
                 if dtype == f32:
-                    err, c_err = rel_gap(g, w), rel_gap(c, w)
+                    err, c_err, c2_err = (rel_gap(g, w), rel_gap(c, w),
+                                          rel_gap(c2, w))
                     max_err = max(max_err, float((g - w).abs().max()))
                     limit = FLASH_BWD_F32_TOL
                 else:
                     ex = tol.half_ulp_excess(w, scale, kernel=g,
-                                             control=c.to(dtype))
-                    err, c_err, limit = ex["kernel"], ex["control"], \
-                        F32_NOISE
+                                             control=c.to(dtype),
+                                             control2=c2.to(dtype))
+                    err, c_err, c2_err, limit = (ex["kernel"], ex["control"],
+                                                 ex["control2"], F32_NOISE)
                 check(err <= limit, f"{tag}: {leaf} {err:.3e} (limit "
                       f"{limit:.3e})")
                 if leaf in FLASH_BWD_CONTROL_LEAVES:
                     check(c_err > limit, f"{tag}: {leaf}: the dS-in-bf16 "
                           f"control passes ({c_err:.3e} <= {limit:.3e})")
-                parts.append(f"{leaf} {err:.3e} (control {c_err:.3e})")
+                if leaf in c2_leaves:
+                    check(c2_err > limit, f"{tag}: {leaf}: the {c2_name} "
+                          f"control passes ({c2_err:.3e} <= {limit:.3e})")
+                parts.append(f"{leaf} {err:.3e} (dS-in-bf16 control "
+                             f"{c_err:.3e}, {c2_name} control {c2_err:.3e})")
             rule = (f"of each gradient's max (limit {FLASH_BWD_F32_TOL:.0e})"
                     if dtype == f32 else "excess over half a bf16 ulp / max "
                     f"(limit {F32_NOISE:.3e})")
-            log(f"{tag}: out bitwise without lse, lse within {lse_gap:.3e}, "
+            log(f"{tag}: route {flash_build.bwd_route(dtype, D)}; out "
+                f"bitwise without lse, lse within {lse_gap:.3e}, "
                 f"{int(dead.sum())} rows -inf; bitwise across launches; "
                 f"kernel vs plain {rule}: " + ", ".join(parts))
             if name in FLASH_BWD_TIMED:
@@ -4266,9 +4330,11 @@ def phase_flash_backward():
                     q, k, v, out, lse, dout, force="ref", **opts),
                     reps=1, warmup=1)
                 bound = flash_bwd_bound_ms(*shape, dtype, **mask_opts(opts))
-                rec = dict(shape=list(shape), options=opts, ms=ms,
-                           plain_ms=plain_ms, bound_ms=bound[0],
-                           bound_by=bound[1], launches=None)
+                tc = flash_bwd_tc_bound_ms(*shape, dtype, **mask_opts(opts))
+                rec = dict(shape=list(shape), options=opts,
+                           route=flash_build.bwd_route(dtype, D), ms=ms,
+                           plain_ms=plain_ms, **bound_keys(dtype, bound, tc),
+                           launches=None)
                 if opts.get("window", 0) == 0:
                     # the function SDPA computes too: causal, no softcap
                     nocap = dict(opts, softcap=0.0)
@@ -4283,10 +4349,11 @@ def phase_flash_backward():
                 else:
                     rec["library_ms"] = None
                 times[name, dtype] = rec
-                log(f"flash backward {name} {shape} {dtype}: kernel "
-                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                    f"{bound[0]:.5f} ms ({bound[1]}), kernel/bound "
-                    f"{ms / bound[0]:.1f}x"
+                log(f"flash backward {name} {shape} {dtype} "
+                    f"({rec['route']}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms "
+                    f"({bound[1]}), tensor-core bound {tc[0]:.5f} ms "
+                    f"({tc[1]}), kernel/least bound "
+                    f"{ms / rec['bound_ms']:.1f}x"
                     + (f"; causal without softcap: kernel "
                        f"{rec['same_function_ms']:.4f} ms, torch "
                        f"scaled_dot_product_attention's backward (k, v "
@@ -4304,7 +4371,7 @@ def phase_flash_backward():
                     log(f"flash forward {name} {shape} f32 with lse "
                         f"(cuda-core route): {f_ms:.4f} ms, bound "
                         f"{f_bound[0]:.5f} ms ({f_bound[1]})")
-            del a, b, want, ctrl, f, out, lse, plain_out
+            del a, b, want, ctrl, ctrl2, f, out, lse, plain_out
         del q32, k32, v32, dout32, q, k, v, dout
         torch.cuda.empty_cache()
     top = times["gemma2 global training layer", f32]
@@ -4318,8 +4385,13 @@ def phase_flash_backward():
                   launches=None, max_abs_err=max_err, ms=top["ms"],
                   plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                   bound_by=top["bound_by"], library_ms=top["library_ms"],
+                  cuda_core_bound_ms=top["cuda_core_bound_ms"],
+                  cuda_core_bound_by=top["cuda_core_bound_by"],
                   same_function_ms=top["same_function_ms"],
-                  shape=top["shape"], shapes=shapes)
+                  kernel_route=top["route"],
+                  routes={str(t).replace("torch.", ""):
+                          flash_build.bwd_route(t, 256) for t in (f32, bf16)},
+                  registers=registers, shape=top["shape"], shapes=shapes)
     return record, fwd_times
 
 
@@ -4410,11 +4482,12 @@ def attention_train_cell(tag, cfg, exact_params, control, control_name, B,
     exactness cell (1 x `exact_s` tokens, the weights of `exact_params`)
     against the plain path, `control` (a wrong backward)
     outside F32_REDUCTION, remat="full" bitwise remat="none". The steps
-    come first, on a freshly emptied cache: the plain path's many
-    differently sized tensors leave the caching allocator's segments cut
-    up, and gemma2's step (62.4 GB of an 80 GB card) then found no 4.4 GiB
-    block among 20.7 GiB of free cached memory. Returns the step's
-    figures and its launches a micro-batch."""
+    come first, on a freshly emptied cache (the earlier phases' garbage
+    collected first): the plain path's many differently sized tensors
+    leave the caching allocator's segments cut up, and gemma2's step
+    (62.4 GB of an 80 GB card) then found no 4.4 GiB block among 20.7 GiB
+    of free cached memory. Returns the step's figures and its launches a
+    micro-batch."""
     f32 = torch.float32
     L = cfg.num_layers
     hybrid = cfg.family == "hybrid"
@@ -4425,6 +4498,7 @@ def attention_train_cell(tag, cfg, exact_params, control, control_name, B,
     label = (f"train ({tag}) {cfg.name} f32, {L} layers at full width"
              + (f" ({sites} shared-block sites)" if hybrid else ""))
     model = Model(cfg, param_dtype=f32)
+    gc.collect()
     torch.cuda.empty_cache()
     # the training path: ATTN_TRAIN_STEPS adamw steps, twice
     first = train_steps(model, ATTN_TRAIN_STEPS, batch=B, seq=ATTN_TRAIN_S)
@@ -4531,21 +4605,30 @@ def attention_train_cell(tag, cfg, exact_params, control, control_name, B,
 
 def train_attention_cells():
     """phase_train's (e) gemma2-9b and (f) zamba2-7b cells
-    (``attention_train_cell``): {"gemma2": ..., "zamba2": ...}."""
-    return dict(
-        gemma2=attention_train_cell(
-            "e", dataclasses.replace(GEMMA2_9B,
-                                     num_layers=GEMMA2_TRAIN_LAYERS),
-            lambda m: attention_params(m.init(SEED), "layers"),
-            control_attention(softcap_grad=False),
-            "the softcap's derivative dropped", GEMMA2_TRAIN_B,
-            ATTN_TRAIN_S),
-        zamba2=attention_train_cell(
-            "f", dataclasses.replace(ZAMBA2_7B,
-                                     num_layers=ZAMBA2_TRAIN_LAYERS),
-            lambda m: attention_params(ssm_params(m, SEED), "shared"),
-            control_attention(causal=False),
-            "the causal mask dropped", ZAMBA2_TRAIN_B, ZAMBA2_EXACT_S))
+    (``attention_train_cell``): {"gemma2": ..., "zamba2": ...}. They run
+    with the caching allocator's expandable segments on, put back off
+    after them: even on an emptied cache, gemma2's first step once found
+    no block for its 4.4 GiB logits among 23.6 GiB of cut-up cached
+    memory after the earlier phases had run."""
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        return dict(
+            gemma2=attention_train_cell(
+                "e", dataclasses.replace(GEMMA2_9B,
+                                         num_layers=GEMMA2_TRAIN_LAYERS),
+                lambda m: attention_params(m.init(SEED), "layers"),
+                control_attention(softcap_grad=False),
+                "the softcap's derivative dropped", GEMMA2_TRAIN_B,
+                ATTN_TRAIN_S),
+            zamba2=attention_train_cell(
+                "f", dataclasses.replace(ZAMBA2_7B,
+                                         num_layers=ZAMBA2_TRAIN_LAYERS),
+                lambda m: attention_params(ssm_params(m, SEED), "shared"),
+                control_attention(causal=False),
+                "the causal mask dropped", ZAMBA2_TRAIN_B, ZAMBA2_EXACT_S))
+    finally:
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
 
 
 def phase_train():

@@ -3,10 +3,10 @@
 Each kernel is one CUDA C++ source under ``csrc/`` with a plain C
 interface. It is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library under ``build/torch_kernels/`` at the repository root, named
-by a hash of the source and the flags (an edited source is rebuilt), and
-loaded with ctypes. The compiler's report (``-Xptxas -v``: registers,
-shared memory, spills, warnings) is kept beside the library as
-``<library>.log``.
+by a hash of the source, the headers beside it (``csrc/*.cuh``) and the
+flags (an edited source or header is rebuilt), and loaded with ctypes.
+The compiler's report (``-Xptxas -v``: registers, shared memory, spills,
+warnings) is kept beside the library as ``<library>.log``.
 
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them, so a caller that needs several kernels pays for the slowest build,
@@ -42,10 +42,14 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    """Where the library built from `source` lives (content-addressed)."""
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    """Where the library built from `source` lives (content-addressed: the
+    source, every header in its directory, which a source may include,
+    and the flags)."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 def build_all(sources: Sequence[Path]) -> List[Path]:

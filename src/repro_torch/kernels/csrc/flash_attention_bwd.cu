@@ -1,5 +1,5 @@
 // Hopper (sm_90a) backward of flash attention, float32 and bfloat16 inputs,
-// on the CUDA cores: the gradients dq, dk, dv of
+// on the bf16 tensor cores: the gradients dq, dk, dv of
 //
 //     s   = (q . k) / sqrt(D)                              (f32)
 //     s   = softcap * tanh(s / softcap)          when softcap > 0
@@ -8,7 +8,8 @@
 //
 // given out, dout and the forward's per-row log-sum-exp lse (B, H, Sq),
 // which flash_attention.cu and flash_attention_wgmma.cu write when asked.
-// The FlashAttention-2 recurrence, all in f32:
+// The FlashAttention-2 recurrence, every product on the tensor cores with
+// f32 accumulators:
 //
 //     Delta = rowsum(dout * out)
 //     P     = exp(s - lse)            (exactly 0 where the mask masks)
@@ -24,125 +25,192 @@
 // (src/repro/kernels/ref.py:40), and JAX differentiates that plain path.
 // This kernel is the port's own, added so that dense and hybrid models
 // train on the card; its plain twin is ref.attention_grads in
-// src/repro_torch/kernels/ref.py.
+// src/repro_torch/kernels/ref.py, whose in_pieces / mid_pieces emulate the
+// splits below.
 //
 // What bounds it on an H100: five products of 2 D FLOP per unmasked
 // (query, key) pair (S, dP, dV, dQ, dK: 10 D), against q, k, v, out, dout
-// and lse read once and dq, dk, dv written once. On the CUDA cores the f32
-// rate (67 TFLOP/s) is the limit; this design recomputes S and dP in both
-// of its large kernels (14 D a pair) and reads every operand from shared
-// memory, so it lands well above that bound. Simple and right first.
+// and lse read once and dq, dk, dv written once: operations, at the
+// gemma2-9b and zamba2-7b training layers. This design forms S and dP in
+// both of its large kernels (14 D a pair, no atomics and no dS round trip
+// through device memory) and takes each f32 product as several bf16 ones
+// (below), so its floor is above that bound (PERF.md has both).
 //
-// Design: three launches, no atomics, every sum in a fixed order, so two
-// launches give bitwise the same gradients.
+// Exactness on bf16 tensor cores. Every product is a bf16 wgmma with an f32
+// accumulator.
+//   * bf16 inputs: q, k, v and dout are exact bf16 operands, so S and dP
+//     take them as they are. P and dS are f32 values; each is split into
+//     two bf16 halves, hi = bf16(x) and lo = bf16(x - hi) (ref.split_p(x,
+//     2), the forward's rule for P), and dV, dK, dQ are issued lo, then hi.
+//   * f32 inputs: every operand is split into three bf16 pieces, p0 =
+//     bf16(v), p1 = bf16(v - p0), p2 = bf16(v - p0 - p1), which hold it
+//     exactly (split3 in sm90.cuh; q, k, v, dout as staged, P and dS from
+//     registers); a product is the sum of the six piece products with
+//     a + b <= 2, the smallest first (for_pairs), as csrc/ssd_scan.cu does.
+//     In S and dP each piece product has columns of its own (below), summed
+//     by the threads, the small ones first, so the tensor cores' truncating
+//     sums never add a small term to the large one.
+//   * a sum that crosses query tiles, heads or key tiles is never carried
+//     in a tensor-core accumulator (PERF.md §6: such a carry truncates):
+//     each tile's dV, dK or dQ is a fresh accumulator, 64 columns at a
+//     time, added in f32 by the threads to the carried gradient.
+// expf is the accurate one (no --use_fast_math); tanh is tanh_f32 below, a
+// branch-free form within a few ulp of tanhf; the softcap's division is a
+// multiplication by 1 / softcap (one f32 rounding apart), as in the forward
+// kernels. There are no atomics and every sum has a fixed order, so two
+// launches agree bitwise.
+//
+// Design: three launches.
 //   1. flash_bwd_delta: one warp a (batch, row, head) sums dout * out over D.
-//   2. flash_bwd_dkdv: one block per (key tile, kv head, batch). K and V of the tile
-//      stay in shared memory; the block walks every query head of its
-//      group and every query tile that can see a key of the tile, stages
-//      that tile's Q and dO, forms S^T and dP^T (keys x queries), P and dS,
-//      and accumulates dV += P^T . dO and dK += dS^T . Q in f32 registers.
-//      dK and dV are written once, scaled and rounded there.
-//   3. flash_bwd_dq: one block per (query tile, head, batch), heaviest tiles first;
-//      Q and dO stay in shared memory, the block walks the key tiles its
-//      rows can see (the forward's range), forms S, dP and dS again, and
-//      accumulates dQ += dS . K in f32 registers.
-// 256 threads as 16 x 16 in every large kernel: in dkdv thread (ty, tx)
-// owns keys ty*RK + i of the score tile and queries tx + 16 j, then the
-// same keys' rows of dK and dV at D/16 columns; in dq it owns query rows
-// 4 ty + i, keys tx + 16 j, and then those rows of dQ.
+//   2. flash_bwd_dkdv: one block per (64 keys, kv head, batch), heaviest
+//      (earliest) key tiles first. It walks every query head of its group
+//      and every query tile of kBN rows that can see a key of the tile.
+//   3. flash_bwd_dq: one block per (64 query rows, head, batch), heaviest
+//      (last) tiles first, walking the key tiles of kBN keys its rows see.
+// Both large kernels have one shape, two warpgroups (256 threads):
+//   * each warpgroup has a role. In dkdv the first forms S^T = K . Q^T
+//     (keys x queries), P, and dV += P^T . dO; the second dP^T = V . dO^T,
+//     dS, and dK += dS^T . Q. P and dS are taken in registers, since the
+//     f32 accumulator's layout is a 16-bit A fragment's, and dO and Q are
+//     read MN-major through wgmma's transpose flag. The first hands the
+//     second P (1 - t^2) through shared memory (the 64 x kBN values, each
+//     thread's at its own places), from which the second forms dS without
+//     an exp of its own. In dq the first forms S = Q . K^T and the second
+//     dP = dO . V^T. Where the key tile has two k-steps or more (every
+//     case but f32 at D = 256) each warpgroup takes the dS of half the
+//     tile's keys, the two handing each other the half of S or dP the other
+//     needs, and each sums its half of the contraction dQ += dS . K (K
+//     MN-major) into a partial dQ of its own; the two partials are added in
+//     a fixed order at the end. At f32, D = 256 (16 keys, one k-step) the
+//     second hands dP over and the first forms dS and dQ alone. The masks
+//     are tested entry by entry only on tiles that a mask or an edge
+//     reaches.
+//   * the loads: the block's two resident tiles (dkdv: K and V; dq: Q and
+//     dO; 64 rows) once, then each item's two streamed tiles (dkdv: Q and
+//     dO; dq: K and V; kBN rows), all by TMA into a ring guarded by `full`
+//     and `empty` mbarriers, issued by the warpgroup that waits on the
+//     other's hand-over (dkdv: the second; dq: the first), which is the one
+//     behind: when it is done with an item, the other is too, and the next
+//     load goes out without a wait. bf16 keeps the next item in flight
+//     through the whole of the current one; f32's single staging slot
+//     takes the next item's load once the current one is split. In dkdv
+//     the issuing warp's 32 lanes also load the item's lse and Delta with
+//     plain loads (TMA cannot: lse's row stride is Sq floats) and arrive
+//     on `full` beside lane 0's expect_tx.
+//   * registers: no producer warp. A third warpgroup (or even one more
+//     warp) puts three warps on one of the SM's four register files and
+//     leaves the compiler 168 registers a thread, and the carried gradient
+//     alone takes 128 at D = 256 (D / 2 a thread); with two warpgroups it
+//     has 255. Each product's first wgmma ignores its accumulator's old
+//     value (scale-d 0), so a fresh accumulator is not zeroed and takes
+//     the registers the last one freed: zeroed, it took new ones, and D =
+//     256 spilled.
+// Per dtype:
+//   * bf16: the tiles are TMA'd straight into 128-byte swizzled bf16 tiles
+//     (32-byte at D = 16), a ring of two stages of kBN = 64 rows; S and dP
+//     read both operands from shared memory.
+//   * f32: the resident tiles stay f32 (TMA, 128-byte swizzle, 32-column
+//     boxes; 64-byte at D = 16), and the A operand of S and dP is split
+//     from them into registers a few k-steps at a time. The streamed tiles
+//     come as f32 into one staging slot; the two warpgroups split them into
+//     bf16 piece tiles (one matrix each) and release the slot, so the next
+//     item's load overlaps this item's products. The stream is kBN = 16
+//     rows at D = 256 (what 227 KB hold beside the f32 resident tiles) and
+//     32 below. In each column block the three pieces' slabs lie one after
+//     the other, so that S and dP take A's piece a times B's pieces
+//     0..2 - a in one product, stacked along N: three products a k-step,
+//     N = 3, 2 and 1 kBN, not six of kBN.
 //
-// Shared memory (f32 tiles, rows padded by 4 floats): a query tile is 64
-// rows and a key tile 64 rows, 32 at D = 256, where dkdv holds K, V (32 x
-// 260), Q, dO (64 x 260), P^T, dS^T (32 x 68) and lse, Delta: 217,600
-// bytes; dq holds Q, dO (64 x 260), K, V (32 x 260) and dS (64 x 36):
-// 208,896 bytes, both under the 232,448 a block may use
-// (kernels/flash_attention.py mirrors this: bwd_shared_memory_bytes).
+// Shared memory (kernels/flash_attention.py mirrors it:
+// bwd_shared_memory_bytes): the two resident tiles, the ring, the f32
+// piece tiles, two buffers of the 64 x kBN values handed between the
+// warpgroups, each stage's lse and Delta, the barriers and up to 1 KB to
+// align the tiles to the swizzle's 1024 bytes; 231,488 bytes for bf16 at
+// D = 256 and 222,528 for f32, both kernels.
 //
-// Masking: rows past Sq and keys past Sk take the zero fill of the staging
-// and are masked; a masked entry gets P = 0 (its exp is never taken), so it
-// adds exactly 0 to every gradient, and a row that sees no key (lse =
-// -inf) contributes nothing. bf16 inputs are widened to f32 when staged and
-// the gradients rounded once to bf16 at the store.
+// Masking: rows past Sq and keys past Sk come as zeros from TMA and are
+// masked; a masked entry gets P = 0 (its exp is never taken), so it adds
+// exactly 0 to every gradient, and a row that sees no key (lse = -inf)
+// contributes nothing. A block whose tile no row can see writes zeros.
 //
 // Head dims 96 and 112 run the D = 128 layout with the true head dim DT a
-// second template parameter, as the forward kernels do: columns DT..127 of
-// every staged tile are zero, so they add nothing to q . k or dout . v,
-// and only the columns below DT are stored.
+// runtime argument: the TMA maps declare DT as the inner extent, so the
+// boxes read columns DT..127 as zeros, which add nothing to q . k or
+// dout . v, and only the columns below DT are stored.
 //
-// Built without --use_fast_math: expf and tanhf stay the accurate ones.
-// Plain C interface, loaded with ctypes.
+// Plain C interface, loaded with ctypes. The TMA descriptors are encoded on
+// the host with cuTensorMapEncodeTiled, reached through the runtime's
+// driver entry point, so the library does not link libcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kPad = 4;        // floats of row padding (keeps float4 aligned)
-constexpr int kBQ = 64;        // query rows of a tile
+constexpr int kRows = 64;         // rows of a block's resident tile: wgmma's M
+constexpr int kThreads = 256;     // two warpgroups, no producer warp (the note)
+constexpr int kDeltaThreads = 256;
+constexpr uint32_t kAlign = 1024;  // every tile starts on the swizzle's repeat
+// named barriers: values handed between the warpgroups (ready / consumed),
+// and both warpgroups at once (the f32 piece tiles, dq's partial sums)
+constexpr int kBarReady = 1, kBarFree = 2, kBarBoth = 3;
+
+template <typename T, int L>
+struct Cfg {
+  static_assert(L == 16 || L == 64 || L == 128 || L == 256,
+                "layout head dim 16, 64, 128 or 256");
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kNI = kF32 ? 3 : 1;  // pieces of an input operand
+  static constexpr int kNM = kF32 ? 3 : 2;  // pieces of P or dS
+  // rows of a streamed tile (the N of S and dP, the contraction of the
+  // products after them)
+  static constexpr int kBN = kF32 ? (L == 256 ? 16 : 32) : 64;
+  static constexpr int kRing = kF32 ? 1 : 2;
+  static constexpr int kNC = L < 64 ? L : 64;  // columns of one output product
+  static constexpr int kChunks = L / kNC;
+  // score entries whose elementwise steps the compiler may interleave:
+  // one k-step's eight at D = 256, where the carried gradient takes half
+  // the registers
+  static constexpr int kGroup = L == 256 ? 8 : kBN / 4;
+  // bf16 tiles: column blocks of kE columns, kRB bytes a row
+  static constexpr int kE = L < 64 ? L : 64;
+  static constexpr int kRB = 2 * kE;
+  // f32 tiles (TMA's boxes): column blocks of kFE columns, kFRB bytes a row
+  static constexpr int kFE = L < 32 ? L : 32;
+  static constexpr int kFRB = 4 * kFE;
+  static constexpr int kBoxE = kF32 ? kFE : kE;  // TMA box columns
+  static constexpr int kBoxRB = kF32 ? kFRB : kRB;
+  static constexpr uint32_t kRes = kRows * L * sizeof(T);        // one resident tile
+  static constexpr uint32_t kStream = kBN * L * sizeof(T);       // one streamed tile
+  static constexpr uint32_t kSlot = 2 * kStream;  // a stage: the two streamed tiles
+  static constexpr uint32_t kPiece = kBN * L * 2;  // one bf16 piece of a streamed tile
+  // dq splits its key tile between the warpgroups where it has two k-steps
+  static constexpr bool kSplitDq = kBN >= 32;
+  static constexpr uint32_t kX = 4 * kRows * kBN;  // one buffer of handed-over values
+  static constexpr uint32_t kSlotOff = 2 * kRes;
+  static constexpr uint32_t kPieceOff = kSlotOff + kRing * kSlot;
+  static constexpr uint32_t kXOff = kPieceOff + (kF32 ? 2 * kNI * kPiece : 0);  // two buffers
+  // each stage's lse and Delta (dkdv), then for f32 the copy the warpgroups
+  // keep once the staging slot is free
+  static constexpr uint32_t kVecOff = kXOff + 2 * kX;
+  static constexpr uint32_t kBarOff = kVecOff + (2 * kRing + (kF32 ? 2 : 0)) * 4 * kBN;
+  static constexpr uint32_t kBytes = kBarOff + 64 + kAlign;
+  static_assert(kBytes <= 232448, "one block's shared memory");
+  static_assert(kSlotOff % kAlign == 0 && kPieceOff % kAlign == 0 &&
+                    kPiece % kAlign == 0 && kStream % kAlign == 0,
+                "tiles 1024-aligned");
+};
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float component(const float4& v, int i) {
-  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
-}
-
-template <int D>
-struct Layout {
-  static constexpr int kBK = D == 256 ? 32 : 64;  // keys of a tile
-  static constexpr int kRS = D + kPad;            // row stride of a D-wide tile
-  static constexpr int kTS = kBQ + kPad;          // row stride of P^T, dS^T
-  static constexpr int kSS = kBK + kPad;          // row stride of dq's dS
-  static constexpr int kVec = D >= 64 ? 4 : 1;    // output columns as float4
-  static constexpr int kDC = D / 16;              // output columns a thread
-  static constexpr size_t kDkdvBytes =
-      sizeof(float) * (2 * static_cast<size_t>(kBK) * kRS +
-                       2 * static_cast<size_t>(kBQ) * kRS +
-                       2 * static_cast<size_t>(kBK) * kTS + 2 * kBQ);
-  static constexpr size_t kDqBytes =
-      sizeof(float) * (2 * static_cast<size_t>(kBQ) * kRS +
-                       2 * static_cast<size_t>(kBK) * kRS +
-                       static_cast<size_t>(kBQ) * kSS);
-  // output column of a thread's e-th element
-  static __device__ __forceinline__ int col(int tx, int e) {
-    return kVec == 4 ? (e / 4) * 64 + tx * 4 + (e % 4) : tx + 16 * e;
-  }
-};
-
-// Stage rows [row0, row0 + ROWS) of one head of a (B, S, NH, DT) tensor as
-// f32 at `dst` (row stride `stride`) in the layout of head dim D >= DT,
-// zero-filling rows at or past S and columns at or past DT.
-template <typename T, int ROWS, int D, int DT>
-__device__ __forceinline__ void stage_tile(float* dst, int stride,
-                                           const T* __restrict__ src, int b,
-                                           int S, int NH, int head, int row0) {
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < ROWS * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx % D;
-    const int row = row0 + r;
-    float x = 0.0f;
-    if (row < S && (DT == D || d < DT)) {
-      x = to_float(src[((static_cast<size_t>(b) * S + row) * NH + head) * DT + d]);
-    }
-    dst[r * stride + d] = x;
-  }
 }
 
 // Whether the query at row `qrow` (position q_offset + qrow) sees key kpos:
@@ -156,31 +224,365 @@ __device__ __forceinline__ bool seen(int qrow, int kpos, int Sq, int Sk,
   return keep;
 }
 
-// P and dS of one score: x = s * scale, capped; P = exp(x - lse) where the
-// key is seen, else 0; dS = P (dP - Delta), times the cap's derivative.
-__device__ __forceinline__ void p_and_ds(float s, float dp, float lse,
-                                         float delta, bool keep, float scale,
-                                         float softcap, float& p, float& ds) {
-  float x = s * scale;
-  float t = 0.0f;
-  if (softcap > 0.0f) {
-    t = tanhf(x / softcap);
-    x = softcap * t;
+// tanh in f32 without a branch (tanhf branches on |y|, and a branch in each
+// score's step keeps the compiler from interleaving the scores): below
+// |y| = 0.55 the odd Taylor polynomial to y^17 (the first term left out is
+// under 3e-9), above it 1 - 2 / (exp(2 |y|) + 1) with y's sign; both are
+// formed and one taken. Within a few f32 ulp of tanh.
+__device__ __forceinline__ float tanh_f32(float y) {
+  const float a = fabsf(y);
+  const float s = y * y;
+  float c = 5.90027440e-4f;    //  6404582 / 10854718875
+  c = fmaf(c, s, -1.45583439e-3f);  // -929569 / 638512875
+  c = fmaf(c, s, 3.59212804e-3f);   //  21844 / 6081075
+  c = fmaf(c, s, -8.86323553e-3f);  // -1382 / 155925
+  c = fmaf(c, s, 2.18694885e-2f);   //  62 / 2835
+  c = fmaf(c, s, -5.39682540e-2f);  // -17 / 315
+  c = fmaf(c, s, 1.33333333e-1f);   //  2 / 15
+  c = fmaf(c, s, -3.33333333e-1f);  // -1 / 3
+  const float small = fmaf(y * s, c, y);
+  const float large = copysignf(1.0f - __fdividef(2.0f, expf(2.0f * a) + 1.0f), y);
+  return a < 0.55f ? small : large;
+}
+
+// x = scale s, capped (softcap tanh(x / softcap)) when kCap, and g = 1 - t^2
+// its derivative's factor (1 without a cap).
+template <bool kCap>
+__device__ __forceinline__ float capped(float s, float scale, float softcap,
+                                        float inv_cap, float& g) {
+  const float x = s * scale;
+  if constexpr (kCap) {
+    const float u = tanh_f32(x * inv_cap);
+    g = 1.0f - u * u;
+    return softcap * u;
   }
-  p = keep ? expf(x - lse) : 0.0f;
-  ds = p * (dp - delta);
-  if (softcap > 0.0f) ds *= 1.0f - t * t;
+  g = 1.0f;
+  return x;
+}
+
+// Calls body(cap, mask) with std::bool_constant flags for whether the scores
+// are capped and whether this tile's entries are tested against the mask,
+// so that each score's step carries no branch.
+template <typename F>
+__device__ __forceinline__ void with_flags(bool cap, bool mask, F body) {
+  if (cap) {
+    if (mask) body(std::true_type{}, std::true_type{});
+    else body(std::true_type{}, std::false_type{});
+  } else {
+    if (mask) body(std::false_type{}, std::true_type{});
+    else body(std::false_type{}, std::false_type{});
+  }
+}
+
+// body(r) for the score entries r in [R0, R1), G at a time: each group's
+// values are fenced before and after it (v: the values the steps work on),
+// so the compiler interleaves the steps of a group but not of the next, and
+// the group's temporaries are what the registers must hold beside the
+// carried gradient. G = R1 - R0 leaves the whole range to the compiler.
+template <int R0, int R1, int G, typename F>
+__device__ __forceinline__ void in_groups(float* v, F body) {
+#pragma unroll
+  for (int g = R0; g < R1; g += G) {
+    fence_regs<G>(v + g);
+#pragma unroll
+    for (int r = g; r < g + G; ++r) body(r);
+    fence_regs<G>(v + g);
+  }
+}
+
+// Whether a tile of query rows [q0, q0 + nq) and keys [k0, k0 + nk) has
+// an entry that the mask hides or that lies past Sq or Sk; only such tiles
+// test their entries one by one.
+__device__ __forceinline__ bool tile_masked(int q0, int nq, int k0, int nk,
+                                            int Sq, int Sk, int q_offset,
+                                            int causal, int window) {
+  return q0 + nq > Sq || k0 + nk > Sk ||
+         (causal && k0 + nk - 1 > q_offset + q0) ||
+         (window > 0 && q_offset + q0 + nq - 1 - k0 >= window);
+}
+
+// Byte offset of element (r, c) of a bf16 tile of `Rows` rows and L
+// columns (column blocks of kE, each Rows rows of kRB bytes, swizzled).
+template <int Rows, int L>
+__device__ __forceinline__ uint32_t toff(int r, int c) {
+  constexpr int E = L < 64 ? L : 64;
+  constexpr int RB = 2 * E;
+  return (c / E) * (Rows * RB) + swz<RB>(r * RB + (c % E) * 2);
+}
+
+// Byte offset of element (r, c) of an f32 tile as TMA writes it.
+template <int Rows, int L>
+__device__ __forceinline__ uint32_t foff(int r, int c) {
+  constexpr int E = L < 32 ? L : 32;
+  constexpr int RB = 4 * E;
+  return (c / E) * (Rows * RB) + swz<RB>(r * RB + (c % E) * 4);
+}
+
+// The operand of k-step ks read K-major from a bf16 tile (rows: the M or N
+// index, columns: the contraction).
+template <int Rows, int L>
+__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int ks) {
+  constexpr int E = L < 64 ? L : 64;
+  constexpr int RB = 2 * E;
+  return smem_desc(tile + (16 * ks / E) * (Rows * RB) + (16 * ks % E) * 2, 16,
+                   8 * RB, layout_code(RB));
+}
+
+// The operand of k-step kk read MN-major (the transpose flag) from a bf16
+// tile whose rows are the contraction: rows 16kk.., column block cb.
+template <int Rows, int L>
+__device__ __forceinline__ uint64_t mdesc(uint32_t tile, int cb, int kk) {
+  constexpr int E = L < 64 ? L : 64;
+  constexpr int RB = 2 * E;
+  return smem_desc(tile + cb * (Rows * RB) + kk * 16 * RB, Rows * RB, 8 * RB,
+                   layout_code(RB));
+}
+
+// f32's piece tiles of a streamed tile: in each column block of kE
+// columns, the three pieces' BN-row slabs one after the other, so that a
+// K-major read of 16 BN rows from piece 0 takes pieces 0.. (stacked along
+// N) in one product. Byte offset of element (r, c) of piece k:
+template <int BN, int L>
+__device__ __forceinline__ uint32_t poff(int k, int r, int c) {
+  constexpr int E = L < 64 ? L : 64;
+  constexpr int RB = 2 * E;
+  return (c / E) * (3 * BN * RB) + k * (BN * RB) + swz<RB>(r * RB + (c % E) * 2);
+}
+
+// The stacked pieces' operand of k-step ks, K-major (rows: the N index).
+template <int BN, int L>
+__device__ __forceinline__ uint64_t pdesc(uint32_t pieces, int ks) {
+  constexpr int E = L < 64 ? L : 64;
+  constexpr int RB = 2 * E;
+  return smem_desc(pieces + (16 * ks / E) * (3 * BN * RB) + (16 * ks % E) * 2,
+                   16, 8 * RB, layout_code(RB));
+}
+
+// Piece k's operand of k-step kk read MN-major: its rows 16kk.., column
+// block cb.
+template <int BN, int L>
+__device__ __forceinline__ uint64_t pmdesc(uint32_t pieces, int k, int cb,
+                                           int kk) {
+  constexpr int E = L < 64 ? L : 64;
+  constexpr int RB = 2 * E;
+  return smem_desc(pieces + cb * (3 * BN * RB) + k * (BN * RB) + kk * 16 * RB,
+                   3 * BN * RB, 8 * RB, layout_code(RB));
+}
+
+// Every column box of one tile of `rows` rows (a resident or a streamed
+// tile), at (head, row0, b), into `dst`.
+template <typename T, int L>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          int rows, int head, int row0, int b,
+                                          uint32_t bar) {
+  using C = Cfg<T, L>;
+#pragma unroll
+  for (int c = 0; c < L / C::kBoxE; ++c)
+    tma_load(dst + c * rows * C::kBoxRB, map, c * C::kBoxE, head, row0, b, bar);
+}
+
+// f32: kBN rows of L values at `raw` (TMA's layout) into their three
+// bf16 pieces at `pieces` (poff's layout), by the 128 threads of one
+// warpgroup.
+template <int BN, int L>
+__device__ __forceinline__ void to_pieces(const uint8_t* raw, uint8_t* pieces,
+                                          int t) {
+  constexpr int kUnits = BN * L / 4;
+#pragma unroll 4
+  for (int u = t; u < kUnits; u += 128) {
+    const int r = u / (L / 4);
+    const int c = (u % (L / 4)) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(raw + foff<BN, L>(r, c));
+    uint32_t lo[3], hi[3];
+    split3(v.x, v.y, lo[0], lo[1], lo[2]);
+    split3(v.z, v.w, hi[0], hi[1], hi[2]);
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      *reinterpret_cast<uint2*>(pieces + poff<BN, L>(k, r, c)) = make_uint2(lo[k], hi[k]);
+  }
+}
+
+// acc (64 x kBN, f32) = A . B^T over the L columns: A the block's resident
+// tile (64 rows; bf16 at smem address `res`, f32 at generic `res_g`), B a
+// streamed tile's kBN rows (bf16: the tile at `tile`; f32: its three
+// pieces at `tile`, poff's layout), both K-major.
+template <typename T, int L>
+__device__ __forceinline__ void score_product(float* acc, uint32_t res,
+                                              const uint8_t* res_g,
+                                              uint32_t tile) {
+  using C = Cfg<T, L>;
+  constexpr int BN = C::kBN;
+  // the first product into each accumulator ignores its old value
+  if constexpr (!C::kF32) {
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < L / 16; ++ks)
+      wgmma_ss64(acc, kdesc<kRows, L>(opaque(res), ks),
+                 kdesc<BN, L>(opaque(tile), ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<BN / 2>(acc);
+  } else {
+    // A's piece a times B's pieces 0..2 - a, stacked along N, in one product
+    // each: acc0 = A0 [B0 B1 B2], acc1 = A1 [B0 B1], acc2 = A2 B0, so that
+    // each of the six piece products has its own columns (the truncating
+    // tensor-core sums never mix a small one into the large one). A is
+    // split from the f32 tile kKG k-steps at a time (two from D = 128 on,
+    // for registers: four spill at 256, and run slower at 128), whose 3 kKG
+    // products go out as one group (the thread's coordinates opaque, so
+    // that its fragment offsets are formed where used rather than held
+    // across items).
+    constexpr int kKG = L >= 128 ? 2 : (L / 16 < 4 ? L / 16 : 4);
+    constexpr int H = BN / 2;  // entries of one piece product
+    float acc0[3 * H], acc1[2 * H], acc2[H];
+    const int t = static_cast<int>(opaque(threadIdx.x)) % 128;
+    const int r0 = 16 * (t / 32) + (t % 32) / 4;
+    const int qd = t % 4;
+#pragma unroll
+    for (int k0 = 0; k0 < L / 16; k0 += kKG) {
+      uint32_t f[kKG][3][4];
+#pragma unroll
+      for (int kk = 0; kk < kKG; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int row = r0 + 8 * (q & 1);
+          const int col = 16 * (k0 + kk) + 2 * qd + 8 * (q >> 1);
+          const float2 v = *reinterpret_cast<const float2*>(
+              res_g + foff<kRows, L>(row, col));
+          split3(v.x, v.y, f[kk][0][q], f[kk][1][q], f[kk][2][q]);
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKG; ++kk) {
+        const int ks = k0 + kk;
+        wgmma_rs<BN, 0>(acc2, f[kk][2], pdesc<BN, L>(opaque(tile), ks), ks > 0);
+        wgmma_rs<2 * BN, 0>(acc1, f[kk][1], pdesc<BN, L>(opaque(tile), ks), ks > 0);
+        wgmma_rs<3 * BN, 0>(acc0, f[kk][0], pdesc<BN, L>(opaque(tile), ks), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();  // the fragments are free for the next group
+    }
+    fence_regs<3 * H>(acc0);
+    fence_regs<2 * H>(acc1);
+    fence_regs<H>(acc2);
+    // the pieces' columns of an entry: piece b's entry r is at b H + r
+    // (a column block of BN is BN / 8 groups of 8); the small ones summed
+    // smallest first, then the large one
+#pragma unroll
+    for (int r = 0; r < H; ++r)
+      acc[r] = acc0[r] + ((((acc2[r] + acc1[H + r]) + acc0[2 * H + r]) + acc1[r]) +
+                          acc0[H + r]);
+  }
+}
+
+// The A fragments of a 64 x 16 KS f32 value held in the accumulator's
+// layout (v: KS k-steps of its entries), as kNM bf16 pieces (f32: three;
+// bf16: the two halves): frag[a][kk] is piece a of k-step kk.
+template <typename T, int L, int KS = Cfg<T, L>::kBN / 16>
+__device__ __forceinline__ void to_frags(const float* v,
+                                         uint32_t (&frag)[Cfg<T, L>::kNM][KS][4]) {
+  using C = Cfg<T, L>;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float v0 = v[8 * kk + 2 * q], v1 = v[8 * kk + 2 * q + 1];
+      if constexpr (C::kNM == 3)
+        split3(v0, v1, frag[0][kk][q], frag[1][kk][q], frag[2][kk][q]);
+      else
+        split2(v0, v1, frag[0][kk][q], frag[1][kk][q]);
+    }
+}
+
+// acc (64 x L, carried) += A . B: A the pieces of a 64 x 16 KS value in
+// registers, B the 16 KS rows of a streamed tile from k-step kk0 on, read
+// MN-major (bf16: the tile; f32: its piece tiles). kNC columns a product
+// into a fresh accumulator,
+// added to acc in f32; below D = 256 two fresh accumulators in turn, so
+// that one product runs while the last one is added (at 256 the carried
+// gradient leaves registers for one).
+template <typename T, int L, int KS = Cfg<T, L>::kBN / 16>
+__device__ __forceinline__ void grad_product(
+    float* acc, const uint32_t (&frag)[Cfg<T, L>::kNM][KS][4], uint32_t tile,
+    int kk0 = 0) {
+  using C = Cfg<T, L>;
+  constexpr int BN = C::kBN;
+  constexpr int kFresh = L == 256 ? 1 : 2;
+  float fresh[kFresh][C::kNC / 2];
+  auto issue = [&](int n) {
+    float* const f = fresh[n % kFresh];
+    wgmma_fence();
+    bool first = true;  // the first product ignores f's old value
+    for_pairs<C::kNM, C::kNI>([&](int a, int bp) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const uint64_t desc =
+            C::kF32 ? pmdesc<BN, L>(opaque(tile), bp, n, kk0 + kk)
+                    : mdesc<BN, L>(opaque(tile), n, kk0 + kk);
+        wgmma_rs<C::kNC, 1>(f, frag[a][kk], desc, !first);
+        first = false;
+      }
+    });
+    wgmma_commit();
+  };
+  issue(0);
+#pragma unroll
+  for (int n = 0; n < C::kChunks; ++n) {
+    if (kFresh == 2 && n + 1 < C::kChunks) {
+      issue(n + 1);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs<C::kNC / 2>(fresh[n % kFresh]);
+#pragma unroll
+    for (int r = 0; r < C::kNC / 2; ++r) acc[n * C::kNC / 2 + r] += fresh[n % kFresh][r];
+    // the adds done before the next product is issued, so that it can take
+    // the same registers
+    fence_regs<C::kNC / 2>(acc + n * C::kNC / 2);
+    if (kFresh == 1 && n + 1 < C::kChunks) issue(n + 1);
+  }
+}
+
+// Store a carried 64 x L gradient (times `mul`) to rows row0 + r < S of
+// head `head` of a (B, S, NH, DT) tensor; the columns below DT only.
+template <typename T, int L>
+__device__ __forceinline__ void store_grad(const float* acc, float mul, T* dst,
+                                           int b, int S, int NH, int head,
+                                           int row0, int DT, int warp,
+                                           int lane) {
+  using C = Cfg<T, L>;
+  const int g = lane / 4, qd = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 16 * warp + g + 8 * i;
+    if (row >= S) continue;
+    T* o = dst + ((static_cast<size_t>(b) * S + row) * NH + head) * DT;
+#pragma unroll
+    for (int n = 0; n < C::kChunks; ++n)
+#pragma unroll
+      for (int j = 0; j < C::kNC / 8; ++j) {
+        const int col = n * C::kNC + 8 * j + 2 * qd;
+        if (col >= DT) continue;
+        const float v0 = acc[n * C::kNC / 2 + 4 * j + 2 * i] * mul;
+        const float v1 = acc[n * C::kNC / 2 + 4 * j + 2 * i + 1] * mul;
+        if constexpr (C::kF32)
+          *reinterpret_cast<float2*>(o + col) = make_float2(v0, v1);
+        else
+          *reinterpret_cast<uint32_t*>(o + col) = pack_bf16(v0, v1);
+      }
+  }
 }
 
 // Delta[b, h, r] = sum_d dout[b, r, h, d] * out[b, r, h, d]: one warp a
 // (b, r, h), lanes striding d, a fixed xor tree.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDeltaThreads)
 flash_bwd_delta(const T* __restrict__ out, const T* __restrict__ dout,
              float* __restrict__ delta, long long rows, int Sq, int H,
              int DT) {
   const long long row =
-      static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+      static_cast<long long>(blockIdx.x) * (kDeltaThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   const T* o = out + row * DT;
@@ -198,413 +600,534 @@ flash_bwd_delta(const T* __restrict__ out, const T* __restrict__ dout,
   }
 }
 
-template <typename T, int D, int DT>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            T* __restrict__ dk, T* __restrict__ dv, int H, int KV, int Sq,
-            int Sk, float scale, int causal, int window, float softcap,
-            int q_offset) {
-  using Lay = Layout<D>;
-  static_assert(DT <= D, "true head dim within the layout");
-  constexpr int BK = Lay::kBK;
-  constexpr int RK = BK / 16;  // keys a thread owns
-  extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);  // BK x kRS
-  float* v_s = k_s + BK * Lay::kRS;              // BK x kRS
-  float* q_s = v_s + BK * Lay::kRS;              // kBQ x kRS
-  float* do_s = q_s + kBQ * Lay::kRS;            // kBQ x kRS
-  float* p_s = do_s + kBQ * Lay::kRS;            // BK x kTS: P^T
-  float* ds_s = p_s + BK * Lay::kTS;             // BK x kTS: dS^T
-  float* lse_s = ds_s + BK * Lay::kTS;           // kBQ
-  float* delta_s = lse_s + kBQ;                  // kBQ
+// Shared-memory addresses of one block's layout.
+template <typename T, int L>
+struct Smem {
+  uint32_t base;   // shared-state space, 1024-aligned
+  uint8_t* gbase;  // the same bytes, generic
+  __device__ __forceinline__ explicit Smem(uint8_t* raw_ptr) {
+    const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(raw_ptr));
+    base = (raw + kAlign - 1) & ~(kAlign - 1);
+    gbase = raw_ptr + (base - raw);
+  }
+  using C = Cfg<T, L>;
+  __device__ __forceinline__ uint32_t res(int i) const { return base + i * C::kRes; }
+  __device__ __forceinline__ uint32_t slot(int s) const { return base + C::kSlotOff + s * C::kSlot; }
+  __device__ __forceinline__ uint32_t full(int s) const { return base + C::kBarOff + 8 + 8 * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return base + C::kBarOff + 8 + 8 * C::kRing + 8 * s;
+  }
+  __device__ __forceinline__ uint32_t res_full() const { return base + C::kBarOff; }
+  // the streamed tile i (0 or 1) as the products read it: bf16 the slot's
+  // tile, f32 its piece tiles
+  __device__ __forceinline__ uint32_t stream(int s, int i) const {
+    return C::kF32 ? base + C::kPieceOff + i * C::kNI * C::kPiece
+                   : slot(s) + i * C::kStream;
+  }
+  // the item's lse and Delta (kBN floats each)
+  // the issuer writes stage s's lse (i = 0) and Delta (i = 1) here ...
+  __device__ __forceinline__ float* slot_vec(int s, int i) const {
+    return reinterpret_cast<float*>(gbase + C::kVecOff) + (2 * s + i) * C::kBN;
+  }
+  // ... and the warpgroups read them here (f32: a copy taken with the split)
+  __device__ __forceinline__ float* vec(int s, int i) const {
+    return C::kF32 ? reinterpret_cast<float*>(gbase + C::kVecOff) +
+                         (2 * C::kRing + i) * C::kBN
+                   : slot_vec(s, i);
+  }
+  // buffer b (0 or 1) of the values handed between the warpgroups
+  __device__ __forceinline__ float* xbuf(int b) const {
+    return reinterpret_cast<float*>(gbase + C::kXOff + b * C::kX);
+  }
+};
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int k0 = blockIdx.x * BK;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+// f32: once both warpgroups are done with the last item's piece
+// tiles, split the staging slot's streamed tile `wg` into its pieces (and
+// keep the item's lse (wg 0) or Delta (wg 1) where dkdv reads them). On
+// return the slot is free for the next item's load.
+template <typename T, int L>
+__device__ __forceinline__ void take_slot(const Smem<T, L>& sm, int wg, int t,
+                                          bool with_vec) {
+  using C = Cfg<T, L>;
+  bar_sync(kBarBoth, kThreads);
+  to_pieces<C::kBN, L>(sm.gbase + C::kSlotOff + wg * C::kStream,
+                       sm.gbase + C::kPieceOff + wg * C::kNI * C::kPiece, t);
+  if (with_vec && t < C::kBN) sm.vec(0, wg)[t] = sm.slot_vec(0, wg)[t];
+  fence_async_smem();
+  bar_sync(kBarBoth, kThreads);
+}
+
+// dK and dV of one (key tile, kv head, batch).
+template <typename T, int L>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv(const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_do,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               T* __restrict__ dk, T* __restrict__ dv, int B, int H, int KV,
+               int Sq, int Sk, int DT, float scale, int causal, int window,
+               float softcap, int q_offset) {
+  using C = Cfg<T, L>;
+  constexpr int BN = C::kBN;
+  constexpr int kIssuer = 1;  // the warpgroup that waits on the other's scores
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const Smem<T, L> sm(smem_raw);
+
+  // heaviest first: block i takes key tile i / (KV B), the earliest tiles
+  // (which the most query rows see under a causal mask) of every head first
+  const int kt = blockIdx.x / (KV * B);
+  const int kvh = blockIdx.x % KV;
+  const int b = (blockIdx.x / KV) % B;
+  const int k0 = kt * kRows;
   const int group = H / KV;
 
   // the query tiles with a row that sees a key of this tile
-  const int q_tiles = (Sq + kBQ - 1) / kBQ;
+  const int q_tiles = (Sq + BN - 1) / BN;
   int qt_begin = 0, qt_end = q_tiles;
   if (causal) {
     const long long r = static_cast<long long>(k0) - q_offset;
-    if (r > 0) qt_begin = static_cast<int>(r / kBQ < q_tiles ? r / kBQ : q_tiles);
+    if (r > 0) qt_begin = static_cast<int>(r / BN < q_tiles ? r / BN : q_tiles);
   }
   if (window > 0) {
-    const long long kmax = min(k0 + BK, Sk) - 1;
+    const long long kmax = min(k0 + kRows, Sk) - 1;
     const long long r = kmax + window - 1 - q_offset;  // last row in reach
-    qt_end = r < 0 ? 0 : static_cast<int>(r / kBQ + 1 < q_tiles ? r / kBQ + 1 : q_tiles);
+    qt_end = r < 0 ? 0 : static_cast<int>(r / BN + 1 < q_tiles ? r / BN + 1 : q_tiles);
+  }
+  const int n_q = max(0, qt_end - qt_begin);
+  const int n_items = group * n_q;
+
+  const int wg = threadIdx.x / 128;  // 0: S^T, P, dV; 1: dP^T, dS, dK
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int qd = lane % 4;
+  const int kr0 = 16 * warp + lane / 4;  // the fragment's key rows: kr0, kr0 + 8
+  const bool issuer = wg == kIssuer && warp == 0;
+  float* const xb = sm.xbuf(0) + t;
+  // x * (1 / softcap) is x / softcap within one f32 rounding, without a
+  // division per score (as the forward kernels take it)
+  const float inv_cap = softcap > 0.0f ? 1.0f / softcap : 0.0f;
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.res_full(), 1);
+    for (int s = 0; s < C::kRing; ++s) {
+      mbar_init(sm.full(s), 1 + 32);  // lane 0's expect_tx, 32 lanes' lse/Delta
+      mbar_init(sm.empty(s), kThreads / 32);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  // Item it's query tile (Q, dO) into its slot, with its rows' lse and
+  // Delta (plain loads: lse's row stride is Sq floats), by the issuing warp.
+  auto load_item = [&](int it) {
+    const int h = kvh * group + it / n_q;
+    const int q0 = (qt_begin + it % n_q) * BN;
+    const int s = it % C::kRing;
+    float lv[(BN + 31) / 32], dvv[(BN + 31) / 32];
+#pragma unroll
+    for (int j = 0; j < (BN + 31) / 32; ++j) {
+      const int r = lane + 32 * j;
+      const size_t at = (static_cast<size_t>(b) * H + h) * Sq + q0 + r;
+      const bool in = r < BN && q0 + r < Sq;
+      lv[j] = in ? lse[at] : 0.0f;
+      dvv[j] = in ? delta[at] : 0.0f;
+    }
+    if (lane == 0) {
+      mbar_expect_tx(sm.full(s), 2 * C::kStream);
+      load_tile<T, L>(sm.slot(s), &tm_q, BN, h, q0, b, sm.full(s));
+      load_tile<T, L>(sm.slot(s) + C::kStream, &tm_do, BN, h, q0, b, sm.full(s));
+    }
+#pragma unroll
+    for (int j = 0; j < (BN + 31) / 32; ++j) {
+      const int r = lane + 32 * j;
+      if (r < BN) {
+        sm.slot_vec(s, 0)[r] = lv[j];
+        sm.slot_vec(s, 1)[r] = dvv[j];
+      }
+    }
+    mbar_arrive(sm.full(s));  // releases this lane's writes
+  };
+
+  if (issuer && n_items > 0) {
+    if (lane == 0) {
+      mbar_expect_tx(sm.res_full(), 2 * C::kRes);
+      load_tile<T, L>(sm.res(0), &tm_k, kRows, kvh, k0, b, sm.res_full());
+      load_tile<T, L>(sm.res(1), &tm_v, kRows, kvh, k0, b, sm.res_full());
+    }
+    for (int it = 0; it < C::kRing && it < n_items; ++it) load_item(it);
   }
 
-  stage_tile<T, BK, D, DT>(k_s, Lay::kRS, k, b, Sk, KV, kvh, k0);
-  stage_tile<T, BK, D, DT>(v_s, Lay::kRS, v, b, Sk, KV, kvh, k0);
+  float grad[L / 2];  // wg 0: dV, wg 1: dK (unscaled)
+#pragma unroll
+  for (int i = 0; i < L / 2; ++i) grad[i] = 0.0f;
 
-  float dk_acc[RK][Lay::kDC], dv_acc[RK][Lay::kDC];
-#pragma unroll
-  for (int i = 0; i < RK; ++i)
-#pragma unroll
-    for (int e = 0; e < Lay::kDC; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.0f;
+  if (n_items > 0) mbar_wait(sm.res_full(), 0);
+  for (int it = 0; it < n_items; ++it) {
+    const int q0 = (qt_begin + it % n_q) * BN;
+    const int s = it % C::kRing;
+    mbar_wait(sm.full(s), (it / C::kRing) & 1);  // the item's tiles are in
+    if constexpr (C::kF32) {
+      take_slot<T, L>(sm, wg, t, true);
+      if (issuer && it + 1 < n_items) load_item(it + 1);  // the slot is free
+    }
+    const float* const lse_v = sm.vec(s, 0);
+    const float* const delta_v = sm.vec(s, 1);
 
-  for (int g = 0; g < group; ++g) {
-    const int h = kvh * group + g;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * kBQ;
-      __syncthreads();  // the previous tile's readers are done
-      stage_tile<T, kBQ, D, DT>(q_s, Lay::kRS, q, b, Sq, H, h, q0);
-      stage_tile<T, kBQ, D, DT>(do_s, Lay::kRS, dout, b, Sq, H, h, q0);
-      if (tid < kBQ) {
-        const int row = q0 + tid;
-        const size_t at = (static_cast<size_t>(b) * H + h) * Sq + row;
-        lse_s[tid] = row < Sq ? lse[at] : 0.0f;
-        delta_s[tid] = row < Sq ? delta[at] : 0.0f;
-      }
-      __syncthreads();
-
-      // s[i][j] = k[ty RK + i] . q[tx + 16 j], dp[i][j] = v[ty RK + i] . do[tx + 16 j]
-      float s[RK][4], dp[RK][4];
+    // S^T = K . Q^T (wg 0) or dP^T = V . dO^T (wg 1): keys x queries; entry
+    // r is key kr0 + 8 ((r >> 1) & 1), query q0 + 8 (r >> 2) + 2 qd + (r & 1)
+    float sc[BN / 2];
+    score_product<T, L>(sc, sm.res(wg), sm.gbase + wg * C::kRes,
+                        sm.stream(s, wg));
+    if (wg == 0) {
+      // P, and P (1 - t^2) for wg 1's dS
+      const bool masked = tile_masked(q0, BN, k0, kRows, Sq, Sk, q_offset,
+                                      causal, window);
+      // the lse of this thread's columns, read before the loop: its stores
+      // to xb would otherwise order every read after the last entry's store
+      float lv[BN / 4];
 #pragma unroll
-      for (int i = 0; i < RK; ++i)
+      for (int j = 0; j < BN / 4; ++j) lv[j] = lse_v[8 * (j >> 1) + 2 * qd + (j & 1)];
+      if (it > 0) bar_sync(kBarFree, kThreads);  // wg 1 has read the last
+      with_flags(softcap > 0.0f, masked, [&](auto cap, auto mask) {
+        in_groups<0, BN / 2, (C::kGroup < BN / 2 ? C::kGroup : BN / 2)>(sc, [&](int r) {
+          const int qc = 8 * (r >> 2) + 2 * qd + (r & 1);
+          float g;
+          const float x = capped<decltype(cap)::value>(sc[r], scale, softcap,
+                                                        inv_cap, g);
+          float p = expf(x - lv[2 * (r >> 2) + (r & 1)]);
+          if constexpr (decltype(mask)::value)
+            p = seen(q0 + qc, k0 + kr0 + 8 * ((r >> 1) & 1), Sq, Sk, q_offset,
+                     causal, window) ? p : 0.0f;
+          xb[r * 128] = p * g;
+          sc[r] = p;
+        });
+      });
+      bar_arrive(kBarReady, kThreads);  // P's scores are handed over
+    } else {
+      // dS = P (1 - t^2) (dP - Delta)
+      float dl[BN / 4];  // the Delta of this thread's columns
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 4
-      for (int d = 0; d < D; d += 4) {
-        float4 a[RK], c[4];
+      for (int j = 0; j < BN / 4; ++j) dl[j] = delta_v[8 * (j >> 1) + 2 * qd + (j & 1)];
+      bar_sync(kBarReady, kThreads);  // wg 0's scores are in
 #pragma unroll
-        for (int i = 0; i < RK; ++i)
-          a[i] = *reinterpret_cast<const float4*>(&k_s[(ty * RK + i) * Lay::kRS + d]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          c[j] = *reinterpret_cast<const float4*>(&q_s[(tx + 16 * j) * Lay::kRS + d]);
-#pragma unroll
-        for (int i = 0; i < RK; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float x = s[i][j];
-            x = fmaf(a[i].x, c[j].x, x);
-            x = fmaf(a[i].y, c[j].y, x);
-            x = fmaf(a[i].z, c[j].z, x);
-            x = fmaf(a[i].w, c[j].w, x);
-            s[i][j] = x;
-          }
-      }
-#pragma unroll 4
-      for (int d = 0; d < D; d += 4) {
-        float4 a[RK], c[4];
-#pragma unroll
-        for (int i = 0; i < RK; ++i)
-          a[i] = *reinterpret_cast<const float4*>(&v_s[(ty * RK + i) * Lay::kRS + d]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          c[j] = *reinterpret_cast<const float4*>(&do_s[(tx + 16 * j) * Lay::kRS + d]);
-#pragma unroll
-        for (int i = 0; i < RK; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float x = dp[i][j];
-            x = fmaf(a[i].x, c[j].x, x);
-            x = fmaf(a[i].y, c[j].y, x);
-            x = fmaf(a[i].z, c[j].z, x);
-            x = fmaf(a[i].w, c[j].w, x);
-            dp[i][j] = x;
-          }
-      }
-
-#pragma unroll
-      for (int i = 0; i < RK; ++i) {
-        const int kr = ty * RK + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int qc = tx + 16 * j;
-          float p, ds;
-          p_and_ds(s[i][j], dp[i][j], lse_s[qc], delta_s[qc],
-                   seen(q0 + qc, k0 + kr, Sq, Sk, q_offset, causal, window),
-                   scale, softcap, p, ds);
-          p_s[kr * Lay::kTS + qc] = p;
-          ds_s[kr * Lay::kTS + qc] = ds;
-        }
-      }
-      __syncthreads();
-
-      // dv[i][:] += P^T[key i][:] . dO,  dk[i][:] += dS^T[key i][:] . Q
-#pragma unroll 2
-      for (int kk = 0; kk < kBQ; kk += 4) {
-        float4 pr[RK], dr[RK];
-#pragma unroll
-        for (int i = 0; i < RK; ++i) {
-          pr[i] = *reinterpret_cast<const float4*>(&p_s[(ty * RK + i) * Lay::kTS + kk]);
-          dr[i] = *reinterpret_cast<const float4*>(&ds_s[(ty * RK + i) * Lay::kTS + kk]);
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float* orow = do_s + (kk + u) * Lay::kRS;
-          const float* qrow = q_s + (kk + u) * Lay::kRS;
-          float ov[Lay::kDC], qv[Lay::kDC];
-          if (Lay::kVec == 4) {
-#pragma unroll
-            for (int c = 0; c < Lay::kDC / 4; ++c) {
-              const float4 to = *reinterpret_cast<const float4*>(&orow[c * 64 + tx * 4]);
-              const float4 tq = *reinterpret_cast<const float4*>(&qrow[c * 64 + tx * 4]);
-              ov[4 * c + 0] = to.x; ov[4 * c + 1] = to.y;
-              ov[4 * c + 2] = to.z; ov[4 * c + 3] = to.w;
-              qv[4 * c + 0] = tq.x; qv[4 * c + 1] = tq.y;
-              qv[4 * c + 2] = tq.z; qv[4 * c + 3] = tq.w;
-            }
-          } else {
-#pragma unroll
-            for (int e = 0; e < Lay::kDC; ++e) {
-              ov[e] = orow[Lay::col(tx, e)];
-              qv[e] = qrow[Lay::col(tx, e)];
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < RK; ++i) {
-            const float p = component(pr[i], u);
-            const float ds = component(dr[i], u);
-#pragma unroll
-            for (int e = 0; e < Lay::kDC; ++e) {
-              dv_acc[i][e] = fmaf(p, ov[e], dv_acc[i][e]);
-              dk_acc[i][e] = fmaf(ds, qv[e], dk_acc[i][e]);
-            }
-          }
-        }
+      for (int r = 0; r < BN / 2; ++r)
+        sc[r] = xb[r * 128] * (sc[r] - dl[2 * (r >> 2) + (r & 1)]);
+      if (it + 1 < n_items) bar_arrive(kBarFree, kThreads);
+    }
+    // dV += P^T . dO (wg 0) or dK += dS^T . Q (wg 1)
+    uint32_t frag[C::kNM][BN / 16][4];
+    to_frags<T, L>(sc, frag);
+    grad_product<T, L>(grad, frag, sm.stream(s, 1 - wg));
+    if constexpr (!C::kF32) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.empty(s));  // the item's tiles are free
+      if (issuer && it + C::kRing < n_items) {
+        mbar_wait(sm.empty(s), (it / C::kRing) & 1);  // both warpgroups' too
+        load_item(it + C::kRing);
       }
     }
   }
 
-  // dK = scale dS^T . Q and dV, rounded once; the columns below DT only
-#pragma unroll
-  for (int i = 0; i < RK; ++i) {
-    const int kpos = k0 + ty * RK + i;
-    if (kpos >= Sk) continue;
-    const size_t at = ((static_cast<size_t>(b) * Sk + kpos) * KV + kvh) * DT;
-#pragma unroll
-    for (int e = 0; e < Lay::kDC; ++e) {
-      const int c = Lay::col(tx, e);
-      if (DT == D || c < DT) {
-        dk[at + c] = from_float<T>(dk_acc[i][e] * scale);
-        dv[at + c] = from_float<T>(dv_acc[i][e]);
-      }
-    }
-  }
+  // dV, and dK = scale dS^T . Q, rounded once; the columns below DT only
+  store_grad<T, L>(grad, wg == 0 ? 1.0f : scale, wg == 0 ? dv : dk, b, Sk, KV,
+                   kvh, k0, DT, warp, lane);
 }
 
-template <typename T, int D, int DT>
+// dQ of one (64 query rows, head, batch).
+template <typename T, int L>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, int H, int KV, int Sq, int Sk, float scale,
-          int causal, int window, float softcap, int q_offset) {
-  using Lay = Layout<D>;
-  static_assert(DT <= D, "true head dim within the layout");
-  constexpr int BK = Lay::kBK;
-  constexpr int CK = BK / 16;  // keys a thread owns in the score tile
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // kBQ x kRS
-  float* do_s = q_s + kBQ * Lay::kRS;            // kBQ x kRS
-  float* k_s = do_s + kBQ * Lay::kRS;            // BK x kRS
-  float* v_s = k_s + BK * Lay::kRS;              // BK x kRS
-  float* ds_s = v_s + BK * Lay::kRS;             // kBQ x kSS
+flash_bwd_dq(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_do,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             T* __restrict__ dq, int B, int H, int KV, int Sq, int Sk, int DT,
+             float scale, int causal, int window, float softcap,
+             int q_offset) {
+  using C = Cfg<T, L>;
+  constexpr int BN = C::kBN;
+  constexpr int kIssuer = 0;  // the warpgroup that waits on the other's dP
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const Smem<T, L> sm(smem_raw);
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  // heaviest first: under the causal mask the last query tiles see the most
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // heaviest first: block 0 takes the last query tile of every head
+  const int q_tiles = (Sq + kRows - 1) / kRows;
+  const int qt = q_tiles - 1 - static_cast<int>(blockIdx.x / (H * B));
+  const int h = blockIdx.x % H;
+  const int b = (blockIdx.x / H) % B;
   const int kvh = h / (H / KV);
-  const int q0 = qt * kBQ;
+  const int q0 = qt * kRows;
 
-  // the key tiles this block's rows can see (the forward's range)
+  // the key tiles (of kBN keys) this block's rows can see
   const int qmin = q_offset + q0;
-  const int qmax = q_offset + min(q0 + kBQ, Sq) - 1;
-  int kt_end = (Sk + BK - 1) / BK;
-  if (causal) kt_end = min(kt_end, qmax / BK + 1);
+  const int qmax = q_offset + min(q0 + kRows, Sq) - 1;
+  int kt_end = (Sk + BN - 1) / BN;
+  if (causal) kt_end = min(kt_end, qmax / BN + 1);
   int kt_begin = 0;
-  if (window > 0 && qmin - window + 1 > 0) kt_begin = (qmin - window + 1) / BK;
+  if (window > 0 && qmin - window + 1 > 0) kt_begin = (qmin - window + 1) / BN;
+  const int n_items = max(0, kt_end - kt_begin);
 
-  stage_tile<T, kBQ, D, DT>(q_s, Lay::kRS, q, b, Sq, H, h, q0);
-  stage_tile<T, kBQ, D, DT>(do_s, Lay::kRS, dout, b, Sq, H, h, q0);
-  float lse_r[4], delta_r[4];
+  const int wg = threadIdx.x / 128;  // 0: S, dS, dQ; 1: dP
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int qd = lane % 4;
+  const int qr0 = 16 * warp + lane / 4;  // the fragment's query rows: qr0, qr0 + 8
+  const bool issuer = wg == kIssuer && warp == 0;
+  float* const xb = sm.xbuf(0) + t;
+  const float inv_cap = softcap > 0.0f ? 1.0f / softcap : 0.0f;
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.res_full(), 1);
+    for (int s = 0; s < C::kRing; ++s) {
+      mbar_init(sm.full(s), 1);
+      mbar_init(sm.empty(s), kThreads / 32);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  // Item it's key tile (K, V) into its slot, by lane 0 of the issuing warp.
+  auto load_item = [&](int it) {
+    const int s = it % C::kRing;
+    const int k0 = (kt_begin + it) * BN;
+    if (lane == 0) {
+      mbar_expect_tx(sm.full(s), 2 * C::kStream);
+      load_tile<T, L>(sm.slot(s), &tm_k, BN, kvh, k0, b, sm.full(s));
+      load_tile<T, L>(sm.slot(s) + C::kStream, &tm_v, BN, kvh, k0, b, sm.full(s));
+    }
+    __syncwarp();
+  };
+
+  if (issuer && n_items > 0) {
+    if (lane == 0) {
+      mbar_expect_tx(sm.res_full(), 2 * C::kRes);
+      load_tile<T, L>(sm.res(0), &tm_q, kRows, h, q0, b, sm.res_full());
+      load_tile<T, L>(sm.res(1), &tm_do, kRows, h, q0, b, sm.res_full());
+    }
+    for (int it = 0; it < C::kRing && it < n_items; ++it) load_item(it);
+  }
+
+  float lse_r[2], delta_r[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + qr0 + 8 * i;
     const size_t at = (static_cast<size_t>(b) * H + h) * Sq + row;
     lse_r[i] = row < Sq ? lse[at] : 0.0f;
     delta_r[i] = row < Sq ? delta[at] : 0.0f;
   }
 
-  float acc[4][Lay::kDC];
+  float grad[L / 2];  // dQ (unscaled): wg 0's, or each warpgroup's partial
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < Lay::kDC; ++e) acc[i][e] = 0.0f;
+  for (int i = 0; i < L / 2; ++i) grad[i] = 0.0f;
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers of k_s, v_s, ds_s are done
-    stage_tile<T, BK, D, DT>(k_s, Lay::kRS, k, b, Sk, KV, kvh, k0);
-    stage_tile<T, BK, D, DT>(v_s, Lay::kRS, v, b, Sk, KV, kvh, k0);
-    __syncthreads();
-
-    // s[i][j] = q[4 ty + i] . k[tx + 16 j], dp[i][j] = do[4 ty + i] . v[tx + 16 j]
-    float s[4][CK], dp[4][CK];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CK; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 a[4], c[CK];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(&q_s[(4 * ty + i) * Lay::kRS + d]);
-#pragma unroll
-      for (int j = 0; j < CK; ++j)
-        c[j] = *reinterpret_cast<const float4*>(&k_s[(tx + 16 * j) * Lay::kRS + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < CK; ++j) {
-          float x = s[i][j];
-          x = fmaf(a[i].x, c[j].x, x);
-          x = fmaf(a[i].y, c[j].y, x);
-          x = fmaf(a[i].z, c[j].z, x);
-          x = fmaf(a[i].w, c[j].w, x);
-          s[i][j] = x;
-        }
-    }
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 a[4], c[CK];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(&do_s[(4 * ty + i) * Lay::kRS + d]);
-#pragma unroll
-      for (int j = 0; j < CK; ++j)
-        c[j] = *reinterpret_cast<const float4*>(&v_s[(tx + 16 * j) * Lay::kRS + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < CK; ++j) {
-          float x = dp[i][j];
-          x = fmaf(a[i].x, c[j].x, x);
-          x = fmaf(a[i].y, c[j].y, x);
-          x = fmaf(a[i].z, c[j].z, x);
-          x = fmaf(a[i].w, c[j].w, x);
-          dp[i][j] = x;
-        }
+  if (n_items > 0) mbar_wait(sm.res_full(), 0);
+  for (int it = 0; it < n_items; ++it) {
+    const int k0 = (kt_begin + it) * BN;
+    const int s = it % C::kRing;
+    mbar_wait(sm.full(s), (it / C::kRing) & 1);  // the item's tiles are in
+    if constexpr (C::kF32) {
+      take_slot<T, L>(sm, wg, t, false);
+      if (issuer && it + 1 < n_items) load_item(it + 1);  // the slot is free
     }
 
+    // S = Q . K^T (wg 0) or dP = dO . V^T (wg 1): queries x keys; entry r
+    // is row qr0 + 8 ((r >> 1) & 1), key k0 + 8 (r >> 2) + 2 qd + (r & 1)
+    float sc[BN / 2];
+    score_product<T, L>(sc, sm.res(wg), sm.gbase + wg * C::kRes,
+                        sm.stream(s, wg));
+    const bool masked = tile_masked(q0, kRows, k0, BN, Sq, Sk, q_offset,
+                                    causal, window);
+    // dS of entries [r0, r1) into sc, from each entry's score s_at(r) and
+    // dP dp_at(r)
+    auto ds_into = [&](auto r0c, auto r1c, auto s_at, auto dp_at) {
+      constexpr int R0 = decltype(r0c)::value, R1 = decltype(r1c)::value;
+      with_flags(softcap > 0.0f, masked, [&](auto cap, auto mask) {
+        in_groups<R0, R1, (C::kGroup < R1 - R0 ? C::kGroup : R1 - R0)>(sc, [&](int r) {
+          const int i = (r >> 1) & 1;
+          float g;
+          const float x = capped<decltype(cap)::value>(s_at(r), scale, softcap,
+                                                        inv_cap, g);
+          float p = expf(x - lse_r[i]);
+          if constexpr (decltype(mask)::value)
+            p = seen(q0 + qr0 + 8 * i, k0 + 8 * (r >> 2) + 2 * qd + (r & 1), Sq,
+                     Sk, q_offset, causal, window) ? p : 0.0f;
+          sc[r] = p * g * (dp_at(r) - delta_r[i]);
+        });
+      });
+    };
+    if constexpr (C::kSplitDq) {
+      // each warpgroup takes the dS of half the key tile (wg 0 the first
+      // BN / 2 keys, its entries r < BN / 4), and so half the contraction
+      // of dQ += dS . K into a partial dQ of its own: each hands the other
+      // the half of its S or dP that the other needs (two buffers in turn,
+      // so one barrier an item guards them)
+      constexpr int Q = BN / 4;
+      float* const x = sm.xbuf(it & 1) + t;
+      if (wg == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = 4 * ty + i;
+        for (int r = Q; r < 2 * Q; ++r) x[(r - Q) * 128] = sc[r];
+      } else {
 #pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const int kc = tx + 16 * j;
-        float p, ds;
-        p_and_ds(s[i][j], dp[i][j], lse_r[i], delta_r[i],
-                 seen(q0 + qr, k0 + kc, Sq, Sk, q_offset, causal, window),
-                 scale, softcap, p, ds);
-        ds_s[qr * Lay::kSS + kc] = ds;
+        for (int r = 0; r < Q; ++r) x[(Q + r) * 128] = sc[r];
+      }
+      bar_sync(kBarReady, kThreads);  // both halves are handed over
+      uint32_t frag[C::kNM][BN / 32][4];
+      if (wg == 0) {
+        ds_into(std::integral_constant<int, 0>{}, std::integral_constant<int, Q>{},
+                [&](int r) { return sc[r]; },
+                [&](int r) { return x[(Q + r) * 128]; });
+        to_frags<T, L, BN / 32>(sc, frag);
+      } else {
+        ds_into(std::integral_constant<int, Q>{},
+                std::integral_constant<int, 2 * Q>{},
+                [&](int r) { return x[(r - Q) * 128]; },
+                [&](int r) { return sc[r]; });
+        to_frags<T, L, BN / 32>(sc + Q, frag);
+      }
+      // dQ_partial += dS . K over this warpgroup's keys
+      grad_product<T, L, BN / 32>(grad, frag, sm.stream(s, 0), wg * BN / 32);
+    } else if (wg == 1) {
+      if (it > 0) bar_sync(kBarFree, kThreads);  // wg 0 has read the last
+#pragma unroll
+      for (int r = 0; r < BN / 2; ++r) xb[r * 128] = sc[r];
+      bar_arrive(kBarReady, kThreads);  // dP is handed over
+    } else {
+      bar_sync(kBarReady, kThreads);  // wg 1's dP is in
+      ds_into(std::integral_constant<int, 0>{},
+              std::integral_constant<int, BN / 2>{}, [&](int r) { return sc[r]; },
+              [&](int r) { return xb[r * 128]; });
+      if (it + 1 < n_items) bar_arrive(kBarFree, kThreads);
+      // dQ += dS . K
+      uint32_t frag[C::kNM][BN / 16][4];
+      to_frags<T, L>(sc, frag);
+      grad_product<T, L>(grad, frag, sm.stream(s, 0));
+    }
+    if constexpr (!C::kF32) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.empty(s));  // the item's tiles are free
+      if (issuer && it + C::kRing < n_items) {
+        mbar_wait(sm.empty(s), (it / C::kRing) & 1);  // both warpgroups' too
+        load_item(it + C::kRing);
       }
     }
-    __syncthreads();
+  }
 
-    // acc[i][:] += dS[4 ty + i][:] . K
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 dr[4];
+  if constexpr (C::kSplitDq) {
+    // dQ = the two partials' sum, in a fixed order: wg 1's through shared
+    // memory (the stages', free now), added by wg 0
+    static_assert(4 * 128 * (L / 2) <= C::kXOff - C::kSlotOff,
+                  "the partial dQ fits the stages");
+    float* const part = reinterpret_cast<float*>(sm.gbase + C::kSlotOff) + t;
+    bar_sync(kBarBoth, kThreads);  // both are done with the stages
+    if (wg == 1) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        dr[i] = *reinterpret_cast<const float4*>(&ds_s[(4 * ty + i) * Lay::kSS + kk]);
+      for (int j = 0; j < L / 2; ++j) part[j * 128] = grad[j];
+    }
+    bar_sync(kBarBoth, kThreads);
+    if (wg == 0) {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* krow = k_s + (kk + u) * Lay::kRS;
-        float kv[Lay::kDC];
-        if (Lay::kVec == 4) {
-#pragma unroll
-          for (int c = 0; c < Lay::kDC / 4; ++c) {
-            const float4 t = *reinterpret_cast<const float4*>(&krow[c * 64 + tx * 4]);
-            kv[4 * c + 0] = t.x;
-            kv[4 * c + 1] = t.y;
-            kv[4 * c + 2] = t.z;
-            kv[4 * c + 3] = t.w;
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < Lay::kDC; ++e) kv[e] = krow[Lay::col(tx, e)];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float ds = component(dr[i], u);
-#pragma unroll
-          for (int e = 0; e < Lay::kDC; ++e) acc[i][e] = fmaf(ds, kv[e], acc[i][e]);
-        }
-      }
+      for (int j = 0; j < L / 2; ++j) grad[j] += part[j * 128];
     }
   }
 
   // dQ = scale dS . K, rounded once; the columns below DT only
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= Sq) continue;
-    T* o = dq + ((static_cast<size_t>(b) * Sq + row) * H + h) * DT;
-#pragma unroll
-    for (int e = 0; e < Lay::kDC; ++e) {
-      const int c = Lay::col(tx, e);
-      if (DT == D || c < DT) o[c] = from_float<T>(acc[i][e] * scale);
-    }
-  }
+  if (wg == 0)
+    store_grad<T, L>(grad, scale, dq, b, Sq, H, h, q0, DT, warp, lane);
 }
 
-// The three kernels of layout head dim D on tensors of true head dim DT.
-template <typename T, int D, int DT = D>
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+// A TMA descriptor for one (B, S, NH, DT) tensor of T: boxes of `rows` rows
+// of one head and the layout's box columns, swizzled as the kernels read
+// them. At DT 96 and 112 the last boxes of a row run past DT, and TMA fills
+// those columns with zeros.
+template <typename T, int L>
+cudaError_t encode(CUtensorMap* map, const void* ptr, int B, int S, int NH,
+                   int DT, int rows) {
+  using C = Cfg<T, L>;
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t e = sizeof(T);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DT),
+                              static_cast<cuuint64_t>(NH),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(DT) * e,
+                                 static_cast<cuuint64_t>(NH) * DT * e,
+                                 static_cast<cuuint64_t>(S) * NH * DT * e};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(C::kBoxE), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw =
+      C::kBoxRB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : (C::kBoxRB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                          : CU_TENSOR_MAP_SWIZZLE_32B);
+  const CUresult rc = fn(
+      map, C::kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The three kernels of layout head dim L on tensors of true head dim DT.
+template <typename T, int L, int DT = L>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* out, const void* dout, const float* lse,
                    float* delta, void* dq, void* dk, void* dv, int B, int H,
                    int KV, int Sq, int Sk, float scale, int causal,
                    int window, float softcap, int q_offset,
                    cudaStream_t stream) {
-  using Lay = Layout<D>;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
+  using C = Cfg<T, L>;
+  static_assert(DT <= L && DT % 8 == 0, "true head dim within the layout");
   const long long rows = static_cast<long long>(B) * Sq * H;
-  const long long delta_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-  if (delta_blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  flash_bwd_delta<T><<<static_cast<unsigned>(delta_blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(out), tdo, delta, rows, Sq, H, DT);
+  const long long delta_blocks =
+      (rows + kDeltaThreads / 32 - 1) / (kDeltaThreads / 32);
+  const long long kv_blocks = static_cast<long long>((Sk + kRows - 1) / kRows) * KV * B;
+  const long long q_blocks = static_cast<long long>((Sq + kRows - 1) / kRows) * H * B;
+  if (delta_blocks > 0x7fffffffLL || kv_blocks > 0x7fffffffLL ||
+      q_blocks > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  flash_bwd_delta<T><<<static_cast<unsigned>(delta_blocks), kDeltaThreads, 0, stream>>>(
+      static_cast<const T*>(out), static_cast<const T*>(dout), delta, rows,
+      Sq, H, DT);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = cudaFuncSetAttribute(flash_bwd_dkdv<T, D, DT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(Lay::kDkdvBytes));
+  // resident tiles: 64 rows; streamed tiles: kBN rows
+  CUtensorMap q_res, do_res, k_res, v_res, q_str, do_str, k_str, v_str;
+  err = encode<T, L>(&q_res, q, B, Sq, H, DT, kRows);
+  if (err == cudaSuccess) err = encode<T, L>(&do_res, dout, B, Sq, H, DT, kRows);
+  if (err == cudaSuccess) err = encode<T, L>(&k_res, k, B, Sk, KV, DT, kRows);
+  if (err == cudaSuccess) err = encode<T, L>(&v_res, v, B, Sk, KV, DT, kRows);
+  if (err == cudaSuccess) err = encode<T, L>(&q_str, q, B, Sq, H, DT, C::kBN);
+  if (err == cudaSuccess) err = encode<T, L>(&do_str, dout, B, Sq, H, DT, C::kBN);
+  if (err == cudaSuccess) err = encode<T, L>(&k_str, k, B, Sk, KV, DT, C::kBN);
+  if (err == cudaSuccess) err = encode<T, L>(&v_str, v, B, Sk, KV, DT, C::kBN);
   if (err != cudaSuccess) return err;
-  const dim3 kv_grid((Sk + Lay::kBK - 1) / Lay::kBK, KV, B);
-  flash_bwd_dkdv<T, D, DT><<<kv_grid, kThreads, Lay::kDkdvBytes, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      H, KV, Sq, Sk, scale, causal, window, softcap, q_offset);
+
+  err = cudaFuncSetAttribute(flash_bwd_dkdv<T, L>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(C::kBytes));
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv<T, L><<<static_cast<unsigned>(kv_blocks), kThreads, C::kBytes, stream>>>(
+      k_res, v_res, q_str, do_str, lse, delta, static_cast<T*>(dk),
+      static_cast<T*>(dv), B, H, KV, Sq, Sk, DT, scale, causal, window,
+      softcap, q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = cudaFuncSetAttribute(flash_bwd_dq<T, D, DT>,
+  err = cudaFuncSetAttribute(flash_bwd_dq<T, L>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(Lay::kDqBytes));
+                             static_cast<int>(C::kBytes));
   if (err != cudaSuccess) return err;
-  const dim3 q_grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_bwd_dq<T, D, DT><<<q_grid, kThreads, Lay::kDqBytes, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), H, KV, Sq, Sk, scale,
-      causal, window, softcap, q_offset);
+  flash_bwd_dq<T, L><<<static_cast<unsigned>(q_blocks), kThreads, C::kBytes, stream>>>(
+      q_res, do_res, k_str, v_str, lse, delta, static_cast<T*>(dq), B, H, KV,
+      Sq, Sk, DT, scale, causal, window, softcap, q_offset);
   return cudaGetLastError();
 }
 
@@ -638,11 +1161,12 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
 extern "C" {
 
 // q, out, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, KV, D): contiguous,
-// all of one dtype (`dtype` 0: float32, 1: bfloat16), D in {16, 64, 96,
-// 112, 128, 256} (96 and 112 on the 128 layout); lse (B, H, Sq) float32
-// from the forward; delta a (B, H, Sq) float32 scratch. Launches three
-// kernels on `stream`; returns the first launch error (0 on success). Does
-// not synchronise and allocates nothing.
+// all of one dtype (`dtype` 0: float32, 1: bfloat16), q, k, v and dout
+// with 16-byte aligned data (TMA reads them), D in {16, 64, 96, 112, 128,
+// 256} (96 and 112 on the 128 layout); lse (B, H, Sq) float32 from the
+// forward; delta a (B, H, Sq) float32 scratch. Launches three kernels on
+// `stream`; returns the first launch error, or the error of encoding a TMA
+// descriptor (0 on success). Does not synchronise and allocates nothing.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* out, const void* dout, const void* lse,
                         void* delta, void* dq, void* dk, void* dv, int B,

@@ -16,8 +16,9 @@ Both replace the TPU kernel
 what they compute, what bounds them and how they are laid out. On request
 (``return_lse``) each also writes its rows' log-sum-exp, which the third
 source, the backward (``csrc/flash_attention_bwd.cu``: dq, dk and dv on the
-CUDA cores, both dtypes; ``flash_attention_bwd_cuda``), reads. The reference
-has no backward kernel: JAX differentiates its plain path. All three take
+bf16 tensor cores by ``wgmma`` with TMA loads, both dtypes, routed by
+``bwd_route``; ``flash_attention_bwd_cuda``), reads. The reference has no
+backward kernel: JAX differentiates its plain path. All three take
 the models' layout, q (B, Sq, H, D) and k/v (B, Sk, KV, D), contiguous, D
 in ``HEAD_DIMS``. Head dims 96 and 112 run the 128 layout with the columns
 past D zero-filled inside the kernel (``layout_head_dim``): no copy is made
@@ -43,9 +44,10 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.build import SHARED_MEMORY_BUDGET
 
 __all__ = ["SOURCE", "WGMMA_SOURCE", "BWD_SOURCE", "SOURCES", "ROUTES",
-           "BLOCK_Q", "BLOCK_K", "WGMMA_BLOCK_Q", "STAGES", "BWD_BLOCK_Q",
-           "HEAD_DIMS", "DTYPES", "route", "layout_head_dim",
-           "shared_memory_bytes", "bwd_block_k", "bwd_shared_memory_bytes",
+           "BLOCK_Q", "BLOCK_K", "WGMMA_BLOCK_Q", "STAGES", "BWD_ROWS",
+           "BWD_ROUTES", "HEAD_DIMS", "DTYPES", "route", "bwd_route",
+           "layout_head_dim", "shared_memory_bytes", "bwd_block_n",
+           "bwd_shared_memory_bytes",
            "check_args", "check_bwd_args", "flash_attention_cuda",
            "flash_attention_bwd_cuda"]
 
@@ -61,7 +63,8 @@ PAD = 4  # kPad
 WGMMA_BLOCK_Q = 128  # kBQ in flash_attention_wgmma.cu: two warpgroups
 STAGES = 2  # kStages: the K/V ring
 _WGMMA_EXTRA = 64 + 1024  # barriers, and slack to align the ring to 1 KB
-BWD_BLOCK_Q = 64  # kBQ in flash_attention_bwd.cu
+BWD_ROWS = 64  # kRows in flash_attention_bwd.cu: a block's resident tile
+BWD_ROUTES = ("wgmma", "wgmma-f32")  # the backward's, by dtype (bwd_route)
 BWD_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # its `dtype`
 # head dim -> the layout its instantiation runs (``launch<..., layout, D>``
 # in both sources' switch): 96 and 112 (phi3-mini, zamba2-7b) run the 128
@@ -108,25 +111,43 @@ def shared_memory_bytes(D: int, route: str) -> int:
     raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
 
 
-def bwd_block_k(D: int) -> int:
-    """Keys of a tile in the backward's kernels (``Layout::kBK``): 32 in
-    the 256 layout, whose f32 tiles would not fit at 64, else 64."""
-    return 32 if layout_head_dim(D) == 256 else 64
+def bwd_route(dtype, D: int) -> str:
+    """The backward's arithmetic for this dtype (one source, both dtypes on
+    the bf16 tensor cores): ``"wgmma"`` for bfloat16 (q, k, v, dout as
+    they are, P and dS in two bf16 halves), ``"wgmma-f32"`` for float32
+    (every operand in three bf16 pieces)."""
+    return "wgmma" if route(dtype, D) == "wgmma" else "wgmma-f32"
 
 
-def bwd_shared_memory_bytes(D: int) -> dict:
-    """Dynamic shared memory of one block of each of the backward's two
-    large kernels, in the layout of ``layout_head_dim(D)`` (both dtypes are
-    staged in f32; rows padded by 4 floats). ``dkdv``: K and V of its key
-    tile, Q and dO of a query tile, P^T and dS^T (keys x 64 queries), lse
-    and Delta of the query tile. ``dq``: Q and dO of its query tile, K and
-    V of a key tile, dS (64 queries x the key tile)."""
-    L, bk = layout_head_dim(D), bwd_block_k(D)
-    rs = L + PAD
-    return {"dkdv": 4 * (2 * bk * rs + 2 * BWD_BLOCK_Q * rs
-                         + 2 * bk * (BWD_BLOCK_Q + PAD) + 2 * BWD_BLOCK_Q),
-            "dq": 4 * (2 * BWD_BLOCK_Q * rs + 2 * bk * rs
-                       + BWD_BLOCK_Q * (bk + PAD))}
+def bwd_block_n(D: int, dtype) -> int:
+    """Rows of a streamed tile in the backward's two large kernels
+    (``Cfg::kBN``: the query tile of dkdv, the key tile of dq): 64 for
+    bfloat16; for float32, whose resident tiles stay f32 and whose streamed
+    tiles are staged in f32 and split into three bf16 pieces, 16 in the
+    256 layout and 32 below (its S and dP products stack the pieces along
+    N, up to 3 x 32)."""
+    if bwd_route(dtype, D) == "wgmma":
+        return 64
+    return 16 if layout_head_dim(D) == 256 else 32
+
+
+def bwd_shared_memory_bytes(D: int, dtype) -> int:
+    """Dynamic shared memory of one block of either of the backward's two
+    large kernels (one layout), in the layout of ``layout_head_dim(D)``
+    (``Cfg::kBytes``): the two resident tiles (dkdv: K and V; dq: Q and
+    dO; 64 rows, in the input dtype), the ring of streamed tiles (bf16: two
+    stages, f32: one staging slot; ``bwd_block_n`` rows of two tiles), for
+    f32 the three bf16 piece tiles of each streamed tile, two buffers of
+    the 64 x ``bwd_block_n`` f32 values handed between the two warpgroups,
+    each stage's lse and Delta (dkdv; f32 also the copy kept once the slot
+    is free), 64 bytes of barriers and 1 KB to align the tiles."""
+    L, bn = layout_head_dim(D), bwd_block_n(D, dtype)
+    f32 = bwd_route(dtype, D) == "wgmma-f32"
+    item, ring = (4, 1) if f32 else (2, 2)
+    total = (2 * BWD_ROWS * L * item + ring * 2 * bn * L * item
+             + (2 * 3 * bn * L * 2 if f32 else 0) + 2 * 4 * BWD_ROWS * bn
+             + (2 * ring + (2 if f32 else 0)) * 4 * bn + 64 + 1024)
+    return total
 
 
 def _check_qkv(q, k, v, *, window: int, softcap: float,
@@ -195,9 +216,10 @@ def check_bwd_args(q, k, v, out, lse, dout, *, causal: bool = True,
                    window: int = 0, softcap: float = 0.0,
                    q_offset: int = 0) -> None:
     """Raise ``ValueError`` on anything the backward kernel does not take:
-    q, k, v as the forward takes them (no alignment asked: the backward
-    reads no operand by TMA), out and dout shaped, typed and placed as q,
-    lse (B, H, Sq) float32, all contiguous."""
+    q, k, v as the forward takes them, out and dout shaped, typed and
+    placed as q, lse (B, H, Sq) float32, all contiguous, and q, k, v and
+    dout 16-byte aligned (TMA reads them; ``ops.tma_operand`` hands them
+    over so)."""
     _check_qkv(q, k, v, window=window, softcap=softcap, q_offset=q_offset)
     B, Sq, H, D = q.shape
     for name, t in (("out", out), ("dout", dout)):
@@ -216,12 +238,15 @@ def check_bwd_args(q, k, v, out, lse, dout, *, causal: bool = True,
         if t.device != q.device:
             raise ValueError(f"flash_attention backward: {name} is on "
                              f"{t.device}, q on {q.device}")
-    for part, need in bwd_shared_memory_bytes(D).items():
-        if need > SHARED_MEMORY_BUDGET:
-            raise ValueError(f"flash_attention backward: D={D} needs {need} "
-                             f"bytes of shared memory in its {part} kernel, "
-                             f"above the {SHARED_MEMORY_BUDGET}-byte budget "
-                             "of one block")
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention backward: {name}'s data must "
+                             "be 16-byte aligned for TMA")
+    need = bwd_shared_memory_bytes(D, q.dtype)
+    if need > SHARED_MEMORY_BUDGET:
+        raise ValueError(f"flash_attention backward: D={D} needs {need} "
+                         f"bytes of shared memory, above the "
+                         f"{SHARED_MEMORY_BUDGET}-byte budget of one block")
 
 
 @functools.lru_cache(maxsize=None)
@@ -305,10 +330,13 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
     (B, Sq, H, D), all CUDA tensors; each gradient in its input's dtype
     and shape.
 
-    Computed in f32 on the CUDA cores from the inputs as given and rounded
-    once (``csrc/flash_attention_bwd.cu``); ``ref.attention_grads`` is its
-    plain twin. Deterministic: no atomics, so two launches give bitwise
-    the same gradients. Allocates its outputs and a (B, H, Sq) f32 scratch
+    Computed on the bf16 tensor cores with f32 accumulators from the
+    inputs as given and rounded once (``csrc/flash_attention_bwd.cu``;
+    ``bwd_route``: bf16 inputs as they are with P and dS in two bf16
+    halves, f32 inputs, P and dS in three bf16 pieces each);
+    ``ref.attention_grads`` is its plain twin, and its ``in_pieces`` /
+    ``mid_pieces`` emulate the splits. Deterministic: no atomics, so two
+    launches give bitwise the same gradients. Allocates its outputs and a (B, H, Sq) f32 scratch
     for rowsum(dout * out). Runs on PyTorch's current stream without
     synchronising. Raises on a CPU tensor, on arguments the kernel does
     not take, and when the build or a launch fails.

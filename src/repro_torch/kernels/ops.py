@@ -136,6 +136,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     (``kernels.flash_attention.flash_attention_bwd_cuda``) for CUDA tensors
     and runs :func:`ref.attention_grads` for CPU tensors; ``"cuda"``
     requires CUDA tensors; ``"ref"`` runs the plain version on any device.
+    The kernel reads q, k, v and dout with TMA, so q, k, v, out, dout and
+    lse are made contiguous and 16-byte aligned first (a copy only where
+    they are not: :func:`tma_operand`).
     ``flash_attention_bwd.launches`` counts kernel launches.
     """
     if force not in FORCES:
@@ -149,7 +152,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         raise RuntimeError(f"flash_attention_bwd(force={force!r}) launches "
                            f"the CUDA kernel and needs CUDA tensors, got "
                            f"{q.device}")
-    grads = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **opts)
+    grads = flash_attention_bwd_cuda(*map(tma_operand,
+                                          (q, k, v, out, lse, dout)), **opts)
     flash_attention_bwd.launches += 1
     return grads
 

@@ -133,8 +133,9 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
 
 def attention_grads(q, k, v, out, lse, dout, *, causal: bool = True,
                     window: int = 0, softcap: float = 0.0, q_offset: int = 0,
-                    chunk: int = 512, ds_split: int = 0,
-                    softcap_grad: bool = True):
+                    chunk: int = 512, ds_split: int = 0, p_split: int = 0,
+                    softcap_grad: bool = True, in_pieces: int = 0,
+                    mid_pieces: int = 0):
     """The gradients of ``attention_ref``'s output for q, k and v, given
     its output `out`, its log-sum-exp `lse` (``return_lse``) and dout
     (B, Sq, H, D): (dq, dk, dv), each in its input's dtype and shape.
@@ -152,16 +153,34 @@ def attention_grads(q, k, v, out, lse, dout, *, causal: bool = True,
     the scale; dK and dV summed over each group's query heads (GQA). The
     scale is ``attention_ref``'s, the mask too (scale, softcap, mask).
 
-    Two options exist for controls only: `ds_split` takes dS as
+    `in_pieces` and `mid_pieces` take every product as the kernel's bf16
+    tensor cores take it (``_split_product``): an input operand (q, k, v,
+    dout) in `in_pieces` bf16 pieces, P and dS in `mid_pieces`
+    (``bf16_pieces``), the piece products with a + b <= 2 summed smallest
+    first, each key chunk's products fresh and added to dQ in f32. The
+    kernel's float32 route is (3, 3), its bfloat16 route (1, 2) (inputs
+    exact, P and dS in two halves); (1, 1), every operand rounded once to
+    bf16, is the split control. The defaults (0, 0) are the f32
+    arithmetic. The sums run in this function's order (whole key chunks
+    of `chunk`), not the kernel's tiles'.
+
+    Three options exist for controls only: `ds_split` takes dS as
     ``split_p`` takes P before the dQ and dK products (1: rounded once to
-    bf16, as a textbook tensor-core kernel takes it), and
-    ``softcap_grad=False`` drops the cap's derivative.
+    bf16, as a textbook tensor-core kernel takes it), `p_split` takes P
+    so before the dV product, and ``softcap_grad=False`` drops the cap's
+    derivative.
     """
     B, Sq, H, D = q.shape
     _, Sk, KV, _ = k.shape
     if H % KV:
         raise ValueError(f"attention_grads: H={H} is not a multiple of "
                          f"KV={KV}")
+    for name, pieces in (("in_pieces", in_pieces),
+                         ("mid_pieces", mid_pieces)):
+        if pieces not in BWD_PIECES:
+            raise ValueError(f"{name} must be one of {BWD_PIECES}, got "
+                             f"{pieces}")
+    pi, pm = in_pieces, mid_pieces
     group = H // KV
     scale = 1.0 / torch.tensor(math.sqrt(D), dtype=torch.float32).to(q.dtype)
     scale = scale.to(q.device).float()
@@ -177,7 +196,7 @@ def attention_grads(q, k, v, out, lse, dout, *, causal: bool = True,
     for c0 in range(0, Sk, chunk):
         kb, vb = kh[:, :, c0:c0 + chunk], vh[:, :, c0:c0 + chunk]
         kpos = c0 + torch.arange(kb.shape[2], device=q.device)
-        s = torch.einsum("bhqd,bhkd->bhqk", qh, kb) * scale
+        s = _split_product("bhqd,bhkd->bhqk", qh, kb, pi, pi) * scale
         if softcap > 0:
             t = torch.tanh(s / softcap)
             s = softcap * t
@@ -187,15 +206,16 @@ def attention_grads(q, k, v, out, lse, dout, *, causal: bool = True,
         if window > 0:
             mask &= qpos[:, None] - kpos[None, :] < window
         p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
-        dv[:, :, c0:c0 + chunk] = torch.einsum("bhqk,bhqd->bhkd", p, doh)
-        dp = torch.einsum("bhqd,bhkd->bhqk", doh, vb)
+        dv[:, :, c0:c0 + chunk] = _split_product(
+            "bhqk,bhqd->bhkd", split_p(p, p_split), doh, pm, pi)
+        dp = _split_product("bhqd,bhkd->bhqk", doh, vb, pi, pi)
         ds = p * (dp - delta[..., None])
         if softcap > 0 and softcap_grad:
             ds = ds * (1.0 - t * t)
         ds = split_p(ds, ds_split)
-        dq += torch.einsum("bhqk,bhkd->bhqd", ds, kb)
-        dk[:, :, c0:c0 + chunk] = torch.einsum("bhqk,bhqd->bhkd", ds,
-                                               qh) * scale
+        dq += _split_product("bhqk,bhkd->bhqd", ds, kb, pm, pi)
+        dk[:, :, c0:c0 + chunk] = _split_product("bhqk,bhqd->bhkd", ds, qh,
+                                                 pm, pi) * scale
     dq = (dq * scale).transpose(1, 2).to(q.dtype)
 
     def by_kv_head(g):  # (B, H, Sk, D) -> (B, Sk, KV, D), the group summed

@@ -67,9 +67,11 @@ class Model(nn.Module):
     def loss(self, params, batch, force: str = "auto"):
         """batch {'tokens', 'targets': (B,S)} -> (loss, {'ce', 'aux'}), f32
         scalars that autograd differentiates (``transformer.loss_fn``, with
-        this model's `remat`). On the card the SSD scan's gradient is its
-        backward kernel; flash attention has no backward kernel yet, so the
-        dense and hybrid families raise there (ROADMAP A3b)."""
+        this model's `remat`). On the card every family trains through the
+        kernels: the SSD scan's gradient is its backward kernel
+        (``ops.ssd_scan_bwd``) and flash attention's is its own
+        (``ops.flash_attention_bwd``), so the dense, SSM and hybrid
+        families all run their backward passes there."""
         return transformer.loss_fn(params, batch, self.cfg,
                                    remat=self.remat, force=force)
 

@@ -483,49 +483,70 @@ def test_check_bwd_args_refuses(case):
 @pytest.mark.parametrize("D", kernel.HEAD_DIMS)
 def test_backward_takes_every_head_dim_in_both_dtypes_within_budget(D,
                                                                    dtype):
-    """Every head dim in both dtypes passes the checks (no alignment is
-    asked: the backward reads nothing by TMA), and each of its two large
-    kernels fits one block's shared memory, 96 and 112 in the 128
-    layout's."""
+    """Every head dim in both dtypes passes the checks when its operands
+    are 16-byte aligned; q 2 or 4 bytes past alignment is refused (TMA
+    reads q, k, v and dout), and ``ops.tma_operand`` hands over an aligned
+    copy that the checks take. Each of the two large kernels fits one
+    block's shared memory, 96 and 112 in the 128 layout's."""
     a = _bwd_args(dtype, D)
     buf = torch.zeros(a["q"].numel() + 1, dtype=dtype)
     a["q"] = buf[1:].view(a["q"].shape)  # 2 or 4 bytes past alignment
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernel.check_bwd_args(**a, window=4, softcap=50.0, q_offset=7)
+    a["q"] = ops.tma_operand(a["q"])
+    assert a["q"].data_ptr() % 16 == 0
     kernel.check_bwd_args(**a, window=4, softcap=50.0, q_offset=7)
-    need = kernel.bwd_shared_memory_bytes(D)
-    assert set(need) == {"dkdv", "dq"}
-    assert 0 < max(need.values()) <= kernel.SHARED_MEMORY_BUDGET
-    assert need == kernel.bwd_shared_memory_bytes(kernel.layout_head_dim(D))
+    need = kernel.bwd_shared_memory_bytes(D, dtype)
+    assert 0 < need <= kernel.SHARED_MEMORY_BUDGET
+    assert need == kernel.bwd_shared_memory_bytes(kernel.layout_head_dim(D),
+                                                  dtype)
 
 
 def test_backward_shared_memory_at_head_dim_256_is_pinned():
-    """32-key tiles at D = 256: dkdv holds K, V (32 x 260), Q, dO (64 x
-    260), P^T, dS^T (32 x 68), lse and Delta; dq holds Q, dO (64 x 260), K,
-    V (32 x 260) and dS (64 x 36). At 64-key tiles dkdv would not fit."""
-    assert kernel.bwd_block_k(256) == 32
-    assert kernel.bwd_shared_memory_bytes(256) == {
-        "dkdv": 4 * (2 * 32 * 260 + 2 * 64 * 260 + 2 * 32 * 68 + 128),
-        "dq": 4 * (2 * 64 * 260 + 2 * 32 * 260 + 64 * 36)}
-    assert kernel.bwd_shared_memory_bytes(256)["dkdv"] == 217_600
-    assert 4 * (4 * 64 * 260 + 2 * 64 * 68 + 128) > \
-        kernel.SHARED_MEMORY_BUDGET
-    assert all(kernel.bwd_block_k(D) == 64 for D in kernel.HEAD_DIMS
-               if D != 256)
+    """At D = 256, bf16: K and V (64 x 256 bf16), a ring of two stages of
+    Q and dO (64 x 256 bf16), two buffers of the 64 x 64 f32 values handed
+    between the warpgroups, each stage's lse and Delta, barriers and
+    alignment. f32: K and V in f32, one staging slot of 16-row f32 Q and
+    dO, their three bf16 pieces each, two 64 x 16 buffers, lse and Delta
+    and their copy. A 32-row f32 stream would not fit."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert kernel.bwd_block_n(256, bf16) == 64
+    assert kernel.bwd_block_n(256, f32) == 16
+    assert kernel.bwd_shared_memory_bytes(256, bf16) == 231_488
+    assert 231_488 == (2 * 64 * 256 * 2 + 2 * 2 * 64 * 256 * 2
+                       + 2 * 4 * 64 * 64 + 4 * 4 * 64 + 64 + 1024)
+    assert kernel.bwd_shared_memory_bytes(256, f32) == 222_528
+    assert 222_528 == (2 * 64 * 256 * 4 + 2 * 16 * 256 * 4
+                       + 2 * 3 * 16 * 256 * 2 + 2 * 4 * 64 * 16
+                       + 4 * 4 * 16 + 64 + 1024)
+    assert (2 * 64 * 256 * 4 + 2 * 32 * 256 * 4 + 2 * 3 * 32 * 256 * 2
+            > kernel.SHARED_MEMORY_BUDGET)
+    assert [kernel.bwd_block_n(D, f32) for D in kernel.HEAD_DIMS] == \
+        [32, 32, 32, 32, 32, 16]
+    assert all(kernel.bwd_block_n(D, bf16) == 64 for D in kernel.HEAD_DIMS)
+    assert {kernel.bwd_route(t, 64) for t in kernel.DTYPES} == \
+        set(kernel.BWD_ROUTES)
 
 
 def test_backward_source_mirrors_the_module():
-    """The source's tile rule, row padding, query tile and dtype codes are
-    the module's."""
+    """The source's tile rules, resident rows and dtype codes are the
+    module's, it reads its tiles by TMA and forms its products by wgmma,
+    and it has no atomics."""
     text = kernel.BWD_SOURCE.read_text()
-    assert "kBK = D == 256 ? 32 : 64" in text
-    assert f"constexpr int kBQ = {kernel.BWD_BLOCK_Q};" in text
-    assert f"constexpr int kPad = {kernel.PAD};" in text
+    assert "kBN = kF32 ? (L == 256 ? 16 : 32) : 64" in text
+    assert f"constexpr int kRows = {kernel.BWD_ROWS};" in text
+    assert "kRing = kF32 ? 1 : 2" in text
+    assert "kSplitDq = kBN >= 32" in text
     for dtype, name in ((torch.float32, "float"),
                         (torch.bfloat16, "__nv_bfloat16")):
         code = kernel.BWD_DTYPE_CODES[dtype]
         assert re.search(rf"if \(dtype == {code}\)\s*return dispatch_d<"
                          rf"{re.escape(name)}>", text), name
+    for needle in ("tma_load(", "wgmma_ss64(", "wgmma_rs<", "mbar_wait("):
+        assert needle in text, needle
     # bitwise across launches: no atomic read-modify-write anywhere
-    assert not re.search(r"\batomic[A-Z]\w*\(|\batom\.|\bred\.", text)
+    for src in (text, (kernel.BWD_SOURCE.parent / "sm90.cuh").read_text()):
+        assert not re.search(r"\batomic[A-Z]\w*\(|\batom\.|\bred\.", src)
 
 
 @pytest.mark.gpu
