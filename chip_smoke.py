@@ -9,10 +9,10 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
    a CUDA device;
 2. builds the hand-written kernels (``sodda_inner``, ``flash_attention``
    and ``ssd_scan``, each of the last two in a wgmma source for bf16 and
-   one for f32 (flash's on the CUDA cores, the SSD scan's on the tensor
-   cores), and each one's backward) from the sources in the checkout, one
+   one for f32 (both on the tensor cores, every f32 operand in three bf16
+   pieces), and each one's backward) from the sources in the checkout, one
    ``nvcc`` per source, all at once, and prints the build time and the
-   compiler's register report;
+   compiler's register report, failing on any spill or serialised wgmma;
 3. holds ``sodda_inner`` against its plain PyTorch version on the card for
    all three losses at the Table-1 widths (15, 64, 1200), (15, 64, 1400)
    and (15, 64, 1800), at an unaligned (2, 8, 100), at a row pitch that is
@@ -136,12 +136,18 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
    global layer, at a decode offset, at zamba2-7b's shared attention layer
    (4, 32, 32, 4096, 112) and a phi3-mini layer (head dim 96), at
    unaligned bf16 shapes for the other head dims (16, 64, 96, 112, 128:
-   causal, non-causal, window + softcap, decode offset), at unaligned f32
-   shapes (D = 64, 96, 112) and with q, k, v bf16 views whose data is not
-   16-byte aligned (bitwise the aligned copies' output), and times it at
-   the gemma2, zamba2 and phi3-mini layer shapes beside its bound, its
-   plain version and ``scaled_dot_product_attention``.
-   bf16 takes the wgmma kernel, f32 the CUDA-core one. A bf16 output must
+   causal, non-causal, window + softcap, decode offset), at the same
+   unaligned shapes in f32 for every head dim (16, 64, 96, 112, 128, 256)
+   and with q, k, v bf16 views whose data is not 16-byte aligned (bitwise
+   the aligned copies' output), and times it at the gemma2, zamba2 and
+   phi3-mini layer shapes beside its bound, its plain version and
+   ``scaled_dot_product_attention``, and in f32 at zamba2's layer beside
+   both bounds (the tensor cores' split products and the CUDA cores' f32
+   rate) and that call in f32.
+   bf16 takes the wgmma kernel, f32 the wgmma-f32 one (its registers by
+   instantiation are logged). An f32 output must be within 2e-5 of the
+   plain version, which the split control (every tensor-core operand
+   rounded once to bf16) must fail. A bf16 output must
    be its f32 value correctly rounded (see ``F32_NOISE``), and two
    controls must fail that rule: scores rounded to bf16, and P rounded to
    bf16 before P.V (the textbook tensor-core kernel);
@@ -193,7 +199,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     failing it;
 19. runs zamba2-7b at full width, cut to 12 layers (2 sites of the shared
     attention + MLP block), in f32 (B=2, 256 prompt tokens, Mamba-2's
-    A_log and dt_bias): every flash launch (D = 112, the CUDA-core route)
+    A_log and dt_bias): every flash launch (D = 112, the wgmma-f32 route)
     and every SSD launch on the plain path's activations within 1e-4 of
     its plain version, and the kernel path's prefill logits and the
     decode warm-up's last logits against the plain path's, their rms gaps
@@ -223,20 +229,23 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     (the CUDA cores' f32 rate for f32), the tensor-core route's bound (its
     split products at the bf16 rate) and the plain version;
 22. holds the flash-attention backward kernel (``ops.flash_attention_bwd``,
-    on the CUDA cores) against its plain version (``ref.attention_grads``)
+    on the tensor cores) against its plain version (``ref.attention_grads``)
     on the out and lse of the card's forward kernel (whose out must be
     bitwise the forward's without lse, its lse within 1e-5 of the plain
-    one) at gemma2-9b's local and global training layers (1, 16, 8, 4608,
-    256, softcap 50), zamba2-7b's (1, 32, 32, 4608, 112) with and without
-    its long-context window, a phi3-mini layer (head dim 96), D = 16, 64
-    and 128, a decode offset over an unaligned key range and rows that see
-    no key, each in f32 (every gradient within 1e-5 of its max) and bf16
-    (the rounding rule of 13), the control (dS rounded once to bf16 before
-    the dQ and dK products) failing both on dq and dk; two launches
-    bitwise; and times it at the three training layers beside its bound,
-    the plain version and the backward of ``scaled_dot_product_attention``
-    (causal, no softcap, k and v expanded), and the f32 forward with its
-    lse at gemma2's layers;
+    one, and in f32 its out within 2e-5 of the plain one, the split
+    control outside) at gemma2-9b's local and global training layers (1,
+    16, 8, 4608, 256, softcap 50), zamba2-7b's (1, 32, 32, 4608, 112)
+    with and without its long-context window, a phi3-mini layer (head dim
+    96), D = 16, 64 and 128, a decode offset over an unaligned key range
+    and rows that see no key, each in f32 (every gradient within 1e-5 of
+    its max) and bf16 (the rounding rule of 13), the control (dS rounded
+    once to bf16 before the dQ and dK products) failing both on dq and
+    dk; two launches bitwise; and times it at the three training layers
+    beside its bound, the plain version and the backward of
+    ``scaled_dot_product_attention`` (causal, no softcap, k and v
+    expanded), and the f32 forward with its lse at the three layers
+    beside both bounds and, where the layer has no window, the kernel and
+    ``scaled_dot_product_attention`` in f32 on the softcap-free function;
 23. trains mamba2-130m on the card, f32: (a) cut to 4 layers at full
     width (2 x 1024 tokens), the kernel path's loss and every gradient
     leaf within F32_REDUCTION of the plain path's, the carry-dropping
@@ -265,7 +274,9 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     backward; zamba2: the causal mask dropped from it), remat='full'
     bitwise remat='none' with the forwards relaunched.
 
-Exits non-zero if any phase fails. The last three lines of standard output
+Each phase's wall seconds go to a log line of their own as it ends, and
+all of them to one line before the records. Exits non-zero if any phase
+fails. The last three lines of standard output
 are the card line, a JSON ``kernels`` record and a JSON ``ok`` record.
 """
 import contextlib
@@ -333,8 +344,14 @@ F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 
 # flash_attention against its plain version: tests/test_kernels.py:201
-# holds the Pallas kernel to its oracle at 2e-5 in f32.
+# holds the Pallas kernel to its oracle at 2e-5 in f32. The f32 route runs
+# on the bf16 tensor cores (q, k, v and P in three bf16 pieces each), so
+# a control must fail it: every operand of the tensor-core products rounded
+# once to bf16 (``ref.attention_ref(in_pieces=1, mid_pieces=1)``; on the
+# CPU its gap is >= 9.7e-4 of max|v|, the kernel's emulation 2.0e-7,
+# tests/test_torch_flash_fwd_split.py).
 FLASH_F32_TOL = 2e-5
+F32_SPLIT_CONTROL = dict(in_pieces=1, mid_pieces=1)
 # In bf16 a sound kernel rounds its f32 result to the nearest bf16, so each
 # output lies within half a bf16 ulp of the plain version run on f32 copies
 # of the inputs, give or take the f32 summation noise of either, which is
@@ -2509,14 +2526,30 @@ def attention_pairs(Sq, Sk, causal=True, window=0, q_offset=0):
     return n
 
 
-def flash_bound_ms(B, H, KV, Sq, Sk, D, dtype, **mask):
-    """Least time for one call: 4 B H D FLOP per unmasked pair (QK^T and
-    PV) over the dtype's peak, vs Q, K, V read once and O written once
-    over the HBM rate."""
-    flops = 4.0 * B * H * D * attention_pairs(Sq, Sk, **mask)
-    item = torch.tensor([], dtype=dtype).element_size()
-    nbytes = item * (2 * B * Sq * H * D + 2 * B * Sk * KV * D)
+def flash_bound_ms(B, H, KV, Sq, Sk, D, dtype, backward=False,
+                   split=False, **mask):
+    """Least time for one call, (ms, what binds): the function's products
+    of 2 B H D FLOP an unmasked pair (forward: S and P.V; backward: S, dP,
+    dV, dQ and dK) over the dtype's peak, vs the bytes over the HBM rate
+    (forward: q, k, v read once and out written once; backward: q, out,
+    dout, k, v and lse read once and dq, dk, dv written once). `split`:
+    the products as the tensor-core kernels take them, bf16 piece products
+    at 989 TFLOP/s; f32: six piece products each (three pieces an operand,
+    a + b <= 2; ``ref.attention_ref(in_pieces=3, mid_pieces=3)``); bf16: S
+    and dP as one, P.V, dV, dQ and dK as two (P and dS in two halves). The
+    backward's recomputation of S and dP in the dQ kernel is the design's,
+    not the function's, and is not counted."""
+    products = 5 if backward else 2
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    if split:
+        products = (6 * products if dtype == torch.float32
+                    else 1 + 1 + 2 * 3 if backward else 1 + 2)
+        peak = BF16_FLOP_PER_S
+    flops = 2.0 * products * B * H * D * attention_pairs(Sq, Sk, **mask)
+    item = torch.tensor([], dtype=dtype).element_size()
+    io = 4 if backward else 2
+    nbytes = item * (io * B * Sq * H * D + io * B * Sk * KV * D) \
+        + (4 * B * H * Sq if backward else 0)
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -2570,9 +2603,42 @@ def check_excess(tag, ex):
           "cannot tell such a kernel apart")
 
 
+def f32_tol_excess(got, want):
+    """How far the worst entry of `got` lies outside
+    ``assert_close(got, want, rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL)``
+    (<= 0: it holds; > 0: it fails)."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{tuple(got.shape)} {got.dtype} against {tuple(want.shape)} "
+          f"{want.dtype}")
+    over = (got - want).abs() - FLASH_F32_TOL * (1.0 + want.abs())
+    return float(over.max())
+
+
+def check_f32_tol(tag, got, want, ctrl):
+    """The f32 rule (``f32_tol_excess``) on the kernel's `got` and the
+    split control's `ctrl` against the plain `want`: the kernel within it,
+    the control outside; a log note of both excesses."""
+    k_over, c_over = f32_tol_excess(got, want), f32_tol_excess(ctrl, want)
+    check(k_over <= 0, f"{tag}: outside the f32 tolerance {FLASH_F32_TOL} "
+          f"by {k_over:.3e}")
+    check(c_over > 0, f"{tag}: the split control passes the f32 tolerance "
+          f"(excess {c_over:.3e})")
+    return (f"tol {FLASH_F32_TOL}: kernel excess {k_over:.3e}, the split "
+            f"control {float((ctrl - want).abs().max()):.3e} off (excess "
+            f"{c_over:.3e})")
+
+
 def phase_flash():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
+    # the f32 route's instantiations (spills and serialised wgmma already
+    # failed the build check)
+    registers = kernel_registers(kbuild.library_path(flash_build.SOURCE))
+    log(f"flash f32 forward registers by instantiation: {registers}")
+    check(sorted(registers) == [f"flash_fwd_f32<{L}>"
+                                for L in (128, 16, 256, 64)],
+          f"flash f32 forward: instantiations {sorted(registers)}, expected "
+          "one per layout (16, 64, 128, 256)")
     S = SERVE_PROMPT
     cases = [
         ("gemma2 local layer", (4, 16, 8, S, S, 256), bf16,
@@ -2599,18 +2665,12 @@ def phase_flash():
             (f"bf16 D={D} decode offset", (2, 4, 2, 1, 200, D), bf16,
              dict(window=64, softcap=30.0, q_offset=199)),
         ]
-    cases += [
-        ("unaligned causal", (2, 4, 2, 200, 200, 64), f32, dict()),
-        ("unaligned non-causal", (2, 4, 2, 200, 200, 64), f32,
-         dict(causal=False)),
-        ("unaligned window+softcap", (2, 4, 2, 200, 200, 64), f32,
-         dict(window=64, softcap=30.0)),
-        ("unaligned decode offset", (2, 4, 2, 1, 200, 64), f32,
-         dict(window=64, softcap=30.0, q_offset=199)),
-    ]
-    for D in (96, 112):  # the padded head dims on the cuda-core route
+    # every head dim on the wgmma-f32 route, unaligned
+    for D in flash_build.HEAD_DIMS:
         cases += [
             (f"f32 D={D} causal", (2, 4, 2, 200, 200, D), f32, dict()),
+            (f"f32 D={D} non-causal", (2, 4, 2, 200, 200, D), f32,
+             dict(causal=False)),
             (f"f32 D={D} window+softcap", (2, 4, 2, 200, 200, D), f32,
              dict(window=64, softcap=30.0)),
             (f"f32 D={D} decode offset", (2, 4, 2, 1, 200, D), f32,
@@ -2643,9 +2703,12 @@ def phase_flash():
                     f"{ex['control_p_bf16']:.3e} (limit {F32_NOISE:.3e}); "
                     f"route {flash_build.route(dtype, D)}")
         else:
-            torch.testing.assert_close(a, want, rtol=FLASH_F32_TOL,
-                                       atol=FLASH_F32_TOL)
-            rule = f"tol {FLASH_F32_TOL}; route {flash_build.route(dtype, D)}"
+            # the split control: every tensor-core operand rounded once to
+            # bf16, as a textbook tensor-core kernel takes f32 inputs
+            ctrl = kref.attention_ref(q, k, v, **opts, **F32_SPLIT_CONTROL)
+            rule = (check_f32_tol(tag, a, want, ctrl)
+                    + f"; route {flash_build.route(dtype, D)}")
+            del ctrl
         err = float((a.float() - want.float()).abs().max())
         max_err = max(max_err, err)
         log(f"{tag}: bitwise across launches, max|kernel-plain| = "
@@ -2707,28 +2770,32 @@ def phase_flash():
             f"scaled_dot_product_attention {d_sdpa:.4f} ms; layout head dim "
             f"{flash_build.layout_head_dim(D)}")
         del q, k, v, qt, kt, vt
-    # the f32 route (csrc/flash_attention.cu, the CUDA cores) at zamba2's
-    # shared layer, causal: the shape of the f32 exactness cells, on no
-    # timed main path
+    # the f32 route (csrc/flash_attention.cu, wgmma-f32) at zamba2's shared
+    # layer at the serving prefill, causal: the shape of the f32 exactness
+    # cells (the training layers are timed in phase_flash_backward)
     B, H, KV, Sq, Sk, D = ZAMBA2_FLASH
     q, k, v = flash_inputs(B, H, KV, Sq, Sk, D, f32, gen)
     f_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, force="cuda"),
                    reps=3, warmup=1)
     f_plain = cuda_ms(lambda: ops.flash_attention(q, k, v, force="ref"),
                       reps=2, warmup=1)
-    f_bound, f_by = flash_bound_ms(B, H, KV, Sq, Sk, D, f32)
+    f_bounds = bound_keys(f32, flash_bound_ms(B, H, KV, Sq, Sk, D, f32),
+                          flash_bound_ms(B, H, KV, Sq, Sk, D, f32,
+                                         split=True))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     f_sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), reps=5, warmup=2)
     f32_record = dict(shape=list(ZAMBA2_FLASH), route=flash_build.route(f32, D),
                       source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                      ms=f_ms, plain_ms=f_plain, bound_ms=f_bound,
-                      bound_by=f_by, library_ms=f_sdpa, launches=None)
+                      ms=f_ms, plain_ms=f_plain, **f_bounds,
+                      library_ms=f_sdpa, launches=None, registers=registers)
     log(f"flash zamba2 shared layer {(B, H, KV, Sq, D)} f32 causal "
         f"({f32_record['route']} route): kernel {f_ms:.4f} ms, plain "
-        f"{f_plain:.4f} ms, bound {f_bound:.5f} ms ({f_by}), kernel/bound "
-        f"{f_ms / f_bound:.1f}x; torch scaled_dot_product_attention in f32 "
-        f"{f_sdpa:.4f} ms")
+        f"{f_plain:.4f} ms, tensor-core bound {f_bounds['bound_ms']:.5f} ms "
+        f"({f_bounds['bound_by']}), CUDA-core bound "
+        f"{f_bounds['cuda_core_bound_ms']:.5f} ms, kernel/bound "
+        f"{f_ms / f_bounds['bound_ms']:.1f}x; torch "
+        f"scaled_dot_product_attention in f32 {f_sdpa:.4f} ms")
     del q, k, v, qt, kt, vt
     ms, plain_ms, bound_ms, bound_by = times["global"]
     record = dict(name="flash_attention", route="cuda",
@@ -3550,7 +3617,7 @@ def zero_counts():
 
 def phase_hybrid_f32():
     """zamba2-7b at full width, cut to 12 layers (2 sites of the shared
-    block), in f32. Every flash launch (D = 112, the cuda-core route) and
+    block), in f32. Every flash launch (D = 112, the wgmma-f32 route) and
     every SSD launch, on the plain path's activations, within SSD_F32_TOL
     of its plain version (a carry-dropping control must fail that for the
     SSD). At the logits, the kernel path's prefill and the decode warm-up's
@@ -3576,7 +3643,7 @@ def phase_hybrid_f32():
           f"{r1}) in a {cfg.num_layers}-layer prefill with {sites} sites, "
           "expected every ssd launch on the wgmma-f32 route")
     check(flash_build.route(torch.float32, cfg.resolved_head_dim)
-          == "cuda-core", "zamba2 f32: flash does not take the cuda-core "
+          == "wgmma-f32", "zamba2 f32: flash does not take the wgmma-f32 "
           "route")
 
     flash_gaps, ssd_gaps = [], []
@@ -4139,41 +4206,9 @@ FLASH_BWD_CONTROL_LEAVES = ("dq", "dk")
 FLASH_BWD_P_CONTROL_LEAVES = ("dv",)
 
 
-def flash_bwd_bound_ms(B, H, KV, Sq, Sk, D, dtype, **mask):
-    """Least time for one backward call: five products of 2 D FLOP per
-    unmasked pair (S, dP, dV, dQ, dK) over the dtype's peak, vs q, out,
-    dout, k, v and lse read once and dq, dk, dv written once over the HBM
-    rate."""
-    flops = 10.0 * B * H * D * attention_pairs(Sq, Sk, **mask)
-    item = torch.tensor([], dtype=dtype).element_size()
-    nbytes = item * (4 * B * Sq * H * D + 4 * B * Sk * KV * D) \
-        + 4 * B * H * Sq
-    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
-    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def flash_bwd_tc_bound_ms(B, H, KV, Sq, Sk, D, dtype, **mask):
-    """The same least time as the tensor-core kernel takes the products:
-    the bytes of ``flash_bwd_bound_ms`` against the five products as bf16
-    piece products at 989 TFLOP/s. f32: six piece products each (three
-    pieces an operand, a + b <= 2); bf16: S and dP as one, dV, dK and dQ
-    as two (P and dS in two halves). The recomputation of S and dP in the
-    dQ kernel is the design's, not the function's, and is not counted."""
-    products = 6 * 5 if dtype == torch.float32 else 1 + 1 + 2 * 3
-    flops = 2.0 * products * B * H * D * attention_pairs(Sq, Sk, **mask)
-    item = torch.tensor([], dtype=dtype).element_size()
-    nbytes = item * (4 * B * Sq * H * D + 4 * B * Sk * KV * D) \
-        + 4 * B * H * Sq
-    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
 def kernel_registers(lib):
     """{instantiation: registers} from a library's ptxas report, names as
-    ``flash_bwd_dkdv<float, 256>``."""
+    ``flash_bwd_dkdv<float, 256>`` or ``flash_fwd_f32<256>``."""
     regs, current = {}, None
     for line in lib.with_name(lib.name + ".log").read_text().splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -4182,11 +4217,12 @@ def kernel_registers(lib):
             current = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and current:
-            k = re.search(r"(flash_bwd_\w+?)I(f|13__nv_bfloat16)(?:Li(\d+))?E",
-                          current)
-            name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}"
-                    + (f", {k.group(3)}" if k.group(3) else "") + ">"
-                    if k else current)
+            k = re.search(r"(flash_(?:bwd_\w+?|fwd_f32))I"
+                          r"(f|13__nv_bfloat16)?(?:Li(\d+))?E", current)
+            args = ([] if not k or not k.group(2) else
+                    ["float" if k.group(2) == "f" else "bf16"]) \
+                + ([k.group(3)] if k and k.group(3) else [])
+            name = f"{k.group(1)}<{', '.join(args)}>" if k else current
             regs[name] = int(m.group(1))
     return regs
 
@@ -4215,15 +4251,61 @@ def sdpa_bwd_ms(q, k, v, dout, reps):
     return ms
 
 
+def flash_f32_training_forward(name, shape, opts, q, k, v):
+    """The forward route training launches, f32 with lse (wgmma-f32), at
+    one training layer: its time beside both bounds; where the layer has
+    no window, also the kernel and torch ``scaled_dot_product_attention``
+    in f32 (k and v expanded to every query head) on the softcap-free
+    function (a yardstick only)."""
+    B, H, KV, Sq, Sk, D = shape
+    mask = mask_opts(opts)
+    ms = cuda_ms(lambda: flash_build.flash_attention_cuda(
+        q, k, v, return_lse=True, **opts), reps=3, warmup=1)
+    rec = dict(shape=list(shape), options=opts,
+               route=flash_build.route(q.dtype, D), ms=ms,
+               **bound_keys(q.dtype,
+                            flash_bound_ms(*shape, q.dtype, **mask),
+                            flash_bound_ms(*shape, q.dtype, split=True,
+                                           **mask)),
+               library_ms=None)
+    if opts.get("window", 0) == 0:
+        nocap = dict(opts, softcap=0.0)
+        rec["same_function_ms"] = cuda_ms(
+            lambda: flash_build.flash_attention_cuda(q, k, v,
+                                                     return_lse=True,
+                                                     **nocap),
+            reps=3, warmup=1)
+        group = H // KV
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.repeat_interleave(group, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        rec["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), reps=3, warmup=1)
+        del qt, kt, vt
+    log(f"flash forward {name} {shape} f32 with lse ({rec['route']} "
+        f"route): {ms:.4f} ms, tensor-core bound {rec['bound_ms']:.5f} ms "
+        f"({rec['bound_by']}), CUDA-core bound "
+        f"{rec['cuda_core_bound_ms']:.5f} ms, kernel/bound "
+        f"{ms / rec['bound_ms']:.1f}x"
+        + (f"; causal without softcap: kernel {rec['same_function_ms']:.4f} "
+           f"ms, torch scaled_dot_product_attention in f32 (k, v expanded) "
+           f"{rec['library_ms']:.4f} ms" if rec["library_ms"] is not None
+           else ""))
+    return rec
+
+
 def phase_flash_backward():
     """The flash-attention backward kernel against its plain version
     (``ref.attention_grads``) on every FLASH_BWD_CASES case in f32 and
     bf16, its out and lse from the card's forward kernel (whose out must
-    be bitwise the forward's without lse): f32 within FLASH_BWD_F32_TOL of
-    each gradient's max, bf16 the rounding rule, the dS-in-bf16 control
-    failing both on dq and dk; two launches bitwise; its time beside its
-    bound, the plain version's and SDPA's backward at the training
-    layers; the f32 forward with its lse at gemma2's training layers."""
+    be bitwise the forward's without lse, and in f32 within FLASH_F32_TOL
+    of the plain version's, the split control outside): f32 within
+    FLASH_BWD_F32_TOL of each gradient's max, bf16 the rounding rule, the
+    dS-in-bf16 control failing both on dq and dk; two launches bitwise;
+    its time beside its bound, the plain version's and SDPA's backward at
+    the training layers; the f32 forward with its lse at the three
+    training layers (``flash_f32_training_forward``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     f32, bf16 = torch.float32, torch.bfloat16
     lib = kbuild.library_path(flash_build.BWD_SOURCE)
@@ -4246,11 +4328,21 @@ def phase_flash_backward():
                                                         **opts)
             plain_out = flash_build.flash_attention_cuda(q, k, v, **opts)
             f = [t.float() for t in (q, k, v, out)]
-            _, want_lse = kref.attention_ref(*f[:3], return_lse=True,
-                                             **opts)
+            want_out, want_lse = kref.attention_ref(*f[:3], return_lse=True,
+                                                    **opts)
             torch.cuda.synchronize()
             check(torch.equal(out, plain_out), f"{tag}: the forward's output "
                   "with lse differs from its output without")
+            fwd_rule = ""
+            if dtype == f32:
+                # the f32 forward at this layer's shape: within
+                # FLASH_F32_TOL of the plain version, the split control not
+                fwd_ctrl = kref.attention_ref(*f[:3], **opts,
+                                              **F32_SPLIT_CONTROL)
+                fwd_rule = "; out against plain " + check_f32_tol(
+                    f"{tag}: forward", out, want_out, fwd_ctrl)
+                del fwd_ctrl
+            del want_out
             dead = torch.isinf(want_lse)
             check(torch.equal(torch.isinf(lse), dead)
                   and bool((lse[dead] < 0).all()),
@@ -4319,7 +4411,7 @@ def phase_flash_backward():
                     if dtype == f32 else "excess over half a bf16 ulp / max "
                     f"(limit {F32_NOISE:.3e})")
             log(f"{tag}: route {flash_build.bwd_route(dtype, D)}; out "
-                f"bitwise without lse, lse within {lse_gap:.3e}, "
+                f"bitwise without lse{fwd_rule}, lse within {lse_gap:.3e}, "
                 f"{int(dead.sum())} rows -inf; bitwise across launches; "
                 f"kernel vs plain {rule}: " + ", ".join(parts))
             if name in FLASH_BWD_TIMED:
@@ -4329,8 +4421,10 @@ def phase_flash_backward():
                 plain_ms = cuda_ms(lambda: ops.flash_attention_bwd(
                     q, k, v, out, lse, dout, force="ref", **opts),
                     reps=1, warmup=1)
-                bound = flash_bwd_bound_ms(*shape, dtype, **mask_opts(opts))
-                tc = flash_bwd_tc_bound_ms(*shape, dtype, **mask_opts(opts))
+                bound = flash_bound_ms(*shape, dtype, backward=True,
+                                       **mask_opts(opts))
+                tc = flash_bound_ms(*shape, dtype, backward=True, split=True,
+                                    **mask_opts(opts))
                 rec = dict(shape=list(shape), options=opts,
                            route=flash_build.bwd_route(dtype, D), ms=ms,
                            plain_ms=plain_ms, **bound_keys(dtype, bound, tc),
@@ -4359,18 +4453,9 @@ def phase_flash_backward():
                        f"scaled_dot_product_attention's backward (k, v "
                        f"expanded) {rec['library_ms']:.4f} ms"
                        if rec["library_ms"] is not None else ""))
-                if dtype == f32 and name.startswith("gemma2"):
-                    # the forward route training launches: f32, with lse
-                    f_ms = cuda_ms(lambda: flash_build.flash_attention_cuda(
-                        q, k, v, return_lse=True, **opts), reps=3, warmup=1)
-                    f_bound = flash_bound_ms(B, H, KV, Sq, Sk, D, f32,
-                                             **mask_opts(opts))
-                    fwd_times[name] = dict(shape=list(shape), options=opts,
-                                           ms=f_ms, bound_ms=f_bound[0],
-                                           bound_by=f_bound[1])
-                    log(f"flash forward {name} {shape} f32 with lse "
-                        f"(cuda-core route): {f_ms:.4f} ms, bound "
-                        f"{f_bound[0]:.5f} ms ({f_bound[1]})")
+                if dtype == f32:
+                    fwd_times[name] = flash_f32_training_forward(
+                        name, shape, opts, q, k, v)
             del a, b, want, ctrl, ctrl2, f, out, lse, plain_out
         del q32, k32, v32, dout32, q, k, v, dout
         torch.cuda.empty_cache()
@@ -4868,7 +4953,7 @@ def phase_train():
 
 def flash_training_records(flash_record, bwd_record, train_fwd, train):
     """Fill the flash records' launches on the dense and hybrid training
-    paths (f32: the cuda-core forward route, with lse, and the backward)
+    paths (f32: the wgmma-f32 forward route, with lse, and the backward)
     and log the kernels' share of each step."""
     by_path = {f"{train[m]['name']} train step": train[m]["launches"][2]
                for m in ("gemma2", "zamba2")}
@@ -4888,17 +4973,29 @@ def flash_training_records(flash_record, bwd_record, train_fwd, train):
                                         "float32"]["ms"]
                                  for w in ("local", "global")]),
               "zamba2": shapes["zamba2 training layer float32"]["ms"]}
-    fwd_ms = {"gemma2": np.mean([r["ms"] for r in train_fwd.values()]),
-              "zamba2": None}
+    fwd_ms = {"gemma2": np.mean([train_fwd[f"gemma2 {w} training layer"]
+                                 ["ms"] for w in ("local", "global")]),
+              "zamba2": train_fwd["zamba2 training layer"]["ms"]}
     for m, cell in ((m, train[m]) for m in ("gemma2", "zamba2")):
         b_ms = cell["launches"][3] * bwd_ms[m]
         log(f"train {cell['name']} flash backward share of a step "
             f"({cell['step_ms']:.3f} ms): {cell['launches'][3]} x "
             f"{bwd_ms[m]:.4f} ms = {b_ms:.3f} ms "
             f"({b_ms / cell['step_ms']:.2%})"
-            + (f"; f32 forward {cell['launches'][2]} x {fwd_ms[m]:.4f} ms "
-               f"({cell['launches'][2] * fwd_ms[m] / cell['step_ms']:.2%})"
-               if fwd_ms[m] else ""))
+            + f"; f32 forward {cell['launches'][2]} x {fwd_ms[m]:.4f} ms "
+              f"({cell['launches'][2] * fwd_ms[m] / cell['step_ms']:.2%})")
+
+
+def timed_phase(seconds, phase, *args):
+    """phase(*args), its wall seconds logged on a line of their own and
+    kept in `seconds` by name (so the run's time limit can be read phase by
+    phase)."""
+    t0 = time.perf_counter()
+    try:
+        return phase(*args)
+    finally:
+        seconds[phase.__name__] = time.perf_counter() - t0
+        log(f"phase {phase.__name__}: {seconds[phase.__name__]:.1f} s")
 
 
 def main():
@@ -4928,6 +5025,7 @@ def run():
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
+    seconds = {}  # wall seconds by phase, in the order run
     libs = kbuild.build_all([kernel_build.SOURCE, *flash_build.SOURCES,
                              *ssd_build.SOURCES])
     log(f"built {', '.join(lib.name for lib in libs)} in "
@@ -4941,36 +5039,36 @@ def run():
         check(not lost, f"{lib.name}: ptxas spills or serialises wgmma: "
               f"{lost[:4]}")
 
-    record = phase_kernel()
-    phase_small()
+    record = timed_phase(seconds, phase_kernel)
+    timed_phase(seconds, phase_small)
     cfg = TABLE1_250K_18K
-    X, y, w, launches, ms_c = phase_table1(cfg)
+    X, y, w, launches, ms_c = timed_phase(seconds, phase_table1, cfg)
     record["launches"] = launches
     log(f"table1 kernel share of a cuda-backend iteration: "
         f"{record['ms']:.4f} / {ms_c:.3f} ms = {record['ms'] / ms_c:.4%}")
-    phase_breakdown(cfg, X, y, w)
+    timed_phase(seconds, phase_breakdown, cfg, X, y, w)
     del X, y, w  # free the 18 GB before the next phase
     torch.cuda.empty_cache()
 
-    X, y = phase_tiled_plane(cfg)
-    phase_radisa_kernel()
-    phase_radisa_async(cfg, X, y)
-    phase_resumable(cfg, X, y)
-    phase_elastic(cfg, X, y)
-    ms_static = phase_streaming_anchor(cfg, X, y)
-    mesh_refs = phase_mesh_refs(cfg, X, y)
-    elastic_refs = phase_mesh_elastic_refs(cfg, X, y)
+    X, y = timed_phase(seconds, phase_tiled_plane, cfg)
+    timed_phase(seconds, phase_radisa_kernel)
+    timed_phase(seconds, phase_radisa_async, cfg, X, y)
+    timed_phase(seconds, phase_resumable, cfg, X, y)
+    timed_phase(seconds, phase_elastic, cfg, X, y)
+    ms_static = timed_phase(seconds, phase_streaming_anchor, cfg, X, y)
+    mesh_refs = timed_phase(seconds, phase_mesh_refs, cfg, X, y)
+    elastic_refs = timed_phase(seconds, phase_mesh_elastic_refs, cfg, X, y)
     del X, y  # free the 18 GB before the mesh, streaming and serving phases
     torch.cuda.empty_cache()
-    phase_mesh(cfg, mesh_refs)
-    phase_nccl()
-    phase_mesh_elastic_streaming(cfg, elastic_refs)
-    phase_streaming(cfg, ms_static)
+    timed_phase(seconds, phase_mesh, cfg, mesh_refs)
+    timed_phase(seconds, phase_nccl)
+    timed_phase(seconds, phase_mesh_elastic_streaming, cfg, elastic_refs)
+    timed_phase(seconds, phase_streaming, cfg, ms_static)
 
-    flash_record, times = phase_flash()
-    phase_cut_depth()
+    flash_record, times = timed_phase(seconds, phase_flash)
+    timed_phase(seconds, phase_cut_depth)
     torch.cuda.empty_cache()
-    flash_record["launches"], prefill_ms = phase_serve()
+    flash_record["launches"], prefill_ms = timed_phase(seconds, phase_serve)
     n_local = GEMMA2_9B.num_layers // 2
     kernel_ms = n_local * (times["local"][0] + times["global"][0])
     log(f"serve flash kernel share of the prefill: {n_local} x "
@@ -4979,10 +5077,10 @@ def run():
         f"{kernel_ms / prefill_ms:.2%}")
 
     torch.cuda.empty_cache()
-    ssd_record = phase_ssd()
-    phase_ssm_f32()
+    ssd_record = timed_phase(seconds, phase_ssd)
+    timed_phase(seconds, phase_ssm_f32)
     torch.cuda.empty_cache()
-    ssd_record["launches"], ssm_prefill_ms = phase_ssm_serve()
+    ssd_record["launches"], ssm_prefill_ms = timed_phase(seconds, phase_ssm_serve)
     ssd_ms = MAMBA2_130M.num_layers * ssd_record["ms"]
     log(f"mamba2 serve ssd kernel share of the prefill: "
         f"{MAMBA2_130M.num_layers} x {ssd_record['ms']:.4f} ms = "
@@ -4990,9 +5088,9 @@ def run():
         f"{ssd_ms / ssm_prefill_ms:.2%}")
 
     torch.cuda.empty_cache()
-    phase_hybrid_f32()
+    timed_phase(seconds, phase_hybrid_f32)
     torch.cuda.empty_cache()
-    hybrid = phase_hybrid_serve()
+    hybrid = timed_phase(seconds, phase_hybrid_serve)
     z_flash = flash_record["head_dims"]["112"]
     z_ssd = ssd_record["shapes"]["zamba2 layer"]
     z_flash["launches"], z_ssd["launches"] = hybrid["flash"], hybrid["ssd"]
@@ -5011,11 +5109,11 @@ def run():
         f"({s_ms / hybrid['prefill_ms']:.2%})")
 
     torch.cuda.empty_cache()
-    bwd_record = phase_ssd_backward()
+    bwd_record = timed_phase(seconds, phase_ssd_backward)
     torch.cuda.empty_cache()
-    flash_bwd_record, flash_train_fwd = phase_flash_backward()
+    flash_bwd_record, flash_train_fwd = timed_phase(seconds, phase_flash_backward)
     torch.cuda.empty_cache()
-    train = phase_train()
+    train = timed_phase(seconds, phase_train)
     fwd, bwd = train["launches"][:2]
     ssd_record["launches_by_path"]["mamba2-130m train step"] = fwd
     ssd_record["f32"]["launches"] = fwd  # every one on the wgmma-f32 route
@@ -5033,6 +5131,10 @@ def run():
 
     flash_training_records(flash_record, flash_bwd_record, flash_train_fwd,
                            train)
+    log("seconds by phase: " + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in seconds.items())
+        + f"; {sum(seconds.values()):.1f} s in the phases, "
+        f"{time.perf_counter() - t0:.1f} s since the build started")
     return card, [record, flash_record, ssd_record, flash_bwd_record]
 
 

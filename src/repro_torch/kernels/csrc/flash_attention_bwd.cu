@@ -54,11 +54,11 @@
 //     in a tensor-core accumulator (PERF.md §6: such a carry truncates):
 //     each tile's dV, dK or dQ is a fresh accumulator, 64 columns at a
 //     time, added in f32 by the threads to the carried gradient.
-// expf is the accurate one (no --use_fast_math); tanh is tanh_f32 below, a
-// branch-free form within a few ulp of tanhf; the softcap's division is a
-// multiplication by 1 / softcap (one f32 rounding apart), as in the forward
-// kernels. There are no atomics and every sum has a fixed order, so two
-// launches agree bitwise.
+// expf is the accurate one (no --use_fast_math); tanh is tanh_f32
+// (sm90.cuh), a branch-free form within a few ulp of tanhf; the softcap's
+// division is a multiplication by 1 / softcap (one f32 rounding apart), as
+// in the forward kernels. There are no atomics and every sum has a fixed
+// order, so two launches agree bitwise.
 //
 // Design: three launches.
 //   1. flash_bwd_delta: one warp a (batch, row, head) sums dout * out over D.
@@ -213,94 +213,6 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// Whether the query at row `qrow` (position q_offset + qrow) sees key kpos:
-// the forward's mask, and rows past Sq see nothing.
-__device__ __forceinline__ bool seen(int qrow, int kpos, int Sq, int Sk,
-                                     int q_offset, int causal, int window) {
-  const int qpos = q_offset + qrow;
-  bool keep = qrow < Sq && kpos < Sk;
-  if (causal) keep = keep && kpos <= qpos;
-  if (window > 0) keep = keep && (qpos - kpos < window);
-  return keep;
-}
-
-// tanh in f32 without a branch (tanhf branches on |y|, and a branch in each
-// score's step keeps the compiler from interleaving the scores): below
-// |y| = 0.55 the odd Taylor polynomial to y^17 (the first term left out is
-// under 3e-9), above it 1 - 2 / (exp(2 |y|) + 1) with y's sign; both are
-// formed and one taken. Within a few f32 ulp of tanh.
-__device__ __forceinline__ float tanh_f32(float y) {
-  const float a = fabsf(y);
-  const float s = y * y;
-  float c = 5.90027440e-4f;    //  6404582 / 10854718875
-  c = fmaf(c, s, -1.45583439e-3f);  // -929569 / 638512875
-  c = fmaf(c, s, 3.59212804e-3f);   //  21844 / 6081075
-  c = fmaf(c, s, -8.86323553e-3f);  // -1382 / 155925
-  c = fmaf(c, s, 2.18694885e-2f);   //  62 / 2835
-  c = fmaf(c, s, -5.39682540e-2f);  // -17 / 315
-  c = fmaf(c, s, 1.33333333e-1f);   //  2 / 15
-  c = fmaf(c, s, -3.33333333e-1f);  // -1 / 3
-  const float small = fmaf(y * s, c, y);
-  const float large = copysignf(1.0f - __fdividef(2.0f, expf(2.0f * a) + 1.0f), y);
-  return a < 0.55f ? small : large;
-}
-
-// x = scale s, capped (softcap tanh(x / softcap)) when kCap, and g = 1 - t^2
-// its derivative's factor (1 without a cap).
-template <bool kCap>
-__device__ __forceinline__ float capped(float s, float scale, float softcap,
-                                        float inv_cap, float& g) {
-  const float x = s * scale;
-  if constexpr (kCap) {
-    const float u = tanh_f32(x * inv_cap);
-    g = 1.0f - u * u;
-    return softcap * u;
-  }
-  g = 1.0f;
-  return x;
-}
-
-// Calls body(cap, mask) with std::bool_constant flags for whether the scores
-// are capped and whether this tile's entries are tested against the mask,
-// so that each score's step carries no branch.
-template <typename F>
-__device__ __forceinline__ void with_flags(bool cap, bool mask, F body) {
-  if (cap) {
-    if (mask) body(std::true_type{}, std::true_type{});
-    else body(std::true_type{}, std::false_type{});
-  } else {
-    if (mask) body(std::false_type{}, std::true_type{});
-    else body(std::false_type{}, std::false_type{});
-  }
-}
-
-// body(r) for the score entries r in [R0, R1), G at a time: each group's
-// values are fenced before and after it (v: the values the steps work on),
-// so the compiler interleaves the steps of a group but not of the next, and
-// the group's temporaries are what the registers must hold beside the
-// carried gradient. G = R1 - R0 leaves the whole range to the compiler.
-template <int R0, int R1, int G, typename F>
-__device__ __forceinline__ void in_groups(float* v, F body) {
-#pragma unroll
-  for (int g = R0; g < R1; g += G) {
-    fence_regs<G>(v + g);
-#pragma unroll
-    for (int r = g; r < g + G; ++r) body(r);
-    fence_regs<G>(v + g);
-  }
-}
-
-// Whether a tile of query rows [q0, q0 + nq) and keys [k0, k0 + nk) has
-// an entry that the mask hides or that lies past Sq or Sk; only such tiles
-// test their entries one by one.
-__device__ __forceinline__ bool tile_masked(int q0, int nq, int k0, int nk,
-                                            int Sq, int Sk, int q_offset,
-                                            int causal, int window) {
-  return q0 + nq > Sq || k0 + nk > Sk ||
-         (causal && k0 + nk - 1 > q_offset + q0) ||
-         (window > 0 && q_offset + q0 + nq - 1 - k0 >= window);
-}
-
 // Byte offset of element (r, c) of a bf16 tile of `Rows` rows and L
 // columns (column blocks of kE, each Rows rows of kRB bytes, swizzled).
 template <int Rows, int L>
@@ -308,14 +220,6 @@ __device__ __forceinline__ uint32_t toff(int r, int c) {
   constexpr int E = L < 64 ? L : 64;
   constexpr int RB = 2 * E;
   return (c / E) * (Rows * RB) + swz<RB>(r * RB + (c % E) * 2);
-}
-
-// Byte offset of element (r, c) of an f32 tile as TMA writes it.
-template <int Rows, int L>
-__device__ __forceinline__ uint32_t foff(int r, int c) {
-  constexpr int E = L < 32 ? L : 32;
-  constexpr int RB = 4 * E;
-  return (c / E) * (Rows * RB) + swz<RB>(r * RB + (c % E) * 4);
 }
 
 // The operand of k-step ks read K-major from a bf16 tile (rows: the M or N
@@ -338,37 +242,6 @@ __device__ __forceinline__ uint64_t mdesc(uint32_t tile, int cb, int kk) {
                    layout_code(RB));
 }
 
-// f32's piece tiles of a streamed tile: in each column block of kE
-// columns, the three pieces' BN-row slabs one after the other, so that a
-// K-major read of 16 BN rows from piece 0 takes pieces 0.. (stacked along
-// N) in one product. Byte offset of element (r, c) of piece k:
-template <int BN, int L>
-__device__ __forceinline__ uint32_t poff(int k, int r, int c) {
-  constexpr int E = L < 64 ? L : 64;
-  constexpr int RB = 2 * E;
-  return (c / E) * (3 * BN * RB) + k * (BN * RB) + swz<RB>(r * RB + (c % E) * 2);
-}
-
-// The stacked pieces' operand of k-step ks, K-major (rows: the N index).
-template <int BN, int L>
-__device__ __forceinline__ uint64_t pdesc(uint32_t pieces, int ks) {
-  constexpr int E = L < 64 ? L : 64;
-  constexpr int RB = 2 * E;
-  return smem_desc(pieces + (16 * ks / E) * (3 * BN * RB) + (16 * ks % E) * 2,
-                   16, 8 * RB, layout_code(RB));
-}
-
-// Piece k's operand of k-step kk read MN-major: its rows 16kk.., column
-// block cb.
-template <int BN, int L>
-__device__ __forceinline__ uint64_t pmdesc(uint32_t pieces, int k, int cb,
-                                           int kk) {
-  constexpr int E = L < 64 ? L : 64;
-  constexpr int RB = 2 * E;
-  return smem_desc(pieces + cb * (3 * BN * RB) + k * (BN * RB) + kk * 16 * RB,
-                   3 * BN * RB, 8 * RB, layout_code(RB));
-}
-
 // Every column box of one tile of `rows` rows (a resident or a streamed
 // tile), at (head, row0, b), into `dst`.
 template <typename T, int L>
@@ -379,27 +252,6 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
 #pragma unroll
   for (int c = 0; c < L / C::kBoxE; ++c)
     tma_load(dst + c * rows * C::kBoxRB, map, c * C::kBoxE, head, row0, b, bar);
-}
-
-// f32: kBN rows of L values at `raw` (TMA's layout) into their three
-// bf16 pieces at `pieces` (poff's layout), by the 128 threads of one
-// warpgroup.
-template <int BN, int L>
-__device__ __forceinline__ void to_pieces(const uint8_t* raw, uint8_t* pieces,
-                                          int t) {
-  constexpr int kUnits = BN * L / 4;
-#pragma unroll 4
-  for (int u = t; u < kUnits; u += 128) {
-    const int r = u / (L / 4);
-    const int c = (u % (L / 4)) * 4;
-    const float4 v = *reinterpret_cast<const float4*>(raw + foff<BN, L>(r, c));
-    uint32_t lo[3], hi[3];
-    split3(v.x, v.y, lo[0], lo[1], lo[2]);
-    split3(v.z, v.w, hi[0], hi[1], hi[2]);
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      *reinterpret_cast<uint2*>(pieces + poff<BN, L>(k, r, c)) = make_uint2(lo[k], hi[k]);
-  }
 }
 
 // acc (64 x kBN, f32) = A . B^T over the L columns: A the block's resident
@@ -423,55 +275,7 @@ __device__ __forceinline__ void score_product(float* acc, uint32_t res,
     wgmma_wait<0>();
     fence_regs<BN / 2>(acc);
   } else {
-    // A's piece a times B's pieces 0..2 - a, stacked along N, in one product
-    // each: acc0 = A0 [B0 B1 B2], acc1 = A1 [B0 B1], acc2 = A2 B0, so that
-    // each of the six piece products has its own columns (the truncating
-    // tensor-core sums never mix a small one into the large one). A is
-    // split from the f32 tile kKG k-steps at a time (two from D = 128 on,
-    // for registers: four spill at 256, and run slower at 128), whose 3 kKG
-    // products go out as one group (the thread's coordinates opaque, so
-    // that its fragment offsets are formed where used rather than held
-    // across items).
-    constexpr int kKG = L >= 128 ? 2 : (L / 16 < 4 ? L / 16 : 4);
-    constexpr int H = BN / 2;  // entries of one piece product
-    float acc0[3 * H], acc1[2 * H], acc2[H];
-    const int t = static_cast<int>(opaque(threadIdx.x)) % 128;
-    const int r0 = 16 * (t / 32) + (t % 32) / 4;
-    const int qd = t % 4;
-#pragma unroll
-    for (int k0 = 0; k0 < L / 16; k0 += kKG) {
-      uint32_t f[kKG][3][4];
-#pragma unroll
-      for (int kk = 0; kk < kKG; ++kk)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int row = r0 + 8 * (q & 1);
-          const int col = 16 * (k0 + kk) + 2 * qd + 8 * (q >> 1);
-          const float2 v = *reinterpret_cast<const float2*>(
-              res_g + foff<kRows, L>(row, col));
-          split3(v.x, v.y, f[kk][0][q], f[kk][1][q], f[kk][2][q]);
-        }
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kKG; ++kk) {
-        const int ks = k0 + kk;
-        wgmma_rs<BN, 0>(acc2, f[kk][2], pdesc<BN, L>(opaque(tile), ks), ks > 0);
-        wgmma_rs<2 * BN, 0>(acc1, f[kk][1], pdesc<BN, L>(opaque(tile), ks), ks > 0);
-        wgmma_rs<3 * BN, 0>(acc0, f[kk][0], pdesc<BN, L>(opaque(tile), ks), ks > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();  // the fragments are free for the next group
-    }
-    fence_regs<3 * H>(acc0);
-    fence_regs<2 * H>(acc1);
-    fence_regs<H>(acc2);
-    // the pieces' columns of an entry: piece b's entry r is at b H + r
-    // (a column block of BN is BN / 8 groups of 8); the small ones summed
-    // smallest first, then the large one
-#pragma unroll
-    for (int r = 0; r < H; ++r)
-      acc[r] = acc0[r] + ((((acc2[r] + acc1[H + r]) + acc0[2 * H + r]) + acc1[r]) +
-                          acc0[H + r]);
+    split_scores<BN, L>(acc, res_g, tile);
   }
 }
 
@@ -1041,39 +845,6 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap tm_q,
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-// A TMA descriptor for one (B, S, NH, DT) tensor of T: boxes of `rows` rows
-// of one head and the layout's box columns, swizzled as the kernels read
-// them. At DT 96 and 112 the last boxes of a row run past DT, and TMA fills
-// those columns with zeros.
-template <typename T, int L>
-cudaError_t encode(CUtensorMap* map, const void* ptr, int B, int S, int NH,
-                   int DT, int rows) {
-  using C = Cfg<T, L>;
-  EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t e = sizeof(T);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DT),
-                              static_cast<cuuint64_t>(NH),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(DT) * e,
-                                 static_cast<cuuint64_t>(NH) * DT * e,
-                                 static_cast<cuuint64_t>(S) * NH * DT * e};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(C::kBoxE), 1,
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw =
-      C::kBoxRB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                       : (C::kBoxRB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                          : CU_TENSOR_MAP_SWIZZLE_32B);
-  const CUresult rc = fn(
-      map, C::kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      4, const_cast<void*>(ptr), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // The three kernels of layout head dim L on tensors of true head dim DT.
 template <typename T, int L, int DT = L>
 cudaError_t launch(const void* q, const void* k, const void* v,
@@ -1098,16 +869,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  // resident tiles: 64 rows; streamed tiles: kBN rows
+  // resident tiles: 64 rows; streamed tiles: kBN rows (encode_heads in
+  // sm90.cuh: at DT 96 and 112 TMA reads the columns past DT as zeros)
   CUtensorMap q_res, do_res, k_res, v_res, q_str, do_str, k_str, v_str;
-  err = encode<T, L>(&q_res, q, B, Sq, H, DT, kRows);
-  if (err == cudaSuccess) err = encode<T, L>(&do_res, dout, B, Sq, H, DT, kRows);
-  if (err == cudaSuccess) err = encode<T, L>(&k_res, k, B, Sk, KV, DT, kRows);
-  if (err == cudaSuccess) err = encode<T, L>(&v_res, v, B, Sk, KV, DT, kRows);
-  if (err == cudaSuccess) err = encode<T, L>(&q_str, q, B, Sq, H, DT, C::kBN);
-  if (err == cudaSuccess) err = encode<T, L>(&do_str, dout, B, Sq, H, DT, C::kBN);
-  if (err == cudaSuccess) err = encode<T, L>(&k_str, k, B, Sk, KV, DT, C::kBN);
-  if (err == cudaSuccess) err = encode<T, L>(&v_str, v, B, Sk, KV, DT, C::kBN);
+  err = encode_heads(&q_res, q, C::kF32, B, Sq, H, DT, C::kBoxE, kRows);
+  if (err == cudaSuccess)
+    err = encode_heads(&do_res, dout, C::kF32, B, Sq, H, DT, C::kBoxE, kRows);
+  if (err == cudaSuccess)
+    err = encode_heads(&k_res, k, C::kF32, B, Sk, KV, DT, C::kBoxE, kRows);
+  if (err == cudaSuccess)
+    err = encode_heads(&v_res, v, C::kF32, B, Sk, KV, DT, C::kBoxE, kRows);
+  if (err == cudaSuccess)
+    err = encode_heads(&q_str, q, C::kF32, B, Sq, H, DT, C::kBoxE, C::kBN);
+  if (err == cudaSuccess)
+    err = encode_heads(&do_str, dout, C::kF32, B, Sq, H, DT, C::kBoxE, C::kBN);
+  if (err == cudaSuccess)
+    err = encode_heads(&k_str, k, C::kF32, B, Sk, KV, DT, C::kBoxE, C::kBN);
+  if (err == cudaSuccess)
+    err = encode_heads(&v_str, v, C::kF32, B, Sk, KV, DT, C::kBoxE, C::kBN);
   if (err != cudaSuccess) return err;
 
   err = cudaFuncSetAttribute(flash_bwd_dkdv<T, L>,

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) forward flash attention in bf16 on the tensor cores: the
-// same function as the CUDA-core kernel in flash_attention.cu (which keeps
-// the float32 route),
+// same function as the kernel in flash_attention.cu (the float32 route,
+// whose operands go to the bf16 tensor cores in three pieces each),
 //
 //     s   = (q . k) / sqrt(D)                              (f32)
 //     s   = softcap * tanh(s / softcap)          when softcap > 0
@@ -16,10 +16,10 @@
 //
 // Replaces the TPU kernel `flash_attention_pallas` in
 // src/repro/kernels/flash_attention.py (`_flash_kernel` at line 27,
-// pallas_call at line 95) for bf16 inputs, as the CUDA-core kernel did
-// before it; what it keeps from the TPU kernel and what differs (the exact
-// skip of fully masked KV tiles, the safe running max, the right-pad mask
-// against the true Sk) is said in flash_attention.cu and holds here too.
+// pallas_call at line 95) for bf16 inputs; what it keeps from the TPU
+// kernel and what differs (the exact skip of fully masked KV tiles, the
+// safe running max, the right-pad mask against the true Sk) is said in
+// flash_attention.cu and holds here too.
 //
 // What bounds it on an H100: at the gemma2-9b prefill shape (B=4, H=16,
 // KV=8, S=4608, D=256) the work is 4 B H D per unmasked (query, key) pair,

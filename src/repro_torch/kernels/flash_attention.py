@@ -1,15 +1,18 @@
 """Build, binding and launch of the Hopper flash-attention kernels.
 
-Two hand-written forward kernels compute one function, and the dtype picks
-the route (``route``):
+Two hand-written forward kernels compute one function, both on the bf16
+tensor cores by ``wgmma`` with TMA loads, and the dtype picks the route
+(``route``):
 
 * ``wgmma`` (``csrc/flash_attention_wgmma.cu``) takes bfloat16 at every
-  head dim: TMA loads into an mbarrier-guarded K/V ring, ``wgmma``
-  tensor-core products and warp specialisation, with P split into two bf16
-  halves so that P.V keeps f32 accuracy;
-* ``cuda-core`` (``csrc/flash_attention.cu``) takes float32: f32 FMAs on the
-  CUDA cores, as exact as the plain version's tolerance asks (TF32 tensor
-  cores would not be).
+  head dim: an mbarrier-guarded K/V ring and warp specialisation, with P
+  split into two bf16 halves so that P.V keeps f32 accuracy;
+* ``wgmma-f32`` (``csrc/flash_attention.cu``) takes float32: every operand
+  (q, k, v and P) split into three bf16 pieces, which hold it exactly, each
+  product the sum of its six piece products with a + b <= 2, so that the
+  result is as exact as the plain version's tolerance asks (TF32, or one
+  bf16 rounding, would not be). ``ref.attention_ref(in_pieces=3,
+  mid_pieces=3)`` emulates it.
 
 Both replace the TPU kernel
 ``repro.kernels.flash_attention.flash_attention_pallas``; their sources say
@@ -19,7 +22,8 @@ source, the backward (``csrc/flash_attention_bwd.cu``: dq, dk and dv on the
 bf16 tensor cores by ``wgmma`` with TMA loads, both dtypes, routed by
 ``bwd_route``; ``flash_attention_bwd_cuda``), reads. The reference has no
 backward kernel: JAX differentiates its plain path. All three take
-the models' layout, q (B, Sq, H, D) and k/v (B, Sk, KV, D), contiguous, D
+the models' layout, q (B, Sq, H, D) and k/v (B, Sk, KV, D), contiguous and
+16-byte aligned (TMA reads them; ``ops.tma_operand`` hands them over so), D
 in ``HEAD_DIMS``. Head dims 96 and 112 run the 128 layout with the columns
 past D zero-filled inside the kernel (``layout_head_dim``): no copy is made
 on the host, and the result is the unpadded function. This module builds
@@ -44,30 +48,31 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.build import SHARED_MEMORY_BUDGET
 
 __all__ = ["SOURCE", "WGMMA_SOURCE", "BWD_SOURCE", "SOURCES", "ROUTES",
-           "BLOCK_Q", "BLOCK_K", "WGMMA_BLOCK_Q", "STAGES", "BWD_ROWS",
+           "BLOCK_Q", "BLOCK_K", "F32_ROWS", "STAGES", "BWD_ROWS",
            "BWD_ROUTES", "HEAD_DIMS", "DTYPES", "route", "bwd_route",
-           "layout_head_dim", "shared_memory_bytes", "bwd_block_n",
+           "layout_head_dim", "f32_block_n", "shared_memory_bytes",
+           "bwd_block_n",
            "bwd_shared_memory_bytes",
            "check_args", "check_bwd_args", "flash_attention_cuda",
            "flash_attention_bwd_cuda"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = _CSRC / "flash_attention.cu"  # the cuda-core route
+SOURCE = _CSRC / "flash_attention.cu"  # the wgmma-f32 route
 WGMMA_SOURCE = _CSRC / "flash_attention_wgmma.cu"  # the wgmma route
 BWD_SOURCE = _CSRC / "flash_attention_bwd.cu"  # the gradients, both dtypes
 SOURCES = (SOURCE, WGMMA_SOURCE, BWD_SOURCE)
-ROUTES = ("wgmma", "cuda-core")
+ROUTES = ("wgmma", "wgmma-f32")
 
-BLOCK_Q = BLOCK_K = 64  # kBQ, kBK in flash_attention.cu (and kBK of wgmma)
-PAD = 4  # kPad
-WGMMA_BLOCK_Q = 128  # kBQ in flash_attention_wgmma.cu: two warpgroups
+BLOCK_Q = 128  # kBQ in both forward sources: two warpgroups of 64 rows
+BLOCK_K = 64  # kBK in flash_attention_wgmma.cu: the keys of a ring stage
+F32_ROWS = 64  # kRows in flash_attention.cu: a warpgroup's f32 Q tile
 STAGES = 2  # kStages: the K/V ring
-_WGMMA_EXTRA = 64 + 1024  # barriers, and slack to align the ring to 1 KB
+_WGMMA_EXTRA = 64 + 1024  # barriers, and slack to align the tiles to 1 KB
 BWD_ROWS = 64  # kRows in flash_attention_bwd.cu: a block's resident tile
 BWD_ROUTES = ("wgmma", "wgmma-f32")  # the backward's, by dtype (bwd_route)
 BWD_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # its `dtype`
 # head dim -> the layout its instantiation runs (``launch<..., layout, D>``
-# in both sources' switch): 96 and 112 (phi3-mini, zamba2-7b) run the 128
+# in every source's switch): 96 and 112 (phi3-mini, zamba2-7b) run the 128
 # layout, whose columns past D the kernels fill with zeros and never store
 _LAYOUT = {16: 16, 64: 64, 96: 128, 112: 128, 128: 128, 256: 256}
 HEAD_DIMS = tuple(_LAYOUT)
@@ -77,14 +82,14 @@ _INT_MAX = 2 ** 31 - 1
 
 def route(dtype, D: int) -> str:
     """The kernel a call with this dtype and head dim launches: bfloat16
-    takes ``"wgmma"``, float32 ``"cuda-core"``."""
+    takes ``"wgmma"``, float32 ``"wgmma-f32"``."""
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} is not one of "
                          f"{HEAD_DIMS}")
     if dtype == torch.bfloat16:
         return "wgmma"
     if dtype == torch.float32:
-        return "cuda-core"
+        return "wgmma-f32"
     raise ValueError(f"flash_attention: dtype {dtype} is not one of "
                      f"{sorted(map(str, DTYPES))}")
 
@@ -96,18 +101,28 @@ def layout_head_dim(D: int) -> int:
     return _LAYOUT.get(D, D)
 
 
+def f32_block_n(D: int) -> int:
+    """Keys of a tile that the float32 kernels stage in f32 and split into
+    three bf16 pieces (``Cfg::kBN`` of the forward's wgmma-f32 route, and
+    of the backward's f32 streamed tiles): 16 in the 256 layout, where
+    227 KB hold little beside the f32 resident tiles, and 32 below."""
+    return 16 if layout_head_dim(D) == 256 else 32
+
+
 def shared_memory_bytes(D: int, route: str) -> int:
     """Dynamic shared memory of one block, in the layout of
-    ``layout_head_dim(D)``. cuda-core: f32 Q and K tiles (rows padded by
-    4), the V tile and the P tile. wgmma: bf16 Q for 128 rows and a ring of
-    K and V stages, with the barriers and the alignment slack."""
-    D = layout_head_dim(D)
-    if route == "cuda-core":
-        return 4 * (BLOCK_Q * (D + PAD) + BLOCK_K * (D + PAD) + BLOCK_K * D
-                    + BLOCK_Q * (BLOCK_K + PAD))
+    ``layout_head_dim(D)``, with the barriers and the alignment slack.
+    wgmma: bf16 Q for 128 rows and a ring of K and V stages. wgmma-f32
+    (``Cfg::kBytes`` of ``csrc/flash_attention.cu``): f32 Q for 128 rows,
+    a staging slot of ``f32_block_n`` f32 keys of K and of V, and the three
+    bf16 piece tiles of each."""
+    L = layout_head_dim(D)
+    if route == "wgmma-f32":
+        bn = f32_block_n(D)
+        return (2 * F32_ROWS * L * 4 + 2 * bn * L * 4 + 2 * 3 * bn * L * 2
+                + _WGMMA_EXTRA)
     if route == "wgmma":
-        return 2 * (WGMMA_BLOCK_Q * D + 2 * STAGES * BLOCK_K * D) \
-            + _WGMMA_EXTRA
+        return 2 * (BLOCK_Q * L + 2 * STAGES * BLOCK_K * L) + _WGMMA_EXTRA
     raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
 
 
@@ -128,7 +143,7 @@ def bwd_block_n(D: int, dtype) -> int:
     N, up to 3 x 32)."""
     if bwd_route(dtype, D) == "wgmma":
         return 64
-    return 16 if layout_head_dim(D) == 256 else 32
+    return f32_block_n(D)
 
 
 def bwd_shared_memory_bytes(D: int, dtype) -> int:
@@ -205,11 +220,10 @@ def check_args(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention: D={D} on the {kernel} route "
                          f"needs {need} bytes of shared memory, above the "
                          f"{SHARED_MEMORY_BUDGET}-byte budget of one block")
-    if kernel == "wgmma":
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"flash_attention: {name}'s data must be "
-                                 "16-byte aligned for TMA")
+    for name, t in (("q", q), ("k", k), ("v", v)):  # both routes
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name}'s data must be "
+                             "16-byte aligned for TMA")
 
 
 def check_bwd_args(q, k, v, out, lse, dout, *, causal: bool = True,

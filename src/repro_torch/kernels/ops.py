@@ -12,7 +12,6 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                  flash_attention_cuda)
-from repro_torch.kernels.flash_attention import route as flash_route
 from repro_torch.kernels.sodda_inner import sodda_inner_cuda
 from repro_torch.kernels.ssd_scan import route as ssd_route
 from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK
@@ -63,8 +62,9 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     ``force="auto"`` launches the CUDA kernel for CUDA tensors and runs
     :func:`ref.attention_ref` for CPU tensors; ``"cuda"`` requires CUDA
     tensors; ``"ref"`` runs the plain version on any device. Inputs are
-    made contiguous, and on the wgmma route (bf16) 16-byte aligned, with a
-    copy only where they are not (:func:`tma_operand`); nothing is padded.
+    made contiguous and 16-byte aligned (both routes read them with TMA),
+    with a copy only where they are not (:func:`tma_operand`); nothing is
+    padded.
     A kernel call in grad mode whose q, k or v requires grad goes through a
     ``torch.autograd.Function`` (``_FlashAttention``): the forward kernel
     also writes its rows' log-sum-exp, and the backward is the backward
@@ -96,10 +96,8 @@ flash_attention.launches = 0
 
 
 def _flash_operands(q, k, v):
-    """q, k, v as the forward kernel of their route reads them."""
-    operand = (tma_operand if flash_route(q.dtype, q.shape[-1]) == "wgmma"
-               else torch.Tensor.contiguous)
-    return operand(q), operand(k), operand(v)
+    """q, k, v as the forward kernels read them (TMA, on both routes)."""
+    return tma_operand(q), tma_operand(k), tma_operand(v)
 
 
 class _FlashAttention(torch.autograd.Function):

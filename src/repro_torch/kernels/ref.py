@@ -46,7 +46,7 @@ P_SPLITS = (0, 1, 2)
 def split_p(p, p_split: int = 0):
     """The weights P as a tensor-core P.V product sees them (f32 out).
 
-    0: P in f32 (the CUDA-core kernel); 1: P rounded once to bf16 (the
+    0: P in f32 (the plain arithmetic); 1: P rounded once to bf16 (the
     textbook Hopper kernel: a control); 2: p_hi + p_lo with p_hi = bf16(p)
     and p_lo = bf16(p - p_hi), the two bf16 operands the wgmma kernel
     multiplies into one f32 accumulator. p_hi is within 2^-8 |p| of p,
@@ -65,13 +65,24 @@ def split_p(p, p_split: int = 0):
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                   softcap: float = 0.0, chunk: int = 512, q_offset: int = 0,
-                  p_split: int = 0, return_lse: bool = False):
+                  p_split: int = 0, return_lse: bool = False,
+                  in_pieces: int = 0, mid_pieces: int = 0):
     """q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D).
 
     `q_offset`: absolute position of q[0] (for decode: q_offset = cache_len).
     GQA: query head h attends to kv head h // (H // KV).
     `p_split`: how P enters P.V (``split_p``); the row sums l always take
     the f32 P, as the kernels do.
+    `in_pieces` and `mid_pieces` (not with `p_split`) take both products
+    as the float32 kernel's bf16 tensor cores take them
+    (``csrc/flash_attention.cu``; ``_split_product``): q, k and v in
+    `in_pieces` bf16 pieces, P in `mid_pieces` (``bf16_pieces``), the
+    piece products with a + b <= 2 summed smallest first, each key chunk's
+    P.V fresh and added to the rescaled output in f32. The kernel takes
+    (3, 3); (1, 1), every operand rounded once to bf16, is the split
+    control. The defaults (0, 0) are the f32 arithmetic, bitwise the
+    function without the options. The sums run in this function's order
+    (whole key chunks of `chunk`), not the kernel's tiles'.
     `return_lse`: also return each row's log-sum-exp of its scores,
     lse = m + log(max(l, 1e-37)) in f32, (B, H, Sq): what the kernels save
     for the backward (``attention_grads``); -inf for a row that sees no
@@ -91,6 +102,14 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     _, Sk, KV, _ = k.shape
     if H % KV:
         raise ValueError(f"attention_ref: H={H} is not a multiple of KV={KV}")
+    for name, pieces in (("in_pieces", in_pieces),
+                         ("mid_pieces", mid_pieces)):
+        if pieces not in BWD_PIECES:
+            raise ValueError(f"{name} must be one of {BWD_PIECES}, got "
+                             f"{pieces}")
+    if p_split and (in_pieces or mid_pieces):
+        raise ValueError("p_split (the bf16 kernel's P) and "
+                         "in_pieces/mid_pieces (the f32 kernel) do not mix")
     group = H // KV
     # 1 / sqrt(D), rounded to q's dtype before the division, as the reference
     scale = 1.0 / torch.tensor(math.sqrt(D), dtype=torch.float32).to(q.dtype)
@@ -107,7 +126,8 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     for c0 in range(0, Sk, chunk):
         kb, vb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
         kpos = c0 + torch.arange(kb.shape[1], device=q.device)
-        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb.float()) * scale
+        s = _split_product("bqhd,bkhd->bhqk", qf, kb.float(), in_pieces,
+                           in_pieces) * scale
         if softcap > 0:
             s = softcap * torch.tanh(s / softcap)
         mask = torch.ones(Sq, kb.shape[1], dtype=torch.bool, device=q.device)
@@ -121,8 +141,9 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         p = torch.exp(s - m_use[..., None])
         alpha = torch.exp(m - m_use)
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bhqk,bkhd->bhqd", split_p(p, p_split), vb.float())
+        acc = acc * alpha[..., None] + _split_product(
+            "bhqk,bkhd->bhqd", split_p(p, p_split), vb.float(), mid_pieces,
+            in_pieces)
         m = m_new
     out = acc / torch.clamp_min(l, 1e-37)[..., None]
     out = out.transpose(1, 2).to(q.dtype)

@@ -14,9 +14,9 @@ the softmax (the port's unaligned non-causal case is held against
 ``attention_naive`` only); and its ``attention_ref`` returns NaN for a row
 whose first chunk the window masks entirely.
 
-Two kernels take the card's calls: bf16 the wgmma one, f32 the CUDA-core
-one (``route``); the tests here pin that choice and each layout's shared
-memory. The one test that needs the card (marked ``gpu``) holds both
+Two kernels take the card's calls, both on the tensor cores: bf16 the
+wgmma one, f32 the wgmma-f32 one (three-piece bf16 splits; ``route``); the
+tests here pin that choice and each layout's shared memory. The one test that needs the card (marked ``gpu``) holds both
 kernels against the plain version there, bf16 also to the rounding rule of
 ``chip_smoke.py``; it decides inside its body whether to skip, and this
 module imports jax only inside the tests that compare with the JAX
@@ -255,14 +255,17 @@ def test_check_args_takes_every_head_dim_in_both_dtypes(D):
 
 
 def test_shared_memory_budget_holds_at_head_dim_256():
-    """Both layouts at gemma2's head dim, pinned: f32 tiles on the
-    cuda-core route, bf16 Q and a two-stage K/V ring on the wgmma route."""
-    need = kernel.shared_memory_bytes(256, "cuda-core")
-    assert need == 4 * (64 * 260 * 2 + 64 * 256 + 64 * 68) == 216_064
+    """Both layouts at gemma2's head dim, pinned: on the wgmma-f32 route f32
+    Q for 128 rows, a staging slot of 16 f32 keys of K and V and their bf16
+    piece tiles; bf16 Q and a two-stage K/V ring on the wgmma route."""
+    need = kernel.shared_memory_bytes(256, "wgmma-f32")
+    assert kernel.f32_block_n(256) == 16
+    assert need == (2 * 64 * 256 * 4 + 2 * 16 * 256 * 4
+                    + 2 * 3 * 16 * 256 * 2 + 64 + 1024) == 214_080
     wgmma = kernel.shared_memory_bytes(256, "wgmma")
     assert wgmma == 2 * (128 * 256 + 2 * 2 * 64 * 256) + 64 + 1024 == 197_696
     assert max(need, wgmma) <= kernel.SHARED_MEMORY_BUDGET
-    assert kernel.shared_memory_bytes(16, "cuda-core") < need
+    assert kernel.shared_memory_bytes(16, "wgmma-f32") < need
 
 
 @pytest.mark.parametrize("route", kernel.ROUTES)
@@ -276,8 +279,11 @@ def test_shared_memory_budget_holds_for_every_route_and_head_dim(route, D):
 
 @pytest.mark.parametrize("D", kernel.HEAD_DIMS)
 def test_route_picks_wgmma_for_bf16_and_cuda_core_for_f32(D):
+    """Named for the route f32 took before its tensor-core redesign: f32
+    now takes ``wgmma-f32``, the name the SSD scan's and the flash
+    backward's f32 routes have."""
     assert kernel.route(torch.bfloat16, D) == "wgmma"
-    assert kernel.route(torch.float32, D) == "cuda-core"
+    assert kernel.route(torch.float32, D) == "wgmma-f32"
     assert {kernel.route(t, D) for t in kernel.DTYPES} == \
         set(kernel.ROUTES)
 
@@ -371,7 +377,7 @@ def test_cuda_kernel_matches_plain_on_the_card():
     """Kernel vs plain version on the card, causal, window, softcap,
     non-causal, unaligned S and a decode offset: every head dim (96 and 112
     zero-padded to the 128 layout inside the kernels) in f32 (the
-    cuda-core route; rtol = atol = 2e-5) and bf16 (the wgmma route; 1e-2,
+    wgmma-f32 route; rtol = atol = 2e-5) and bf16 (the wgmma route; 1e-2,
     and the rounding rule of chip_smoke.py: each output within half a bf16
     ulp of the plain version on f32 copies plus 2^-18 max|v|, which P
     rounded to bf16 and scores rounded to bf16 must both fail); two

@@ -1,11 +1,12 @@
-"""bf16 views whose data is not 16-byte aligned, on the wgmma routes.
+"""Views whose data is not 16-byte aligned, on the wgmma routes.
 
-TMA reads the wgmma kernels' operands (q, k, v of ``flash_attention``; x,
-B, C of ``ssd_scan``), and TMA wants their data 16-byte aligned. A
-contiguous view such as ``buf[1:1 + n].view(shape)`` of a bf16 buffer
-starts 2 bytes past that, so ``ops`` hands such an operand to the kernel
-through ``ops.tma_operand``: the tensor itself where it is contiguous and
-aligned, else a contiguous, aligned copy. ``check_args`` still refuses an
+TMA reads the wgmma kernels' operands (q, k, v of ``flash_attention`` on
+both its routes, bf16 and f32; x, B, C of ``ssd_scan``), and TMA wants
+their data 16-byte aligned. A contiguous view such as
+``buf[1:1 + n].view(shape)`` of a bf16 or f32 buffer starts 2 or 4 bytes
+past that, so ``ops`` hands such an operand to the kernel through
+``ops.tma_operand``: the tensor itself where it is contiguous and aligned,
+else a contiguous, aligned copy. ``check_args`` still refuses an
 unaligned operand (``tests/test_torch_ssd_route.py``).
 
 On the CPU the helper is held on CPU tensors. The test marked ``gpu``
@@ -64,14 +65,17 @@ def test_strided_view_is_made_contiguous_once():
 
 
 def test_check_args_still_refuses_an_unaligned_operand():
-    """The helper repairs ``ops``; the kernel's own check is unchanged."""
-    q = _offset_view(_randn(1, 64, 2, 64))
-    k, v = _randn(1, 64, 1, 64, seed=1), _randn(1, 64, 1, 64, seed=2)
-    with pytest.raises(ValueError, match="aligned"):
-        flash.check_args(q, k, v)
-    with pytest.raises(ValueError, match="aligned"):
-        flash.check_args(ops.tma_operand(q).clone(), _offset_view(k), v)
-    flash.check_args(ops.tma_operand(q), k, v)
+    """The helper repairs ``ops``; the kernel's own check refuses an
+    unaligned operand on both routes (f32's reads q, k and v with TMA
+    too)."""
+    for dtype in (BF16, torch.float32):
+        q = _offset_view(_randn(1, 64, 2, 64).to(dtype))
+        k, v = (_randn(1, 64, 1, 64, seed=s).to(dtype) for s in (1, 2))
+        with pytest.raises(ValueError, match="aligned"):
+            flash.check_args(q, k, v)
+        with pytest.raises(ValueError, match="aligned"):
+            flash.check_args(ops.tma_operand(q).clone(), _offset_view(k), v)
+        flash.check_args(ops.tma_operand(q), k, v)
 
 
 def _ssd_args(device, S=300, H=4, P=64, N=128):
@@ -102,20 +106,22 @@ def test_offset_views_on_the_cpu_take_the_plain_version_unchanged():
 
 @pytest.mark.gpu
 def test_offset_bf16_views_run_the_wgmma_routes_bitwise():
-    """Offset bf16 views of q/k/v and x/B/C launch the wgmma kernels and
-    give bitwise the output of the aligned copies."""
+    """Offset bf16 views of q/k/v and x/B/C, and offset f32 views of q/k/v,
+    launch the wgmma kernels and give bitwise the output of the aligned
+    copies."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: python -m pytest "
                     "-m gpu tests/test_torch_tma_alignment.py)")
-    q, k, v = (_randn(2, 200, h, 64, device="cuda", seed=s)
-               for s, h in ((0, 4), (1, 2), (2, 2)))
-    assert flash.route(BF16, 64) == "wgmma"
-    want = ops.flash_attention(q, k, v, force="cuda")
-    views = [_offset_view(t) for t in (q, k, v)]
-    assert all(t.data_ptr() % ops.TMA_ALIGNMENT for t in views)
-    got = ops.flash_attention(*views, force="cuda")
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    for dtype, route in ((BF16, "wgmma"), (torch.float32, "wgmma-f32")):
+        q, k, v = (_randn(2, 200, h, 64, device="cuda", seed=s).to(dtype)
+                   for s, h in ((0, 4), (1, 2), (2, 2)))
+        assert flash.route(dtype, 64) == route
+        want = ops.flash_attention(q, k, v, force="cuda")
+        views = [_offset_view(t) for t in (q, k, v)]
+        assert all(t.data_ptr() % ops.TMA_ALIGNMENT for t in views)
+        got = ops.flash_attention(*views, force="cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), dtype
 
     args = _ssd_args("cuda")
     assert ssd.route(BF16, 64, 128) == "wgmma"
