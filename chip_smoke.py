@@ -141,7 +141,12 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
    and with q, k, v bf16 views whose data is not 16-byte aligned (bitwise
    the aligned copies' output), and times it at the gemma2, zamba2 and
    phi3-mini layer shapes beside its bound, its plain version and
-   ``scaled_dot_product_attention``, and in f32 at zamba2's layer beside
+   ``scaled_dot_product_attention``; holds and times it the same way at
+   the other dense-stack layers: chatglm3-6b's (4, 32, 2, 4064, 128), a
+   GQA group of 16, internvl2-26b's (4, 48, 8, 4064, 128), a group of 6,
+   minitron-8b's (4, 32, 8, 4064, 128) and musicgen-large's (4, 32, 32,
+   1468, 64); holds f32 at groups 6 and 16 (unaligned, causal, and window
+   + softcap); and times it in f32 at zamba2's layer beside
    both bounds (the tensor cores' split products and the CUDA cores' f32
    rate) and that call in f32.
    bf16 takes the wgmma kernel, f32 the wgmma-f32 one (its registers by
@@ -164,7 +169,28 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     to the rounding rule of 13 (both controls failing it), and the rms gap of
     the kernel path's logits to the plain path's to 1.2x the plain path's
     gap to itself summed in another order;
-16. holds ``ssd_scan`` against its plain chunked version at the mamba2-130m
+16. runs phi3-mini-3.8b, minitron-8b, chatglm3-6b, musicgen-large and
+    internvl2-26b at full width, cut to 4 layers, in f32, through ``serve``
+    with the kernel (4 launches on the wgmma-f32 route) and with the plain
+    version, on 2 x 1024 prompt tokens (internvl2: 256 stand-in frontend
+    embeddings of ``input_specs``' shape ahead of 2 x 768): prefill logits
+    and 8 decode steps' logits within 2e-4, and 8 greedy tokens identical;
+17. serves each of the five at full depth in bf16, one on the card at a
+    time (``serve``, the dense stack's other main paths, with the flash
+    launch count set to 0 just before each call and read just after): 4
+    requests of 4064 prompt tokens for 32 tokens each (internvl2: 256
+    frontend embeddings + 3808 text tokens; musicgen: 1468 codec tokens),
+    exactly L launches in the prefill (32, 32, 28, 48, 48) and none in
+    decode, on the wgmma route, finite logits, and prefill time, decode
+    time per token and peak device memory beside their floors (the
+    non-embedding weights' FLOP at the bf16 peak; the bf16 weights read
+    at the HBM rate); then the first, middle and last layers' attention
+    on the plain path's activations (the plain path taking 1 / sqrt(D) in
+    f32, as the kernel does) held to the rounding rule of 13, both
+    controls failing it, and the rms gap of the kernel path's logits to
+    the plain path's to 1.2x the plain path's gap to itself summed in
+    another order;
+18. holds ``ssd_scan`` against its plain chunked version at the mamba2-130m
     serving layer shape (B=16, S=2048, H=24, P=64, G=1, N=128), with
     Mamba-2's dt and A and a slow-decay case, at the training layer (8,
     2048, 24, 64, 1, 128), at S = 1000, at an unaligned (4, 1000, 8, 16, 2,
@@ -184,12 +210,12 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     (the least of the work at the dtype's peak and as the split
     tensor-core products take it) at the mamba2 serving and training and
     the zamba2 layer shapes;
-17. runs full-depth mamba2-130m in f32 (B=2, 1024 prompt tokens, Mamba-2's
+19. runs full-depth mamba2-130m in f32 (B=2, 1024 prompt tokens, Mamba-2's
     A_log and dt_bias): the kernel path's prefill logits within 2e-4 of the
     plain path's and of the decode warm-up's last logits (the scan against
     the recurrence), and 8 decode steps' logits, fed random tokens, within
     2e-4 of the scan's at the same positions;
-18. serves 16 requests of 2048 prompt tokens for 32 tokens each through
+20. serves 16 requests of 2048 prompt tokens for 32 tokens each through
     full-depth bf16 mamba2-130m (``serve``, the third main path, with the
     SSD launch counts set to 0 just before it): 24 launches in the
     prefill, all on the wgmma route, and none in the warm-up or decode,
@@ -197,7 +223,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     and peak device memory. Then each of the 24 layers' SSD, on the plain
     path's activations, is held to the rounding rule of 13, every control
     failing it;
-19. runs zamba2-7b at full width, cut to 12 layers (2 sites of the shared
+21. runs zamba2-7b at full width, cut to 12 layers (2 sites of the shared
     attention + MLP block), in f32 (B=2, 256 prompt tokens, Mamba-2's
     A_log and dt_bias): every flash launch (D = 112, the wgmma-f32 route)
     and every SSD launch on the plain path's activations within 1e-4 of
@@ -205,7 +231,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     decode warm-up's last logits against the plain path's, their rms gaps
     within 2x the floor (the plain path at chunk 64), a carry-dropping
     control outside it;
-20. serves full-size bf16 zamba2-7b (81 layers, 13 sites; ``serve``, the
+22. serves full-size bf16 zamba2-7b (81 layers, 13 sites; ``serve``, the
     fourth main path, with the flash and SSD launch counts set to 0 just
     before each call and read just after): the prefill alone on 4 x 4096
     prompt tokens (13 flash launches at D = 112 and 81 SSD launches, all
@@ -214,7 +240,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     (the same launches in its prefill, none in the warm-up or decode;
     prefill, warm-up and decode times, peak memory), and prints each
     kernel's share of the 4 x 4096 prefill;
-21. holds the SSD scan's backward kernel (``ops.ssd_scan_bwd``, on the
+23. holds the SSD scan's backward kernel (``ops.ssd_scan_bwd``, on the
     tensor cores) against its plain gradient (autograd through the
     chunked scan in f32 at chunk 64) at mamba2-130m's training layer (8,
     2048, 24, 64, 1, 128) in f32 and bf16, at zamba2-7b's (2, 4096, 112,
@@ -228,7 +254,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     the two layers beside the earlier CUDA-core design's time, its bound
     (the CUDA cores' f32 rate for f32), the tensor-core route's bound (its
     split products at the bf16 rate) and the plain version;
-22. holds the flash-attention backward kernel (``ops.flash_attention_bwd``,
+24. holds the flash-attention backward kernel (``ops.flash_attention_bwd``,
     on the tensor cores) against its plain version (``ref.attention_grads``)
     on the out and lse of the card's forward kernel (whose out must be
     bitwise the forward's without lse, its lse within 1e-5 of the plain
@@ -246,7 +272,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     expanded), and the f32 forward with its lse at the three layers
     beside both bounds and, where the layer has no window, the kernel and
     ``scaled_dot_product_attention`` in f32 on the softcap-free function;
-23. trains mamba2-130m on the card, f32: (a) cut to 4 layers at full
+25. trains mamba2-130m on the card, f32: (a) cut to 4 layers at full
     width (2 x 1024 tokens), the kernel path's loss and every gradient
     leaf within F32_REDUCTION of the plain path's, the carry-dropping
     control outside, and remat='full' bitwise remat='none' with twice the
@@ -301,7 +327,12 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
+from repro_torch.configs.chatglm3_6b import CONFIG as CHATGLM3_6B  # noqa: E402
 from repro_torch.configs.gemma2_9b import CONFIG as GEMMA2_9B  # noqa: E402
+from repro_torch.configs.internvl2_26b import CONFIG as INTERNVL2_26B  # noqa: E402
+from repro_torch.configs.minitron_8b import CONFIG as MINITRON_8B  # noqa: E402
+from repro_torch.configs.musicgen_large import CONFIG as MUSICGEN_LARGE  # noqa: E402
+from repro_torch.configs.phi3_mini import CONFIG as PHI3_MINI  # noqa: E402
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M  # noqa: E402
 from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2_7B  # noqa: E402
 from repro_torch import checkpoint  # noqa: E402
@@ -325,7 +356,7 @@ from repro_torch.data.tokens import TokenPipeline  # noqa: E402
 from repro_torch.launch import train as train_module  # noqa: E402
 from repro_torch.launch.serve import (make_serve_steps, serve,  # noqa: E402
                                       warm_up)
-from repro_torch.models import Model, transformer  # noqa: E402
+from repro_torch.models import Model, input_specs, transformer  # noqa: E402
 from repro_torch.models import attention as mattn  # noqa: E402
 from repro_torch.models import ssm as mssm  # noqa: E402
 from repro_torch.models.params import tree_leaves  # noqa: E402
@@ -405,6 +436,23 @@ HYB_B, HYB_PROMPT, HYB_SERVE_PROMPT, HYB_GEN = 4, 4096, 256, 32
 # the exactness cell: full width, 12 layers (2 shared-block sites), f32
 HYB_F32_LAYERS, HYB_F32_B, HYB_F32_PROMPT = 12, 2, 256
 CUT_DEPTH_LAYERS, CUT_DEPTH_B, CUT_DEPTH_GEN = 4, 2, 8
+# The rest of the dense stack (phi3-mini, minitron-8b, chatglm3-6b,
+# musicgen-large and internvl2-26b): each cell's text prompt tokens at full
+# size (4 requests, 32 generated) and at the 4-layer f32 cut (2 requests, 8
+# generated). 4064 + 32 = 4096 positions, phi3-mini-4k's and minitron's
+# context; internvl2 puts its 256 frontend embeddings ahead of 3808 text
+# tokens (4096 again); musicgen 1468 + 32 = 1500 codec frames, 30 s at
+# EnCodec's 50 Hz.
+DENSE_CELLS = ((PHI3_MINI, 4064, 1024), (MINITRON_8B, 4064, 1024),
+               (CHATGLM3_6B, 4064, 1024), (MUSICGEN_LARGE, 1468, 1024),
+               (INTERNVL2_26B, 3808, 768))
+DENSE_B, DENSE_GEN = 4, 32
+# their flash layers (B, H, KV, S, S, D) at the serving prefill, beside
+# phi3-mini's (PHI3_FLASH): GQA groups of 16, 6, 4 and 1, an unaligned S
+DENSE_FLASH = (("chatglm3-6b layer", (4, 32, 2, 4064, 4064, 128)),
+               ("internvl2-26b layer", (4, 48, 8, 4064, 4064, 128)),
+               ("minitron-8b layer", (4, 32, 8, 4064, 4064, 128)),
+               ("musicgen-large layer", (4, 32, 32, 1468, 1468, 64)))
 # Full depth in bf16: the rms gap of the kernel path's last-token logits to
 # the plain path's, against the plain path's gap to itself summed in
 # 256-key chunks (the summation-order floor of 42 bf16 layers).
@@ -2654,6 +2702,10 @@ def phase_flash():
         ("zamba2 shared layer", ZAMBA2_FLASH, bf16, dict()),
         ("phi3-mini layer", PHI3_FLASH, bf16, dict()),
     ]
+    # the other dense-stack layers: GQA groups of 16 (chatglm3-6b) and 6
+    # (internvl2-26b, 48 heads), 4 (minitron-8b), and musicgen-large's
+    # unaligned 1468 positions at D = 64
+    cases += [(name, shape, bf16, dict()) for name, shape in DENSE_FLASH]
     # every other bf16 head dim the wgmma kernel takes, unaligned
     for D in (16, 64, 96, 112, 128):
         cases += [
@@ -2676,6 +2728,14 @@ def phase_flash():
             (f"f32 D={D} decode offset", (2, 4, 2, 1, 200, D), f32,
              dict(window=64, softcap=30.0, q_offset=199)),
         ]
+    # the wgmma-f32 route at internvl2-26b's and chatglm3-6b's head layouts
+    # (GQA groups of 6 and 16), unaligned
+    cases += [
+        ("f32 group 6 causal", (2, 48, 8, 200, 200, 128), f32, dict()),
+        ("f32 group 16 causal", (2, 32, 2, 200, 200, 128), f32, dict()),
+        ("f32 group 16 window+softcap", (2, 32, 2, 200, 200, 128), f32,
+         dict(window=64, softcap=30.0)),
+    ]
     max_err = 0.0
     for name, (B, H, KV, Sq, Sk, D), dtype, opts in cases:
         q, k, v = flash_inputs(B, H, KV, Sq, Sk, D, dtype, gen)
@@ -2770,6 +2830,29 @@ def phase_flash():
             f"scaled_dot_product_attention {d_sdpa:.4f} ms; layout head dim "
             f"{flash_build.layout_head_dim(D)}")
         del q, k, v, qt, kt, vt
+    # the other dense-stack layers, causal (with GQA where KV < H)
+    layers = {}
+    for name, (B, H, KV, Sq, Sk, D) in DENSE_FLASH:
+        q, k, v = flash_inputs(B, H, KV, Sq, Sk, D, bf16, gen)
+        l_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, force="cuda"),
+                       reps=5, warmup=1)
+        l_plain = cuda_ms(lambda: ops.flash_attention(q, k, v, force="ref"),
+                          reps=2, warmup=1)
+        l_bound, l_by = flash_bound_ms(B, H, KV, Sq, Sk, D, bf16)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        l_sdpa = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=KV < H),
+            reps=10, warmup=2)
+        layers[name] = dict(shape=[B, H, KV, Sq, Sk, D], ms=l_ms,
+                            plain_ms=l_plain, bound_ms=l_bound, bound_by=l_by,
+                            library_ms=l_sdpa, launches=None)
+        log(f"flash {name} {(B, H, KV, Sq, D)} bf16 causal (group "
+            f"{H // KV}): kernel {l_ms:.4f} ms, plain {l_plain:.4f} ms, "
+            f"bound {l_bound:.5f} ms ({l_by}), kernel/bound "
+            f"{l_ms / l_bound:.1f}x; torch scaled_dot_product_attention "
+            f"{l_sdpa:.4f} ms")
+        del q, k, v, qt, kt, vt
     # the f32 route (csrc/flash_attention.cu, wgmma-f32) at zamba2's shared
     # layer at the serving prefill, causal: the shape of the f32 exactness
     # cells (the training layers are timed in phase_flash_backward)
@@ -2806,7 +2889,7 @@ def phase_flash():
                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                   library_ms=sdpa_ms,
                   head_dims={str(D): r for D, r in by_dim.items()},
-                  f32=f32_record)
+                  layers=layers, f32=f32_record)
     return record, times
 
 
@@ -2840,13 +2923,18 @@ def offset_view_case(name, run, inputs, tma, route):
         "output")
 
 
-def decode_logits(model, params, prompts, tokens, force):
-    """Prefill `prompts` through `make_serve_steps(model, force)`, copy the
-    cache as `serve` does, then decode the given tokens (B, n) one step at a
-    time: the logits of every step, (B, n, Vp)."""
+def decode_logits(model, params, prompts, tokens, force,
+                  frontend_embeds=None):
+    """Prefill `prompts` (after `frontend_embeds`, if given) through
+    `make_serve_steps(model, force)`, copy the cache as `serve` does, then
+    decode the given tokens (B, n) one step at a time: the logits of every
+    step, (B, n, Vp)."""
     prefill_step, decode_step = make_serve_steps(model, force)
-    B, P = prompts.shape
-    _, pre = prefill_step(params, {"tokens": prompts})
+    batch = {"tokens": prompts}
+    if frontend_embeds is not None:
+        batch["frontend_embeds"] = frontend_embeds
+    _, pre = prefill_step(params, batch)
+    B, P = pre["k"].shape[1:3]  # the frontend's positions and the prompt's
     cache = model.cache_template(B, P + tokens.shape[1], dtype=pre["k"].dtype)
     cache["k"][:, :, :P].copy_(pre["k"])
     cache["v"][:, :, :P].copy_(pre["v"])
@@ -3024,6 +3112,256 @@ def phase_serve():
           f"serve: rms logit gap {gaps['kernel'][1]} > {RMS_GAP_FACTOR} x "
           f"the summation-order floor {gaps['floor'][1]}")
     return launches, 1e3 * prefill_s
+
+
+def dense_inputs(cfg, B, text, dtype, gen):
+    """A cell's prompts (B, text) and, where the config has a frontend,
+    stand-in embeddings of ``input_specs``' shape in `dtype`
+    (unit-variance, as the token embeddings are drawn), else None."""
+    prompts = torch.randint(0, cfg.vocab_size, (B, text), generator=gen,
+                            device="cuda")
+    spec = input_specs(cfg, ShapeConfig(cfg.name, "prefill", text, B)).get(
+        "frontend_embeds")
+    if spec is None:
+        return prompts, None
+    return prompts, torch.randn(spec.shape, generator=gen,
+                                device="cuda").to(dtype)
+
+
+def free_model():
+    """Release a model's weights and caches before the next is drawn."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_dense_cut_depth():
+    """phi3-mini, minitron-8b, chatglm3-6b, musicgen-large and internvl2-26b
+    at full width, cut to 4 layers, f32: ``serve`` through the kernel (the
+    wgmma-f32 route, one launch a layer) against the plain path on the
+    same weights, prompts and (internvl2) frontend embeddings."""
+    f32 = torch.float32
+    for full, _, text in DENSE_CELLS:
+        cfg = dataclasses.replace(full, num_layers=CUT_DEPTH_LAYERS)
+        D, F = cfg.resolved_head_dim, cfg.frontend_tokens
+        route = flash_build.route(f32, D)
+        check(route == "wgmma-f32", f"cut-depth {cfg.name}: route {route}")
+        model = Model(cfg, param_dtype=f32)
+        params = model.init(SEED)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        prompts, embeds = dense_inputs(cfg, CUT_DEPTH_B, text, f32, gen)
+        before = ops.flash_attention.launches
+        tok_k, logits_k = serve(model, params, prompts, CUT_DEPTH_GEN,
+                                frontend_embeds=embeds)
+        torch.cuda.synchronize()
+        launches = ops.flash_attention.launches - before
+        tok_r, logits_r = serve(model, params, prompts, CUT_DEPTH_GEN,
+                                force="ref", frontend_embeds=embeds)
+        torch.cuda.synchronize()
+        tag = f"cut-depth {cfg.name}"
+        check(launches == CUT_DEPTH_LAYERS,
+              f"{tag}: {launches} flash launches for {CUT_DEPTH_LAYERS} "
+              "layers")
+        check(bool(torch.isfinite(logits_k).all()), f"{tag}: non-finite")
+        torch.testing.assert_close(logits_k, logits_r, rtol=MODEL_TOL,
+                                   atol=MODEL_TOL)
+        check(torch.equal(tok_k, tok_r),
+              f"{tag}: greedy tokens differ\n{tok_k}\n{tok_r}")
+        gap = float((logits_k - logits_r).abs().max())
+        # decode held by its logits too, fed random tokens over the cache
+        # each path's prefill built (greedy choices repeat on random weights)
+        fed = torch.randint(0, cfg.vocab_size, (CUT_DEPTH_B, CUT_DEPTH_GEN),
+                            generator=gen, device="cuda")
+        dec_k = decode_logits(model, params, prompts, fed, "auto", embeds)
+        dec_r = decode_logits(model, params, prompts, fed, "ref", embeds)
+        check(bool(torch.isfinite(dec_k).all()), f"{tag}: non-finite decode")
+        torch.testing.assert_close(dec_k, dec_r, rtol=MODEL_TOL,
+                                   atol=MODEL_TOL)
+        dec_gap = float((dec_k - dec_r).abs().max())
+        log(f"{tag} ({CUT_DEPTH_LAYERS} layers, full width, f32, B="
+            f"{CUT_DEPTH_B}, {F} frontend + {text} prompt tokens; D={D}, "
+            f"GQA group {cfg.num_heads // cfg.num_kv_heads}, {route} route, "
+            f"{launches} launches in the prefill): kernel vs plain prefill "
+            f"logits max gap {gap:.3e}, {CUT_DEPTH_GEN} decode steps' logits "
+            f"max gap {dec_gap:.3e} (tol {MODEL_TOL}); {CUT_DEPTH_GEN} greedy "
+            f"tokens identical: {tok_k[0].tolist()}")
+        del model, params, logits_k, logits_r, dec_k, dec_r
+        free_model()
+
+
+def f32_scale_attention(q, k, v, chunk=512, **opts):
+    """The plain version on f32 copies of q, k, v, rounded once to their
+    dtype: the function the kernels round (1 / sqrt(D) in f32). The model's
+    plain version takes 1 / sqrt(D) rounded to bf16 first, as the reference
+    does; at D = 96 and 128 that is another function
+    (``bf16_scale_is_exact``)."""
+    return kref.attention_ref(*(t.float() for t in (q, k, v)), chunk=chunk,
+                              **opts).to(q.dtype)
+
+
+def dense_serve_cell(cfg, text):
+    """One full-size bf16 serving cell of the dense stack: the prefill
+    alone, then a whole serve call (the main path, the flash count set to 0
+    just before it and read just after), then three layers' attention under
+    the rounding rule and the logits' rms gap. Returns its numbers."""
+    L, D, F = cfg.num_layers, cfg.resolved_head_dim, cfg.frontend_tokens
+    bf16 = torch.bfloat16
+    tag = f"serve {cfg.name}"
+    model = Model(cfg)  # bf16 weights on the card
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    log(f"{tag}: {model.param_count()} parameters ({weight_bytes / 1e9:.3f} "
+        f"GB bf16) drawn on the card in {time.perf_counter() - t0:.2f} s; "
+        f"{L} layers, {cfg.num_heads} heads of {D} over {cfg.num_kv_heads} "
+        f"kv heads")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    prompts, embeds = dense_inputs(cfg, DENSE_B, text, bf16, gen)
+    batch = {"tokens": prompts}
+    if embeds is not None:
+        batch["frontend_embeds"] = embeds
+    route = flash_build.route(bf16, D)
+    check(route == "wgmma", f"{tag}: flash route {route}")
+    serve(model, params, prompts[:, :256], 2,
+          frontend_embeds=embeds)  # warm-up: handles, library
+
+    # time to the first token: serve one token, i.e. prefill and cache copy
+    ops.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve(model, params, prompts, 1, frontend_embeds=embeds)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = ops.flash_attention.launches
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.flash_attention.launches = 0  # the main path starts here
+    t0 = time.perf_counter()
+    tokens, logits = serve(model, params, prompts, DENSE_GEN,
+                           frontend_embeds=embeds)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = ops.flash_attention.launches  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+
+    check(prefill_launches == L, f"{tag}: {prefill_launches} flash launches "
+          f"in the prefill, expected {L}")
+    check(launches == prefill_launches,
+          f"{tag}: {launches - prefill_launches} flash launches in decode")
+    # greedy argmax reads the padded vocabulary, as the reference's does
+    check(tuple(tokens.shape) == (DENSE_B, DENSE_GEN)
+          and bool(((tokens >= 0) & (tokens < cfg.padded_vocab)).all()),
+          f"{tag}: tokens {tuple(tokens.shape)} or outside the padded "
+          "vocabulary")
+    check(tuple(logits.shape) == (DENSE_B, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{tag}: prefill logits not finite or of the wrong shape")
+    steps = DENSE_GEN - 1
+    decode_s = total_s - prefill_s
+    positions = F + text
+    embed_params = cfg.padded_vocab * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    prefill_floor_s = (2.0 * (model.param_count() - embed_params)
+                       * DENSE_B * positions / BF16_FLOP_PER_S)
+    decode_floor_s = weight_bytes / HBM_BYTES_PER_S
+    kv_bytes = (2 * L * DENSE_B * (positions + DENSE_GEN) * cfg.num_kv_heads
+                * D * 2)
+    log(f"{tag} {DENSE_B} x ({F} frontend + {text} prompt) positions, "
+        f"{DENSE_GEN} generated each: prefill {1e3 * prefill_s:.3f} ms "
+        f"(floor {1e3 * prefill_floor_s:.1f} ms, "
+        f"{prefill_s / prefill_floor_s:.1f}x), decode "
+        f"{1e3 * decode_s / steps:.3f} ms/token over {steps} steps (floor "
+        f"{1e3 * decode_floor_s:.2f} ms, "
+        f"{decode_s / steps / decode_floor_s:.1f}x), end to end "
+        f"{DENSE_B * DENSE_GEN / total_s:.1f} generated tok/s; peak device "
+        f"memory {peak / 1e9:.3f} GB (weights {weight_bytes / 1e9:.3f} GB + "
+        f"KV cache {kv_bytes / 1e9:.3f} GB)")
+    log(f"{tag} flash launches: {prefill_launches} in prefill, "
+        f"{launches - prefill_launches} in decode, on the {route} route "
+        f"(D={D}, GQA group {cfg.num_heads // cfg.num_kv_heads}); sample "
+        f"tokens {tokens[0, :16].tolist()}")
+
+    # The first, middle and last layers' attention at the main path's shape
+    # and dtype, on the plain path's activations: the kernel and the
+    # controls against the rounding rule. The plain path here takes its
+    # attention at the kernel's f32 scale (f32_scale_attention).
+    picks = (0, L // 2, L - 1)
+    layer_ex, calls = {}, []
+
+    def held(q, k, v, force, **opts):
+        out = f32_scale_attention(q, k, v, **opts)
+        if len(calls) in picks:
+            layer_ex[len(calls)] = bf16_excess(
+                q, k, v, opts, kernel=kernel_wrapper(q, k, v, force="cuda",
+                                                     **opts),
+                control=attention_bf16_scores(q, k, v, **opts))
+        calls.append(tuple(q.shape))
+        return out
+
+    with attention_as(held) as kernel_wrapper:
+        logits_ref, _ = model.prefill(params, batch, force="ref")
+    check(len(calls) == L and sorted(layer_ex) == list(picks),
+          f"{tag}: {len(calls)} attention calls, {sorted(layer_ex)} held")
+    for i, ex in layer_ex.items():
+        check_excess(f"{tag} layer {i} {calls[i]}", ex)
+    log(f"{tag} layers {picks}' attention on the plain path's activations, "
+        f"excess over half a bf16 ulp / max|v| (limit {F32_NOISE:.3e}): "
+        + "; ".join(f"layer {i}: kernel {ex['kernel']:.3e}, bf16-score "
+                    f"control {ex['control']:.3e}, P-in-bf16 control "
+                    f"{ex['control_p_bf16']:.3e}"
+                    for i, ex in layer_ex.items()))
+    # the logits against the plain path, beside the plain path summed in
+    # 256-key chunks (the floor)
+    with attention_as(lambda q, k, v, force, **opts: f32_scale_attention(
+            q, k, v, chunk=256, **opts)):
+        logits_floor, _ = model.prefill(params, batch, force="ref")
+    gaps = {}
+    for name, x in (("kernel", logits), ("floor", logits_floor)):
+        d = x - logits_ref
+        gaps[name] = (float(d.abs().max()), float(d.pow(2).mean().sqrt()))
+    ratio = gaps["kernel"][1] / gaps["floor"][1]
+    log(f"{tag} last-prompt-token logits against the plain path, max |gap| "
+        f"/ rms gap: kernel {gaps['kernel'][0]:.4f} / {gaps['kernel'][1]:.5f}"
+        f", floor {gaps['floor'][0]:.4f} / {gaps['floor'][1]:.5f}; kernel "
+        f"rms over the floor's {ratio:.4f} (limit {RMS_GAP_FACTOR})")
+    check(ratio <= RMS_GAP_FACTOR,
+          f"{tag}: rms logit gap {gaps['kernel'][1]} > {RMS_GAP_FACTOR} x "
+          f"the summation-order floor {gaps['floor'][1]}")
+    return dict(launches=launches, prefill_ms=1e3 * prefill_s,
+                decode_ms=1e3 * decode_s / steps, peak_gb=peak / 1e9)
+
+
+def phase_dense_serve():
+    """The rest of the dense stack at full size in bf16, one model on the
+    card at a time: phi3-mini (D = 96), minitron-8b, chatglm3-6b (a GQA
+    group of 16, half-dim rotary), musicgen-large (D = 64) and internvl2-26b
+    (a group of 6, 256 frontend embeddings ahead of the text)."""
+    cells = {}
+    for cfg, text, _ in DENSE_CELLS:
+        free_model()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cells[cfg.name] = dense_serve_cell(cfg, text)
+        free_model()
+        log(f"serve {cfg.name}: {time.perf_counter() - t0:.1f} s")
+    return cells
+
+
+def dense_flash_records(flash_record, dense):
+    """Fill the flash record's launches on the dense-stack serving paths
+    (each layer shape's record: phi3-mini's under head dim 96, the others
+    under ``layers``) and log the kernel's share of each prefill."""
+    times = dict(flash_record["layers"],
+                 **{"phi3-mini-3.8b layer": flash_record["head_dims"]["96"]})
+    for name, cell in dense.items():
+        layer = times[f"{name} layer"]
+        layer["launches"] = cell["launches"]
+        k_ms = cell["launches"] * layer["ms"]
+        log(f"serve {name} flash kernel share of the prefill: "
+            f"{cell['launches']} x {layer['ms']:.4f} ms (at "
+            f"{tuple(layer['shape'])}) = {k_ms:.3f} / "
+            f"{cell['prefill_ms']:.3f} ms = {k_ms / cell['prefill_ms']:.2%}")
 
 
 @contextlib.contextmanager
@@ -5077,6 +5415,11 @@ def run():
         f"{kernel_ms / prefill_ms:.2%}")
 
     torch.cuda.empty_cache()
+    timed_phase(seconds, phase_dense_cut_depth)
+    dense = timed_phase(seconds, phase_dense_serve)
+    dense_flash_records(flash_record, dense)
+
+    torch.cuda.empty_cache()
     ssd_record = timed_phase(seconds, phase_ssd)
     timed_phase(seconds, phase_ssm_f32)
     torch.cuda.empty_cache()
@@ -5096,7 +5439,8 @@ def run():
     z_flash["launches"], z_ssd["launches"] = hybrid["flash"], hybrid["ssd"]
     flash_record["launches_by_path"] = {
         "gemma2-9b serve": flash_record["launches"],
-        "zamba2-7b serve": hybrid["flash"]}
+        "zamba2-7b serve": hybrid["flash"],
+        **{f"{name} serve": cell["launches"] for name, cell in dense.items()}}
     ssd_record["launches_by_path"] = {
         "mamba2-130m serve": ssd_record["launches"],
         "zamba2-7b serve": hybrid["ssd"]}

@@ -14,18 +14,25 @@ does the same. The CLI serves a batch of random prompts through it:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b --reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b
 
 (on the CUDA device; ``--device cpu`` runs it on the CPU). ``--no-reduced``
-serves the full-size configuration.
+serves the full-size configuration. Every arch of the registry serves:
+phi3-mini-3.8b, minitron-8b, chatglm3-6b, musicgen-large and internvl2-26b
+run the dense stack as gemma2-9b does. A config with a frontend
+(internvl2-26b's vision stub) is served with stand-in embeddings of
+``input_specs``' shape drawn from the CLI's seeded generator, put ahead of
+each prompt.
 """
 from __future__ import annotations
 
 import argparse
 import time
+
 import torch
 
-from repro_torch.configs import get_config, reduced_config
-from repro_torch.models import Model
+from repro_torch.configs import ShapeConfig, get_config, reduced_config
+from repro_torch.models import Model, input_specs
 
 
 def make_serve_steps(model: Model, force: str = "auto"):
@@ -53,7 +60,8 @@ def warm_up(model: Model, params, prompts, cache):
     return logits, cache
 
 
-def serve(model: Model, params, prompts, gen_len: int, force: str = "auto"):
+def serve(model: Model, params, prompts, gen_len: int, force: str = "auto",
+          frontend_embeds=None):
     """Greedy generation for a batch of requests.
 
     prompts (B, P) integer tensor on the model's device -> (tokens (B,
@@ -66,14 +74,25 @@ def serve(model: Model, params, prompts, gen_len: int, force: str = "auto"):
     hybrid family's window (P + gen_len positions) its attention cache is a
     ring of the window's slots, and decode sees the last `window` positions
     only, while the prefill that gives the first token attends to all of
-    them, as the reference's serving steps do. `force` goes to the layers'
-    kernel wrapper in prefill. Nothing here synchronises with the host.
+    them, as the reference's serving steps do. `frontend_embeds` (B, F, d)
+    (the vlm family's stand-in patch embeddings) go ahead of each prompt:
+    the cache then holds F + P + gen_len positions and decode starts at
+    position F + P. Greedy argmax runs over the padded vocabulary, as the
+    reference's does. `force` goes to the layers' kernel wrapper in
+    prefill. Nothing here synchronises with the host.
     """
     if gen_len < 1:
         raise ValueError(f"gen_len must be >= 1, got {gen_len}")
     prefill_step, decode_step = make_serve_steps(model, force)
     B, P = prompts.shape
-    logits, pre = prefill_step(params, {"tokens": prompts})
+    batch = {"tokens": prompts}
+    if frontend_embeds is not None:
+        if model.cfg.family in ("ssm", "hybrid"):
+            raise ValueError(f"{model.cfg.name}: frontend embeddings need a "
+                             "prefill cache; this family builds none")
+        batch["frontend_embeds"] = frontend_embeds
+        P += frontend_embeds.shape[1]  # positions before the first token
+    logits, pre = prefill_step(params, batch)
     if pre is not None:
         cache = model.cache_template(B, P + gen_len, dtype=pre["k"].dtype)
         cache["k"][:, :, :P].copy_(pre["k"])
@@ -113,14 +132,22 @@ def main(argv=None):
     gen = torch.Generator(device=model.device).manual_seed(7)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=model.device)
+    embeds = None
+    spec = input_specs(cfg, ShapeConfig("cli", "prefill", args.prompt_len,
+                                        args.batch)).get("frontend_embeds")
+    if spec is not None:  # the frontend's stand-in: unit-variance patches
+        embeds = torch.randn(spec.shape, generator=gen, device=model.device
+                             ).to(spec.dtype)
 
     t0 = time.perf_counter()
-    tokens, _ = serve(model, params, prompts, args.gen_len)
+    tokens, _ = serve(model, params, prompts, args.gen_len,
+                      frontend_embeds=embeds)
     tokens = tokens.cpu()  # waits for the device
     dt = time.perf_counter() - t0
     n = args.batch * args.gen_len
-    print(f"served batch={args.batch} prompt={args.prompt_len} "
-          f"gen={args.gen_len} on {model.device} in {dt:.2f}s "
+    front = "" if embeds is None else f"frontend={embeds.shape[1]} "
+    print(f"served batch={args.batch} {front}prompt={args.prompt_len} "
+          f"gen={args.gen_len} of {cfg.name} on {model.device} in {dt:.2f}s "
           f"({n / dt:.1f} generated tok/s)")
     print("sample:", tokens[0, :24].tolist())
     return tokens

@@ -1,6 +1,7 @@
-"""The LM stack of the port: dense transformer and SSM families
-(counterpart of ``repro.models``). ``Model`` ties config, template and the
-serving entry points together."""
-from repro_torch.models.model import Model
+"""The LM stack of the port: the dense transformer (with the vlm and audio
+families), SSM and hybrid families (counterpart of ``repro.models``).
+``Model`` ties config, template and the serving entry points together;
+``input_specs`` describes every input of a cell."""
+from repro_torch.models.model import Model, input_specs
 
-__all__ = ["Model"]
+__all__ = ["Model", "input_specs"]

@@ -1,5 +1,6 @@
 """Model facade: config, template, device and the training and serving
-entry points.
+entry points, plus ``input_specs`` (every input of a cell, on the meta
+device).
 
 Counterpart of ``repro.models.model.Model``. Parameters are a nested dict
 of tensors passed to each entry point, as in the reference; the module
@@ -14,7 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import attention, ssm, transformer
 from repro_torch.models.params import count_params, init_params
 from repro_torch.platform import DeviceLike, resolve_device
@@ -79,10 +80,14 @@ class Model(nn.Module):
         """batch {'tokens': (B,S)} -> (last-position logits (B,Vp) f32,
         cache {'k', 'v': (L,B,S,KV,hd)}, or None for the SSM and hybrid
         families, whose prefill builds no decode state, as in the
-        reference). The hybrid family's shared attention is not windowed
-        here, as in the reference's prefill."""
+        reference). With batch['frontend_embeds'] (B,F,d) (the vlm
+        family) they go ahead of the tokens: the cache holds F + S
+        positions, and the logits are still the last text position's. The
+        hybrid family's shared attention is not windowed here, as in the
+        reference's prefill."""
         logits, cache = transformer.forward(
             params, batch["tokens"], self.cfg,
+            frontend_embeds=batch.get("frontend_embeds"),
             collect_cache=self.cfg.family not in ("ssm", "hybrid"),
             last_only=True, force=force)
         return logits[:, -1], cache
@@ -97,10 +102,12 @@ class Model(nn.Module):
 
     # -- caches ----------------------------------------------------------
     def cache_template(self, batch: int, seq: int,
-                       dtype: Optional[torch.dtype] = None):
-        """A zeroed KV cache {'k', 'v': (L,B,seq,KV,hd)} on the model's
-        device, in `dtype` (default: the parameter dtype). For the SSM
-        family {'state': (L,B,nh,hd,N), 'conv': (L,B,k-1,C)}, f32 whatever
+                       dtype: Optional[torch.dtype] = None,
+                       device: DeviceLike = None):
+        """A zeroed KV cache {'k', 'v': (L,B,seq,KV,hd)} on `device`
+        (default: the model's; "meta" describes the cache without
+        allocating it), in `dtype` (default: the parameter dtype). For the
+        SSM family {'state': (L,B,nh,hd,N), 'conv': (L,B,k-1,C)}, f32 whatever
         `dtype`, and independent of `seq`. For the hybrid family that SSM
         cache and {'ak', 'av': (sites,B,s_attn,KV,hd)} in `dtype`, where
         s_attn is the reference's rule: `seq`, or, for long-context serving
@@ -108,18 +115,54 @@ class Model(nn.Module):
         over which decode sees the last `window` positions."""
         cfg = self.cfg
         dt = dtype or self.param_dtype
+        dev = self.device if device is None else torch.device(device)
         kv = (batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
         if cfg.family in ("ssm", "hybrid"):
-            out = ssm.ssm_cache_template(cfg, batch, self.device,
+            out = ssm.ssm_cache_template(cfg, batch, dev,
                                          layers=(cfg.num_layers,))
             if cfg.family == "hybrid":
                 window = cfg.sliding_window
                 s_attn = min(seq, window) if seq > 2 * window else seq
                 shape = (transformer.n_attn_sites(cfg), batch, s_attn) \
                     + kv[2:]
-                out["ak"] = torch.zeros(shape, dtype=dt, device=self.device)
-                out["av"] = torch.zeros(shape, dtype=dt, device=self.device)
+                out["ak"] = torch.zeros(shape, dtype=dt, device=dev)
+                out["av"] = torch.zeros(shape, dtype=dt, device=dev)
             return out
         shape = (cfg.num_layers,) + kv
-        return {"k": torch.zeros(shape, dtype=dt, device=self.device),
-                "v": torch.zeros(shape, dtype=dt, device=self.device)}
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+# ---------------------------------------------------------------------------
+# input_specs: meta-tensor stand-ins for every model input of a cell
+# ---------------------------------------------------------------------------
+def input_specs(cfg: ArchConfig, shape: ShapeConfig,
+                model: Optional[Model] = None) -> dict:
+    """Every input of a (config, shape) cell as a tensor on the meta device:
+    the shapes of ``repro.models.model.input_specs`` and the torch
+    counterparts of its dtypes, nothing allocated. train: tokens and
+    targets (B,S) int32; prefill: tokens (B,S) int32; both with
+    frontend_embeds (B,F,d) bf16 where the config has a frontend. decode:
+    tokens (B,1) and pos (B,) int32 and `model`'s cache for S positions
+    (bf16, the reference's default; the SSM state f32)."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+
+    def spec(dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device=meta)
+
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": spec((B, S))}
+        if shape.kind == "train":
+            specs["targets"] = spec((B, S))
+        if cfg.frontend != "none" and cfg.frontend_tokens:
+            specs["frontend_embeds"] = spec(
+                (B, cfg.frontend_tokens, cfg.d_model), torch.bfloat16)
+        return specs
+    # decode: one new token against a seq_len cache
+    if model is None:
+        raise ValueError("input_specs: a decode shape needs the model, "
+                         "whose cache it describes")
+    return {"tokens": spec((B, 1)), "pos": spec((B,)),
+            "cache": model.cache_template(B, S, dtype=torch.bfloat16,
+                                          device=meta)}

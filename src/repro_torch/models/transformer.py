@@ -12,7 +12,11 @@ block (``params['shared']``, no post-norms) applied after SSM layer i
 wherever (i + 1) % ``cfg.attn_every`` == 0; its window is
 ``cfg.sliding_window`` under ``long_context`` only (or, in decode, a ring
 cache of the window's slots), and decode keeps one KV cache per
-application site. The training loss (``loss_fn``) runs the same forward;
+application site. The ``vlm`` and ``audio`` families run the dense
+stack, as in the reference; a vlm's frontend is a stub, as there:
+``frontend_embeds`` (B, F, d), precomputed patch embeddings, are put ahead
+of the token embeddings, so positions run over F + S, and the loss skips
+their F positions. The training loss (``loss_fn``) runs the same forward;
 ``remat`` checkpoints each layer (``torch.utils.checkpoint``), trading
 memory for a second forward in the backward. The MoE family is not ported
 yet (ROADMAP A).
@@ -163,12 +167,16 @@ def _remat(fn, remat: str):
 # ---------------------------------------------------------------------------
 # Train / prefill forward
 # ---------------------------------------------------------------------------
-def forward(params, tokens, cfg: ArchConfig, *, collect_cache: bool = False,
-            last_only: bool = False, force: str = "auto",
-            long_context: bool = False, remat: str = "none"):
+def forward(params, tokens, cfg: ArchConfig, *, frontend_embeds=None,
+            collect_cache: bool = False, last_only: bool = False,
+            force: str = "auto", long_context: bool = False,
+            remat: str = "none"):
     """tokens (B,S) -> (logits (B,S,Vp) f32, cache or None).
 
-    With `collect_cache`, cache is {'k', 'v': (L,B,S,KV,hd)} in the
+    `frontend_embeds` (B,F,d), if given, are cast to the activations'
+    dtype and put ahead of the token embeddings: the sequence is then F + S
+    positions long, and so are the logits and the cache (S below reads F +
+    S). With `collect_cache`, cache is {'k', 'v': (L,B,S,KV,hd)} in the
     activations' dtype, filled layer by layer; the SSM and hybrid families
     build no cache here (None), as in the reference. With `last_only`,
     logits are computed for the last position only: (B,1,Vp). `force` goes
@@ -180,7 +188,9 @@ def forward(params, tokens, cfg: ArchConfig, *, collect_cache: bool = False,
     """
     check_family(cfg)
     h = _embed(params, tokens, cfg)
-    B, S = tokens.shape
+    if frontend_embeds is not None:
+        h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
+    B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device).expand(B, S)
     ssm_block = _remat(lambda lp, x: _ssm_block(lp, x, cfg, force), remat)
     attn_block = _remat(
@@ -220,10 +230,17 @@ def loss_fn(params, batch, cfg: ArchConfig, *, remat: str = "none",
     auxiliary loss, which is 0 for the families the port runs (the MoE
     load-balancing loss is the reference's only one). Returns
     (loss, {'ce', 'aux'}), f32 scalars. `remat` and `force` go to
-    `forward`. Frontend embeddings (the vlm family) wait for ROADMAP A2."""
-    logits, _ = forward(params, batch["tokens"], cfg, remat=remat,
-                        force=force)
-    ce = cross_entropy(logits, batch["targets"], cfg.vocab_size)
+    `forward`. With batch['frontend_embeds'] (B,F,d) (the vlm family) the
+    forward runs over F + S positions and the first F positions' logits,
+    the frontend's, carry no loss."""
+    logits, _ = forward(params, batch["tokens"], cfg,
+                        frontend_embeds=batch.get("frontend_embeds"),
+                        remat=remat, force=force)
+    targets = batch["targets"]
+    F = logits.shape[1] - targets.shape[1]
+    if F > 0:  # frontend positions carry no loss
+        logits = logits[:, F:]
+    ce = cross_entropy(logits, targets, cfg.vocab_size)
     aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 

@@ -150,7 +150,12 @@ def test_arch_config_fields_and_defaults_match_reference():
 
 
 @pytest.mark.parametrize("name", ["gemma2-9b", "gemma2_9b", "mamba2-130m",
-                                  "mamba2_130m", "zamba2-7b", "zamba2_7b"])
+                                  "mamba2_130m", "zamba2-7b", "zamba2_7b",
+                                  "phi3-mini-3.8b", "phi3_mini",
+                                  "minitron-8b", "minitron_8b",
+                                  "chatglm3-6b", "chatglm3_6b",
+                                  "musicgen-large", "musicgen_large",
+                                  "internvl2-26b", "internvl2_26b"])
 def test_gemma2_config_and_reduced_config_match_reference(name):
     ref, port = ref_archs.get_config(name), port_archs.get_config(name)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)

@@ -372,9 +372,16 @@ def test_unported_families_raise(change):
 
 
 def test_registry_holds_the_ported_archs_only():
-    assert list_archs() == ["gemma2-9b", "mamba2-130m", "zamba2-7b"]
+    assert list_archs() == ["chatglm3-6b", "gemma2-9b", "internvl2-26b",
+                            "mamba2-130m", "minitron-8b", "musicgen-large",
+                            "phi3-mini-3.8b", "zamba2-7b"]
     assert get_config("gemma2_9b") is get_config("gemma2-9b")
     assert get_config("mamba2_130m") is get_config("mamba2-130m")
     assert get_config("zamba2_7b") is get_config("zamba2-7b")
+    assert get_config("phi3_mini") is get_config("phi3-mini-3.8b")
+    assert get_config("minitron_8b") is get_config("minitron-8b")
+    assert get_config("chatglm3_6b") is get_config("chatglm3-6b")
+    assert get_config("musicgen_large") is get_config("musicgen-large")
+    assert get_config("internvl2_26b") is get_config("internvl2-26b")
     with pytest.raises(KeyError, match="gemma2-9b"):
-        get_config("phi3-mini-3.8b")
+        get_config("arctic-480b")
