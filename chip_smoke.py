@@ -145,7 +145,9 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
    the other dense-stack layers: chatglm3-6b's (4, 32, 2, 4064, 128), a
    GQA group of 16, internvl2-26b's (4, 48, 8, 4064, 128), a group of 6,
    minitron-8b's (4, 32, 8, 4064, 128) and musicgen-large's (4, 32, 32,
-   1468, 64); holds f32 at groups 6 and 16 (unaligned, causal, and window
+   1468, 64), and the MoE family's (4, 64, 8, 4064, 128), a group of 8
+   (arctic-480b's 56 heads padded to 64, kimi-k2's 64), which it also holds
+   in f32; holds f32 at groups 6 and 16 (unaligned, causal, and window
    + softcap); and times it in f32 at zamba2's layer beside
    both bounds (the tensor cores' split products and the CUDA cores' f32
    rate) and that call in f32.
@@ -190,7 +192,32 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     controls failing it, and the rms gap of the kernel path's logits to
     the plain path's to 1.2x the plain path's gap to itself summed in
     another order;
-18. holds ``ssd_scan`` against its plain chunked version at the mamba2-130m
+18. holds ``models.moe.route`` on the card bitwise to ``route`` on the
+    CPU, fed the same f32 probabilities (the top-k indices, gates,
+    capacity ranks, keep mask, destinations and slot map) at arctic-480b's
+    prefill (16 256 tokens, 128 experts, top-2, bf16 router logits, with
+    the tokens tied at the k-th place counted), kimi-k2's (384, top-8) and
+    a skewed router that puts more than an expert's capacity on it (the
+    tokens dropped counted);
+19. runs arctic-480b (all 128 experts, the dense residual) and kimi-k2
+    (192 of its 384 experts, top-8 kept) at full width, one layer, in f32,
+    through ``serve`` with the kernel (1 launch a prefill, the wgmma-f32
+    route) and with the plain version, on 2 x 1024 prompt tokens, each
+    route recorded: at most 0.1% of the (token, slot) routes may differ
+    between the two paths, and where a token's routes agree its prefill
+    and 8 decode steps' logits are held within 2e-4 and its greedy tokens
+    must be identical;
+20. serves arctic-480b at 2 of its 35 layers and kimi-k2 at 1 of its 61 in
+    bf16, full width (every expert), one on the card at a time, as 17 does
+    (4 x 4064 prompt tokens, 32 generated; exactly L launches in the
+    prefill and none in decode), with prefill and decode times beside the
+    floors (the active weights' FLOP, with the capacity-padded expert FLOP
+    beside it; every weight read), peak memory, each layer's expert load
+    and tokens dropped, the sampled layers' attention held to the rounding
+    rule of 13 on the plain path's activations, and the logits' rms gap to
+    the plain path logged beside the number of routes that differ (not
+    gated: in bf16 a route flip moves its token's logits);
+21. holds ``ssd_scan`` against its plain chunked version at the mamba2-130m
     serving layer shape (B=16, S=2048, H=24, P=64, G=1, N=128), with
     Mamba-2's dt and A and a slow-decay case, at the training layer (8,
     2048, 24, 64, 1, 128), at S = 1000, at an unaligned (4, 1000, 8, 16, 2,
@@ -210,12 +237,12 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     (the least of the work at the dtype's peak and as the split
     tensor-core products take it) at the mamba2 serving and training and
     the zamba2 layer shapes;
-19. runs full-depth mamba2-130m in f32 (B=2, 1024 prompt tokens, Mamba-2's
+22. runs full-depth mamba2-130m in f32 (B=2, 1024 prompt tokens, Mamba-2's
     A_log and dt_bias): the kernel path's prefill logits within 2e-4 of the
     plain path's and of the decode warm-up's last logits (the scan against
     the recurrence), and 8 decode steps' logits, fed random tokens, within
     2e-4 of the scan's at the same positions;
-20. serves 16 requests of 2048 prompt tokens for 32 tokens each through
+23. serves 16 requests of 2048 prompt tokens for 32 tokens each through
     full-depth bf16 mamba2-130m (``serve``, the third main path, with the
     SSD launch counts set to 0 just before it): 24 launches in the
     prefill, all on the wgmma route, and none in the warm-up or decode,
@@ -223,7 +250,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     and peak device memory. Then each of the 24 layers' SSD, on the plain
     path's activations, is held to the rounding rule of 13, every control
     failing it;
-21. runs zamba2-7b at full width, cut to 12 layers (2 sites of the shared
+24. runs zamba2-7b at full width, cut to 12 layers (2 sites of the shared
     attention + MLP block), in f32 (B=2, 256 prompt tokens, Mamba-2's
     A_log and dt_bias): every flash launch (D = 112, the wgmma-f32 route)
     and every SSD launch on the plain path's activations within 1e-4 of
@@ -231,7 +258,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     decode warm-up's last logits against the plain path's, their rms gaps
     within 2x the floor (the plain path at chunk 64), a carry-dropping
     control outside it;
-22. serves full-size bf16 zamba2-7b (81 layers, 13 sites; ``serve``, the
+25. serves full-size bf16 zamba2-7b (81 layers, 13 sites; ``serve``, the
     fourth main path, with the flash and SSD launch counts set to 0 just
     before each call and read just after): the prefill alone on 4 x 4096
     prompt tokens (13 flash launches at D = 112 and 81 SSD launches, all
@@ -240,7 +267,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     (the same launches in its prefill, none in the warm-up or decode;
     prefill, warm-up and decode times, peak memory), and prints each
     kernel's share of the 4 x 4096 prefill;
-23. holds the SSD scan's backward kernel (``ops.ssd_scan_bwd``, on the
+26. holds the SSD scan's backward kernel (``ops.ssd_scan_bwd``, on the
     tensor cores) against its plain gradient (autograd through the
     chunked scan in f32 at chunk 64) at mamba2-130m's training layer (8,
     2048, 24, 64, 1, 128) in f32 and bf16, at zamba2-7b's (2, 4096, 112,
@@ -254,7 +281,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     the two layers beside the earlier CUDA-core design's time, its bound
     (the CUDA cores' f32 rate for f32), the tensor-core route's bound (its
     split products at the bf16 rate) and the plain version;
-24. holds the flash-attention backward kernel (``ops.flash_attention_bwd``,
+27. holds the flash-attention backward kernel (``ops.flash_attention_bwd``,
     on the tensor cores) against its plain version (``ref.attention_grads``)
     on the out and lse of the card's forward kernel (whose out must be
     bitwise the forward's without lse, its lse within 1e-5 of the plain
@@ -272,7 +299,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     expanded), and the f32 forward with its lse at the three layers
     beside both bounds and, where the layer has no window, the kernel and
     ``scaled_dot_product_attention`` in f32 on the softcap-free function;
-25. trains mamba2-130m on the card, f32: (a) cut to 4 layers at full
+28. trains mamba2-130m on the card, f32: (a) cut to 4 layers at full
     width (2 x 1024 tokens), the kernel path's loss and every gradient
     leaf within F32_REDUCTION of the plain path's, the carry-dropping
     control outside, and remat='full' bitwise remat='none' with twice the
@@ -327,9 +354,11 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
+from repro_torch.configs.arctic_480b import CONFIG as ARCTIC_480B  # noqa: E402
 from repro_torch.configs.chatglm3_6b import CONFIG as CHATGLM3_6B  # noqa: E402
 from repro_torch.configs.gemma2_9b import CONFIG as GEMMA2_9B  # noqa: E402
 from repro_torch.configs.internvl2_26b import CONFIG as INTERNVL2_26B  # noqa: E402
+from repro_torch.configs.kimi_k2 import CONFIG as KIMI_K2  # noqa: E402
 from repro_torch.configs.minitron_8b import CONFIG as MINITRON_8B  # noqa: E402
 from repro_torch.configs.musicgen_large import CONFIG as MUSICGEN_LARGE  # noqa: E402
 from repro_torch.configs.phi3_mini import CONFIG as PHI3_MINI  # noqa: E402
@@ -358,6 +387,7 @@ from repro_torch.launch.serve import (make_serve_steps, serve,  # noqa: E402
                                       warm_up)
 from repro_torch.models import Model, input_specs, transformer  # noqa: E402
 from repro_torch.models import attention as mattn  # noqa: E402
+from repro_torch.models import moe as mmoe  # noqa: E402
 from repro_torch.models import ssm as mssm  # noqa: E402
 from repro_torch.models.params import tree_leaves  # noqa: E402
 from repro_torch.testing import tolerances as tol  # noqa: E402
@@ -453,6 +483,27 @@ DENSE_FLASH = (("chatglm3-6b layer", (4, 32, 2, 4064, 4064, 128)),
                ("internvl2-26b layer", (4, 48, 8, 4064, 4064, 128)),
                ("minitron-8b layer", (4, 32, 8, 4064, 4064, 128)),
                ("musicgen-large layer", (4, 32, 32, 1468, 1468, 64)))
+# The MoE family's flash layer at the serving prefill: 64 q heads over 8 kv
+# heads (arctic-480b's 56 padded to 64, whose padded heads' wo rows are
+# zero; kimi-k2's 64 of head dim 128), the same call for both
+MOE_FLASH = (("arctic-480b / kimi-k2 layer", (4, 64, 8, 4064, 4064, 128)),)
+# Serving in bf16 at full width, cut in depth to fit one card: arctic keeps
+# all 128 experts at 2 of its 35 layers (26.78 GB of expert weights a
+# layer), kimi all 384 at 1 of its 61 (33.82 GB a layer; 2 would not fit).
+# 4 requests of 4064 prompt tokens, 32 generated, as the dense cells.
+MOE_SERVE = ((ARCTIC_480B, 2), (KIMI_K2, 1))
+MOE_PROMPT = 4064
+# The exactness cells, f32, 1 layer: arctic with all 128 experts (56.3 GB),
+# kimi with 192 of its 384 (43.7 GB; all 384 would take 77.5 GB), top-8.
+MOE_CUT = ((ARCTIC_480B, 128), (KIMI_K2, 192))
+MOE_CUT_B, MOE_CUT_PROMPT = 2, 1024
+# At most this share of the (token, slot) routes may differ between the
+# kernel and plain paths in f32: a route flips only where a token's k-th
+# and (k+1)-th router probabilities lie within the paths' f32 gap.
+MOE_FLIP_LIMIT = 1e-3
+# phase_moe_routing: the logit added to expert 0 so that more than its
+# capacity of tokens choose it
+MOE_SKEW = 4.0
 # Full depth in bf16: the rms gap of the kernel path's last-token logits to
 # the plain path's, against the plain path's gap to itself summed in
 # 256-key chunks (the summation-order floor of 42 bf16 layers).
@@ -2706,6 +2757,9 @@ def phase_flash():
     # (internvl2-26b, 48 heads), 4 (minitron-8b), and musicgen-large's
     # unaligned 1468 positions at D = 64
     cases += [(name, shape, bf16, dict()) for name, shape in DENSE_FLASH]
+    # the MoE family's layer (a GQA group of 8, 64 heads), in both dtypes
+    cases += [(name, shape, dtype, dict()) for name, shape in MOE_FLASH
+              for dtype in (bf16, f32)]
     # every other bf16 head dim the wgmma kernel takes, unaligned
     for D in (16, 64, 96, 112, 128):
         cases += [
@@ -2830,9 +2884,10 @@ def phase_flash():
             f"scaled_dot_product_attention {d_sdpa:.4f} ms; layout head dim "
             f"{flash_build.layout_head_dim(D)}")
         del q, k, v, qt, kt, vt
-    # the other dense-stack layers, causal (with GQA where KV < H)
+    # the other dense-stack layers and the MoE family's, causal (with GQA
+    # where KV < H)
     layers = {}
-    for name, (B, H, KV, Sq, Sk, D) in DENSE_FLASH:
+    for name, (B, H, KV, Sq, Sk, D) in DENSE_FLASH + MOE_FLASH:
         q, k, v = flash_inputs(B, H, KV, Sq, Sk, D, bf16, gen)
         l_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, force="cuda"),
                        reps=5, warmup=1)
@@ -3198,11 +3253,66 @@ def f32_scale_attention(q, k, v, chunk=512, **opts):
                               **opts).to(q.dtype)
 
 
+@contextlib.contextmanager
+def routes_recorded():
+    """Record every ``models.moe.route`` call inside the block: yields the
+    list its ``Route``s are appended to, in call order (an MoE layer's
+    calls in layer order, a prefill's before its decode steps')."""
+    orig, calls = mmoe.route, []
+
+    def recording(probs, k, capacity_factor=1.25):
+        r = orig(probs, k, capacity_factor)
+        calls.append(r)
+        return r
+
+    mmoe.route = recording
+    try:
+        yield calls
+    finally:
+        mmoe.route = orig
+
+
+def route_flips(a, b):
+    """(T, k) bool: the (token, slot) routes (the expert, and whether the
+    slot is kept) that differ between two ``Route``s of one call."""
+    return (a.idx != b.idx) | (a.keep != b.keep).view(a.idx.shape)
+
+
+def expert_loads(r, E):
+    """(E,): the tokens each expert holds in its capacity buffer."""
+    return (r.slots.view(E, r.cap) < r.idx.shape[0]).sum(1)
+
+
+def serve_floors(model, params, positions):
+    """(prefill FLOP, the same with the experts' capacity-padded products,
+    weight bytes) of one serving cell: 2 FLOP a weight a position for the
+    weights a token uses (an MoE layer's k experts of E), every weight
+    read once."""
+    cfg = model.cfg
+    embed = cfg.padded_vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    active = model.param_count() - embed
+    padded = 0.0
+    if cfg.num_experts:
+        E, k, L = cfg.num_experts, cfg.experts_per_token, cfg.num_layers
+        expert = 3 * cfg.d_model * cfg.d_ff
+        active -= L * (E - k) * expert
+        cap = mmoe.capacity(positions, k, E)
+        padded = 2.0 * L * expert * (E * cap - positions * k)
+    flop = 2.0 * active * positions
+    return flop, flop + padded, weight_bytes
+
+
 def dense_serve_cell(cfg, text):
-    """One full-size bf16 serving cell of the dense stack: the prefill
-    alone, then a whole serve call (the main path, the flash count set to 0
-    just before it and read just after), then three layers' attention under
-    the rounding rule and the logits' rms gap. Returns its numbers."""
+    """One full-size bf16 serving cell of the dense stack (or the MoE
+    family's, whose layers run the MoE block in place of the MLP): the
+    prefill alone, then a whole serve call (the main path, the flash count
+    set to 0 just before it and read just after), then the first, middle
+    and last layers' attention under the rounding rule and the logits' rms
+    gap (gated for the dense stack; logged for MoE beside the routes that
+    differ between the paths, with each layer's expert load and drops).
+    Returns its numbers."""
     L, D, F = cfg.num_layers, cfg.resolved_head_dim, cfg.frontend_tokens
     bf16 = torch.bfloat16
     tag = f"serve {cfg.name}"
@@ -3210,12 +3320,17 @@ def dense_serve_cell(cfg, text):
     t0 = time.perf_counter()
     params = model.init(SEED)
     torch.cuda.synchronize()
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in tree_leaves(params))
+    positions = DENSE_B * (F + text)
+    flop, padded_flop, weight_bytes = serve_floors(model, params, positions)
+    residual = " with the dense residual" if cfg.moe_dense_residual else ""
+    moe_note = (f", {cfg.num_experts} experts of {cfg.d_ff} top-"
+                f"{cfg.experts_per_token}{residual}, "
+                f"{mattn.padded_heads(cfg)} q heads as run"
+                if cfg.num_experts else "")
     log(f"{tag}: {model.param_count()} parameters ({weight_bytes / 1e9:.3f} "
         f"GB bf16) drawn on the card in {time.perf_counter() - t0:.2f} s; "
         f"{L} layers, {cfg.num_heads} heads of {D} over {cfg.num_kv_heads} "
-        f"kv heads")
+        f"kv heads{moe_note}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     prompts, embeds = dense_inputs(cfg, DENSE_B, text, bf16, gen)
     batch = {"tokens": prompts}
@@ -3223,8 +3338,11 @@ def dense_serve_cell(cfg, text):
         batch["frontend_embeds"] = embeds
     route = flash_build.route(bf16, D)
     check(route == "wgmma", f"{tag}: flash route {route}")
-    serve(model, params, prompts[:, :256], 2,
-          frontend_embeds=embeds)  # warm-up: handles, library
+    # warm-up at the cell's own shapes (cuBLAS's choices, the allocator's
+    # blocks): after a 256-token warm-up, arctic-480b's first full-size
+    # prefill took 121.7 ms against a median of 89.1 after it
+    # (tools/moe_serve_profile.py; NVIDIA H100 80GB HBM3, 700 W)
+    serve(model, params, prompts, 2, frontend_embeds=embeds)
 
     # time to the first token: serve one token, i.e. prefill and cache copy
     ops.flash_attention.launches = 0
@@ -3236,13 +3354,14 @@ def dense_serve_cell(cfg, text):
     prefill_launches = ops.flash_attention.launches
 
     torch.cuda.reset_peak_memory_stats()
-    ops.flash_attention.launches = 0  # the main path starts here
-    t0 = time.perf_counter()
-    tokens, logits = serve(model, params, prompts, DENSE_GEN,
-                           frontend_embeds=embeds)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
-    launches = ops.flash_attention.launches  # ... and ends here
+    with routes_recorded() as routes:
+        ops.flash_attention.launches = 0  # the main path starts here
+        t0 = time.perf_counter()
+        tokens, logits = serve(model, params, prompts, DENSE_GEN,
+                               frontend_embeds=embeds)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = ops.flash_attention.launches  # ... and ends here
     peak = torch.cuda.max_memory_allocated()
 
     check(prefill_launches == L, f"{tag}: {prefill_launches} flash launches "
@@ -3259,18 +3378,17 @@ def dense_serve_cell(cfg, text):
           f"{tag}: prefill logits not finite or of the wrong shape")
     steps = DENSE_GEN - 1
     decode_s = total_s - prefill_s
-    positions = F + text
-    embed_params = cfg.padded_vocab * cfg.d_model * (
-        1 if cfg.tie_embeddings else 2)
-    prefill_floor_s = (2.0 * (model.param_count() - embed_params)
-                       * DENSE_B * positions / BF16_FLOP_PER_S)
+    prefill_floor_s = flop / BF16_FLOP_PER_S
     decode_floor_s = weight_bytes / HBM_BYTES_PER_S
-    kv_bytes = (2 * L * DENSE_B * (positions + DENSE_GEN) * cfg.num_kv_heads
+    kv_bytes = (2 * L * DENSE_B * (F + text + DENSE_GEN) * cfg.num_kv_heads
                 * D * 2)
+    padded_note = (f"; with the experts' capacity-padded products "
+                   f"{1e3 * padded_flop / BF16_FLOP_PER_S:.1f} ms"
+                   if cfg.num_experts else "")
     log(f"{tag} {DENSE_B} x ({F} frontend + {text} prompt) positions, "
         f"{DENSE_GEN} generated each: prefill {1e3 * prefill_s:.3f} ms "
         f"(floor {1e3 * prefill_floor_s:.1f} ms, "
-        f"{prefill_s / prefill_floor_s:.1f}x), decode "
+        f"{prefill_s / prefill_floor_s:.1f}x{padded_note}), decode "
         f"{1e3 * decode_s / steps:.3f} ms/token over {steps} steps (floor "
         f"{1e3 * decode_floor_s:.2f} ms, "
         f"{decode_s / steps / decode_floor_s:.1f}x), end to end "
@@ -3279,14 +3397,29 @@ def dense_serve_cell(cfg, text):
         f"KV cache {kv_bytes / 1e9:.3f} GB)")
     log(f"{tag} flash launches: {prefill_launches} in prefill, "
         f"{launches - prefill_launches} in decode, on the {route} route "
-        f"(D={D}, GQA group {cfg.num_heads // cfg.num_kv_heads}); sample "
-        f"tokens {tokens[0, :16].tolist()}")
+        f"(D={D}, GQA group {mattn.padded_heads(cfg) // cfg.num_kv_heads}); "
+        f"sample tokens {tokens[0, :16].tolist()}")
+    if cfg.num_experts:
+        check(len(routes) == L * DENSE_GEN,
+              f"{tag}: {len(routes)} MoE routes in the serve call, expected "
+              f"{L * DENSE_GEN}")
+        E = cfg.num_experts
+        for i, r in enumerate(routes[:L]):  # the prefill's layers
+            load = expert_loads(r, E)
+            log(f"{tag} layer {i} prefill routing: capacity {r.cap}, expert "
+                f"load min {int(load.min())} / max {int(load.max())} of "
+                f"{r.idx.numel()} (token, slot)s, "
+                f"{int((~r.keep).sum())} dropped")
+        dropped = sum(int((~r.keep).sum()) for r in routes[L:])
+        log(f"{tag} decode routing: {steps} steps x {L} layers of "
+            f"{DENSE_B} tokens over {E} x {routes[L].cap} slots, {dropped} "
+            "(token, slot)s dropped")
 
     # The first, middle and last layers' attention at the main path's shape
     # and dtype, on the plain path's activations: the kernel and the
     # controls against the rounding rule. The plain path here takes its
     # attention at the kernel's f32 scale (f32_scale_attention).
-    picks = (0, L // 2, L - 1)
+    picks = sorted({0, L // 2, L - 1})
     layer_ex, calls = {}, []
 
     def held(q, k, v, force, **opts):
@@ -3299,14 +3432,15 @@ def dense_serve_cell(cfg, text):
         calls.append(tuple(q.shape))
         return out
 
-    with attention_as(held) as kernel_wrapper:
+    with attention_as(held) as kernel_wrapper, routes_recorded() as plain:
         logits_ref, _ = model.prefill(params, batch, force="ref")
-    check(len(calls) == L and sorted(layer_ex) == list(picks),
+    check(len(calls) == L and sorted(layer_ex) == picks,
           f"{tag}: {len(calls)} attention calls, {sorted(layer_ex)} held")
     for i, ex in layer_ex.items():
         check_excess(f"{tag} layer {i} {calls[i]}", ex)
-    log(f"{tag} layers {picks}' attention on the plain path's activations, "
-        f"excess over half a bf16 ulp / max|v| (limit {F32_NOISE:.3e}): "
+    log(f"{tag} layers {tuple(picks)}' attention on the plain path's "
+        f"activations, excess over half a bf16 ulp / max|v| (limit "
+        f"{F32_NOISE:.3e}): "
         + "; ".join(f"layer {i}: kernel {ex['kernel']:.3e}, bf16-score "
                     f"control {ex['control']:.3e}, P-in-bf16 control "
                     f"{ex['control_p_bf16']:.3e}"
@@ -3314,20 +3448,34 @@ def dense_serve_cell(cfg, text):
     # the logits against the plain path, beside the plain path summed in
     # 256-key chunks (the floor)
     with attention_as(lambda q, k, v, force, **opts: f32_scale_attention(
-            q, k, v, chunk=256, **opts)):
+            q, k, v, chunk=256, **opts)), routes_recorded() as floor:
         logits_floor, _ = model.prefill(params, batch, force="ref")
     gaps = {}
     for name, x in (("kernel", logits), ("floor", logits_floor)):
         d = x - logits_ref
         gaps[name] = (float(d.abs().max()), float(d.pow(2).mean().sqrt()))
-    ratio = gaps["kernel"][1] / gaps["floor"][1]
+    ratio = (gaps["kernel"][1] / gaps["floor"][1] if gaps["floor"][1] > 0
+             else 0.0 if gaps["kernel"][1] == 0 else math.inf)
+    flips = ""
+    if cfg.num_experts:
+        n = sum(r.idx.numel() for r in plain)
+        kernel_flips, floor_flips = (
+            sum(int(route_flips(a, b).sum()) for a, b in zip(other, plain))
+            for other in (routes, floor))
+        flips = (f"; (token, slot) routes that differ from the plain path's "
+                 f"over the {L} layers: kernel {kernel_flips}, floor "
+                 f"{floor_flips} of {n} (the rms gap "
+                 "is not gated here: in bf16 a flipped route moves its "
+                 "token's logits)")
     log(f"{tag} last-prompt-token logits against the plain path, max |gap| "
         f"/ rms gap: kernel {gaps['kernel'][0]:.4f} / {gaps['kernel'][1]:.5f}"
         f", floor {gaps['floor'][0]:.4f} / {gaps['floor'][1]:.5f}; kernel "
-        f"rms over the floor's {ratio:.4f} (limit {RMS_GAP_FACTOR})")
-    check(ratio <= RMS_GAP_FACTOR,
-          f"{tag}: rms logit gap {gaps['kernel'][1]} > {RMS_GAP_FACTOR} x "
-          f"the summation-order floor {gaps['floor'][1]}")
+        f"rms over the floor's {ratio:.4f} (limit {RMS_GAP_FACTOR}"
+        f"{', not applied' if cfg.num_experts else ''}){flips}")
+    if not cfg.num_experts:
+        check(ratio <= RMS_GAP_FACTOR,
+              f"{tag}: rms logit gap {gaps['kernel'][1]} > {RMS_GAP_FACTOR} "
+              f"x the summation-order floor {gaps['floor'][1]}")
     return dict(launches=launches, prefill_ms=1e3 * prefill_s,
                 decode_ms=1e3 * decode_s / steps, peak_gb=peak / 1e9)
 
@@ -3357,6 +3505,170 @@ def dense_flash_records(flash_record, dense):
     for name, cell in dense.items():
         layer = times[f"{name} layer"]
         layer["launches"] = cell["launches"]
+        k_ms = cell["launches"] * layer["ms"]
+        log(f"serve {name} flash kernel share of the prefill: "
+            f"{cell['launches']} x {layer['ms']:.4f} ms (at "
+            f"{tuple(layer['shape'])}) = {k_ms:.3f} / "
+            f"{cell['prefill_ms']:.3f} ms = {k_ms / cell['prefill_ms']:.2%}")
+
+
+def phase_moe_routing():
+    """``route`` on the card against ``route`` on the CPU, fed the same f32
+    probabilities: bitwise in every output, at arctic-480b's and kimi-k2's
+    prefill widths from bf16 router logits (ties at the k-th place
+    counted) and with a skewed router that drops tokens."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    T, d = DENSE_B * MOE_PROMPT, ARCTIC_480B.d_model
+    for name, cfg, skew in (("arctic-480b", ARCTIC_480B, 0.0),
+                            ("kimi-k2", KIMI_K2, 0.0),
+                            ("skewed arctic-480b", ARCTIC_480B, MOE_SKEW)):
+        E, k = cfg.num_experts, cfg.experts_per_token
+        # the router as the model draws it, its product in bf16
+        x = torch.randn(T, d, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(d, E, generator=gen, device="cuda")
+             * (0.1 / math.sqrt(d))).bfloat16()
+        logits = (x @ w).float()
+        logits[:, 0] += skew
+        probs = torch.softmax(logits, dim=-1)
+        card = mmoe.route(probs, k)
+        cpu = mmoe.route(probs.cpu(), k)
+        torch.cuda.synchronize()
+        tag = f"moe routing {name} (T {T}, E {E}, top-{k})"
+        check(probs.is_cuda and card.idx.is_cuda and card.slots.is_cuda,
+              f"{tag}: routed off the card")
+        check(card.cap == cpu.cap, f"{tag}: capacity {card.cap} vs {cpu.cap}")
+        for field in ("idx", "gate", "pos", "keep", "dest", "slots"):
+            a, b = getattr(card, field).cpu(), getattr(cpu, field)
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"{tag}: {field} differs between the card and the CPU")
+        top = torch.sort(probs, dim=-1, descending=True)[0]
+        ties = int((top[:, k - 1] == top[:, k]).sum())
+        dropped = int((~card.keep).sum())
+        load = expert_loads(card, E)
+        if skew:
+            check(int((card.idx == 0).sum()) > card.cap and dropped > 0,
+                  f"{tag}: expert 0 holds {int((card.idx == 0).sum())} "
+                  f"routes for {card.cap} slots, {dropped} dropped")
+        else:
+            check(ties > 0, f"{tag}: no tie at the k-th place to hold")
+        log(f"{tag}: bitwise the CPU's in idx, gate, pos, keep, dest and the "
+            f"slot map; capacity {card.cap}; {ties} tokens tied at the k-th "
+            f"place; expert load min {int(load.min())} / max "
+            f"{int(load.max())}; {dropped} (token, slot)s dropped")
+
+
+def phase_moe_cut_depth():
+    """arctic-480b (128 experts) and kimi-k2 (192 of 384 experts, top-8)
+    at full width, 1 layer, f32: ``serve`` through the kernel against the
+    plain path on the same weights and prompts, each route recorded. With
+    one layer the MoE block comes last, so a route that differs between
+    the paths moves only its own token's logits: those are left out, and
+    the rest are held to 2e-4."""
+    f32 = torch.float32
+    for full, experts in MOE_CUT:
+        cfg = dataclasses.replace(full, num_layers=1, num_experts=experts)
+        tag = f"cut-depth {cfg.name}"
+        D, B, S = cfg.resolved_head_dim, MOE_CUT_B, MOE_CUT_PROMPT
+        route = flash_build.route(f32, D)
+        check(route == "wgmma-f32", f"{tag}: route {route}")
+        model = Model(cfg, param_dtype=f32)
+        params = model.init(SEED)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                device="cuda")
+        fed = torch.randint(0, cfg.vocab_size, (B, CUT_DEPTH_GEN),
+                            generator=gen, device="cuda")
+        runs = {}
+        for force in ("auto", "ref"):
+            before = ops.flash_attention.launches
+            with routes_recorded() as served:
+                tok, logits = serve(model, params, prompts, CUT_DEPTH_GEN,
+                                    force=force)
+                torch.cuda.synchronize()
+            launches = ops.flash_attention.launches - before
+            with routes_recorded() as fed_routes:
+                dec = decode_logits(model, params, prompts, fed, force)
+            runs[force] = (tok, logits, served, dec, fed_routes, launches)
+        tok_k, logits_k, served_k, dec_k, fed_k, launches = runs["auto"]
+        tok_r, logits_r, served_r, dec_r, fed_r, ref_launches = runs["ref"]
+        check(launches == 1 and ref_launches == 0,
+              f"{tag}: {launches} flash launches in the kernel path's serve, "
+              f"{ref_launches} in the plain path's")
+        check(bool(torch.isfinite(logits_k).all())
+              and bool(torch.isfinite(dec_k).all()), f"{tag}: non-finite")
+        check(len(served_k) == len(served_r) == CUT_DEPTH_GEN
+              and len(fed_k) == len(fed_r) == 1 + CUT_DEPTH_GEN,
+              f"{tag}: {len(served_k)} / {len(fed_k)} routes recorded")
+        flips = [route_flips(a, b) for a, b in zip(served_k + fed_k,
+                                                   served_r + fed_r)]
+        n = sum(f.numel() for f in flips)
+        n_flips = sum(int(f.sum()) for f in flips)
+        check(n_flips <= MOE_FLIP_LIMIT * n,
+              f"{tag}: {n_flips} of {n} (token, slot) routes differ between "
+              f"the paths (limit {MOE_FLIP_LIMIT:.1%})")
+        # a token's routes agree where none of its k slots flipped; the
+        # prefill's logits are the last prompt token's of each row
+        last = torch.arange(B, device="cuda") * S + S - 1
+        agree = [~f.any(1) for f in flips]
+        served_agree = [agree[0][last]] + agree[1:CUT_DEPTH_GEN]
+        fed_agree = torch.stack(agree[CUT_DEPTH_GEN + 1:], 1)  # (B, steps)
+        torch.testing.assert_close(logits_k[served_agree[0]],
+                                   logits_r[served_agree[0]],
+                                   rtol=MODEL_TOL, atol=MODEL_TOL)
+        # each fed decode step's logits where that step's routes agree
+        torch.testing.assert_close(dec_k[fed_agree], dec_r[fed_agree],
+                                   rtol=MODEL_TOL, atol=MODEL_TOL)
+        # greedy tokens: a row's token j is held while every route before
+        # it in that row agreed (the prefill's last token, decode steps < j)
+        held = torch.stack(served_agree, 1).cumprod(1).bool()
+        check(torch.equal(tok_k[held], tok_r[held]),
+              f"{tag}: greedy tokens differ where the routes agree\n"
+              f"{tok_k}\n{tok_r}")
+        gap = float((logits_k - logits_r)[served_agree[0]].abs().max()) \
+            if bool(served_agree[0].any()) else float("nan")
+        dec_gap = float((dec_k - dec_r)[fed_agree].abs().max())
+        log(f"{tag} (1 layer, full width, {cfg.num_experts} experts top-"
+            f"{cfg.experts_per_token}, f32, B={B}, prompt {S}; D={D}, GQA "
+            f"group {mattn.padded_heads(cfg) // cfg.num_kv_heads}, {route} "
+            f"route, {launches} launch a prefill): (token, slot) routes that "
+            f"differ between the paths {n_flips} of {n} (limit "
+            f"{MOE_FLIP_LIMIT:.1%}); where a token's routes agree, prefill "
+            f"logits max gap {gap:.3e} ({int(served_agree[0].sum())} of {B} "
+            f"rows), {CUT_DEPTH_GEN} fed decode steps' logits max gap "
+            f"{dec_gap:.3e} ({int(fed_agree.sum())} of {fed_agree.numel()}) "
+            f"(tol {MODEL_TOL}); greedy tokens identical where held "
+            f"({int(held.sum())} of {held.numel()}): {tok_k[0].tolist()}")
+        del model, params, runs, logits_k, logits_r, dec_k, dec_r
+        del served_k, served_r, fed_k, fed_r
+        free_model()
+
+
+def phase_moe_serve():
+    """The MoE family at full width in bf16, cut in depth to fit the card,
+    one model at a time: arctic-480b at 2 layers (all 128 experts, the
+    dense residual, 56 heads padded to 64) and kimi-k2 at 1 (all 384
+    experts, head dim 128 over d_model 7168)."""
+    cells = {}
+    for full, layers in MOE_SERVE:
+        cfg = dataclasses.replace(full, num_layers=layers)
+        free_model()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        log(f"serve {cfg.name}: {layers} of its {full.num_layers} layers")
+        cells[cfg.name] = dense_serve_cell(cfg, MOE_PROMPT)
+        free_model()
+        log(f"serve {cfg.name}: {time.perf_counter() - t0:.1f} s")
+    return cells
+
+
+def moe_flash_records(flash_record, moe_cells):
+    """Fill the MoE layer's flash record with its launches on the MoE
+    serving paths and log the kernel's share of each prefill."""
+    layer = flash_record["layers"][MOE_FLASH[0][0]]
+    layer["launches_by_path"] = {f"{name} serve": cell["launches"]
+                                 for name, cell in moe_cells.items()}
+    layer["launches"] = sum(layer["launches_by_path"].values())
+    for name, cell in moe_cells.items():
         k_ms = cell["launches"] * layer["ms"]
         log(f"serve {name} flash kernel share of the prefill: "
             f"{cell['launches']} x {layer['ms']:.4f} ms (at "
@@ -5418,6 +5730,11 @@ def run():
     timed_phase(seconds, phase_dense_cut_depth)
     dense = timed_phase(seconds, phase_dense_serve)
     dense_flash_records(flash_record, dense)
+    timed_phase(seconds, phase_moe_routing)
+    free_model()
+    timed_phase(seconds, phase_moe_cut_depth)
+    moe_cells = timed_phase(seconds, phase_moe_serve)
+    moe_flash_records(flash_record, moe_cells)
 
     torch.cuda.empty_cache()
     ssd_record = timed_phase(seconds, phase_ssd)
@@ -5440,7 +5757,8 @@ def run():
     flash_record["launches_by_path"] = {
         "gemma2-9b serve": flash_record["launches"],
         "zamba2-7b serve": hybrid["flash"],
-        **{f"{name} serve": cell["launches"] for name, cell in dense.items()}}
+        **{f"{name} serve": cell["launches"]
+           for name, cell in {**dense, **moe_cells}.items()}}
     ssd_record["launches_by_path"] = {
         "mamba2-130m serve": ssd_record["launches"],
         "zamba2-7b serve": hybrid["ssd"]}

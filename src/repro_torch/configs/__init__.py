@@ -1,28 +1,31 @@
 """Configurations of the port (its own copies of the reference's).
 
 ``sodda_svm`` holds the SODDA instances. The architecture registry
-(``get_config`` / ``list_archs`` / ``reduced_config``) holds only the
-architectures the port runs (every one of the reference's but the MoE
-family's arctic-480b and kimi-k2); any other name raises ``KeyError``
-with the list of known ones, as the reference's registry does.
+(``get_config`` / ``list_archs`` / ``reduced_config``) holds the
+reference's ten architectures, the MoE family's arctic-480b and kimi-k2
+among them; any other name raises ``KeyError`` with the list of known
+ones, as the reference's registry does.
 """
 import dataclasses
 
-from repro_torch.configs import (chatglm3_6b, gemma2_9b, internvl2_26b,
-                                 mamba2_130m, minitron_8b, musicgen_large,
-                                 phi3_mini, zamba2_7b)
+from repro_torch.configs import (arctic_480b, chatglm3_6b, gemma2_9b,
+                                 internvl2_26b, kimi_k2, mamba2_130m,
+                                 minitron_8b, musicgen_large, phi3_mini,
+                                 zamba2_7b)
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig
 
 _REGISTRY = {m.CONFIG.name: m.CONFIG
              for m in (musicgen_large, phi3_mini, chatglm3_6b, minitron_8b,
-                       gemma2_9b, internvl2_26b, mamba2_130m, zamba2_7b)}
+                       gemma2_9b, internvl2_26b, arctic_480b, kimi_k2,
+                       mamba2_130m, zamba2_7b)}
 
 # short aliases: --arch phi3_mini as well as --arch phi3-mini-3.8b
 _ALIASES = {"musicgen_large": "musicgen-large",
             "phi3_mini": "phi3-mini-3.8b", "chatglm3_6b": "chatglm3-6b",
             "minitron_8b": "minitron-8b", "gemma2_9b": "gemma2-9b",
             "internvl2_26b": "internvl2-26b", "mamba2_130m": "mamba2-130m",
-            "zamba2_7b": "zamba2-7b"}
+            "zamba2_7b": "zamba2-7b", "arctic_480b": "arctic-480b",
+            "kimi_k2": "kimi-k2-1t-a32b"}
 
 
 def list_archs():

@@ -2,24 +2,28 @@
 
 Counterpart of ``repro.launch.serve``. ``serve`` answers a batch of
 requests: it prefills the prompts (one kernel launch per layer: flash
-attention for the dense family, the SSD scan for the SSM family; the
-hybrid family launches the SSD scan in every layer and flash attention at
-every site of its shared block), builds the decode cache, and decodes
-greedily one token at a time. The dense family copies the prefill keys and
-values into a cache sized for the whole generation. The SSM and hybrid
-families' prefill builds no decode state, as in the reference, whose
-serving CLI feeds the prompt token by token through decode: ``warm_up``
-does the same. The CLI serves a batch of random prompts through it:
+attention for the dense and MoE families, the SSD scan for the SSM
+family; the hybrid family launches the SSD scan in every layer and flash
+attention at every site of its shared block), builds the decode cache,
+and decodes greedily one token at a time. The dense and MoE families copy
+the prefill keys and values into a cache sized for the whole generation.
+The SSM and hybrid families' prefill builds no decode state, as in the
+reference, whose serving CLI feeds the prompt token by token through
+decode: ``warm_up`` does the same. The CLI serves a batch of random
+prompts through it:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b --reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic_480b
 
 (on the CUDA device; ``--device cpu`` runs it on the CPU). ``--no-reduced``
 serves the full-size configuration. Every arch of the registry serves:
 phi3-mini-3.8b, minitron-8b, chatglm3-6b, musicgen-large and internvl2-26b
-run the dense stack as gemma2-9b does. A config with a frontend
+run the dense stack as gemma2-9b does, and arctic-480b and kimi-k2 run it
+with an MoE block in each layer (its prefill launches flash attention
+once a layer too; the MoE family needs no branch here). A config with a frontend
 (internvl2-26b's vision stub) is served with stand-in embeddings of
 ``input_specs``' shape drawn from the CLI's seeded generator, put ahead of
 each prompt.

@@ -47,8 +47,8 @@ from repro_torch.optim.optimizers import tree_map
 class TrainSettings:
     """The reference's settings that apply on one device. Its `remat` is
     the model's (``Model(remat=...)``, which the reference's step reads);
-    `zero1` and `moe_layout` wait for the mesh and MoE work (ROADMAP A6,
-    A5)."""
+    `zero1` and `moe_layout` (how the experts' weights lie over a mesh)
+    wait for the mesh work (ROADMAP A6)."""
     optimizer: str = "adamw"
     lr: float = 3e-4
     accum_steps: int = 1

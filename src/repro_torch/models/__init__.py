@@ -1,5 +1,5 @@
 """The LM stack of the port: the dense transformer (with the vlm and audio
-families), SSM and hybrid families (counterpart of ``repro.models``).
+families), MoE, SSM and hybrid families (counterpart of ``repro.models``).
 ``Model`` ties config, template and the serving entry points together;
 ``input_specs`` describes every input of a cell."""
 from repro_torch.models.model import Model, input_specs

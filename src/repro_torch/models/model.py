@@ -42,7 +42,9 @@ class Model(nn.Module):
     # -- parameters ------------------------------------------------------
     def init(self, seed: int, dtype=None):
         """Weights drawn on the model's device from a generator seeded by
-        `seed`, with the padded heads' wo rows zeroed."""
+        `seed`, with the padded heads' wo rows zeroed (arctic-480b's 56 q
+        heads padded to 64, for one). An expert leaf is drawn one (layer,
+        expert) slice at a time (``params._init_one``)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return self._fixup(init_params(self.template, gen,
                                        dtype or self.param_dtype))
@@ -72,15 +74,17 @@ class Model(nn.Module):
         kernels: the SSD scan's gradient is its backward kernel
         (``ops.ssd_scan_bwd``) and flash attention's is its own
         (``ops.flash_attention_bwd``), so the dense, SSM and hybrid
-        families all run their backward passes there."""
+        families all run their backward passes there. For the MoE family
+        'aux' is its layers' load-balancing losses summed, and the loss
+        adds 0.01 x it, as the reference's does."""
         return transformer.loss_fn(params, batch, self.cfg,
                                    remat=self.remat, force=force)
 
     def prefill(self, params, batch, force: str = "auto"):
         """batch {'tokens': (B,S)} -> (last-position logits (B,Vp) f32,
-        cache {'k', 'v': (L,B,S,KV,hd)}, or None for the SSM and hybrid
-        families, whose prefill builds no decode state, as in the
-        reference). With batch['frontend_embeds'] (B,F,d) (the vlm
+        cache {'k', 'v': (L,B,S,KV,hd)} (the dense and MoE families), or
+        None for the SSM and hybrid families, whose prefill builds no
+        decode state, as in the reference). With batch['frontend_embeds'] (B,F,d) (the vlm
         family) they go ahead of the tokens: the cache holds F + S
         positions, and the logits are still the last text position's. The
         hybrid family's shared attention is not windowed here, as in the
@@ -94,7 +98,9 @@ class Model(nn.Module):
 
     def decode(self, params, cache, tokens, pos):
         """tokens (B,1), pos (B,) -> (logits (B,Vp) f32, cache). The cache
-        is updated in place. The hybrid family's cache decides its window:
+        is updated in place. An MoE layer routes the B tokens over every
+        expert's capacity buffer (256 slots at least) and drops its
+        auxiliary loss, as the reference's decode does. The hybrid family's cache decides its window:
         a ring of the window's slots (``cache_template`` past 2 x the
         window) sees the last `window` positions, a full-length cache all
         of them."""
@@ -104,7 +110,8 @@ class Model(nn.Module):
     def cache_template(self, batch: int, seq: int,
                        dtype: Optional[torch.dtype] = None,
                        device: DeviceLike = None):
-        """A zeroed KV cache {'k', 'v': (L,B,seq,KV,hd)} on `device`
+        """A zeroed KV cache {'k', 'v': (L,B,seq,KV,hd)} (the dense and
+        MoE families) on `device`
         (default: the model's; "meta" describes the cache without
         allocating it), in `dtype` (default: the parameter dtype). For the
         SSM family {'state': (L,B,nh,hd,N), 'conv': (L,B,k-1,C)}, f32 whatever

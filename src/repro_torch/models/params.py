@@ -81,6 +81,10 @@ def _std(spec: ParamSpec) -> float:
     return spec.scale / math.sqrt(max(fan_in, 1))
 
 
+# leading axes along which ``_init_one`` draws a leaf slice by slice
+_DRAWN_BY_SLICE = ("layers", "experts")
+
+
 def _init_one(spec: ParamSpec, gen: torch.Generator, dtype) -> torch.Tensor:
     dev = gen.device
     if spec.init == "zeros":
@@ -89,9 +93,15 @@ def _init_one(spec: ParamSpec, gen: torch.Generator, dtype) -> torch.Tensor:
         return torch.ones(spec.shape, dtype=dtype, device=dev)
     std = _std(spec)
     out = torch.empty(spec.shape, dtype=dtype, device=dev)
-    # a stacked leaf is drawn one layer at a time, so the f32 draw never
-    # holds more than one layer beside the weights
-    parts = out if spec.axes and spec.axes[0] == "layers" else [out]
+    # a stacked leaf is drawn one layer at a time, and an expert leaf one
+    # (layer, expert) slice at a time, so the f32 draw never holds more
+    # than one slice beside the weights (an arctic-480b layer's stacked wg
+    # is 17.9 GB in f32)
+    parts = [out]
+    for axis in spec.axes[:2]:
+        if axis not in _DRAWN_BY_SLICE:
+            break
+        parts = [sub for part in parts for sub in part]
     for part in parts:
         draw = torch.randn(part.shape, generator=gen, dtype=torch.float32,
                            device=dev)

@@ -1,4 +1,4 @@
-"""Model assembly for the dense transformer, SSM and hybrid families:
+"""Model assembly for the dense transformer, MoE, SSM and hybrid families:
 templates, the prefill forward (cache construction) and decode (cache
 consumption).
 
@@ -16,10 +16,13 @@ application site. The ``vlm`` and ``audio`` families run the dense
 stack, as in the reference; a vlm's frontend is a stub, as there:
 ``frontend_embeds`` (B, F, d), precomputed patch embeddings, are put ahead
 of the token embeddings, so positions run over F + S, and the loss skips
-their F positions. The training loss (``loss_fn``) runs the same forward;
-``remat`` checkpoints each layer (``torch.utils.checkpoint``), trading
-memory for a second forward in the backward. The MoE family is not ported
-yet (ROADMAP A).
+their F positions. The MoE family (arctic-480b, kimi-k2) runs the dense
+stack with ``models.moe``'s block in place of each layer's MLP; each
+layer's auxiliary load-balancing loss is summed over the layers, as the
+reference's scan carries it, and ``loss_fn`` adds it. The training loss
+(``loss_fn``) runs the same forward; ``remat`` checkpoints each layer
+(``torch.utils.checkpoint``), trading memory for a second forward in the
+backward.
 """
 from __future__ import annotations
 
@@ -29,18 +32,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, mlp, ssm
+from repro_torch.models import attention, mlp, moe, ssm
 from repro_torch.models.layers import (cross_entropy, embed_tokens, rms_norm,
                                        unembed)
 from repro_torch.models.params import ParamSpec, tree_map_specs
-
-
-def check_family(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not run."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP A: MoE "
-            "family)")
 
 
 # ---------------------------------------------------------------------------
@@ -51,12 +46,15 @@ def _norm(d):
 
 
 def layer_template(cfg: ArchConfig) -> dict:
-    check_family(cfg)
     d = cfg.d_model
     if cfg.family in ("ssm", "hybrid"):
         return {"ln": _norm(d), "ssm": ssm.ssm_template(cfg)}
     t = {"ln1": _norm(d), "attn": attention.attn_template(cfg),
-         "ln2": _norm(d), "mlp": mlp.mlp_template(d, cfg.d_ff)}
+         "ln2": _norm(d)}
+    if cfg.num_experts:
+        t["moe"] = moe.moe_template(cfg)
+    else:
+        t["mlp"] = mlp.mlp_template(d, cfg.d_ff)
     if cfg.local_global:  # gemma2 post-norms
         t["ln1post"] = _norm(d)
         t["ln2post"] = _norm(d)
@@ -120,10 +118,16 @@ def _logits(params, h, cfg: ArchConfig):
 
 
 def _mlp_half(lp, h, cfg: ArchConfig):
-    m = mlp.mlp_forward(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps))
+    """The MLP (or MoE) half of a block: (h + its output, the MoE block's
+    auxiliary loss, or None for an MLP)."""
+    x = rms_norm(h, lp["ln2"], cfg.norm_eps)
+    if "moe" in lp:
+        m, aux = moe.moe_forward(lp["moe"], x, cfg)
+    else:
+        m, aux = mlp.mlp_forward(lp["mlp"], x), None
     if "ln2post" in lp:
         m = rms_norm(m, lp["ln2post"], cfg.norm_eps)
-    return h + m
+    return h + m, aux
 
 
 def _attn_block(lp, h, cfg: ArchConfig, positions, window: int, force: str):
@@ -132,7 +136,8 @@ def _attn_block(lp, h, cfg: ArchConfig, positions, window: int, force: str):
                                    positions, window=window, force=force)
     if "ln1post" in lp:
         a = rms_norm(a, lp["ln1post"], cfg.norm_eps)
-    return _mlp_half(lp, h + a, cfg), kv
+    h, aux = _mlp_half(lp, h + a, cfg)
+    return h, kv, aux
 
 
 def _ssm_block(lp, h, cfg: ArchConfig, force: str):
@@ -167,11 +172,18 @@ def _remat(fn, remat: str):
 # ---------------------------------------------------------------------------
 # Train / prefill forward
 # ---------------------------------------------------------------------------
-def forward(params, tokens, cfg: ArchConfig, *, frontend_embeds=None,
-            collect_cache: bool = False, last_only: bool = False,
-            force: str = "auto", long_context: bool = False,
-            remat: str = "none"):
-    """tokens (B,S) -> (logits (B,S,Vp) f32, cache or None).
+def forward(params, tokens, cfg: ArchConfig, **opts):
+    """tokens (B,S) -> (logits (B,S,Vp) f32, cache or None):
+    ``forward_with_aux`` without the auxiliary loss."""
+    logits, cache, _ = forward_with_aux(params, tokens, cfg, **opts)
+    return logits, cache
+
+
+def forward_with_aux(params, tokens, cfg: ArchConfig, *,
+                     frontend_embeds=None, collect_cache: bool = False,
+                     last_only: bool = False, force: str = "auto",
+                     long_context: bool = False, remat: str = "none"):
+    """tokens (B,S) -> (logits (B,S,Vp) f32, cache or None, aux f32).
 
     `frontend_embeds` (B,F,d), if given, are cast to the activations'
     dtype and put ahead of the token embeddings: the sequence is then F + S
@@ -184,9 +196,9 @@ def forward(params, tokens, cfg: ArchConfig, *, frontend_embeds=None,
     ``kernels.ops.ssd_scan``). `long_context` gives the hybrid family's
     shared attention its sliding window. `remat` (``REMATS``) checkpoints
     each layer and each hybrid site (``_remat``); it changes what the
-    backward keeps and recomputes, not a value.
+    backward keeps and recomputes, not a value. `aux` is the MoE layers'
+    auxiliary losses summed in layer order (0 for the other families).
     """
-    check_family(cfg)
     h = _embed(params, tokens, cfg)
     if frontend_embeds is not None:
         h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
@@ -196,15 +208,16 @@ def forward(params, tokens, cfg: ArchConfig, *, frontend_embeds=None,
     attn_block = _remat(
         lambda lp, x, window: _attn_block(lp, x, cfg, positions, window,
                                           force), remat)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family in ("ssm", "hybrid"):
         window = cfg.sliding_window if long_context else 0
         for i in range(cfg.num_layers):
             h = ssm_block(layer_params(params["layers"], i), h)
             if cfg.family == "hybrid" and is_attn_site(cfg, i):
-                h, _ = attn_block(params["shared"], h, window)
+                h, _, _ = attn_block(params["shared"], h, window)
         if last_only:
             h = h[:, -1:]
-        return _logits(params, h, cfg), None
+        return _logits(params, h, cfg), None, aux
     L = cfg.num_layers
     cache = None
     if collect_cache:
@@ -212,36 +225,38 @@ def forward(params, tokens, cfg: ArchConfig, *, frontend_embeds=None,
         cache = {"k": torch.empty(shape, dtype=h.dtype, device=h.device),
                  "v": torch.empty(shape, dtype=h.dtype, device=h.device)}
     for i in range(L):
-        h, (k, v) = attn_block(layer_params(params["layers"], i), h,
-                               layer_window(cfg, i))
+        h, (k, v), layer_aux = attn_block(layer_params(params["layers"], i),
+                                          h, layer_window(cfg, i))
+        if layer_aux is not None:
+            aux = aux + layer_aux
         if cache is not None:
             cache["k"][i].copy_(k)
             cache["v"][i].copy_(v)
     if last_only:
         h = h[:, -1:]
-    return _logits(params, h, cfg), cache
+    return _logits(params, h, cfg), cache, aux
 
 
 def loss_fn(params, batch, cfg: ArchConfig, *, remat: str = "none",
             aux_weight: float = 0.01, force: str = "auto"):
-    """The training loss: `forward` on batch['tokens'] (B,S), then the mean
-    cross entropy of its logits against batch['targets'] (B,S) over the
-    true vocabulary (the padded entries masked), plus `aux_weight` x the
-    auxiliary loss, which is 0 for the families the port runs (the MoE
-    load-balancing loss is the reference's only one). Returns
-    (loss, {'ce', 'aux'}), f32 scalars. `remat` and `force` go to
-    `forward`. With batch['frontend_embeds'] (B,F,d) (the vlm family) the
-    forward runs over F + S positions and the first F positions' logits,
-    the frontend's, carry no loss."""
-    logits, _ = forward(params, batch["tokens"], cfg,
-                        frontend_embeds=batch.get("frontend_embeds"),
-                        remat=remat, force=force)
+    """The training loss: `forward_with_aux` on batch['tokens'] (B,S),
+    then the mean cross entropy of its logits against batch['targets']
+    (B,S) over the true vocabulary (the padded entries masked), plus
+    `aux_weight` x the auxiliary loss (the MoE layers' load-balancing
+    losses summed; 0 for the other families). Returns (loss, {'ce',
+    'aux'}), f32 scalars. `remat` and `force` go to the forward. With
+    batch['frontend_embeds'] (B,F,d) (the vlm family) the forward runs
+    over F + S positions and the first F positions' logits, the
+    frontend's, carry no loss."""
+    logits, _, aux = forward_with_aux(
+        params, batch["tokens"], cfg,
+        frontend_embeds=batch.get("frontend_embeds"), remat=remat,
+        force=force)
     targets = batch["targets"]
     F = logits.shape[1] - targets.shape[1]
     if F > 0:  # frontend positions carry no loss
         logits = logits[:, F:]
     ce = cross_entropy(logits, targets, cfg.vocab_size)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
@@ -262,9 +277,10 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
     does; a ring cache of the window's slots (``Model.cache_template`` past
     2 x the window) holds the last `window` positions only, so it windows
     the attention whatever the flag. The attention mask is built once a
-    step (``attention.decode_mask``), not once a layer.
+    step (``attention.decode_mask``), not once a layer. An MoE layer runs
+    its block on the (B,1,d) token batch, over every expert's capacity
+    buffer, and its auxiliary loss is dropped, as in the reference.
     """
-    check_family(cfg)
     h = _embed(params, tokens, cfg)
     if cfg.family in ("ssm", "hybrid"):
         if cfg.family == "hybrid":
@@ -283,7 +299,7 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
                 a, _ = attention.decode_attn_heads(
                     sp["attn"], rms_norm(h, sp["ln1"], cfg.norm_eps), cfg,
                     cache["ak"][site], cache["av"][site], pos, mask=mask)
-                h = _mlp_half(sp, h + a, cfg)
+                h, _ = _mlp_half(sp, h + a, cfg)
                 site += 1
         return _logits(params, h, cfg)[:, 0], cache
     S = cache["k"].shape[2]
@@ -297,5 +313,5 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
                                            mask=masks[layer_window(cfg, i)])
         if "ln1post" in lp:
             a = rms_norm(a, lp["ln1post"], cfg.norm_eps)
-        h = _mlp_half(lp, h + a, cfg)
+        h, _ = _mlp_half(lp, h + a, cfg)
     return _logits(params, h, cfg)[:, 0], cache

@@ -155,7 +155,9 @@ def test_arch_config_fields_and_defaults_match_reference():
                                   "minitron-8b", "minitron_8b",
                                   "chatglm3-6b", "chatglm3_6b",
                                   "musicgen-large", "musicgen_large",
-                                  "internvl2-26b", "internvl2_26b"])
+                                  "internvl2-26b", "internvl2_26b",
+                                  "arctic-480b", "arctic_480b",
+                                  "kimi-k2-1t-a32b", "kimi_k2"])
 def test_gemma2_config_and_reduced_config_match_reference(name):
     ref, port = ref_archs.get_config(name), port_archs.get_config(name)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
@@ -175,8 +177,9 @@ def test_gemma2_config_and_reduced_config_match_reference(name):
 
 def test_port_registry_is_a_subset_of_the_reference():
     assert set(port_archs.list_archs()) <= set(ref_archs.list_archs())
+    assert port_archs.list_archs() == ref_archs.list_archs()
     with pytest.raises(KeyError, match="known"):
-        port_archs.get_config("arctic-480b")
+        port_archs.get_config("no-such-arch")
 
 
 def test_unit_variance_scale_matches_reference():

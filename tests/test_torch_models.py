@@ -74,14 +74,21 @@ def _port_flat(template, fields, prefix=""):
 @pytest.mark.parametrize("arch,reduce",
                          [(ARCH, True), (ARCH, False),
                           ("mamba2-130m", True), ("mamba2-130m", False),
-                          ("zamba2-7b", True), ("zamba2-7b", False)],
+                          ("zamba2-7b", True), ("zamba2-7b", False),
+                          ("arctic-480b", True), ("arctic-480b", False),
+                          ("kimi-k2-1t-a32b", True),
+                          ("kimi-k2-1t-a32b", False)],
                          ids=["reduced", "full", "mamba2-reduced",
-                              "mamba2-full", "zamba2-reduced", "zamba2-full"])
+                              "mamba2-full", "zamba2-reduced", "zamba2-full",
+                              "arctic-reduced", "arctic-full",
+                              "kimi-reduced", "kimi-full"])
 def test_template_matches_reference(arch, reduce):
     """Names, shapes, axes, initializers and count equal the reference's,
-    for the full gemma2-9b, mamba2-130m and zamba2-7b templates too
-    (nothing is initialised); mamba2's tree is {embed, final_norm, layers:
-    {ln, ssm: 13 leaves}}, zamba2's adds unembed and the shared block."""
+    for the full gemma2-9b, mamba2-130m, zamba2-7b, arctic-480b and kimi-k2
+    templates too (nothing is initialised); mamba2's tree is {embed,
+    final_norm, layers: {ln, ssm: 13 leaves}}, zamba2's adds unembed and
+    the shared block; an MoE layer holds {attn, ln1, ln2, moe} (arctic's
+    moe with its dense residual MLP)."""
     from repro.models import transformer as jax_transformer
     jcfg = jax_get_config(arch)
     cfg = get_config(arch)
@@ -104,6 +111,11 @@ def test_template_matches_reference(arch, reduce):
                               "unembed"]
         assert sorted(pt["layers"]) == ["ln", "ssm"]
         assert sorted(pt["shared"]) == ["attn", "ln1", "ln2", "mlp"]
+    if cfg.family == "moe":
+        assert sorted(pt["layers"]) == ["attn", "ln1", "ln2", "moe"]
+        assert sorted(pt["layers"]["moe"]) == (
+            ["dense", "router", "wd", "wg", "wu"] if cfg.moe_dense_residual
+            else ["router", "wd", "wg", "wu"])
 
 
 def test_full_gemma2_size():
@@ -352,8 +364,9 @@ def test_model_defaults_to_the_card():
                                     dict(num_experts=8, experts_per_token=2)],
                          ids=["ssm", "hybrid", "moe"])
 def test_unported_families_raise(change):
-    """MoE raises, naming ROADMAP. The ssm and hybrid families are ported:
-    their cases now build reduced mamba2 and reduced zamba2."""
+    """Every family is ported now: the ssm, hybrid and MoE cases build
+    reduced mamba2, reduced zamba2 and reduced arctic-480b (with its
+    dense residual), and none raises."""
     if change is None:
         cfg = reduced_config(get_config("mamba2-130m"))
         model = Model(cfg, device="cpu")
@@ -366,13 +379,19 @@ def test_unported_families_raise(change):
         assert "ssm" in model.template["layers"]
         assert "attn" in model.template["shared"]
         return
-    cfg = dataclasses.replace(reduced_config(get_config(ARCH)), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg, device="cpu")
+    cfg = reduced_config(get_config("arctic-480b"))
+    assert (cfg.num_experts, cfg.experts_per_token) == (
+        change["num_experts"], change["experts_per_token"])
+    model = Model(cfg, device="cpu")
+    assert model.cfg.family == "moe"
+    assert "moe" in model.template["layers"]
+    assert "mlp" not in model.template["layers"]
+    assert "dense" in model.template["layers"]["moe"]
 
 
 def test_registry_holds_the_ported_archs_only():
-    assert list_archs() == ["chatglm3-6b", "gemma2-9b", "internvl2-26b",
+    assert list_archs() == ["arctic-480b", "chatglm3-6b", "gemma2-9b",
+                            "internvl2-26b", "kimi-k2-1t-a32b",
                             "mamba2-130m", "minitron-8b", "musicgen-large",
                             "phi3-mini-3.8b", "zamba2-7b"]
     assert get_config("gemma2_9b") is get_config("gemma2-9b")
@@ -383,5 +402,7 @@ def test_registry_holds_the_ported_archs_only():
     assert get_config("chatglm3_6b") is get_config("chatglm3-6b")
     assert get_config("musicgen_large") is get_config("musicgen-large")
     assert get_config("internvl2_26b") is get_config("internvl2-26b")
+    assert get_config("arctic_480b") is get_config("arctic-480b")
+    assert get_config("kimi_k2") is get_config("kimi-k2-1t-a32b")
     with pytest.raises(KeyError, match="gemma2-9b"):
-        get_config("arctic-480b")
+        get_config("no-such-arch")
