@@ -243,13 +243,13 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     the recurrence), and 8 decode steps' logits, fed random tokens, within
     2e-4 of the scan's at the same positions;
 23. serves 16 requests of 2048 prompt tokens for 32 tokens each through
-    full-depth bf16 mamba2-130m (``serve``, the third main path, with the
-    SSD launch counts set to 0 just before it): 24 launches in the
-    prefill, all on the wgmma route, and none in the warm-up or decode,
-    finite logits, and prefill time, warm-up time, decode time per token
-    and peak device memory. Then each of the 24 layers' SSD, on the plain
-    path's activations, is held to the rounding rule of 13, every control
-    failing it;
+    bf16 mamba2-130m at full width, cut to 12 of its 24 layers (``serve``,
+    the third main path, with the SSD launch counts set to 0 just before
+    it): 12 launches in the prefill, all on the wgmma route, and none in
+    the warm-up or decode, finite logits, and prefill time, warm-up time
+    (timed inside the call), decode time per token and peak device
+    memory. Then each layer's SSD, on the plain path's activations, is
+    held to the rounding rule of 13, every control failing it;
 24. runs zamba2-7b at full width, cut to 12 layers (2 sites of the shared
     attention + MLP block), in f32 (B=2, 256 prompt tokens, Mamba-2's
     A_log and dt_bias): every flash launch (D = 112, the wgmma-f32 route)
@@ -285,16 +285,21 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     on the tensor cores) against its plain version (``ref.attention_grads``)
     on the out and lse of the card's forward kernel (whose out must be
     bitwise the forward's without lse, its lse within 1e-5 of the plain
-    one, and in f32 its out within 2e-5 of the plain one, the split
-    control outside) at gemma2-9b's local and global training layers (1,
+    one, in f32 its out within 2e-5 of the plain one, the split control
+    outside, and in bf16, where every row sees a key, its out within the
+    rounding rule of 13, both controls outside) at gemma2-9b's local and global training layers (1,
     16, 8, 4608, 256, softcap 50), zamba2-7b's (1, 32, 32, 4608, 112)
     with and without its long-context window, a phi3-mini layer (head dim
-    96), D = 16, 64 and 128, a decode offset over an unaligned key range
-    and rows that see no key, each in f32 (every gradient within 1e-5 of
+    96), the training layers of the dense stack at 1 x 4096 and of the
+    MoE family at 2 x 4096 (minitron-8b's, internvl2-26b's, the MoE
+    layer's and chatglm3-6b's at GQA groups 4, 6, 8 and 16,
+    musicgen-large's at D = 64), D = 16, 64 and 128, a decode offset
+    over an unaligned key range and rows that see no key, each in f32 (every gradient within 1e-5 of
     its max) and bf16 (the rounding rule of 13), the control (dS rounded
     once to bf16 before the dQ and dK products) failing both on dq and
     dk; two launches bitwise; and times it at the three training layers
-    beside its bound, the plain version and the backward of
+    (and the MoE layer in bf16, chatglm3-6b's in f32) beside its bound,
+    the plain version and the backward of
     ``scaled_dot_product_attention`` (causal, no softcap, k and v
     expanded), and the f32 forward with its lse at the three layers
     beside both bounds and, where the layer has no window, the kernel and
@@ -325,7 +330,29 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     every gradient leaf within F32_REDUCTION of the plain path, a control
     outside it (gemma2: the softcap's derivative dropped from the
     backward; zamba2: the causal mask dropped from it), remat='full'
-    bitwise remat='none' with the forwards relaunched.
+    bitwise remat='none' with the forwards relaunched;
+29. trains the rest of the dense stack and the MoE family: (g)
+    phi3-mini, minitron-8b, chatglm3-6b, musicgen-large and
+    internvl2-26b at full width, cut to 2 layers, f32, adamw at 3e-4, 1 x
+    4096 positions a step (internvl2: 256 frontend embeddings + 3840 text
+    tokens), each as (e): 5 steps twice, bitwise, the loss falling, an
+    accum_steps=2 step (not minitron, whose two gradient trees do not
+    fit), the exactness cell at 1 x 2048 with the causal mask dropped as
+    the control, remat bitwise; (h) arctic-480b (1 of 35 layers, all 128
+    experts, 56 heads padded to 64) and kimi-k2 (1 of 61, 192 of 384
+    experts) in bf16 at the reference's production settings (adafactor,
+    bf16 gradients, remat 'full'), 2 x 4096 tokens a step, 3 steps twice,
+    bitwise (by each leaf's digest), 2 flash forward and 1 backward
+    launches a step on the wgmma route, the padded heads' wo rows exactly
+    0 after every step, each step's expert load and drops, ms a step
+    against its floor, the gradient and the update timed apart; (i) the
+    MoE exactness cells in f32 (arctic with 16 experts, kimi with 32, 1 x
+    2048 tokens): the routes that differ between the kernel and plain
+    paths counted, the loss, aux and every gradient leaf within
+    F32_REDUCTION where none differs, the gates-detached control outside
+    on the router leaf, the causal-mask control outside, remat bitwise,
+    and one adafactor accum_steps=2 step at grad_dtype bfloat16 and one
+    at float32. Every new cell's peak stays under 72 GB.
 
 Each phase's wall seconds go to a log line of their own as it ends, and
 all of them to one line before the records. Exits non-zero if any phase
@@ -394,6 +421,7 @@ from repro_torch.testing import tolerances as tol  # noqa: E402
 from repro_torch.testing.mesh_order import (  # noqa: E402
     snapshot_as, snapshot_gradient_in_mesh_order)
 from repro_torch.testing.multiprocess import tile_digest  # noqa: E402
+from repro_torch.testing.padded_heads import padded_wo_gradient  # noqa: E402
 
 ITERS = 20  # outer iterations of each Table-1 run
 RECORD_EVERY = 5
@@ -451,8 +479,12 @@ SSM_F32_B, SSM_F32_PROMPT, SSM_F32_FED = 2, 1024, 8
 # by ~3e-4, past the elementwise 2e-4 rule, so the logits are held by
 # their rms gap to that floor; each layer's SSD is held to SSD_F32_TOL.
 FLOOR_FACTOR = 2.0
-# 2048: the context of the Mamba-2 paper's language-model runs
+# 2048: the context of the Mamba-2 paper's language-model runs; served at
+# SSM_SERVE_LAYERS of mamba2-130m's 24 layers (full width): the decode
+# warm-up over the prompt is host-bound, ~1.7 ms a layer a position, and
+# at full depth took 82 s on an H100 80GB HBM3 (700 W) host
 SSM_SERVE_B, SSM_SERVE_PROMPT, SSM_SERVE_GEN = 16, 2048, 32
+SSM_SERVE_LAYERS = 12
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 4608, 32  # 4608 = 36 x 128 > 4096
 # zamba2-7b: the shared attention's flash layer (B, H, KV, S, S, D) at the
 # serving prefill, and phi3-mini's (head dim 96, the same kernel layout)
@@ -3060,7 +3092,7 @@ def phase_serve():
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
                             generator=gen, device="cuda")
-    serve(model, params, prompts[:, :256], 2)  # warm-up: handles, library
+    serve(model, params, prompts[:, :16], 2)  # warm-up: handles, library
     # time to the first token: serve one token, i.e. prefill and cache copy
     ops.flash_attention.launches = 0
     torch.cuda.synchronize()
@@ -4139,8 +4171,9 @@ def tma_copies():
 
 
 def phase_ssm_serve():
-    """The third main path: full-depth bf16 mamba2-130m serving a batch."""
-    cfg = MAMBA2_130M
+    """The third main path: bf16 mamba2-130m at full width, cut to
+    SSM_SERVE_LAYERS layers, serving a batch."""
+    cfg = dataclasses.replace(MAMBA2_130M, num_layers=SSM_SERVE_LAYERS)
     B, P, n = SSM_SERVE_B, SSM_SERVE_PROMPT, SSM_SERVE_GEN
     model = Model(cfg)  # bf16 weights on the card
     params = ssm_params(model, SEED)
@@ -4149,41 +4182,33 @@ def phase_ssm_serve():
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
                             device="cuda")
-    serve(model, params, prompts[:, :256], 2)  # warm-up: handles, library
+    serve(model, params, prompts[:, :16], 2)  # warm-up: handles, library
     # time to the first token: serve one token, i.e. the prefill
     ops.ssd_scan.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    first, _ = serve(model, params, prompts, 1)
+    serve(model, params, prompts, 1)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_launches = ops.ssd_scan.launches
-    # the decode warm-up over the prompt, then the greedy decode steps
-    # from its cache, each timed alone as serve runs them
-    t0 = time.perf_counter()
-    _, cache = warm_up(model, params, prompts, model.cache_template(B, P + n))
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    _, decode_step = make_serve_steps(model)
-    tok = first[:, 0]
-    t0 = time.perf_counter()
-    for i in range(n - 1):
-        pos = torch.full((B,), P + i, dtype=torch.long, device="cuda")
-        step_logits, cache = decode_step(params, cache, tok[:, None], pos)
-        tok = step_logits.argmax(dim=-1)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    del cache
 
+    # the main path: a whole serve call, its decode warm-up over the
+    # prompt timed inside it (``timed_warm_up``), the greedy decode steps
+    # after it
     torch.cuda.reset_peak_memory_stats()
     ops.ssd_scan.launches = 0  # the main path starts here
     for kind in ops.ssd_scan.route_launches:
         ops.ssd_scan.route_launches[kind] = 0
-    t0 = time.perf_counter()
-    tokens, logits = serve(model, params, prompts, n)
     torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
+    with timed_warm_up({}) as marks:
+        t0 = time.perf_counter()
+        tokens, logits = serve(model, params, prompts, n)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
     launches = ops.ssd_scan.launches  # ... and ends here
+    check("counts" in marks, "mamba2 serve: no warm-up ran")
+    warm_s = marks["end"] - marks["start"]
+    decode_s = total_s - (marks["end"] - t0)
     by_route = dict(ops.ssd_scan.route_launches)
     peak = torch.cuda.max_memory_allocated()
 
@@ -4204,7 +4229,8 @@ def phase_ssm_serve():
           and bool(torch.isfinite(logits).all()),
           "mamba2 serve: prefill logits not finite or of the wrong shape")
     steps = n - 1
-    log(f"mamba2 serve {B} x {P} prompt tokens, {n} generated each: prefill "
+    log(f"mamba2 serve ({cfg.num_layers} of {MAMBA2_130M.num_layers} "
+        f"layers) {B} x {P} prompt tokens, {n} generated each: prefill "
         f"{1e3 * prefill_s:.3f} ms ({B * P / prefill_s:.1f} prompt tok/s), "
         f"decode warm-up over the prompt {1e3 * warm_s:.3f} ms "
         f"({1e3 * warm_s / P:.3f} ms a position), decode "
@@ -4560,6 +4586,42 @@ ZAMBA2_TRAIN_LAYERS, ZAMBA2_TRAIN_B = 12, 1
 ZAMBA2_EXACT_S = 2048
 ATTN_TRAIN_STEPS = 5
 QK_GAIN = 4.0  # the exactness cells' wq and wk over the template's
+# (g): the rest of the dense stack, f32 at the reference CLI's settings
+# (f32 params, src/repro/launch/train.py:200; adamw at TRAIN_LR), cut to
+# DENSE_TRAIN_LAYERS at full width (2: at 4 layers the five cells took
+# 115.3 s, past what the run's time allows), 1 x DENSE_TRAIN_POS positions
+# a step (train_4k's sequence, src/repro/configs/base.py:34; internvl2-26b
+# 256 frontend embeddings + 3840 text tokens), DENSE_TRAIN_STEPS steps
+# twice (5, as (e) and (f): in 3 adamw steps at 3e-4 minitron-8b's loss
+# went 12.9359 -> 13.5513 -> 13.1044, the first sign-like step
+# overshooting), the exactness cell at 1 x DENSE_EXACT_POS. The
+# accum_steps=2 step runs where its two gradient trees fit beside adamw's:
+# minitron-8b's 2 layers hold 10.3 GB of f32 weights (8.4 GB of them its
+# two 256 000-row embeddings), so weights, moments and two gradient trees
+# take 51.6 GB before its logits' 4.2 GB tensors (its 4-layer step alone
+# peaked at 64.7 GB).
+DENSE_TRAIN = (PHI3_MINI, MINITRON_8B, CHATGLM3_6B, MUSICGEN_LARGE,
+               INTERNVL2_26B)
+DENSE_TRAIN_LAYERS, DENSE_TRAIN_STEPS = 2, 5
+DENSE_TRAIN_POS, DENSE_EXACT_POS = 4096, 2048
+DENSE_TRAIN_NO_ACCUM = ("minitron-8b",)
+# (h): the MoE family in bf16 at the reference's production settings
+# (src/repro/launch/dryrun.py:54-57: adafactor, grad_dtype bfloat16,
+# remat "full"; bf16 params, the reference Model's default) at lr
+# TRAIN_LR, full width, 1 layer: arctic-480b with all 128 experts, the
+# dense residual and its 56 q heads padded to 64; kimi-k2 with 192 of its
+# 384 experts (all 384 take 38.8 GB of bf16 weights and as much again in
+# gradients). MOE_TRAIN_B x MOE_TRAIN_S tokens a step, accum_steps 1 (the
+# reference's 8 / 16 are a pod's; (i) accumulates).
+MOE_TRAIN = ((ARCTIC_480B, 128), (KIMI_K2, 192))
+MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 2, 4096, 3
+# (i): MoE exactness, f32, 1 layer at full width on 1 x MOE_EXACT_S tokens:
+# arctic with 16 of its 128 experts (9.5 GB of weights), kimi with 32 of
+# 384 (15.5 GB); the cell holds two gradient trees at once
+MOE_EXACT = ((ARCTIC_480B, 16), (KIMI_K2, 32))
+MOE_EXACT_S = 2048
+# every training cell's peak device memory stays under this (of 80 GB)
+TRAIN_PEAK_LIMIT = 72e9
 
 
 def ssd_bwd_bound_ms(B, S, H, P, G, N, dtype, chunk=64):
@@ -4826,6 +4888,16 @@ FLASH_BWD_CASES = (
     ("zamba2 long-context window", (1, 32, 32, 4608, 4608, 112),
      dict(window=4096)),
     ("phi3-mini layer", (1, 32, 32, 4096, 4096, 96), dict()),
+    # the training layers of phase_train_dense_stack at its 1 x 4096
+    # tokens a step and of phase_train_moe at its MOE_TRAIN_B x 4096: GQA
+    # groups 4, 6, 8, 16 and 1 at D = 64 (the MoE layer is arctic-480b's
+    # 56 q heads padded to 64, and kimi-k2's 64)
+    ("minitron-8b training layer", (1, 32, 8, 4096, 4096, 128), dict()),
+    ("internvl2-26b training layer", (1, 48, 8, 4096, 4096, 128), dict()),
+    ("MoE training layer", (MOE_TRAIN_B, 64, 8, MOE_TRAIN_S, MOE_TRAIN_S,
+                            128), dict()),
+    ("chatglm3-6b training layer", (1, 32, 2, 4096, 4096, 128), dict()),
+    ("musicgen-large training layer", (1, 32, 32, 4096, 4096, 64), dict()),
     ("D=16 window+softcap", (2, 8, 4, 1000, 1000, 16),
      dict(window=300, softcap=30.0)),
     ("D=64 non-causal", (2, 8, 2, 1000, 1000, 64), dict(causal=False)),
@@ -4836,9 +4908,15 @@ FLASH_BWD_CASES = (
     ("rows that see no key", (1, 4, 2, 70, 100, 64),
      dict(window=40, q_offset=120)),
 )
-# timed beside the bound, the plain version and SDPA's backward
-FLASH_BWD_TIMED = ("gemma2 local training layer",
-                   "gemma2 global training layer", "zamba2 training layer")
+# (case, dtype) timed beside the bound, the plain version and SDPA's
+# backward (f32 ones also time the f32 forward with its lse)
+FLASH_BWD_TIMED = tuple(
+    (name, dtype) for name in ("gemma2 local training layer",
+                               "gemma2 global training layer",
+                               "zamba2 training layer")
+    for dtype in (torch.float32, torch.bfloat16)) + (
+    ("MoE training layer", torch.bfloat16),
+    ("chatglm3-6b training layer", torch.float32))
 # f32: each of dq, dk, dv within FLASH_BWD_F32_TOL x its largest entry of
 # the plain backward (ref.attention_grads on the same q, k, v, out, lse and
 # dout), which sums the same terms in another order (4608 keys a row, up to
@@ -4949,8 +5027,10 @@ def phase_flash_backward():
     """The flash-attention backward kernel against its plain version
     (``ref.attention_grads``) on every FLASH_BWD_CASES case in f32 and
     bf16, its out and lse from the card's forward kernel (whose out must
-    be bitwise the forward's without lse, and in f32 within FLASH_F32_TOL
-    of the plain version's, the split control outside): f32 within
+    be bitwise the forward's without lse, in f32 within FLASH_F32_TOL of
+    the plain version's, the split control outside, and in bf16 within
+    the rounding rule, both controls outside, where every row sees a
+    key): f32 within
     FLASH_BWD_F32_TOL of each gradient's max, bf16 the rounding rule, the
     dS-in-bf16 control failing both on dq and dk; two launches bitwise;
     its time beside its bound, the plain version's and SDPA's backward at
@@ -4994,6 +5074,20 @@ def phase_flash_backward():
                 del fwd_ctrl
             del want_out
             dead = torch.isinf(want_lse)
+            if dtype == bf16 and not bool(dead.any()):
+                # the bf16 forward at this layer's shape: the rounding rule
+                # against the plain version on f32 copies, the bf16-score
+                # and P-in-bf16 controls outside it (a row that sees no key
+                # has no softmax to round)
+                ex = bf16_excess(q, k, v, opts, kernel=out,
+                                 control=attention_bf16_scores(q, k, v,
+                                                               **opts))
+                check_excess(f"{tag}: forward", ex)
+                fwd_rule = (f"; out against plain: excess over half a bf16 "
+                            f"ulp / max|v| {ex['kernel']:.3e} (bf16-score "
+                            f"control {ex['control']:.3e}, P-in-bf16 control "
+                            f"{ex['control_p_bf16']:.3e}; limit "
+                            f"{F32_NOISE:.3e})")
             check(torch.equal(torch.isinf(lse), dead)
                   and bool((lse[dead] < 0).all()),
                   f"{tag}: lse is -inf on other rows than the plain one's")
@@ -5064,7 +5158,7 @@ def phase_flash_backward():
                 f"bitwise without lse{fwd_rule}, lse within {lse_gap:.3e}, "
                 f"{int(dead.sum())} rows -inf; bitwise across launches; "
                 f"kernel vs plain {rule}: " + ", ".join(parts))
-            if name in FLASH_BWD_TIMED:
+            if (name, dtype) in FLASH_BWD_TIMED:
                 ms = cuda_ms(lambda: ops.flash_attention_bwd(
                     q, k, v, out, lse, dout, force="cuda", **opts),
                     reps=3, warmup=1)
@@ -5167,15 +5261,22 @@ def zero_train_counts():
     ops.flash_attention_bwd.launches = 0
 
 
-def train_steps(model, steps, accum=1, batch=TRAIN_B, seq=TRAIN_S):
-    """`steps` steps of make_train_step (adamw, TRAIN_LR) from the CLI's
-    init on TokenPipeline(seed=0) at batch x seq, the launch counts set to
-    0 just before: (params, losses, ms of each step, launches of each
-    step, peak device memory)."""
+def train_steps(model, steps, accum=1, batch=TRAIN_B, seq=TRAIN_S,
+                settings=None, frontend=0, each_step=None):
+    """`steps` steps of make_train_step (by default adamw at TRAIN_LR;
+    `settings` a TrainSettings, whose accum_steps `accum` overrides) from
+    the CLI's init on TokenPipeline(seed=0) at batch x seq text tokens,
+    with `frontend` stand-in frontend embeddings a row ahead of them (drawn
+    from a generator seeded by the step), the launch counts set to 0 just
+    before; ``each_step(step, params, metrics)`` runs after each step:
+    (params, losses, ms of each step, launches of each step, peak device
+    memory)."""
+    settings = dataclasses.replace(
+        settings or train_module.TrainSettings(optimizer="adamw",
+                                               lr=TRAIN_LR),
+        accum_steps=accum)
     step_fn, opt = train_module.make_train_step(
-        model, ShapeConfig("chip", "train", seq, batch),
-        train_module.TrainSettings(optimizer="adamw", lr=TRAIN_LR,
-                                   accum_steps=accum))
+        model, ShapeConfig("chip", "train", seq, batch), settings)
     params = model.init(0)
     opt_state = opt.init(params)
     pipe = TokenPipeline(seed=0, batch=batch, seq_len=seq,
@@ -5185,14 +5286,21 @@ def train_steps(model, steps, accum=1, batch=TRAIN_B, seq=TRAIN_S):
     torch.cuda.reset_peak_memory_stats()
     zero_train_counts()  # the training path starts here
     for step in range(steps):
+        data = pipe.next()
+        if frontend:
+            gen = torch.Generator(device="cuda").manual_seed(SEED + step)
+            data["frontend_embeds"] = torch.randn(
+                (batch, frontend, model.cfg.d_model), generator=gen,
+                device="cuda")
         before = train_counts()
         t0 = time.perf_counter()
-        params, opt_state, metrics = step_fn(params, opt_state, pipe.next(),
-                                             step)
+        params, opt_state, metrics = step_fn(params, opt_state, data, step)
         losses.append(float(metrics["loss"]))  # waits for the step
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
         launches.append(tuple(n - m for n, m in zip(train_counts(), before)))
+        if each_step is not None:
+            each_step(step, params, metrics)
     return params, losses, ms, launches, torch.cuda.max_memory_allocated()
 
 
@@ -5209,25 +5317,31 @@ def attention_params(params, block):
 
 
 def attention_train_cell(tag, cfg, exact_params, control, control_name, B,
-                         exact_s):
+                         exact_s, steps=ATTN_TRAIN_STEPS, seq=ATTN_TRAIN_S,
+                         accum=True):
     """A dense or hybrid model at full width and cut depth, f32, through
-    the flash forward and backward kernels: ATTN_TRAIN_STEPS adamw steps
-    of make_train_step at B x ATTN_TRAIN_S, twice (the second bitwise the
-    first), one step at accum_steps=2 over 2 x ATTN_TRAIN_S, then the
-    exactness cell (1 x `exact_s` tokens, the weights of `exact_params`)
-    against the plain path, `control` (a wrong backward)
-    outside F32_REDUCTION, remat="full" bitwise remat="none". The steps
-    come first, on a freshly emptied cache (the earlier phases' garbage
-    collected first): the plain path's many differently sized tensors
-    leave the caching allocator's segments cut up, and gemma2's step
-    (62.4 GB of an 80 GB card) then found no 4.4 GiB block among 20.7 GiB
-    of free cached memory. Returns the step's figures and its launches a
-    micro-batch."""
+    the flash forward and backward kernels: `steps` adamw steps of
+    make_train_step at B x `seq` positions, twice (the second bitwise the
+    first), one step at accum_steps=2 over 2 x `seq` (where `accum`), then
+    the exactness cell (1 x `exact_s` positions, the weights of
+    `exact_params`) against the plain path, `control` (a wrong backward)
+    outside F32_REDUCTION, remat="full" bitwise remat="none". A config
+    with a frontend (internvl2-26b) takes its ``frontend_tokens`` stand-in
+    embeddings ahead of the text in every batch, so the positions are
+    frontend + text, and the accum step splits the frontend rows between
+    its micro-batches. The steps come first, on a freshly emptied cache
+    (the earlier phases' garbage collected first): the plain path's many
+    differently sized tensors leave the caching allocator's segments cut
+    up, and gemma2's step (62.4 GB of an 80 GB card) then found no 4.4 GiB
+    block among 20.7 GiB of free cached memory. Returns the step's figures
+    and its launches a micro-batch."""
     f32 = torch.float32
     L = cfg.num_layers
     hybrid = cfg.family == "hybrid"
     sites = transformer.n_attn_sites(cfg) if hybrid else L
     ssd = L if hybrid else 0
+    F = cfg.frontend_tokens
+    text, exact_text = seq - F, exact_s - F
     # (ssd forward, ssd backward, flash forward, flash backward)
     want = (ssd, ssd, sites, sites)
     label = (f"train ({tag}) {cfg.name} f32, {L} layers at full width"
@@ -5235,17 +5349,16 @@ def attention_train_cell(tag, cfg, exact_params, control, control_name, B,
     model = Model(cfg, param_dtype=f32)
     gc.collect()
     torch.cuda.empty_cache()
-    # the training path: ATTN_TRAIN_STEPS adamw steps, twice
-    first = train_steps(model, ATTN_TRAIN_STEPS, batch=B, seq=ATTN_TRAIN_S)
+    # the training path: `steps` adamw steps, twice
+    first = train_steps(model, steps, batch=B, seq=text, frontend=F)
     params, losses, ms, launches, peak = first
-    kept = [p.cpu() for p in tree_leaves(params)]
+    kept = params_digest(params)
     del first, params
     torch.cuda.empty_cache()
-    params2, losses2, ms2, launches2, _ = train_steps(
-        model, ATTN_TRAIN_STEPS, batch=B, seq=ATTN_TRAIN_S)
-    bitwise = losses2 == losses and all(
-        torch.equal(a, b.cpu()) for a, b in zip(kept, tree_leaves(params2)))
-    del params2, kept
+    second = train_steps(model, steps, batch=B, seq=text, frontend=F)
+    losses2, ms2, launches2 = second[1:4]
+    bitwise = losses2 == losses and params_digest(second[0]) == kept
+    del second
     torch.cuda.empty_cache()
     check(all(n == want for n in launches + launches2),
           f"{label}: launches a step {launches}, {launches2}, expected "
@@ -5255,31 +5368,40 @@ def attention_train_cell(tag, cfg, exact_params, control, control_name, B,
     check(bitwise, f"{label}: two runs differ: losses {losses} vs "
           f"{losses2}")
     step_ms = float(np.median(ms[1:] + ms2[1:]))
-    tokens = B * ATTN_TRAIN_S
-    log(f"{label} adamw lr {TRAIN_LR}, {B} x {ATTN_TRAIN_S} tokens a step, "
-        f"{ATTN_TRAIN_STEPS} steps twice: {step_ms:.3f} ms a step (median "
-        f"of steps 1-{ATTN_TRAIN_STEPS - 1} of both runs; first steps "
-        f"{ms[0]:.3f} / {ms2[0]:.3f}), {tokens / (step_ms / 1e3):.1f} "
-        f"tokens/s, peak device memory {peak / 1e9:.3f} GB; loss step 0 "
-        f"{losses[0]:.4f}, step {ATTN_TRAIN_STEPS - 1} {losses[-1]:.4f}; "
-        f"launches a step {want}; the second run bitwise the first")
-    _, acc_losses, acc_ms, acc_launches, acc_peak = train_steps(
-        model, 1, accum=2, batch=2, seq=ATTN_TRAIN_S)
-    want_acc = tuple(2 * n for n in want)
-    check(acc_launches == [want_acc], f"{label} accum 2: launches "
-          f"{acc_launches}, expected {want_acc}")
-    check(math.isfinite(acc_losses[0]), f"{label} accum 2: loss "
-          f"{acc_losses}")
-    log(f"{label} accum_steps=2 over 2 x {ATTN_TRAIN_S} tokens: one step "
-        f"{acc_ms[0]:.3f} ms (the first of its run), launches "
-        f"{acc_launches[0]}, loss {acc_losses[0]:.4f}, peak "
-        f"{acc_peak / 1e9:.3f} GB")
-    torch.cuda.empty_cache()
+    tokens = B * seq
+    log(f"{label} adamw lr {TRAIN_LR}, {B} x {seq} positions a step"
+        + (f" ({F} frontend embeddings + {text} text tokens)" if F else "")
+        + f", {steps} steps twice: {step_ms:.3f} ms a step (median of steps "
+        f"1-{steps - 1} of both runs; first steps {ms[0]:.3f} / "
+        f"{ms2[0]:.3f}), {tokens / (step_ms / 1e3):.1f} tokens/s, peak "
+        f"device memory {peak / 1e9:.3f} GB; loss step 0 {losses[0]:.4f}, "
+        f"step {steps - 1} {losses[-1]:.4f}; launches a step {want}; the "
+        "second run bitwise the first")
+    acc = None
+    if accum:
+        acc_losses, acc_ms, acc_launches, acc_peak = train_steps(
+            model, 1, accum=2, batch=2, seq=text, frontend=F)[1:]
+        want_acc = tuple(2 * n for n in want)
+        check(acc_launches == [want_acc], f"{label} accum 2: launches "
+              f"{acc_launches}, expected {want_acc}")
+        check(math.isfinite(acc_losses[0]), f"{label} accum 2: loss "
+              f"{acc_losses}")
+        log(f"{label} accum_steps=2 over 2 x {seq} positions"
+            + (" (each micro-batch one row of frontend embeddings)" if F
+               else "") + f": one step {acc_ms[0]:.3f} ms (the first of "
+            f"its run), launches {acc_launches[0]}, loss "
+            f"{acc_losses[0]:.4f}, peak {acc_peak / 1e9:.3f} GB")
+        acc = dict(ms=acc_ms[0], launches=acc_launches[0], peak=acc_peak)
+        torch.cuda.empty_cache()
 
     # exactness: the kernel path against the plain path on 1 x exact_s
     params = exact_params(model)
-    batch = TokenPipeline(seed=1, batch=1, seq_len=exact_s,
+    batch = TokenPipeline(seed=1, batch=1, seq_len=exact_text,
                           vocab_size=cfg.vocab_size).next()
+    if F:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        batch["frontend_embeds"] = torch.randn((1, F, cfg.d_model),
+                                               generator=gen, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     c0 = train_counts()
@@ -5317,7 +5439,7 @@ def attention_train_cell(tag, cfg, exact_params, control, control_name, B,
     del g_c, g_r, params
     torch.cuda.empty_cache()
     worst = max(gaps, key=gaps.get)
-    log(f"{label}, 1 x {exact_s} tokens: loss kernel "
+    log(f"{label}, 1 x {exact_s} positions: loss kernel "
         f"{float(loss_k):.6f} plain {float(loss_r):.6f} control "
         f"{float(loss_c):.6f}; every gradient leaf within "
         f"{gaps[worst]:.3e} of its max ({worst}; tol "
@@ -5335,7 +5457,8 @@ def attention_train_cell(tag, cfg, exact_params, control, control_name, B,
     return dict(name=cfg.name, step_ms=step_ms, launches=want,
                 tokens_per_s=tokens / (step_ms / 1e3), peak=peak,
                 losses=losses, exact_gap=gaps[worst],
-                control_gap=max(ctrl.values()))
+                control_gap=max(ctrl.values()), accum=acc,
+                exact_peak=exact_peak)
 
 
 def train_attention_cells():
@@ -5361,6 +5484,381 @@ def train_attention_cells():
                 lambda m: attention_params(ssm_params(m, SEED), "shared"),
                 control_attention(causal=False),
                 "the causal mask dropped", ZAMBA2_TRAIN_B, ZAMBA2_EXACT_S))
+    finally:
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+
+
+def train_floor_ms(cfg, tokens, dtype):
+    """The least time of a training step: 6 FLOP a weight a token for the
+    non-embedding weights at the dtype's tensor-core rate (f32: the CUDA
+    cores' 67 TFLOP/s), an MoE layer's expert products counted over every
+    capacity slot (E x cap rows, not the T x k routed ones)."""
+    template = transformer.model_template(cfg)
+    layers = sum(math.prod(t.shape) for t in tree_leaves(template["layers"]))
+    flop = 6.0 * layers * tokens
+    if cfg.num_experts:
+        E, k, L = cfg.num_experts, cfg.experts_per_token, cfg.num_layers
+        experts = L * E * 3 * cfg.d_model * cfg.d_ff
+        cap = mmoe.capacity(tokens, k, E)
+        flop = 6.0 * (layers - experts) * tokens + 6.0 * experts * cap
+    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    return 1e3 * flop / rate
+
+
+def phase_train_dense_stack():
+    """(g) phi3-mini, minitron-8b, chatglm3-6b, musicgen-large and
+    internvl2-26b trained at full width, cut to DENSE_TRAIN_LAYERS, f32,
+    through the flash forward and backward kernels
+    (``attention_train_cell``: GQA groups 1, 4, 16, 1 and 6, head dims 96,
+    128, 128, 64 and 128; internvl2 with its frontend embeddings), the
+    causal mask dropped from the backward as the control, each model on a
+    freshly emptied cache under expandable segments."""
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    cells = {}
+    try:
+        for full in DENSE_TRAIN:
+            cfg = dataclasses.replace(full, num_layers=DENSE_TRAIN_LAYERS)
+            D = cfg.resolved_head_dim
+            check(flash_build.route(torch.float32, D) == "wgmma-f32"
+                  and flash_build.bwd_route(torch.float32, D) == "wgmma-f32",
+                  f"train (g) {cfg.name}: routes")
+            free_model()
+            t0 = time.perf_counter()
+            cell = attention_train_cell(
+                "g", cfg, lambda m: attention_params(m.init(SEED), "layers"),
+                control_attention(causal=False), "the causal mask dropped",
+                1, DENSE_EXACT_POS, steps=DENSE_TRAIN_STEPS,
+                seq=DENSE_TRAIN_POS,
+                accum=cfg.name not in DENSE_TRAIN_NO_ACCUM)
+            cell["floor_ms"] = train_floor_ms(cfg, DENSE_TRAIN_POS,
+                                              torch.float32)
+            peaks = [cell["peak"], cell["exact_peak"]] + (
+                [cell["accum"]["peak"]] if cell["accum"] else [])
+            check(max(peaks) <= TRAIN_PEAK_LIMIT, f"train (g) {cfg.name}: "
+                  f"peaks {peaks} past {TRAIN_PEAK_LIMIT:.0f} B")
+            log(f"train (g) {cfg.name}: {cell['step_ms']:.3f} ms a step "
+                f"against a floor of {cell['floor_ms']:.3f} ms (6 x "
+                f"non-embedding weights x {DENSE_TRAIN_POS} tokens at "
+                f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s), "
+                f"{cell['step_ms'] / cell['floor_ms']:.1f}x; "
+                f"{time.perf_counter() - t0:.1f} s")
+            cells[cfg.name] = cell
+            free_model()
+    finally:
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+    return cells
+
+
+def params_digest(params):
+    """Each leaf's ``tile_digest`` (its bits, on the device): two trees of
+    equal digests are bitwise equal but for a collision."""
+    return [tile_digest(p) for p in tree_leaves(params)]
+
+
+def moe_train_cell(full, experts):
+    """(h) one MoE model in bf16 at the reference's production settings,
+    1 layer at full width with `experts` experts: MOE_TRAIN_STEPS steps of
+    make_train_step at MOE_TRAIN_B x MOE_TRAIN_S tokens, twice (the second
+    bitwise the first: losses and every leaf's digest), each step's
+    launches (2 flash forward under remat, 1 backward), expert loads and
+    drops, and the padded heads' wo rows (exactly 0 after every step)."""
+    bf16 = torch.bfloat16
+    cfg = dataclasses.replace(full, num_layers=1, num_experts=experts)
+    E, D = cfg.num_experts, cfg.resolved_head_dim
+    label = (f"train (h) {cfg.name} bf16, 1 of {full.num_layers} layers at "
+             f"full width, {E} of {full.num_experts} experts top-"
+             f"{cfg.experts_per_token}")
+    check(flash_build.route(bf16, D) == "wgmma"
+          and flash_build.bwd_route(bf16, D) == "wgmma",
+          f"{label}: routes {flash_build.route(bf16, D)}, "
+          f"{flash_build.bwd_route(bf16, D)}")
+    settings = train_module.TrainSettings(optimizer="adafactor", lr=TRAIN_LR,
+                                          grad_dtype="bfloat16")
+    model = Model(cfg, param_dtype=bf16, remat="full")
+    want = (0, 0, 2, 1)  # ssd fwd / bwd, flash fwd (remat: twice), bwd
+    runs = []
+    for run in range(2):
+        free_model()
+        steps_log = []
+        with routes_recorded() as calls:
+            def each_step(step, params, metrics):
+                # the forward's route and the backward's recompute of it
+                fwd, again = calls
+                calls.clear()
+                check(torch.equal(fwd.idx, again.idx)
+                      and torch.equal(fwd.slots, again.slots),
+                      f"{label}: the recompute routed otherwise at step "
+                      f"{step}")
+                loads = expert_loads(fwd, E)
+                steps_log.append(dict(
+                    wo=padded_wo_gradient(cfg, params, tree_leaves(params)),
+                    drops=int((~fwd.keep).sum()),
+                    load_min=int(loads.min()), load_max=int(loads.max()),
+                    aux=float(metrics["aux"]),
+                    grad_norm=float(metrics["grad_norm"])))
+
+            out = train_steps(model, MOE_TRAIN_STEPS, batch=MOE_TRAIN_B,
+                              seq=MOE_TRAIN_S, settings=settings,
+                              each_step=each_step)
+        params, losses, ms, launches, peak = out
+        del out
+        runs.append(dict(digest=params_digest(params), losses=losses, ms=ms,
+                         launches=launches, peak=peak, steps=steps_log))
+        del params
+    a, b = runs
+    check(all(n == want for r in runs for n in r["launches"]),
+          f"{label}: launches a step {a['launches']}, {b['launches']}, "
+          f"expected {want}")
+    check(all(math.isfinite(x) for x in a["losses"])
+          and a["losses"][-1] < a["losses"][0],
+          f"{label}: the loss does not fall: {a['losses']}")
+    check(a["losses"] == b["losses"] and a["digest"] == b["digest"],
+          f"{label}: two runs differ: losses {a['losses']} vs "
+          f"{b['losses']}, digests equal "
+          f"{[x == y for x, y in zip(a['digest'], b['digest'])]}")
+    check(all(st["wo"] == 0.0 for r in runs for st in r["steps"]),
+          f"{label}: the padded heads' wo rows moved: "
+          f"{[st['wo'] for st in a['steps']]}")
+    peak = max(a["peak"], b["peak"])
+    check(peak <= TRAIN_PEAK_LIMIT, f"{label}: peak {peak / 1e9:.3f} GB")
+    # where a step's time goes: the gradient (forward, the remat forward,
+    # backward) and the adafactor update, each alone, on steps 0 and 1 of
+    # a fresh run; step 1's are the warm ones (step 0 also grows the
+    # allocator's segments)
+    free_model()
+    opt = train_module.make_optimizer(settings)
+    params = model.init(0)
+    state = opt.init(params)
+    pipe = TokenPipeline(seed=0, batch=MOE_TRAIN_B, seq_len=MOE_TRAIN_S,
+                         vocab_size=cfg.vocab_size)
+    parts = []
+    for step in range(2):
+        batch = pipe.next()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads = train_module.loss_and_grads(model, params, batch)[2]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            opt.update(grads, state, params, step)
+        torch.cuda.synchronize()
+        parts.append((1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1)))
+        del grads, batch
+    (cold_grad_ms, cold_update_ms), (grad_ms, update_ms) = parts
+    weights = sum(p.numel() * p.element_size() for p in tree_leaves(params))
+    del params, state
+    free_model()
+    tokens = MOE_TRAIN_B * MOE_TRAIN_S
+    step_ms = float(np.median(a["ms"][1:] + b["ms"][1:]))
+    floor = train_floor_ms(cfg, tokens, bf16)
+    cap = mmoe.capacity(tokens, cfg.experts_per_token, E)
+    padded = mattn.padded_heads(cfg) - cfg.num_heads
+    log(f"{label}, adafactor lr {TRAIN_LR}, grad_dtype bfloat16, remat "
+        f"full, {MOE_TRAIN_B} x {MOE_TRAIN_S} tokens a step, "
+        f"{MOE_TRAIN_STEPS} steps twice: {step_ms:.3f} ms a step (median "
+        f"of steps 1-{MOE_TRAIN_STEPS - 1} of both runs; first steps "
+        f"{a['ms'][0]:.3f} / {b['ms'][0]:.3f}), "
+        f"{tokens / (step_ms / 1e3):.1f} tokens/s, floor {floor:.3f} ms (6 x "
+        f"non-embedding weights x tokens at {BF16_FLOP_PER_S / 1e12:.0f} "
+        f"TFLOP/s, the experts over {E} x {cap} capacity slots), "
+        f"{step_ms / floor:.1f}x; step 1 of a fresh run (warm): the "
+        f"gradient alone {grad_ms:.3f} ms, the update alone "
+        f"{update_ms:.3f} ms, together {grad_ms + update_ms:.3f} ms (step 0, "
+        f"cold: {cold_grad_ms:.3f} and {cold_update_ms:.3f} ms); peak "
+        f"device memory "
+        f"{peak / 1e9:.3f} GB against {2 * weights / 1e9:.3f} GB of weights "
+        f"and gradients; losses {a['losses']}; launches a step {want} "
+        f"(flash forward "
+        f"twice under remat, all on the wgmma route); the second run "
+        f"bitwise the first; {padded} padded heads' wo rows "
+        f"{[st['wo'] for st in a['steps']]} after each step")
+    for i, st in enumerate(a["steps"]):
+        log(f"{label} step {i}: expert load {st['load_min']}-"
+            f"{st['load_max']} of {cap} slots, {st['drops']} of "
+            f"{tokens * cfg.experts_per_token} (token, slot)s dropped, aux "
+            f"{st['aux']:.4f}, grad norm {st['grad_norm']:.4f}")
+    return dict(name=cfg.name, step_ms=step_ms, launches=want,
+                tokens_per_s=tokens / (step_ms / 1e3), peak=peak,
+                floor_ms=floor, losses=a["losses"], steps=a["steps"],
+                grad_ms=grad_ms, update_ms=update_ms,
+                cold_grad_ms=cold_grad_ms, cold_update_ms=cold_update_ms)
+
+
+def phase_train_moe():
+    """(h) arctic-480b and kimi-k2 trained in bf16 at the reference's
+    production settings (``moe_train_cell``), one at a time, each on a
+    freshly emptied cache under expandable segments."""
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        cells = {}
+        for full, experts in MOE_TRAIN:
+            t0 = time.perf_counter()
+            cell = moe_train_cell(full, experts)
+            cells[cell["name"]] = cell
+            log(f"train (h) {cell['name']}: {time.perf_counter() - t0:.1f} s")
+            free_model()
+        return cells
+    finally:
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+
+
+@contextlib.contextmanager
+def gates_detached():
+    """Inside the block the MoE combine's gates are detached: the router
+    then learns from the auxiliary loss alone (a control)."""
+    orig = mmoe.route
+
+    def detached(probs, k, capacity_factor=1.25):
+        r = orig(probs, k, capacity_factor)
+        return dataclasses.replace(r, gate=r.gate.detach())
+
+    mmoe.route = detached
+    try:
+        yield
+    finally:
+        mmoe.route = orig
+
+
+def moe_exact_cell(full, experts):
+    """(i) one MoE model in f32, 1 layer at full width with `experts`
+    experts, on 1 x MOE_EXACT_S tokens (wq and wk scaled by QK_GAIN): the
+    kernel path's loss, aux and every gradient leaf against the plain
+    path's at F32_REDUCTION where no (token, slot) route differs between
+    the paths (else the expert slices no differing route touches, the rest
+    logged); remat="full" bitwise "none"; two controls outside the rule:
+    the combine's gates detached (on the router leaf) and the causal mask
+    dropped; then one accum_steps=2 adafactor step at grad_dtype bfloat16
+    and one at float32, launches doubled, the loss finite."""
+    f32 = torch.float32
+    cfg = dataclasses.replace(full, num_layers=1, num_experts=experts)
+    E = cfg.num_experts
+    label = (f"train (i) {cfg.name} f32, 1 layer at full width, {E} of "
+             f"{full.num_experts} experts top-{cfg.experts_per_token}")
+    model = Model(cfg, param_dtype=f32)
+    params = attention_params(model.init(SEED), "layers")
+    batch = TokenPipeline(seed=1, batch=1, seq_len=MOE_EXACT_S,
+                          vocab_size=cfg.vocab_size).next()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = train_counts()
+    with routes_recorded() as rk:
+        loss_k, m_k, g_k = train_module.loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+    got = tuple(b - a for a, b in zip(c0, train_counts()))
+    check(got == (0, 0, 1, 1), f"{label}: launches {got}")
+    remat = Model(cfg, param_dtype=f32, remat="full")
+    c0 = train_counts()
+    loss_m, _, g_m = train_module.loss_and_grads(remat, params, batch)
+    torch.cuda.synchronize()
+    got_m = tuple(b - a for a, b in zip(c0, train_counts()))
+    check(got_m == (0, 0, 2, 1), f"{label} remat: launches {got_m}")
+    check(torch.equal(loss_m, loss_k) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(g_m), tree_leaves(g_k))),
+        f"{label}: remat='full' changes the gradients")
+    del g_m
+    with routes_recorded() as rr:
+        loss_r, m_r, g_r = train_module.loss_and_grads(model, params, batch,
+                                                       force="ref")
+    flips = route_flips(rk[0], rr[0])
+    n_flips = int(flips.sum())
+    names = [".".join(p) for p in leaf_paths(g_r)]
+    gaps = {n: rel_gap(k, r) for n, k, r in
+            zip(names, tree_leaves(g_k), tree_leaves(g_r))}
+    held = dict(gaps)
+    if n_flips:
+        # the experts a differing route names on either path: their slices
+        # and every leaf upstream of the routes move; the other experts'
+        # slices are held
+        touched = torch.zeros(E, dtype=torch.bool, device=flips.device)
+        touched[rk[0].idx[flips]] = True
+        touched[rr[0].idx[flips]] = True
+        keep = ~touched
+        held = {}
+        for n, k, r in zip(names, tree_leaves(g_k), tree_leaves(g_r)):
+            if n.startswith("layers.moe.w") and bool(keep.any()):
+                held[n] = rel_gap(k[:, keep], r[:, keep])
+    del g_k
+    with gates_detached():
+        _, _, g_d = train_module.loss_and_grads(model, params, batch,
+                                                force="ref")
+    router = names.index("layers.moe.router")
+    gates_gap = rel_gap(tree_leaves(g_d)[router], tree_leaves(g_r)[router])
+    del g_d
+    with attention_as(control_attention(causal=False)):
+        loss_c, _, g_c = train_module.loss_and_grads(model, params, batch,
+                                                     force="ref")
+    ctrl = {n: rel_gap(c, r) for n, c, r in
+            zip(names, tree_leaves(g_c), tree_leaves(g_r))}
+    exact_peak = torch.cuda.max_memory_allocated()
+    del g_c, g_r, params
+    free_model()
+    worst = max(held, key=held.get) if held else None
+    n_routes = flips.numel()
+    log(f"{label}, 1 x {MOE_EXACT_S} tokens: (token, slot) routes that "
+        f"differ between the kernel and plain paths {n_flips} of {n_routes}"
+        + (f" (experts {sorted(set(rk[0].idx[flips].tolist()) | set(rr[0].idx[flips].tolist()))}; "
+           f"only the other experts' slices held)" if n_flips else "")
+        + f"; loss kernel {float(loss_k):.6f} plain {float(loss_r):.6f}, "
+        f"aux kernel {float(m_k['aux']):.6f} plain {float(m_r['aux']):.6f}; "
+        + (f"every held gradient leaf within {held[worst]:.3e} of its max "
+           f"({worst}; tol {tol.F32_REDUCTION.w_rel}); " if held else "")
+        + f"controls: the combine's gates detached, router leaf "
+        f"{gates_gap:.3e}; the causal mask dropped {max(ctrl.values()):.3e} "
+        f"({max(ctrl, key=ctrl.get)}); launches {got}, remat='full' {got_m} "
+        f"and bitwise; peak {exact_peak / 1e9:.3f} GB")
+    if n_flips == 0:
+        for what, k, r in (("loss", loss_k, loss_r),
+                           ("aux", m_k["aux"], m_r["aux"])):
+            check(abs(float(k) - float(r))
+                  <= tol.F32_REDUCTION.obj_rel * abs(float(r)),
+                  f"{label}: {what} {float(k)} vs plain {float(r)}")
+    if held:
+        check(held[worst] <= tol.F32_REDUCTION.w_rel,
+              f"{label}: gradient gaps {held}")
+    check(gates_gap > tol.F32_REDUCTION.w_rel,
+          f"{label}: the gates-detached control passes on the router "
+          f"({gates_gap:.3e})")
+    check(max(ctrl.values()) > tol.F32_REDUCTION.w_rel,
+          f"{label}: the causal-mask control passes ({ctrl})")
+    check(exact_peak <= TRAIN_PEAK_LIMIT, f"{label}: peak "
+          f"{exact_peak / 1e9:.3f} GB")
+    accum = {}
+    for gdt in ("bfloat16", "float32"):
+        free_model()
+        # (the run's parameters dropped at once: kept, they would sit
+        # beside the next run's)
+        losses, ms, launches, peak = train_steps(
+            model, 1, accum=2, batch=2, seq=MOE_EXACT_S,
+            settings=train_module.TrainSettings(
+                optimizer="adafactor", lr=TRAIN_LR, grad_dtype=gdt))[1:]
+        check(launches == [(0, 0, 2, 2)] and math.isfinite(losses[0]),
+              f"{label} accum 2, grad_dtype {gdt}: launches {launches}, "
+              f"loss {losses}")
+        check(peak <= TRAIN_PEAK_LIMIT, f"{label} accum 2: peak "
+              f"{peak / 1e9:.3f} GB")
+        log(f"{label} adafactor accum_steps=2 over 2 x {MOE_EXACT_S} tokens,"
+            f" grad_dtype {gdt}: one step {ms[0]:.3f} ms (the first of its "
+            f"run), launches {launches[0]}, loss {losses[0]:.4f}, peak "
+            f"{peak / 1e9:.3f} GB")
+        accum[gdt] = dict(ms=ms[0], launches=launches[0], peak=peak)
+    free_model()
+    return dict(name=cfg.name, flips=n_flips, routes=n_routes,
+                exact_gap=held[worst] if held else None,
+                gates_gap=gates_gap, control_gap=max(ctrl.values()),
+                launches=got, accum=accum, peak=exact_peak)
+
+
+def phase_train_moe_exact():
+    """(i) the MoE family's exactness cells, f32 (``moe_exact_cell``),
+    under expandable segments."""
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        return {c["name"]: c for c in
+                (moe_exact_cell(full, experts) for full, experts in
+                 MOE_EXACT)}
     finally:
         torch.cuda.memory._set_allocator_settings(
             "expandable_segments:False")
@@ -5601,20 +6099,38 @@ def phase_train():
                 sodda_launches=s_counts, peak=peak, **cells)
 
 
-def flash_training_records(flash_record, bwd_record, train_fwd, train):
-    """Fill the flash records' launches on the dense and hybrid training
-    paths (f32: the wgmma-f32 forward route, with lse, and the backward)
-    and log the kernels' share of each step."""
-    by_path = {f"{train[m]['name']} train step": train[m]["launches"][2]
-               for m in ("gemma2", "zamba2")}
+def flash_training_records(flash_record, bwd_record, train_fwd, train,
+                           dense_train, moe_train, moe_exact):
+    """Fill the flash records' launches on the training paths (f32 dense,
+    hybrid and the MoE exactness cells: the wgmma-f32 forward route, with
+    lse; bf16 MoE: the wgmma route; the backward on both) and log the
+    kernels' share of each step. A micro-batch's launches of each
+    path."""
+    f32_cells = {**{train[m]["name"]: train[m] for m in ("gemma2", "zamba2")},
+                 **dense_train}
+    by_path = {f"{name} train step": cell["launches"][2]
+               for name, cell in f32_cells.items()}
+    by_path.update({f"{name} exactness (f32)": cell["launches"][2]
+                    for name, cell in moe_exact.items()})
     f32_rec = flash_record["f32"]
     f32_rec["launches"] = train["gemma2"]["launches"][2]
     f32_rec["launches_by_path"] = by_path
     f32_rec["training"] = train_fwd
+    flash_record["launches_by_path"].update({
+        f"{name} train step (bf16, remat)": cell["launches"][2]
+        for name, cell in moe_train.items()})
     bwd_record["launches"] = train["gemma2"]["launches"][3]
     bwd_record["launches_by_path"] = {
-        f"{train[m]['name']} train step": train[m]["launches"][3]
-        for m in ("gemma2", "zamba2")}
+        **{f"{name} train step": cell["launches"][3]
+           for name, cell in {**f32_cells, **moe_train}.items()},
+        **{f"{name} exactness (f32)": cell["launches"][3]
+           for name, cell in moe_exact.items()}}
+    glm = dense_train["chatglm3-6b"]
+    glm_ms = bwd_record["shapes"]["chatglm3-6b training layer float32"]["ms"]
+    log(f"train chatglm3-6b flash backward share of a step "
+        f"({glm['step_ms']:.3f} ms): {glm['launches'][3]} x {glm_ms:.4f} ms "
+        f"= {glm['launches'][3] * glm_ms:.3f} ms "
+        f"({glm['launches'][3] * glm_ms / glm['step_ms']:.2%})")
     # a layer's kernel ms at the training shapes (gemma2: half its layers
     # local, half global)
     shapes = dict(bwd_record["shapes"],
@@ -5741,9 +6257,9 @@ def run():
     timed_phase(seconds, phase_ssm_f32)
     torch.cuda.empty_cache()
     ssd_record["launches"], ssm_prefill_ms = timed_phase(seconds, phase_ssm_serve)
-    ssd_ms = MAMBA2_130M.num_layers * ssd_record["ms"]
+    ssd_ms = ssd_record["launches"] * ssd_record["ms"]
     log(f"mamba2 serve ssd kernel share of the prefill: "
-        f"{MAMBA2_130M.num_layers} x {ssd_record['ms']:.4f} ms = "
+        f"{ssd_record['launches']} x {ssd_record['ms']:.4f} ms = "
         f"{ssd_ms:.3f} / {ssm_prefill_ms:.3f} ms = "
         f"{ssd_ms / ssm_prefill_ms:.2%}")
 
@@ -5791,8 +6307,12 @@ def run():
         f"{bwd * bwd_record['ms']:.3f} ms "
         f"({bwd * bwd_record['ms'] / train['step_ms']:.2%}) in backward")
 
+    torch.cuda.empty_cache()
+    dense_train = timed_phase(seconds, phase_train_dense_stack)
+    moe_train = timed_phase(seconds, phase_train_moe)
+    moe_exact = timed_phase(seconds, phase_train_moe_exact)
     flash_training_records(flash_record, flash_bwd_record, flash_train_fwd,
-                           train)
+                           train, dense_train, moe_train, moe_exact)
     log("seconds by phase: " + ", ".join(
         f"{name} {sec:.1f}" for name, sec in seconds.items())
         + f"; {sum(seconds.values()):.1f} s in the phases, "

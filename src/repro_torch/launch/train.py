@@ -40,7 +40,7 @@ from repro_torch.data.tokens import TokenPipeline
 from repro_torch.models import Model
 from repro_torch.models.params import tree_leaves, tree_unflatten
 from repro_torch.optim import OPTIMIZERS, SoddaSVRGConfig, make_sodda_svrg
-from repro_torch.optim.optimizers import tree_map
+from repro_torch.optim.optimizers import flat_chunks, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +74,17 @@ def loss_and_grads(model: Model, params, batch, force: str = "auto"):
             tree_unflatten(params, grads))
 
 
+def square_sum(g):
+    """The sum of g's squares in f32, over flat chunks of SLICE_ENTRIES
+    entries (``flat_chunks``, the chunks' sums added in order), so no f32
+    copy of a whole bf16 expert leaf is made; a leaf of one chunk is
+    summed whole, as the reference sums it."""
+    total = 0
+    for (c,) in flat_chunks(g):
+        total = total + torch.sum(torch.square(c.float()))
+    return total
+
+
 def make_train_step(model: Model, shape: ShapeConfig,
                     settings: TrainSettings):
     """(train_step, opt). ``train_step(params, opt_state, batch, step) ->
@@ -81,8 +92,12 @@ def make_train_step(model: Model, shape: ShapeConfig,
     ``aux`` and ``grad_norm`` (f32 scalar tensors, on the device: reading
     one waits for the step). With ``accum_steps`` A > 1 the batch is split
     into A micro-batches along its first axis, their gradients summed in
-    ``grad_dtype`` and divided by A, and the loss is their mean, as the
-    reference's scan does. `shape` names the cell, as in the
+    ``grad_dtype`` (in place: 0 + g1 + g2 ..., in order) and divided by A,
+    and the loss is their mean, as the reference's scan does. The grad
+    norm sums each leaf's squares (``square_sum``). The optimizer writes
+    the new parameters and state into the trees it is given
+    (``repro_torch.optim``), so `params` and `opt_state` come back
+    updated. `shape` names the cell, as in the
     reference."""
     opt = make_optimizer(settings)
     A = settings.accum_steps
@@ -92,23 +107,27 @@ def make_train_step(model: Model, shape: ShapeConfig,
         if A == 1:
             loss, metrics, grads = loss_and_grads(model, params, batch)
         else:
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=gdt,
-                                                  device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=gdt,
+                                                   device=p.device), params)
             lsum = torch.zeros((), dtype=torch.float32,
                                device=model.device)
             for i in range(A):
                 mb = {k: v.reshape(A, v.shape[0] // A, *v.shape[1:])[i]
                       for k, v in batch.items()}
                 l, _, g = loss_and_grads(model, params, mb)
-                gsum = tree_map(lambda a, b: a + b.to(a.dtype), gsum, g)
+                # in place, and the micro-batch's tree dropped once added:
+                # no third tree (a new sum) is alive
+                for a, b in zip(tree_leaves(grads), tree_leaves(g)):
+                    a.add_(b.to(a.dtype))
+                del g
                 lsum = lsum + l
-            grads = tree_map(lambda g: g / A, gsum)
+            for a in tree_leaves(grads):
+                a.div_(A)
             loss = lsum / A
             metrics = {"ce": loss,
                        "aux": torch.zeros((), dtype=torch.float32,
                                           device=model.device)}
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in tree_leaves(grads)))
+        gnorm = torch.sqrt(sum(square_sum(g) for g in tree_leaves(grads)))
         with torch.no_grad():
             new_params, new_state = opt.update(grads, opt_state, params,
                                                step)

@@ -2,8 +2,17 @@
 
 Counterpart of ``repro.models.attention``. Head padding is the reference's:
 q heads are padded up to ``padded_heads`` and the output-projection rows of
-the padded heads are zeroed (``zero_padded_wo``), which is exactly the
-unpadded architecture. The prefill forward runs the flash-attention kernel
+the padded heads are zeroed at init (``zero_padded_wo``). Unlike the
+reference, every path (``attn_forward``, so training and prefill, and
+``decode_attn_heads``) also zeroes the padded heads' attention output
+before ``wo`` (``inert_heads``). Zeroed wo rows alone do not keep the
+heads out: the gradient of ``wo[h]`` is the sum over positions of
+out_h (x) dy, and out_h is not 0 for a padded head, so the reference's
+first optimizer step gives the padded rows weight and arctic-480b trains
+as a 64-head model. Masked, the padded rows take a gradient of exactly 0
+and stay 0 under every optimizer, so the model is the unpadded one in
+training too; on the weights of ``init`` the masked forward is bitwise
+the unmasked one. The prefill forward runs the flash-attention kernel
 through ``kernels.ops.flash_attention``. Decode attends over the whole
 cache in plain torch, as the reference's 'heads' path does; its 'seq' path
 (a flash-decode over a sequence-sharded cache) belongs with the mesh work
@@ -43,6 +52,15 @@ def head_mask(cfg: ArchConfig, device=None):
     per_group_real = cfg.num_heads // cfg.num_kv_heads
     pos_in_group = torch.arange(Hp, device=device) % group
     return (pos_in_group < per_group_real).float()
+
+
+def inert_heads(out, cfg: ArchConfig):
+    """The attention output `out` (..., Hp, hd) with the padded heads'
+    rows zeroed (the real heads' bits unchanged); `out` itself when
+    nothing is padded."""
+    if padded_heads(cfg) == cfg.num_heads:
+        return out
+    return out * head_mask(cfg, out.device).to(out.dtype)[:, None]
 
 
 def attn_template(cfg: ArchConfig) -> dict:
@@ -93,7 +111,7 @@ def attn_forward(p, h, cfg: ArchConfig, positions, *, window: int = 0,
     q, k, v = qkv(p, h, cfg, positions)
     out = kops.flash_attention(q, k, v, causal=True, window=window,
                                softcap=cfg.attn_logit_softcap, force=force)
-    return _out_proj(out, p["wo"]), (k, v)
+    return _out_proj(inert_heads(out, cfg), p["wo"]), (k, v)
 
 
 def decode_mask(pos, S: int, window: int = 0):
@@ -137,7 +155,7 @@ def decode_attn_heads(p, h, cfg: ArchConfig, cache_k, cache_v, pos,
     out = torch.einsum("bjgs,bsjk->bjgk", w.view(B, KV, group, S),
                        cache_v.float())
     out = out.reshape(B, 1, H, hd).to(h.dtype)
-    return _out_proj(out, p["wo"]), (cache_k, cache_v)
+    return _out_proj(inert_heads(out, cfg), p["wo"]), (cache_k, cache_v)
 
 
 def _write_cache(cache, new, pos):

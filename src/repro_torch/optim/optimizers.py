@@ -9,11 +9,21 @@ reference does, with the same order of operations; XLA may fuse an update
 into fused multiply-adds where PyTorch rounds each product, so the two
 agree to f32 rounding, not bitwise.
 
-The updates are functional, as in the reference: they return new trees
-and leave their arguments untouched (callers may drop the old tree; no
-update is made in place, which at the port's sizes saves no memory that
-matters). ZeRO-1's ``zero1_pspecs`` shards state over a mesh and waits for
-the mesh work (ROADMAP A6).
+Unlike the reference, ``update`` writes the new parameters and state into
+the tensors it is given and returns those trees: a second tree does not
+fit at the port's sizes (minitron-8b's 4 layers hold 12.3 GB of f32
+weights, and adamw's parameters and moments written out of place would
+take 7 x that at once; arctic-480b's layer holds 28.2 GB of bf16 weights,
+as much again in gradients). The work goes a slice at a time
+(``SLICE_ENTRIES``), so no temporary the size of a whole large leaf is
+made: the elementwise updates (sgd, momentum, adamw) in flat chunks,
+bitwise the whole-leaf formulas; adafactor a leaf of 3 or more dims in
+blocks along its leading axes (``leading_blocks``), its moments r and c
+bitwise the whole-leaf formula's on the CPU, the update clip's RMS summed
+block by block (another order of the sum than the whole-leaf mean; one
+block is the whole-leaf formula, bitwise). ZeRO-1's
+``zero1_pspecs`` shards state over a mesh and waits for the mesh work
+(ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -23,9 +33,15 @@ import torch
 
 Schedule = Union[float, Callable]
 F32 = torch.float32
+# the entries of a slice an update takes at once: 256 MB of f32 temporaries
+SLICE_ENTRIES = 1 << 26
 
 
 class Optimizer(NamedTuple):
+    """``init(params) -> state``; ``update(grads, state, params, step) ->
+    (params, state)`` writes the new parameters and state into the
+    tensors of `params` and `state` and returns those same trees: a caller
+    that needs the old values keeps copies."""
     init: Callable
     update: Callable
 
@@ -40,11 +56,6 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def _pick(out, i):
-    """Item `i` of every per-leaf tuple of a `tree_map` result."""
-    return tree_map(lambda o: o[i], out)
-
-
 def _lr(lr: Schedule, step):
     """The step's learning rate as a float32 scalar tensor."""
     return torch.tensor(lr(step) if callable(lr) else lr, dtype=F32)
@@ -54,15 +65,30 @@ def _f32(t):
     return t.to(F32)
 
 
+def flat_chunks(*ts):
+    """Flat chunks of SLICE_ENTRIES entries of tensors of one shape, side
+    by side: views of the first ones (written in place; they must be
+    contiguous), a reshape of the last (a gradient, only read)."""
+    flat = [t.view(-1) for t in ts[:-1]] + [ts[-1].reshape(-1)]
+    n = flat[0].numel()
+    return [[f[i:i + SLICE_ENTRIES] for f in flat]
+            for i in range(0, n, SLICE_ENTRIES)]
+
+
 def sgd(lr: Schedule) -> Optimizer:
     def init(params):
         return ()
 
     def update(grads, state, params, step):
         g = _lr(lr, step)
-        new = tree_map(lambda p, gr: (_f32(p) - g.to(p.device) * _f32(gr))
-                       .to(p.dtype), params, grads)
-        return new, state
+
+        def one(p, gr):
+            gd = g.to(p.device)
+            for pc, gc in flat_chunks(p, gr):
+                pc.copy_(_f32(pc) - gd * _f32(gc))
+            return p
+
+        return tree_map(one, params, grads), state
 
     return Optimizer(init, update)
 
@@ -75,11 +101,15 @@ def momentum(lr: Schedule, beta: float = 0.9,
 
     def update(grads, state, params, step):
         g = _lr(lr, step)
-        new_m = tree_map(lambda m, gr: (beta * _f32(m) + _f32(gr))
-                         .to(state_dtype), state, grads)
-        new_p = tree_map(lambda p, m: (_f32(p) - g.to(p.device) * _f32(m))
-                         .to(p.dtype), params, new_m)
-        return new_p, new_m
+
+        def one(p, m, gr):
+            gd = g.to(p.device)
+            for pc, mc, gc in flat_chunks(p, m, gr):
+                mc.copy_(beta * _f32(mc) + _f32(gc))
+                pc.copy_(_f32(pc) - gd * _f32(mc))
+            return p
+
+        return tree_map(one, params, state, grads), state
 
     return Optimizer(init, update)
 
@@ -97,23 +127,35 @@ def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         c1 = 1.0 - torch.tensor(b1, dtype=F32) ** t
         c2 = 1.0 - torch.tensor(b2, dtype=F32) ** t
 
-        def upd(p, gr, m, v):
+        def one(p, m, v, gr):
             dev = p.device
-            gr = _f32(gr)
-            m2 = b1 * _f32(m) + (1 - b1) * gr
-            v2 = b2 * _f32(v) + (1 - b2) * gr * gr
-            step_ = (g.to(dev) * (m2 / c1.to(dev))
-                     / (torch.sqrt(v2 / c2.to(dev)) + eps))
-            if weight_decay:
-                step_ = step_ + g.to(dev) * weight_decay * _f32(p)
-            return ((_f32(p) - step_).to(p.dtype), m2.to(state_dtype),
-                    v2.to(state_dtype))
+            gd, c1d, c2d = g.to(dev), c1.to(dev), c2.to(dev)
+            for pc, mc, vc, gc in flat_chunks(p, m, v, gr):
+                gc = _f32(gc)
+                m2 = b1 * _f32(mc) + (1 - b1) * gc
+                v2 = b2 * _f32(vc) + (1 - b2) * gc * gc
+                step_ = gd * (m2 / c1d) / (torch.sqrt(v2 / c2d) + eps)
+                if weight_decay:
+                    step_ = step_ + gd * weight_decay * _f32(pc)
+                pc.copy_(_f32(pc) - step_)
+                mc.copy_(m2)
+                vc.copy_(v2)
+            return p
 
-        out = tree_map(upd, params, grads, state["m"], state["v"])
-        return (_pick(out, 0),
-                {"m": _pick(out, 1), "v": _pick(out, 2)})
+        return (tree_map(one, params, state["m"], state["v"], grads),
+                state)
 
     return Optimizer(init, update)
+
+
+def leading_blocks(p):
+    """The blocks of a leaf of 2 or more dims along its leading axes:
+    [(start, stop)] over the rows of ``p.view(-1, n, m)``, SLICE_ENTRIES
+    entries a block (one row at least); a 2-dim leaf is one block."""
+    n, m = p.shape[-2:]
+    rows = p.numel() // (n * m)
+    step = rows if p.dim() == 2 else max(1, SLICE_ENTRIES // (n * m))
+    return [(i, min(i + step, rows)) for i in range(0, rows, step)]
 
 
 def adafactor(lr: Schedule, decay: float = 0.8, eps: float = 1e-30,
@@ -121,7 +163,10 @@ def adafactor(lr: Schedule, decay: float = 0.8, eps: float = 1e-30,
     """Factored second moment: a row moment r and a column moment c for
     every leaf of 2 or more dims (over its last two; a stacked (L, n, m)
     layer tensor keeps one pair per layer), a full v for the others, and
-    the update clipped to RMS <= `clip`."""
+    the update clipped to RMS <= `clip`. A leaf of 3 or more dims goes in
+    blocks (``leading_blocks``): a first pass takes each block's r, c and
+    the sum of its u^2, a second recomputes u from them and applies the
+    update."""
 
     def _factored(shape):
         return len(shape) >= 2
@@ -141,30 +186,52 @@ def adafactor(lr: Schedule, decay: float = 0.8, eps: float = 1e-30,
         g = _lr(lr, step)
         beta = 1.0 - (torch.tensor(int(step), dtype=F32) + 1.0) ** (-decay)
 
+        def scaled(gr, r, c):
+            """u = gr / sqrt(denom + eps), the temporaries in place."""
+            denom = (r[..., None] * c[..., None, :]).div_(torch.clamp_min(
+                r.mean(-1, keepdim=True)[..., None], eps))
+            return gr / denom.add_(eps).sqrt_()
+
+        def apply(p, u, gd, ms):
+            """p -= lr x u clipped to RMS <= clip (ms: u's mean square),
+            in flat chunks."""
+            scale = torch.clamp_min(torch.sqrt(ms + eps) / clip, 1.0)
+            for pc, uc in flat_chunks(p, u):
+                pc.copy_(_f32(pc) - gd * (uc / scale))
+
         def one(p, gr, st):
             dev = p.device
-            b = beta.to(dev)
-            gr = _f32(gr)
-            g2 = gr * gr + eps
-            if _factored(p.shape):
-                r = b * st["r"] + (1 - b) * g2.mean(-1)
-                c = b * st["c"] + (1 - b) * g2.mean(-2)
-                denom = (r[..., None] * c[..., None, :]) / torch.clamp_min(
-                    r.mean(-1, keepdim=True)[..., None], eps)
-                u = gr / torch.sqrt(denom + eps)
-                new_st = {"r": r, "c": c}
-            else:
-                v = b * st["v"] + (1 - b) * g2
-                u = gr / torch.sqrt(v + eps)
-                new_st = {"v": v}
-            # update clipping (RMS <= clip)
-            rms = torch.sqrt(torch.mean(u * u) + eps)
-            u = u / torch.clamp_min(rms / clip, 1.0)
-            return (_f32(p) - g.to(dev) * u).to(p.dtype), new_st
+            b, gd = beta.to(dev), g.to(dev)
+            if not _factored(p.shape):
+                gr = _f32(gr)
+                st["v"].copy_(b * st["v"] + (1 - b) * (gr * gr + eps))
+                u = gr / torch.sqrt(st["v"] + eps)
+                apply(p, u, gd, torch.mean(u * u))
+                return p
+            n, m = p.shape[-2:]
+            pv, gv = p.view(-1, n, m), gr.reshape(-1, n, m)
+            rv, cv = st["r"].view(-1, n), st["c"].view(-1, m)
+            blocks = leading_blocks(p)
+            sq = []
+            for i, j in blocks:  # r, c and the sum of u^2, a block at a time
+                gb = _f32(gv[i:j])
+                g2 = gb * gb + eps
+                rv[i:j] = b * rv[i:j] + (1 - b) * g2.mean(-1)
+                cv[i:j] = b * cv[i:j] + (1 - b) * g2.mean(-2)
+                del g2
+                u = scaled(gb, rv[i:j], cv[i:j])
+                if len(blocks) == 1:  # whole: the reference's mean
+                    apply(pv, u, gd, torch.mean(u * u))
+                    return p
+                sq.append(torch.sum(u * u))
+                del u, gb
+            ms = sum(sq) / p.numel()
+            for i, j in blocks:  # the update, u recomputed
+                apply(pv[i:j], scaled(_f32(gv[i:j]), rv[i:j], cv[i:j]), gd,
+                      ms)
+            return p
 
-        # a leaf's state is a dict, handed whole to `one`
-        out = tree_map(one, params, grads, state)
-        return _pick(out, 0), _pick(out, 1)
+        return tree_map(one, params, grads, state), state
 
     return Optimizer(init, update)
 

@@ -36,6 +36,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.launch import train as port_train
 from repro_torch.models import Model, params as port_params
 from repro_torch.models.params import tree_leaves
+from repro_torch.testing.padded_heads import padded_wo_gradient, unpadded
 from repro_torch.testing.tolerances import F32_REDUCTION, half_ulp_excess
 
 F64_TOL = 1e-5  # against f64 autograd, of each gradient's max
@@ -369,7 +370,11 @@ def test_training_through_the_function_matches_jax(J, plain_kernels, arch):
         F32_REDUCTION.obj_rel * float(want_loss)
     got = [g.numpy() for g in tree_leaves(grads)]
     assert [g.shape for g in got] == [w.shape for w in want]
-    assert max(_gaps(got, want)) <= F32_REDUCTION.w_rel
+    # the port's padded heads are inert (their wo rows take exactly 0); the
+    # reference's wo gradient with those rows masked is the unpadded one's
+    assert padded_wo_gradient(pm.cfg, tree, got) == 0.0
+    assert max(_gaps(got, unpadded(pm.cfg, tree, want))) <= \
+        F32_REDUCTION.w_rel
 
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-7b"])

@@ -41,6 +41,7 @@ from repro_torch.models import Model, attention, moe
 from repro_torch.models import params as port_params
 from repro_torch.models import transformer
 from repro_torch.models.params import tree_leaves
+from repro_torch.testing.padded_heads import padded_wo_gradient, unpadded
 from repro_torch.testing.tolerances import F32_REDUCTION
 
 RTOL = ATOL = 2e-4
@@ -374,8 +375,12 @@ def test_loss_aux_and_every_gradient_leaf_match_reference(J, arch):
     assert float(metrics["aux"].detach()) > 0.5  # ~1 a layer if balanced
     want = [np.asarray(g) for g in J.jax.tree.leaves(want_grads)]
     assert [tuple(g.shape) for g in grads] == [w.shape for w in want]
-    gaps = [float(np.abs(g.numpy() - w).max() / np.abs(w).max())
-            for g, w in zip(grads, want)]
+    # the port's padded heads are inert (their wo rows take exactly 0); the
+    # reference's wo gradient with those rows masked is the unpadded one's
+    got = [g.numpy() for g in grads]
+    assert padded_wo_gradient(cfg, params, got) == 0.0
+    gaps = [float(np.abs(g - w).max() / np.abs(w).max())
+            for g, w in zip(got, unpadded(cfg, params, want))]
     assert max(gaps) <= F32_REDUCTION.w_rel, gaps
 
 

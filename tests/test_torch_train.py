@@ -7,7 +7,11 @@ zamba2-7b (the reference's weights carried over with
 so the state carried across chunks matters, the reference's tokens, chunk
 16, where the reference's gradient is finite). Each leaf is held to
 F32_REDUCTION relative to its own largest entry, a stricter reading than
-the policy's max(scale, 1).
+the policy's max(scale, 1). The reduced attention configs pad their 4 q
+heads to 16: the port keeps the padded heads inert, so its wo gradient is
+exactly 0 on their rows, and it is held to the reference's with those rows
+masked (``testing.padded_heads``; the reference gives them a gradient,
+ROADMAP C5).
 
 ``make_train_step`` is held to the reference's (built with no mesh: on
 jax 0.9.0 ``make_local_mesh`` fails, ROADMAP C6) for every optimizer, 3
@@ -44,6 +48,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.launch import train as port_train
 from repro_torch.models import Model, params as port_params
 from repro_torch.models.params import tree_leaves
+from repro_torch.testing.padded_heads import padded_wo_gradient, unpadded
 from repro_torch.testing.tolerances import F32_REDUCTION
 
 ARCHS = ("mamba2-130m", "gemma2-9b", "zamba2-7b")
@@ -130,7 +135,10 @@ def test_loss_and_every_gradient_leaf_match_reference(J, arch):
         float(loss)
     got = [g.numpy() for g in tree_leaves(grads)]
     assert [g.shape for g in got] == [w.shape for w in want]
-    gaps = _leaf_gaps(got, want)
+    # the padded heads are inert in the port: their wo rows take exactly 0,
+    # and the reference's, masked, are the unpadded function's gradient
+    assert padded_wo_gradient(pm.cfg, tree, got) == 0.0
+    gaps = _leaf_gaps(got, unpadded(pm.cfg, tree, want))
     assert max(gaps) <= F32_REDUCTION.w_rel, gaps
 
 

@@ -97,6 +97,9 @@ def main():
     grads = train.loss_and_grads(model, state["params"], batch)[2]
     fb_ms = events_ms(lambda: train.loss_and_grads(model, state["params"],
                                                    batch), TIMED)
+    # update writes into the live weights and moments: each timed call
+    # moves them, and the profiled step below runs on the moved ones (the
+    # same work whatever their values)
     with torch.no_grad():
         opt_ms = events_ms(lambda: opt.update(grads, state["opt"],
                                               state["params"], 0), TIMED)
