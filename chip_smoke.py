@@ -263,7 +263,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     before each call and read just after): the prefill alone on 4 x 4096
     prompt tokens (13 flash launches at D = 112 and 81 SSD launches, all
     on the wgmma routes; its time and peak memory), then a whole serve
-    call on 4 x 256 prompt tokens fed through decode and 32 generated
+    call on 4 x 64 prompt tokens fed through decode and 32 generated
     (the same launches in its prefill, none in the warm-up or decode;
     prefill, warm-up and decode times, peak memory), and prints each
     kernel's share of the 4 x 4096 prefill;
@@ -315,16 +315,18 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     twice, and one step at accum_steps=2 (48 + 48): ms a step, tokens/s,
     peak memory, a falling loss, the two runs compared bitwise; (c) the
     CLI's SODDA-SVRG loop for 20 steps (2 gradients a step, 3 at the
-    refresh); (d) the CLI (``python -m repro_torch.launch.train``) in a
+    refresh; 12 of the 24 layers); (d) the CLI
+    (``python -m repro_torch.launch.train``) in a
     fresh process, killed (SIGKILL) once it logs step 13, three steps past
     its checkpoint at step 10, then a fresh process resuming from step 10
     to 20: params and losses bitwise (b)'s; then dense and hybrid
     training through the flash backward, f32, full width: (e) gemma2-9b
-    cut to 4 layers (2 local, 2 global) and (f) zamba2-7b cut to 12 (2
+    cut to 2 layers (1 local, 1 global) and (f) zamba2-7b
+    cut to 12 (2
     sites of the shared block), 1 x 4608 tokens a step: 5 adamw steps
     twice (the second run bitwise the first, the loss falling) and one
     step at accum_steps=2 over 2 x 4608, with ms a step, tokens/s, peak
-    memory and exact launch counts (gemma2 4 + 4 flash, no SSD; zamba2 12
+    memory and exact launch counts (gemma2 2 + 2 flash, no SSD; zamba2 12
     + 12 SSD, 2 + 2 flash); then the exactness cell at 1 x 4608 tokens
     (zamba2 2048; wq and wk scaled for unit-std scores), the loss and
     every gradient leaf within F32_REDUCTION of the plain path, a control
@@ -352,13 +354,41 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     F32_REDUCTION where none differs, the gates-detached control outside
     on the router leaf, the causal-mask control outside, remat bitwise,
     and one adafactor accum_steps=2 step at grad_dtype bfloat16 and one
-    at float32. Every new cell's peak stays under 72 GB.
+    at float32. Every new cell's peak stays under 72 GB;
+30. runs the LM stack over a (data x model) mesh of 4 gloo ranks sharing
+    the card (``phase_mesh_lm``), chatglm3-6b at full width cut to 2 of its
+    28 layers, f32, after the one-device serving reference is computed
+    and freed in the parent; each rank computes the one-device step in
+    turn and keeps its own shards of it: (a) on (2, 2), the 'heads'
+    layout, adamw at 3e-4 with ZeRO-1 and remat 'collectives', 2 x 2048
+    tokens a step, 3 steps: the first step's loss and grad norm within
+    F32_REDUCTION of the one-device step's, every gradient leaf within
+    1e-4 of the leaf's largest and every parameter after the update
+    within UPDATE_TOL x the one-device step's largest update of the leaf
+    (each rank's shard against the same shard of the one-device step: the
+    gathered leaf's rule), the input collective's backward all-reduce
+    dropped as a control outside the gradient rule, ZeRO-1's state slices
+    and parameters bitwise an update unsplit over 'data' from the same
+    summed gradients, 'collectives' bitwise 'none' with the same
+    all-reduces and fewer than 'full', the losses falling; on (1, 4), the
+    kv heads replicated, the gradients in the rule and the kv weights'
+    partial gradients left unsummed as a control outside it; it logs the
+    flash launches a rank a step, ms a step, the payload a step by tag,
+    the last step's collectives timed apart, each rank's seconds by part
+    and peak; (b) serving 4 x 1024 prompts into a 1040-position cache,
+    then 8 greedy decode steps, on (1, 4) in 'seq' decode (a rank's cache
+    (2, 4, 260, 2, 128)) and on (2, 2) in 'heads' decode: the logits
+    within 2e-4 of the one-device port's, the tokens identical, each
+    rank's cache the shape ``cache_pspecs`` gives, 2 flash launches a
+    prefill a rank and none a decode step, with the prefill's ms and the
+    ms a token.
 
 Each phase's wall seconds go to a log line of their own as it ends, and
 all of them to one line before the records. Exits non-zero if any phase
 fails. The last three lines of standard output
 are the card line, a JSON ``kernels`` record and a JSON ``ok`` record.
 """
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -492,9 +522,10 @@ ZAMBA2_FLASH = (4, 32, 32, 4096, 4096, 112)
 PHI3_FLASH = (4, 32, 32, 4096, 4096, 96)
 ZAMBA2_SSD = (4, 4096, 112, 64, 1, 64)  # (B, S, H, P, G, N) of its prefill
 # the serving cell: 4 x 4096 prompt tokens prefilled alone (the time to the
-# first token), then a whole serve call on 4 x 256 fed through decode
-# (eager decode costs ~81 layers of launches a position) and 32 generated
-HYB_B, HYB_PROMPT, HYB_SERVE_PROMPT, HYB_GEN = 4, 4096, 256, 32
+# first token), then a whole serve call on 4 x 64 fed through decode
+# (eager decode costs ~81 layers of launches a position: 256 positions
+# took 38.5 s of the run) and 32 generated
+HYB_B, HYB_PROMPT, HYB_SERVE_PROMPT, HYB_GEN = 4, 4096, 64, 32
 # the exactness cell: full width, 12 layers (2 shared-block sites), f32
 HYB_F32_LAYERS, HYB_F32_B, HYB_F32_PROMPT = 12, 2, 256
 CUT_DEPTH_LAYERS, CUT_DEPTH_B, CUT_DEPTH_GEN = 4, 2, 8
@@ -3013,10 +3044,10 @@ def offset_view_case(name, run, inputs, tma, route):
 def decode_logits(model, params, prompts, tokens, force,
                   frontend_embeds=None):
     """Prefill `prompts` (after `frontend_embeds`, if given) through
-    `make_serve_steps(model, force)`, copy the cache as `serve` does, then
+    `make_serve_steps(model, force=force)`, copy the cache as `serve` does, then
     decode the given tokens (B, n) one step at a time: the logits of every
     step, (B, n, Vp)."""
-    prefill_step, decode_step = make_serve_steps(model, force)
+    prefill_step, decode_step = make_serve_steps(model, force=force)
     batch = {"tokens": prompts}
     if frontend_embeds is not None:
         batch["frontend_embeds"] = frontend_embeds
@@ -4419,7 +4450,7 @@ def phase_hybrid_serve():
     """The fourth main path: full-size bf16 zamba2-7b serving a batch. The
     prefill alone on 4 x 4096 prompt tokens (13 flash launches at D = 112
     and 81 SSD launches, all on the wgmma routes), then a whole serve call
-    on 4 x 256 prompt tokens fed through decode and 32 generated (the same
+    on 4 x 64 prompt tokens fed through decode and 32 generated (the same
     launches in its prefill, none in the warm-up or decode)."""
     cfg = ZAMBA2_7B
     sites = transformer.n_attn_sites(cfg)
@@ -4491,7 +4522,7 @@ def phase_hybrid_serve():
           "zamba2 serve: prefill logits not finite")
     steps = HYB_GEN - 1
     P = HYB_SERVE_PROMPT
-    pre256_s = marks["start"] - t0
+    pre_short_s = marks["start"] - t0
     warm_s = marks["end"] - marks["start"]
     decode_s = total_s - (marks["end"] - t0)
     log(f"zamba2 serve {HYB_B} x {HYB_PROMPT} prompt tokens, prefill alone "
@@ -4499,7 +4530,7 @@ def phase_hybrid_serve():
         f"({HYB_B * HYB_PROMPT / prefill_s:.1f} prompt tok/s); peak device "
         f"memory {pre_peak / 1e9:.3f} GB")
     log(f"zamba2 serve {HYB_B} x {P} prompt tokens, {HYB_GEN} generated "
-        f"each: prefill {1e3 * pre256_s:.3f} ms, decode warm-up over the "
+        f"each: prefill {1e3 * pre_short_s:.3f} ms, decode warm-up over the "
         f"prompt {1e3 * warm_s:.3f} ms ({1e3 * warm_s / P:.3f} ms a "
         f"position), decode {1e3 * decode_s / steps:.3f} ms/token over "
         f"{steps} steps; serve end to end {1e3 * total_s:.3f} ms; peak "
@@ -4571,6 +4602,9 @@ TRAIN_CKPT_EVERY, TRAIN_KILL_AT = 10, 13
 # (on the CPU at full width, 2 layers, 2 x 256 tokens: 1e-2 falls, 1e-3
 # barely), so the phase takes 1e-2.
 SODDA_LR = 1e-2
+# (c) runs on mamba2-130m cut to 12 of its 24 layers, so that the run, with
+# the mesh phase, stays under 1200 s on a slower host
+SODDA_LAYERS = 12
 # (e), (f): gemma2-9b and zamba2-7b at full width and cut depth, f32,
 # ATTN_TRAIN_STEPS adamw steps at TRAIN_LR of B x ATTN_TRAIN_S tokens from
 # TokenPipeline(seed=0), and a step over 2 x ATTN_TRAIN_S by accum_steps=2;
@@ -4578,7 +4612,9 @@ SODDA_LR = 1e-2
 # card at full depth with adamw's state in f32. B = 1: on an H100 (80 GB) a
 # 2 x 4608 step ran gemma2 out of memory (its f32 logits over a 256 000
 # vocabulary) and took zamba2 to 72.964 GB, past the cell's 72 GB limit.
-GEMMA2_TRAIN_LAYERS, GEMMA2_TRAIN_B = 4, 1
+# gemma2 at 2 layers, one local and one global (cut from 4 so that the run,
+# with the mesh phase, stays under 1200 s on a slower host)
+GEMMA2_TRAIN_LAYERS, GEMMA2_TRAIN_B = 2, 1
 ZAMBA2_TRAIN_LAYERS, ZAMBA2_TRAIN_B = 12, 1
 # zamba2's exactness cell on 2048 tokens: at 4608 the plain path (the
 # chunked SSD and attention, differentiated by autograd) ran the card out
@@ -5871,7 +5907,7 @@ def phase_train():
     bitwise the first), and one step with accum_steps=2; (c) the CLI's
     SODDA-SVRG loop; (d) the CLI killed after its checkpoint at step 10
     and resumed in a fresh process, against (b); then through the flash
-    backward (``attention_train_cell``): (e) gemma2-9b cut to 4 layers and
+    backward (``attention_train_cell``): (e) gemma2-9b cut to 2 layers and
     (f) zamba2-7b cut to 12, at full width."""
     f32 = torch.float32
     # (a) exactness: the kernel path's loss and gradients against the plain
@@ -5990,14 +6026,17 @@ def phase_train():
         f", peak {acc_peak / 1e9:.3f} GB")
     torch.cuda.empty_cache()
 
-    # (c) the CLI's SODDA-SVRG loop
+    # (c) the CLI's SODDA-SVRG loop, at SODDA_LAYERS
+    sodda_model = Model(dataclasses.replace(cfg, num_layers=SODDA_LAYERS),
+                        param_dtype=f32)
+    L = SODDA_LAYERS
     pipe = TokenPipeline(seed=0, batch=TRAIN_B, seq_len=TRAIN_S,
                          vocab_size=cfg.vocab_size)
-    sodda_params = model.init(0)
+    sodda_params = sodda_model.init(0)
     torch.cuda.synchronize()
     zero_train_counts()
     t0 = time.perf_counter()
-    _, s_losses = train_module.sodda_loop(model, sodda_params, pipe,
+    _, s_losses = train_module.sodda_loop(sodda_model, sodda_params, pipe,
                                           TRAIN_STEPS, SODDA_LR,
                                           log=lambda _: None)
     torch.cuda.synchronize()
@@ -6011,12 +6050,13 @@ def phase_train():
           and s_losses[-1] < s_losses[0],
           f"train (c): the SODDA-SVRG loss does not fall: {s_losses}")
     log(f"train (c) SODDA-SVRG (the CLI's loop, refresh at step 0, lr "
-        f"{SODDA_LR}): {s_ms:.3f} ms a step (the mean of {TRAIN_STEPS}; "
+        f"{SODDA_LR}; {L} of {cfg.num_layers} layers): {s_ms:.3f} ms a step (the mean of {TRAIN_STEPS}; "
         f"2 gradients a step, 3 at the refresh), launches {s_counts} "
         f"(ssd forward, backward, flash forward, backward) = {grads} "
         f"gradients; loss step 0 {s_losses[0]:.4f}, step {TRAIN_STEPS - 1} "
         f"{s_losses[-1]:.4f}")
-    del sodda_params
+    del sodda_model, sodda_params
+    L = cfg.num_layers
     torch.cuda.empty_cache()
 
     # (d) kill and resume: the CLI in a fresh process, killed by SIGKILL
@@ -6097,6 +6137,501 @@ def phase_train():
     cells = train_attention_cells()
     return dict(step_ms=step_ms, launches=launches[0], sodda_ms=s_ms,
                 sodda_launches=s_counts, peak=peak, **cells)
+
+
+MESH_LM_CUT = 2  # chatglm3-6b's layers in the mesh cells (of 28)
+MESH_LM_B, MESH_LM_S, MESH_LM_STEPS, MESH_LM_LR = 2, 2048, 3, 3e-4
+MESH_LM_PROMPT, MESH_LM_GEN, MESH_LM_CACHE = 1024, 9, 1040
+MESH_LM_SERVE_B = 4
+MESH_LM_GRAD_TOL = 1e-4  # of each gradient leaf's largest entry
+MESH_LM_UPDATE_TOL = 2e-3  # x the one-device step's largest update
+# adamw's first update is lr x sign(g) where |g| >> eps: an entry whose
+# gradient the two sums give opposite signs moves the other way (the rule
+# of tests/test_torch_train_moe.py: at most this share of a leaf)
+MESH_LM_ADAMW_FLIPS = 1e-3
+MESH_LM_LOGIT_TOL = 2e-4  # rtol = atol, as the cut-depth f32 cells
+MESH_LM_GRIDS = {"seq": (1, 4), "heads": (2, 2)}
+MESH_LM_REMATS = ("none", "full", "collectives")
+
+
+def mesh_lm_cfg():
+    return dataclasses.replace(CHATGLM3_6B, num_layers=MESH_LM_CUT)
+
+
+def mesh_lm_counts(mesh):
+    """(flash forward, flash backward launches, collective calls and
+    payload by tag), now."""
+    return (ops.flash_attention.launches, ops.flash_attention_bwd.launches,
+            dict(mesh.calls), dict(mesh.payload))
+
+
+def mesh_lm_since(mesh, before):
+    now = mesh_lm_counts(mesh)
+    return dict(flash=now[0] - before[0], flash_bwd=now[1] - before[1],
+                calls={k: v - before[2].get(k, 0) for k, v in now[2].items()
+                       if v != before[2].get(k, 0)},
+                payload={k: v - before[3].get(k, 0)
+                         for k, v in now[3].items()
+                         if v != before[3].get(k, 0)})
+
+
+def mesh_lm_timed(mesh, sync):
+    """Time each of `mesh`'s collectives from here on (the device
+    synchronised before and after it): seconds by tag, filled as they
+    run."""
+    spent = collections.Counter()
+    for name in ("all_reduce", "all_gather_cat"):
+        def timed(t, axis, *args, _fn=getattr(mesh, name), **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = _fn(t, axis, *args, **kw)
+            sync()
+            spent[kw.get("tag") or axis] += time.perf_counter() - t0
+            return out
+        setattr(mesh, name, timed)
+    return spent
+
+
+def mesh_lm_reference(cfg, batch, device, settings, layouts):
+    """The one-device step from the seed's parameters on `batch`: per
+    leaf, its gradient's largest entry, the largest move of the one-device
+    update, and for each of `layouts` (name -> (mesh, param specs,
+    whether the update is held there)) this rank's shard of the gradient
+    (and of the updated parameter). The full trees are freed before it
+    returns."""
+    from repro_torch.distributed import tensor_parallel as tpm
+
+    one = Model(cfg, device=device, param_dtype=torch.float32)
+    params = one.init(SEED)
+    loss, _, grads = train_module.loss_and_grads(one, params, batch)
+    out = dict(loss=float(loss), grad_norm=float(torch.sqrt(sum(
+        train_module.square_sum(g) for g in tree_leaves(grads)))),
+        top=[], moved=[], shards={n: ([], []) for n in layouts})
+    plain = train_module.make_optimizer(settings)
+    for i, (p, g) in enumerate(zip(tree_leaves(params), tree_leaves(grads))):
+        with torch.no_grad():
+            y = {"x": p.clone()}
+            y, _ = plain.update({"x": g}, plain.init(y), y, 0)
+        out["top"].append(float(g.abs().max()))
+        out["moved"].append(float((y["x"] - p).abs().max()))
+        for name, (mesh, specs, updated) in layouts.items():
+            spec = tree_leaves(specs)[i]
+            out["shards"][name][0].append(tpm.shard(g, spec, mesh))
+            if updated:
+                out["shards"][name][1].append(tpm.shard(y["x"], spec, mesh))
+        del y
+    del one, params, grads, loss
+    return out
+
+
+def mesh_lm_held(ref, layout, grads, control=None, params=None):
+    """Per leaf, this rank's shard against the one-device step's shard of
+    it (``mesh_lm_reference``): the largest gradient gap and the leaf's
+    largest gradient entry, the control's gap, and the updated
+    parameters outside MESH_LM_UPDATE_TOL x the leaf's largest one-device
+    move (a count, with the shard's size). Taken over the ranks, the
+    largest gap is the gathered leaf's and the counts sum to its own."""
+    g_ref, p_ref = ref["shards"][layout]
+    out = []
+    for i, g in enumerate(tree_leaves(grads)):
+        e = dict(top=ref["top"][i], grad=float((g - g_ref[i]).abs().max()))
+        if control is not None:
+            e["control"] = float((tree_leaves(control)[i] - g_ref[i])
+                                 .abs().max())
+        if params is not None:
+            bound = MESH_LM_UPDATE_TOL * ref["moved"][i]
+            p = tree_leaves(params)[i]
+            e["missed"] = int(((p - p_ref[i]).abs() > bound).sum())
+            e["size"] = p.numel()
+        out.append(e)
+    return out
+
+
+def mesh_lm_rank(cfg, prompts, sizes, device):
+    """A rank of phase_mesh_lm: (a) the (2, 2) training cell and the
+    (1, 4) gradients, each rank holding its shards to the same shards of
+    the one-device step (which each rank computes in turn from the same
+    parameters and batch); (b) serving on both grids. `sizes` are the
+    cells' (the MESH_LM_* constants, passed so that a rehearsal may
+    shrink them). Returns numbers and the serving results; the parent
+    checks them."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.testing import multiprocess as mp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = mp._device(device)
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    def peak():
+        return torch.cuda.max_memory_allocated(device) if cuda else 0
+
+    rank = dist.get_rank()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    f32 = torch.float32
+    settings = train_module.TrainSettings(optimizer="adamw", lr=MESH_LM_LR,
+                                          zero1=True)
+    shape = ShapeConfig("mesh-lm", "train", sizes["S"], sizes["B"])
+    pipe = TokenPipeline(seed=SEED, batch=sizes["B"], seq_len=sizes["S"],
+                         vocab_size=cfg.vocab_size, device=device)
+    batches = [pipe.next() for _ in range(sizes["steps"])]
+    out = dict(rank=rank, stamps=[])
+    t_start = time.perf_counter()
+
+    def stamp(what):
+        """Seconds since the rank began, at the end of each part."""
+        sync()
+        out["stamps"].append((what, time.perf_counter() - t_start))
+
+    # the one-device step, each rank in turn (the others hold nothing
+    # large yet), kept as this rank's shards of both layouts
+    wide = Model(cfg, device=device, param_dtype=f32,
+                 mesh=mp.lm_mesh((1, 4), device))
+    model = Model(cfg, device=device, param_dtype=f32, remat="collectives",
+                  mesh=mp.lm_mesh((2, 2), device))
+    mesh, tp = model.mesh, model.tp
+    for turn in range(dist.get_world_size()):
+        if turn == rank:
+            ref = mesh_lm_reference(cfg, batches[0], device, settings, {
+                "heads": (mesh, model.pspecs(), True),
+                "seq": (wide.mesh, wide.pspecs(), False)})
+            mp._release(device)
+        dist.barrier()
+    out["ref_loss"], out["ref_grad_norm"] = ref["loss"], ref["grad_norm"]
+    stamp("one-device reference")
+
+    def drawn():
+        return Model(cfg, device=device, param_dtype=f32).init(SEED)
+
+    # (a) training on (2, 2): the first step's gradients under each remat
+    step_fn, opt, (_, _, pspecs, sspecs, _) = train_module.jit_train_step(
+        model, shape, settings)
+    params = tpm.shard_params(drawn(), pspecs, mesh)
+    mp._release(device)
+    rows = train_module.rank_rows(model, shape, batches[0])
+    grads, runs = {}, {}
+    for remat in MESH_LM_REMATS:  # the rank's gradients, before 'data'
+        model.remat = remat
+        before = mesh_lm_counts(mesh)
+        loss, metrics, g = train_module.loss_and_grads(model, params, rows)
+        sync()
+        runs[remat] = dict(mesh_lm_since(mesh, before), loss=float(loss))
+        if remat != "full":
+            grads[remat] = (loss, metrics, g)
+        del g
+        mp._release(device)
+    out["bitwise_remat"] = runs["none"]["loss"] == runs["collectives"][
+        "loss"] and all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(grads["none"][2]),
+            tree_leaves(grads["collectives"][2])))
+    del grads["none"]
+    metrics, grads["step"] = train_module.sum_over_data(
+        model, *grads.pop("collectives"))
+    runs["collectives"]["grad_norm"] = float(metrics["grad_norm"])
+    runs["collectives"]["loss"] = float(metrics["loss"])
+    model.remat, tp.controls = "none", frozenset(("input_grad",))
+    grads["control"] = train_module.mesh_grads(model, params, batches[0],
+                                               shape, settings)[1]
+    model.remat, tp.controls = "collectives", frozenset()
+    out["runs"] = runs
+    mp._release(device)
+    stamp("gradients")
+
+    # ZeRO-1's update; beside it, the same update unsplit over 'data' (of
+    # the rank's model shard, from the same summed gradients), leaf by
+    # leaf, cut to the rank's 'data' slice of the state
+    first = [t.clone() for t in tree_leaves(params)]
+    state = opt.init(params)
+    with torch.no_grad():
+        params, state = opt.update(grads["step"], state, params, 0)
+    plain = train_module.make_optimizer(settings)
+    zero1_bitwise = True
+    for p0, g, p1, m, v, sm in zip(
+            first, tree_leaves(grads["step"]), tree_leaves(params),
+            tree_leaves(state["m"]), tree_leaves(state["v"]),
+            tree_leaves(sspecs["m"])):
+        with torch.no_grad():
+            x = {"x": p0}
+            x, st = plain.update({"x": g}, plain.init(x), x, 0)
+        data_only = tuple(a if a == "data" else None for a in sm)
+        zero1_bitwise &= (torch.equal(x["x"], p1) and torch.equal(
+            tpm.shard(st["m"]["x"], data_only, mesh), m) and torch.equal(
+            tpm.shard(st["v"]["x"], data_only, mesh), v))
+        del x, st
+    del first
+    out["zero1_bitwise"] = zero1_bitwise
+    out["leaves"] = mesh_lm_held(ref, "heads", grads["step"],
+                                 grads["control"], params)
+    del grads
+    mp._release(device)
+    stamp("zero1 update, held")
+
+    out["losses"], out["steps"] = [runs["collectives"]["loss"]], []
+    for step in range(1, sizes["steps"]):
+        # the last step with every collective timed apart, the device
+        # synchronised around each (the step's breakdown)
+        spent = mesh_lm_timed(mesh, sync) if step == sizes["steps"] - 1 \
+            else None
+        before = mesh_lm_counts(mesh)
+        sync()
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, batches[step], step)
+        out["losses"].append(float(metrics["loss"]))  # waits for the step
+        sync()
+        out["steps"].append(dict(mesh_lm_since(mesh, before),
+                                 ms=(time.perf_counter() - t0) * 1e3,
+                                 collective_ms=None if spent is None else {
+                                     k: v * 1e3 for k, v in spent.items()}))
+    for name in ("all_reduce", "all_gather_cat"):
+        mesh.__dict__.pop(name, None)
+    del params, state
+    mp._release(device)
+    stamp("steps 1-2")
+
+    # (1, 4): the kv heads replicated; the partial kv gradients' control
+    whole = drawn()  # kept for serving
+    params = tpm.shard_params(whole, wide.pspecs(), wide.mesh)
+    wide_grads = {}
+    for name, controls in (("grad", ()), ("control", ("kv_grad",))):
+        wide.tp.controls = frozenset(controls)
+        wide_grads[name] = train_module.mesh_grads(wide, params, batches[0],
+                                                   shape, settings)[1]
+        mp._release(device)
+    wide.tp.controls = frozenset()
+    out["wide"] = mesh_lm_held(ref, "seq", wide_grads["grad"],
+                               wide_grads["control"])
+    del params, wide_grads, ref
+    out["train_peak"] = peak()
+    mp._release(device)
+    stamp("(1, 4) gradients")
+
+    # (b) serving on both grids
+    out["serve"] = {mode: mp.lm_job(cfg, whole, dict(
+        kind="serve", grid=grid, prompts=prompts, gen_len=sizes["gen"],
+        cache_len=sizes["cache"]), device)
+        for mode, grid in MESH_LM_GRIDS.items()}
+    out["peak"] = peak()
+    del whole
+    mp._release(device)
+    stamp("serving")
+    return out
+
+
+def mesh_lm_serve_reference(cfg, prompts):
+    """The one-device port's greedy serving of `prompts`: the prefill's
+    and each decode step's logits (B, MESH_LM_GEN, Vp) and the tokens, on
+    the host; the model freed."""
+    model = Model(cfg, device=MESH_DEVICE, param_dtype=torch.float32)
+    params = model.init(SEED)
+    prefill, decode = make_serve_steps(model)
+    with torch.no_grad():
+        logits, pre = prefill(params, {"tokens": prompts})
+        B, P = prompts.shape
+        cache = serve_module.fill_cache(model, model.cache_template(
+            B, MESH_LM_CACHE), pre, P)
+        del pre
+        out, tok = [logits], logits.argmax(dim=-1)
+        toks = [tok]
+        for i in range(MESH_LM_GEN - 1):
+            pos = torch.full((B,), P + i, dtype=torch.long,
+                             device=prompts.device)
+            logits, cache = decode(params, cache, tok[:, None], pos)
+            tok = logits.argmax(dim=-1)
+            out.append(logits)
+            toks.append(tok)
+    res = (torch.stack(out, 1).cpu().numpy(),
+           torch.stack(toks, 1).cpu().numpy())
+    del model, params, cache
+    free_model()
+    return res
+
+
+def phase_mesh_lm():
+    """The LM stack over a (data x model) mesh of 4 ranks sharing the
+    card (see the module docstring, 30). Returns the flash launches a
+    rank of the (2, 2) step and of a prefill."""
+    from repro_torch.testing import multiprocess as mp
+
+    cfg = mesh_lm_cfg()
+    gen = torch.Generator(device=MESH_DEVICE).manual_seed(SEED + 31)
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (MESH_LM_SERVE_B, MESH_LM_PROMPT),
+                            generator=gen, device=MESH_DEVICE)
+    ref_logits, ref_tokens = mesh_lm_serve_reference(cfg, prompts)
+    prompts = prompts.cpu().numpy()
+    t0 = time.perf_counter()
+    launch = mp.launch_coordinated(
+        mp.rank_batch, 4,
+        ([(mesh_lm_rank, (cfg, prompts, dict(
+            B=MESH_LM_B, S=MESH_LM_S, steps=MESH_LM_STEPS, gen=MESH_LM_GEN,
+            cache=MESH_LM_CACHE), MESH_DEVICE))],),
+        backend="gloo", timeout=MESH_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    check(launch.exit_codes == {} and not launch.errors,
+          f"mesh lm: ranks died or raised: {launch.exit_codes}"
+          + raised(launch))
+    ranks = [r[0] for r in launch.results]
+    r0 = ranks[0]
+    label = (f"mesh lm {cfg.name} ({MESH_LM_CUT} of "
+             f"{CHATGLM3_6B.num_layers} layers, f32)")
+    log(f"{label}: one spawn of 4 gloo ranks on one card, {spawn_s:.1f} s; "
+        f"the last rank up at "
+        f"{max(st['entered'] for st in launch.stamps):.1f} s")
+
+    # (a) the first step against the one-device step: each leaf's gaps
+    # taken over the ranks' shards, its missed updates summed over them
+    def leaves(key):
+        out = []
+        for per_rank in zip(*(r[key] for r in ranks)):
+            e = dict(top=per_rank[0]["top"],
+                     grad=max(x["grad"] for x in per_rank))
+            if "control" in per_rank[0]:
+                e["control"] = max(x["control"] for x in per_rank)
+            if "missed" in per_rank[0]:
+                e["missed"] = sum(x["missed"] for x in per_rank) / sum(
+                    x["size"] for x in per_rank)
+            out.append(e)
+        return out
+
+    paths = ["/".join(p) for p in leaf_paths(
+        Model(cfg, device="cpu").template)]
+    runs = r0["runs"]
+    coll = runs["collectives"]
+    for key in ("loss", "grad_norm"):
+        want = r0[f"ref_{key}"]
+        check(abs(coll[key] - want) <= tol.F32_REDUCTION.obj_rel * abs(want),
+              f"{label} (2, 2): {key} {coll[key]} against the one-device "
+              f"{want}")
+    held = leaves("leaves")
+    gap = [e["grad"] / e["top"] for e in held]
+    worst = int(np.argmax(gap))
+    check(max(gap) <= MESH_LM_GRAD_TOL,
+          f"{label} (2, 2): gradient leaf {paths[worst]} off by "
+          f"{gap[worst]:.3e} of its largest")
+    ctrl = max(e["control"] / e["top"] for e in held)
+    check(ctrl > MESH_LM_GRAD_TOL,
+          f"{label} (2, 2): the input collective's backward dropped stays "
+          f"within the rule ({ctrl:.3e})")
+    check(all(r["zero1_bitwise"] for r in ranks),
+          f"{label} (2, 2): ZeRO-1's state slices or its parameters differ "
+          "from an update unsplit over 'data' of the same summed gradients, "
+          f"on ranks {[r['rank'] for r in ranks if not r['zero1_bitwise']]}")
+    upd = max(e["missed"] for e in held)
+    check(upd <= MESH_LM_ADAMW_FLIPS,
+          f"{label} (2, 2): parameters after the update outside "
+          f"{MESH_LM_UPDATE_TOL} x the one-device update ({upd:.3e} of a "
+          "leaf)")
+    check(all(r["bitwise_remat"] for r in ranks),
+          f"{label} (2, 2): remat 'collectives' is not bitwise 'none'")
+
+    def all_reduces(run):
+        return sum(v for k, v in run["calls"].items()
+                   if k not in ("gather",))
+
+    check(coll["calls"] == runs["none"]["calls"]
+          and all_reduces(coll) < all_reduces(runs["full"]),
+          f"{label} (2, 2): all-reduces a gradient: collectives "
+          f"{all_reduces(coll)}, none {all_reduces(runs['none'])}, full "
+          f"{all_reduces(runs['full'])}")
+    check(r0["losses"][-1] < r0["losses"][0],
+          f"{label} (2, 2): the loss does not fall: {r0['losses']}")
+    wide = leaves("wide")
+    wgap = [e["grad"] / e["top"] for e in wide]
+    wworst = int(np.argmax(wgap))
+    check(max(wgap) <= MESH_LM_GRAD_TOL,
+          f"{label} (1, 4): gradient leaf {paths[wworst]} off by "
+          f"{wgap[wworst]:.3e} of its largest")
+    wctrl = max(e["control"] / e["top"] for e in wide)
+    check(wctrl > MESH_LM_GRAD_TOL,
+          f"{label} (1, 4): the kv weights' partial gradients unsummed "
+          f"stay within the rule ({wctrl:.3e})")
+    steps = [r["steps"] for r in ranks]
+    flash = {(s["flash"], s["flash_bwd"]) for st in steps for s in st}
+    check(flash == {(2 * MESH_LM_CUT, MESH_LM_CUT)},
+          f"{label} (2, 2): flash launches a rank a step {flash}, expected "
+          f"{2 * MESH_LM_CUT} forward (remat recomputes) and {MESH_LM_CUT} "
+          "backward")
+    log(f"{label} (2, 2), adamw {MESH_LM_LR} ZeRO-1, remat 'collectives', "
+        f"{MESH_LM_B} x {MESH_LM_S} tokens a step: loss {coll['loss']:.6f} "
+        f"(one device {r0['ref_loss']:.6f}), grad norm "
+        f"{coll['grad_norm']:.6f} ({r0['ref_grad_norm']:.6f}); largest "
+        f"gradient gap {gap[worst]:.3e} of its leaf's largest "
+        f"({paths[worst]}), the control's {ctrl:.3e}; the largest "
+        f"share of a leaf's parameters outside {MESH_LM_UPDATE_TOL} x its "
+        f"one-device update {upd:.3e}; ZeRO-1 "
+        f"bitwise; remat 'collectives' bitwise 'none'; losses "
+        f"{', '.join(f'{x:.6f}' for x in r0['losses'])}")
+    log(f"{label} (2, 2): 'model' all-reduces a rank's gradient none "
+        f"{all_reduces(runs['none'])}"
+        f", collectives {all_reduces(coll)}, full "
+        f"{all_reduces(runs['full'])}; flash launches a rank a step "
+        f"{sorted(flash)} (forward, backward); ms a step by rank "
+        f"{[[round(s['ms'], 3) for s in st] for st in steps]}; payload a "
+        f"step by tag (rank 0, bytes) {steps[0][-1]['payload']}; peaks "
+        f"(GB) training {[round(r['train_peak'] / 1e9, 3) for r in ranks]}, "
+        f"with serving {[round(r['peak'] / 1e9, 3) for r in ranks]}")
+    last = steps[0][-1]
+    log(f"{label} (2, 2): rank 0's last step, each collective "
+        f"timed apart (the device synchronised around each): {last['ms']:.3f}"
+        f" ms, of it collectives by tag (ms) "
+        f"{ {k: round(v, 3) for k, v in last['collective_ms'].items()} }, "
+        f"{sum(last['collective_ms'].values()):.3f} ms in all")
+    log(f"{label}: each rank's seconds at the end of each part "
+        f"{[[(w, round(t, 1)) for w, t in r['stamps']] for r in ranks]}")
+    log(f"{label} (1, 4), kv heads replicated: largest gradient gap "
+        f"{wgap[wworst]:.3e} ({paths[wworst]}), the unsummed kv control's "
+        f"{wctrl:.3e}")
+
+    # (b) serving against the one-device port
+    rows = MESH_LM_SERVE_B
+    for mode, grid in MESH_LM_GRIDS.items():
+        n = rows // grid[0]
+        spec = Model(cfg, device="cpu", mesh=dict(zip(("data", "model"),
+                                                       grid))).cache_pspecs(
+            ShapeConfig("mesh-lm", "decode", MESH_LM_CACHE, rows))["k"]
+        full = (cfg.num_layers, rows, MESH_LM_CACHE, cfg.num_kv_heads,
+                cfg.resolved_head_dim)
+        sizes = dict(zip(("data", "model"), grid))
+        want_shape = tuple(d // (sizes[a] if a else 1)
+                           for d, a in zip(full, spec))
+        errs, times = [], []
+        for r in ranks:
+            res = r["serve"][mode]
+            p = res["coordinate"][0]
+            mine = slice(p * n, (p + 1) * n)
+            check(np.array_equal(res["tokens"], ref_tokens[mine]),
+                  f"{label} {mode} {grid}: rank {r['rank']}'s greedy tokens "
+                  "differ from the one-device port's")
+            check(np.allclose(res["logits"], ref_logits[mine],
+                              rtol=MESH_LM_LOGIT_TOL, atol=MESH_LM_LOGIT_TOL),
+                  f"{label} {mode} {grid}: rank {r['rank']}'s logits off by "
+                  f"{np.abs(res['logits'] - ref_logits[mine]).max():.3e}")
+            check(res["cache_shape"] == want_shape,
+                  f"{label} {mode} {grid}: rank {r['rank']}'s cache "
+                  f"{res['cache_shape']}, cache_pspecs gives {want_shape}")
+            check((res["prefill_flash"], res["decode_flash"]) ==
+                  (cfg.num_layers, 0),
+                  f"{label} {mode} {grid}: flash launches "
+                  f"{res['prefill_flash']} a prefill, {res['decode_flash']} "
+                  "in decode")
+            errs.append(float(np.abs(res["logits"] - ref_logits[mine]).max()))
+            times.append((res["prefill_s"] * 1e3,
+                          res["decode_s"] * 1e3 / (MESH_LM_GEN - 1)))
+        log(f"{label} serve {mode} {grid}: {rows} x {MESH_LM_PROMPT} prompts "
+            f"into {MESH_LM_CACHE} positions, {MESH_LM_GEN - 1} greedy decode "
+            f"steps; a rank's cache {want_shape}; tokens identical; largest "
+            f"logit gap {max(errs):.3e}; prefill ms / ms a token by rank "
+            f"{[(round(a, 3), round(b, 3)) for a, b in times]}; collectives "
+            f"a decode step {ranks[0]['serve'][mode]['decode_calls']}")
+    return (steps[0][-1]["flash"], steps[0][-1]["flash_bwd"],
+            ranks[0]["serve"]["seq"]["prefill_flash"])
 
 
 def flash_training_records(flash_record, bwd_record, train_fwd, train,
@@ -6299,7 +6834,8 @@ def run():
     bwd_record["launches"] = bwd
     bwd_record["launches_by_path"] = {
         "mamba2-130m train step": bwd,
-        "mamba2-130m SODDA-SVRG, 20 steps": train["sodda_launches"][1]}
+        "mamba2-130m (12 of 24 layers) SODDA-SVRG, 20 steps":
+            train["sodda_launches"][1]}
     ssd_record["backward"] = bwd_record
     log(f"train ssd kernel share of a step ({train['step_ms']:.3f} ms): "
         f"{fwd} forward launches (f32, the wgmma-f32 route) and {bwd} x "
@@ -6313,6 +6849,13 @@ def run():
     moe_exact = timed_phase(seconds, phase_train_moe_exact)
     flash_training_records(flash_record, flash_bwd_record, flash_train_fwd,
                            train, dense_train, moe_train, moe_exact)
+    torch.cuda.empty_cache()
+    mesh_fwd, mesh_bwd, mesh_prefill = timed_phase(seconds, phase_mesh_lm)
+    flash_record["f32"]["launches_by_path"].update({
+        "chatglm3-6b mesh (2, 2) train step, a rank": mesh_fwd,
+        "chatglm3-6b mesh prefill, a rank": mesh_prefill})
+    flash_bwd_record["launches_by_path"][
+        "chatglm3-6b mesh (2, 2) train step, a rank"] = mesh_bwd
     log("seconds by phase: " + ", ".join(
         f"{name} {sec:.1f}" for name, sec in seconds.items())
         + f"; {sum(seconds.values()):.1f} s in the phases, "

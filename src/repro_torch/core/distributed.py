@@ -70,7 +70,8 @@ class Mesh:
     row and column group, in one fixed order, from
     ``multihost.subgroup`` (made on the first mesh of the grid, shared by
     the later ones). ``payload`` counts the bytes
-    this rank hands to each collective, by tag.
+    this rank hands to each collective, by tag, and ``calls`` the
+    collectives, by tag.
 
     A mesh lives as long as its process group: ``multihost.shutdown``
     (a rescale re-forming the group) first calls :meth:`release`, which
@@ -107,6 +108,7 @@ class Mesh:
         self._groups = groups
         self._pending = []  # async all-reduces issued, not yet settled
         self.payload = collections.Counter()
+        self.calls = collections.Counter()
         multihost.hold(self)
 
     # -- DeviceMesh-style accessors ----------------------------------------
@@ -115,6 +117,12 @@ class Mesh:
     @property
     def shape(self):
         return (self.P, self.Q)
+
+    @property
+    def axis_sizes(self):
+        """The axis sizes by name, ``{"data": P, "model": Q}``: the mesh
+        as ``distributed.sharding_rules`` reads it."""
+        return dict(zip(AXES, self.shape))
 
     def get_coordinate(self):
         return (self.p, self.q)
@@ -146,6 +154,7 @@ class Mesh:
     # -- collectives (each counts its payload under `tag`) ------------------
     def _count(self, tag, axis, t):
         self.payload[tag or axis] += t.numel() * t.element_size()
+        self.calls[tag or axis] += 1
 
     def all_reduce(self, t, axis, op=dist.ReduceOp.SUM, async_op=False,
                    tag=None):

@@ -1,0 +1,213 @@
+"""Tensor parallelism over the 'model' axis of a mesh of ranks, and the
+carrying of trees onto a mesh and back.
+
+The port's own module: the reference has no counterpart file, because
+GSPMD writes these collectives into its programs from the partition specs
+(``distributed.sharding_rules``). Here each rank holds exactly the shard
+of every leaf that its spec gives it (``shard_params``), and the dense
+layers run on those shards with the two conjugate collectives of Megatron
+tensor parallelism:
+
+* ``copy``: identity forward, all-reduce backward. A layer's replicated
+  input goes through it before the rank's column-split weights, so its
+  gradient is summed over the ranks' partial ones;
+* ``reduce``: all-reduce forward, identity backward. A row-split
+  product's partial sum goes through it, so every rank holds the whole.
+
+Each is a ``torch.autograd.Function`` over ``core.distributed.Mesh``'s
+collectives, which count their payload under a tag in ``Mesh.payload``
+(and their calls in ``Mesh.calls``). :class:`TensorParallel` is a rank's
+place on the axis, what the rules split there, and the collectives the
+layers call. Every collective goes through the mesh's process group: on
+ranks that share one card that is gloo, through host memory.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.distributed.sharding_rules import padded_heads, rules_for
+
+AXIS = "model"
+# the deliberately broken pieces a check may turn on to show that its rule
+# catches them: the input collective's backward all-reduce dropped, and the
+# partial gradient of replicated kv weights left unsummed
+CONTROLS = ("input_grad", "kv_grad")
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, tp, tag):
+        ctx.tp, ctx.tag = tp, tag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        ctx.tp.mesh.all_reduce(grad, AXIS, tag=ctx.tag)
+        return grad, None, None
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce forward over the axis; the gradient as it is."""
+
+    @staticmethod
+    def forward(ctx, x, tp, tag):
+        out = x.contiguous().clone()
+        tp.mesh.all_reduce(out, AXIS, tag=tag)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class TensorParallel:
+    """A rank's place on the 'model' axis of `mesh` (a
+    ``core.distributed.Mesh``) for model `cfg` under `rules`
+    (``sharding_rules.rules_for``): its ``rank`` and the axis ``size``,
+    and whether the kv heads are split (``kv_heads``; the q heads, the MLP
+    hidden and the vocabulary always are: a layout that replicates one of
+    them over a model axis of more than one rank is refused).
+
+    ``controls`` (a subset of ``CONTROLS``, empty by default) breaks a
+    piece on purpose, for a check to show that its rule catches it."""
+
+    def __init__(self, mesh, cfg, rules=None):
+        self.mesh = mesh
+        self.size = mesh.size(AXIS)
+        self.rank = mesh.get_coordinate()[1]
+        rules = rules or rules_for(cfg, mesh)
+        split = {"heads": padded_heads(cfg), "mlp": cfg.d_ff,
+                 "vocab": cfg.padded_vocab}
+        if self.size > 1:
+            kept = [k for k, n in split.items()
+                    if rules[k] != AXIS or n % self.size]
+            if kept:
+                raise NotImplementedError(
+                    f"{cfg.name}: a layout that replicates {kept} over a "
+                    f"model axis of {self.size} ranks is not run")
+        self.kv_heads = rules["kv_heads"] == AXIS
+        self.controls = frozenset()
+
+    # -- collectives -------------------------------------------------------
+    def copy(self, x, tag):
+        """`x`; in the backward, its gradient all-reduced over the axis
+        (tag `tag`). The 'input_grad' control drops that all-reduce."""
+        if self.size == 1 or "input_grad" in self.controls:
+            return x
+        return _Copy.apply(x, self, tag)
+
+    def reduce(self, x, tag):
+        """`x` all-reduced over the axis (tag `tag`); its gradient as it
+        is."""
+        if self.size == 1:
+            return x
+        return _Reduce.apply(x, self, tag)
+
+    def kv_weight(self, w):
+        """A kv projection weight, replicated over the axis while each
+        rank uses only its q heads' kv heads: its gradient is partial on
+        each rank and is all-reduced (tag 'kv_grad'), unless the kv heads
+        are split or the 'kv_grad' control leaves it unsummed."""
+        if self.kv_heads or self.size == 1 or "kv_grad" in self.controls:
+            return w
+        return _Copy.apply(w, self, "kv_grad")
+
+    def max_(self, x, tag):
+        """`x` (not differentiated) replaced by its maximum over the
+        axis, in place."""
+        if self.size > 1:
+            self.mesh.all_reduce(x, AXIS, op=torch.distributed.ReduceOp.MAX,
+                                 tag=tag)
+        return x
+
+    def gather(self, x, dim, tag):
+        """The ranks' `x` (not differentiated) concatenated along `dim`
+        in rank order."""
+        if self.size == 1:
+            return x
+        whole = self.mesh.all_gather_cat(x.movedim(dim, 0), AXIS, tag=tag)
+        return whole.movedim(0, dim)
+
+    # -- this rank's share -------------------------------------------------
+    def span(self, n: int):
+        """(start, stop) of this rank's share of a dim of `n` split over
+        the axis."""
+        size = n // self.size
+        return self.rank * size, (self.rank + 1) * size
+
+    def kv_index(self, cfg, n_local: int) -> slice:
+        """The kv heads this rank's `n_local` q heads read when the kv
+        heads are replicated: a run of them, each read by a whole number
+        of the rank's heads (every arch of the registry on a mesh whose
+        model axis splits its heads); another layout is refused."""
+        group = padded_heads(cfg) // cfg.num_kv_heads
+        if group % n_local and n_local % group:
+            raise NotImplementedError(
+                f"{cfg.name}: {n_local} q heads a rank over kv groups of "
+                f"{group} split a group unevenly")
+        start = self.rank * n_local
+        return slice(start // group, (start + n_local - 1) // group + 1)
+
+
+def _coordinate(mesh, axis):
+    p, q = mesh.get_coordinate()
+    if axis == "data":
+        return p
+    if axis == AXIS:
+        return q
+    raise NotImplementedError(
+        f"mesh axis {axis!r}: a rank's share is cut along 'data' or "
+        "'model' only (the 'pod' axis waits for ROADMAP A6b)")
+
+
+def _split_dims(spec):
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        if isinstance(ax, tuple):
+            if len(ax) != 1:
+                raise NotImplementedError(
+                    f"dim {dim} split over {ax}: one mesh axis a dim is "
+                    "run (ROADMAP A6b)")
+            ax = ax[0]
+        yield dim, ax
+
+
+def shard(t, spec, mesh):
+    """This rank's shard of the whole tensor `t` under `spec` (a
+    contiguous copy, so an in-place update writes the rank's own)."""
+    for dim, ax in _split_dims(spec):
+        n = mesh.size(ax)
+        size = t.shape[dim] // n
+        t = t.narrow(dim, _coordinate(mesh, ax) * size, size)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def gather(t, spec, mesh, tag="gather"):
+    """The whole tensor of the ranks' shards `t` under `spec`, on every
+    rank (all-gathers over each split dim's axis)."""
+    for dim, ax in _split_dims(spec):
+        if mesh.size(ax) > 1:
+            t = mesh.all_gather_cat(t.movedim(dim, 0), ax,
+                                    tag=tag).movedim(0, dim)
+    return t
+
+
+def shard_params(tree, pspecs, mesh):
+    """A tree of whole tensors (parameters, gradients or optimizer state)
+    cut to this rank's shards by `pspecs` (a tree like it)."""
+    # here: the optim package imports the models, which import this module
+    from repro_torch.optim.optimizers import tree_map
+
+    return tree_map(lambda t, s: shard(t, s, mesh), tree, pspecs)
+
+
+def gather_params(tree, pspecs, mesh, tag="gather"):
+    """The whole tensors of a tree of this rank's shards, on every rank:
+    the inverse of ``shard_params``."""
+    from repro_torch.optim.optimizers import tree_map
+
+    return tree_map(lambda t, s: gather(t, s, mesh, tag), tree, pspecs)

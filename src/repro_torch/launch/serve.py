@@ -27,29 +27,76 @@ once a layer too; the MoE family needs no branch here). A config with a frontend
 (internvl2-26b's vision stub) is served with stand-in embeddings of
 ``input_specs``' shape drawn from the CLI's seeded generator, put ahead of
 each prompt.
+
+Over a mesh of ranks (a ``Model`` on a ``core.distributed.Mesh``; the
+dense family) ``serve`` runs on each rank with its shards of the
+parameters: the rank takes its rows of the prompts (``batch_axes``), its
+prefill and decode run tensor-parallel over 'model', and its cache is its
+shard (``Model.cache_template``): its kv heads in 'heads' decode, its
+chunk of the sequence in 'seq' decode (``sharding_rules.decode_mode``).
+``serve_shardings`` gives the reference's layouts as specs.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import torch
 
 from repro_torch.configs import ShapeConfig, get_config, reduced_config
+from repro_torch.distributed.sharding_rules import (PartitionSpec as P,
+                                                    activation_pspec_fn,
+                                                    batch_axes, decode_mode)
+from repro_torch.launch.train import rank_rows
 from repro_torch.models import Model, input_specs
 
+LONG_CONTEXT = 100_000  # positions past which decode is long-context
 
-def make_serve_steps(model: Model, force: str = "auto"):
-    """(prefill_step, decode_step) of `model`; `force` goes to the
-    layers' kernel wrapper in prefill."""
+
+def make_serve_steps(model: Model, shape: Optional[ShapeConfig] = None,
+                     force: str = "auto"):
+    """(prefill_step, decode_step) of `model` for the cell `shape`, as the
+    reference's: decode is long-context past ``LONG_CONTEXT`` positions
+    (``shape.seq_len``), and over a mesh both steps take the reference's
+    activation spec function. `force` goes to the layers' kernel wrapper
+    in prefill."""
+    long_ctx = shape is not None and shape.seq_len > LONG_CONTEXT
+    pspec_fn = (activation_pspec_fn(model.cfg, shape, model.mesh)
+                if model.mesh is not None and shape is not None else None)
 
     def prefill_step(params, batch):
         return model.prefill(params, batch, force=force)
 
     def decode_step(params, cache, tokens, pos):
-        return model.decode(params, cache, tokens, pos)
+        return model.decode(params, cache, tokens, pos,
+                            long_context=long_ctx, pspec_fn=pspec_fn)
 
     return prefill_step, decode_step
+
+
+def serve_shardings(model: Model, shape: ShapeConfig):
+    """The reference's ``serve_shardings`` as specs: (param specs, cache
+    specs, token spec, position spec)."""
+    axes = batch_axes(model.cfg, shape, model.mesh)
+    b = axes if len(axes) > 1 else (axes[0] if axes else None)
+    return model.pspecs(), model.cache_pspecs(shape), P(b, None), P(b)
+
+
+def fill_cache(model: Model, cache, pre, P_: int):
+    """The prefill's keys and values (P_ positions) copied into the
+    decode cache: a rank in 'seq' decode keeps the positions its chunk
+    holds."""
+    if model.tp is not None and decode_mode(model.cfg, model.mesh) == "seq":
+        S_loc = cache["k"].shape[2]
+        lo = model.tp.rank * S_loc
+        n = max(0, min(P_ - lo, S_loc))
+        for k in ("k", "v"):
+            cache[k][:, :, :n].copy_(pre[k][:, :, lo:lo + n])
+        return cache
+    cache["k"][:, :, :P_].copy_(pre["k"])
+    cache["v"][:, :, :P_].copy_(pre["v"])
+    return cache
 
 
 def warm_up(model: Model, params, prompts, cache):
@@ -73,7 +120,10 @@ def serve(model: Model, params, prompts, gen_len: int, force: str = "auto",
     The first token comes from the prefill logits, each further one from a
     decode step, so there are gen_len - 1 decode steps over a cache of
     P + gen_len positions; gen_len = 1 is the prefill alone (the time to
-    the first token). For the SSM and hybrid families the cache is built
+    the first token). Over a mesh of ranks `prompts` (and
+    `frontend_embeds`) are the whole batch: the rank serves its rows of
+    it, and the tokens and logits returned are those rows'. For the SSM
+    and hybrid families the cache is built
     by ``warm_up`` (P decode steps) when gen_len > 1; past 2 x the
     hybrid family's window (P + gen_len positions) its attention cache is a
     ring of the window's slots, and decode sees the last `window` positions
@@ -87,8 +137,9 @@ def serve(model: Model, params, prompts, gen_len: int, force: str = "auto",
     """
     if gen_len < 1:
         raise ValueError(f"gen_len must be >= 1, got {gen_len}")
-    prefill_step, decode_step = make_serve_steps(model, force)
     B, P = prompts.shape
+    shape = ShapeConfig("serve", "decode", P + gen_len, B)
+    prefill_step, decode_step = make_serve_steps(model, shape, force)
     batch = {"tokens": prompts}
     if frontend_embeds is not None:
         if model.cfg.family in ("ssm", "hybrid"):
@@ -96,11 +147,13 @@ def serve(model: Model, params, prompts, gen_len: int, force: str = "auto",
                              "prefill cache; this family builds none")
         batch["frontend_embeds"] = frontend_embeds
         P += frontend_embeds.shape[1]  # positions before the first token
+    if model.tp is not None:
+        batch = rank_rows(model, shape, batch)
+        prompts = batch["tokens"]
     logits, pre = prefill_step(params, batch)
     if pre is not None:
         cache = model.cache_template(B, P + gen_len, dtype=pre["k"].dtype)
-        cache["k"][:, :, :P].copy_(pre["k"])
-        cache["v"][:, :, :P].copy_(pre["v"])
+        cache = fill_cache(model, cache, pre, P)
         del pre
     elif gen_len > 1:
         _, cache = warm_up(model, params, prompts,
@@ -108,7 +161,8 @@ def serve(model: Model, params, prompts, gen_len: int, force: str = "auto",
     tok = logits.argmax(dim=-1)
     out = [tok]
     for i in range(gen_len - 1):
-        pos = torch.full((B,), P + i, dtype=torch.long, device=prompts.device)
+        pos = torch.full((tok.shape[0],), P + i, dtype=torch.long,
+                         device=prompts.device)
         step_logits, cache = decode_step(params, cache, tok[:, None], pos)
         tok = step_logits.argmax(dim=-1)
         out.append(tok)

@@ -16,9 +16,19 @@ runs it on the CPU):
         --steps 20 --batch 8 --seq 2048
 
 ``main`` turns TF32 off for float32 matrix products and convolutions (the
-reference computes in full f32). The mesh and ``jit`` plumbing of the
-reference (``batch_pspec``, ``shardings_for``, ``jit_train_step``) waits
-for the mesh work (ROADMAP A6); PyTorch runs the step eagerly.
+reference computes in full f32).
+
+Over a mesh of ranks (a ``Model`` built on a ``core.distributed.Mesh``)
+the step is the one GSPMD makes of the reference's: each rank takes its
+rows of the global batch (``batch_axes``), runs the dense family
+tensor-parallel over 'model', sums the gradients over 'data' and divides
+by its size, takes the grad norm counting every element once, and
+updates with its ZeRO-1 slice of the optimizer state
+(``optim.optimizers.zero1``). The layouts are the reference's, as data:
+``batch_pspec`` and ``shardings_for``'s specs; ``jit_train_step`` is the
+reference's entry point of the same name (PyTorch runs the step
+eagerly). The MoE layouts' execution and adafactor over a mesh wait for
+ROADMAP A6b.
 """
 from __future__ import annotations
 
@@ -35,25 +45,34 @@ import torch
 from repro_torch.checkpoint import CheckpointManager, latest_step
 from repro_torch.checkpoint import restore_checkpoint
 from repro_torch.configs import get_config, reduced_config
-from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.data.tokens import TokenPipeline
+from repro_torch.distributed.sharding_rules import (MOE_LAYOUTS,
+                                                    PartitionSpec as P,
+                                                    batch_axes)
 from repro_torch.models import Model
 from repro_torch.models.params import tree_leaves, tree_unflatten
 from repro_torch.optim import OPTIMIZERS, SoddaSVRGConfig, make_sodda_svrg
-from repro_torch.optim.optimizers import flat_chunks, tree_map
+from repro_torch.optim.optimizers import (flat_chunks, tree_map, zero1,
+                                          zero1_dims, zero1_pspecs)
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainSettings:
-    """The reference's settings that apply on one device. Its `remat` is
-    the model's (``Model(remat=...)``, which the reference's step reads);
-    `zero1` and `moe_layout` (how the experts' weights lie over a mesh)
-    wait for the mesh work (ROADMAP A6)."""
+    """The reference's settings. Its `remat` is the model's
+    (``Model(remat=...)``, which the reference's step reads). `zero1`
+    splits the optimizer state over a mesh's 'data' axis
+    (``shardings_for``, and the step over a mesh of ranks); `moe_layout`
+    is how the experts' weights lie over a mesh (``MOE_LAYOUTS``; its
+    execution waits for ROADMAP A6b). Neither changes a step on one
+    device."""
     optimizer: str = "adamw"
     lr: float = 3e-4
     accum_steps: int = 1
+    zero1: bool = True
     state_dtype: str = "float32"  # bfloat16 for the 1T-class archs
     grad_dtype: str = "float32"  # accumulation dtype
+    moe_layout: str = "gather"  # 'gather' | 'token_tp'
 
 
 def make_optimizer(settings: TrainSettings):
@@ -61,6 +80,47 @@ def make_optimizer(settings: TrainSettings):
     if settings.optimizer in ("momentum", "adamw"):
         kwargs["state_dtype"] = getattr(torch, settings.state_dtype)
     return OPTIMIZERS[settings.optimizer](settings.lr, **kwargs)
+
+
+def batch_pspec(cfg: ArchConfig, shape: ShapeConfig, mesh) -> dict:
+    """The batch's partition specs: its rows over ``batch_axes``."""
+    axes = batch_axes(cfg, shape, mesh)
+    b = axes if len(axes) > 1 else (axes[0] if axes else None)
+    return {"tokens": P(b, None), "targets": P(b, None),
+            **({"frontend_embeds": P(b, None, None)}
+               if cfg.frontend != "none" and cfg.frontend_tokens else {})}
+
+
+def shardings_for(model: Model, shape: ShapeConfig,
+                  settings: TrainSettings):
+    """(param specs, optimizer-state specs, batch specs, abstract params,
+    abstract state): the reference's ``shardings_for`` as data, specs
+    where it returns ``NamedSharding``s, the abstract trees on the meta
+    device. A state leaf takes the spec of the first parameter (in leaf
+    order) of its shape; adafactor's factored moments, which drop a
+    parameter's last or second-to-last dim, the spec with that dim
+    dropped; and with `zero1` 'data' on top (``zero1_pspecs``)."""
+    mesh = model.mesh
+    pspecs = model.pspecs()
+    abs_params = model.abstract()
+    abs_opt = make_optimizer(settings).init(abs_params)
+    shape_to_spec = {}
+    for leaf, spec in zip(tree_leaves(abs_params), tree_leaves(pspecs)):
+        shp = tuple(leaf.shape)
+        shape_to_spec.setdefault(shp, spec)
+        specs = list(spec) + [None] * (len(shp) - len(spec))
+        if len(shp) >= 2:
+            shape_to_spec.setdefault(shp[:-1], P(*specs[:-1]))  # r
+            shape_to_spec.setdefault(shp[:-2] + shp[-1:],
+                                     P(*(specs[:-2] + specs[-1:])))  # c
+
+    def opt_spec(leaf):
+        base = shape_to_spec.get(tuple(leaf.shape), P())
+        return zero1_pspecs(base, leaf.shape, mesh) if settings.zero1 \
+            else base
+
+    return (pspecs, tree_map(opt_spec, abs_opt),
+            batch_pspec(model.cfg, shape, mesh), abs_params, abs_opt)
 
 
 def loss_and_grads(model: Model, params, batch, force: str = "auto"):
@@ -85,6 +145,31 @@ def square_sum(g):
     return total
 
 
+def _gradients(model: Model, params, batch, A: int, gdt):
+    """(loss, metrics, grads) of `batch`: whole, or with A > 1 summed
+    over A micro-batches in `gdt` and divided by A."""
+    if A == 1:
+        return loss_and_grads(model, params, batch)
+    grads = tree_map(lambda p: torch.zeros(p.shape, dtype=gdt,
+                                           device=p.device), params)
+    lsum = torch.zeros((), dtype=torch.float32, device=model.device)
+    for i in range(A):
+        mb = {k: v.reshape(A, v.shape[0] // A, *v.shape[1:])[i]
+              for k, v in batch.items()}
+        l, _, g = loss_and_grads(model, params, mb)
+        # in place, and the micro-batch's tree dropped once added: no
+        # third tree (a new sum) is alive
+        for a, b in zip(tree_leaves(grads), tree_leaves(g)):
+            a.add_(b.to(a.dtype))
+        del g
+        lsum = lsum + l
+    for a in tree_leaves(grads):
+        a.div_(A)
+    loss = lsum / A
+    return loss, {"ce": loss, "aux": torch.zeros((), dtype=torch.float32,
+                                                 device=model.device)}, grads
+
+
 def make_train_step(model: Model, shape: ShapeConfig,
                     settings: TrainSettings):
     """(train_step, opt). ``train_step(params, opt_state, batch, step) ->
@@ -97,36 +182,20 @@ def make_train_step(model: Model, shape: ShapeConfig,
     norm sums each leaf's squares (``square_sum``). The optimizer writes
     the new parameters and state into the trees it is given
     (``repro_torch.optim``), so `params` and `opt_state` come back
-    updated. `shape` names the cell, as in the
-    reference."""
+    updated. `shape` names the cell, as in the reference.
+
+    Over a mesh of ranks the step is ``mesh_grads`` then the update: each
+    rank passes its shards of the parameters and its ZeRO-1 state
+    (``opt.init`` of its shards builds it), and the global batch, of
+    which it takes its rows."""
     opt = make_optimizer(settings)
+    if model.tp is not None:
+        return _mesh_train_step(model, shape, settings, opt)
     A = settings.accum_steps
     gdt = getattr(torch, settings.grad_dtype)
 
     def train_step(params, opt_state, batch, step):
-        if A == 1:
-            loss, metrics, grads = loss_and_grads(model, params, batch)
-        else:
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=gdt,
-                                                   device=p.device), params)
-            lsum = torch.zeros((), dtype=torch.float32,
-                               device=model.device)
-            for i in range(A):
-                mb = {k: v.reshape(A, v.shape[0] // A, *v.shape[1:])[i]
-                      for k, v in batch.items()}
-                l, _, g = loss_and_grads(model, params, mb)
-                # in place, and the micro-batch's tree dropped once added:
-                # no third tree (a new sum) is alive
-                for a, b in zip(tree_leaves(grads), tree_leaves(g)):
-                    a.add_(b.to(a.dtype))
-                del g
-                lsum = lsum + l
-            for a in tree_leaves(grads):
-                a.div_(A)
-            loss = lsum / A
-            metrics = {"ce": loss,
-                       "aux": torch.zeros((), dtype=torch.float32,
-                                          device=model.device)}
+        loss, metrics, grads = _gradients(model, params, batch, A, gdt)
         gnorm = torch.sqrt(sum(square_sum(g) for g in tree_leaves(grads)))
         with torch.no_grad():
             new_params, new_state = opt.update(grads, opt_state, params,
@@ -135,6 +204,96 @@ def make_train_step(model: Model, shape: ShapeConfig,
                                            grad_norm=gnorm)
 
     return train_step, opt
+
+
+def rank_rows(model: Model, shape: ShapeConfig, batch):
+    """This rank's rows of the global `batch`: its block along the axes
+    the batch is split over (``batch_axes``; all rows when none)."""
+    mesh = model.mesh
+    axes = batch_axes(model.cfg, shape, mesh)
+    if not axes:
+        return batch
+    if axes != ("data",):
+        raise NotImplementedError(
+            f"a batch split over {axes}: the 'data' axis alone is run "
+            "(ROADMAP A6b)")
+    n, p = mesh.size("data"), mesh.get_coordinate()[0]
+    return {k: v.chunk(n)[p] for k, v in batch.items()}
+
+
+def mesh_grads(model: Model, params, batch, shape: ShapeConfig,
+               settings: TrainSettings):
+    """(metrics, grads) of a step over a mesh of ranks, before its
+    update: the rank's gradients of its rows of the global `batch` (of
+    its parameter shards), then ``sum_over_data``."""
+    loss, metrics, grads = _gradients(
+        model, params, rank_rows(model, shape, batch), settings.accum_steps,
+        getattr(torch, settings.grad_dtype))
+    return sum_over_data(model, loss, metrics, grads)
+
+
+def sum_over_data(model: Model, loss, metrics, grads):
+    """(metrics, grads): the rank's `grads` (of its rows) summed over
+    'data' and divided by its size, in place; the loss and the metrics
+    averaged over 'data'; and ``grad_norm`` counting every element once
+    (a leaf split over 'model' summed over it, a replicated one taken
+    once)."""
+    mesh = model.mesh
+    n = mesh.size("data")
+    metrics = dict(metrics, loss=loss)
+    if n > 1:
+        for g in tree_leaves(grads):
+            mesh.all_reduce(g, "data", tag="grads")
+            g.div_(n)
+        keys = sorted(metrics)
+        both = torch.stack([metrics[k].float() for k in keys])
+        mesh.all_reduce(both, "data", tag="loss")
+        metrics = dict(zip(keys, both / n))
+    split = torch.zeros((), dtype=torch.float32, device=model.device)
+    whole = torch.zeros((), dtype=torch.float32, device=model.device)
+    for g, spec in zip(tree_leaves(grads), tree_leaves(model.pspecs())):
+        if "model" in spec:
+            split = split + square_sum(g)
+        else:
+            whole = whole + square_sum(g)
+    metrics["grad_norm"] = torch.sqrt(model.tp.reduce(split, "grad_norm")
+                                      + whole)
+    return metrics, grads
+
+
+def _mesh_train_step(model: Model, shape: ShapeConfig,
+                     settings: TrainSettings, opt):
+    if settings.optimizer == "adafactor":
+        raise NotImplementedError(
+            "adafactor's factored moments over a mesh (a row moment over a "
+            "split dim, and under ZeRO-1) wait for ROADMAP A6b")
+    if settings.zero1:
+        _, opt_specs, *_ = shardings_for(model, shape, settings)
+        state = opt_specs["m"] if settings.optimizer == "adamw" else opt_specs
+        opt = zero1(opt, model.mesh, zero1_dims(state)) if state != () \
+            else opt
+
+    def train_step(params, opt_state, batch, step):
+        metrics, grads = mesh_grads(model, params, batch, shape, settings)
+        with torch.no_grad():
+            new_params, new_state = opt.update(grads, opt_state, params,
+                                               step)
+        return new_params, new_state, metrics
+
+    return train_step, opt
+
+
+def jit_train_step(model: Model, shape: ShapeConfig,
+                   settings: TrainSettings):
+    """The reference's ``jit_train_step``: (train_step, opt, (abstract
+    params, abstract state, param specs, state specs, batch specs)).
+    PyTorch runs the step eagerly, so nothing is compiled: over a mesh of
+    ranks the step is ``make_train_step``'s sharded one, and the specs
+    are ``shardings_for``'s, which it follows."""
+    step_fn, opt = make_train_step(model, shape, settings)
+    param_sh, opt_sh, batch_sh, abs_params, abs_opt = shardings_for(
+        model, shape, settings)
+    return step_fn, opt, (abs_params, abs_opt, param_sh, opt_sh, batch_sh)
 
 
 def sodda_loop(model: Model, params, pipeline: TokenPipeline, steps: int,

@@ -1,4 +1,4 @@
-"""GQA attention: templates, the prefill forward and the 'heads' decode.
+"""GQA attention: templates, the prefill forward and the two decodes.
 
 Counterpart of ``repro.models.attention``. Head padding is the reference's:
 q heads are padded up to ``padded_heads`` and the output-projection rows of
@@ -14,9 +14,20 @@ and stay 0 under every optimizer, so the model is the unpadded one in
 training too; on the weights of ``init`` the masked forward is bitwise
 the unmasked one. The prefill forward runs the flash-attention kernel
 through ``kernels.ops.flash_attention``. Decode attends over the whole
-cache in plain torch, as the reference's 'heads' path does; its 'seq' path
-(a flash-decode over a sequence-sharded cache) belongs with the mesh work
-and is not ported yet.
+cache in plain torch: 'heads' (``decode_attn_heads``), as the reference's,
+and over a mesh 'seq' (``decode_attn_seq``), a flash-decode over a cache
+split along its sequence.
+
+Over a mesh (``tp``, a ``distributed.tensor_parallel.TensorParallel``) the
+q heads are split over the 'model' axis (a rank's slice of ``head_mask``
+applies to its own heads), the kv heads where the rules split them, else
+replicated: a rank then reads the kv heads its q heads belong to
+(``TensorParallel.kv_index``), and the replicated ``wk`` and ``wv`` get
+their partial gradients summed over the axis (``kv_weight``). ``wo`` is
+row-parallel: every function here returns the rank's partial sum of the
+output projection, which the caller all-reduces (``tp.reduce``), so that
+a remat policy can keep the all-reduce's output
+(``transformer._remat``).
 
 Unlike the reference, decode writes the new key and value into the cache
 in place (``_write_cache``), so one copy of the cache lives on the device.
@@ -54,13 +65,22 @@ def head_mask(cfg: ArchConfig, device=None):
     return (pos_in_group < per_group_real).float()
 
 
-def inert_heads(out, cfg: ArchConfig):
-    """The attention output `out` (..., Hp, hd) with the padded heads'
+def inert_heads(out, cfg: ArchConfig, tp=None):
+    """The attention output `out` (..., H, hd) with the padded heads'
     rows zeroed (the real heads' bits unchanged); `out` itself when
-    nothing is padded."""
+    nothing is padded. With `tp`, `out` holds the rank's heads and its
+    slice of the mask applies."""
     if padded_heads(cfg) == cfg.num_heads:
         return out
-    return out * head_mask(cfg, out.device).to(out.dtype)[:, None]
+    mask = head_mask(cfg, out.device)
+    if tp is not None:
+        mask = mask[slice(*tp.span(mask.shape[0]))]
+    return out * mask.to(out.dtype)[:, None]
+
+
+def _inert(out, cfg: ArchConfig, tp):
+    # one device calls inert_heads(out, cfg), the form tests replace
+    return inert_heads(out, cfg) if tp is None else inert_heads(out, cfg, tp)
 
 
 def attn_template(cfg: ArchConfig) -> dict:
@@ -88,10 +108,17 @@ def _project(h, w):
     return (h @ w.reshape(d, n * hd)).view(*h.shape[:-1], n, hd)
 
 
-def qkv(p, h, cfg: ArchConfig, positions):
+def qkv(p, h, cfg: ArchConfig, positions, tp=None):
+    """q (B,S,H,hd), k and v (B,S,KV,hd), rotated. With `tp`, H is the
+    rank's q heads and KV its kv heads (all of them, replicated, when the
+    rules do not split them); h's gradient is summed over the axis."""
+    wk, wv = p["wk"], p["wv"]
+    if tp is not None:
+        h = tp.copy(h, "attn_in")
+        wk, wv = tp.kv_weight(wk), tp.kv_weight(wv)
     q = _project(h, p["wq"])
-    k = _project(h, p["wk"])
-    v = _project(h, p["wv"])
+    k = _project(h, wk)
+    v = _project(h, wv)
     frac = 0.5 if cfg.name.startswith("chatglm") else 1.0  # chatglm 2d-RoPE
     q = apply_rope(q, positions, cfg.rope_theta, frac)
     k = apply_rope(k, positions, cfg.rope_theta, frac)
@@ -104,14 +131,28 @@ def _out_proj(out, wo):
     return out.reshape(*out.shape[:-2], H * hd) @ wo.reshape(H * hd, d)
 
 
+def local_kv(k, cfg: ArchConfig, tp, n_local: int):
+    """The kv heads a rank's `n_local` q heads read: `k` (B,S,KV,hd)
+    itself unless the kv heads are replicated over a split axis."""
+    if tp is None or tp.kv_heads or tp.size == 1:
+        return k
+    return k[:, :, tp.kv_index(cfg, n_local)]
+
+
 def attn_forward(p, h, cfg: ArchConfig, positions, *, window: int = 0,
-                 force: str = "auto"):
-    """Full-sequence (prefill) attention. h (B,S,d) -> (B,S,d), plus the
-    (k, v) tensors for cache construction."""
-    q, k, v = qkv(p, h, cfg, positions)
-    out = kops.flash_attention(q, k, v, causal=True, window=window,
+                 force: str = "auto", tp=None):
+    """Full-sequence (train / prefill) attention. h (B,S,d) -> (B,S,d),
+    plus the (k, v) tensors for cache construction. With `tp` the output
+    is the rank's partial sum (its heads through its rows of ``wo``), the
+    flash kernel runs over the rank's heads, and (k, v) are the rank's kv
+    heads (all of them when replicated)."""
+    q, k, v = qkv(p, h, cfg, positions, tp)
+    H = q.shape[2]
+    out = kops.flash_attention(q, local_kv(k, cfg, tp, H),
+                               local_kv(v, cfg, tp, H), causal=True,
+                               window=window,
                                softcap=cfg.attn_logit_softcap, force=force)
-    return _out_proj(inert_heads(out, cfg), p["wo"]), (k, v)
+    return _out_proj(_inert(out, cfg, tp), p["wo"]), (k, v)
 
 
 def decode_mask(pos, S: int, window: int = 0):
@@ -129,13 +170,15 @@ def decode_mask(pos, S: int, window: int = 0):
 
 
 def decode_attn_heads(p, h, cfg: ArchConfig, cache_k, cache_v, pos,
-                      window: int = 0, mask=None):
+                      window: int = 0, mask=None, tp=None):
     """'heads' decode: h (B,1,d); cache (B,S,KV,hd), written in place at
     ``pos[0] % S``; pos (B,) on the device (read there, never on the host).
     The keys seen are ``mask`` (B,S), by default ``decode_mask(pos, S,
     window)``: a decode step builds it once for all its layers. Returns
-    the attention output (B,1,d) and the (updated) cache."""
-    q, k_new, v_new = qkv(p, h, cfg, pos[:, None])
+    the attention output (B,1,d) and the (updated) cache. With `tp` the
+    cache holds the rank's kv heads (the rules split them: 'heads' mode)
+    and the output is the rank's partial sum."""
+    q, k_new, v_new = qkv(p, h, cfg, pos[:, None], tp)
     _write_cache(cache_k, k_new, pos)
     _write_cache(cache_v, v_new, pos)
     B, S, KV, hd = cache_k.shape
@@ -155,7 +198,56 @@ def decode_attn_heads(p, h, cfg: ArchConfig, cache_k, cache_v, pos,
     out = torch.einsum("bjgs,bsjk->bjgk", w.view(B, KV, group, S),
                        cache_v.float())
     out = out.reshape(B, 1, H, hd).to(h.dtype)
-    return _out_proj(inert_heads(out, cfg), p["wo"]), (cache_k, cache_v)
+    return _out_proj(_inert(out, cfg, tp), p["wo"]), (cache_k, cache_v)
+
+
+def decode_attn_seq(p, h, cfg: ArchConfig, cache_k, cache_v, pos, tp,
+                    window: int = 0):
+    """'seq' decode over a mesh: h (B,1,d); cache (B,S_loc,KV,hd), this
+    rank's chunk of the sequence (positions rank x S_loc onwards), all kv
+    heads; pos (B,), all equal. The new key and value are written only
+    into the chunk that holds ``pos[0]`` (read once on the host). The
+    rank's q heads are gathered over the axis; each rank forms its chunk's
+    partials for every head, its maximum score m, the sum l of
+    exp(s - m) and o, their weights on the values, with the window and
+    the softcap; the partials are merged by an all-reduce max and two
+    all-reduce sums, with ``max(l, 1e-37)``, as the reference's
+    flash-decode merge. Returns the rank's partial sum of the output
+    (B,1,d), through its heads' rows of ``wo``, and the cache."""
+    q, k_new, v_new = qkv(p, h, cfg, pos[:, None], tp)
+    H_loc = q.shape[2]
+    q = tp.gather(q, 2, "decode_q")
+    B, S_loc, KV, hd = cache_k.shape
+    start = tp.rank * S_loc
+    at = int(pos[0]) - start
+    if 0 <= at < S_loc:
+        cache_k[:, at] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, at] = v_new[:, 0].to(cache_v.dtype)
+    H = q.shape[2]
+    group = H // KV
+    qg = q.view(B, KV, group, hd)
+    s = torch.einsum("bjgk,bsjk->bjgs", qg, cache_k).float()
+    s = s.reshape(B, H, 1, S_loc) * (1.0 / hd ** 0.5)
+    if cfg.attn_logit_softcap:
+        s = cfg.attn_logit_softcap * torch.tanh(s / cfg.attn_logit_softcap)
+    kpos = start + torch.arange(S_loc, device=pos.device)
+    mask = kpos[None, :] <= pos[:, None]
+    if window > 0:
+        mask = mask & (pos[:, None] - kpos[None, :] < window)
+    s = torch.where(mask[:, None, None], s, -1e30)
+    m = s.amax(dim=-1)  # (B,H,1)
+    e = torch.exp(s - m[..., None])
+    l = e.sum(dim=-1)
+    o = torch.einsum("bjgs,bsjk->bjgk", e.view(B, KV, group, S_loc),
+                     cache_v.float()).reshape(B, H, 1, hd)
+    m_g = tp.max_(m.clone(), "decode_max")
+    corr = torch.exp(m - m_g)
+    l_g = tp.reduce(l * corr, "decode_l")
+    o_g = tp.reduce(o * corr[..., None], "decode_o")
+    out = (o_g / torch.clamp_min(l_g, 1e-37)[..., None]).transpose(1, 2)
+    out = out[:, :, slice(*tp.span(H))] if H_loc != H else out
+    out = out.to(h.dtype)
+    return _out_proj(_inert(out, cfg, tp), p["wo"]), (cache_k, cache_v)
 
 
 def _write_cache(cache, new, pos):

@@ -3,6 +3,13 @@
 Counterpart of ``repro.models.layers``, with the same dtype rules: the
 norm and the rotation compute in float32 and cast back to the input dtype,
 and logits are cast to float32 before the softcap.
+
+Over a mesh (``tp``, a ``distributed.tensor_parallel.TensorParallel``)
+the vocabulary is split over the 'model' axis, as the reference's rules
+split it: the embedding is a masked lookup of the rank's rows, all-reduced;
+the unembedding gives the rank's columns of the logits; the cross entropy
+takes their maximum over the axis, then the sum of exponentials and the
+gold logit by one all-reduce.
 """
 from __future__ import annotations
 
@@ -46,19 +53,45 @@ def apply_rope(x, positions, theta: float = 10000.0, fraction: float = 1.0):
     return torch.cat([rotated.to(x.dtype), x[..., rot:]], dim=-1)
 
 
-def embed_tokens(embedding, tokens):
-    """embedding (V, d), tokens (...) integer -> (..., d)."""
-    return F.embedding(tokens, embedding)
+def _local_ids(ids, n, tp):
+    """(ids - this rank's first vocab row, clamped to its n rows; whether
+    each id is one of them)."""
+    start = tp.rank * n
+    local = ids.long() - start
+    ok = (local >= 0) & (local < n)
+    return local.clamp(0, n - 1), ok
 
 
-def unembed(h, w_unembed, cap: float = 0.0):
+def embed_tokens(embedding, tokens, tp=None):
+    """embedding (V, d), tokens (...) integer -> (..., d). With `tp`,
+    `embedding` is the rank's rows of the vocabulary: each rank looks up
+    the tokens it holds (0 for the others), and the sum over the axis is
+    every token's row."""
+    if tp is None:
+        return F.embedding(tokens, embedding)
+    local, ok = _local_ids(tokens, embedding.shape[0], tp)
+    h = torch.where(ok[..., None], F.embedding(local, embedding), 0)
+    return tp.reduce(h, "embed")
+
+
+def unembed(h, w_unembed, cap: float = 0.0, tp=None):
+    """h (..., d) @ w_unembed (d, V) -> f32 logits, softcapped. With `tp`,
+    `w_unembed` is the rank's columns of the vocabulary and so are the
+    logits; h's gradient is summed over the axis."""
+    if tp is not None:
+        h = tp.copy(h, "unembed_in")
     logits = torch.matmul(h, w_unembed)
     return softcap(logits.float(), cap)
 
 
-def cross_entropy(logits, targets, vocab_size: int):
+def cross_entropy(logits, targets, vocab_size: int, tp=None):
     """logits (..., V) f32 (V possibly padded), targets (...) integer.
-    Padded vocab entries are masked to -1e30 before the log-sum-exp."""
+    Padded vocab entries are masked to -1e30 before the log-sum-exp. With
+    `tp`, `logits` are the rank's columns of the vocabulary: the maximum
+    is taken over the axis, and the sum of exponentials and the gold logit
+    are summed over it (one all-reduce)."""
+    if tp is not None:
+        return _cross_entropy_split(logits, targets, vocab_size, tp)
     V = logits.shape[-1]
     if V > vocab_size:
         pad = torch.arange(V, device=logits.device) >= vocab_size
@@ -66,3 +99,17 @@ def cross_entropy(logits, targets, vocab_size: int):
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return (lse - gold).mean()
+
+
+def _cross_entropy_split(logits, targets, vocab_size, tp):
+    n = logits.shape[-1]
+    ids = tp.rank * n + torch.arange(n, device=logits.device)
+    if n * tp.size > vocab_size:
+        logits = logits.masked_fill(ids >= vocab_size, -1e30)
+    m = tp.max_(logits.detach().amax(dim=-1), "ce_max")
+    sumexp = torch.exp(logits - m[..., None]).sum(dim=-1)
+    local, ok = _local_ids(targets, n, tp)
+    gold = torch.where(ok, torch.gather(logits, -1, local[..., None])[..., 0],
+                       0)
+    sumexp, gold = tp.reduce(torch.stack([sumexp, gold]), "ce")
+    return (m + torch.log(sumexp) - gold).mean()

@@ -7,28 +7,47 @@ of tensors passed to each entry point, as in the reference; the module
 holds the configuration, the template, the device, the parameter dtype and
 the rematerialisation policy. It runs on the CUDA device unless the caller
 passes ``device="cpu"``.
+
+A model may lie over a mesh (``mesh``): a mapping of axis sizes such as
+``{"data": 16, "model": 16}`` gives the layouts as data (``pspecs``,
+``cache_pspecs``, as the reference's); a ``core.distributed.Mesh`` of
+ranks also runs the entry points there, tensor-parallel over its 'model'
+axis (``distributed.tensor_parallel``): each rank passes its shards of the
+parameters (``tensor_parallel.shard_params`` of the whole tree by
+``pspecs``) and of the cache (``cache_template``), and its rows of the
+batch. The dense family runs so; the MoE, SSM and hybrid families over a
+mesh wait for ROADMAP A6b.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.distributed.sharding_rules import (PartitionSpec as P,
+                                                    axis_sizes, decode_mode,
+                                                    rules_for)
+from repro_torch.distributed.tensor_parallel import TensorParallel
 from repro_torch.models import attention, ssm, transformer
-from repro_torch.models.params import count_params, init_params
+from repro_torch.models.params import (count_params, init_params,
+                                       param_pspecs, tree_map_specs)
 from repro_torch.platform import DeviceLike, resolve_device
 
 
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
-                 param_dtype=torch.bfloat16, remat: str = "none"):
+                 param_dtype=torch.bfloat16, remat: str = "none", mesh=None,
+                 rules_overrides: Optional[dict] = None):
         """`remat` is ``loss``'s layer checkpointing
         (``transformer.REMATS``). The reference defaults to "dots", an XLA
         policy; eager PyTorch has none ("dots" checkpoints whole blocks, as
         "full"), and the gradients are the same bits either way, so the
-        default here is "none"."""
+        default here is "none". `mesh` and `rules_overrides` (a
+        ``sharding_rules.MOE_LAYOUTS`` entry) are the reference's: the
+        layout of the parameters and caches over a mesh (see the module
+        docstring)."""
         super().__init__()
         if remat not in transformer.REMATS:
             raise ValueError(f"remat must be one of {transformer.REMATS}, "
@@ -37,7 +56,13 @@ class Model(nn.Module):
         self.device = resolve_device(device)
         self.param_dtype = param_dtype
         self.remat = remat
+        self.mesh = mesh
+        self.rules_overrides = rules_overrides
         self.template = transformer.model_template(cfg)
+        # the ranks' tensor parallelism, over a mesh of ranks only
+        self.tp = None
+        if mesh is not None and not isinstance(mesh, Mapping):
+            self.tp = TensorParallel(mesh, cfg, self.rules())
 
     # -- parameters ------------------------------------------------------
     def init(self, seed: int, dtype=None):
@@ -66,6 +91,56 @@ class Model(nn.Module):
     def param_count(self) -> int:
         return count_params(self.template)
 
+    def abstract(self, dtype=None):
+        """The parameters as tensors on the meta device: their shapes and
+        dtype, nothing allocated (the reference's ``abstract``)."""
+        return tree_map_specs(
+            lambda s: torch.empty(s.shape, dtype=dtype or self.param_dtype,
+                                  device="meta"), self.template)
+
+    # -- layouts over the mesh -------------------------------------------
+    def rules(self) -> dict:
+        return rules_for(self.cfg, self._mesh(), self.rules_overrides)
+
+    def _mesh(self):
+        if self.mesh is None:
+            raise ValueError(f"{self.cfg.name}: a layout needs a mesh")
+        return self.mesh
+
+    def pspecs(self):
+        """The parameters' partition specs on the mesh (a tree like the
+        parameters)."""
+        return param_pspecs(self.template, self.rules(), self._mesh())
+
+    def cache_pspecs(self, shape: Optional[ShapeConfig] = None):
+        """Partition specs matching ``cache_template``, the reference's:
+        the batch over the data axes (unsplit when `shape`'s batch does not
+        divide them), the kv heads over 'model' in 'heads' decode, the
+        sequence in 'seq' decode; the SSM state's heads by the rules."""
+        cfg, mesh = self.cfg, self.mesh
+        sizes = axis_sizes(mesh) if mesh is not None else {}
+        mode = decode_mode(cfg, mesh) if mesh is not None else "heads"
+        data = ("pod", "data") if "pod" in sizes else ("data",)
+        if shape is not None and mesh is not None:
+            n = 1
+            for a in data:
+                n *= sizes[a]
+            if shape.global_batch % n:
+                data = ()
+        b = data if len(data) > 1 else (data[0] if data else None)
+        if cfg.family in ("ssm", "hybrid"):
+            hax = self.rules()["ssm_heads"]
+            out = {"state": P(None, b, hax, None, None),
+                   "conv": P(None, b, None, None)}
+            if cfg.family == "hybrid":
+                out["ak"] = out["av"] = P(None, b, None, "model", None)
+            return out
+        if mode == "heads":
+            return {"k": P(None, b, None, "model", None),
+                    "v": P(None, b, None, "model", None)}
+        return {"k": P(None, b, "model", None, None),
+                "v": P(None, b, "model", None, None)}
+
     # -- entry points ----------------------------------------------------
     def loss(self, params, batch, force: str = "auto"):
         """batch {'tokens', 'targets': (B,S)} -> (loss, {'ce', 'aux'}), f32
@@ -78,7 +153,7 @@ class Model(nn.Module):
         'aux' is its layers' load-balancing losses summed, and the loss
         adds 0.01 x it, as the reference's does."""
         return transformer.loss_fn(params, batch, self.cfg,
-                                   remat=self.remat, force=force)
+                                   remat=self.remat, force=force, tp=self.tp)
 
     def prefill(self, params, batch, force: str = "auto"):
         """batch {'tokens': (B,S)} -> (last-position logits (B,Vp) f32,
@@ -93,18 +168,29 @@ class Model(nn.Module):
             params, batch["tokens"], self.cfg,
             frontend_embeds=batch.get("frontend_embeds"),
             collect_cache=self.cfg.family not in ("ssm", "hybrid"),
-            last_only=True, force=force)
+            last_only=True, force=force, tp=self.tp)
         return logits[:, -1], cache
 
-    def decode(self, params, cache, tokens, pos):
+    def decode(self, params, cache, tokens, pos, long_context: bool = False,
+               pspec_fn=None):
         """tokens (B,1), pos (B,) -> (logits (B,Vp) f32, cache). The cache
         is updated in place. An MoE layer routes the B tokens over every
         expert's capacity buffer (256 slots at least) and drops its
-        auxiliary loss, as the reference's decode does. The hybrid family's cache decides its window:
-        a ring of the window's slots (``cache_template`` past 2 x the
-        window) sees the last `window` positions, a full-length cache all
-        of them."""
-        return transformer.decode_step(params, cache, tokens, pos, self.cfg)
+        auxiliary loss, as the reference's decode does. `long_context`
+        gives the hybrid family's shared attention its sliding window, as
+        the reference's flag does, and its cache decides it too: a ring of
+        the window's slots (``cache_template`` past 2 x the window) sees
+        the last `window` positions, a full-length cache all of them.
+        Over a mesh of ranks the attention runs in the reference's
+        ``decode_mode`` ('heads' or 'seq'). `pspec_fn`
+        (``sharding_rules.activation_pspec_fn``) is the reference's
+        argument; the ranks hold their activations' shards as they are, so
+        the dense family reads nothing from it (its ``gather_weights``
+        names the MoE layout, ROADMAP A6b)."""
+        mode = decode_mode(self.cfg, self.mesh) if self.tp else "heads"
+        return transformer.decode_step(params, cache, tokens, pos, self.cfg,
+                                       long_context=long_context, tp=self.tp,
+                                       decode_mode=mode)
 
     # -- caches ----------------------------------------------------------
     def cache_template(self, batch: int, seq: int,
@@ -119,7 +205,9 @@ class Model(nn.Module):
         cache and {'ak', 'av': (sites,B,s_attn,KV,hd)} in `dtype`, where
         s_attn is the reference's rule: `seq`, or, for long-context serving
         (`seq` > 2 x the window), a ring of ``cfg.sliding_window`` slots,
-        over which decode sees the last `window` positions."""
+        over which decode sees the last `window` positions. Over a mesh of
+        ranks it is the rank's shard of that cache (``cache_pspecs`` for a
+        batch of `batch` sequences of `seq`)."""
         cfg = self.cfg
         dt = dtype or self.param_dtype
         dev = self.device if device is None else torch.device(device)
@@ -136,6 +224,12 @@ class Model(nn.Module):
                 out["av"] = torch.zeros(shape, dtype=dt, device=dev)
             return out
         shape = (cfg.num_layers,) + kv
+        if self.tp is not None:
+            sizes = axis_sizes(self.mesh)
+            spec = self.cache_pspecs(ShapeConfig("cache", "decode", seq,
+                                                 batch))["k"]
+            shape = tuple(n // (sizes[ax] if ax else 1)
+                          for n, ax in zip(shape, spec))
         return {"k": torch.zeros(shape, dtype=dt, device=dev),
                 "v": torch.zeros(shape, dtype=dt, device=dev)}
 

@@ -19,8 +19,12 @@ integer or exact, can be held apart from the floating-point work:
   and contribute zero, exactly as in the reference.
 
 The reference's expert products are ``einsum``s outside Pallas, so they
-are batched ``torch.bmm`` here. The mesh layouts of the experts
-(``pspec_fn``, ``moe_layout``) are not ported (ROADMAP A6).
+are batched ``torch.bmm`` here. The experts' mesh layouts are ported as
+data (``distributed.sharding_rules.MOE_LAYOUTS``, ``Model.pspecs``, and
+``activation_pspec_fn``'s ``gather_weights``, which names the layout
+``moe_forward``'s ``pspec_fn`` would read); running them over a mesh of
+ranks (the route over the global batch, 'gather' and 'token_tp') waits
+for ROADMAP A6b, and a mesh refuses the MoE family until then.
 """
 from __future__ import annotations
 

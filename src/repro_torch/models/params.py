@@ -5,8 +5,11 @@ nested dict of ``ParamSpec`` (shape, logical axes, initializer). From the
 template come ``init_params`` (weights drawn on the target device from an
 explicit ``torch.Generator``), ``count_params``, and ``from_numpy``, which
 carries the reference's parameters (``jax.tree.map(np.asarray, params)``)
-into the port. The sharding helpers of the reference belong with the mesh
-work and are not ported yet.
+into the port. The sharding helpers (``logical_to_pspec``,
+``check_divisibility``, ``param_pspecs``, ``param_pspecs_one``) turn a
+template and a family's rules (``distributed.sharding_rules``) into the
+port's partition specs, leaf by leaf, as the reference's do; a mesh is a
+mapping of axis sizes or a ``core.distributed.Mesh``.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding_rules import PartitionSpec, axis_sizes
 from repro_torch.platform import DeviceLike, resolve_device
 
 
@@ -114,6 +118,56 @@ def init_params(template, gen: torch.Generator, dtype=torch.float32):
     reference's leaf order with its scaling rule (not its bits: a torch
     generator gives other numbers than a jax key)."""
     return tree_map_specs(lambda s: _init_one(s, gen, dtype), template)
+
+
+def logical_to_pspec(spec: ParamSpec, rules: dict) -> PartitionSpec:
+    """The mesh axes of each of `spec`'s dims by `rules`; a mesh axis is
+    used at most once a spec (a later dim asking for it again gets
+    None)."""
+    mesh_axes, used = [], set()
+    for name in spec.axes:
+        ax = rules.get(name) if name else None
+        if ax is not None and not isinstance(ax, tuple):
+            ax = (ax,)
+        if ax is not None:
+            ax = tuple(a for a in ax if a not in used)
+            used.update(ax)
+            ax = ax or None
+        mesh_axes.append(ax if ax is None or len(ax) > 1 else ax[0])
+    return PartitionSpec(*mesh_axes)
+
+
+def _split(ax, sizes) -> int:
+    """How many ways a dim with mesh axes `ax` is split."""
+    return math.prod(sizes[a] for a in (ax if isinstance(ax, tuple)
+                                        else (ax,)))
+
+
+def check_divisibility(spec: ParamSpec, pspec: PartitionSpec, mesh) -> bool:
+    """Whether every split dim of `spec` divides by its mesh axes."""
+    sizes = axis_sizes(mesh)
+    return all(ax is None or dim % _split(ax, sizes) == 0
+               for dim, ax in zip(spec.shape, pspec))
+
+
+def param_pspecs_one(spec: ParamSpec, rules: dict, mesh) -> PartitionSpec:
+    """`spec`'s partition spec on `mesh`: by `rules`, a dim that does not
+    divide by its mesh axes left unsplit."""
+    ps = logical_to_pspec(spec, rules)
+    if not check_divisibility(spec, ps, mesh):
+        sizes = axis_sizes(mesh)
+        ps = PartitionSpec(*(ax if ax is None or dim % _split(ax, sizes) == 0
+                             else None for dim, ax in zip(spec.shape, ps)))
+    return ps
+
+
+def param_pspecs(template, rules: dict, mesh=None):
+    """The template's partition specs (a tree like it); with a `mesh`, a
+    dim that does not divide is left unsplit (``param_pspecs_one``)."""
+    if mesh is None:
+        return tree_map_specs(lambda s: logical_to_pspec(s, rules), template)
+    return tree_map_specs(lambda s: param_pspecs_one(s, rules, mesh),
+                          template)
 
 
 def count_params(template) -> int:

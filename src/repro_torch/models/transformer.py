@@ -22,7 +22,17 @@ layer's auxiliary load-balancing loss is summed over the layers, as the
 reference's scan carries it, and ``loss_fn`` adds it. The training loss
 (``loss_fn``) runs the same forward; ``remat`` checkpoints each layer
 (``torch.utils.checkpoint``), trading memory for a second forward in the
-backward.
+backward, or under "collectives" each layer's local work between its
+all-reduces (``_remat``).
+
+Over a mesh of ranks (``tp``, a
+``distributed.tensor_parallel.TensorParallel``) the dense family runs
+tensor-parallel: every entry point takes the rank's shards of the
+parameters, and each block all-reduces its attention and MLP outputs over
+the 'model' axis ('attn_out', 'mlp_out', the names the reference's
+"collectives" policy saves). Decode switches between the 'heads' and the
+'seq' attention as the reference's ``_decode_attn`` does. The MoE, SSM and
+hybrid families over a mesh raise ``NotImplementedError`` (ROADMAP A6b).
 """
 from __future__ import annotations
 
@@ -103,41 +113,85 @@ def layer_window(cfg: ArchConfig, i: int) -> int:
     return cfg.sliding_window if (cfg.local_global and i % 2 == 0) else 0
 
 
-def _embed(params, tokens, cfg: ArchConfig):
-    h = embed_tokens(params["embed"], tokens)
+def _embed(params, tokens, cfg: ArchConfig, tp=None):
+    h = embed_tokens(params["embed"], tokens, tp)
     if cfg.local_global:  # gemma scales embeddings, by sqrt(d) in h's dtype
         scale = torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32)
         h = h * scale.to(device=h.device, dtype=h.dtype)
     return h
 
 
-def _logits(params, h, cfg: ArchConfig):
+def _logits(params, h, cfg: ArchConfig, tp=None, whole: bool = False):
+    """The final norm and the unembedding: f32 logits. With `tp` they are
+    the rank's vocabulary columns, or with `whole` all of them (gathered
+    over the axis; not differentiated: the serving paths)."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     wout = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return unembed(h, wout, cfg.final_logit_softcap)
+    logits = unembed(h, wout, cfg.final_logit_softcap, tp)
+    if tp is not None and whole:
+        logits = tp.gather(logits, logits.dim() - 1, "logits")
+    return logits
 
 
-def _mlp_half(lp, h, cfg: ArchConfig):
-    """The MLP (or MoE) half of a block: (h + its output, the MoE block's
-    auxiliary loss, or None for an MLP)."""
+def _reduce(x, tp, tag):
+    """A tensor-parallel block output all-reduced over the axis (itself on
+    one device)."""
+    return x if tp is None else tp.reduce(x, tag)
+
+
+def _ffn(lp, h, cfg: ArchConfig, tp):
+    """The MLP (or MoE) on h's norm: its (partial) output and the MoE
+    block's auxiliary loss, or None for an MLP."""
     x = rms_norm(h, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
-        m, aux = moe.moe_forward(lp["moe"], x, cfg)
-    else:
-        m, aux = mlp.mlp_forward(lp["mlp"], x), None
-    if "ln2post" in lp:
-        m = rms_norm(m, lp["ln2post"], cfg.norm_eps)
-    return h + m, aux
+        return moe.moe_forward(lp["moe"], x, cfg)
+    return mlp.mlp_forward(lp["mlp"], x, tp), None
 
 
-def _attn_block(lp, h, cfg: ArchConfig, positions, window: int, force: str):
-    a, kv = attention.attn_forward(lp["attn"],
-                                   rms_norm(h, lp["ln1"], cfg.norm_eps), cfg,
-                                   positions, window=window, force=force)
+def _mlp_in(lp, h, a, cfg: ArchConfig, tp):
+    """The block's work between its two all-reduces: the attention output
+    `a` (post-normed) added to h, then the MLP's (or MoE's) partial
+    output. Returns (h + a, the partial output, aux)."""
     if "ln1post" in lp:
         a = rms_norm(a, lp["ln1post"], cfg.norm_eps)
-    h, aux = _mlp_half(lp, h + a, cfg)
-    return h, kv, aux
+    h = h + a
+    return (h,) + _ffn(lp, h, cfg, tp)
+
+
+def _mlp_out(lp, h, m, cfg: ArchConfig):
+    if "ln2post" in lp:
+        m = rms_norm(m, lp["ln2post"], cfg.norm_eps)
+    return h + m
+
+
+def _mlp_half(lp, h, cfg: ArchConfig, tp=None):
+    """The MLP (or MoE) half of a block: (h + its output, the MoE block's
+    auxiliary loss, or None for an MLP)."""
+    m, aux = _ffn(lp, h, cfg, tp)
+    return _mlp_out(lp, h, _reduce(m, tp, "mlp_out"), cfg), aux
+
+
+def _attn_in(lp, h, cfg: ArchConfig, positions, window: int, force: str,
+             tp):
+    """The block's work up to its first all-reduce: the attention's
+    (partial) output and its (k, v)."""
+    return attention.attn_forward(lp["attn"],
+                                  rms_norm(h, lp["ln1"], cfg.norm_eps), cfg,
+                                  positions, window=window, force=force,
+                                  tp=tp)
+
+
+def _attn_block(lp, h, cfg: ArchConfig, positions, window: int, force: str,
+                tp=None, pieces=None):
+    """One attention + MLP block: (h out, (k, v), aux). `pieces` wraps
+    the block's local work between its all-reduces (``_attn_in`` and
+    ``_mlp_in``): the "collectives" remat checkpoints them, so the
+    backward recomputes local work and never an all-reduce."""
+    attn_in, mlp_in = (_attn_in, _mlp_in) if pieces is None else \
+        (pieces(_attn_in), pieces(_mlp_in))
+    a, kv = attn_in(lp, h, cfg, positions, window, force, tp)
+    h, m, aux = mlp_in(lp, h, _reduce(a, tp, "attn_out"), cfg, tp)
+    return _mlp_out(lp, h, _reduce(m, tp, "mlp_out"), cfg), kv, aux
 
 
 def _ssm_block(lp, h, cfg: ArchConfig, force: str):
@@ -149,24 +203,39 @@ def _ssm_block(lp, h, cfg: ArchConfig, force: str):
 REMATS = ("none", "full", "dots", "collectives")
 
 
+def _checkpointed(fn):
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def _remat(fn, remat: str):
-    """`fn` run as the reference's ``_maybe_remat`` asks. "none": as it is.
-    "full": checkpointed (``torch.utils.checkpoint``, non-reentrant): its
-    activations are dropped after the forward and recomputed in the
-    backward. "dots": the reference's XLA policy saves matmul outputs and
-    recomputes the rest; eager PyTorch has no such policy, so it
-    checkpoints the whole block as "full" does. "collectives" saves the
-    tensor-parallel all-reduce outputs, which belong to the mesh work
-    (ROADMAP A6), and raises."""
+    """`fn`, a block, run as the reference's ``_maybe_remat`` asks.
+    "none": as it is. "full": checkpointed (``torch.utils.checkpoint``,
+    non-reentrant): its activations are dropped after the forward and
+    recomputed in the backward. "dots": the reference's XLA policy saves
+    matmul outputs and recomputes the rest; eager PyTorch has no such
+    policy, so it checkpoints the whole block as "full" does.
+    "collectives": the reference saves the tensor-parallel all-reduce
+    outputs ('attn_out', 'mlp_out') and recomputes the rest; here an
+    attention block checkpoints its local work between the all-reduces
+    (``_attn_block``'s `pieces`), so the recompute never runs a
+    collective, and a block with no such outputs (an SSM layer) is
+    checkpointed whole. Every policy gives the same gradients, bit for
+    bit."""
     if remat == "none":
         return fn
-    if remat in ("full", "dots"):
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
-    if remat == "collectives":
-        raise NotImplementedError("remat='collectives' saves the tensor-"
-                                  "parallel block outputs; the mesh layouts "
-                                  "are not ported yet (ROADMAP A6)")
+    if remat in REMATS:
+        return _checkpointed(fn)
     raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
+
+
+def _on_mesh(cfg: ArchConfig, tp):
+    """Refuse a family whose layers are not yet run over a mesh."""
+    if tp is not None and (cfg.family in ("ssm", "hybrid")
+                           or cfg.num_experts):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family over a mesh of ranks "
+            "(the MoE layouts, SSM tensor parallelism) waits for ROADMAP "
+            "A6b; the dense family runs")
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +251,8 @@ def forward(params, tokens, cfg: ArchConfig, **opts):
 def forward_with_aux(params, tokens, cfg: ArchConfig, *,
                      frontend_embeds=None, collect_cache: bool = False,
                      last_only: bool = False, force: str = "auto",
-                     long_context: bool = False, remat: str = "none"):
+                     long_context: bool = False, remat: str = "none",
+                     tp=None):
     """tokens (B,S) -> (logits (B,S,Vp) f32, cache or None, aux f32).
 
     `frontend_embeds` (B,F,d), if given, are cast to the activations'
@@ -198,16 +268,30 @@ def forward_with_aux(params, tokens, cfg: ArchConfig, *,
     each layer and each hybrid site (``_remat``); it changes what the
     backward keeps and recomputes, not a value. `aux` is the MoE layers'
     auxiliary losses summed in layer order (0 for the other families).
+
+    With `tp` (a ``distributed.tensor_parallel.TensorParallel``; the
+    dense family only) `params` are the rank's shards: the layers run
+    tensor-parallel over the 'model' axis, the logits are the rank's
+    vocabulary columns (all of them with `last_only`, the serving path),
+    and the cache holds the rank's kv heads (all of them when the rules
+    replicate them).
     """
-    h = _embed(params, tokens, cfg)
+    _on_mesh(cfg, tp)
+    h = _embed(params, tokens, cfg, tp)
     if frontend_embeds is not None:
         h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
     B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device).expand(B, S)
     ssm_block = _remat(lambda lp, x: _ssm_block(lp, x, cfg, force), remat)
-    attn_block = _remat(
-        lambda lp, x, window: _attn_block(lp, x, cfg, positions, window,
-                                          force), remat)
+
+    def block(lp, x, window, pieces=None):
+        return _attn_block(lp, x, cfg, positions, window, force, tp, pieces)
+
+    if remat == "collectives":
+        def attn_block(lp, x, window):
+            return block(lp, x, window, _checkpointed)
+    else:
+        attn_block = _remat(block, remat)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family in ("ssm", "hybrid"):
         window = cfg.sliding_window if long_context else 0
@@ -220,25 +304,25 @@ def forward_with_aux(params, tokens, cfg: ArchConfig, *,
         return _logits(params, h, cfg), None, aux
     L = cfg.num_layers
     cache = None
-    if collect_cache:
-        shape = (L, B, S, cfg.num_kv_heads, cfg.resolved_head_dim)
-        cache = {"k": torch.empty(shape, dtype=h.dtype, device=h.device),
-                 "v": torch.empty(shape, dtype=h.dtype, device=h.device)}
     for i in range(L):
         h, (k, v), layer_aux = attn_block(layer_params(params["layers"], i),
                                           h, layer_window(cfg, i))
         if layer_aux is not None:
             aux = aux + layer_aux
-        if cache is not None:
+        if collect_cache:
+            if cache is None:
+                cache = {n: torch.empty((L,) + t.shape, dtype=h.dtype,
+                                        device=h.device)
+                         for n, t in (("k", k), ("v", v))}
             cache["k"][i].copy_(k)
             cache["v"][i].copy_(v)
     if last_only:
         h = h[:, -1:]
-    return _logits(params, h, cfg), cache, aux
+    return _logits(params, h, cfg, tp, whole=last_only), cache, aux
 
 
 def loss_fn(params, batch, cfg: ArchConfig, *, remat: str = "none",
-            aux_weight: float = 0.01, force: str = "auto"):
+            aux_weight: float = 0.01, force: str = "auto", tp=None):
     """The training loss: `forward_with_aux` on batch['tokens'] (B,S),
     then the mean cross entropy of its logits against batch['targets']
     (B,S) over the true vocabulary (the padded entries masked), plus
@@ -247,24 +331,31 @@ def loss_fn(params, batch, cfg: ArchConfig, *, remat: str = "none",
     'aux'}), f32 scalars. `remat` and `force` go to the forward. With
     batch['frontend_embeds'] (B,F,d) (the vlm family) the forward runs
     over F + S positions and the first F positions' logits, the
-    frontend's, carry no loss."""
+    frontend's, carry no loss. With `tp` the batch is the rank's and so
+    is the loss (its mean over the rank's tokens, the same on every rank
+    of the 'model' axis): the cross entropy runs over the vocabulary
+    split across the axis."""
     logits, _, aux = forward_with_aux(
         params, batch["tokens"], cfg,
         frontend_embeds=batch.get("frontend_embeds"), remat=remat,
-        force=force)
+        force=force, tp=tp)
     targets = batch["targets"]
     F = logits.shape[1] - targets.shape[1]
     if F > 0:  # frontend positions carry no loss
         logits = logits[:, F:]
-    ce = cross_entropy(logits, targets, cfg.vocab_size)
+    ce = cross_entropy(logits, targets, cfg.vocab_size, tp)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
+DECODE_MODES = ("heads", "seq")
+
+
 def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
-                long_context: bool = False):
+                long_context: bool = False, tp=None,
+                decode_mode: str = "heads"):
     """tokens (B,1), pos (B,) -> (logits (B,Vp), cache).
 
     cache: {'k': (L,B,S,KV,hd), 'v': (L,B,S,KV,hd)}, updated in place at
@@ -280,8 +371,19 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
     step (``attention.decode_mask``), not once a layer. An MoE layer runs
     its block on the (B,1,d) token batch, over every expert's capacity
     buffer, and its auxiliary loss is dropped, as in the reference.
+
+    With `tp` (the dense family only) `params` and the cache are the
+    rank's shards and the logits are all of the vocabulary (gathered);
+    `decode_mode` is the reference's switch (``_decode_attn``): 'heads',
+    the cache holding the rank's kv heads, or 'seq', the cache holding
+    the rank's chunk of the sequence, every kv head
+    (``attention.decode_attn_seq``).
     """
-    h = _embed(params, tokens, cfg)
+    _on_mesh(cfg, tp)
+    if decode_mode not in DECODE_MODES:
+        raise ValueError(f"decode_mode must be one of {DECODE_MODES}, got "
+                         f"{decode_mode!r}")
+    h = _embed(params, tokens, cfg, tp)
     if cfg.family in ("ssm", "hybrid"):
         if cfg.family == "hybrid":
             mask = attention.decode_mask(
@@ -302,16 +404,29 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
                 h, _ = _mlp_half(sp, h + a, cfg)
                 site += 1
         return _logits(params, h, cfg)[:, 0], cache
+    seq = tp is not None and decode_mode == "seq"
     S = cache["k"].shape[2]
-    masks = {w: attention.decode_mask(pos, S, w)
-             for w in {layer_window(cfg, i) for i in range(cfg.num_layers)}}
+    masks = {} if seq else {
+        w: attention.decode_mask(pos, S, w)
+        for w in {layer_window(cfg, i) for i in range(cfg.num_layers)}}
     for i in range(cfg.num_layers):
         lp = layer_params(params["layers"], i)
-        x = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        a, _ = attention.decode_attn_heads(lp["attn"], x, cfg, cache["k"][i],
-                                           cache["v"][i], pos,
-                                           mask=masks[layer_window(cfg, i)])
+        a, _ = _decode_attn(lp["attn"], rms_norm(h, lp["ln1"], cfg.norm_eps),
+                            cfg, cache["k"][i], cache["v"][i], pos, tp,
+                            decode_mode, layer_window(cfg, i), masks)
+        a = _reduce(a, tp, "attn_out")
         if "ln1post" in lp:
             a = rms_norm(a, lp["ln1post"], cfg.norm_eps)
-        h, _ = _mlp_half(lp, h + a, cfg)
-    return _logits(params, h, cfg)[:, 0], cache
+        h, _ = _mlp_half(lp, h + a, cfg, tp)
+    return _logits(params, h, cfg, tp, whole=True)[:, 0], cache
+
+
+def _decode_attn(p, x, cfg, k_cache, v_cache, pos, tp, mode, window, masks):
+    """The reference's mode switch: the sequence-split flash-decode over
+    a mesh in 'seq' mode, else the 'heads' decode (the rank's partial
+    output with `tp`)."""
+    if mode == "seq" and tp is not None:
+        return attention.decode_attn_seq(p, x, cfg, k_cache, v_cache, pos,
+                                         tp, window=window)
+    return attention.decode_attn_heads(p, x, cfg, k_cache, v_cache, pos,
+                                       mask=masks[window], tp=tp)

@@ -1,7 +1,9 @@
 """Optimizers of the port (counterpart of ``repro.optim``): sgd, momentum,
 adamw and adafactor over a parameter tree, SODDA-SVRG, and the int8 wire
-compression of the mesh (``grad_compression``). ZeRO-1's ``zero1_pspecs``
-waits for the mesh work (ROADMAP A6)."""
+compression of the mesh (``grad_compression``), and ZeRO-1
+(``zero1_pspecs``, the state's layout; ``zero1``, the split update over a
+mesh of ranks, for sgd, momentum and adamw; adafactor's factored moments
+over a mesh wait for ROADMAP A6b)."""
 from repro_torch.optim.optimizers import (OPTIMIZERS, Optimizer, adafactor,
                                           adamw, momentum, sgd)
 from repro_torch.optim.sodda_optimizer import SoddaSVRGConfig, make_sodda_svrg

@@ -21,15 +21,22 @@ bitwise the whole-leaf formulas; adafactor a leaf of 3 or more dims in
 blocks along its leading axes (``leading_blocks``), its moments r and c
 bitwise the whole-leaf formula's on the CPU, the update clip's RMS summed
 block by block (another order of the sum than the whole-leaf mean; one
-block is the whole-leaf formula, bitwise). ZeRO-1's
-``zero1_pspecs`` shards state over a mesh and waits for the mesh work
-(ROADMAP A6).
+block is the whole-leaf formula, bitwise).
+
+ZeRO-1: ``zero1_pspecs`` is the reference's rule, a leaf's state split
+over 'data' along its first unsplit dim that 'data' divides, on top of the
+parameter's spec. ``zero1`` runs it over a mesh of ranks: a rank keeps
+only its 'data' slice of each state leaf, updates its slice of the
+parameter and all-gathers the parameter over 'data'. It runs sgd, momentum
+and adamw; adafactor's factored moments over a mesh wait for ROADMAP A6b.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Union
 
 import torch
+
+from repro_torch.distributed.sharding_rules import PartitionSpec, axis_sizes
 
 Schedule = Union[float, Callable]
 F32 = torch.float32
@@ -47,12 +54,16 @@ class Optimizer(NamedTuple):
 
 
 def tree_map(fn, tree, *rest):
-    """`fn` over the leaves of the nested dict `tree`, each with the
-    same-keyed subtree of every tree in `rest` (a leaf's subtree there may
-    itself be a dict, as adafactor's per-leaf state is)."""
+    """`fn` over the leaves of the nested dicts (and plain tuples: sgd's
+    state is the empty one) `tree`, each with the same-placed subtree of
+    every tree in `rest` (a leaf's subtree there may itself be a dict, as
+    adafactor's per-leaf state is). A tuple subclass, a partition spec,
+    is a leaf."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
+    if type(tree) is tuple:
+        return tuple(tree_map(fn, *xs) for xs in zip(tree, *rest))
     return fn(tree, *rest)
 
 
@@ -238,3 +249,69 @@ def adafactor(lr: Schedule, decay: float = 0.8, eps: float = 1e-30,
 
 OPTIMIZERS = {"sgd": sgd, "momentum": momentum, "adamw": adamw,
               "adafactor": adafactor}
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1: optimizer state split over the data axis on top of the param spec.
+# ---------------------------------------------------------------------------
+def zero1_pspecs(param_pspec, shape, mesh, axis: str = "data"):
+    """`param_pspec` with `axis` added to the first dim of `shape` that is
+    unsplit and divisible by it (unchanged if `axis` is in use, or no dim
+    takes it)."""
+    n = axis_sizes(mesh)[axis]
+    specs = list(param_pspec) + [None] * (len(shape) - len(param_pspec))
+    used = {a for s in specs if s is not None
+            for a in (s if isinstance(s, tuple) else (s,))}
+    if axis not in used:
+        for i, (dim, s) in enumerate(zip(shape, specs)):
+            if s is None and dim % n == 0 and dim >= n:
+                specs[i] = axis
+                break
+    return PartitionSpec(*specs)
+
+
+def zero1_dims(pspecs, axis: str = "data"):
+    """Per leaf of a tree of ZeRO-1 state specs, the dim split over
+    `axis` (None: the leaf's state is whole on every rank)."""
+    return tree_map(lambda s: s.index(axis) if axis in s else None, pspecs)
+
+
+def zero1(opt: Optimizer, mesh, dims) -> Optimizer:
+    """`opt` with its state split over the 'data' axis of `mesh` (a
+    ``core.distributed.Mesh``): `dims` says, per parameter leaf (a tree
+    like the parameters), the dim its state is split along (``zero1_dims``
+    of the state specs), or None. ``init(params)`` builds the state of
+    this rank's slices only. ``update`` runs `opt` on this rank's slice of
+    each parameter and gradient (the gradients already summed over
+    'data'), then all-gathers the updated slices over 'data' into the
+    parameter, in place. The slices are elementwise the whole-leaf
+    update's, so the gathered parameters and state are bitwise an
+    unsplit update's (sgd, momentum, adamw)."""
+    n, p = mesh.size("data"), mesh.get_coordinate()[0]
+    if n == 1:
+        return opt
+
+    def part(t, dim):
+        if dim is None:
+            return t
+        size = t.shape[dim] // n
+        return t.narrow(dim, p * size, size).contiguous()
+
+    def init(params):
+        return opt.init(tree_map(part, params, dims))
+
+    def update(grads, state, params, step):
+        slices = tree_map(part, params, dims)
+        new, state = opt.update(tree_map(part, grads, dims), state, slices,
+                                step)
+
+        def gather(t, s, dim):
+            if dim is not None:
+                whole = mesh.all_gather_cat(s.movedim(dim, 0), "data",
+                                            tag="zero1")
+                t.copy_(whole.movedim(0, dim))
+            return t
+
+        return tree_map(gather, params, new, dims), state
+
+    return Optimizer(init, update)

@@ -32,7 +32,8 @@ rank and raises ``TimeoutError``. No rank outlives the call.
 
 The rank entry points (:func:`rank_batch`, :func:`rank_runs`,
 :func:`rank_elastic`, :func:`rank_tiles`, :func:`rank_steps`,
-:func:`rank_consume`, :func:`rank_compressed`, :func:`rank_exit`) live
+:func:`rank_consume`, :func:`rank_compressed`, :func:`rank_exit`, and
+:func:`rank_lm` for the LM stack over a (data x model) mesh) live
 here so that a rank imports only ``repro_torch``,
 never the caller's module (a test module imports JAX). Each takes the
 rank's ``device`` (default: the CUDA device, raising without one); a run
@@ -55,7 +56,8 @@ import torch
 __all__ = ["KILL_EXIT_CODE", "GRACE_S", "SPARE_ENV", "Interrupted", "Launch",
            "RankFailure", "launch_coordinated", "spare_index", "tile_digest",
            "rank_batch", "rank_runs", "rank_elastic", "rank_tiles",
-           "rank_steps", "rank_consume", "rank_compressed", "rank_exit"]
+           "rank_steps", "rank_consume", "rank_compressed", "rank_exit",
+           "rank_lm", "lm_job", "lm_mesh"]
 
 KILL_EXIT_CODE = 17  # the exit code of a rank killed at a seam on purpose
 # seconds the survivors of a rank's death get to fail on their own before
@@ -834,3 +836,259 @@ def rank_exit(code_by_rank, seconds=0.0):
         os._exit(code_by_rank[rank])
     multihost.barrier()  # blocks on the dead rank until the harness kills it
     return rank
+
+
+# ---------------------------------------------------------------------------
+# The LM stack over a (data x model) mesh of ranks.
+# ---------------------------------------------------------------------------
+_LM_MESHES: Dict[tuple, Any] = {}
+
+
+def lm_mesh(grid, device):
+    """This process's mesh of `grid` = (data, model) over the live group,
+    made on its first use (every rank makes the grids in one order)."""
+    from repro_torch.core.distributed import Mesh
+
+    if grid not in _LM_MESHES:
+        _LM_MESHES[grid] = Mesh(*grid, device)
+    return _LM_MESHES[grid]
+
+
+def _numpy(tree):
+    """A tree of tensors as numpy copies (on the CPU a tensor's numpy
+    view would follow its later in-place updates)."""
+    from repro_torch.optim.optimizers import tree_map
+
+    return tree_map(lambda t: np.array(t.detach().cpu()), tree)
+
+
+def _lm_model(cfg, job, device):
+    from repro_torch.models import Model
+
+    return Model(cfg, device=device, param_dtype=torch.float32,
+                 remat=job.get("remat", "none"),
+                 mesh=lm_mesh(tuple(job["grid"]), device))
+
+
+def _counts(mesh, before_calls, before_payload):
+    return ({k: v - before_calls.get(k, 0) for k, v in mesh.calls.items()
+             if v != before_calls.get(k, 0)},
+            {k: v - before_payload.get(k, 0)
+             for k, v in mesh.payload.items()
+             if v != before_payload.get(k, 0)})
+
+
+def _lm_grads(cfg, whole, job, device):
+    """One step's gradients over the mesh, gathered whole, with the loss,
+    the grad norm and the collectives (calls and bytes by tag)."""
+    from repro_torch.distributed.tensor_parallel import (gather_params,
+                                                         shard_params)
+    from repro_torch.launch import train
+
+    model = _lm_model(cfg, job, device)
+    model.tp.controls = frozenset(job.get("controls", ()))
+    mesh, pspecs = model.mesh, model.pspecs()
+    params = shard_params(whole, pspecs, mesh)
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in job["batch"].items()}
+    calls, payload = dict(mesh.calls), dict(mesh.payload)
+    metrics, grads = train.mesh_grads(model, params, batch,
+                                      _shape(job["batch"]),
+                                      train.TrainSettings())
+    calls, payload = _counts(mesh, calls, payload)
+    return dict(loss=float(metrics["loss"]),
+                grad_norm=float(metrics["grad_norm"]),
+                grads=_numpy(gather_params(grads, pspecs, mesh)),
+                calls=calls, payload=payload)
+
+
+def _shape(batch):
+    from repro_torch.configs.base import ShapeConfig
+
+    B, S = np.asarray(batch["tokens"]).shape
+    return ShapeConfig("mesh", "train", S, B)
+
+
+def _lm_train(cfg, whole, job, device):
+    """``jit_train_step``'s steps over the mesh from the whole parameters:
+    each step's metrics and gathered parameters. The first step is its
+    parts (``mesh_grads``, then the update), so that its gathered ZeRO-1
+    state and parameters can be held to an unsharded update from the same
+    summed gradients (returned beside them)."""
+    from repro_torch.distributed.tensor_parallel import (gather_params,
+                                                         shard_params)
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizers import tree_map
+
+    model = _lm_model(cfg, job, device)
+    mesh = model.mesh
+    settings = train.TrainSettings(**job["settings"])
+    shape = _shape(job["batches"][0])
+    step_fn, opt, (_, _, pspecs, state_specs, _) = train.jit_train_step(
+        model, shape, settings)
+    params = shard_params(whole, pspecs, mesh)
+    state = opt.init(params)
+    out = dict(metrics=[], params=[])
+    for step, batch in enumerate(job["batches"]):
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in batch.items()}
+        if step == 0:
+            metrics, grads = train.mesh_grads(model, params, batch, shape,
+                                              settings)
+            summed = gather_params(grads, pspecs, mesh)
+            with torch.no_grad():
+                params, state = opt.update(grads, state, params, 0)
+            plain = train.make_optimizer(settings)
+            ref = tree_map(torch.clone, whole)
+            with torch.no_grad():
+                ref, ref_state = plain.update(summed, plain.init(ref), ref,
+                                              0)
+            out["unsharded"] = dict(params=_numpy(ref),
+                                    state=_numpy(ref_state))
+            out["gathered_state"] = _numpy(
+                gather_params(state, state_specs, mesh))
+        else:
+            params, state, metrics = step_fn(params, state, batch, step)
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+        out["params"].append(_numpy(gather_params(params, pspecs, mesh)))
+    return out
+
+
+def _lm_decode_seq(cfg, whole, job, device):
+    """``attention.decode_attn_seq`` on the mesh from whole inputs: the
+    attention parameters `whole`, h, the cache (split along its sequence),
+    pos and the window; the output (all-reduced) and the whole cache."""
+    from repro_torch.distributed.tensor_parallel import shard_params
+    from repro_torch.models import attention
+    from repro_torch.models.params import param_pspecs
+
+    model = _lm_model(cfg, job, device)
+    tp = model.tp
+    specs = param_pspecs(attention.attn_template(cfg), model.rules(),
+                         model.mesh)
+    p = shard_params(whole, specs, model.mesh)
+    t = {k: torch.as_tensor(job[k], device=device)
+         for k in ("h", "cache_k", "cache_v", "pos")}
+    ck, cv = (t[k].chunk(tp.size, dim=1)[tp.rank].clone()
+              for k in ("cache_k", "cache_v"))
+    with torch.no_grad():
+        out, (ck, cv) = attention.decode_attn_seq(
+            p, t["h"], cfg, ck, cv, t["pos"], tp, window=job["window"])
+        out = tp.reduce(out, "attn_out")
+    return dict(out=out.cpu().numpy(),
+                cache_k=tp.gather(ck, 1, "cache").cpu().numpy(),
+                cache_v=tp.gather(cv, 1, "cache").cpu().numpy())
+
+
+def _lm_serve(cfg, whole, job, device):
+    """Greedy serving over the mesh, as ``serve.serve`` runs it: the
+    rank's rows of the prompts prefilled, its cache shard (of
+    ``cache_len`` positions, by default prompt + ``gen_len``) filled
+    (``fill_cache``), then ``gen_len`` - 1 decode steps. Returns the
+    logits of the prefill and of each step (B_loc, gen_len, Vp), the
+    greedy tokens, the cache's shape, the rank's mesh coordinate, the
+    collectives a decode step made, the flash launches of the prefill and
+    of the decode steps, and their seconds (the device synchronised)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.tensor_parallel import shard_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+
+    model = _lm_model(cfg, job, device)
+    mesh = model.mesh
+    params = shard_params(whole, model.pspecs(), mesh)
+    prompts = torch.as_tensor(job["prompts"], device=device)
+    B, P = prompts.shape
+    gen = job["gen_len"]
+    S = job.get("cache_len", P + gen)
+    shape = ShapeConfig("serve", "decode", S, B)
+    prefill_step, decode_step = serve.make_serve_steps(model, shape)
+    rows = train.rank_rows(model, shape, {"tokens": prompts})["tokens"]
+    with torch.no_grad():
+        _sync(device)
+        ops.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        logits, pre = prefill_step(params, {"tokens": rows})
+        cache = serve.fill_cache(model, model.cache_template(
+            B, S, dtype=pre["k"].dtype), pre, P)
+        del pre
+        out, tok = [logits], logits.argmax(dim=-1)
+        tokens = [tok]
+        _sync(device)
+        t1, prefill_flash = time.perf_counter(), ops.flash_attention.launches
+        calls = dict(mesh.calls)
+        for i in range(gen - 1):
+            pos = torch.full((rows.shape[0],), P + i, dtype=torch.long,
+                             device=device)
+            logits, cache = decode_step(params, cache, tok[:, None], pos)
+            tok = logits.argmax(dim=-1)
+            out.append(logits)
+            tokens.append(tok)
+        _sync(device)
+        t2 = time.perf_counter()
+    step_calls = {k: (v - calls.get(k, 0)) / max(gen - 1, 1)
+                  for k, v in mesh.calls.items() if v != calls.get(k, 0)}
+    return dict(logits=torch.stack(out, 1).cpu().numpy(),
+                tokens=torch.stack(tokens, 1).cpu().numpy(),
+                cache_shape=tuple(cache["k"].shape),
+                coordinate=mesh.get_coordinate(), decode_calls=step_calls,
+                prefill_flash=prefill_flash,
+                decode_flash=ops.flash_attention.launches - prefill_flash,
+                prefill_s=t1 - t0, decode_s=t2 - t1)
+
+
+def _lm_serve_call(cfg, whole, job, device):
+    """``serve.serve`` itself over the mesh: the rank's greedy tokens and
+    prefill logits for its rows of ``prompts``, ``gen_len`` tokens."""
+    from repro_torch.distributed.tensor_parallel import shard_params
+    from repro_torch.launch import serve
+
+    model = _lm_model(cfg, job, device)
+    params = shard_params(whole, model.pspecs(), model.mesh)
+    with torch.no_grad():
+        tokens, logits = serve.serve(
+            model, params, torch.as_tensor(job["prompts"], device=device),
+            job["gen_len"])
+    return dict(tokens=tokens.cpu().numpy(), logits=logits.cpu().numpy(),
+                coordinate=model.mesh.get_coordinate())
+
+
+_LM_JOBS = {"grads": _lm_grads, "train": _lm_train,
+            "decode_seq": _lm_decode_seq, "serve": _lm_serve,
+            "serve_call": _lm_serve_call}
+
+
+def rank_lm(cfg, whole, jobs, device=None):
+    """The LM stack's jobs over meshes of this rank's process group, in
+    order; a list of their results (numpy). `cfg` is a dense-family
+    ``ArchConfig``; `whole` the whole parameters as numpy (the attention
+    block's alone for 'decode_seq'), carried to `device` in float32 and
+    cut to each job's shards (``tensor_parallel.shard_params``). A job is
+    a dict with its ``kind`` and ``grid`` (data, model):
+
+    * 'grads': ``train.mesh_grads`` of ``batch`` (numpy tokens and
+      targets, the global batch) under ``remat`` and ``controls``;
+    * 'train': ``jit_train_step``'s steps over ``batches`` under
+      ``settings`` (``TrainSettings`` fields) and ``remat``;
+    * 'decode_seq': ``attention.decode_attn_seq`` of ``h``, ``cache_k``,
+      ``cache_v``, ``pos``, ``window``;
+    * 'serve': greedy serving of ``prompts`` for ``gen_len`` tokens, every
+      step's logits kept; 'serve_call': ``serve.serve`` itself.
+
+    The meshes are made on their first use (``lm_mesh``), each rank in the
+    same order. The rank's allocator cache is emptied after each job."""
+    from repro_torch.models.params import from_numpy
+
+    device = _device(device)
+    whole = from_numpy(whole, device=device, dtype=torch.float32)
+    out = []
+    for job in jobs:
+        out.append(lm_job(cfg, whole, job, device))
+        _release(device)
+    return out
+
+
+def lm_job(cfg, whole, job, device):
+    """One job of :func:`rank_lm` from the whole parameters `whole`, a
+    tree of tensors on `device`."""
+    return _LM_JOBS[job["kind"]](cfg, whole, job, device)
