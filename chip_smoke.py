@@ -180,7 +180,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
 17. serves each of the five at full depth in bf16, one on the card at a
     time (``serve``, the dense stack's other main paths, with the flash
     launch count set to 0 just before each call and read just after): 4
-    requests of 4064 prompt tokens for 32 tokens each (internvl2: 256
+    requests of 4064 prompt tokens for 8 tokens each (internvl2: 256
     frontend embeddings + 3808 text tokens; musicgen: 1468 codec tokens),
     exactly L launches in the prefill (32, 32, 28, 48, 48) and none in
     decode, on the wgmma route, finite logits, and prefill time, decode
@@ -209,7 +209,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     must be identical;
 20. serves arctic-480b at 2 of its 35 layers and kimi-k2 at 1 of its 61 in
     bf16, full width (every expert), one on the card at a time, as 17 does
-    (4 x 4064 prompt tokens, 32 generated; exactly L launches in the
+    (4 x 4064 prompt tokens, 8 generated; exactly L launches in the
     prefill and none in decode), with prefill and decode times beside the
     floors (the active weights' FLOP, with the capacity-padded expert FLOP
     beside it; every weight read), peak memory, each layer's expert load
@@ -237,12 +237,13 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     (the least of the work at the dtype's peak and as the split
     tensor-core products take it) at the mamba2 serving and training and
     the zamba2 layer shapes;
-22. runs full-depth mamba2-130m in f32 (B=2, 1024 prompt tokens, Mamba-2's
+22. runs full-depth mamba2-130m in f32 (B=2, 512 prompt tokens, Mamba-2's
     A_log and dt_bias): the kernel path's prefill logits within 2e-4 of the
     plain path's and of the decode warm-up's last logits (the scan against
     the recurrence), and 8 decode steps' logits, fed random tokens, within
     2e-4 of the scan's at the same positions;
-23. serves 16 requests of 2048 prompt tokens for 32 tokens each through
+23. prefills 16 requests of 2048 prompt tokens alone (the time to the
+    first token), then serves their first 256 for 32 tokens each through
     bf16 mamba2-130m at full width, cut to 12 of its 24 layers (``serve``,
     the third main path, with the SSD launch counts set to 0 just before
     it): 12 launches in the prefill, all on the wgmma route, and none in
@@ -308,18 +309,18 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     width (2 x 1024 tokens), the kernel path's loss and every gradient
     leaf within F32_REDUCTION of the plain path's, the carry-dropping
     control outside, and remat='full' bitwise remat='none' with twice the
-    forward launches; (b) full size, 20 adamw steps of ``make_train_step``
+    forward launches; (b) full size, 6 adamw steps of ``make_train_step``
     on 8 x 2048 tokens from ``TokenPipeline(seed=0)`` (the training main
     path, the launch counts set to 0 just before each run and read after
     each step: 24 forward and 24 backward SSD launches a step, no flash),
     twice, and one step at accum_steps=2 (48 + 48): ms a step, tokens/s,
     peak memory, a falling loss, the two runs compared bitwise; (c) the
-    CLI's SODDA-SVRG loop for 20 steps (2 gradients a step, 3 at the
+    CLI's SODDA-SVRG loop for 6 steps (2 gradients a step, 3 at the
     refresh; 12 of the 24 layers); (d) the CLI
     (``python -m repro_torch.launch.train``) in a
-    fresh process, killed (SIGKILL) once it logs step 13, three steps past
-    its checkpoint at step 10, then a fresh process resuming from step 10
-    to 20: params and losses bitwise (b)'s; then dense and hybrid
+    fresh process, killed (SIGKILL) once it logs step 5, three steps past
+    its checkpoint at step 3, then a fresh process resuming from step 3
+    to 6: params and losses bitwise (b)'s; then dense and hybrid
     training through the flash backward, f32, full width: (e) gemma2-9b
     cut to 2 layers (1 local, 1 global) and (f) zamba2-7b
     cut to 12 (2
@@ -361,7 +362,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     and freed in the parent; each rank computes the one-device step in
     turn and keeps its own shards of it: (a) on (2, 2), the 'heads'
     layout, adamw at 3e-4 with ZeRO-1 and remat 'collectives', 2 x 2048
-    tokens a step, 3 steps: the first step's loss and grad norm within
+    tokens a step, 2 steps: the first step's loss and grad norm within
     F32_REDUCTION of the one-device step's, every gradient leaf within
     1e-4 of the leaf's largest and every parameter after the update
     within UPDATE_TOL x the one-device step's largest update of the leaf
@@ -370,7 +371,9 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     dropped as a control outside the gradient rule, ZeRO-1's state slices
     and parameters bitwise an update unsplit over 'data' from the same
     summed gradients, 'collectives' bitwise 'none' with the same
-    all-reduces and fewer than 'full', the losses falling; on (1, 4), the
+    all-reduces and fewer than 'full' (which runs on the rows' first 256
+    positions: the count does not depend on them), the losses falling;
+    on (1, 4), the
     kv heads replicated, the gradients in the rule and the kv weights'
     partial gradients left unsummed as a control outside it; it logs the
     flash launches a rank a step, ms a step, the payload a step by tag,
@@ -380,6 +383,34 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     (2, 4, 260, 2, 128)) and on (2, 2) in 'heads' decode: the logits
     within 2e-4 of the one-device port's, the tokens identical, each
     rank's cache the shape ``cache_pspecs`` gives, 2 flash launches a
+    prefill a rank and none a decode step, with the prefill's ms and the
+    ms a token;
+31. in the same spawn of 4 ranks, each rank's allocator cache emptied
+    between the jobs, runs the MoE family over the mesh: arctic-480b at
+    full width (56 q heads padded to 64 and inert, the dense residual,
+    top-2) cut to 1 of its 35 layers and 8 of its 128 experts, f32, after
+    its one-device serving reference is computed and freed in the parent;
+    each rank computes the one-device adafactor steps in turn and keeps
+    its own shards of them: (c) on (2, 2) in the 'gather' and the
+    'token_tp' layout, adafactor at 3e-4 with ZeRO-1 and remat 'full', 2
+    x 2048 tokens a step, 2 steps from the same parameters (the second
+    reading the sharded state the first wrote): every rank's route
+    bitwise ``moe.route`` of the probabilities it gathered and the same
+    on every rank, the routes that differ from the one-device step's
+    counted (at most 0.1%), the first step's loss and grad norm within
+    F32_REDUCTION, every gradient leaf within 1e-4 of its largest and the
+    parameters after each step within UPDATE_TOL x the one-device update
+    where no route differs, the two layouts within F32_REDUCTION of each
+    other (through the one-device step), and on a skewed router that
+    drops tokens the per-rank route and the layout's control ('gather':
+    the gathered weights' gradient not reduce-scattered; 'token_tp': the
+    expert outputs' 'model' all-reduce dropped) outside the gradient
+    rule; 2 flash forward and 1 backward launches a rank a step; it logs
+    ms a step, the calls and payload by tag, the second step's
+    collectives timed apart, each rank's peak, the expert load and the
+    drops; (d) serving 4 x 1024 prompts and 8 greedy steps on (2, 2) in
+    both layouts, each step routing the global batch: the logits within
+    2e-4 of the one-device port's, the tokens identical, 1 flash launch a
     prefill a rank and none a decode step, with the prefill's ms and the
     ms a token.
 
@@ -503,7 +534,9 @@ SSD_F32_ORACLE_TOL = 1e-5
 # PERF.md §5-6): the times the tensor-core kernel replaces
 SSD_F32_CUDA_CORE_MS = {"mamba2 training layer": 2.167,
                         "mamba2 layer": 3.3041, "zamba2 layer": 5.0282}
-SSM_F32_B, SSM_F32_PROMPT, SSM_F32_FED = 2, 1024, 8
+# a prompt of 512 (2 chunks of the floor's 256): its decode warm-up, one
+# position at a time through 24 f32 layers, took ~25 s of the run at 1024
+SSM_F32_B, SSM_F32_PROMPT, SSM_F32_FED = 2, 512, 8
 # Full-depth f32 mamba2: the plain path against itself at another chunk
 # length (the same function summed in another order) moves single logits
 # by ~3e-4, past the elementwise 2e-4 rule, so the logits are held by
@@ -515,6 +548,12 @@ FLOOR_FACTOR = 2.0
 # at full depth took 82 s on an H100 80GB HBM3 (700 W) host
 SSM_SERVE_B, SSM_SERVE_PROMPT, SSM_SERVE_GEN = 16, 2048, 32
 SSM_SERVE_LAYERS = 12
+# the whole serve call feeds the first SSM_SERVE_FED prompt positions
+# through decode (the time to the first token is the 2048-position prefill,
+# timed alone): the host-bound warm-up takes ~14 ms a position, 28.5 s of
+# the run over all 2048 on an H100 80GB HBM3 at 700 W; zamba2's is cut
+# the same way (HYB_SERVE_PROMPT)
+SSM_SERVE_FED = 256
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 4608, 32  # 4608 = 36 x 128 > 4096
 # zamba2-7b: the shared attention's flash layer (B, H, KV, S, S, D) at the
 # serving prefill, and phi3-mini's (head dim 96, the same kernel layout)
@@ -539,7 +578,9 @@ CUT_DEPTH_LAYERS, CUT_DEPTH_B, CUT_DEPTH_GEN = 4, 2, 8
 DENSE_CELLS = ((PHI3_MINI, 4064, 1024), (MINITRON_8B, 4064, 1024),
                (CHATGLM3_6B, 4064, 1024), (MUSICGEN_LARGE, 1468, 1024),
                (INTERNVL2_26B, 3808, 768))
-DENSE_B, DENSE_GEN = 4, 32
+# 8 generated: eager decode is host-bound at 22-106 ms a token on an
+# H100 80GB HBM3 at 700 W, and the run's time limit is shared
+DENSE_B, DENSE_GEN = 4, 8
 # their flash layers (B, H, KV, S, S, D) at the serving prefill, beside
 # phi3-mini's (PHI3_FLASH): GQA groups of 16, 6, 4 and 1, an unaligned S
 DENSE_FLASH = (("chatglm3-6b layer", (4, 32, 2, 4064, 4064, 128)),
@@ -4223,9 +4264,10 @@ def phase_ssm_serve():
     prefill_s = time.perf_counter() - t0
     prefill_launches = ops.ssd_scan.launches
 
-    # the main path: a whole serve call, its decode warm-up over the
-    # prompt timed inside it (``timed_warm_up``), the greedy decode steps
-    # after it
+    # the main path: a whole serve call on the first SSM_SERVE_FED
+    # positions, its decode warm-up over them timed inside it
+    # (``timed_warm_up``), the greedy decode steps after it
+    fed = prompts[:, :SSM_SERVE_FED]
     torch.cuda.reset_peak_memory_stats()
     ops.ssd_scan.launches = 0  # the main path starts here
     for kind in ops.ssd_scan.route_launches:
@@ -4233,7 +4275,7 @@ def phase_ssm_serve():
     torch.cuda.synchronize()
     with timed_warm_up({}) as marks:
         t0 = time.perf_counter()
-        tokens, logits = serve(model, params, prompts, n)
+        tokens, logits = serve(model, params, fed, n)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
     launches = ops.ssd_scan.launches  # ... and ends here
@@ -4261,10 +4303,11 @@ def phase_ssm_serve():
           "mamba2 serve: prefill logits not finite or of the wrong shape")
     steps = n - 1
     log(f"mamba2 serve ({cfg.num_layers} of {MAMBA2_130M.num_layers} "
-        f"layers) {B} x {P} prompt tokens, {n} generated each: prefill "
-        f"{1e3 * prefill_s:.3f} ms ({B * P / prefill_s:.1f} prompt tok/s), "
-        f"decode warm-up over the prompt {1e3 * warm_s:.3f} ms "
-        f"({1e3 * warm_s / P:.3f} ms a position), decode "
+        f"layers) {B} x {P} prompt tokens: prefill "
+        f"{1e3 * prefill_s:.3f} ms ({B * P / prefill_s:.1f} prompt tok/s); "
+        f"a serve call on the first {SSM_SERVE_FED}, {n} generated each: "
+        f"decode warm-up over them {1e3 * warm_s:.3f} ms "
+        f"({1e3 * warm_s / SSM_SERVE_FED:.3f} ms a position), decode "
         f"{1e3 * decode_s / steps:.3f} ms/token over {steps} steps; serve "
         f"end to end {1e3 * total_s:.3f} ms, {B * n / total_s:.1f} generated "
         "tok/s")
@@ -4593,10 +4636,13 @@ SSD_BWD_SPLIT_LEAVES = SSD_BWD_CARRY_LEAVES
 # full-size mamba2-130m, f32 as the reference's CLI trains it, 8 x 2048
 # tokens a step from TokenPipeline(seed=0), the CLI's init (model.init(0))
 TRAIN_CUT_LAYERS, TRAIN_CUT_B, TRAIN_CUT_S = 4, 2, 1024
-TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 2048, 20, 3e-4
+# (b)-(d) run TRAIN_STEPS steps (~0.54 s a step in (b), ~0.65 s in (c) on
+# an H100 80GB HBM3 at 700 W; in (b) the loss fell 154.5 -> 145.0 over 6
+# steps, -> 78.2 over 20)
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 2048, 6, 3e-4
 # (d): the CLI checkpoints every TRAIN_CKPT_EVERY steps and is killed
 # (SIGKILL) once it logs step TRAIN_KILL_AT, three steps past a checkpoint
-TRAIN_CKPT_EVERY, TRAIN_KILL_AT = 10, 13
+TRAIN_CKPT_EVERY, TRAIN_KILL_AT = 3, 5
 # SODDA-SVRG's step is a plain gradient step on the variance-reduced
 # gradient: the CLI's 3e-4 moves this loss too little in 20 steps to see
 # (on the CPU at full width, 2 layers, 2 x 256 tokens: 1e-2 falls, 1e-3
@@ -5998,13 +6044,13 @@ def phase_train():
           f"train (b): the loss does not fall: {losses}")
     bitwise = runs[1][1] == losses and all(torch.equal(a, b) for a, b in zip(
         tree_leaves(runs[1][0]), tree_leaves(params)))
-    step_ms = float(np.median(ms[-10:] + runs[1][2][-10:]))
+    step_ms = float(np.median(ms[1:] + runs[1][2][1:]))
     tokens = TRAIN_B * TRAIN_S
     log(f"train (b) mamba2-130m f32 adamw lr {TRAIN_LR}, {TRAIN_B} x "
         f"{TRAIN_S} tokens a step, {TRAIN_STEPS} steps twice: "
-        f"{step_ms:.3f} ms a step (median of the last 10 of each run; "
-        f"runs' medians {np.median(ms[-10:]):.3f} / "
-        f"{np.median(runs[1][2][-10:]):.3f}; first step {ms[0]:.3f}), "
+        f"{step_ms:.3f} ms a step (median of steps 1-{TRAIN_STEPS - 1} of "
+        f"each run; runs' medians {np.median(ms[1:]):.3f} / "
+        f"{np.median(runs[1][2][1:]):.3f}; first step {ms[0]:.3f}), "
         f"{tokens / (step_ms / 1e3):.1f} tokens/s, peak device memory "
         f"{peak / 1e9:.3f} GB; loss step 0 {losses[0]:.4f}, step "
         f"{TRAIN_STEPS - 1} {losses[-1]:.4f}; launches a step {want}; the "
@@ -6060,9 +6106,9 @@ def phase_train():
     torch.cuda.empty_cache()
 
     # (d) kill and resume: the CLI in a fresh process, killed by SIGKILL
-    # once it logs step 13 (steps 10-13 past its step-10 checkpoint
-    # uncommitted), then a fresh process resumes to 20; against (b)'s
-    # first run
+    # once it logs step TRAIN_KILL_AT (the steps past its last checkpoint
+    # uncommitted), then a fresh process resumes to TRAIN_STEPS; against
+    # (b)'s first run
     ckpt_path = ckpt_dir("train")
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
            cfg.name, "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--lr",
@@ -6140,7 +6186,7 @@ def phase_train():
 
 
 MESH_LM_CUT = 2  # chatglm3-6b's layers in the mesh cells (of 28)
-MESH_LM_B, MESH_LM_S, MESH_LM_STEPS, MESH_LM_LR = 2, 2048, 3, 3e-4
+MESH_LM_B, MESH_LM_S, MESH_LM_STEPS, MESH_LM_LR = 2, 2048, 2, 3e-4
 MESH_LM_PROMPT, MESH_LM_GEN, MESH_LM_CACHE = 1024, 9, 1040
 MESH_LM_SERVE_B = 4
 MESH_LM_GRAD_TOL = 1e-4  # of each gradient leaf's largest entry
@@ -6152,6 +6198,7 @@ MESH_LM_ADAMW_FLIPS = 1e-3
 MESH_LM_LOGIT_TOL = 2e-4  # rtol = atol, as the cut-depth f32 cells
 MESH_LM_GRIDS = {"seq": (1, 4), "heads": (2, 2)}
 MESH_LM_REMATS = ("none", "full", "collectives")
+MESH_LM_FULL_S = 256  # the positions a rank's "full" remat gradient takes
 
 
 def mesh_lm_cfg():
@@ -6180,7 +6227,7 @@ def mesh_lm_timed(mesh, sync):
     synchronised before and after it): seconds by tag, filled as they
     run."""
     spent = collections.Counter()
-    for name in ("all_reduce", "all_gather_cat"):
+    for name in ("all_reduce", "all_gather_cat", "all_to_all_single"):
         def timed(t, axis, *args, _fn=getattr(mesh, name), **kw):
             sync()
             t0 = time.perf_counter()
@@ -6320,7 +6367,11 @@ def mesh_lm_rank(cfg, prompts, sizes, device):
     for remat in MESH_LM_REMATS:  # the rank's gradients, before 'data'
         model.remat = remat
         before = mesh_lm_counts(mesh)
-        loss, metrics, g = train_module.loss_and_grads(model, params, rows)
+        # "full" only counts its all-reduces, which the length of the
+        # rows does not change: on their first MESH_LM_FULL_S positions
+        part = rows if remat != "full" else {
+            k: v[:, :sizes["full_s"]] for k, v in rows.items()}
+        loss, metrics, g = train_module.loss_and_grads(model, params, part)
         sync()
         runs[remat] = dict(mesh_lm_since(mesh, before), loss=float(loss))
         if remat != "full":
@@ -6389,7 +6440,7 @@ def mesh_lm_rank(cfg, prompts, sizes, device):
                                  ms=(time.perf_counter() - t0) * 1e3,
                                  collective_ms=None if spent is None else {
                                      k: v * 1e3 for k, v in spent.items()}))
-    for name in ("all_reduce", "all_gather_cat"):
+    for name in ("all_reduce", "all_gather_cat", "all_to_all_single"):
         mesh.__dict__.pop(name, None)
     del params, state
     mp._release(device)
@@ -6453,31 +6504,499 @@ def mesh_lm_serve_reference(cfg, prompts):
     return res
 
 
+MESH_MOE_EXPERTS = 8  # arctic-480b's experts in the mesh cell (of 128)
+MESH_MOE_B, MESH_MOE_S, MESH_MOE_STEPS, MESH_MOE_LR = 2, 2048, 2, 3e-4
+# the skewed case of the controls: the router's expert-0 column scaled,
+# so that expert 0 takes more routes than its capacity on both data ranks
+MESH_MOE_SKEW = 40.0
+MESH_MOE_ROUTE_SHARE = 1e-3  # routes that may differ from the one device's
+MESH_MOE_LAYOUTS = ("gather", "token_tp")
+# the deliberately broken piece of each layout (tensor_parallel.CONTROLS)
+MESH_MOE_CONTROLS = {"gather": "weight_grad", "token_tp": "expert_sum"}
+
+
+def mesh_moe_cfg():
+    return dataclasses.replace(ARCTIC_480B, num_layers=1,
+                               num_experts=MESH_MOE_EXPERTS)
+
+
+def mesh_moe_settings(layout="gather"):
+    return train_module.TrainSettings(optimizer="adafactor", lr=MESH_MOE_LR,
+                                      zero1=True, moe_layout=layout)
+
+
+def mesh_moe_reference(cfg, batches, device, specs, mesh):
+    """The one-device port's two adafactor steps from the seed's
+    parameters: per step its loss, grad norm and routes (each layer's idx
+    and keep), per leaf its first gradient's largest entry and each
+    update's largest move, and this rank's shards (on the host) of the
+    first gradient and of the parameters after each step under every
+    layout's specs (`specs`: layout -> leaf specs), each distinct shard
+    once. The full trees are freed before it returns."""
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.testing import multiprocess as mp
+
+    one = Model(cfg, device=device, param_dtype=torch.float32)
+    params = one.init(SEED)
+    opt = train_module.make_optimizer(mesh_moe_settings())
+    state = opt.init(params)
+    out = dict(loss=[], grad_norm=[], routes=[], top=[], moved=[],
+               shards={})
+
+    def keep(what, i, t):
+        for sp in specs.values():
+            key = (what, i, tuple(sp[i]))
+            if key not in out["shards"]:
+                out["shards"][key] = tpm.shard(t, sp[i], mesh).cpu()
+
+    for step, batch in enumerate(batches):
+        with mp.routes_recorded() as seen:
+            loss, _, grads = train_module.loss_and_grads(one, params, batch)
+        out["routes"].append([(r.idx.cpu(), r.keep.cpu())
+                              for _, r in seen[:cfg.num_layers]])
+        del seen
+        out["loss"].append(float(loss))
+        out["grad_norm"].append(float(torch.sqrt(sum(
+            train_module.square_sum(g) for g in tree_leaves(grads)))))
+        if step == 0:
+            for i, g in enumerate(tree_leaves(grads)):
+                out["top"].append(float(g.abs().max()))
+                keep("grad", i, g)
+        before = [p.clone() for p in tree_leaves(params)]
+        with torch.no_grad():
+            params, state = opt.update(grads, state, params, step)
+        del grads
+        out["moved"].append([float((p - b).abs().max()) for p, b in zip(
+            tree_leaves(params), before)])
+        del before
+        for i, p in enumerate(tree_leaves(params)):
+            keep(f"params{step}", i, p)
+    del one, params, state
+    return out
+
+
+def mesh_moe_gaps(ref, what, specs, tree, bounds=None):
+    """Per leaf, the largest gap of this rank's shard in `tree` to the
+    same shard of the one-device step's `what` (``mesh_moe_reference``);
+    with `bounds` (per leaf) also the entries farther than the bound and
+    the shard's size."""
+    out = []
+    for i, (t, sp) in enumerate(zip(tree_leaves(tree), specs)):
+        r = ref["shards"][(what, i, tuple(sp))].to(t.device)
+        gap = (t - r).abs()
+        e = dict(gap=float(gap.max()))
+        if bounds is not None:
+            e["missed"] = int((gap > bounds[i]).sum())
+            e["size"] = t.numel()
+        out.append(e)
+        del r, gap
+    return out
+
+
+def mesh_moe_rank(cfg, prompts, sizes, device):
+    """A rank of phase_mesh_lm's arctic-480b cell, in the spawn of the
+    chatglm3-6b jobs: (c) two adafactor steps on (2, 2) in each MoE
+    layout, each rank holding its shards to the same shards of the
+    one-device steps (which each rank computes in turn); the controls on
+    a skewed router; (d) serving in each layout. Returns numbers and the
+    serving results; the parent checks them."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.distributed.sharding_rules import MOE_LAYOUTS
+    from repro_torch.testing import multiprocess as mp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = mp._device(device)
+    cuda = device.type == "cuda"
+    mp._release(device)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    rank = dist.get_rank()
+    f32 = torch.float32
+    shape = ShapeConfig("mesh-moe", "train", sizes["S"], sizes["B"])
+    pipe = TokenPipeline(seed=SEED + 32, batch=sizes["B"],
+                         seq_len=sizes["S"], vocab_size=cfg.vocab_size,
+                         device=device)
+    batches = [pipe.next() for _ in range(sizes["steps"])]
+    out = dict(rank=rank, stamps=[], layouts={})
+    t_start = time.perf_counter()
+
+    def stamp(what):
+        sync()
+        out["stamps"].append((what, time.perf_counter() - t_start))
+
+    models = {lay: Model(cfg, device=device, param_dtype=f32, remat="full",
+                         mesh=mp.lm_mesh((2, 2), device),
+                         rules_overrides=MOE_LAYOUTS[lay])
+              for lay in MESH_MOE_LAYOUTS}
+    mesh = models["gather"].mesh
+    specs = {lay: tree_leaves(m.pspecs()) for lay, m in models.items()}
+    # two ranks at a time (~21 GB each on the card)
+    for turn in range(0, dist.get_world_size(), 2):
+        if rank in (turn, turn + 1):
+            ref = mesh_moe_reference(cfg, batches, device, specs, mesh)
+            mp._release(device)
+        dist.barrier()
+    out["ref"] = {k: ref[k] for k in ("loss", "grad_norm", "top", "moved")}
+    stamp("one-device reference")
+
+    def drawn():
+        return Model(cfg, device=device, param_dtype=f32).init(SEED)
+
+    def routes_differ(seen, step):
+        """(token, slot)s whose expert or keep differs from the one-device
+        step's, over the layers."""
+        n = 0
+        for (probs, r), (idx, kept) in zip(seen, ref["routes"][step]):
+            n += int(((r.idx.cpu() != idx) | (r.keep.cpu().view(idx.shape)
+                                              != kept.view(idx.shape)))
+                     .sum())
+        return n
+
+    for lay in MESH_MOE_LAYOUTS:
+        model = models[lay]
+        settings = mesh_moe_settings(lay)
+        step_fn, opt, (_, _, pspecs, _, _) = train_module.jit_train_step(
+            model, shape, settings)
+        params = tpm.shard_params(drawn(), pspecs, mesh)
+        mp._release(device)
+        state = opt.init(params)
+        res = dict(steps=[])
+
+        # step 1 in its parts: the gradients held, the update held
+        before = mesh_lm_counts(mesh)
+        sync()
+        t0 = time.perf_counter()
+        with mp.routes_recorded() as seen:
+            metrics, grads = train_module.mesh_grads(model, params,
+                                                     batches[0], shape,
+                                                     settings)
+        sync()
+        t_grad = time.perf_counter() - t0
+        grads_part = mesh_lm_since(mesh, before)
+        res["routes"] = mp.route_record(seen, cfg.num_layers)
+        res["route_diffs"] = [routes_differ(seen, 0)]
+        del seen
+        res["loss"], res["grad_norm"] = (float(metrics["loss"]),
+                                         float(metrics["grad_norm"]))
+        res["grads"] = mesh_moe_gaps(ref, "grad", specs[lay], grads)
+        # the layout's control, from the same parameters (remat 'none':
+        # the same gradients as 'full', bitwise), against the one-device
+        # step
+        control = MESH_MOE_CONTROLS[lay]
+        model.remat, model.tp.controls = "none", frozenset((control,))
+        _, bad = train_module.mesh_grads(model, params, batches[0], shape,
+                                         settings)
+        res["controls"] = {control: [e["gap"] for e in mesh_moe_gaps(
+            ref, "grad", specs[lay], bad)]}
+        del bad
+        model.remat, model.tp.controls = "full", frozenset()
+        mp._release(device)
+        before = mesh_lm_counts(mesh)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            params, state = opt.update(grads, state, params, 0)
+        sync()
+        update_part = mesh_lm_since(mesh, before)
+        res["steps"].append(dict(
+            grads_part, loss=res["loss"],
+            ms=(t_grad + time.perf_counter() - t0) * 1e3,
+            **{k: dict(collections.Counter(grads_part[k])
+                       + collections.Counter(update_part[k]))
+               for k in ("calls", "payload")}))
+        del grads
+        mp._release(device)
+        res["params"] = [mesh_moe_gaps(ref, "params0", specs[lay], params,
+                                       [MESH_LM_UPDATE_TOL * m
+                                        for m in ref["moved"][0]])]
+        stamp(f"{lay} step 1")
+
+        # step 2, each collective timed apart (the device synchronised
+        # around each)
+        spent = mesh_lm_timed(mesh, sync)
+        before = mesh_lm_counts(mesh)
+        sync()
+        t0 = time.perf_counter()
+        with mp.routes_recorded() as seen:
+            params, state, metrics = step_fn(params, state, batches[1], 1)
+        loss = float(metrics["loss"])
+        sync()
+        res["steps"].append(dict(mesh_lm_since(mesh, before), loss=loss,
+                                 ms=(time.perf_counter() - t0) * 1e3,
+                                 collective_ms={k: v * 1e3
+                                                for k, v in spent.items()}))
+        for name in ("all_reduce", "all_gather_cat", "all_to_all_single"):
+            mesh.__dict__.pop(name, None)
+        res["route_diffs"].append(routes_differ(seen, 1))
+        res["step2_routes"] = mp.route_record(seen, cfg.num_layers)
+        del seen
+        res["params"].append(mesh_moe_gaps(ref, "params1", specs[lay],
+                                           params, [MESH_LM_UPDATE_TOL * m
+                                                    for m in
+                                                    ref["moved"][1]]))
+        del state
+        mp._release(device)
+        stamp(f"{lay} step 2")
+
+        # the per-rank route (in 'token_tp', the cheaper layout), on a
+        # skewed router that drops tokens, against the same router's
+        # gradient
+        if lay == "token_tp":
+            router = params["layers"]["moe"]["router"]
+            router[..., 0] *= MESH_MOE_SKEW
+            model.remat = "none"
+            with mp.routes_recorded() as seen:
+                _, good = train_module.mesh_grads(model, params, batches[0],
+                                                  shape, settings)
+            res["skewed_routes"] = mp.route_record(seen, cfg.num_layers)
+            del seen
+            res["skewed_top"] = [float(g.abs().max())
+                                 for g in tree_leaves(good)]
+            model.tp.controls = frozenset(("local_route",))
+            _, bad = train_module.mesh_grads(model, params, batches[0],
+                                             shape, settings)
+            res["local_route"] = [float((a - b).abs().max()) for a, b in zip(
+                tree_leaves(bad), tree_leaves(good))]
+            model.tp.controls, model.remat = frozenset(), "full"
+            del good, bad, router
+            stamp(f"{lay} per-rank route control")
+        del params
+        mp._release(device)
+        out["layouts"][lay] = res
+    del ref
+    out["train_peak"] = (torch.cuda.max_memory_allocated(device)
+                         if cuda else 0)
+    mp._release(device)
+
+    # (d) serving in each layout
+    whole = drawn()
+    out["serve"] = {}
+    for lay in MESH_MOE_LAYOUTS:
+        with mp.routes_recorded() as seen:
+            out["serve"][lay] = mp.lm_job(cfg, whole, dict(
+                kind="serve", grid=(2, 2), layout=lay, prompts=prompts,
+                gen_len=sizes["gen"], cache_len=sizes["cache"]), device)
+        out["serve"][lay]["routes"] = mp.route_record(seen, len(seen))
+        del seen
+        mp._release(device)
+    out["peak"] = torch.cuda.max_memory_allocated(device) if cuda else 0
+    del whole
+    mp._release(device)
+    stamp("serving")
+    return out
+
+
+def mesh_moe_checks(cfg, ranks, ref_logits, ref_tokens):
+    """phase_mesh_lm's checks of the arctic-480b cell (the ranks' results
+    of ``mesh_moe_rank``). Returns the flash launches a rank of a (2, 2)
+    step and of a prefill."""
+    r0 = ranks[0]
+    ref = r0["ref"]
+    label = (f"mesh moe {cfg.name} (1 of {ARCTIC_480B.num_layers} layers, "
+             f"{cfg.num_experts} of {ARCTIC_480B.num_experts} experts, "
+             "f32)")
+    paths = ["/".join(p) for p in leaf_paths(
+        Model(cfg, device="cpu").template)]
+    T = MESH_MOE_B * MESH_MOE_S
+    gaps = {}
+    for lay in MESH_MOE_LAYOUTS:
+        res = [r["layouts"][lay] for r in ranks]
+        tag = f"{label} (2, 2) {lay}"
+        # the route: the global batch's, bitwise the same on every rank
+        keys = ("routes", "step2_routes") + (
+            ("skewed_routes",) if "skewed_routes" in res[0] else ())
+        for step_key in keys:
+            for layer in range(cfg.num_layers):
+                recs = [x[step_key][layer] for x in res]
+                check(all(x["again"] for x in recs),
+                      f"{tag}: a rank's route is not moe.route of its "
+                      f"gathered probabilities ({step_key})")
+                check(all(np.array_equal(x["idx"], recs[0]["idx"])
+                          and np.array_equal(x["keep"], recs[0]["keep"])
+                          for x in recs) and recs[0]["idx"].shape[0] == T,
+                      f"{tag}: the ranks' routes differ ({step_key})")
+        diffs = res[0]["route_diffs"]
+        check(max(diffs) <= MESH_MOE_ROUTE_SHARE * T
+              * cfg.experts_per_token,
+              f"{tag}: {diffs} (token, slot)s route otherwise than on one "
+              "device")
+        for key in ("loss", "grad_norm"):
+            want = ref[key][0]
+            check(abs(res[0][key] - want) <= tol.F32_REDUCTION.obj_rel
+                  * abs(want), f"{tag}: {key} {res[0][key]} against the "
+                  f"one-device {want}")
+        gap = [max(x["grads"][i]["gap"] for x in res) / ref["top"][i]
+               for i in range(len(paths))]
+        gaps[lay] = [max(x["grads"][i]["gap"] for x in res)
+                     for i in range(len(paths))]
+        worst = int(np.argmax(gap))
+        if diffs[0] == 0:
+            check(max(gap) <= MESH_LM_GRAD_TOL,
+                  f"{tag}: gradient leaf {paths[worst]} off by "
+                  f"{gap[worst]:.3e} of its largest")
+        missed = [[sum(x["params"][s][i]["missed"] for x in res)
+                   for i in range(len(paths))] for s in range(2)]
+        for s in range(2):
+            if sum(diffs[:s + 1]) == 0:
+                check(sum(missed[s]) == 0,
+                      f"{tag}: parameters after step {s + 1} outside "
+                      f"{MESH_LM_UPDATE_TOL} x the one-device update: "
+                      f"{dict(zip(paths, missed[s]))}")
+        control = MESH_MOE_CONTROLS[lay]
+        ctrl = {control: max(max(x["controls"][control][i] for x in res)
+                             / ref["top"][i] for i in range(len(paths)))}
+        skewed = ""
+        if "skewed_routes" in res[0]:
+            skew = res[0]["skewed_routes"][0]
+            dropped = ~skew["keep"].reshape(T, -1).all(1)
+            check(dropped.any(), f"{tag}: the skewed router drops no token")
+            ctrl["local_route"] = max(
+                max(x["local_route"][i] for x in res)
+                / max(res[0]["skewed_top"][i], 1e-30)
+                for i in range(len(paths)))
+            skewed = (f"; the skewed router's load {skew['load'].tolist()}, "
+                      f"dropped {int((~skew['keep']).sum())} (token, slot)s "
+                      f"({int(dropped[:T // 2].sum())} tokens of data rank "
+                      f"0, {int(dropped[T // 2:].sum())} of 1)")
+        for name, value in ctrl.items():
+            check(value > MESH_LM_GRAD_TOL,
+                  f"{tag}: the {name} control stays within the rule "
+                  f"({value:.3e})")
+        steps = [x["steps"] for x in res]
+        flash = {(s["flash"], s["flash_bwd"]) for st in steps for s in st}
+        check(flash == {(2 * cfg.num_layers, cfg.num_layers)},
+              f"{tag}: flash launches a rank a step {flash}, expected "
+              f"{2 * cfg.num_layers} forward (remat recomputes) and "
+              f"{cfg.num_layers} backward")
+        losses = [st["loss"] for st in steps[0]]
+        load = res[0]["routes"][0]["load"]
+        log(f"{tag}, adafactor {MESH_MOE_LR} ZeRO-1, remat 'full', "
+            f"{MESH_MOE_B} x {MESH_MOE_S} tokens a step: loss "
+            f"{res[0]['loss']:.6f} (one device {ref['loss'][0]:.6f}), grad "
+            f"norm {res[0]['grad_norm']:.6f} ({ref['grad_norm'][0]:.6f}); "
+            f"routes differing from one device by step {diffs}; largest "
+            f"gradient gap {gap[worst]:.3e} of its leaf's largest "
+            f"({paths[worst]}); parameters outside {MESH_LM_UPDATE_TOL} x "
+            f"the one-device update by step {[sum(m) for m in missed]}; "
+            f"controls {ctrl}; losses {losses}; expert load step 1 "
+            f"{load.tolist()} of {res[0]['routes'][0]['cap']} slots, "
+            f"dropped {int((~res[0]['routes'][0]['keep']).sum())}, step 2 "
+            f"{res[0]['step2_routes'][0]['load'].tolist()}, dropped "
+            f"{int((~res[0]['step2_routes'][0]['keep']).sum())}{skewed}")
+        log(f"{tag}: ms a step by rank "
+            f"{[[round(s['ms'], 3) for s in st] for st in steps]}; flash "
+            f"launches a rank a step {sorted(flash)}; calls a step by tag "
+            f"(rank 0) {steps[0][-1]['calls']}; payload a step by tag "
+            f"(rank 0, bytes) {steps[0][-1]['payload']}")
+        last = steps[0][-1]
+        log(f"{tag}: rank 0's step 2, each collective timed apart (the "
+            f"device synchronised around each): {last['ms']:.3f} ms, of it "
+            f"collectives by tag (ms) "
+            f"{ {k: round(v, 3) for k, v in last['collective_ms'].items()} }"
+            f", {sum(last['collective_ms'].values()):.3f} ms in all")
+    # 'gather' against 'token_tp', through the one-device step: the sum of
+    # their gaps to it within F32_REDUCTION
+    loss_gap = abs(ranks[0]["layouts"]["gather"]["loss"]
+                   - ranks[0]["layouts"]["token_tp"]["loss"])
+    check(loss_gap <= tol.F32_REDUCTION.obj_rel * abs(ref["loss"][0]),
+          f"{label}: the layouts' losses part by {loss_gap}")
+    lay_gap = [(gaps["gather"][i] + gaps["token_tp"][i])
+               / max(ref["top"][i], 1.0) for i in range(len(paths))]
+    check(max(lay_gap) <= tol.F32_REDUCTION.w_rel,
+          f"{label}: 'gather' and 'token_tp' gradients part by "
+          f"{max(lay_gap):.3e} (leaf {paths[int(np.argmax(lay_gap))]})")
+    log(f"{label}: 'gather' against 'token_tp': losses part by "
+        f"{loss_gap:.3e}, gradients by at most {max(lay_gap):.3e} of "
+        f"max(the leaf's largest, 1); each rank's seconds at the end of "
+        f"each part {[[(w, round(t, 1)) for w, t in r['stamps']] for r in ranks]}"
+        f"; peaks (GB) training "
+        f"{[round(r['train_peak'] / 1e9, 3) for r in ranks]}, with serving "
+        f"{[round(r['peak'] / 1e9, 3) for r in ranks]}")
+
+    # (d) serving against the one-device port
+    rows = MESH_LM_SERVE_B // 2
+    for lay in MESH_MOE_LAYOUTS:
+        tag = f"{label} serve (2, 2) {lay}"
+        errs, times = [], []
+        for r in ranks:
+            res = r["serve"][lay]
+            p = res["coordinate"][0]
+            mine = slice(p * rows, (p + 1) * rows)
+            check(np.array_equal(res["tokens"], ref_tokens[mine]),
+                  f"{tag}: rank {r['rank']}'s greedy tokens differ from the "
+                  "one-device port's")
+            err = float(np.abs(res["logits"] - ref_logits[mine]).max())
+            check(np.allclose(res["logits"], ref_logits[mine],
+                              rtol=MESH_LM_LOGIT_TOL, atol=MESH_LM_LOGIT_TOL),
+                  f"{tag}: rank {r['rank']}'s logits off by {err:.3e}")
+            check((res["prefill_flash"], res["decode_flash"]) ==
+                  (cfg.num_layers, 0),
+                  f"{tag}: flash launches {res['prefill_flash']} a prefill, "
+                  f"{res['decode_flash']} in decode")
+            recs = res["routes"]
+            check(all(x["again"] for x in recs) and all(
+                np.array_equal(x["idx"], y["idx"]) for x, y in zip(
+                    recs, ranks[0]["serve"][lay]["routes"])),
+                  f"{tag}: rank {r['rank']}'s routes are not the global "
+                  "batch's")
+            errs.append(err)
+            times.append((res["prefill_s"] * 1e3,
+                          res["decode_s"] * 1e3 / (MESH_LM_GEN - 1)))
+        log(f"{tag}: {MESH_LM_SERVE_B} x {MESH_LM_PROMPT} prompts into "
+            f"{MESH_LM_CACHE} positions, {MESH_LM_GEN - 1} greedy decode "
+            f"steps, each routing the global batch; tokens identical; "
+            f"largest logit gap {max(errs):.3e}; prefill ms / ms a token by "
+            f"rank {[(round(a, 3), round(b, 3)) for a, b in times]}; "
+            f"collectives a decode step {ranks[0]['serve'][lay]['decode_calls']}")
+    return (ranks[0]["layouts"]["gather"]["steps"][-1]["flash"],
+            ranks[0]["layouts"]["gather"]["steps"][-1]["flash_bwd"],
+            ranks[0]["serve"]["gather"]["prefill_flash"])
+
+
 def phase_mesh_lm():
     """The LM stack over a (data x model) mesh of 4 ranks sharing the
-    card (see the module docstring, 30). Returns the flash launches a
-    rank of the (2, 2) step and of a prefill."""
+    card (see the module docstring, 30 and 31). Returns the flash
+    launches a rank of chatglm3-6b's (2, 2) step and of its prefill, and
+    of arctic-480b's."""
     from repro_torch.testing import multiprocess as mp
 
     cfg = mesh_lm_cfg()
+    moe_cfg = mesh_moe_cfg()
     gen = torch.Generator(device=MESH_DEVICE).manual_seed(SEED + 31)
     prompts = torch.randint(0, cfg.vocab_size,
                             (MESH_LM_SERVE_B, MESH_LM_PROMPT),
                             generator=gen, device=MESH_DEVICE)
+    moe_prompts = torch.randint(0, moe_cfg.vocab_size,
+                                (MESH_LM_SERVE_B, MESH_LM_PROMPT),
+                                generator=gen, device=MESH_DEVICE)
     ref_logits, ref_tokens = mesh_lm_serve_reference(cfg, prompts)
+    moe_ref = mesh_lm_serve_reference(moe_cfg, moe_prompts)
     prompts = prompts.cpu().numpy()
+    moe_prompts = moe_prompts.cpu().numpy()
     t0 = time.perf_counter()
     launch = mp.launch_coordinated(
         mp.rank_batch, 4,
         ([(mesh_lm_rank, (cfg, prompts, dict(
             B=MESH_LM_B, S=MESH_LM_S, steps=MESH_LM_STEPS, gen=MESH_LM_GEN,
-            cache=MESH_LM_CACHE), MESH_DEVICE))],),
+            cache=MESH_LM_CACHE, full_s=MESH_LM_FULL_S), MESH_DEVICE)),
+          (mesh_moe_rank, (moe_cfg, moe_prompts, dict(
+              B=MESH_MOE_B, S=MESH_MOE_S, steps=MESH_MOE_STEPS,
+              gen=MESH_LM_GEN, cache=MESH_LM_CACHE), MESH_DEVICE))],),
         backend="gloo", timeout=MESH_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
     check(launch.exit_codes == {} and not launch.errors,
           f"mesh lm: ranks died or raised: {launch.exit_codes}"
           + raised(launch))
     ranks = [r[0] for r in launch.results]
+    moe = mesh_moe_checks(moe_cfg, [r[1] for r in launch.results],
+                          *moe_ref)
     r0 = ranks[0]
     label = (f"mesh lm {cfg.name} ({MESH_LM_CUT} of "
              f"{CHATGLM3_6B.num_layers} layers, f32)")
@@ -6631,7 +7150,7 @@ def phase_mesh_lm():
             f"{[(round(a, 3), round(b, 3)) for a, b in times]}; collectives "
             f"a decode step {ranks[0]['serve'][mode]['decode_calls']}")
     return (steps[0][-1]["flash"], steps[0][-1]["flash_bwd"],
-            ranks[0]["serve"]["seq"]["prefill_flash"])
+            ranks[0]["serve"]["seq"]["prefill_flash"]) + moe
 
 
 def flash_training_records(flash_record, bwd_record, train_fwd, train,
@@ -6850,12 +7369,16 @@ def run():
     flash_training_records(flash_record, flash_bwd_record, flash_train_fwd,
                            train, dense_train, moe_train, moe_exact)
     torch.cuda.empty_cache()
-    mesh_fwd, mesh_bwd, mesh_prefill = timed_phase(seconds, phase_mesh_lm)
+    (mesh_fwd, mesh_bwd, mesh_prefill, moe_fwd, moe_bwd,
+     moe_prefill) = timed_phase(seconds, phase_mesh_lm)
     flash_record["f32"]["launches_by_path"].update({
         "chatglm3-6b mesh (2, 2) train step, a rank": mesh_fwd,
-        "chatglm3-6b mesh prefill, a rank": mesh_prefill})
-    flash_bwd_record["launches_by_path"][
-        "chatglm3-6b mesh (2, 2) train step, a rank"] = mesh_bwd
+        "chatglm3-6b mesh prefill, a rank": mesh_prefill,
+        "arctic-480b mesh (2, 2) train step, a rank": moe_fwd,
+        "arctic-480b mesh prefill, a rank": moe_prefill})
+    flash_bwd_record["launches_by_path"].update({
+        "chatglm3-6b mesh (2, 2) train step, a rank": mesh_bwd,
+        "arctic-480b mesh (2, 2) train step, a rank": moe_bwd})
     log("seconds by phase: " + ", ".join(
         f"{name} {sec:.1f}" for name, sec in seconds.items())
         + f"; {sum(seconds.values()):.1f} s in the phases, "

@@ -184,9 +184,23 @@ class Mesh:
         sent to the group's rank i; returns the received chunks in group
         order."""
         self._count(tag, axis, t)
+        t = t.contiguous()  # and so the output, which empty_like shapes
         out = torch.empty_like(t)
-        dist.all_to_all_single(out, t.contiguous(),
-                               group=self.get_group(axis))
+        dist.all_to_all_single(out, t, group=self.get_group(axis))
+        return out
+
+    def reduce_scatter_cat(self, t, axis, tag=None):
+        """The sum over `axis` of the group's `t`, cut along dim 0 into
+        ``size(axis)`` equal chunks: this rank's chunk. Gloo has no
+        reduce-scatter, so it is composed from ``all_to_all_single``
+        (chunk i sent to the group's rank i; gloo stages CUDA tensors
+        through host memory), and each rank adds the chunks it receives in
+        group order; counted once under `tag`, at `t`'s bytes."""
+        parts = self.all_to_all_single(t, axis, tag=tag).chunk(
+            self.size(axis))
+        out = parts[0].clone()
+        for c in parts[1:]:
+            out += c
         return out
 
     def broadcast_object(self, obj):

@@ -14,10 +14,22 @@ tensor parallelism:
 * ``reduce``: all-reduce forward, identity backward. A row-split
   product's partial sum goes through it, so every rank holds the whole.
 
+The MoE layouts (``sharding_rules.MOE_LAYOUTS``) add the conjugate pair
+of the 'data' axis:
+
+* ``gather_data``: all-gather forward, reduce-scatter backward. The
+  tokens of every data rank (each rank then takes the rows its expert
+  slots hold), the router's probabilities (the route is the global
+  batch's), and in the 'gather' layout the experts' FFN hidden, stored
+  split over 'data' and gathered for each layer's products;
+* ``scatter_data``: reduce-scatter forward, all-gather backward. The
+  expert outputs each rank combined for every token of the global batch,
+  summed over 'data' into each rank's rows.
+
 Each is a ``torch.autograd.Function`` over ``core.distributed.Mesh``'s
 collectives, which count their payload under a tag in ``Mesh.payload``
 (and their calls in ``Mesh.calls``). :class:`TensorParallel` is a rank's
-place on the axis, what the rules split there, and the collectives the
+place on the two axes, what the rules split there, and the collectives the
 layers call. Every collective goes through the mesh's process group: on
 ranks that share one card that is gloo, through host memory.
 """
@@ -28,10 +40,16 @@ import torch
 from repro_torch.distributed.sharding_rules import padded_heads, rules_for
 
 AXIS = "model"
+DATA = "data"
 # the deliberately broken pieces a check may turn on to show that its rule
-# catches them: the input collective's backward all-reduce dropped, and the
-# partial gradient of replicated kv weights left unsummed
-CONTROLS = ("input_grad", "kv_grad")
+# catches them: the input collective's backward all-reduce dropped; the
+# partial gradient of replicated kv weights left unsummed; in the 'gather'
+# MoE layout the gathered expert weights' gradient not reduce-scattered
+# (each rank keeps its own slice of its own); the 'model' all-reduce of
+# the expert outputs' partial sums dropped; and each data rank routing
+# only its own rows with its own capacity
+CONTROLS = ("input_grad", "kv_grad", "weight_grad", "expert_sum",
+            "local_route")
 
 
 class _Copy(torch.autograd.Function):
@@ -63,13 +81,76 @@ class _Reduce(torch.autograd.Function):
         return grad, None, None
 
 
+def _reduce_scatter(mesh, t, tag):
+    """The sum over 'data' of the ranks' `t`, cut along dim 0 into
+    ``size('data')`` chunks: this rank's chunk."""
+    n = mesh.size(DATA)
+    return mesh.reduce_scatter_cat(t, DATA, tag=tag) if n > 1 else t
+
+
+class _GatherData(torch.autograd.Function):
+    """All-gather over 'data' along `dim` forward; the gradient
+    reduce-scattered back (each rank's chunk of the sum over 'data'), or
+    under the 'weight_grad' control the rank's own chunk of its own."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim, tag, keep_own):
+        ctx.tp, ctx.dim, ctx.tag, ctx.keep_own = tp, dim, tag, keep_own
+        whole = tp.mesh.all_gather_cat(x.movedim(dim, 0), DATA, tag=tag)
+        return whole.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        tp, dim = ctx.tp, ctx.dim
+        g = grad.movedim(dim, 0)
+        if ctx.keep_own:
+            out = g.chunk(tp.data_size)[tp.data_rank].clone()
+        else:
+            out = _reduce_scatter(tp.mesh, g, ctx.tag)
+        return (out.movedim(0, dim).contiguous(), None, None, None,
+                None)
+
+
+class _ScatterData(torch.autograd.Function):
+    """Reduce-scatter over 'data' along dim 0 forward; the gradient
+    all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, tp, tag):
+        ctx.tp, ctx.tag = tp, tag
+        return _reduce_scatter(tp.mesh, x, tag)
+
+    @staticmethod
+    def backward(ctx, grad):
+        whole = ctx.tp.mesh.all_gather_cat(grad.contiguous(), DATA,
+                                           tag=ctx.tag)
+        return whole, None, None
+
+
+def moe_layout(rules) -> str:
+    """'gather' or 'token_tp': the ``MOE_LAYOUTS`` entry `rules` give
+    (the experts over 'model' and their hidden over 'data', or the
+    reverse); another placement of the experts is not run."""
+    placed = (rules["experts"], rules["expert_mlp"], rules["expert_cap"])
+    if placed == (AXIS, DATA, DATA):
+        return "gather"
+    if placed == (DATA, AXIS, None):
+        return "token_tp"
+    raise NotImplementedError(
+        f"experts, their hidden and capacity over {placed}: the 'gather' "
+        "and 'token_tp' layouts are run")
+
+
 class TensorParallel:
     """A rank's place on the 'model' axis of `mesh` (a
     ``core.distributed.Mesh``) for model `cfg` under `rules`
     (``sharding_rules.rules_for``): its ``rank`` and the axis ``size``,
     and whether the kv heads are split (``kv_heads``; the q heads, the MLP
     hidden and the vocabulary always are: a layout that replicates one of
-    them over a model axis of more than one rank is refused).
+    them over a model axis of more than one rank is refused). Beside it,
+    the rank's place on 'data' (``data_rank`` of ``data_size``), and for
+    the MoE family the experts' layout (``moe_layout``: 'gather' or
+    'token_tp'; the experts and their hidden must divide their axes).
 
     ``controls`` (a subset of ``CONTROLS``, empty by default) breaks a
     piece on purpose, for a check to show that its rule catches it."""
@@ -78,6 +159,8 @@ class TensorParallel:
         self.mesh = mesh
         self.size = mesh.size(AXIS)
         self.rank = mesh.get_coordinate()[1]
+        self.data_size = mesh.size(DATA)
+        self.data_rank = mesh.get_coordinate()[0]
         rules = rules or rules_for(cfg, mesh)
         split = {"heads": padded_heads(cfg), "mlp": cfg.d_ff,
                  "vocab": cfg.padded_vocab}
@@ -89,6 +172,16 @@ class TensorParallel:
                     f"{cfg.name}: a layout that replicates {kept} over a "
                     f"model axis of {self.size} ranks is not run")
         self.kv_heads = rules["kv_heads"] == AXIS
+        self.moe_layout = None
+        if cfg.num_experts:
+            self.moe_layout = moe_layout(rules)
+            sizes = mesh.axis_sizes
+            for n, ax in ((cfg.num_experts, rules["experts"]),
+                          (cfg.d_ff, rules["expert_mlp"])):
+                if n % sizes[ax]:
+                    raise NotImplementedError(
+                        f"{cfg.name}: {n} does not split over {ax!r} of "
+                        f"{sizes[ax]} ranks")
         self.controls = frozenset()
 
     # -- collectives -------------------------------------------------------
@@ -114,6 +207,23 @@ class TensorParallel:
         if self.kv_heads or self.size == 1 or "kv_grad" in self.controls:
             return w
         return _Copy.apply(w, self, "kv_grad")
+
+    def gather_data(self, x, dim, tag):
+        """The data ranks' `x` concatenated along `dim` in rank order (the
+        global batch's rows, or a split weight whole); its gradient
+        reduce-scattered back (under the 'weight_grad' control, when
+        `tag` is 'moe_weights', the rank's own slice of its own)."""
+        if self.data_size == 1:
+            return x
+        keep_own = tag == "moe_weights" and "weight_grad" in self.controls
+        return _GatherData.apply(x, self, dim, tag, keep_own)
+
+    def scatter_data(self, x, tag):
+        """`x` summed over the data ranks and cut along dim 0: this rank's
+        rows; its gradient all-gathered."""
+        if self.data_size == 1:
+            return x
+        return _ScatterData.apply(x, self, tag)
 
     def max_(self, x, tag):
         """`x` (not differentiated) replaced by its maximum over the

@@ -29,11 +29,13 @@ once a layer too; the MoE family needs no branch here). A config with a frontend
 each prompt.
 
 Over a mesh of ranks (a ``Model`` on a ``core.distributed.Mesh``; the
-dense family) ``serve`` runs on each rank with its shards of the
-parameters: the rank takes its rows of the prompts (``batch_axes``), its
-prefill and decode run tensor-parallel over 'model', and its cache is its
-shard (``Model.cache_template``): its kv heads in 'heads' decode, its
+dense and MoE families) ``serve`` runs on each rank with its shards of
+the parameters: the rank takes its rows of the prompts (``batch_axes``),
+its prefill and decode run tensor-parallel over 'model', and its cache is
+its shard (``Model.cache_template``): its kv heads in 'heads' decode, its
 chunk of the sequence in 'seq' decode (``sharding_rules.decode_mode``).
+An MoE layer routes the global batch's tokens: the prefill's B x P, each
+decode step's B over every expert's capacity buffer, as on one device.
 ``serve_shardings`` gives the reference's layouts as specs.
 """
 from __future__ import annotations
@@ -59,14 +61,18 @@ def make_serve_steps(model: Model, shape: Optional[ShapeConfig] = None,
     """(prefill_step, decode_step) of `model` for the cell `shape`, as the
     reference's: decode is long-context past ``LONG_CONTEXT`` positions
     (``shape.seq_len``), and over a mesh both steps take the reference's
-    activation spec function. `force` goes to the layers' kernel wrapper
-    in prefill."""
+    activation spec function, with the model's `rules_overrides` (the
+    reference's takes none, so its MoE activations ask for the 'gather'
+    layout whatever the weights'; GSPMD reshards them, while a rank here
+    runs its experts where its shards lie). `force` goes to the layers'
+    kernel wrapper in prefill."""
     long_ctx = shape is not None and shape.seq_len > LONG_CONTEXT
-    pspec_fn = (activation_pspec_fn(model.cfg, shape, model.mesh)
+    pspec_fn = (activation_pspec_fn(model.cfg, shape, model.mesh,
+                                    model.rules_overrides)
                 if model.mesh is not None and shape is not None else None)
 
     def prefill_step(params, batch):
-        return model.prefill(params, batch, force=force)
+        return model.prefill(params, batch, force=force, pspec_fn=pspec_fn)
 
     def decode_step(params, cache, tokens, pos):
         return model.decode(params, cache, tokens, pos,

@@ -20,15 +20,17 @@ reference computes in full f32).
 
 Over a mesh of ranks (a ``Model`` built on a ``core.distributed.Mesh``)
 the step is the one GSPMD makes of the reference's: each rank takes its
-rows of the global batch (``batch_axes``), runs the dense family
-tensor-parallel over 'model', sums the gradients over 'data' and divides
-by its size, takes the grad norm counting every element once, and
-updates with its ZeRO-1 slice of the optimizer state
-(``optim.optimizers.zero1``). The layouts are the reference's, as data:
-``batch_pspec`` and ``shardings_for``'s specs; ``jit_train_step`` is the
-reference's entry point of the same name (PyTorch runs the step
-eagerly). The MoE layouts' execution and adafactor over a mesh wait for
-ROADMAP A6b.
+rows of the global batch (``batch_axes``), runs the dense and MoE
+families tensor-parallel over 'model' (the MoE layers' experts in the
+layout ``TrainSettings.moe_layout`` names, which must be the model's),
+sums the gradients over 'data' (a leaf split over 'data', an expert
+weight, is not summed: its shards hold different entries) and divides by
+its size, takes the grad norm counting every element once, and updates
+with its ZeRO-1 shard of the optimizer state (``optim.optimizers.zero1``
+for sgd, momentum and adamw, ``adafactor(mesh=)`` for adafactor). The
+layouts are the reference's, as data: ``batch_pspec`` and
+``shardings_for``'s specs; ``jit_train_step`` is the reference's entry
+point of the same name (PyTorch runs the step eagerly).
 """
 from __future__ import annotations
 
@@ -49,12 +51,13 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.distributed.sharding_rules import (MOE_LAYOUTS,
                                                     PartitionSpec as P,
+                                                    activation_pspec_fn,
                                                     batch_axes)
 from repro_torch.models import Model
 from repro_torch.models.params import tree_leaves, tree_unflatten
 from repro_torch.optim import OPTIMIZERS, SoddaSVRGConfig, make_sodda_svrg
-from repro_torch.optim.optimizers import (flat_chunks, tree_map, zero1,
-                                          zero1_dims, zero1_pspecs)
+from repro_torch.optim.optimizers import (adafactor, flat_chunks, tree_map,
+                                          zero1, zero1_dims, zero1_pspecs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,9 +66,10 @@ class TrainSettings:
     (``Model(remat=...)``, which the reference's step reads). `zero1`
     splits the optimizer state over a mesh's 'data' axis
     (``shardings_for``, and the step over a mesh of ranks); `moe_layout`
-    is how the experts' weights lie over a mesh (``MOE_LAYOUTS``; its
-    execution waits for ROADMAP A6b). Neither changes a step on one
-    device."""
+    is how the experts' weights lie over a mesh (``MOE_LAYOUTS``): the
+    step over a mesh of ranks builds the reference's activation spec
+    function from it, whose layout must be that of the model's
+    ``rules_overrides``. Neither changes a step on one device."""
     optimizer: str = "adamw"
     lr: float = 3e-4
     accum_steps: int = 1
@@ -123,12 +127,14 @@ def shardings_for(model: Model, shape: ShapeConfig,
             batch_pspec(model.cfg, shape, mesh), abs_params, abs_opt)
 
 
-def loss_and_grads(model: Model, params, batch, force: str = "auto"):
+def loss_and_grads(model: Model, params, batch, force: str = "auto",
+                   pspec_fn=None):
     """(loss, metrics, grads): ``model.loss`` at `params` on `batch` and
     its gradient for every parameter (a tree like `params`), all detached.
-    `force` goes to the layers' kernel wrappers."""
+    `force` goes to the layers' kernel wrappers, `pspec_fn` to the
+    model."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss, metrics = model.loss(leaves, batch, force=force)
+    loss, metrics = model.loss(leaves, batch, force=force, pspec_fn=pspec_fn)
     grads = torch.autograd.grad(loss, tree_leaves(leaves))
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_unflatten(params, grads))
@@ -145,18 +151,23 @@ def square_sum(g):
     return total
 
 
-def _gradients(model: Model, params, batch, A: int, gdt):
+def _gradients(model: Model, params, batch, A: int, gdt, pspec_fn=None,
+               rows=None):
     """(loss, metrics, grads) of `batch`: whole, or with A > 1 summed
-    over A micro-batches in `gdt` and divided by A."""
+    over A micro-batches in `gdt` and divided by A. `rows` (over a mesh)
+    cuts a batch to the rank's rows: the global batch, or each of its
+    micro-batches, so that a micro-batch is the reference's (its rows of
+    the global batch), which an MoE layer routes as one batch."""
+    rows = rows or (lambda b: b)
     if A == 1:
-        return loss_and_grads(model, params, batch)
+        return loss_and_grads(model, params, rows(batch), pspec_fn=pspec_fn)
     grads = tree_map(lambda p: torch.zeros(p.shape, dtype=gdt,
                                            device=p.device), params)
     lsum = torch.zeros((), dtype=torch.float32, device=model.device)
     for i in range(A):
         mb = {k: v.reshape(A, v.shape[0] // A, *v.shape[1:])[i]
               for k, v in batch.items()}
-        l, _, g = loss_and_grads(model, params, mb)
+        l, _, g = loss_and_grads(model, params, rows(mb), pspec_fn=pspec_fn)
         # in place, and the micro-batch's tree dropped once added: no
         # third tree (a new sum) is alive
         for a, b in zip(tree_leaves(grads), tree_leaves(g)):
@@ -211,6 +222,10 @@ def rank_rows(model: Model, shape: ShapeConfig, batch):
     the batch is split over (``batch_axes``; all rows when none)."""
     mesh = model.mesh
     axes = batch_axes(model.cfg, shape, mesh)
+    if not axes and model.cfg.num_experts and mesh.size("data") > 1:
+        raise NotImplementedError(
+            f"a batch of {shape.global_batch} rows that 'data' does not "
+            "split: an MoE layer would route every data rank's copy")
     if not axes:
         return batch
     if axes != ("data",):
@@ -221,57 +236,94 @@ def rank_rows(model: Model, shape: ShapeConfig, batch):
     return {k: v.chunk(n)[p] for k, v in batch.items()}
 
 
+def mesh_pspec_fn(model: Model, shape: ShapeConfig, settings: TrainSettings):
+    """The reference's activation spec function of a step over a mesh:
+    the layout ``settings.moe_layout`` names (``MOE_LAYOUTS``)."""
+    if settings.moe_layout not in MOE_LAYOUTS:
+        raise ValueError(f"moe_layout must be one of {sorted(MOE_LAYOUTS)}, "
+                         f"got {settings.moe_layout!r}")
+    return activation_pspec_fn(model.cfg, shape, model.mesh,
+                               MOE_LAYOUTS[settings.moe_layout])
+
+
 def mesh_grads(model: Model, params, batch, shape: ShapeConfig,
                settings: TrainSettings):
     """(metrics, grads) of a step over a mesh of ranks, before its
     update: the rank's gradients of its rows of the global `batch` (of
     its parameter shards), then ``sum_over_data``."""
+    A = settings.accum_steps
+    micro = dataclasses.replace(shape, global_batch=shape.global_batch // A)
     loss, metrics, grads = _gradients(
-        model, params, rank_rows(model, shape, batch), settings.accum_steps,
-        getattr(torch, settings.grad_dtype))
+        model, params, batch, A, getattr(torch, settings.grad_dtype),
+        mesh_pspec_fn(model, shape, settings),
+        rows=lambda b: rank_rows(model, micro, b))
     return sum_over_data(model, loss, metrics, grads)
+
+
+def _axes(spec):
+    return {a for s in spec if s is not None
+            for a in (s if isinstance(s, tuple) else (s,))}
 
 
 def sum_over_data(model: Model, loss, metrics, grads):
     """(metrics, grads): the rank's `grads` (of its rows) summed over
-    'data' and divided by its size, in place; the loss and the metrics
+    'data' and divided by its size, in place (a leaf split over 'data',
+    whose shards hold different entries, is divided only: its rank's
+    gradient already sums every data rank's share, through the
+    reduce-scatters of the MoE layouts); the loss and the metrics
     averaged over 'data'; and ``grad_norm`` counting every element once
-    (a leaf split over 'model' summed over it, a replicated one taken
-    once)."""
+    (each leaf's squares summed over every axis that splits it, a
+    replicated leaf's taken once)."""
     mesh = model.mesh
     n = mesh.size("data")
+    specs = tree_leaves(model.pspecs())
     metrics = dict(metrics, loss=loss)
     if n > 1:
-        for g in tree_leaves(grads):
-            mesh.all_reduce(g, "data", tag="grads")
+        for g, spec in zip(tree_leaves(grads), specs):
+            if "data" not in _axes(spec):
+                mesh.all_reduce(g, "data", tag="grads")
             g.div_(n)
         keys = sorted(metrics)
         both = torch.stack([metrics[k].float() for k in keys])
         mesh.all_reduce(both, "data", tag="loss")
         metrics = dict(zip(keys, both / n))
-    split = torch.zeros((), dtype=torch.float32, device=model.device)
-    whole = torch.zeros((), dtype=torch.float32, device=model.device)
-    for g, spec in zip(tree_leaves(grads), tree_leaves(model.pspecs())):
-        if "model" in spec:
-            split = split + square_sum(g)
-        else:
-            whole = whole + square_sum(g)
-    metrics["grad_norm"] = torch.sqrt(model.tp.reduce(split, "grad_norm")
-                                      + whole)
+    sums = {}  # the squares by the axes that split their leaves
+    for g, spec in zip(tree_leaves(grads), specs):
+        key = tuple(sorted(a for a in _axes(spec) if mesh.size(a) > 1))
+        sums[key] = sums.get(key, torch.zeros(
+            (), dtype=torch.float32, device=model.device)) + square_sum(g)
+    total = torch.zeros((), dtype=torch.float32, device=model.device)
+    for key in sorted(sums):
+        for ax in key:
+            mesh.all_reduce(sums[key], ax, tag="grad_norm")
+        total = total + sums[key]
+    metrics["grad_norm"] = torch.sqrt(total)
     return metrics, grads
+
+
+def mesh_optimizer(model: Model, shape: ShapeConfig,
+                   settings: TrainSettings, opt=None):
+    """The optimizer of a step over a mesh of ranks: adafactor on the
+    rank's shards (``adafactor(mesh=)``, its state laid by
+    ``shardings_for``'s specs, ZeRO-1's under `zero1`), the others
+    ``zero1``-wrapped under `zero1` (`opt`, or ``make_optimizer``'s)."""
+    if settings.optimizer == "adafactor":
+        return adafactor(settings.lr, mesh=model.mesh, pspecs=model.pspecs(),
+                         state_pspecs=shardings_for(model, shape,
+                                                    settings)[1],
+                         zero1=settings.zero1)
+    opt = opt or make_optimizer(settings)
+    if settings.zero1:
+        _, opt_specs, *_ = shardings_for(model, shape, settings)
+        state = opt_specs["m"] if settings.optimizer == "adamw" else opt_specs
+        if state != ():
+            return zero1(opt, model.mesh, zero1_dims(state, model.pspecs()))
+    return opt
 
 
 def _mesh_train_step(model: Model, shape: ShapeConfig,
                      settings: TrainSettings, opt):
-    if settings.optimizer == "adafactor":
-        raise NotImplementedError(
-            "adafactor's factored moments over a mesh (a row moment over a "
-            "split dim, and under ZeRO-1) wait for ROADMAP A6b")
-    if settings.zero1:
-        _, opt_specs, *_ = shardings_for(model, shape, settings)
-        state = opt_specs["m"] if settings.optimizer == "adamw" else opt_specs
-        opt = zero1(opt, model.mesh, zero1_dims(state)) if state != () \
-            else opt
+    opt = mesh_optimizer(model, shape, settings, opt)
 
     def train_step(params, opt_state, batch, step):
         metrics, grads = mesh_grads(model, params, batch, shape, settings)

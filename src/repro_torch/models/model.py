@@ -15,8 +15,9 @@ ranks also runs the entry points there, tensor-parallel over its 'model'
 axis (``distributed.tensor_parallel``): each rank passes its shards of the
 parameters (``tensor_parallel.shard_params`` of the whole tree by
 ``pspecs``) and of the cache (``cache_template``), and its rows of the
-batch. The dense family runs so; the MoE, SSM and hybrid families over a
-mesh wait for ROADMAP A6b.
+batch. The dense and MoE families run so (the MoE family's experts in the
+layout of `rules_overrides`, 'gather' by default or 'token_tp'); the SSM
+and hybrid families over a mesh wait for ROADMAP A6b items 3-4.
 """
 from __future__ import annotations
 
@@ -142,7 +143,7 @@ class Model(nn.Module):
                 "v": P(None, b, "model", None, None)}
 
     # -- entry points ----------------------------------------------------
-    def loss(self, params, batch, force: str = "auto"):
+    def loss(self, params, batch, force: str = "auto", pspec_fn=None):
         """batch {'tokens', 'targets': (B,S)} -> (loss, {'ce', 'aux'}), f32
         scalars that autograd differentiates (``transformer.loss_fn``, with
         this model's `remat`). On the card every family trains through the
@@ -151,11 +152,15 @@ class Model(nn.Module):
         (``ops.flash_attention_bwd``), so the dense, SSM and hybrid
         families all run their backward passes there. For the MoE family
         'aux' is its layers' load-balancing losses summed, and the loss
-        adds 0.01 x it, as the reference's does."""
+        adds 0.01 x it, as the reference's does. `pspec_fn`
+        (``sharding_rules.activation_pspec_fn``) is the reference's
+        argument: over a mesh it names the MoE layout, which must be that
+        of the rank's shards (``moe.moe_forward``)."""
         return transformer.loss_fn(params, batch, self.cfg,
-                                   remat=self.remat, force=force, tp=self.tp)
+                                   remat=self.remat, force=force, tp=self.tp,
+                                   pspec_fn=pspec_fn)
 
-    def prefill(self, params, batch, force: str = "auto"):
+    def prefill(self, params, batch, force: str = "auto", pspec_fn=None):
         """batch {'tokens': (B,S)} -> (last-position logits (B,Vp) f32,
         cache {'k', 'v': (L,B,S,KV,hd)} (the dense and MoE families), or
         None for the SSM and hybrid families, whose prefill builds no
@@ -163,12 +168,12 @@ class Model(nn.Module):
         family) they go ahead of the tokens: the cache holds F + S
         positions, and the logits are still the last text position's. The
         hybrid family's shared attention is not windowed here, as in the
-        reference's prefill."""
+        reference's prefill. `pspec_fn` as in ``loss``."""
         logits, cache = transformer.forward(
             params, batch["tokens"], self.cfg,
             frontend_embeds=batch.get("frontend_embeds"),
             collect_cache=self.cfg.family not in ("ssm", "hybrid"),
-            last_only=True, force=force, tp=self.tp)
+            last_only=True, force=force, tp=self.tp, pspec_fn=pspec_fn)
         return logits[:, -1], cache
 
     def decode(self, params, cache, tokens, pos, long_context: bool = False,
@@ -182,15 +187,17 @@ class Model(nn.Module):
         the window's slots (``cache_template`` past 2 x the window) sees
         the last `window` positions, a full-length cache all of them.
         Over a mesh of ranks the attention runs in the reference's
-        ``decode_mode`` ('heads' or 'seq'). `pspec_fn`
+        ``decode_mode`` ('heads' or 'seq'), and an MoE layer routes the
+        global batch's tokens. `pspec_fn`
         (``sharding_rules.activation_pspec_fn``) is the reference's
         argument; the ranks hold their activations' shards as they are, so
-        the dense family reads nothing from it (its ``gather_weights``
-        names the MoE layout, ROADMAP A6b)."""
+        the dense family reads nothing from it, and the MoE family its
+        ``gather_weights``, the experts' layout, which must be that of the
+        rank's shards."""
         mode = decode_mode(self.cfg, self.mesh) if self.tp else "heads"
         return transformer.decode_step(params, cache, tokens, pos, self.cfg,
                                        long_context=long_context, tp=self.tp,
-                                       decode_mode=mode)
+                                       decode_mode=mode, pspec_fn=pspec_fn)
 
     # -- caches ----------------------------------------------------------
     def cache_template(self, batch: int, seq: int,

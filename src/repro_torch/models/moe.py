@@ -19,12 +19,30 @@ integer or exact, can be held apart from the floating-point work:
   and contribute zero, exactly as in the reference.
 
 The reference's expert products are ``einsum``s outside Pallas, so they
-are batched ``torch.bmm`` here. The experts' mesh layouts are ported as
-data (``distributed.sharding_rules.MOE_LAYOUTS``, ``Model.pspecs``, and
-``activation_pspec_fn``'s ``gather_weights``, which names the layout
-``moe_forward``'s ``pspec_fn`` would read); running them over a mesh of
-ranks (the route over the global batch, 'gather' and 'token_tp') waits
-for ROADMAP A6b, and a mesh refuses the MoE family until then.
+are batched ``torch.bmm`` here.
+
+Over a mesh of ranks (``tp``, a ``distributed.tensor_parallel.
+TensorParallel``) ``moe_forward`` computes the function GSPMD makes of
+the reference's under its ``pspec_fn``: the route is the global batch's
+(every rank routes the probabilities of all tokens, gathered over 'data'
+in batch-row order, so every rank holds the same route, bit for bit, and
+the capacity and the auxiliary loss are the global batch's), and the
+experts run in the layout of the rank's shards (``tp.moe_layout``, which
+``pspec_fn.gather_weights`` must name):
+
+* 'gather': the rank's experts are its 'model' block, their FFN hidden
+  gathered over 'data' for the layer (``tp.gather_data``; the gradient
+  reduce-scattered back), and its slots that block's capacity over
+  'data';
+* 'token_tp': the rank's experts are its 'data' block with every slot,
+  their hidden its 'model' block (the stationary weights), so its
+  products are partial sums over the hidden.
+
+Each rank takes the tokens its slots hold from the global batch
+(``tp.gather_data``), combines its expert outputs into every token of the
+global batch (in f32), and the partial outputs are summed over 'data'
+into each rank's rows (``tp.scatter_data``) and over 'model' ('moe_out').
+The dense residual runs tensor-parallel, as the dense MLP does.
 """
 from __future__ import annotations
 
@@ -113,8 +131,126 @@ def route(probs, k: int, capacity_factor: float = 1.25) -> Route:
                  slots=slots, cap=cap)
 
 
-def moe_forward(p, h, cfg: ArchConfig, capacity_factor: float = 1.25):
-    """h (B,S,d) -> (out (B,S,d) in h's dtype, aux f32 scalar)."""
+def route_per_rank(probs, k: int, n: int,
+                   capacity_factor: float = 1.25) -> Route:
+    """The 'local_route' control: each of `n` data ranks routes only its
+    own rows of the (T, E) `probs` with its own capacity; the routes laid
+    side by side as one route of T tokens over buffers of n x the
+    per-rank capacity (rank i's slots at [i x cap, (i + 1) x cap) of
+    each expert's buffer)."""
+    T, E = probs.shape
+    T_loc = T // n
+    rs = [route(c, k, capacity_factor) for c in probs.chunk(n)]
+    cap = rs[0].cap
+    big = n * cap
+    slots = torch.stack([torch.where(r.slots < T_loc, r.slots + i * T_loc,
+                                     torch.full_like(r.slots, T))
+                         .view(E, cap) for i, r in enumerate(rs)], 1)
+    pos = torch.cat([r.pos + i * cap for i, r in enumerate(rs)])
+    keep = torch.cat([r.keep for r in rs])
+    idx = torch.cat([r.idx for r in rs])
+    dest = torch.where(keep, idx.reshape(-1) * big + pos,
+                       torch.full_like(pos, E * big))
+    return Route(idx=idx, gate=torch.cat([r.gate for r in rs]), pos=pos,
+                 keep=keep, dest=dest, slots=slots.reshape(-1), cap=big)
+
+
+def _router(x, w):
+    return torch.softmax((x @ w).float(), dim=-1)  # the product in x's dtype
+
+
+def _experts(x, wg, wu, wd, slots, dest, gate, shape):
+    """Dispatch by index from the zero-padded tokens `x` (T, d) into the
+    (experts, slots) buffers of `shape`, the three products, and the
+    combine into every token: (T, d) f32, each token's k outputs (a slot
+    not given: the zero row) weighted by its gates."""
+    T, d = x.shape
+    x_pad = torch.cat([x, x.new_zeros(1, d)])
+    x_disp = x_pad[slots].view(*shape, d)
+    g = torch.bmm(x_disp, wg)
+    u = torch.bmm(x_disp, wu)
+    y = torch.bmm(F.silu(g) * u, wd)
+    y = torch.cat([y.reshape(-1, d), y.new_zeros(1, d)])
+    y_tok = y[dest].view(T, -1, d).float()
+    return torch.bmm(gate[:, None, :], y_tok)[:, 0]
+
+
+def _mesh_layout(tp, pspec_fn) -> str:
+    if pspec_fn is not None:
+        asked = "gather" if getattr(pspec_fn, "gather_weights", True) \
+            else "token_tp"
+        if asked != tp.moe_layout:
+            raise ValueError(
+                f"pspec_fn asks for the {asked!r} MoE layout; the rank's "
+                f"expert shards lie in {tp.moe_layout!r} (the model's "
+                "rules_overrides)")
+    return tp.moe_layout
+
+
+def _moe_mesh(p, h, cfg: ArchConfig, capacity_factor, tp, layout, wrap):
+    """``moe_forward`` on a rank of a mesh (see the module docstring):
+    (out (B,S,d) whole in h's dtype, aux)."""
+    B, S, d = h.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    n = tp.data_size
+    x = h.reshape(B * S, d)
+    probs = tp.gather_data(wrap(_router)(x, p["router"]), 0, "moe_probs")
+    # the gates' gradient is partial on each model rank (its experts, or
+    # its share of their hidden): summed over 'model' by the copy
+    gates = tp.copy(probs, "moe_gate")
+    r = (route_per_rank(gates, k, n, capacity_factor)
+         if "local_route" in tp.controls and n > 1
+         else route(gates, k, capacity_factor))
+    wg, wu, wd = p["wg"], p["wu"], p["wd"]
+    if layout == "gather":
+        wg = tp.gather_data(wg, 2, "moe_weights")
+        wu = tp.gather_data(wu, 2, "moe_weights")
+        wd = tp.gather_data(wd, 1, "moe_weights")
+        ne, nc = E // tp.size, r.cap // n
+        e0, c0 = tp.rank * ne, tp.data_rank * nc
+    else:
+        ne, nc = E // n, r.cap
+        e0, c0 = tp.data_rank * ne, 0
+    slots = r.slots.view(E, r.cap)[e0:e0 + ne, c0:c0 + nc].reshape(-1)
+    e, pos = r.idx.reshape(-1), r.pos
+    held = r.keep & (e >= e0) & (e < e0 + ne) & (pos >= c0) & (pos < c0 + nc)
+    dest = torch.where(held, (e - e0) * nc + pos - c0,
+                       torch.full_like(pos, ne * nc))
+    tokens = tp.gather_data(tp.copy(x, "moe_in"), 0, "moe_tokens")
+    part = wrap(_experts)(tokens, wg, wu, wd, slots, dest, r.gate, (ne, nc))
+    out = tp.scatter_data(part, "moe_out")
+    if "expert_sum" not in tp.controls:
+        out = tp.reduce(out, "moe_out")
+    out = out.to(h.dtype)
+    if cfg.moe_dense_residual:
+        dense = wrap(mlp_forward)(p["dense"], x[None], tp)
+        out = out + tp.reduce(dense.reshape(B * S, d), "mlp_out")
+    return out.reshape(B, S, d), _aux(probs, r.idx, E)
+
+
+def _aux(probs, idx, E):
+    """The Switch load-balancing loss: E x sum_e mean(probs)_e x f_e, f_e
+    the share of tokens whose first choice is e."""
+    me = probs.mean(0)
+    ce = torch.bincount(idx[:, 0], minlength=E).float() / probs.shape[0]
+    return E * torch.sum(me * ce)
+
+
+def moe_forward(p, h, cfg: ArchConfig, capacity_factor: float = 1.25,
+                pspec_fn=None, tp=None, pieces=None):
+    """h (B,S,d) -> (out (B,S,d) in h's dtype, aux f32 scalar).
+
+    With `tp` (a mesh of ranks) h is the rank's rows and `out` their
+    whole output (summed over both axes: no caller all-reduces it);
+    `pspec_fn` (``sharding_rules.activation_pspec_fn``; the reference's
+    argument) must name the layout of the rank's expert shards by its
+    ``gather_weights``; `pieces` wraps the local work between the
+    collectives (the "collectives" remat checkpoints it). On one device
+    `pspec_fn` changes nothing, as the reference's constraints do not."""
+    if tp is not None:
+        return _moe_mesh(p, h, cfg, capacity_factor, tp,
+                         _mesh_layout(tp, pspec_fn),
+                         pieces or (lambda fn: fn))
     B, S, d = h.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     T = B * S
@@ -140,9 +276,4 @@ def moe_forward(p, h, cfg: ArchConfig, capacity_factor: float = 1.25):
     if cfg.moe_dense_residual:
         out = out + mlp_forward(p["dense"], x[None]).reshape(T, d)
 
-    # the Switch load-balancing loss: E x sum_e mean(probs)_e x f_e, f_e the
-    # share of tokens whose first choice is e
-    me = probs.mean(0)
-    ce = torch.bincount(r.idx[:, 0], minlength=E).float() / T
-    aux = E * torch.sum(me * ce)
-    return out.reshape(B, S, d), aux
+    return out.reshape(B, S, d), _aux(probs, r.idx, E)

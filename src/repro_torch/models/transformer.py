@@ -26,13 +26,17 @@ backward, or under "collectives" each layer's local work between its
 all-reduces (``_remat``).
 
 Over a mesh of ranks (``tp``, a
-``distributed.tensor_parallel.TensorParallel``) the dense family runs
-tensor-parallel: every entry point takes the rank's shards of the
-parameters, and each block all-reduces its attention and MLP outputs over
-the 'model' axis ('attn_out', 'mlp_out', the names the reference's
-"collectives" policy saves). Decode switches between the 'heads' and the
-'seq' attention as the reference's ``_decode_attn`` does. The MoE, SSM and
-hybrid families over a mesh raise ``NotImplementedError`` (ROADMAP A6b).
+``distributed.tensor_parallel.TensorParallel``) the dense and MoE
+families run tensor-parallel: every entry point takes the rank's shards
+of the parameters, and each block all-reduces its attention and MLP
+outputs over the 'model' axis ('attn_out', 'mlp_out', the names the
+reference's "collectives" policy saves). An MoE block sums its own output
+over both axes (``moe.moe_forward`` over a mesh: the route over the
+global batch, the experts in the 'gather' or 'token_tp' layout, which
+`pspec_fn` names). Decode switches between the 'heads' and the 'seq'
+attention as the reference's ``_decode_attn`` does. The SSM and hybrid
+families over a mesh raise ``NotImplementedError`` (ROADMAP A6b items 3
+and 4).
 """
 from __future__ import annotations
 
@@ -139,23 +143,33 @@ def _reduce(x, tp, tag):
     return x if tp is None else tp.reduce(x, tag)
 
 
-def _ffn(lp, h, cfg: ArchConfig, tp):
-    """The MLP (or MoE) on h's norm: its (partial) output and the MoE
-    block's auxiliary loss, or None for an MLP."""
+def _ffn(lp, h, cfg: ArchConfig, tp, pspec_fn=None, pieces=None):
+    """The MLP (or MoE) on h's norm: its output and the MoE block's
+    auxiliary loss, or None for an MLP. With `tp` the MLP's output is the
+    rank's partial sum (``_ffn_out`` all-reduces it) and the MoE's is
+    whole (summed inside ``moe.moe_forward``, whose local work `pieces`
+    wraps)."""
     x = rms_norm(h, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
-        return moe.moe_forward(lp["moe"], x, cfg)
+        return moe.moe_forward(lp["moe"], x, cfg, pspec_fn=pspec_fn, tp=tp,
+                               pieces=pieces)
     return mlp.mlp_forward(lp["mlp"], x, tp), None
 
 
-def _mlp_in(lp, h, a, cfg: ArchConfig, tp):
+def _ffn_out(lp, m, tp):
+    """The MLP's partial output all-reduced over the axis ('mlp_out'); an
+    MoE block's output as it is (already whole)."""
+    return m if "moe" in lp else _reduce(m, tp, "mlp_out")
+
+
+def _mlp_in(lp, h, a, cfg: ArchConfig, tp, pspec_fn=None, pieces=None):
     """The block's work between its two all-reduces: the attention output
-    `a` (post-normed) added to h, then the MLP's (or MoE's) partial
-    output. Returns (h + a, the partial output, aux)."""
+    `a` (post-normed) added to h, then the MLP's (or MoE's) output.
+    Returns (h + a, the output, aux)."""
     if "ln1post" in lp:
         a = rms_norm(a, lp["ln1post"], cfg.norm_eps)
     h = h + a
-    return (h,) + _ffn(lp, h, cfg, tp)
+    return (h,) + _ffn(lp, h, cfg, tp, pspec_fn, pieces)
 
 
 def _mlp_out(lp, h, m, cfg: ArchConfig):
@@ -164,11 +178,11 @@ def _mlp_out(lp, h, m, cfg: ArchConfig):
     return h + m
 
 
-def _mlp_half(lp, h, cfg: ArchConfig, tp=None):
+def _mlp_half(lp, h, cfg: ArchConfig, tp=None, pspec_fn=None):
     """The MLP (or MoE) half of a block: (h + its output, the MoE block's
     auxiliary loss, or None for an MLP)."""
-    m, aux = _ffn(lp, h, cfg, tp)
-    return _mlp_out(lp, h, _reduce(m, tp, "mlp_out"), cfg), aux
+    m, aux = _ffn(lp, h, cfg, tp, pspec_fn)
+    return _mlp_out(lp, h, _ffn_out(lp, m, tp), cfg), aux
 
 
 def _attn_in(lp, h, cfg: ArchConfig, positions, window: int, force: str,
@@ -182,16 +196,22 @@ def _attn_in(lp, h, cfg: ArchConfig, positions, window: int, force: str,
 
 
 def _attn_block(lp, h, cfg: ArchConfig, positions, window: int, force: str,
-                tp=None, pieces=None):
+                tp=None, pieces=None, pspec_fn=None):
     """One attention + MLP block: (h out, (k, v), aux). `pieces` wraps
     the block's local work between its all-reduces (``_attn_in`` and
-    ``_mlp_in``): the "collectives" remat checkpoints them, so the
-    backward recomputes local work and never an all-reduce."""
-    attn_in, mlp_in = (_attn_in, _mlp_in) if pieces is None else \
-        (pieces(_attn_in), pieces(_mlp_in))
+    ``_mlp_in``; over a mesh an MoE block's collectives lie inside it, so
+    its own local pieces are wrapped instead): the "collectives" remat
+    checkpoints them, so the backward recomputes local work and never a
+    collective."""
+    attn_in = _attn_in if pieces is None else pieces(_attn_in)
     a, kv = attn_in(lp, h, cfg, positions, window, force, tp)
-    h, m, aux = mlp_in(lp, h, _reduce(a, tp, "attn_out"), cfg, tp)
-    return _mlp_out(lp, h, _reduce(m, tp, "mlp_out"), cfg), kv, aux
+    a = _reduce(a, tp, "attn_out")
+    if pieces is not None and "moe" in lp and tp is not None:
+        h, m, aux = _mlp_in(lp, h, a, cfg, tp, pspec_fn, pieces)
+    else:
+        mlp_in = _mlp_in if pieces is None else pieces(_mlp_in)
+        h, m, aux = mlp_in(lp, h, a, cfg, tp, pspec_fn)
+    return _mlp_out(lp, h, _ffn_out(lp, m, tp), cfg), kv, aux
 
 
 def _ssm_block(lp, h, cfg: ArchConfig, force: str):
@@ -230,12 +250,11 @@ def _remat(fn, remat: str):
 
 def _on_mesh(cfg: ArchConfig, tp):
     """Refuse a family whose layers are not yet run over a mesh."""
-    if tp is not None and (cfg.family in ("ssm", "hybrid")
-                           or cfg.num_experts):
+    if tp is not None and cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family over a mesh of ranks "
-            "(the MoE layouts, SSM tensor parallelism) waits for ROADMAP "
-            "A6b; the dense family runs")
+            f"{cfg.name}: the {cfg.family} family over a mesh of ranks (SSM "
+            "tensor parallelism, the hybrid stack) waits for ROADMAP A6b "
+            "items 3-4; the dense and MoE families run")
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +271,7 @@ def forward_with_aux(params, tokens, cfg: ArchConfig, *,
                      frontend_embeds=None, collect_cache: bool = False,
                      last_only: bool = False, force: str = "auto",
                      long_context: bool = False, remat: str = "none",
-                     tp=None):
+                     tp=None, pspec_fn=None):
     """tokens (B,S) -> (logits (B,S,Vp) f32, cache or None, aux f32).
 
     `frontend_embeds` (B,F,d), if given, are cast to the activations'
@@ -270,11 +289,12 @@ def forward_with_aux(params, tokens, cfg: ArchConfig, *,
     auxiliary losses summed in layer order (0 for the other families).
 
     With `tp` (a ``distributed.tensor_parallel.TensorParallel``; the
-    dense family only) `params` are the rank's shards: the layers run
+    dense and MoE families) `params` are the rank's shards: the layers run
     tensor-parallel over the 'model' axis, the logits are the rank's
     vocabulary columns (all of them with `last_only`, the serving path),
     and the cache holds the rank's kv heads (all of them when the rules
-    replicate them).
+    replicate them). `pspec_fn` (``sharding_rules.activation_pspec_fn``,
+    the reference's argument) names the MoE layout (``moe.moe_forward``).
     """
     _on_mesh(cfg, tp)
     h = _embed(params, tokens, cfg, tp)
@@ -285,7 +305,8 @@ def forward_with_aux(params, tokens, cfg: ArchConfig, *,
     ssm_block = _remat(lambda lp, x: _ssm_block(lp, x, cfg, force), remat)
 
     def block(lp, x, window, pieces=None):
-        return _attn_block(lp, x, cfg, positions, window, force, tp, pieces)
+        return _attn_block(lp, x, cfg, positions, window, force, tp, pieces,
+                           pspec_fn)
 
     if remat == "collectives":
         def attn_block(lp, x, window):
@@ -322,7 +343,8 @@ def forward_with_aux(params, tokens, cfg: ArchConfig, *,
 
 
 def loss_fn(params, batch, cfg: ArchConfig, *, remat: str = "none",
-            aux_weight: float = 0.01, force: str = "auto", tp=None):
+            aux_weight: float = 0.01, force: str = "auto", tp=None,
+            pspec_fn=None):
     """The training loss: `forward_with_aux` on batch['tokens'] (B,S),
     then the mean cross entropy of its logits against batch['targets']
     (B,S) over the true vocabulary (the padded entries masked), plus
@@ -334,11 +356,12 @@ def loss_fn(params, batch, cfg: ArchConfig, *, remat: str = "none",
     frontend's, carry no loss. With `tp` the batch is the rank's and so
     is the loss (its mean over the rank's tokens, the same on every rank
     of the 'model' axis): the cross entropy runs over the vocabulary
-    split across the axis."""
+    split across the axis, and an MoE layer's auxiliary loss is the global
+    batch's (every rank's the same)."""
     logits, _, aux = forward_with_aux(
         params, batch["tokens"], cfg,
         frontend_embeds=batch.get("frontend_embeds"), remat=remat,
-        force=force, tp=tp)
+        force=force, tp=tp, pspec_fn=pspec_fn)
     targets = batch["targets"]
     F = logits.shape[1] - targets.shape[1]
     if F > 0:  # frontend positions carry no loss
@@ -355,7 +378,7 @@ DECODE_MODES = ("heads", "seq")
 
 def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
                 long_context: bool = False, tp=None,
-                decode_mode: str = "heads"):
+                decode_mode: str = "heads", pspec_fn=None):
     """tokens (B,1), pos (B,) -> (logits (B,Vp), cache).
 
     cache: {'k': (L,B,S,KV,hd), 'v': (L,B,S,KV,hd)}, updated in place at
@@ -372,12 +395,13 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
     its block on the (B,1,d) token batch, over every expert's capacity
     buffer, and its auxiliary loss is dropped, as in the reference.
 
-    With `tp` (the dense family only) `params` and the cache are the
+    With `tp` (the dense and MoE families) `params` and the cache are the
     rank's shards and the logits are all of the vocabulary (gathered);
     `decode_mode` is the reference's switch (``_decode_attn``): 'heads',
     the cache holding the rank's kv heads, or 'seq', the cache holding
     the rank's chunk of the sequence, every kv head
-    (``attention.decode_attn_seq``).
+    (``attention.decode_attn_seq``). An MoE layer routes the global
+    batch's B tokens, in the layout `pspec_fn` names.
     """
     _on_mesh(cfg, tp)
     if decode_mode not in DECODE_MODES:
@@ -417,7 +441,7 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
         a = _reduce(a, tp, "attn_out")
         if "ln1post" in lp:
             a = rms_norm(a, lp["ln1post"], cfg.norm_eps)
-        h, _ = _mlp_half(lp, h + a, cfg, tp)
+        h, _ = _mlp_half(lp, h + a, cfg, tp, pspec_fn)
     return _logits(params, h, cfg, tp, whole=True)[:, 0], cache
 
 

@@ -41,6 +41,7 @@ on the CPU is one the caller asks for.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import pickle
@@ -859,15 +860,61 @@ def _numpy(tree):
     view would follow its later in-place updates)."""
     from repro_torch.optim.optimizers import tree_map
 
-    return tree_map(lambda t: np.array(t.detach().cpu()), tree)
+    return tree_map(lambda t: np.array(t.detach().cpu().float()
+                                       if t.dtype == torch.bfloat16
+                                       else t.detach().cpu()), tree)
 
 
 def _lm_model(cfg, job, device):
+    from repro_torch.distributed.sharding_rules import MOE_LAYOUTS
     from repro_torch.models import Model
 
     return Model(cfg, device=device, param_dtype=torch.float32,
                  remat=job.get("remat", "none"),
-                 mesh=lm_mesh(tuple(job["grid"]), device))
+                 mesh=lm_mesh(tuple(job["grid"]), device),
+                 rules_overrides=MOE_LAYOUTS[job.get("layout", "gather")])
+
+
+@contextlib.contextmanager
+def routes_recorded():
+    """Within, every ``models.moe.route`` call is recorded: a list of
+    (the probabilities routed, their Route), in call order."""
+    from repro_torch.models import moe
+
+    seen, route = [], moe.route
+
+    def recorder(probs, *args, **kw):
+        r = route(probs, *args, **kw)
+        seen.append((probs.detach().clone(), r))
+        return r
+
+    moe.route = recorder
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def route_record(seen, layers):
+    """The first `layers` recorded routes (a forward's), as numpy: each
+    one's probabilities, idx, pos, keep and slot map, its capacity and
+    expert load (the tokens each expert's buffer holds), and whether the
+    route is bitwise ``moe.route`` of its probabilities again."""
+    from repro_torch.models import moe
+
+    out = []
+    for probs, r in seen[:layers]:
+        again = moe.route(probs, r.idx.shape[1])
+        T, E = probs.shape
+        out.append(dict(
+            probs=probs.cpu().numpy(), idx=r.idx.cpu().numpy(),
+            pos=r.pos.cpu().numpy(), keep=r.keep.cpu().numpy(),
+            slots=r.slots.cpu().numpy(), cap=r.cap,
+            load=(r.slots.view(E, r.cap) < T).sum(1).cpu().numpy(),
+            again=all(torch.equal(getattr(again, f), getattr(r, f))
+                      for f in ("idx", "gate", "pos", "keep", "dest",
+                                "slots"))))
+    return out
 
 
 def _counts(mesh, before_calls, before_payload):
@@ -884,6 +931,7 @@ def _lm_grads(cfg, whole, job, device):
     from repro_torch.distributed.tensor_parallel import (gather_params,
                                                          shard_params)
     from repro_torch.launch import train
+    from repro_torch.models.params import tree_leaves
 
     model = _lm_model(cfg, job, device)
     model.tp.controls = frozenset(job.get("controls", ()))
@@ -892,14 +940,19 @@ def _lm_grads(cfg, whole, job, device):
     batch = {k: torch.as_tensor(v, device=device)
              for k, v in job["batch"].items()}
     calls, payload = dict(mesh.calls), dict(mesh.payload)
-    metrics, grads = train.mesh_grads(model, params, batch,
-                                      _shape(job["batch"]),
-                                      train.TrainSettings())
+    settings = train.TrainSettings(moe_layout=job.get("layout", "gather"),
+                                   **job.get("settings", {}))
+    with routes_recorded() as seen:
+        metrics, grads = train.mesh_grads(model, params, batch,
+                                          _shape(job["batch"]), settings)
     calls, payload = _counts(mesh, calls, payload)
     return dict(loss=float(metrics["loss"]),
                 grad_norm=float(metrics["grad_norm"]),
+                grad_dtype=str(tree_leaves(grads)[0].dtype).split(".")[-1],
                 grads=_numpy(gather_params(grads, pspecs, mesh)),
-                calls=calls, payload=payload)
+                calls=calls, payload=payload,
+                routes=route_record(seen, cfg.num_layers if
+                                    cfg.num_experts else 0))
 
 
 def _shape(batch):
@@ -922,7 +975,9 @@ def _lm_train(cfg, whole, job, device):
 
     model = _lm_model(cfg, job, device)
     mesh = model.mesh
-    settings = train.TrainSettings(**job["settings"])
+    settings = train.TrainSettings(**{"moe_layout": job.get("layout",
+                                                             "gather"),
+                                      **job["settings"]})
     shape = _shape(job["batches"][0])
     step_fn, opt, (_, _, pspecs, state_specs, _) = train.jit_train_step(
         model, shape, settings)
@@ -1053,27 +1108,89 @@ def _lm_serve_call(cfg, whole, job, device):
                 coordinate=model.mesh.get_coordinate())
 
 
+def _lm_update(cfg, whole, job, device):
+    """The mesh's optimizer (``train.mesh_optimizer``) over ``len(grads)``
+    updates of the rank's shards of `whole`, each from the rank's shard of
+    a whole gradient tree of ``grads`` (as if summed over 'data'): the
+    parameters and the state gathered whole after each update, and the
+    shapes of the state the rank holds. ``local_means`` runs adafactor's
+    control (``optimizers.adafactor(local_means=True)``)."""
+    from repro_torch.distributed.tensor_parallel import (gather_params,
+                                                         shard_params)
+    from repro_torch.launch import train
+    from repro_torch.models.params import from_numpy
+    from repro_torch.optim import optimizers
+
+    model = _lm_model(cfg, job, device)
+    mesh = model.mesh
+    settings = train.TrainSettings(**job["settings"])
+    shape = _shape(job["batch_shape"])
+    _, sspecs, *_ = train.shardings_for(model, shape, settings)
+    pspecs = model.pspecs()
+    if job.get("local_means"):
+        opt = optimizers.adafactor(settings.lr, mesh=mesh, pspecs=pspecs,
+                                   state_pspecs=sspecs, zero1=settings.zero1,
+                                   local_means=True)
+    else:
+        opt = train.mesh_optimizer(model, shape, settings)
+    params = shard_params(whole, pspecs, mesh)
+    state = opt.init(params)
+    out = dict(params=[], state=[], held=optimizers.tree_map(
+        lambda t: np.array(t.shape), state))
+    for step, g in enumerate(job["grads"]):
+        grads = shard_params(from_numpy(g, device=device,
+                                        dtype=torch.float32), pspecs, mesh)
+        with torch.no_grad():
+            params, state = opt.update(grads, state, params, step)
+        out["params"].append(_numpy(gather_params(params, pspecs, mesh)))
+        out["state"].append(_numpy(gather_params(state, sspecs, mesh)))
+    return out
+
+
+def _lm_collectives(cfg, whole, job, device):
+    """``Mesh.reduce_scatter_cat`` and the data-axis pair of
+    ``tensor_parallel`` on a non-contiguous view: each rank's (4, 6, 8)
+    tensor of its rank's values moved to (8, 4, 6); the reduce-scatter's
+    result and the gather's."""
+    mesh = lm_mesh(tuple(job["grid"]), device)
+    rank = torch.distributed.get_rank()
+    x = torch.arange(4 * 6 * 8, dtype=torch.float32, device=device
+                     ).view(4, 6, 8) * (rank + 1)
+    view = x.movedim(2, 0)
+    return dict(scattered=mesh.reduce_scatter_cat(view, "data").cpu().numpy(),
+                gathered=mesh.all_gather_cat(view, "data").cpu().numpy())
+
+
 _LM_JOBS = {"grads": _lm_grads, "train": _lm_train,
             "decode_seq": _lm_decode_seq, "serve": _lm_serve,
-            "serve_call": _lm_serve_call}
+            "serve_call": _lm_serve_call, "update": _lm_update,
+            "collectives": _lm_collectives}
 
 
 def rank_lm(cfg, whole, jobs, device=None):
     """The LM stack's jobs over meshes of this rank's process group, in
-    order; a list of their results (numpy). `cfg` is a dense-family
-    ``ArchConfig``; `whole` the whole parameters as numpy (the attention
-    block's alone for 'decode_seq'), carried to `device` in float32 and
-    cut to each job's shards (``tensor_parallel.shard_params``). A job is
-    a dict with its ``kind`` and ``grid`` (data, model):
+    order; a list of their results (numpy). `cfg` is a dense- or
+    MoE-family ``ArchConfig``; `whole` the whole parameters as numpy (the
+    attention block's alone for 'decode_seq'), carried to `device` in
+    float32 and cut to each job's shards (``tensor_parallel.
+    shard_params``). A job is a dict with its ``kind`` and ``grid`` (data,
+    model), and for the MoE family its ``layout`` ('gather' by default, or
+    'token_tp': the model's ``rules_overrides`` and the step's
+    ``moe_layout``):
 
     * 'grads': ``train.mesh_grads`` of ``batch`` (numpy tokens and
-      targets, the global batch) under ``remat`` and ``controls``;
+      targets, the global batch) under ``remat``, ``controls``
+      (``tensor_parallel.CONTROLS``) and ``settings`` (``TrainSettings``
+      fields), with the first forward's routes (``route_record``);
     * 'train': ``jit_train_step``'s steps over ``batches`` under
       ``settings`` (``TrainSettings`` fields) and ``remat``;
     * 'decode_seq': ``attention.decode_attn_seq`` of ``h``, ``cache_k``,
       ``cache_v``, ``pos``, ``window``;
     * 'serve': greedy serving of ``prompts`` for ``gen_len`` tokens, every
-      step's logits kept; 'serve_call': ``serve.serve`` itself.
+      step's logits kept; 'serve_call': ``serve.serve`` itself;
+    * 'update': the mesh's optimizer over whole gradient trees ``grads``
+      (``_lm_update``); 'collectives': the data-axis collectives on a
+      non-contiguous view (``_lm_collectives``).
 
     The meshes are made on their first use (``lm_mesh``), each rank in the
     same order. The rank's allocator cache is emptied after each job."""

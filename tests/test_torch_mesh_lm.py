@@ -44,7 +44,6 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced_config
-from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import serve as port_serve
 from repro_torch.launch import train as port_train
 from repro_torch.models import Model
@@ -350,15 +349,16 @@ def test_layouts_match_what_the_ranks_hold(setup):
 
 
 def test_other_families_refuse_a_mesh():
+    """The SSM and hybrid families still refuse a mesh of ranks (A6b
+    items 3-4); the dense and MoE families run on one."""
     from repro_torch.models import transformer
 
-    cfg = reduced_config(get_config("arctic-480b"))
-    with pytest.raises(NotImplementedError, match="A6b"):
-        transformer._on_mesh(cfg, object())
-    with pytest.raises(NotImplementedError, match="A6b"):
-        port_train._mesh_train_step(types.SimpleNamespace(), ShapeConfig(
-            "t", "train", 16, 4), port_train.TrainSettings(
-                optimizer="adafactor"), None)
+    for arch in ("mamba2-130m", "zamba2-7b"):
+        cfg = reduced_config(get_config(arch))
+        with pytest.raises(NotImplementedError, match="A6b"):
+            transformer._on_mesh(cfg, object())
+    for arch in ("chatglm3-6b", "arctic-480b"):
+        transformer._on_mesh(reduced_config(get_config(arch)), object())
 
 
 class _Grid:
