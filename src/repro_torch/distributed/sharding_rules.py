@@ -128,13 +128,17 @@ def decode_mode(cfg: ArchConfig, mesh) -> str:
 
 
 def activation_pspec_fn(cfg: ArchConfig, shape: ShapeConfig, mesh,
-                        overrides: Optional[dict] = None):
+                        overrides: Optional[dict] = None,
+                        batch: Optional[Tuple[str, ...]] = None):
     """fn(logical axes) -> the :class:`PartitionSpec` of an activation.
     ``fn.gather_weights`` says which MoE layout the rules give: True for
     'gather' (the expert weights gathered over 'data' each layer), False
-    for 'token_tp'."""
+    for 'token_tp'. `batch` (mesh axes, the port's own argument) lays the
+    batch where a step puts it instead of ``batch_axes`` (the serving
+    steps of a family whose prompt goes through decode: the cache's
+    rows)."""
     rules = rules_for(cfg, mesh, overrides)
-    b_axes = batch_axes(cfg, shape, mesh)
+    b_axes = batch_axes(cfg, shape, mesh) if batch is None else tuple(batch)
 
     def fn(axes):
         out, used = [], set()

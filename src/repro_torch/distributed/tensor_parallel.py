@@ -26,6 +26,22 @@ of the 'data' axis:
   expert outputs each rank combined for every token of the global batch,
   summed over 'data' into each rank's rows.
 
+The SSM family's layouts (``sharding_rules.rules_for`` puts its heads over
+'model' when they divide it, ``batch_axes`` its rows over 'model' too when
+the batch divides both axes) add three more pieces:
+
+* ``norm_sum``: all-reduce forward and backward. The gated norm's sum of
+  squares over the inner channels a rank holds a share of: the whole sum
+  feeds each rank's own channels, so its gradient is partial on every
+  rank;
+* ``bc_weight``: the replicated B/C projections and their convolutions,
+  whose gradient each rank takes from its own heads only (``kv_weight``'s
+  rule);
+* ``gather_model``: all-gather over 'model' forward, reduce-scatter
+  backward, the pair ``gather_data`` is on 'data': a leaf split over
+  'model' gathered whole when the rank's rows lie over 'model' (its own
+  rows on every head), its gradient each rank's chunk of the sum.
+
 Each is a ``torch.autograd.Function`` over ``core.distributed.Mesh``'s
 collectives, which count their payload under a tag in ``Mesh.payload``
 (and their calls in ``Mesh.calls``). :class:`TensorParallel` is a rank's
@@ -46,10 +62,13 @@ DATA = "data"
 # partial gradient of replicated kv weights left unsummed; in the 'gather'
 # MoE layout the gathered expert weights' gradient not reduce-scattered
 # (each rank keeps its own slice of its own); the 'model' all-reduce of
-# the expert outputs' partial sums dropped; and each data rank routing
-# only its own rows with its own capacity
+# the expert outputs' partial sums dropped; each data rank routing only
+# its own rows with its own capacity; the SSM's gated norm without its
+# backward all-reduce; the replicated B/C weights' partial gradients left
+# unsummed; and a leaf gathered over 'model' keeping its own slice of its
+# own gradient, not the reduce-scatter
 CONTROLS = ("input_grad", "kv_grad", "weight_grad", "expert_sum",
-            "local_route")
+            "local_route", "norm_grad", "bc_grad", "scatter_grad")
 
 
 class _Copy(torch.autograd.Function):
@@ -81,33 +100,56 @@ class _Reduce(torch.autograd.Function):
         return grad, None, None
 
 
-def _reduce_scatter(mesh, t, tag):
-    """The sum over 'data' of the ranks' `t`, cut along dim 0 into
-    ``size('data')`` chunks: this rank's chunk."""
-    n = mesh.size(DATA)
-    return mesh.reduce_scatter_cat(t, DATA, tag=tag) if n > 1 else t
-
-
-class _GatherData(torch.autograd.Function):
-    """All-gather over 'data' along `dim` forward; the gradient
-    reduce-scattered back (each rank's chunk of the sum over 'data'), or
-    under the 'weight_grad' control the rank's own chunk of its own."""
+class _NormSum(torch.autograd.Function):
+    """All-reduce over the axis forward and backward: a sum that feeds
+    each rank's own work, so that its gradient is partial on every rank
+    (under the 'norm_grad' control the backward is left as it is)."""
 
     @staticmethod
-    def forward(ctx, x, tp, dim, tag, keep_own):
-        ctx.tp, ctx.dim, ctx.tag, ctx.keep_own = tp, dim, tag, keep_own
-        whole = tp.mesh.all_gather_cat(x.movedim(dim, 0), DATA, tag=tag)
+    def forward(ctx, x, tp, tag):
+        ctx.tp, ctx.tag = tp, tag
+        out = x.contiguous().clone()
+        tp.mesh.all_reduce(out, AXIS, tag=tag)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        if "norm_grad" in ctx.tp.controls:
+            return grad, None, None
+        grad = grad.contiguous().clone()
+        ctx.tp.mesh.all_reduce(grad, AXIS, tag=ctx.tag)
+        return grad, None, None
+
+
+def _reduce_scatter(mesh, t, tag, axis=DATA):
+    """The sum over `axis` of the ranks' `t`, cut along dim 0 into
+    ``size(axis)`` chunks: this rank's chunk."""
+    n = mesh.size(axis)
+    return mesh.reduce_scatter_cat(t, axis, tag=tag) if n > 1 else t
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather over `axis` along `dim` forward; the gradient
+    reduce-scattered back (each rank's chunk of the sum over the axis),
+    or with `keep_own` (a control) the rank's own chunk of its own."""
+
+    @staticmethod
+    def forward(ctx, x, tp, axis, dim, tag, keep_own):
+        ctx.tp, ctx.axis, ctx.dim, ctx.tag = tp, axis, dim, tag
+        ctx.keep_own = keep_own
+        whole = tp.mesh.all_gather_cat(x.movedim(dim, 0), axis, tag=tag)
         return whole.movedim(0, dim)
 
     @staticmethod
     def backward(ctx, grad):
-        tp, dim = ctx.tp, ctx.dim
+        tp, dim, axis = ctx.tp, ctx.dim, ctx.axis
         g = grad.movedim(dim, 0)
         if ctx.keep_own:
-            out = g.chunk(tp.data_size)[tp.data_rank].clone()
+            k = tp.data_rank if axis == DATA else tp.rank
+            out = g.chunk(tp.mesh.size(axis))[k].clone()
         else:
-            out = _reduce_scatter(tp.mesh, g, ctx.tag)
-        return (out.movedim(0, dim).contiguous(), None, None, None,
+            out = _reduce_scatter(tp.mesh, g, ctx.tag, axis)
+        return (out.movedim(0, dim).contiguous(), None, None, None, None,
                 None)
 
 
@@ -148,9 +190,14 @@ class TensorParallel:
     and whether the kv heads are split (``kv_heads``; the q heads, the MLP
     hidden and the vocabulary always are: a layout that replicates one of
     them over a model axis of more than one rank is refused). Beside it,
-    the rank's place on 'data' (``data_rank`` of ``data_size``), and for
-    the MoE family the experts' layout (``moe_layout``: 'gather' or
-    'token_tp'; the experts and their hidden must divide their axes).
+    the rank's place on 'data' (``data_rank`` of ``data_size``), for the
+    MoE family the experts' layout (``moe_layout``: 'gather' or
+    'token_tp'; the experts and their hidden must divide their axes), and
+    for the SSM and hybrid families whether the SSM heads (and the inner
+    channels with them) are split over the axis (``ssm_heads``; the rules
+    replicate them when the axis does not divide them). Whether a batch's
+    rows lie over 'model' too is the step's layout, not the model's
+    (``rows_over_model``).
 
     ``controls`` (a subset of ``CONTROLS``, empty by default) breaks a
     piece on purpose, for a check to show that its rule catches it."""
@@ -182,7 +229,19 @@ class TensorParallel:
                     raise NotImplementedError(
                         f"{cfg.name}: {n} does not split over {ax!r} of "
                         f"{sizes[ax]} ranks")
+        self.ssm_heads = (cfg.has_ssm and self.size > 1
+                          and rules["ssm_heads"] == AXIS)
         self.controls = frozenset()
+
+    def rows_over_model(self, pspec_fn) -> bool:
+        """Whether the activations' batch lies over 'model' as well as
+        'data' (the SSM family's layout when its batch divides both axes):
+        what `pspec_fn` (``sharding_rules.activation_pspec_fn``) gives the
+        batch; without it the rows lie over 'data' alone."""
+        if pspec_fn is None or self.size == 1:
+            return False
+        ax = pspec_fn(("batch",))[0]
+        return AXIS in (ax if isinstance(ax, tuple) else (ax,))
 
     # -- collectives -------------------------------------------------------
     def copy(self, x, tag):
@@ -208,6 +267,34 @@ class TensorParallel:
             return w
         return _Copy.apply(w, self, "kv_grad")
 
+    def bc_weight(self, w):
+        """A replicated B/C projection or convolution weight of an SSM
+        layer whose heads are split: every rank computes the same B and C,
+        but each rank's gradient of them comes from its own heads, so the
+        weight's gradient is all-reduced (tag 'ssm_bc_grad'), unless the
+        'bc_grad' control leaves it unsummed."""
+        if not self.ssm_heads or "bc_grad" in self.controls:
+            return w
+        return _Copy.apply(w, self, "ssm_bc_grad")
+
+    def norm_sum(self, x):
+        """`x`, a partial sum over channels split over the axis (the gated
+        norm's sum of squares), all-reduced (tag 'ssm_norm'); its gradient
+        all-reduced too, unless the 'norm_grad' control drops that."""
+        if self.size == 1:
+            return x
+        return _NormSum.apply(x, self, "ssm_norm")
+
+    def gather_model(self, x, dim, tag):
+        """The model ranks' `x` concatenated along `dim` in rank order (a
+        leaf split over 'model', whole); its gradient reduce-scattered
+        back (under the 'scatter_grad' control the rank's own slice of its
+        own)."""
+        if self.size == 1:
+            return x
+        return _Gather.apply(x, self, AXIS, dim, tag,
+                             "scatter_grad" in self.controls)
+
     def gather_data(self, x, dim, tag):
         """The data ranks' `x` concatenated along `dim` in rank order (the
         global batch's rows, or a split weight whole); its gradient
@@ -216,7 +303,7 @@ class TensorParallel:
         if self.data_size == 1:
             return x
         keep_own = tag == "moe_weights" and "weight_grad" in self.controls
-        return _GatherData.apply(x, self, dim, tag, keep_own)
+        return _Gather.apply(x, self, DATA, dim, tag, keep_own)
 
     def scatter_data(self, x, tag):
         """`x` summed over the data ranks and cut along dim 0: this rank's

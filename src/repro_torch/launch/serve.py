@@ -28,15 +28,21 @@ once a layer too; the MoE family needs no branch here). A config with a frontend
 ``input_specs``' shape drawn from the CLI's seeded generator, put ahead of
 each prompt.
 
-Over a mesh of ranks (a ``Model`` on a ``core.distributed.Mesh``; the
-dense and MoE families) ``serve`` runs on each rank with its shards of
-the parameters: the rank takes its rows of the prompts (``batch_axes``),
-its prefill and decode run tensor-parallel over 'model', and its cache is
-its shard (``Model.cache_template``): its kv heads in 'heads' decode, its
-chunk of the sequence in 'seq' decode (``sharding_rules.decode_mode``).
-An MoE layer routes the global batch's tokens: the prefill's B x P, each
-decode step's B over every expert's capacity buffer, as on one device.
-``serve_shardings`` gives the reference's layouts as specs.
+Over a mesh of ranks (a ``Model`` on a ``core.distributed.Mesh``)
+``serve`` runs on each rank with its shards of the parameters: the rank
+takes its rows of the prompts (``serve_row_axes``), its prefill and
+decode run tensor-parallel over 'model', and its cache is its shard
+(``Model.cache_template``): its kv heads in 'heads' decode, its chunk of
+the sequence in 'seq' decode (``sharding_rules.decode_mode``), for the
+SSM and hybrid families the state's heads as the rules split them. An MoE
+layer routes the global batch's tokens: the prefill's B x P, each decode
+step's B over every expert's capacity buffer, as on one device.
+``serve_shardings`` gives the reference's layouts as specs. Its token
+spec may lay the SSM family's rows over 'model' too (``batch_axes``),
+while its cache spec lays the state's rows over 'data' alone; the prompt
+of the SSM and hybrid families goes through decode (``warm_up``), so a
+rank here serves the cache's rows, prefill included, and decode follows
+the cache's layout.
 """
 from __future__ import annotations
 
@@ -68,7 +74,8 @@ def make_serve_steps(model: Model, shape: Optional[ShapeConfig] = None,
     kernel wrapper in prefill."""
     long_ctx = shape is not None and shape.seq_len > LONG_CONTEXT
     pspec_fn = (activation_pspec_fn(model.cfg, shape, model.mesh,
-                                    model.rules_overrides)
+                                    model.rules_overrides,
+                                    serve_row_axes(model, shape))
                 if model.mesh is not None and shape is not None else None)
 
     def prefill_step(params, batch):
@@ -79,6 +86,17 @@ def make_serve_steps(model: Model, shape: Optional[ShapeConfig] = None,
                             long_context=long_ctx, pspec_fn=pspec_fn)
 
     return prefill_step, decode_step
+
+
+def serve_row_axes(model: Model, shape: ShapeConfig):
+    """The mesh axes a serving rank's rows lie over: the token spec's
+    (``batch_axes``) for a family whose prefill builds the decode cache;
+    the cache's for the SSM and hybrid families, whose decode state
+    ``warm_up`` builds ('data' when the batch divides it, else none)."""
+    if model.cfg.family not in ("ssm", "hybrid"):
+        return batch_axes(model.cfg, shape, model.mesh)
+    b = model.cache_pspecs(shape)["state"][1]
+    return () if b is None else (b if isinstance(b, tuple) else (b,))
 
 
 def serve_shardings(model: Model, shape: ShapeConfig):
@@ -154,7 +172,7 @@ def serve(model: Model, params, prompts, gen_len: int, force: str = "auto",
         batch["frontend_embeds"] = frontend_embeds
         P += frontend_embeds.shape[1]  # positions before the first token
     if model.tp is not None:
-        batch = rank_rows(model, shape, batch)
+        batch = rank_rows(model, shape, batch, serve_row_axes(model, shape))
         prompts = batch["tokens"]
     logits, pre = prefill_step(params, batch)
     if pre is not None:

@@ -20,14 +20,19 @@ reference computes in full f32).
 
 Over a mesh of ranks (a ``Model`` built on a ``core.distributed.Mesh``)
 the step is the one GSPMD makes of the reference's: each rank takes its
-rows of the global batch (``batch_axes``), runs the dense and MoE
-families tensor-parallel over 'model' (the MoE layers' experts in the
-layout ``TrainSettings.moe_layout`` names, which must be the model's),
-sums the gradients over 'data' (a leaf split over 'data', an expert
-weight, is not summed: its shards hold different entries) and divides by
-its size, takes the grad norm counting every element once, and updates
-with its ZeRO-1 shard of the optimizer state (``optim.optimizers.zero1``
-for sgd, momentum and adamw, ``adafactor(mesh=)`` for adafactor). The
+rows of the global batch (``batch_axes``: over 'data', and for the SSM
+family over 'model' too when the batch divides both), runs every family
+tensor-parallel over 'model' (the MoE layers' experts in the layout
+``TrainSettings.moe_layout`` names, which must be the model's; the SSM
+layers on the rank's heads, or with rows over 'model' on every head,
+``models.transformer``), sums the gradients over the axes its rows lie
+on (a leaf split over 'data', an expert weight, is not summed: its shards
+hold different entries; nor, with rows over 'model', is a leaf split over
+'model', which the step gathered and reduce-scattered) and divides by the
+number of row blocks, takes the grad norm counting every element once,
+and updates with its ZeRO-1 shard of the optimizer state
+(``optim.optimizers.zero1`` for sgd, momentum and adamw,
+``adafactor(mesh=)`` for adafactor). The
 layouts are the reference's, as data: ``batch_pspec`` and
 ``shardings_for``'s specs; ``jit_train_step`` is the reference's entry
 point of the same name (PyTorch runs the step eagerly).
@@ -217,23 +222,29 @@ def make_train_step(model: Model, shape: ShapeConfig,
     return train_step, opt
 
 
-def rank_rows(model: Model, shape: ShapeConfig, batch):
+def rank_rows(model: Model, shape: ShapeConfig, batch, axes=None):
     """This rank's rows of the global `batch`: its block along the axes
-    the batch is split over (``batch_axes``; all rows when none)."""
+    the batch is split over (`axes`, by default ``batch_axes``; all rows
+    when none), in the reference's order: over ('data', 'model') the block
+    at data-rank x model-size + model-rank."""
     mesh = model.mesh
-    axes = batch_axes(model.cfg, shape, mesh)
+    if axes is None:
+        axes = batch_axes(model.cfg, shape, mesh)
     if not axes and model.cfg.num_experts and mesh.size("data") > 1:
         raise NotImplementedError(
             f"a batch of {shape.global_batch} rows that 'data' does not "
             "split: an MoE layer would route every data rank's copy")
     if not axes:
         return batch
-    if axes != ("data",):
+    if tuple(axes) not in (("data",), ("data", "model")):
         raise NotImplementedError(
-            f"a batch split over {axes}: the 'data' axis alone is run "
-            "(ROADMAP A6b)")
-    n, p = mesh.size("data"), mesh.get_coordinate()[0]
-    return {k: v.chunk(n)[p] for k, v in batch.items()}
+            f"a batch split over {axes}: 'data', or 'data' and 'model', is "
+            "run (the 'pod' axis waits for ROADMAP A6b item 4)")
+    p, q = mesh.get_coordinate()
+    n, k = mesh.size("data"), p
+    if "model" in axes:
+        n, k = n * mesh.size("model"), p * mesh.size("model") + q
+    return {name: v.chunk(n)[k] for name, v in batch.items()}
 
 
 def mesh_pspec_fn(model: Model, shape: ShapeConfig, settings: TrainSettings):
@@ -255,9 +266,10 @@ def mesh_grads(model: Model, params, batch, shape: ShapeConfig,
     micro = dataclasses.replace(shape, global_batch=shape.global_batch // A)
     loss, metrics, grads = _gradients(
         model, params, batch, A, getattr(torch, settings.grad_dtype),
-        mesh_pspec_fn(model, shape, settings),
+        mesh_pspec_fn(model, micro, settings),
         rows=lambda b: rank_rows(model, micro, b))
-    return sum_over_data(model, loss, metrics, grads)
+    return sum_over_data(model, loss, metrics, grads, rows_over_model=(
+        "model" in batch_axes(model.cfg, micro, model.mesh)))
 
 
 def _axes(spec):
@@ -265,7 +277,8 @@ def _axes(spec):
             for a in (s if isinstance(s, tuple) else (s,))}
 
 
-def sum_over_data(model: Model, loss, metrics, grads):
+def sum_over_data(model: Model, loss, metrics, grads,
+                  rows_over_model: bool = False):
     """(metrics, grads): the rank's `grads` (of its rows) summed over
     'data' and divided by its size, in place (a leaf split over 'data',
     whose shards hold different entries, is divided only: its rank's
@@ -273,19 +286,30 @@ def sum_over_data(model: Model, loss, metrics, grads):
     reduce-scatters of the MoE layouts); the loss and the metrics
     averaged over 'data'; and ``grad_norm`` counting every element once
     (each leaf's squares summed over every axis that splits it, a
-    replicated leaf's taken once)."""
+    replicated leaf's taken once). With `rows_over_model` (the SSM
+    family's rows over 'data' and 'model') the same over both axes: a
+    leaf split over 'model' already sums the model ranks' shares (the
+    step gathered it and reduce-scattered its gradient), a replicated one
+    is summed over 'model' too, and the divisor and the averages count
+    every row block."""
     mesh = model.mesh
-    n = mesh.size("data")
+    axes = ("data", "model") if rows_over_model else ("data",)
+    n = 1
+    for ax in axes:
+        n *= mesh.size(ax)
     specs = tree_leaves(model.pspecs())
     metrics = dict(metrics, loss=loss)
     if n > 1:
         for g, spec in zip(tree_leaves(grads), specs):
-            if "data" not in _axes(spec):
-                mesh.all_reduce(g, "data", tag="grads")
+            for ax in axes:
+                if ax not in _axes(spec) and mesh.size(ax) > 1:
+                    mesh.all_reduce(g, ax, tag="grads")
             g.div_(n)
         keys = sorted(metrics)
         both = torch.stack([metrics[k].float() for k in keys])
-        mesh.all_reduce(both, "data", tag="loss")
+        for ax in axes:
+            if mesh.size(ax) > 1:
+                mesh.all_reduce(both, ax, tag="loss")
         metrics = dict(zip(keys, both / n))
     sums = {}  # the squares by the axes that split their leaves
     for g, spec in zip(tree_leaves(grads), specs):

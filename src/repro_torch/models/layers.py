@@ -17,10 +17,18 @@ import torch
 import torch.nn.functional as F
 
 
-def rms_norm(x, weight, eps: float = 1e-6):
+def rms_norm(x, weight, eps: float = 1e-6, tp=None):
+    """x normalised by the root mean square of its last dim, scaled by
+    1 + weight. With `tp` that dim is split over the 'model' axis (`x`
+    and `weight` the rank's channels): the sum of squares is all-reduced
+    over the axis, forward and backward (``TensorParallel.norm_sum``)."""
     dt = x.dtype
     x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
+    if tp is None:
+        var = torch.mean(x * x, dim=-1, keepdim=True)
+    else:
+        var = tp.norm_sum(torch.sum(x * x, dim=-1, keepdim=True)) \
+            / (x.shape[-1] * tp.size)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.float())).to(dt)
 

@@ -15,9 +15,12 @@ ranks also runs the entry points there, tensor-parallel over its 'model'
 axis (``distributed.tensor_parallel``): each rank passes its shards of the
 parameters (``tensor_parallel.shard_params`` of the whole tree by
 ``pspecs``) and of the cache (``cache_template``), and its rows of the
-batch. The dense and MoE families run so (the MoE family's experts in the
-layout of `rules_overrides`, 'gather' by default or 'token_tp'); the SSM
-and hybrid families over a mesh wait for ROADMAP A6b items 3-4.
+batch. Every family runs so: the MoE family's experts in the layout of
+`rules_overrides` ('gather' by default, or 'token_tp'), the SSM and hybrid
+families' heads split over 'model' or replicated as the rules say, the
+SSM family's rows over 'model' too where the step's layout puts them
+there (``models.transformer``). A mesh with a 'pod' axis waits for
+ROADMAP A6b item 4.
 """
 from __future__ import annotations
 
@@ -214,29 +217,36 @@ class Model(nn.Module):
         (`seq` > 2 x the window), a ring of ``cfg.sliding_window`` slots,
         over which decode sees the last `window` positions. Over a mesh of
         ranks it is the rank's shard of that cache (``cache_pspecs`` for a
-        batch of `batch` sequences of `seq`)."""
+        batch of `batch` sequences of `seq`): the state's heads split as
+        the rules split them, the conv history whole."""
         cfg = self.cfg
         dt = dtype or self.param_dtype
         dev = self.device if device is None else torch.device(device)
+        if self.tp is not None:
+            sizes = axis_sizes(self.mesh)
+            specs = self.cache_pspecs(ShapeConfig("cache", "decode", seq,
+                                                  batch))
+
+            def shard(name, shape):
+                return tuple(n // (sizes[ax] if ax else 1)
+                             for n, ax in zip(shape, specs[name]))
+        else:
+            def shard(name, shape):
+                return shape
         kv = (batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
         if cfg.family in ("ssm", "hybrid"):
-            out = ssm.ssm_cache_template(cfg, batch, dev,
-                                         layers=(cfg.num_layers,))
+            rows = shard("conv", (1, batch, 1, 1))[1]
+            out = ssm.ssm_cache_template(cfg, rows, dev,
+                                         layers=(cfg.num_layers,), tp=self.tp)
             if cfg.family == "hybrid":
                 window = cfg.sliding_window
                 s_attn = min(seq, window) if seq > 2 * window else seq
-                shape = (transformer.n_attn_sites(cfg), batch, s_attn) \
-                    + kv[2:]
+                shape = shard("ak", (transformer.n_attn_sites(cfg), batch,
+                                     s_attn) + kv[2:])
                 out["ak"] = torch.zeros(shape, dtype=dt, device=dev)
                 out["av"] = torch.zeros(shape, dtype=dt, device=dev)
             return out
-        shape = (cfg.num_layers,) + kv
-        if self.tp is not None:
-            sizes = axis_sizes(self.mesh)
-            spec = self.cache_pspecs(ShapeConfig("cache", "decode", seq,
-                                                 batch))["k"]
-            shape = tuple(n // (sizes[ax] if ax else 1)
-                          for n, ax in zip(shape, spec))
+        shape = shard("k", (cfg.num_layers,) + kv)
         return {"k": torch.zeros(shape, dtype=dt, device=dev),
                 "v": torch.zeros(shape, dtype=dt, device=dev)}
 

@@ -34,9 +34,31 @@ reference's "collectives" policy saves). An MoE block sums its own output
 over both axes (``moe.moe_forward`` over a mesh: the route over the
 global batch, the experts in the 'gather' or 'token_tp' layout, which
 `pspec_fn` names). Decode switches between the 'heads' and the 'seq'
-attention as the reference's ``_decode_attn`` does. The SSM and hybrid
-families over a mesh raise ``NotImplementedError`` (ROADMAP A6b items 3
-and 4).
+attention as the reference's ``_decode_attn`` does.
+
+The SSM and hybrid families run the reference's three layouts over a mesh
+(``sharding_rules.rules_for`` splits the SSM heads over 'model' when they
+divide it; ``batch_axes`` lays the SSM family's rows over 'model' too when
+the batch divides both axes, which `pspec_fn` says):
+
+* A, the heads split, the rows over 'data': each SSM layer runs
+  tensor-parallel on the rank's heads (``ssm.ssm_forward`` with `tp`),
+  the hybrid's shared block as a dense block;
+* B, the heads split, the rows over 'data' and 'model': each layer's
+  leaves split over 'model' are gathered whole (``ssm.gather_heads``,
+  'ssm_weights'; their gradients reduce-scattered back) and the layer
+  runs on the rank's own rows as on one device; the vocabulary leaves
+  are gathered so too ('vocab_weights'), since the split embedding and
+  cross entropy assume every model rank holds the same rows;
+* C, the heads replicated (the model axis does not divide them): as B,
+  with only the vocabulary gathered when the rows lie over 'model', and
+  with the vocabulary tensor-parallel when they do not.
+
+Decode follows the cache's layout (``Model.cache_pspecs``: the state's
+rows over 'data', its heads as the rules say), so it runs A, or C with
+the vocabulary tensor-parallel. What waits (ROADMAP A6b): a mesh with a
+'pod' axis, and a hybrid grid whose model axis does not divide the kv
+heads (its cache's spec always splits them).
 """
 from __future__ import annotations
 
@@ -214,10 +236,14 @@ def _attn_block(lp, h, cfg: ArchConfig, positions, window: int, force: str,
     return _mlp_out(lp, h, _ffn_out(lp, m, tp), cfg), kv, aux
 
 
-def _ssm_block(lp, h, cfg: ArchConfig, force: str):
+def _ssm_block(lp, h, cfg: ArchConfig, force: str, tp=None, pieces=None):
+    """One SSM layer: h + the Mamba-2 block on h's norm. With `tp` (the
+    heads split, the rows over 'data') the block runs on the rank's heads
+    and `pieces` wraps its local work before the first collective
+    (``ssm.ssm_forward``)."""
     return h + ssm.ssm_forward(lp["ssm"], rms_norm(h, lp["ln"], cfg.norm_eps),
                                cfg, chunk=min(cfg.ssm_chunk, h.shape[1]),
-                               force=force)
+                               force=force, tp=tp, pieces=pieces)
 
 
 REMATS = ("none", "full", "dots", "collectives")
@@ -237,10 +263,11 @@ def _remat(fn, remat: str):
     "collectives": the reference saves the tensor-parallel all-reduce
     outputs ('attn_out', 'mlp_out') and recomputes the rest; here an
     attention block checkpoints its local work between the all-reduces
-    (``_attn_block``'s `pieces`), so the recompute never runs a
-    collective, and a block with no such outputs (an SSM layer) is
-    checkpointed whole. Every policy gives the same gradients, bit for
-    bit."""
+    (``_attn_block``'s `pieces`), an SSM layer over a mesh its local work
+    before the first collective (``_ssm_layer``), so the recompute never
+    runs a collective, and a block with no collectives (an SSM layer on
+    one device) is checkpointed whole. Every policy gives the same
+    gradients, bit for bit."""
     if remat == "none":
         return fn
     if remat in REMATS:
@@ -249,12 +276,61 @@ def _remat(fn, remat: str):
 
 
 def _on_mesh(cfg: ArchConfig, tp):
-    """Refuse a family whose layers are not yet run over a mesh."""
-    if tp is not None and cfg.family in ("ssm", "hybrid"):
+    """Refuse a layout whose layers are not yet run over a mesh: a mesh
+    with a 'pod' axis, and a hybrid grid whose model axis does not divide
+    the kv heads (the reference's hybrid cache always splits them)."""
+    if tp is None:
+        return
+    if "pod" in tp.mesh.axis_sizes:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family over a mesh of ranks (SSM "
-            "tensor parallelism, the hybrid stack) waits for ROADMAP A6b "
-            "items 3-4; the dense and MoE families run")
+            f"{cfg.name}: a mesh with a 'pod' axis (the batch over ('pod', "
+            "'data')) waits for ROADMAP A6b item 4")
+    if cfg.family == "hybrid" and cfg.num_kv_heads % tp.size:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.num_kv_heads} kv heads over a model axis of "
+            f"{tp.size} ranks: the hybrid cache splits them (ROADMAP A6b)")
+
+
+def _rows_over_model(cfg: ArchConfig, tp, pspec_fn) -> bool:
+    """Whether the rank's rows lie over 'model' too (the SSM family's
+    layouts B and C): what `pspec_fn` gives the batch."""
+    return (tp is not None and cfg.family == "ssm"
+            and tp.rows_over_model(pspec_fn))
+
+
+def _whole_vocab(params, tp):
+    """`params` with the vocabulary leaves (split over 'model') gathered
+    whole, their gradients reduce-scattered back ('vocab_weights')."""
+    out = dict(params, embed=tp.gather_model(params["embed"], 0,
+                                             "vocab_weights"))
+    if "unembed" in params:
+        out["unembed"] = tp.gather_model(params["unembed"], 1,
+                                         "vocab_weights")
+    return out
+
+
+def _ssm_layer(cfg: ArchConfig, force: str, tp, remat: str, rows: bool):
+    """fn(lp, h) -> h: one SSM layer as the layout runs it (see the module
+    docstring), under `remat`: "full" and "dots" checkpoint the whole
+    layer, its collectives too; "collectives" checkpoints the local work
+    between them."""
+    pieces = _checkpointed if remat == "collectives" else None
+    if tp is not None and tp.ssm_heads and not rows:  # A
+        def layer(lp, x):
+            return _ssm_block(lp, x, cfg, force, tp, pieces)
+    elif tp is not None and tp.ssm_heads:  # B
+        def local(lp, x):
+            return _ssm_block(lp, x, cfg, force)
+
+        body = local if pieces is None else pieces(local)
+
+        def layer(lp, x):
+            return body(dict(lp, ssm=ssm.gather_heads(lp["ssm"], cfg, tp)),
+                        x)
+    else:  # one device, or the heads replicated (C): no collective
+        return _remat(lambda lp, x: _ssm_block(lp, x, cfg, force), remat)
+    return layer if remat in ("none", "collectives") else _remat(layer,
+                                                                 remat)
 
 
 # ---------------------------------------------------------------------------
@@ -288,21 +364,27 @@ def forward_with_aux(params, tokens, cfg: ArchConfig, *,
     backward keeps and recomputes, not a value. `aux` is the MoE layers'
     auxiliary losses summed in layer order (0 for the other families).
 
-    With `tp` (a ``distributed.tensor_parallel.TensorParallel``; the
-    dense and MoE families) `params` are the rank's shards: the layers run
-    tensor-parallel over the 'model' axis, the logits are the rank's
-    vocabulary columns (all of them with `last_only`, the serving path),
-    and the cache holds the rank's kv heads (all of them when the rules
-    replicate them). `pspec_fn` (``sharding_rules.activation_pspec_fn``,
-    the reference's argument) names the MoE layout (``moe.moe_forward``).
+    With `tp` (a ``distributed.tensor_parallel.TensorParallel``) `params`
+    are the rank's shards: the layers run tensor-parallel over the 'model'
+    axis, the logits are the rank's vocabulary columns (all of them with
+    `last_only`, the serving path), and the cache holds the rank's kv
+    heads (all of them when the rules replicate them). `pspec_fn`
+    (``sharding_rules.activation_pspec_fn``, the reference's argument)
+    names the MoE layout (``moe.moe_forward``) and where the batch's rows
+    lie: over 'model' too (the SSM family's layouts B and C), the
+    vocabulary leaves are gathered and the logits are whole (see the
+    module docstring).
     """
     _on_mesh(cfg, tp)
-    h = _embed(params, tokens, cfg, tp)
+    rows = _rows_over_model(cfg, tp, pspec_fn)
+    vtp = tp
+    if rows:
+        params, vtp = _whole_vocab(params, tp), None
+    h = _embed(params, tokens, cfg, vtp)
     if frontend_embeds is not None:
         h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
     B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device).expand(B, S)
-    ssm_block = _remat(lambda lp, x: _ssm_block(lp, x, cfg, force), remat)
 
     def block(lp, x, window, pieces=None):
         return _attn_block(lp, x, cfg, positions, window, force, tp, pieces,
@@ -316,13 +398,14 @@ def forward_with_aux(params, tokens, cfg: ArchConfig, *,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family in ("ssm", "hybrid"):
         window = cfg.sliding_window if long_context else 0
+        ssm_layer = _ssm_layer(cfg, force, tp, remat, rows)
         for i in range(cfg.num_layers):
-            h = ssm_block(layer_params(params["layers"], i), h)
+            h = ssm_layer(layer_params(params["layers"], i), h)
             if cfg.family == "hybrid" and is_attn_site(cfg, i):
                 h, _, _ = attn_block(params["shared"], h, window)
         if last_only:
             h = h[:, -1:]
-        return _logits(params, h, cfg), None, aux
+        return _logits(params, h, cfg, vtp, whole=last_only), None, aux
     L = cfg.num_layers
     cache = None
     for i in range(L):
@@ -355,9 +438,11 @@ def loss_fn(params, batch, cfg: ArchConfig, *, remat: str = "none",
     over F + S positions and the first F positions' logits, the
     frontend's, carry no loss. With `tp` the batch is the rank's and so
     is the loss (its mean over the rank's tokens, the same on every rank
-    of the 'model' axis): the cross entropy runs over the vocabulary
-    split across the axis, and an MoE layer's auxiliary loss is the global
-    batch's (every rank's the same)."""
+    of the 'model' axis unless the rows lie over it too, as `pspec_fn`
+    may say for the SSM family): the cross entropy runs over the
+    vocabulary split across the axis (whole when the rows lie over it),
+    and an MoE layer's auxiliary loss is the global batch's (every rank's
+    the same)."""
     logits, _, aux = forward_with_aux(
         params, batch["tokens"], cfg,
         frontend_embeds=batch.get("frontend_embeds"), remat=remat,
@@ -366,7 +451,8 @@ def loss_fn(params, batch, cfg: ArchConfig, *, remat: str = "none",
     F = logits.shape[1] - targets.shape[1]
     if F > 0:  # frontend positions carry no loss
         logits = logits[:, F:]
-    ce = cross_entropy(logits, targets, cfg.vocab_size, tp)
+    vtp = None if _rows_over_model(cfg, tp, pspec_fn) else tp
+    ce = cross_entropy(logits, targets, cfg.vocab_size, vtp)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
@@ -395,16 +481,18 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
     its block on the (B,1,d) token batch, over every expert's capacity
     buffer, and its auxiliary loss is dropped, as in the reference.
 
-    With `tp` (the dense and MoE families) `params` and the cache are the
-    rank's shards and the logits are all of the vocabulary (gathered);
-    `decode_mode` is the reference's switch (``_decode_attn``): 'heads',
-    the cache holding the rank's kv heads, or 'seq', the cache holding
-    the rank's chunk of the sequence, every kv head
-    (``attention.decode_attn_seq``). An MoE layer routes the global
-    batch's B tokens, in the layout `pspec_fn` names.
+    With `tp` `params` and the cache are the rank's shards and the logits
+    are all of the vocabulary (gathered); `decode_mode` is the reference's
+    switch (``_decode_attn``): 'heads', the cache holding the rank's kv
+    heads, or 'seq', the cache holding the rank's chunk of the sequence,
+    every kv head (``attention.decode_attn_seq``). An MoE layer routes the
+    global batch's B tokens, in the layout `pspec_fn` names. The SSM and
+    hybrid families follow the cache's layout: its rows over 'data', the
+    state's heads as the rules say (split: ``ssm.ssm_decode_step`` on the
+    rank's heads), the hybrid's kv heads split ('heads' decode).
     """
     _on_mesh(cfg, tp)
-    if decode_mode not in DECODE_MODES:
+    if decode_mode not in DECODE_MODES and cfg.num_kv_heads:
         raise ValueError(f"decode_mode must be one of {DECODE_MODES}, got "
                          f"{decode_mode!r}")
     h = _embed(params, tokens, cfg, tp)
@@ -414,20 +502,23 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
                 pos, cache["ak"].shape[2],
                 cfg.sliding_window if long_context else 0)
         site = 0
+        stp = tp if tp is not None and tp.ssm_heads else None
         for i in range(cfg.num_layers):
             lp = layer_params(params["layers"], i)
             y, _ = ssm.ssm_decode_step(
                 lp["ssm"], rms_norm(h, lp["ln"], cfg.norm_eps), cfg,
-                {"state": cache["state"][i], "conv": cache["conv"][i]})
+                {"state": cache["state"][i], "conv": cache["conv"][i]},
+                tp=stp)
             h = h + y
             if cfg.family == "hybrid" and is_attn_site(cfg, i):
                 sp = params["shared"]
                 a, _ = attention.decode_attn_heads(
                     sp["attn"], rms_norm(h, sp["ln1"], cfg.norm_eps), cfg,
-                    cache["ak"][site], cache["av"][site], pos, mask=mask)
-                h, _ = _mlp_half(sp, h + a, cfg)
+                    cache["ak"][site], cache["av"][site], pos, mask=mask,
+                    tp=tp)
+                h, _ = _mlp_half(sp, h + _reduce(a, tp, "attn_out"), cfg, tp)
                 site += 1
-        return _logits(params, h, cfg)[:, 0], cache
+        return _logits(params, h, cfg, tp, whole=True)[:, 0], cache
     seq = tp is not None and decode_mode == "seq"
     S = cache["k"].shape[2]
     masks = {} if seq else {

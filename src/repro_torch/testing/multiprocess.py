@@ -1037,13 +1037,16 @@ def _lm_decode_seq(cfg, whole, job, device):
 
 def _lm_serve(cfg, whole, job, device):
     """Greedy serving over the mesh, as ``serve.serve`` runs it: the
-    rank's rows of the prompts prefilled, its cache shard (of
-    ``cache_len`` positions, by default prompt + ``gen_len``) filled
-    (``fill_cache``), then ``gen_len`` - 1 decode steps. Returns the
-    logits of the prefill and of each step (B_loc, gen_len, Vp), the
-    greedy tokens, the cache's shape, the rank's mesh coordinate, the
-    collectives a decode step made, the flash launches of the prefill and
-    of the decode steps, and their seconds (the device synchronised)."""
+    rank's rows of the prompts (``serve.serve_row_axes``) prefilled, its
+    cache shard (of ``cache_len`` positions, by default prompt +
+    ``gen_len``) filled (``fill_cache``; for the SSM and hybrid families
+    built by ``warm_up``, the prompt through decode), then ``gen_len`` - 1
+    decode steps (with ``long_context``, the reference's flag). Returns the logits of the prefill and of each step
+    (B_loc, gen_len, Vp), the greedy tokens, the cache's shape (its 'k';
+    ``cache_shapes`` every entry's), the SSM families' conv history, the
+    rank's mesh coordinate, the collectives a decode step made, the flash
+    and SSD launches of the prefill, of the warm-up and of the decode
+    steps, and their seconds (the device synchronised)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed.tensor_parallel import shard_params
     from repro_torch.kernels import ops
@@ -1058,19 +1061,33 @@ def _lm_serve(cfg, whole, job, device):
     S = job.get("cache_len", P + gen)
     shape = ShapeConfig("serve", "decode", S, B)
     prefill_step, decode_step = serve.make_serve_steps(model, shape)
-    rows = train.rank_rows(model, shape, {"tokens": prompts})["tokens"]
+    if job.get("long_context"):  # the reference's flag on every step
+        def decode_step(params, cache, tok, pos):
+            return model.decode(params, cache, tok, pos, long_context=True)
+    rows = train.rank_rows(model, shape, {"tokens": prompts},
+                           serve.serve_row_axes(model, shape))["tokens"]
+
+    def launches():
+        return ops.flash_attention.launches, ops.ssd_scan.launches
+
     with torch.no_grad():
         _sync(device)
-        ops.flash_attention.launches = 0
+        start = launches()
         t0 = time.perf_counter()
         logits, pre = prefill_step(params, {"tokens": rows})
-        cache = serve.fill_cache(model, model.cache_template(
-            B, S, dtype=pre["k"].dtype), pre, P)
+        _sync(device)
+        t_pre, pre_n = time.perf_counter(), launches()
+        if pre is None:  # the SSM and hybrid families: through decode
+            _, cache = serve.warm_up(model, params, rows,
+                                     model.cache_template(B, S))
+        else:
+            cache = serve.fill_cache(model, model.cache_template(
+                B, S, dtype=pre["k"].dtype), pre, P)
         del pre
         out, tok = [logits], logits.argmax(dim=-1)
         tokens = [tok]
         _sync(device)
-        t1, prefill_flash = time.perf_counter(), ops.flash_attention.launches
+        t1, warm_n = time.perf_counter(), launches()
         calls = dict(mesh.calls)
         for i in range(gen - 1):
             pos = torch.full((rows.shape[0],), P + i, dtype=torch.long,
@@ -1083,13 +1100,18 @@ def _lm_serve(cfg, whole, job, device):
         t2 = time.perf_counter()
     step_calls = {k: (v - calls.get(k, 0)) / max(gen - 1, 1)
                   for k, v in mesh.calls.items() if v != calls.get(k, 0)}
+    end = launches()
     return dict(logits=torch.stack(out, 1).cpu().numpy(),
                 tokens=torch.stack(tokens, 1).cpu().numpy(),
-                cache_shape=tuple(cache["k"].shape),
+                cache_shape=tuple(cache["k"].shape) if "k" in cache else None,
+                cache_shapes={k: tuple(v.shape) for k, v in cache.items()},
+                conv=cache["conv"].cpu().numpy() if "conv" in cache else None,
                 coordinate=mesh.get_coordinate(), decode_calls=step_calls,
-                prefill_flash=prefill_flash,
-                decode_flash=ops.flash_attention.launches - prefill_flash,
-                prefill_s=t1 - t0, decode_s=t2 - t1)
+                prefill_flash=pre_n[0] - start[0],
+                prefill_ssd=pre_n[1] - start[1],
+                warm_flash=warm_n[0] - pre_n[0], warm_ssd=warm_n[1] - pre_n[1],
+                decode_flash=end[0] - warm_n[0], decode_ssd=end[1] - warm_n[1],
+                prefill_s=t_pre - t0, warm_s=t1 - t_pre, decode_s=t2 - t1)
 
 
 def _lm_serve_call(cfg, whole, job, device):
@@ -1169,8 +1191,8 @@ _LM_JOBS = {"grads": _lm_grads, "train": _lm_train,
 
 def rank_lm(cfg, whole, jobs, device=None):
     """The LM stack's jobs over meshes of this rank's process group, in
-    order; a list of their results (numpy). `cfg` is a dense- or
-    MoE-family ``ArchConfig``; `whole` the whole parameters as numpy (the
+    order; a list of their results (numpy). `cfg` is an ``ArchConfig`` of
+    any family; `whole` the whole parameters as numpy (the
     attention block's alone for 'decode_seq'), carried to `device` in
     float32 and cut to each job's shards (``tensor_parallel.
     shard_params``). A job is a dict with its ``kind`` and ``grid`` (data,
@@ -1186,8 +1208,9 @@ def rank_lm(cfg, whole, jobs, device=None):
       ``settings`` (``TrainSettings`` fields) and ``remat``;
     * 'decode_seq': ``attention.decode_attn_seq`` of ``h``, ``cache_k``,
       ``cache_v``, ``pos``, ``window``;
-    * 'serve': greedy serving of ``prompts`` for ``gen_len`` tokens, every
-      step's logits kept; 'serve_call': ``serve.serve`` itself;
+    * 'serve': greedy serving of ``prompts`` for ``gen_len`` tokens into
+      ``cache_len`` positions (``long_context`` the reference's flag),
+      every step's logits kept; 'serve_call': ``serve.serve`` itself;
     * 'update': the mesh's optimizer over whole gradient trees ``grads``
       (``_lm_update``); 'collectives': the data-axis collectives on a
       non-contiguous view (``_lm_collectives``).

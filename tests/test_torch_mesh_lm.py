@@ -348,17 +348,28 @@ def test_layouts_match_what_the_ranks_hold(setup):
     assert wide["layers"]["attn"]["wk"] == (None, None, None, None)
 
 
-def test_other_families_refuse_a_mesh():
-    """The SSM and hybrid families still refuse a mesh of ranks (A6b
-    items 3-4); the dense and MoE families run on one."""
+def test_a_pod_axis_and_an_undivided_hybrid_cache_refuse_a_mesh():
+    """What still waits for ROADMAP A6b: a mesh with a 'pod' axis, and a
+    hybrid grid whose model axis does not divide the kv heads (the hybrid
+    cache's spec always splits them); every family runs on the rest."""
     from repro_torch.models import transformer
 
-    for arch in ("mamba2-130m", "zamba2-7b"):
-        cfg = reduced_config(get_config(arch))
+    def tp(sizes):
+        return types.SimpleNamespace(mesh=types.SimpleNamespace(
+            axis_sizes=sizes), size=sizes["model"])
+
+    pod = tp({"pod": 2, "data": 1, "model": 2})
+    for arch in ("chatglm3-6b", "mamba2-130m", "zamba2-7b"):
         with pytest.raises(NotImplementedError, match="A6b"):
-            transformer._on_mesh(cfg, object())
-    for arch in ("chatglm3-6b", "arctic-480b"):
-        transformer._on_mesh(reduced_config(get_config(arch)), object())
+            transformer._on_mesh(reduced_config(get_config(arch)), pod)
+    zamba2 = reduced_config(get_config("zamba2-7b"))  # 2 kv heads
+    with pytest.raises(NotImplementedError, match="A6b"):
+        transformer._on_mesh(zamba2, tp({"data": 1, "model": 4}))
+    for arch in ("chatglm3-6b", "arctic-480b", "mamba2-130m", "zamba2-7b"):
+        transformer._on_mesh(reduced_config(get_config(arch)),
+                             tp({"data": 2, "model": 2}))
+    transformer._on_mesh(reduced_config(get_config("mamba2-130m")),
+                         tp({"data": 1, "model": 4}))
 
 
 class _Grid:
