@@ -434,15 +434,39 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
     rule, exactly 2L SSD forward and L backward launches a rank a step
     (with 2 flash forward and 1 backward for zamba2's site); it logs ms a
     step, calls and payload by tag, the second step's collectives timed
-    apart and each rank's peak; (f) serving 4 x 64 prompts through
-    ``warm_up`` on the cache's rows, then 8 greedy steps: the tokens
-    identical, the conv history within 2e-4 of the one-device cache's,
-    each rank's cache the shape ``cache_pspecs`` gives, L SSD launches
-    (and one flash launch a site) a prefill a rank and none in warm-up
-    or decode, the logits within 2e-4 at zamba2's cut depth and at
-    mamba2's full depth an rms gap within FLOOR_FACTOR x the one-device
-    port's own gap between its prefill and its warm-up; with the
-    prefill's ms, the warm-up's ms a position and the ms a token.
+    apart and each rank's peak; (f) serving 4 x 32 prompts (once 64)
+    through ``warm_up`` on the cache's rows, then 8 greedy steps:
+    the tokens identical, the conv history within 2e-4 of the one-device
+    cache's, each rank's cache the shape ``cache_pspecs`` gives, L SSD
+    launches (and one flash launch a site) a prefill a rank and none in
+    warm-up or decode, the logits within 2e-4 at zamba2's cut depth and
+    at mamba2's full depth an rms gap within FLOOR_FACTOR x the
+    one-device port's own gap between its prefill and its warm-up; with
+    the prefill's ms, the warm-up's ms a position and the ms a token;
+33. in the same spawn, the 'pod' axis: the same 4 ranks on a (pod,
+    data, model) = (2, 1, 2) mesh, the reference's multi-pod layout ('pod'
+    joins 'data' for the batch, ZeRO-1 stays over 'data'), built over the
+    same group after the other grids; each cell takes the global batch
+    and the one-device steps of a cell above: (g) chatglm3-6b's (2, 2)
+    cell, 2 x 2048, the rows over ('pod', 'data'), remat 'collectives';
+    (h) mamba2-130m's layout-B cell, 4 x 2048, the rows over ('pod',
+    'data', 'model'), remat 'full'. Each: step 1 in its parts (the loss
+    and grad norm within F32_REDUCTION of the one-device step's, the
+    gradient rule, the 'pod_grad' control (the sum over 'pod' dropped,
+    each pod keeping its own gradient) outside it, the parameters after
+    the update within UPDATE_TOL x the one-device update (where the
+    gradient rule fixes adamw's move, for mamba2), ZeRO-1 bitwise an
+    unsplit update), step 2 through the step function (its loss and grad
+    norm held to the (2, 2) cell's second step, or the one-device one),
+    the two pods' parameter shards bitwise equal after each step (by
+    digest), the launches a rank a step (chatglm3-6b 4 flash forward and
+    2 backward, mamba2 48 SSD forward and 24 backward); it logs ms a step,
+    the calls and payload by tag (the sum over 'pod' under 'pod_grads'),
+    the second step's collectives timed apart and each rank's peak; then
+    serving on (2, 1, 2), the rows over ('pod', 'data'): chatglm3-6b's
+    4 x 1024 prompts in 'heads' decode and mamba2's 4 x 32 through
+    ``warm_up``, held by the same checks as their (2, 2) serving (one
+    checker each for a cell's training and its serving, on any grid).
 
 Each phase's wall seconds go to a log line of their own as it ends, and
 all of them to one line before the records. Exits non-zero if any phase
@@ -491,6 +515,7 @@ from repro_torch.data.plane import (DenseDataPlane,  # noqa: E402
                                     StreamingDataPlane, TiledDataPlane)
 from repro_torch.data.synthetic import make_svm_data  # noqa: E402
 from repro_torch.distributed import run_elastic, shrink_plane  # noqa: E402
+from repro_torch.distributed.sharding_rules import split_size  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -2895,7 +2920,7 @@ def phase_flash():
     cases += [(name, shape, dtype, dict()) for name, shape in MOE_FLASH
               for dtype in (bf16, f32)]
     # a rank's 16 of zamba2-7b's 32 heads in phase_mesh_lm's SSM cell: a
-    # training row and a prefill's two rows of 64, f32
+    # training row and a prefill's two rows of MESH_SSM_PROMPT, f32
     cases += [
         ("f32 zamba2 mesh rank layer", (1, 16, 16, MESH_SSM_S, MESH_SSM_S,
                                         112), f32, dict()),
@@ -3998,8 +4023,8 @@ def phase_ssd():
         ("zamba2 layer", ZAMBA2_SSD, "mamba2"),
     ]
     # a rank's launches in phase_mesh_lm's SSM cells: its heads of
-    # mamba2-130m's 24 and zamba2-7b's 112 on (2, 2), a training row and
-    # a prefill's two rows of 64
+    # mamba2-130m's 24 and zamba2-7b's 112 on (2, 2) (and on MESH_POD), a
+    # training row and a prefill's two rows of MESH_SSM_PROMPT
     cases += [(f"{name} mesh rank {part}", (rows, seq, heads, P, 1, n),
                "mamba2")
               for name, heads, n in (("mamba2", 12, 128), ("zamba2", 56, 64))
@@ -6401,15 +6426,19 @@ def mesh_lm_rank(cfg, prompts, sizes, device):
         sync()
         out["stamps"].append((what, time.perf_counter() - t_start))
 
-    # the one-device step, each rank in turn (the others hold nothing
-    # large yet), kept as this rank's shards of both layouts
+    # the one-device step, two ranks at a time (the others hold nothing
+    # large yet; 16.9 GB a rank at its peak), kept as this rank's
+    # shards of both layouts
     wide = Model(cfg, device=device, param_dtype=f32,
                  mesh=mp.lm_mesh((1, 4), device))
     model = Model(cfg, device=device, param_dtype=f32, remat="collectives",
                   mesh=mp.lm_mesh((2, 2), device))
+    # (g)'s (pod, data, model) mesh, over the same group after the grids
+    pod = Model(cfg, device=device, param_dtype=f32, remat="collectives",
+                mesh=mp.lm_mesh(MESH_POD, device))
     mesh, tp = model.mesh, model.tp
-    for turn in range(dist.get_world_size()):
-        if turn == rank:
+    for turn in range(0, dist.get_world_size(), 2):
+        if rank in (turn, turn + 1):
             ref = mesh_lm_reference(cfg, batches[0], device, settings, {
                 "heads": (mesh, model.pspecs(), True),
                 "seq": (wide.mesh, wide.pspecs(), False)})
@@ -6484,6 +6513,7 @@ def mesh_lm_rank(cfg, prompts, sizes, device):
         out["losses"].append(float(metrics["loss"]))  # waits for the step
         sync()
         out["steps"].append(dict(mesh_lm_since(mesh, before),
+                                 grad_norm=float(metrics["grad_norm"]),
                                  ms=(time.perf_counter() - t0) * 1e3,
                                  collective_ms=None if spent is None else {
                                      k: v * 1e3 for k, v in spent.items()}))
@@ -6492,6 +6522,20 @@ def mesh_lm_rank(cfg, prompts, sizes, device):
     del params, state
     mp._release(device)
     stamp("steps 1-2")
+
+    # (g) the same two steps on (pod, data, model) = MESH_POD, from the
+    # (2, 2) cell's batches: rank r there has the pspecs and the model
+    # coordinate of rank r on (2, 2), so the one-device step's shards are
+    # the 'heads' layout's
+    prior = peak()
+    out["pod"] = mesh_pod_cell(
+        pod, tpm.shard_params(drawn(), pod.pspecs(), pod.mesh), batches,
+        shape, settings, sync,
+        lambda g, c, p, step=0: None if step else mesh_lm_held(
+            ref, "heads", g, c, p))
+    if cuda:  # the cell reset the peak: the rank's is the larger
+        out["pod"]["prior_peak"] = prior
+    stamp("(g) pod steps 1-2")
 
     # (1, 4): the kv heads replicated; the partial kv gradients' control
     whole = drawn()  # kept for serving
@@ -6506,7 +6550,8 @@ def mesh_lm_rank(cfg, prompts, sizes, device):
     out["wide"] = mesh_lm_held(ref, "seq", wide_grads["grad"],
                                wide_grads["control"])
     del params, wide_grads, ref
-    out["train_peak"] = peak()
+    # (g) reset the rank's peak: the larger of the two is the rank's
+    out["train_peak"] = max(peak(), out.get("pod", {}).get("prior_peak", 0))
     mp._release(device)
     stamp("(1, 4) gradients")
 
@@ -6514,8 +6559,8 @@ def mesh_lm_rank(cfg, prompts, sizes, device):
     out["serve"] = {mode: mp.lm_job(cfg, whole, dict(
         kind="serve", grid=grid, prompts=prompts, gen_len=sizes["gen"],
         cache_len=sizes["cache"]), device)
-        for mode, grid in MESH_LM_GRIDS.items()}
-    out["peak"] = peak()
+        for mode, grid in {**MESH_LM_GRIDS, "pod": MESH_POD}.items()}
+    out["peak"] = max(peak(), out["train_peak"])
     del whole
     mp._release(device)
     stamp("serving")
@@ -6548,6 +6593,95 @@ def mesh_zero1_update(opt, settings, mesh, sspecs, grads, params, state):
             tpm.shard(st["v"]["x"], data_only, mesh), v))
         del x, st
     return params, state, bitwise
+
+
+MESH_POD = (2, 1, 2)  # the (pod, data, model) grid of cells (g) and (h)
+
+
+def mesh_pod_cell(model, params, batches, shape, settings, sync, held):
+    """Cells (g) and (h): `model`'s first steps on the (pod, data, model)
+    mesh, from `params` (the rank's shards of the seed's parameters).
+    Step 1 in its parts: the rank's gradients of its rows (over ('pod',
+    'data'), or ('pod', 'data', 'model') for the SSM family's layout B),
+    taken once and summed over those axes twice, as the step sums them
+    and under the 'pod_grad' control (the sum over 'pod' dropped: each pod
+    keeps its own gradient); the ZeRO-1 update against an unsplit one
+    (``mesh_zero1_update``); then `held(grads, control, params, step)`,
+    this rank's gaps to the one-device step (after step 2 with no
+    gradients). Step 2 through the step function,
+    each collective timed apart. Returns per step the ms, the launches and
+    the calls and payload by tag (the sum over 'pod' under 'pod_grads'),
+    the loss and grad norm, the digests of the rank's parameter shards
+    after each step (the parent holds the two pods' equal), the held gaps
+    and the rank's peak over the cell."""
+    from repro_torch.distributed.sharding_rules import batch_axes
+    from repro_torch.testing import multiprocess as mp
+
+    mesh, tp = model.mesh, model.tp
+    device = mesh.device
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    step_fn, opt, (_, _, _, sspecs, _) = train_module.jit_train_step(
+        model, shape, settings)
+    state = opt.init(params)
+    axes = batch_axes(model.cfg, shape, mesh)
+    out = dict(axes=axes, steps=[], digests=[])
+
+    before = mesh_lm_counts(mesh)
+    sync()
+    t0 = time.perf_counter()
+    loss, metrics, grads = train_module.loss_and_grads(
+        model, params, train_module.rank_rows(model, shape, batches[0]),
+        pspec_fn=train_module.mesh_pspec_fn(model, shape, settings))
+    control = train_module.tree_map(torch.clone, grads)
+    metrics, grads = train_module.sum_over_data(model, loss, metrics, grads,
+                                                axes=axes)
+    sync()
+    t_grad = time.perf_counter() - t0
+    grads_part = mesh_lm_since(mesh, before)
+    tp.controls = frozenset(("pod_grad",))
+    train_module.sum_over_data(model, loss, {}, control, axes=axes)
+    tp.controls = frozenset()
+    first = dict(loss=float(metrics["loss"]),
+                 grad_norm=float(metrics["grad_norm"]))
+    before = mesh_lm_counts(mesh)
+    t0 = time.perf_counter()
+    params, state, out["zero1_bitwise"] = mesh_zero1_update(
+        opt, settings, mesh, sspecs, grads, params, state)
+    sync()
+    update_part = mesh_lm_since(mesh, before)
+    out["steps"].append(dict(
+        grads_part, **first,
+        ms=(t_grad + time.perf_counter() - t0) * 1e3,
+        **{k: dict(collections.Counter(grads_part[k])
+                   + collections.Counter(update_part[k]))
+           for k in ("calls", "payload")}))
+    out["digests"].append(params_digest(params))
+    out["held"] = held(grads, control, params)
+    del grads, control
+    mp._release(device)
+
+    spent = mesh_lm_timed(mesh, sync)
+    before = mesh_lm_counts(mesh)
+    sync()
+    t0 = time.perf_counter()
+    params, state, metrics = step_fn(params, state, batches[1], 1)
+    loss = float(metrics["loss"])
+    sync()
+    out["steps"].append(dict(mesh_lm_since(mesh, before), loss=loss,
+                             grad_norm=float(metrics["grad_norm"]),
+                             ms=(time.perf_counter() - t0) * 1e3,
+                             collective_ms={k: v * 1e3
+                                            for k, v in spent.items()}))
+    for name in ("all_reduce", "all_gather_cat", "all_to_all_single"):
+        mesh.__dict__.pop(name, None)
+    out["digests"].append(params_digest(params))
+    out["held_step2"] = held(None, None, params, step=1)
+    out["peak"] = torch.cuda.max_memory_allocated(device) if cuda else 0
+    del params, state
+    mp._release(device)
+    return out
 
 
 def mesh_lm_serve_reference(cfg, prompts, cache_len=None, gen=None):
@@ -7069,7 +7203,9 @@ def mesh_moe_checks(cfg, ranks, ref_logits, ref_tokens):
 
 MESH_SSM_S, MESH_SSM_STEPS, MESH_SSM_LR = 2048, 2, 3e-4
 MESH_SSM_CUT = 6  # zamba2-7b's layers in its mesh cell (of 81): one site
-MESH_SSM_PROMPT, MESH_SSM_GEN = 64, 9  # 4 x 64 through warm_up, 8 steps
+# 4 x 32 through warm_up (once 64: the eager warm-up's positions cost
+# 53-202 ms each on the mesh), 8 steps
+MESH_SSM_PROMPT, MESH_SSM_GEN = 32, 9
 # each model's cells: layout -> global batch: A the heads over 'model'
 # and the rows over 'data'; B the rows over ('data', 'model')
 MESH_SSM_CELLS = {"mamba2-130m": {"A": 2, "B": 4}, "zamba2-7b": {"A": 2}}
@@ -7077,6 +7213,9 @@ MESH_SSM_CELLS = {"mamba2-130m": {"A": 2, "B": 4}, "zamba2-7b": {"A": 2}}
 # run on mamba2-130m (zamba2-7b's layers run the same SSM code, and each
 # of its control gradients would move 1.8 GB a rank through gloo)
 MESH_SSM_CONTROLS = {"A": ("norm_grad", "bc_grad"), "B": ("scatter_grad",)}
+# (h): mamba2-130m's layout B run on MESH_POD too, the rows over ('pod',
+# 'data', 'model'), from the (2, 2) cell's batches and one-device steps
+MESH_SSM_POD_CELL = "B"
 ADAMW_EPS = 1e-8  # optim.optimizers.adamw's eps
 
 
@@ -7139,6 +7278,12 @@ def mesh_ssm_rank(cfg, prompts, sizes, device):
     mesh, tp = model.mesh, model.tp
     specs = tree_leaves(model.pspecs())
     out = dict(rank=rank, stamps=[], cells={})
+    pod_cell = sizes.get("pod")  # (h): the layout run on MESH_POD too
+    if pod_cell:
+        # rank r has the pspecs and the model coordinate of rank r on
+        # (2, 2): the one-device steps' shards are the (2, 2) ones
+        pod = Model(cfg, device=device, param_dtype=f32, remat="full",
+                    mesh=mp.lm_mesh(MESH_POD, device))
     t_start = time.perf_counter()
 
     def stamp(what):
@@ -7177,8 +7322,8 @@ def mesh_ssm_rank(cfg, prompts, sizes, device):
         sync()
         t_grad = time.perf_counter() - t0
         grads_part = mesh_lm_since(mesh, before)
-        res["loss"], res["grad_norm"] = (float(metrics["loss"]),
-                                         float(metrics["grad_norm"]))
+        first = dict(loss=float(metrics["loss"]),
+                     grad_norm=float(metrics["grad_norm"]))
         res["grads"] = mesh_moe_gaps(ref, "grad", specs, grads)
         res["controls"] = {}
         for control in sizes["controls"].get(name, ()):
@@ -7198,7 +7343,7 @@ def mesh_ssm_rank(cfg, prompts, sizes, device):
         sync()
         update_part = mesh_lm_since(mesh, before)
         res["steps"].append(dict(
-            grads_part, loss=res["loss"],
+            grads_part, **first,
             ms=(t_grad + time.perf_counter() - t0) * 1e3,
             **{k: dict(collections.Counter(grads_part[k])
                        + collections.Counter(update_part[k]))
@@ -7231,19 +7376,51 @@ def mesh_ssm_rank(cfg, prompts, sizes, device):
         res["params"].append(mesh_moe_gaps(ref, "params1", specs, params,
                                            [MESH_LM_UPDATE_TOL * m
                                             for m in ref["moved"][1]]))
-        del params, state, ref
+        del params, state
         mp._release(device)
         out["cells"][name] = res
         stamp(f"{name} step 2")
-    out["train_peak"] = torch.cuda.max_memory_allocated(device) if cuda \
-        else 0
+        if name == pod_cell:
+            # (h) the cell's two steps on MESH_POD, from its batches, held
+            # as the (2, 2) cell is (its keys: grads, controls, params)
+            def held(g, c, p, step=0):
+                bounds = [MESH_LM_UPDATE_TOL * m for m in ref["moved"][step]]
+                if step:
+                    return mesh_moe_gaps(ref, "params1", specs, p, bounds)
+                return dict(
+                    grads=mesh_moe_gaps(ref, "grad", specs, g),
+                    controls={"pod_grad": [e["gap"] for e in mesh_moe_gaps(
+                        ref, "grad", specs, c)]},
+                    params=[mesh_moe_gaps(
+                        ref, "params0", specs, p, bounds,
+                        [adamw_determined(MESH_LM_GRAD_TOL * t, b)
+                         for t, b in zip(ref["top"], bounds)])])
 
-    # (f) serving: the prompt through warm_up on the cache's rows
+            prior = torch.cuda.max_memory_allocated(device) if cuda else 0
+            cell = mesh_pod_cell(
+                pod, tpm.shard_params(drawn(), pod.pspecs(), pod.mesh),
+                batches, shape, settings, sync, held)
+            cell.update(cell.pop("held"), ref=res["ref"], prior_peak=prior)
+            cell["params"].append(cell.pop("held_step2"))
+            out["pod"] = cell
+            stamp(f"(h) pod {name} steps 1-2")
+        del ref
+    out["train_peak"] = max(
+        torch.cuda.max_memory_allocated(device) if cuda else 0,
+        out.get("pod", {}).get("prior_peak", 0))
+
+    # (f) serving: the prompt through warm_up on the cache's rows; (h) on
+    # MESH_POD too, the rows over ('pod', 'data')
     whole = drawn()
     out["serve"] = mp.lm_job(cfg, whole, dict(
         kind="serve", grid=(2, 2), prompts=prompts, gen_len=sizes["gen"]),
         device)
-    out["peak"] = torch.cuda.max_memory_allocated(device) if cuda else 0
+    if pod_cell:
+        out["serve_pod"] = mp.lm_job(cfg, whole, dict(
+            kind="serve", grid=MESH_POD, prompts=prompts,
+            gen_len=sizes["gen"]), device)
+    out["peak"] = max(torch.cuda.max_memory_allocated(device) if cuda else 0,
+                      out["train_peak"])
     del whole
     mp._release(device)
     stamp("serving")
@@ -7251,19 +7428,76 @@ def mesh_ssm_rank(cfg, prompts, sizes, device):
 
 
 def mesh_ssm_checks(cfg, ranks, ref_logits, ref_tokens, ref_conv, floor):
-    """phase_mesh_lm's checks of an SSM cell (the ranks' results of
-    ``mesh_ssm_rank``). Returns the SSD launches (forward, backward) and
-    flash launches (forward, backward) a rank of a case-A step, and the
-    SSD and flash launches a rank of a prefill."""
+    """phase_mesh_lm's checks of an SSM model (the ranks' results of
+    ``mesh_ssm_rank``): each cell on (2, 2) and, where the ranks ran it,
+    (h)'s on MESH_POD (``mesh_ssm_cell_checks``, ``mesh_pod_checks``),
+    then serving on the same grids (``mesh_serve_checks``). Returns the
+    SSD launches (forward, backward) and flash launches (forward,
+    backward) a rank of a case-A step, the SSD and flash launches a rank
+    of a prefill, and (h)'s SSD launches (forward, backward) a rank a step
+    and a prefill (None where it did not run)."""
     full = MAMBA2_130M if cfg.family == "ssm" else ZAMBA2_7B
     label = (f"mesh ssm {cfg.name} ({cfg.num_layers} of {full.num_layers} "
              "layers, f32)")
     paths = ["/".join(p) for p in leaf_paths(
         Model(cfg, device="cpu").template)]
-    sites = transformer.n_attn_sites(cfg)
-    L = cfg.num_layers
+    launches = {}
+    for name, B in MESH_SSM_CELLS[cfg.name].items():
+        controls = MESH_SSM_CONTROLS[name] if cfg.family == "ssm" else ()
+        launches[name] = mesh_ssm_cell_checks(
+            cfg, f"{label} (2, 2) {name}, {B} x {MESH_SSM_S}",
+            [r["cells"][name] for r in ranks], paths, controls)
+    log(f"{label}: each rank's seconds at the end of each part "
+        f"{[[(w, round(t, 1)) for w, t in r['stamps']] for r in ranks]}; "
+        f"peaks (GB) training {[round(r['train_peak'] / 1e9, 3) for r in ranks]}"
+        f", with serving {[round(r['peak'] / 1e9, 3) for r in ranks]}")
+    if "pod" in ranks[0]:
+        name = MESH_SSM_POD_CELL
+        tag = (f"{label} {MESH_POD} {name}, "
+               f"{MESH_SSM_CELLS[cfg.name][name]} x {MESH_SSM_S}")
+        pods = [r["pod"] for r in ranks]
+        launches["pod"] = mesh_ssm_cell_checks(cfg, tag, pods, paths,
+                                               ("pod_grad",))
+        mesh_pod_checks(tag, pods)
 
-    def share(res, step, key):
+    # (f) serving against the one-device port: elementwise at a cut depth;
+    # at mamba2's full depth the elementwise rule is below the f32 floor
+    # (ROADMAP C4), so the rms gap is held to FLOOR_FACTOR x the one-device
+    # port's own gap between its scan and its recurrence at one position
+    depth_cut = cfg.num_layers < full.num_layers
+    rule = (f"rtol = atol = {MESH_LM_LOGIT_TOL}" if depth_cut else
+            f"rms gap <= {FLOOR_FACTOR} x the floor {floor:.3e}")
+    prefill = {key: mesh_serve_checks(
+        cfg, f"{label} serve {grid}", grid, [r[key] for r in ranks],
+        ref_logits, ref_tokens, MESH_SSM_PROMPT + MESH_SSM_GEN,
+        MESH_SSM_PROMPT, MESH_SSM_GEN, rule,
+        None if depth_cut else FLOOR_FACTOR * floor, ref_conv)
+        for key, grid in (("serve", (2, 2)), ("serve_pod", MESH_POD))
+        if key in ranks[0]}
+    a = launches["A"]
+    pod = ((launches["pod"][2:], prefill["serve_pod"][1])
+           if "pod" in launches else None)
+    return (a[2:] + a[:2], prefill["serve"][::-1], pod)
+
+
+def mesh_ssm_cell_checks(cfg, tag, res, paths, controls):
+    """An SSM cell on any grid (`res`: each rank's cell, from
+    ``mesh_ssm_rank``'s (2, 2) steps or ``mesh_pod_cell``) held to the
+    one-device steps: each step's loss and grad norm, ZeRO-1 and the
+    launches (``mesh_step_checks``: 2L SSD forward and L backward, 2 flash
+    forward and 1 backward a site, remat 'full' recomputing each
+    forward), the gradient rule, each of `controls` outside it, step 1's
+    parameters where the gradient rule fixes adamw's move. Returns the
+    launches a rank a step (flash forward, backward, SSD forward,
+    backward)."""
+    ref = res[0]["ref"]
+    L, sites = cfg.num_layers, transformer.n_attn_sites(cfg)
+    got = mesh_step_checks(tag, res, [
+        dict(loss=loss, grad_norm=norm, of="the one-device step")
+        for loss, norm in zip(ref["loss"], ref["grad_norm"])],
+        (2 * sites, sites, 2 * L, L))
+
+    def share(step, key):
         """Per leaf, the share of its entries outside the update rule
         (over the ranks' shards); `key` 'det': of the entries whose
         one-device gradient lies beyond the gradient rule's bound."""
@@ -7272,145 +7506,202 @@ def mesh_ssm_checks(cfg, ranks, ref_logits, ref_tokens, ref_conv, floor):
                 / max(sum(x["params"][step][i]["size" + sfx] for x in res), 1)
                 for i in range(len(paths))]
 
-    for name, B in MESH_SSM_CELLS[cfg.name].items():
-        res = [r["cells"][name] for r in ranks]
-        ref = res[0]["ref"]
-        tag = f"{label} (2, 2) {name}, {B} x {MESH_SSM_S}"
-        got_metrics = [(res[0]["loss"], res[0]["grad_norm"]),
-                       (res[0]["steps"][1]["loss"],
-                        res[0]["steps"][1]["grad_norm"])]
-        for step, got in enumerate(got_metrics):
-            for key, value in zip(("loss", "grad_norm"), got):
-                want = ref[key][step]
-                check(abs(value - want) <= tol.F32_REDUCTION.obj_rel
-                      * abs(want), f"{tag}: step {step + 1}'s {key} {value} "
-                      f"against the one-device {want}")
-        gap = [max(x["grads"][i]["gap"] for x in res) / ref["top"][i]
-               for i in range(len(paths))]
-        worst = int(np.argmax(gap))
-        check(gap[worst] <= MESH_LM_GRAD_TOL,
-              f"{tag}: gradient leaf {paths[worst]} off by {gap[worst]:.3e} "
-              "of its largest")
-        det = share(res, 0, "det")
-        check(max(det) <= MESH_LM_ADAMW_FLIPS,
-              f"{tag}: parameters after step 1 outside {MESH_LM_UPDATE_TOL} "
-              f"x the one-device update where the gradient rule fixes the "
-              f"move ({max(det):.3e} of {paths[int(np.argmax(det))]})")
-        moved = [share(res, s, "all") for s in range(2)]
-        check(all(x["zero1_bitwise"] for x in res),
-              f"{tag}: ZeRO-1's state slices or its parameters differ from "
-              "an update unsplit over 'data' of the same summed gradients")
-        ctrl = {c: max(max(x["controls"][c][i] for x in res) / ref["top"][i]
-                       for i in range(len(paths)))
-                for c in (MESH_SSM_CONTROLS[name] if cfg.family == "ssm" else ())}
-        for c, value in ctrl.items():
-            check(value > MESH_LM_GRAD_TOL,
-                  f"{tag}: the {c} control stays within the rule "
-                  f"({value:.3e})")
-        steps = [x["steps"] for x in res]
-        got = {(s["ssd"], s["ssd_bwd"], s["flash"], s["flash_bwd"])
-               for st in steps for s in st}
-        want = {(2 * L, L, 2 * sites, sites)}
-        check(got == want, f"{tag}: SSD forward, backward and flash forward, "
-              f"backward launches a rank a step {got}, expected {want} "
-              "(remat 'full' recomputes each forward)")
-        losses = [st["loss"] for st in steps[0]]
-        log(f"{tag}, adamw {MESH_SSM_LR} ZeRO-1, remat 'full': loss and "
-            f"grad norm by step {[tuple(round(x, 6) for x in m) for m in got_metrics]}"
-            f" (one device "
-            f"{[(round(a, 6), round(b, 6)) for a, b in zip(ref['loss'], ref['grad_norm'])]}"
-            f"); largest gradient gap {gap[worst]:.3e} of its leaf's "
-            f"largest ({paths[worst]}); step 1's parameters "
-            f"outside {MESH_LM_UPDATE_TOL} x the one-device update: the "
-            f"largest share of a leaf's entries the gradient rule fixes "
-            f"{max(det):.3e}, of all its entries {max(moved[0]):.3e} "
-            f"({paths[int(np.argmax(moved[0]))]}); step 2's, of all "
-            f"{max(moved[1]):.3e} ({paths[int(np.argmax(moved[1]))]}; "
-            f"adamw's second move is lr x a ratio of each entry's two "
-            f"gradients); ZeRO-1 bitwise; controls "
-            f"{ {c: f'{v:.3e}' for c, v in ctrl.items()} }; losses "
-            f"{', '.join(f'{x:.6f}' for x in losses)}")
-        log(f"{tag}: ms a step by rank "
-            f"{[[round(s['ms'], 3) for s in st] for st in steps]}; launches "
-            f"a rank a step (SSD fwd, bwd, flash fwd, bwd) {sorted(got)}; "
-            f"calls a step by tag (rank 0) {steps[0][-1]['calls']}; payload "
-            f"a step by tag (rank 0, bytes) {steps[0][-1]['payload']}")
-        last = steps[0][-1]
-        log(f"{tag}: rank 0's step 2, each collective timed apart (the "
-            f"device synchronised around each): {last['ms']:.3f} ms, of it "
-            f"collectives by tag (ms) "
-            f"{ {k: round(v, 3) for k, v in last['collective_ms'].items()} }"
-            f", {sum(last['collective_ms'].values()):.3f} ms in all")
-    log(f"{label}: each rank's seconds at the end of each part "
-        f"{[[(w, round(t, 1)) for w, t in r['stamps']] for r in ranks]}; "
-        f"peaks (GB) training {[round(r['train_peak'] / 1e9, 3) for r in ranks]}"
-        f", with serving {[round(r['peak'] / 1e9, 3) for r in ranks]}")
+    gap = [max(x["grads"][i]["gap"] for x in res) / ref["top"][i]
+           for i in range(len(paths))]
+    worst = int(np.argmax(gap))
+    check(gap[worst] <= MESH_LM_GRAD_TOL,
+          f"{tag}: gradient leaf {paths[worst]} off by {gap[worst]:.3e} "
+          "of its largest")
+    det = share(0, "det")
+    check(max(det) <= MESH_LM_ADAMW_FLIPS,
+          f"{tag}: parameters after step 1 outside {MESH_LM_UPDATE_TOL} "
+          f"x the one-device update where the gradient rule fixes the "
+          f"move ({max(det):.3e} of {paths[int(np.argmax(det))]})")
+    moved = [share(s, "all") for s in range(2)]
+    ctrl = {c: max(max(x["controls"][c][i] for x in res) / ref["top"][i]
+                   for i in range(len(paths)))
+            for c in controls}
+    for c, value in ctrl.items():
+        check(value > MESH_LM_GRAD_TOL,
+              f"{tag}: the {c} control stays within the rule "
+              f"({value:.3e})")
+    log(f"{tag}, adamw {MESH_SSM_LR} ZeRO-1, remat 'full': loss and "
+        f"grad norm by step "
+        f"{[(round(s['loss'], 6), round(s['grad_norm'], 6)) for s in res[0]['steps']]}"
+        f" (one device "
+        f"{[(round(a, 6), round(b, 6)) for a, b in zip(ref['loss'], ref['grad_norm'])]}"
+        f"); largest gradient gap {gap[worst]:.3e} of its leaf's "
+        f"largest ({paths[worst]}); step 1's parameters "
+        f"outside {MESH_LM_UPDATE_TOL} x the one-device update: the "
+        f"largest share of a leaf's entries the gradient rule fixes "
+        f"{max(det):.3e}, of all its entries {max(moved[0]):.3e} "
+        f"({paths[int(np.argmax(moved[0]))]}); step 2's, of all "
+        f"{max(moved[1]):.3e} ({paths[int(np.argmax(moved[1]))]}; "
+        f"adamw's second move is lr x a ratio of each entry's two "
+        f"gradients); controls "
+        f"{ {c: f'{v:.3e}' for c, v in ctrl.items()} }")
+    return got
 
-    # (f) serving against the one-device port: elementwise at a cut depth;
-    # at mamba2's full depth the elementwise rule is below the f32 floor
-    # (ROADMAP C4), so the rms gap is held to FLOOR_FACTOR x the one-device
-    # port's own gap between its scan and its recurrence at one position
+
+def mesh_step_checks(tag, cells, want_metrics, want_launches):
+    """The checks of a training cell on any grid that do not depend on
+    its family (`cells`: each rank's, with its steps and its ZeRO-1
+    flag): each step's loss and grad norm (rank 0's) to F32_REDUCTION of
+    `want_metrics`' (whose 'of' says what they are); ZeRO-1 bitwise an
+    unsplit update; the launches (flash forward, backward, SSD forward,
+    backward) a rank a step `want_launches`. Logs each rank's ms a step,
+    rank 0's calls and payload a step by tag and its last step's
+    collectives timed apart. Returns the launches."""
+    for step, want in enumerate(want_metrics):
+        for key in ("loss", "grad_norm"):
+            got = cells[0]["steps"][step][key]
+            check(abs(got - want[key]) <= tol.F32_REDUCTION.obj_rel
+                  * abs(want[key]), f"{tag}: step {step + 1}'s {key} {got} "
+                  f"against {want[key]} ({want['of']})")
+    check(all(c["zero1_bitwise"] for c in cells),
+          f"{tag}: ZeRO-1's state slices or its parameters differ from an "
+          "update unsplit over 'data' of the same summed gradients")
+    got = {(s["flash"], s["flash_bwd"], s["ssd"], s["ssd_bwd"])
+           for c in cells for s in c["steps"]}
+    check(got == {want_launches}, f"{tag}: launches a rank a step (flash "
+          f"forward, backward, SSD forward, backward) {got}, expected "
+          f"{want_launches}")
+    last = cells[0]["steps"][-1]
+    log(f"{tag}: ms a step by rank "
+        f"{[[round(s['ms'], 3) for s in c['steps']] for c in cells]}; "
+        f"launches a rank a step (flash fwd, bwd, SSD fwd, bwd) "
+        f"{sorted(got)}; calls a step by tag (rank 0) {last['calls']}; "
+        f"payload a step by tag (rank 0, bytes) {last['payload']}; rank 0's "
+        f"step 2, each collective timed apart (the device synchronised "
+        f"around each): {last['ms']:.3f} ms, of it collectives by tag (ms) "
+        f"{ {k: round(v, 3) for k, v in last['collective_ms'].items()} }, "
+        f"{sum(last['collective_ms'].values()):.3f} ms in all; ZeRO-1 "
+        f"bitwise")
+    return got.pop()
+
+
+def mesh_pod_checks(tag, pods):
+    """What a cell on MESH_POD adds to the checks of its grid (`pods`:
+    each rank's ``mesh_pod_cell`` result): the two pods' parameter shards
+    bitwise equal after each step (rank r's and rank r + half's digests)
+    and the sum over 'pod' run under its tag ('pod_grads'). Logs the
+    batch's axes and each rank's peak over the cell."""
+    half = len(pods) // 2
+    for step in range(len(pods[0]["digests"])):
+        check(all(pods[r]["digests"][step] == pods[r + half]["digests"][step]
+                  for r in range(half)),
+              f"{tag}: the two pods' parameters differ after step {step + 1}")
+    check(all(p["steps"][0]["calls"].get("pod_grads", 0) > 0 for p in pods),
+          f"{tag}: no gradient summed over 'pod' ('pod_grads')")
+    log(f"{tag}: the rows over {pods[0]['axes']}; the pods bitwise equal "
+        f"after each step; peaks over the cell (GB) "
+        f"{[round(p['peak'] / 1e9, 3) for p in pods]}")
+
+
+def mesh_held_checks(tag, held, paths, control):
+    """A dense cell's gaps to the one-device step on any grid (`held`:
+    each rank's ``mesh_lm_held`` leaves, of its shards): the gradient rule
+    over each leaf's shards, the control (`control` says what it drops)
+    outside it, and where the ranks held an update, the share of a leaf's
+    parameters outside MESH_LM_UPDATE_TOL x its one-device update within
+    MESH_LM_ADAMW_FLIPS. Returns the largest gradient gap, its leaf, the
+    control's gap and the update's share (None where not held)."""
+    leaves = []
+    for per_rank in zip(*held):
+        e = dict(top=per_rank[0]["top"], grad=max(x["grad"] for x in per_rank),
+                 control=max(x["control"] for x in per_rank))
+        if "missed" in per_rank[0]:
+            e["missed"] = sum(x["missed"] for x in per_rank) / sum(
+                x["size"] for x in per_rank)
+        leaves.append(e)
+    gap = [e["grad"] / e["top"] for e in leaves]
+    worst = int(np.argmax(gap))
+    check(gap[worst] <= MESH_LM_GRAD_TOL,
+          f"{tag}: gradient leaf {paths[worst]} off by {gap[worst]:.3e} of "
+          "its largest")
+    ctrl = max(e["control"] / e["top"] for e in leaves)
+    check(ctrl > MESH_LM_GRAD_TOL,
+          f"{tag}: {control} stays within the rule ({ctrl:.3e})")
+    upd = None
+    if "missed" in leaves[0]:
+        upd = max(e["missed"] for e in leaves)
+        check(upd <= MESH_LM_ADAMW_FLIPS,
+              f"{tag}: parameters after the update outside "
+              f"{MESH_LM_UPDATE_TOL} x the one-device update ({upd:.3e} of "
+              "a leaf)")
+    return gap[worst], paths[worst], ctrl, upd
+
+
+def mesh_serve_checks(cfg, tag, grid, results, ref_logits, ref_tokens, S,
+                      prompt, gen, rule, rms_limit=None, ref_conv=None):
+    """Serving on `grid` ((data, model) or (pod, data, model)) against the
+    one-device port (`ref_logits`, `ref_tokens`, for the SSM family
+    `ref_conv`, the conv history): each rank's rows (its block over
+    ``serve.serve_row_axes``) get the one-device tokens, their logits
+    within MESH_LM_LOGIT_TOL (or with `rms_limit` an rms gap within it),
+    each rank's cache the shape ``cache_pspecs`` gives, and the flash and
+    SSD launches a prefill (none in the warm-up and decode). Logs the
+    prefill's ms, the SSM and hybrid families' warm-up ms a position and
+    the ms a token. Returns rank 0's flash and SSD launches a prefill."""
     B = MESH_LM_SERVE_B
-    rows = B // 2
-    S = MESH_SSM_PROMPT + MESH_SSM_GEN
-    depth_cut = cfg.num_layers < full.num_layers
-    layout = Model(cfg, device="cpu", mesh={"data": 2, "model": 2})
-    specs = layout.cache_pspecs(ShapeConfig("mesh-ssm", "decode", S, B))
+    sizes = dict(zip(("pod", "data", "model")[-len(grid):], grid))
+    layout = Model(cfg, device="cpu", mesh=sizes)
+    shape = ShapeConfig("mesh-serve", "decode", S, B)
+    specs = layout.cache_pspecs(shape)
     whole = Model(cfg, device="cpu").cache_template(B, S, device="meta")
-    want_shapes = {k: tuple(n // (2 if a else 1)
+    want_shapes = {k: tuple(n // split_size(sizes, a)
                             for n, a in zip(whole[k].shape, specs[k]))
                    for k in whole}
-    tag = f"{label} serve (2, 2)"
+    row_axes = serve_module.serve_row_axes(layout, shape)
+    rows = B // split_size(sizes, row_axes)
+    L = cfg.num_layers
+    ssm = cfg.family in ("ssm", "hybrid")
+    sites = transformer.n_attn_sites(cfg) if cfg.family == "hybrid" else (
+        0 if ssm else L)
+    want = (L if ssm else 0, sites, 0, 0, 0, 0)
     errs, rms, times = [], [], []
-    for r in ranks:
-        res = r["serve"]
-        p = res["coordinate"][0]
-        mine = slice(p * rows, (p + 1) * rows)
+    for res in results:
+        k = res["row_block"]
+        mine = slice(k * rows, (k + 1) * rows)
+        who = f"rank at {res['coordinate']}"
         check(np.array_equal(res["tokens"], ref_tokens[mine]),
-              f"{tag}: rank {r['rank']}'s greedy tokens differ from the "
-              "one-device port's")
+              f"{tag}: {who}'s greedy tokens differ from the one-device "
+              "port's")
         d = np.abs(res["logits"] - ref_logits[mine])
         errs.append(float(d.max()))
         rms.append(float(np.sqrt((d.astype(np.float64) ** 2).mean())))
-        if depth_cut:
+        if rms_limit is None:
             check(np.allclose(res["logits"], ref_logits[mine],
-                              rtol=MESH_LM_LOGIT_TOL,
-                              atol=MESH_LM_LOGIT_TOL),
-                  f"{tag}: rank {r['rank']}'s logits off by {errs[-1]:.3e}")
+                              rtol=MESH_LM_LOGIT_TOL, atol=MESH_LM_LOGIT_TOL),
+                  f"{tag}: {who}'s logits off by {errs[-1]:.3e}")
         else:
-            check(rms[-1] <= FLOOR_FACTOR * floor,
-                  f"{tag}: rank {r['rank']}'s logits' rms gap {rms[-1]:.3e} "
-                  f"> {FLOOR_FACTOR} x the floor {floor:.3e}")
-        check(np.allclose(res["conv"], ref_conv[:, mine],
-                          rtol=MESH_LM_LOGIT_TOL, atol=MESH_LM_LOGIT_TOL),
-              f"{tag}: rank {r['rank']}'s conv history is not the "
-              "one-device cache's")
+            check(rms[-1] <= rms_limit, f"{tag}: {who}'s logits' rms gap "
+                  f"{rms[-1]:.3e} > {rms_limit:.3e}")
+        if ref_conv is not None:
+            check(np.allclose(res["conv"], ref_conv[:, mine],
+                              rtol=MESH_LM_LOGIT_TOL, atol=MESH_LM_LOGIT_TOL),
+                  f"{tag}: {who}'s conv history is not the one-device "
+                  "cache's")
         check(res["cache_shapes"] == want_shapes,
-              f"{tag}: rank {r['rank']}'s cache {res['cache_shapes']}, "
-              f"cache_pspecs gives {want_shapes}")
-        launches = (res["prefill_ssd"], res["prefill_flash"],
-                    res["warm_ssd"], res["warm_flash"], res["decode_ssd"],
-                    res["decode_flash"])
-        check(launches == (L, sites, 0, 0, 0, 0),
-              f"{tag}: SSD and flash launches a prefill, warm-up and "
-              f"decode {launches}, expected {(L, sites, 0, 0, 0, 0)}")
-        times.append((res["prefill_s"] * 1e3,
-                      res["warm_s"] * 1e3 / MESH_SSM_PROMPT,
-                      res["decode_s"] * 1e3 / (MESH_SSM_GEN - 1)))
-    rule = (f"rtol = atol = {MESH_LM_LOGIT_TOL}" if depth_cut else
-            f"rms gap <= {FLOOR_FACTOR} x the floor {floor:.3e}")
-    log(f"{tag}: {B} x {MESH_SSM_PROMPT} prompts, the rows over 'data' (the "
-        f"cache's), through warm_up, then {MESH_SSM_GEN - 1} greedy decode "
-        f"steps; a rank's cache {want_shapes}; tokens identical; logit "
-        f"gaps ({rule}; max|logits| "
+              f"{tag}: {who}'s cache {res['cache_shapes']}, cache_pspecs "
+              f"gives {want_shapes}")
+        got = (res["prefill_ssd"], res["prefill_flash"], res["warm_ssd"],
+               res["warm_flash"], res["decode_ssd"], res["decode_flash"])
+        check(got == want, f"{tag}: SSD and flash launches a prefill, "
+              f"warm-up and decode {got}, expected {want}")
+        times.append((res["prefill_s"] * 1e3,)
+                     + ((res["warm_s"] * 1e3 / prompt,) if ssm else ())
+                     + (res["decode_s"] * 1e3 / (gen - 1),))
+    log(f"{tag}: {B} x {prompt} prompts into {S} positions, a rank's rows "
+        f"{rows} (over {row_axes}){', through warm_up' if ssm else ''}, "
+        f"{gen - 1} greedy decode steps; a rank's cache {want_shapes}; "
+        f"tokens identical; logit gaps ({rule}; max|logits| "
         f"{float(np.abs(ref_logits).max()):.3f}) max {max(errs):.3e}, rms "
-        f"{max(rms):.3e}; prefill ms / warm-up ms a position / ms a token by "
-        f"rank {[tuple(round(x, 3) for x in t) for t in times]}; collectives "
-        f"a decode step {ranks[0]['serve']['decode_calls']}")
-    a = ranks[0]["cells"]["A"]["steps"][-1]
-    return ((a["ssd"], a["ssd_bwd"], a["flash"], a["flash_bwd"]),
-            (ranks[0]["serve"]["prefill_ssd"],
-             ranks[0]["serve"]["prefill_flash"]))
+        f"{max(rms):.3e}; prefill ms"
+        f"{' / warm-up ms a position' if ssm else ''} / ms a token by rank "
+        f"{[tuple(round(x, 3) for x in t) for t in times]}; collectives a "
+        f"decode step {results[0]['decode_calls']}")
+    return results[0]["prefill_flash"], results[0]["prefill_ssd"]
 
 
 def phase_mesh_lm():
@@ -7453,7 +7744,8 @@ def phase_mesh_lm():
          + [(mesh_ssm_rank, (c, p.cpu().numpy(), dict(
              cells=MESH_SSM_CELLS[c.name], S=MESH_SSM_S,
              steps=MESH_SSM_STEPS, gen=MESH_SSM_GEN,
-             controls=MESH_SSM_CONTROLS if c.family == "ssm" else {}),
+             controls=MESH_SSM_CONTROLS if c.family == "ssm" else {},
+             pod=MESH_SSM_POD_CELL if c.family == "ssm" else None),
              MESH_DEVICE))
             for c, p in zip(ssm_cfgs, ssm_prompts)],),
         backend="gloo", timeout=MESH_TIMEOUT_S)
@@ -7476,19 +7768,6 @@ def phase_mesh_lm():
 
     # (a) the first step against the one-device step: each leaf's gaps
     # taken over the ranks' shards, its missed updates summed over them
-    def leaves(key):
-        out = []
-        for per_rank in zip(*(r[key] for r in ranks)):
-            e = dict(top=per_rank[0]["top"],
-                     grad=max(x["grad"] for x in per_rank))
-            if "control" in per_rank[0]:
-                e["control"] = max(x["control"] for x in per_rank)
-            if "missed" in per_rank[0]:
-                e["missed"] = sum(x["missed"] for x in per_rank) / sum(
-                    x["size"] for x in per_rank)
-            out.append(e)
-        return out
-
     paths = ["/".join(p) for p in leaf_paths(
         Model(cfg, device="cpu").template)]
     runs = r0["runs"]
@@ -7498,25 +7777,13 @@ def phase_mesh_lm():
         check(abs(coll[key] - want) <= tol.F32_REDUCTION.obj_rel * abs(want),
               f"{label} (2, 2): {key} {coll[key]} against the one-device "
               f"{want}")
-    held = leaves("leaves")
-    gap = [e["grad"] / e["top"] for e in held]
-    worst = int(np.argmax(gap))
-    check(max(gap) <= MESH_LM_GRAD_TOL,
-          f"{label} (2, 2): gradient leaf {paths[worst]} off by "
-          f"{gap[worst]:.3e} of its largest")
-    ctrl = max(e["control"] / e["top"] for e in held)
-    check(ctrl > MESH_LM_GRAD_TOL,
-          f"{label} (2, 2): the input collective's backward dropped stays "
-          f"within the rule ({ctrl:.3e})")
+    gap, leaf, ctrl, upd = mesh_held_checks(
+        f"{label} (2, 2)", [r["leaves"] for r in ranks], paths,
+        "the input collective's backward dropped")
     check(all(r["zero1_bitwise"] for r in ranks),
           f"{label} (2, 2): ZeRO-1's state slices or its parameters differ "
           "from an update unsplit over 'data' of the same summed gradients, "
           f"on ranks {[r['rank'] for r in ranks if not r['zero1_bitwise']]}")
-    upd = max(e["missed"] for e in held)
-    check(upd <= MESH_LM_ADAMW_FLIPS,
-          f"{label} (2, 2): parameters after the update outside "
-          f"{MESH_LM_UPDATE_TOL} x the one-device update ({upd:.3e} of a "
-          "leaf)")
     check(all(r["bitwise_remat"] for r in ranks),
           f"{label} (2, 2): remat 'collectives' is not bitwise 'none'")
 
@@ -7531,16 +7798,9 @@ def phase_mesh_lm():
           f"{all_reduces(runs['full'])}")
     check(r0["losses"][-1] < r0["losses"][0],
           f"{label} (2, 2): the loss does not fall: {r0['losses']}")
-    wide = leaves("wide")
-    wgap = [e["grad"] / e["top"] for e in wide]
-    wworst = int(np.argmax(wgap))
-    check(max(wgap) <= MESH_LM_GRAD_TOL,
-          f"{label} (1, 4): gradient leaf {paths[wworst]} off by "
-          f"{wgap[wworst]:.3e} of its largest")
-    wctrl = max(e["control"] / e["top"] for e in wide)
-    check(wctrl > MESH_LM_GRAD_TOL,
-          f"{label} (1, 4): the kv weights' partial gradients unsummed "
-          f"stay within the rule ({wctrl:.3e})")
+    wgap, wleaf, wctrl, _ = mesh_held_checks(
+        f"{label} (1, 4)", [r["wide"] for r in ranks], paths,
+        "the kv weights' partial gradients unsummed")
     steps = [r["steps"] for r in ranks]
     flash = {(s["flash"], s["flash_bwd"]) for st in steps for s in st}
     check(flash == {(2 * MESH_LM_CUT, MESH_LM_CUT)},
@@ -7551,8 +7811,8 @@ def phase_mesh_lm():
         f"{MESH_LM_B} x {MESH_LM_S} tokens a step: loss {coll['loss']:.6f} "
         f"(one device {r0['ref_loss']:.6f}), grad norm "
         f"{coll['grad_norm']:.6f} ({r0['ref_grad_norm']:.6f}); largest "
-        f"gradient gap {gap[worst]:.3e} of its leaf's largest "
-        f"({paths[worst]}), the control's {ctrl:.3e}; the largest "
+        f"gradient gap {gap:.3e} of its leaf's largest "
+        f"({leaf}), the control's {ctrl:.3e}; the largest "
         f"share of a leaf's parameters outside {MESH_LM_UPDATE_TOL} x its "
         f"one-device update {upd:.3e}; ZeRO-1 "
         f"bitwise; remat 'collectives' bitwise 'none'; losses "
@@ -7575,52 +7835,46 @@ def phase_mesh_lm():
     log(f"{label}: each rank's seconds at the end of each part "
         f"{[[(w, round(t, 1)) for w, t in r['stamps']] for r in ranks]}")
     log(f"{label} (1, 4), kv heads replicated: largest gradient gap "
-        f"{wgap[wworst]:.3e} ({paths[wworst]}), the unsummed kv control's "
+        f"{wgap:.3e} ({wleaf}), the unsummed kv control's "
         f"{wctrl:.3e}")
 
-    # (b) serving against the one-device port
-    rows = MESH_LM_SERVE_B
-    for mode, grid in MESH_LM_GRIDS.items():
-        n = rows // grid[0]
-        spec = Model(cfg, device="cpu", mesh=dict(zip(("data", "model"),
-                                                       grid))).cache_pspecs(
-            ShapeConfig("mesh-lm", "decode", MESH_LM_CACHE, rows))["k"]
-        full = (cfg.num_layers, rows, MESH_LM_CACHE, cfg.num_kv_heads,
-                cfg.resolved_head_dim)
-        sizes = dict(zip(("data", "model"), grid))
-        want_shape = tuple(d // (sizes[a] if a else 1)
-                           for d, a in zip(full, spec))
-        errs, times = [], []
-        for r in ranks:
-            res = r["serve"][mode]
-            p = res["coordinate"][0]
-            mine = slice(p * n, (p + 1) * n)
-            check(np.array_equal(res["tokens"], ref_tokens[mine]),
-                  f"{label} {mode} {grid}: rank {r['rank']}'s greedy tokens "
-                  "differ from the one-device port's")
-            check(np.allclose(res["logits"], ref_logits[mine],
-                              rtol=MESH_LM_LOGIT_TOL, atol=MESH_LM_LOGIT_TOL),
-                  f"{label} {mode} {grid}: rank {r['rank']}'s logits off by "
-                  f"{np.abs(res['logits'] - ref_logits[mine]).max():.3e}")
-            check(res["cache_shape"] == want_shape,
-                  f"{label} {mode} {grid}: rank {r['rank']}'s cache "
-                  f"{res['cache_shape']}, cache_pspecs gives {want_shape}")
-            check((res["prefill_flash"], res["decode_flash"]) ==
-                  (cfg.num_layers, 0),
-                  f"{label} {mode} {grid}: flash launches "
-                  f"{res['prefill_flash']} a prefill, {res['decode_flash']} "
-                  "in decode")
-            errs.append(float(np.abs(res["logits"] - ref_logits[mine]).max()))
-            times.append((res["prefill_s"] * 1e3,
-                          res["decode_s"] * 1e3 / (MESH_LM_GEN - 1)))
-        log(f"{label} serve {mode} {grid}: {rows} x {MESH_LM_PROMPT} prompts "
-            f"into {MESH_LM_CACHE} positions, {MESH_LM_GEN - 1} greedy decode "
-            f"steps; a rank's cache {want_shape}; tokens identical; largest "
-            f"logit gap {max(errs):.3e}; prefill ms / ms a token by rank "
-            f"{[(round(a, 3), round(b, 3)) for a, b in times]}; collectives "
-            f"a decode step {ranks[0]['serve'][mode]['decode_calls']}")
-    return (steps[0][-1]["flash"], steps[0][-1]["flash_bwd"],
-            ranks[0]["serve"]["seq"]["prefill_flash"]) + moe + (ssm,)
+    # (g) the (2, 2) cell's steps on MESH_POD, held to the same one-device
+    # step (its first) and to the (2, 2) cell's second step
+    tag = f"{label} {MESH_POD}"
+    pods = [r["pod"] for r in ranks]
+    pgap, pleaf, pctrl, pupd = mesh_held_checks(
+        tag, [p["held"] for p in pods], paths, "the pod_grad control")
+    plosses = [s_["loss"] for s_ in pods[0]["steps"]]
+    check(plosses[-1] < plosses[0], f"{tag}: the loss does not fall: "
+          f"{plosses}")
+    pod_launches = mesh_step_checks(tag, pods, [
+        dict(loss=r0["ref_loss"], grad_norm=r0["ref_grad_norm"],
+             of="the one-device step"),
+        dict(loss=r0["losses"][1], grad_norm=steps[0][-1]["grad_norm"],
+             of="the (2, 2) cell's step 2")], (2 * MESH_LM_CUT, MESH_LM_CUT,
+                                              0, 0))
+    mesh_pod_checks(tag, pods)
+    log(f"{tag}, adamw {MESH_LM_LR} ZeRO-1 over 'data' (one rank: the whole "
+        f"state on each rank of a pod), remat 'collectives', {MESH_LM_B} x "
+        f"{MESH_LM_S} tokens a step: loss and grad norm by step "
+        f"{[(round(s_['loss'], 6), round(s_['grad_norm'], 6)) for s_ in pods[0]['steps']]}"
+        f" (one device {r0['ref_loss']:.6f}, {r0['ref_grad_norm']:.6f}); "
+        f"largest gradient gap {pgap:.3e} of its leaf's largest "
+        f"({pleaf}), the pod_grad control's {pctrl:.3e}; the "
+        f"largest share of a leaf's parameters outside {MESH_LM_UPDATE_TOL} "
+        f"x its one-device update {pupd:.3e}")
+
+    # (b) serving against the one-device port, on both grids and (g)'s
+    prefill = {mode: mesh_serve_checks(
+        cfg, f"{label} serve {'heads' if mode == 'pod' else mode} {grid}",
+        grid, [r["serve"][mode] for r in ranks], ref_logits, ref_tokens,
+        MESH_LM_CACHE, MESH_LM_PROMPT, MESH_LM_GEN,
+        f"rtol = atol = {MESH_LM_LOGIT_TOL}")[0]
+        for mode, grid in {**MESH_LM_GRIDS, "pod": MESH_POD}.items()}
+    return ((steps[0][-1]["flash"], steps[0][-1]["flash_bwd"],
+             prefill["seq"]) + moe
+            + (ssm, dict(flash=pod_launches[0], flash_bwd=pod_launches[1],
+                         prefill=prefill["pod"])))
 
 
 def flash_training_records(flash_record, bwd_record, train_fwd, train,
@@ -7840,10 +8094,11 @@ def run():
                            train, dense_train, moe_train, moe_exact)
     torch.cuda.empty_cache()
     (mesh_fwd, mesh_bwd, mesh_prefill, moe_fwd, moe_bwd, moe_prefill,
-     ssm) = timed_phase(seconds, phase_mesh_lm)
-    (m_ssd, m_ssd_bwd, _, _), (m_pre, _) = ssm["mamba2-130m"]
-    (z_ssd, z_ssd_bwd, z_fl, z_fl_bwd), (z_pre, z_pre_fl) = ssm[
+     ssm, pod) = timed_phase(seconds, phase_mesh_lm)
+    (m_ssd, m_ssd_bwd, _, _), (m_pre, _), m_pod = ssm["mamba2-130m"]
+    (z_ssd, z_ssd_bwd, z_fl, z_fl_bwd), (z_pre, z_pre_fl), _ = ssm[
         mesh_ssm_cfgs()[1].name]
+    (m_pod_ssd, m_pod_ssd_bwd), m_pod_pre = m_pod
     flash_record["f32"]["launches_by_path"].update({
         "chatglm3-6b mesh (2, 2) train step, a rank": mesh_fwd,
         "chatglm3-6b mesh prefill, a rank": mesh_prefill,
@@ -7851,20 +8106,27 @@ def run():
         "arctic-480b mesh prefill, a rank": moe_prefill,
         "zamba2-7b mesh (2, 2) train step, a rank, (1, 16, 16, 2048, 112)":
             z_fl,
-        "zamba2-7b mesh prefill, a rank": z_pre_fl})
+        "zamba2-7b mesh prefill, a rank": z_pre_fl,
+        f"chatglm3-6b mesh {MESH_POD} train step, a rank": pod["flash"],
+        f"chatglm3-6b mesh {MESH_POD} prefill, a rank": pod["prefill"]})
     flash_bwd_record["launches_by_path"].update({
         "chatglm3-6b mesh (2, 2) train step, a rank": mesh_bwd,
         "arctic-480b mesh (2, 2) train step, a rank": moe_bwd,
         "zamba2-7b mesh (2, 2) train step, a rank, (1, 16, 16, 2048, 112)":
-            z_fl_bwd})
+            z_fl_bwd,
+        f"chatglm3-6b mesh {MESH_POD} train step, a rank": pod["flash_bwd"]})
     ssd_record["f32"]["launches_by_path"].update({
         "mamba2-130m mesh (2, 2) train step, a rank, H = 12": m_ssd,
         "zamba2-7b mesh (2, 2) train step, a rank, H = 56": z_ssd,
         "mamba2-130m mesh prefill, a rank, H = 12": m_pre,
-        "zamba2-7b mesh prefill, a rank, H = 56": z_pre})
+        "zamba2-7b mesh prefill, a rank, H = 56": z_pre,
+        f"mamba2-130m mesh {MESH_POD} train step, a rank, H = 24": m_pod_ssd,
+        f"mamba2-130m mesh {MESH_POD} prefill, a rank, H = 12": m_pod_pre})
     bwd_record["launches_by_path"].update({
         "mamba2-130m mesh (2, 2) train step, a rank, H = 12": m_ssd_bwd,
-        "zamba2-7b mesh (2, 2) train step, a rank, H = 56": z_ssd_bwd})
+        "zamba2-7b mesh (2, 2) train step, a rank, H = 56": z_ssd_bwd,
+        f"mamba2-130m mesh {MESH_POD} train step, a rank, H = 24":
+            m_pod_ssd_bwd})
     log("seconds by phase: " + ", ".join(
         f"{name} {sec:.1f}" for name, sec in seconds.items())
         + f"; {sum(seconds.values()):.1f} s in the phases, "

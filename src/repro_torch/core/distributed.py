@@ -44,19 +44,22 @@ from repro_torch.core.partition import IterationSample, sample_iteration
 from repro_torch.core.sodda import (AsyncSoddaRecord, AsyncSoddaState,
                                     SoddaRecord, SoddaState, _counts, _gamma,
                                     inner_loop, key_seed, seed_key)
+from repro_torch.distributed.sharding_rules import axis_names, split_size
 from repro_torch.kernels import ops as kops
 from repro_torch.optim.grad_compression import compressed_psum
 
-__all__ = ["AXES", "Mesh", "Exchange", "LocalSample", "local_sample",
-           "make_local_halves", "make_distributed_bundle",
+__all__ = ["AXES", "POD_AXES", "Mesh", "Exchange", "LocalSample",
+           "local_sample", "make_local_halves", "make_distributed_bundle",
            "make_distributed_async_bundle", "distributed_objective",
            "iteration_collective_bytes"]
 
 AXES = ("data", "model")
+POD_AXES = ("pod",) + AXES
 
 
 class Mesh:
-    """The (data=P, model=Q) grid of a process group, as seen by one rank.
+    """The (data=P, model=Q) grid of a process group, as seen by one rank,
+    or with ``pods`` > 1 the (pod, data=P, model=Q) grid.
 
     Holds ``(P, Q)``, this rank's ``(p, q)``, its ``data`` and ``model``
     groups, the process group's backend and the rank's device, with the
@@ -66,12 +69,21 @@ class Mesh:
     to device r and picks NCCL, which refuses two ranks of a communicator
     on one card; here ranks may share a device (over gloo).
 
+    With ``pods`` > 1 (the reference's multi-pod layout, a leading 'pod'
+    axis) rank r is ``(o * P + p) * Q + q`` at (o, p, q), and the mesh has
+    a 'pod' group too (the ranks sharing (p, q)), and one for each tuple
+    of axes a spec splits a dim over: ('pod', 'data') (the ranks sharing
+    q) and ('pod', 'data', 'model'), the whole group. A tuple axis is
+    ordered as jax orders one, the first name major: its group's ranks
+    in ascending order are its blocks in order
+    (``sharding_rules.coordinate``). With one pod the mesh is the (P, Q)
+    grid alone, its groups made as before and no other.
+
     Every rank must build the mesh at the same point: each takes every
-    row and column group, in one fixed order, from
-    ``multihost.subgroup`` (made on the first mesh of the grid, shared by
-    the later ones). ``payload`` counts the bytes
-    this rank hands to each collective, by tag, and ``calls`` the
-    collectives, by tag.
+    group, in one fixed order, from ``multihost.subgroup`` (made on the
+    first mesh of the grid, shared by the later ones). ``payload`` counts
+    the bytes this rank hands to each collective, by tag, and ``calls``
+    the collectives, by tag.
 
     A mesh lives as long as its process group: ``multihost.shutdown``
     (a rescale re-forming the group) first calls :meth:`release`, which
@@ -79,60 +91,98 @@ class Mesh:
     rescaled run builds a new mesh over the re-formed group.
     """
 
-    def __init__(self, P: int, Q: int, device):
+    def __init__(self, P: int, Q: int, device, pods: int = 1):
         from repro_torch.distributed import multihost
 
+        n = pods * P * Q
+        grid = f"{P}x{Q}" if pods == 1 else f"{pods}x{P}x{Q}"
         if not dist.is_initialized():
             raise ValueError(
-                f"a {P}x{Q} mesh needs a process group of {P * Q} ranks; "
+                f"a {grid} mesh needs a process group of {n} ranks; "
                 "call repro_torch.distributed.multihost.initialize first")
         world = dist.get_world_size()
-        if world != P * Q:
+        if world != n:
             raise ValueError(
-                f"a {P}x{Q} mesh needs {P * Q} ranks, the process group has "
+                f"a {grid} mesh needs {n} ranks, the process group has "
                 f"{world}")
-        self.P, self.Q = int(P), int(Q)
+        self.pods, self.P, self.Q = int(pods), int(P), int(Q)
         self.rank = dist.get_rank()
-        self.p, self.q = divmod(self.rank, self.Q)
+        self.o, rest = divmod(self.rank, self.P * self.Q)
+        self.p, self.q = divmod(rest, self.Q)
         self.device = torch.device(device)
         self.backend = dist.get_backend()
+        self.mesh_dim_names = AXES if self.pods == 1 else POD_AXES
         groups = {}
-        for q in range(self.Q):
-            g = multihost.subgroup(p * self.Q + q for p in range(self.P))
-            if q == self.q:
-                groups["data"] = g
-        for p in range(self.P):
-            g = multihost.subgroup(p * self.Q + q for q in range(self.Q))
-            if p == self.p:
-                groups["model"] = g
+        for o in range(self.pods):
+            for q in range(self.Q):
+                g = multihost.subgroup(self._rank(o, p, q)
+                                       for p in range(self.P))
+                if (o, q) == (self.o, self.q):
+                    groups["data"] = g
+            for p in range(self.P):
+                g = multihost.subgroup(self._rank(o, p, q)
+                                       for q in range(self.Q))
+                if (o, p) == (self.o, self.p):
+                    groups["model"] = g
+        if self.pods > 1:
+            for p in range(self.P):
+                for q in range(self.Q):
+                    g = multihost.subgroup(self._rank(o, p, q)
+                                           for o in range(self.pods))
+                    if (p, q) == (self.p, self.q):
+                        groups["pod"] = g
+            for q in range(self.Q):
+                g = multihost.subgroup(self._rank(o, p, q)
+                                       for o in range(self.pods)
+                                       for p in range(self.P))
+                if q == self.q:
+                    groups[("pod", "data")] = g
         self._groups = groups
         self._pending = []  # async all-reduces issued, not yet settled
         self.payload = collections.Counter()
         self.calls = collections.Counter()
         multihost.hold(self)
 
-    # -- DeviceMesh-style accessors ----------------------------------------
-    mesh_dim_names = AXES
+    def _rank(self, o, p, q):
+        return (o * self.P + p) * self.Q + q
 
+    # -- DeviceMesh-style accessors ----------------------------------------
     @property
     def shape(self):
-        return (self.P, self.Q)
+        return (self.P, self.Q) if self.pods == 1 else (self.pods, self.P,
+                                                         self.Q)
 
     @property
     def axis_sizes(self):
-        """The axis sizes by name, ``{"data": P, "model": Q}``: the mesh
-        as ``distributed.sharding_rules`` reads it."""
-        return dict(zip(AXES, self.shape))
+        """The axis sizes by name, ``{"data": P, "model": Q}`` (and
+        ``"pod"`` first on a multi-pod mesh): the mesh as
+        ``distributed.sharding_rules`` reads it."""
+        return dict(zip(self.mesh_dim_names, self.shape))
 
     def get_coordinate(self):
-        return (self.p, self.q)
+        return (self.p, self.q) if self.pods == 1 else (self.o, self.p,
+                                                        self.q)
+
+    def _axis(self, axis):
+        """`axis` (an index, a name or a tuple of names) as a name, or a
+        tuple of two names or more in the mesh's order."""
+        if isinstance(axis, int):
+            return self.mesh_dim_names[axis]
+        names = axis_names(axis)
+        if names != tuple(a for a in self.mesh_dim_names if a in names):
+            raise ValueError(f"mesh axes {axis!r}: axes of this mesh, in its "
+                             f"order {self.mesh_dim_names}")
+        return names[0] if len(names) == 1 else names
 
     def get_group(self, axis):
         if self._groups is None:
             raise RuntimeError(
-                f"this {self.P}x{self.Q} mesh was released with its process "
-                "group; a re-formed group needs a new mesh")
-        return self._groups[AXES[axis] if isinstance(axis, int) else axis]
+                f"this {'x'.join(map(str, self.shape))} mesh was released "
+                "with its process group; a re-formed group needs a new mesh")
+        axis = self._axis(axis)
+        if axis == self.mesh_dim_names:
+            return dist.group.WORLD
+        return self._groups[axis]
 
     def settle(self):
         """Wait every asynchronous all-reduce issued on this mesh (an
@@ -142,14 +192,18 @@ class Mesh:
             work.wait()
 
     def release(self):
-        """Settle, then drop the row and column groups: called by
+        """Settle, then drop the mesh's groups: called by
         ``multihost.shutdown`` before the group ends."""
         if self._groups is not None:
             self.settle()
             self._groups = None
 
     def size(self, axis) -> int:
-        return self.shape[AXES.index(axis) if isinstance(axis, str) else axis]
+        """The ranks along `axis`: an index, a name, or a tuple of names
+        (their product)."""
+        if isinstance(axis, int):
+            return self.shape[axis]
+        return split_size(self, axis)
 
     # -- collectives (each counts its payload under `tag`) ------------------
     def _count(self, tag, axis, t):
@@ -170,7 +224,8 @@ class Mesh:
 
     def all_gather_cat(self, t, axis, tag=None):
         """The `axis` group's tensors, concatenated along dim 0 in group
-        order (p for ``data``, q for ``model``)."""
+        order (p for ``data``, q for ``model``; over a tuple of axes the
+        blocks in order, the first axis major)."""
         self._count(tag, axis, t)
         n = self.size(axis)
         out = torch.empty((n * t.shape[0], *t.shape[1:]), dtype=t.dtype,

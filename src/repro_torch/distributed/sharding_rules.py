@@ -44,13 +44,47 @@ def axis_sizes(mesh) -> Mapping[str, int]:
     return mesh if isinstance(mesh, Mapping) else mesh.axis_sizes
 
 
+def axis_names(axis) -> Tuple[str, ...]:
+    """A spec entry (a mesh-axis name, a tuple of names or None) as a
+    tuple of names."""
+    if axis is None:
+        return ()
+    return tuple(axis) if isinstance(axis, tuple) else (axis,)
+
+
+def split_size(mesh, axis) -> int:
+    """How many ways a dim split over `axis` (a name or a tuple of names)
+    is cut on `mesh`."""
+    sizes, n = axis_sizes(mesh), 1
+    for a in axis_names(axis):
+        n *= sizes[a]
+    return n
+
+
+def coordinate(mesh, axis) -> int:
+    """A rank's block along `axis` of `mesh` (a ``core.distributed.Mesh``,
+    or any object with ``axis_sizes`` and ``get_coordinate()`` in the
+    same order): its index on a named axis, and on a tuple of names the
+    index of its block of a dim split over them, the first name major (as
+    jax lays such a dim: over ('pod', 'data') block pod x data-size +
+    data)."""
+    sizes = axis_sizes(mesh)
+    names, coord = tuple(sizes), mesh.get_coordinate()
+    k = 0
+    for a in axis_names(axis):
+        k = k * sizes[a] + coord[names.index(a)]
+    return k
+
+
 def padded_heads(cfg: ArchConfig) -> int:
     """q heads padded to the TP width (``models.attention`` has the same
     rule)."""
     return round_up(cfg.num_heads, 16)
 
 
-def _data_axes(mesh) -> Tuple[str, ...]:
+def data_axes(mesh) -> Tuple[str, ...]:
+    """The mesh axes the batch's data parallelism runs over: ('pod',
+    'data') on a mesh with a 'pod' axis, else ('data',)."""
     return ("pod", "data") if "pod" in axis_sizes(mesh) else ("data",)
 
 
@@ -58,7 +92,7 @@ def rules_for(cfg: ArchConfig, mesh, overrides: Optional[dict] = None) -> dict:
     """The logical axis -> mesh axis table of `cfg` on `mesh`, with
     `overrides` (a ``MOE_LAYOUTS`` entry) on top."""
     tp = axis_sizes(mesh)["model"]
-    data = _data_axes(mesh)
+    data = data_axes(mesh)
     rules = {
         "vocab": "model",
         "embed": None,
@@ -101,7 +135,7 @@ def batch_axes(cfg: ArchConfig, shape: ShapeConfig, mesh) -> Tuple[str, ...]:
     they divide it, 'model' too for the SSM family when that divides it,
     else the longest prefix of the data axes that does (maybe none)."""
     sizes = axis_sizes(mesh)
-    data = _data_axes(mesh)
+    data = data_axes(mesh)
     n_data = 1
     for a in data:
         n_data *= sizes[a]

@@ -42,6 +42,13 @@ the batch divides both axes) add three more pieces:
   'model' gathered whole when the rank's rows lie over 'model' (its own
   rows on every head), its gradient each rank's chunk of the sum.
 
+On a mesh with a 'pod' axis (the reference's multi-pod layout) the batch
+lies over ('pod', 'data') (``sharding_rules.data_axes``): the 'data'
+pair above runs over the axes the rows lie over, a tuple of them taken as
+one axis (``core.distributed.Mesh``'s tuple groups, the first name
+major), and a dim split over two axes (the MoE FFN's hidden over ('pod',
+'data')) is cut and joined in the tuple's order (``shard``, ``gather``).
+
 Each is a ``torch.autograd.Function`` over ``core.distributed.Mesh``'s
 collectives, which count their payload under a tag in ``Mesh.payload``
 (and their calls in ``Mesh.calls``). :class:`TensorParallel` is a rank's
@@ -53,7 +60,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.sharding_rules import padded_heads, rules_for
+from repro_torch.distributed.sharding_rules import (axis_names, coordinate,
+                                                    data_axes, padded_heads,
+                                                    rules_for, split_size)
 
 AXIS = "model"
 DATA = "data"
@@ -65,39 +74,41 @@ DATA = "data"
 # the expert outputs' partial sums dropped; each data rank routing only
 # its own rows with its own capacity; the SSM's gated norm without its
 # backward all-reduce; the replicated B/C weights' partial gradients left
-# unsummed; and a leaf gathered over 'model' keeping its own slice of its
-# own gradient, not the reduce-scatter
+# unsummed; a leaf gathered over 'model' keeping its own slice of its own
+# gradient, not the reduce-scatter; and on a mesh with a 'pod' axis the
+# gradients' reduction over 'pod' dropped (each pod keeping its own)
 CONTROLS = ("input_grad", "kv_grad", "weight_grad", "expert_sum",
-            "local_route", "norm_grad", "bc_grad", "scatter_grad")
+            "local_route", "norm_grad", "bc_grad", "scatter_grad",
+            "pod_grad")
 
 
 class _Copy(torch.autograd.Function):
-    """Identity forward; the gradient all-reduced over the axis."""
+    """Identity forward; the gradient all-reduced over `axis`."""
 
     @staticmethod
-    def forward(ctx, x, tp, tag):
-        ctx.tp, ctx.tag = tp, tag
+    def forward(ctx, x, tp, tag, axis):
+        ctx.tp, ctx.tag, ctx.axis = tp, tag, axis
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
-        ctx.tp.mesh.all_reduce(grad, AXIS, tag=ctx.tag)
-        return grad, None, None
+        ctx.tp.mesh.all_reduce(grad, ctx.axis, tag=ctx.tag)
+        return grad, None, None, None
 
 
 class _Reduce(torch.autograd.Function):
-    """All-reduce forward over the axis; the gradient as it is."""
+    """All-reduce forward over `axis`; the gradient as it is."""
 
     @staticmethod
-    def forward(ctx, x, tp, tag):
+    def forward(ctx, x, tp, tag, axis):
         out = x.contiguous().clone()
-        tp.mesh.all_reduce(out, AXIS, tag=tag)
+        tp.mesh.all_reduce(out, axis, tag=tag)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None, None
+        return grad, None, None, None
 
 
 class _NormSum(torch.autograd.Function):
@@ -121,10 +132,10 @@ class _NormSum(torch.autograd.Function):
         return grad, None, None
 
 
-def _reduce_scatter(mesh, t, tag, axis=DATA):
+def _reduce_scatter(mesh, t, tag, axis):
     """The sum over `axis` of the ranks' `t`, cut along dim 0 into
     ``size(axis)`` chunks: this rank's chunk."""
-    n = mesh.size(axis)
+    n = split_size(mesh, axis)
     return mesh.reduce_scatter_cat(t, axis, tag=tag) if n > 1 else t
 
 
@@ -145,8 +156,8 @@ class _Gather(torch.autograd.Function):
         tp, dim, axis = ctx.tp, ctx.dim, ctx.axis
         g = grad.movedim(dim, 0)
         if ctx.keep_own:
-            k = tp.data_rank if axis == DATA else tp.rank
-            out = g.chunk(tp.mesh.size(axis))[k].clone()
+            k = coordinate(tp.mesh, axis)
+            out = g.chunk(split_size(tp.mesh, axis))[k].clone()
         else:
             out = _reduce_scatter(tp.mesh, g, ctx.tag, axis)
         return (out.movedim(0, dim).contiguous(), None, None, None, None,
@@ -160,7 +171,7 @@ class _ScatterData(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp, tag):
         ctx.tp, ctx.tag = tp, tag
-        return _reduce_scatter(tp.mesh, x, tag)
+        return _reduce_scatter(tp.mesh, x, tag, DATA)
 
     @staticmethod
     def backward(ctx, grad):
@@ -174,7 +185,8 @@ def moe_layout(rules) -> str:
     (the experts over 'model' and their hidden over 'data', or the
     reverse); another placement of the experts is not run."""
     placed = (rules["experts"], rules["expert_mlp"], rules["expert_cap"])
-    if placed == (AXIS, DATA, DATA):
+    if placed[0] == AXIS and axis_names(placed[1])[-1:] == (DATA,) \
+            and placed[2] == DATA:  # the hidden over ('pod', 'data') too
         return "gather"
     if placed == (DATA, AXIS, None):
         return "token_tp"
@@ -190,14 +202,18 @@ class TensorParallel:
     and whether the kv heads are split (``kv_heads``; the q heads, the MLP
     hidden and the vocabulary always are: a layout that replicates one of
     them over a model axis of more than one rank is refused). Beside it,
-    the rank's place on 'data' (``data_rank`` of ``data_size``), for the
-    MoE family the experts' layout (``moe_layout``: 'gather' or
-    'token_tp'; the experts and their hidden must divide their axes), and
+    the rank's place on 'data' (``data_rank`` of ``data_size``), the mesh
+    axes the batch's data parallelism runs over (``data_axes``: ('pod',
+    'data') on a mesh with a 'pod' axis), for the MoE family the experts'
+    layout (``moe_layout``: 'gather' or 'token_tp'; the experts and their
+    hidden must divide their axes; ``expert_hidden``, the hidden's axes),
+    and
     for the SSM and hybrid families whether the SSM heads (and the inner
     channels with them) are split over the axis (``ssm_heads``; the rules
     replicate them when the axis does not divide them). Whether a batch's
-    rows lie over 'model' too is the step's layout, not the model's
-    (``rows_over_model``).
+    rows lie over 'model' too, or over fewer data axes than
+    ``data_axes``, is the step's layout, not the model's
+    (``rows_over_model``, ``row_axes``).
 
     ``controls`` (a subset of ``CONTROLS``, empty by default) breaks a
     piece on purpose, for a check to show that its rule catches it."""
@@ -205,9 +221,10 @@ class TensorParallel:
     def __init__(self, mesh, cfg, rules=None):
         self.mesh = mesh
         self.size = mesh.size(AXIS)
-        self.rank = mesh.get_coordinate()[1]
+        self.rank = coordinate(mesh, AXIS)
         self.data_size = mesh.size(DATA)
-        self.data_rank = mesh.get_coordinate()[0]
+        self.data_rank = coordinate(mesh, DATA)
+        self.data_axes = data_axes(mesh)
         rules = rules or rules_for(cfg, mesh)
         split = {"heads": padded_heads(cfg), "mlp": cfg.d_ff,
                  "vocab": cfg.padded_vocab}
@@ -219,16 +236,16 @@ class TensorParallel:
                     f"{cfg.name}: a layout that replicates {kept} over a "
                     f"model axis of {self.size} ranks is not run")
         self.kv_heads = rules["kv_heads"] == AXIS
-        self.moe_layout = None
+        self.moe_layout = self.expert_hidden = None
         if cfg.num_experts:
             self.moe_layout = moe_layout(rules)
-            sizes = mesh.axis_sizes
+            self.expert_hidden = rules["expert_mlp"]
             for n, ax in ((cfg.num_experts, rules["experts"]),
                           (cfg.d_ff, rules["expert_mlp"])):
-                if n % sizes[ax]:
+                if n % split_size(mesh, ax):
                     raise NotImplementedError(
                         f"{cfg.name}: {n} does not split over {ax!r} of "
-                        f"{sizes[ax]} ranks")
+                        f"{split_size(mesh, ax)} ranks")
         self.ssm_heads = (cfg.has_ssm and self.size > 1
                           and rules["ssm_heads"] == AXIS)
         self.controls = frozenset()
@@ -240,23 +257,37 @@ class TensorParallel:
         batch; without it the rows lie over 'data' alone."""
         if pspec_fn is None or self.size == 1:
             return False
-        ax = pspec_fn(("batch",))[0]
-        return AXIS in (ax if isinstance(ax, tuple) else (ax,))
+        return AXIS in axis_names(pspec_fn(("batch",))[0])
+
+    def row_axes(self, pspec_fn):
+        """The data axes the activations' batch lies over: those of
+        ``data_axes`` that `pspec_fn` gives the batch (all of them without
+        it; fewer where the batch does not divide them, ``batch_axes``'
+        fallback to a prefix), as one mesh axis: a name, a tuple of names
+        or ()."""
+        if pspec_fn is None:
+            rows = self.data_axes
+        else:
+            rows = tuple(a for a in axis_names(pspec_fn(("batch",))[0])
+                         if a != AXIS)
+        return rows[0] if len(rows) == 1 else rows
 
     # -- collectives -------------------------------------------------------
-    def copy(self, x, tag):
-        """`x`; in the backward, its gradient all-reduced over the axis
-        (tag `tag`). The 'input_grad' control drops that all-reduce."""
-        if self.size == 1 or "input_grad" in self.controls:
+    def copy(self, x, tag, axis=AXIS):
+        """`x`; in the backward, its gradient all-reduced over `axis` (the
+        model axis by default; tag `tag`). The 'input_grad' control drops
+        the model axis's all-reduce."""
+        if split_size(self.mesh, axis) == 1 or (
+                axis == AXIS and "input_grad" in self.controls):
             return x
-        return _Copy.apply(x, self, tag)
+        return _Copy.apply(x, self, tag, axis)
 
-    def reduce(self, x, tag):
-        """`x` all-reduced over the axis (tag `tag`); its gradient as it
-        is."""
-        if self.size == 1:
+    def reduce(self, x, tag, axis=AXIS):
+        """`x` all-reduced over `axis` (the model axis by default; tag
+        `tag`); its gradient as it is."""
+        if split_size(self.mesh, axis) == 1:
             return x
-        return _Reduce.apply(x, self, tag)
+        return _Reduce.apply(x, self, tag, axis)
 
     def kv_weight(self, w):
         """A kv projection weight, replicated over the axis while each
@@ -265,7 +296,7 @@ class TensorParallel:
         are split or the 'kv_grad' control leaves it unsummed."""
         if self.kv_heads or self.size == 1 or "kv_grad" in self.controls:
             return w
-        return _Copy.apply(w, self, "kv_grad")
+        return _Copy.apply(w, self, "kv_grad", AXIS)
 
     def bc_weight(self, w):
         """A replicated B/C projection or convolution weight of an SSM
@@ -275,7 +306,7 @@ class TensorParallel:
         'bc_grad' control leaves it unsummed."""
         if not self.ssm_heads or "bc_grad" in self.controls:
             return w
-        return _Copy.apply(w, self, "ssm_bc_grad")
+        return _Copy.apply(w, self, "ssm_bc_grad", AXIS)
 
     def norm_sum(self, x):
         """`x`, a partial sum over channels split over the axis (the gated
@@ -295,21 +326,37 @@ class TensorParallel:
         return _Gather.apply(x, self, AXIS, dim, tag,
                              "scatter_grad" in self.controls)
 
-    def gather_data(self, x, dim, tag):
-        """The data ranks' `x` concatenated along `dim` in rank order (the
-        global batch's rows, or a split weight whole); its gradient
-        reduce-scattered back (under the 'weight_grad' control, when
-        `tag` is 'moe_weights', the rank's own slice of its own)."""
-        if self.data_size == 1:
+    def gather_data(self, x, dim, tag, axis=None):
+        """The ranks' `x` over `axis` (by default the data axes,
+        ``data_axes``: a name, a tuple of them or ()) concatenated along
+        `dim` in block order (the global batch's rows, or a split weight
+        whole); its gradient reduce-scattered back (under the
+        'weight_grad' control, when `tag` is 'moe_weights', the rank's own
+        slice of its own)."""
+        axis = self.data_axes if axis is None else axis
+        if split_size(self.mesh, axis) == 1:
             return x
         keep_own = tag == "moe_weights" and "weight_grad" in self.controls
-        return _Gather.apply(x, self, DATA, dim, tag, keep_own)
+        return _Gather.apply(x, self, axis, dim, tag, keep_own)
 
-    def scatter_data(self, x, tag):
-        """`x` summed over the data ranks and cut along dim 0: this rank's
-        rows; its gradient all-gathered."""
+    def scatter_data(self, x, tag, rows=None):
+        """`x`, a partial sum over the data ranks of every row of the
+        global batch, summed over them and cut along dim 0 to this rank's
+        rows: its block along `rows` (the axes the batch lies over, by
+        default ``data_axes``). The rows of the rank's block over the axes
+        of `rows` other than 'data' are cut first, then reduce-scattered
+        over 'data' (the gradient all-gathered); where 'data' is not in
+        `rows` (the data ranks hold the same rows) the sum is an
+        all-reduce (the gradient as it is)."""
+        rows = axis_names(self.data_axes if rows is None else rows)
+        held = tuple(a for a in rows if a != DATA)
+        if split_size(self.mesh, held) > 1:
+            x = x.chunk(split_size(self.mesh, held))[
+                coordinate(self.mesh, held)]
         if self.data_size == 1:
             return x
+        if DATA not in rows:
+            return _Reduce.apply(x, self, tag, DATA)
         return _ScatterData.apply(x, self, tag)
 
     def max_(self, x, tag):
@@ -349,45 +396,33 @@ class TensorParallel:
         return slice(start // group, (start + n_local - 1) // group + 1)
 
 
-def _coordinate(mesh, axis):
-    p, q = mesh.get_coordinate()
-    if axis == "data":
-        return p
-    if axis == AXIS:
-        return q
-    raise NotImplementedError(
-        f"mesh axis {axis!r}: a rank's share is cut along 'data' or "
-        "'model' only (the 'pod' axis waits for ROADMAP A6b)")
-
-
 def _split_dims(spec):
+    """(dim, axis) for each dim `spec` splits: the axis a name, or a
+    tuple of two names or more (a 1-tuple is its name)."""
     for dim, ax in enumerate(spec):
-        if ax is None:
-            continue
-        if isinstance(ax, tuple):
-            if len(ax) != 1:
-                raise NotImplementedError(
-                    f"dim {dim} split over {ax}: one mesh axis a dim is "
-                    "run (ROADMAP A6b)")
-            ax = ax[0]
-        yield dim, ax
+        names = axis_names(ax)
+        if names:
+            yield dim, names[0] if len(names) == 1 else names
 
 
 def shard(t, spec, mesh):
     """This rank's shard of the whole tensor `t` under `spec` (a
-    contiguous copy, so an in-place update writes the rank's own)."""
+    contiguous copy, so an in-place update writes the rank's own); a dim
+    split over a tuple of axes is cut in the tuple's order, the first
+    axis major."""
     for dim, ax in _split_dims(spec):
-        n = mesh.size(ax)
+        n = split_size(mesh, ax)
         size = t.shape[dim] // n
-        t = t.narrow(dim, _coordinate(mesh, ax) * size, size)
+        t = t.narrow(dim, coordinate(mesh, ax) * size, size)
     return t.clone(memory_format=torch.contiguous_format)
 
 
 def gather(t, spec, mesh, tag="gather"):
     """The whole tensor of the ranks' shards `t` under `spec`, on every
-    rank (all-gathers over each split dim's axis)."""
+    rank (all-gathers over each split dim's axis, a tuple of axes in its
+    order)."""
     for dim, ax in _split_dims(spec):
-        if mesh.size(ax) > 1:
+        if split_size(mesh, ax) > 1:
             t = mesh.all_gather_cat(t.movedim(dim, 0), ax,
                                     tag=tag).movedim(0, dim)
     return t

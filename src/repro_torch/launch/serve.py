@@ -39,10 +39,12 @@ layer routes the global batch's tokens: the prefill's B x P, each decode
 step's B over every expert's capacity buffer, as on one device.
 ``serve_shardings`` gives the reference's layouts as specs. Its token
 spec may lay the SSM family's rows over 'model' too (``batch_axes``),
-while its cache spec lays the state's rows over 'data' alone; the prompt
-of the SSM and hybrid families goes through decode (``warm_up``), so a
-rank here serves the cache's rows, prefill included, and decode follows
-the cache's layout.
+while its cache spec lays the state's rows over the data axes alone
+('data', or ('pod', 'data') on a mesh with a 'pod' axis); the prompt of
+the SSM and hybrid families goes through decode (``warm_up``), so a rank
+here serves the cache's rows, prefill included, and decode follows the
+cache's layout. A hybrid on a grid whose model axis does not divide its
+kv heads does not serve (``transformer._serving_on_mesh``).
 """
 from __future__ import annotations
 
@@ -55,7 +57,8 @@ import torch
 from repro_torch.configs import ShapeConfig, get_config, reduced_config
 from repro_torch.distributed.sharding_rules import (PartitionSpec as P,
                                                     activation_pspec_fn,
-                                                    batch_axes, decode_mode)
+                                                    axis_names, batch_axes,
+                                                    decode_mode)
 from repro_torch.launch.train import rank_rows
 from repro_torch.models import Model, input_specs
 
@@ -89,14 +92,18 @@ def make_serve_steps(model: Model, shape: Optional[ShapeConfig] = None,
 
 
 def serve_row_axes(model: Model, shape: ShapeConfig):
-    """The mesh axes a serving rank's rows lie over: the token spec's
-    (``batch_axes``) for a family whose prefill builds the decode cache;
-    the cache's for the SSM and hybrid families, whose decode state
-    ``warm_up`` builds ('data' when the batch divides it, else none)."""
-    if model.cfg.family not in ("ssm", "hybrid"):
-        return batch_axes(model.cfg, shape, model.mesh)
-    b = model.cache_pspecs(shape)["state"][1]
-    return () if b is None else (b if isinstance(b, tuple) else (b,))
+    """The mesh axes a serving rank's rows lie over: the cache's
+    (``Model.cache_pspecs``: the data axes, 'pod' and 'data' on a mesh
+    with a 'pod' axis, when the batch divides them, else none). It is the
+    token spec's (``batch_axes``) for a family whose prefill builds the
+    decode cache, except where ``batch_axes`` falls back to a prefix of
+    the data axes, ('pod',), and the cache's rows stay whole: a rank then
+    serves every row, as its cache holds them. The SSM and hybrid
+    families' decode state is built by ``warm_up``, through decode, whose
+    rows are the cache's; their token spec may lay the rows over 'model'
+    too."""
+    specs = model.cache_pspecs(shape)
+    return axis_names(specs["state" if "state" in specs else "k"][1])
 
 
 def serve_shardings(model: Model, shape: ShapeConfig):

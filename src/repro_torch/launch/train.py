@@ -20,8 +20,10 @@ reference computes in full f32).
 
 Over a mesh of ranks (a ``Model`` built on a ``core.distributed.Mesh``)
 the step is the one GSPMD makes of the reference's: each rank takes its
-rows of the global batch (``batch_axes``: over 'data', and for the SSM
-family over 'model' too when the batch divides both), runs every family
+rows of the global batch (``batch_axes``: over 'data', or ('pod', 'data')
+on a mesh with a 'pod' axis, or a prefix of them where the batch does
+not divide them all, and for the SSM family over 'model' too when the
+batch divides every axis), runs every family
 tensor-parallel over 'model' (the MoE layers' experts in the layout
 ``TrainSettings.moe_layout`` names, which must be the model's; the SSM
 layers on the rank's heads, or with rows over 'model' on every head,
@@ -30,8 +32,9 @@ on (a leaf split over 'data', an expert weight, is not summed: its shards
 hold different entries; nor, with rows over 'model', is a leaf split over
 'model', which the step gathered and reduce-scattered) and divides by the
 number of row blocks, takes the grad norm counting every element once,
-and updates with its ZeRO-1 shard of the optimizer state
-(``optim.optimizers.zero1`` for sgd, momentum and adamw,
+and updates with its ZeRO-1 shard of the optimizer state (over 'data'
+alone: replicated over 'pod', each pod updating the same slices;
+``optim.optimizers.zero1`` for sgd, momentum and adamw,
 ``adafactor(mesh=)`` for adafactor). The
 layouts are the reference's, as data: ``batch_pspec`` and
 ``shardings_for``'s specs; ``jit_train_step`` is the reference's entry
@@ -57,7 +60,9 @@ from repro_torch.data.tokens import TokenPipeline
 from repro_torch.distributed.sharding_rules import (MOE_LAYOUTS,
                                                     PartitionSpec as P,
                                                     activation_pspec_fn,
-                                                    batch_axes)
+                                                    axis_names, batch_axes,
+                                                    coordinate, data_axes,
+                                                    split_size)
 from repro_torch.models import Model
 from repro_torch.models.params import tree_leaves, tree_unflatten
 from repro_torch.optim import OPTIMIZERS, SoddaSVRGConfig, make_sodda_svrg
@@ -225,25 +230,17 @@ def make_train_step(model: Model, shape: ShapeConfig,
 def rank_rows(model: Model, shape: ShapeConfig, batch, axes=None):
     """This rank's rows of the global `batch`: its block along the axes
     the batch is split over (`axes`, by default ``batch_axes``; all rows
-    when none), in the reference's order: over ('data', 'model') the block
-    at data-rank x model-size + model-rank."""
+    when none), in the reference's order, the first axis major: over
+    ('data', 'model') the block at data-rank x model-size + model-rank,
+    over ('pod', 'data') pod x data-size + data-rank, over ('pod', 'data',
+    'model') (pod x data-size + data-rank) x model-size + model-rank."""
     mesh = model.mesh
     if axes is None:
         axes = batch_axes(model.cfg, shape, mesh)
-    if not axes and model.cfg.num_experts and mesh.size("data") > 1:
-        raise NotImplementedError(
-            f"a batch of {shape.global_batch} rows that 'data' does not "
-            "split: an MoE layer would route every data rank's copy")
+    axes = axis_names(axes)
     if not axes:
         return batch
-    if tuple(axes) not in (("data",), ("data", "model")):
-        raise NotImplementedError(
-            f"a batch split over {axes}: 'data', or 'data' and 'model', is "
-            "run (the 'pod' axis waits for ROADMAP A6b item 4)")
-    p, q = mesh.get_coordinate()
-    n, k = mesh.size("data"), p
-    if "model" in axes:
-        n, k = n * mesh.size("model"), p * mesh.size("model") + q
+    n, k = split_size(mesh, axes), coordinate(mesh, axes)
     return {name: v.chunk(n)[k] for name, v in batch.items()}
 
 
@@ -268,41 +265,44 @@ def mesh_grads(model: Model, params, batch, shape: ShapeConfig,
         model, params, batch, A, getattr(torch, settings.grad_dtype),
         mesh_pspec_fn(model, micro, settings),
         rows=lambda b: rank_rows(model, micro, b))
-    return sum_over_data(model, loss, metrics, grads, rows_over_model=(
-        "model" in batch_axes(model.cfg, micro, model.mesh)))
+    return sum_over_data(model, loss, metrics, grads,
+                         axes=batch_axes(model.cfg, micro, model.mesh))
 
 
 def _axes(spec):
-    return {a for s in spec if s is not None
-            for a in (s if isinstance(s, tuple) else (s,))}
+    return {a for s in spec for a in axis_names(s)}
 
 
-def sum_over_data(model: Model, loss, metrics, grads,
-                  rows_over_model: bool = False):
-    """(metrics, grads): the rank's `grads` (of its rows) summed over
-    'data' and divided by its size, in place (a leaf split over 'data',
-    whose shards hold different entries, is divided only: its rank's
-    gradient already sums every data rank's share, through the
-    reduce-scatters of the MoE layouts); the loss and the metrics
-    averaged over 'data'; and ``grad_norm`` counting every element once
-    (each leaf's squares summed over every axis that splits it, a
-    replicated leaf's taken once). With `rows_over_model` (the SSM
-    family's rows over 'data' and 'model') the same over both axes: a
-    leaf split over 'model' already sums the model ranks' shares (the
-    step gathered it and reduce-scattered its gradient), a replicated one
-    is summed over 'model' too, and the divisor and the averages count
-    every row block."""
+def sum_over_data(model: Model, loss, metrics, grads, axes=None):
+    """(metrics, grads): the rank's `grads` (of its rows) summed over the
+    axes its rows lie over (`axes`, ``batch_axes``' of the step; by
+    default the data axes, ``data_axes``: 'data', or 'pod' and 'data'),
+    axis by axis, and divided by the number of row blocks, in place (a
+    leaf split over one of them, whose shards hold different entries, is
+    divided only: its rank's gradient already sums every rank's share,
+    through the reduce-scatters of the MoE layouts and, with the SSM
+    family's rows over 'model' too, of the leaves the step gathered over
+    'model'; the sum over 'pod' is tagged 'pod_grads', and the 'pod_grad'
+    control drops it); the loss and the metrics averaged over the row
+    blocks; and ``grad_norm`` counting every element once (each leaf's
+    squares summed over every axis that splits it, a replicated leaf's
+    taken once)."""
     mesh = model.mesh
-    axes = ("data", "model") if rows_over_model else ("data",)
-    n = 1
-    for ax in axes:
-        n *= mesh.size(ax)
+    if axes is None:
+        axes = data_axes(mesh)
+    n = split_size(mesh, axes)
     specs = tree_leaves(model.pspecs())
     metrics = dict(metrics, loss=loss)
+    controls = model.tp.controls
     if n > 1:
         for g, spec in zip(tree_leaves(grads), specs):
             for ax in axes:
-                if ax not in _axes(spec) and mesh.size(ax) > 1:
+                if ax in _axes(spec) or mesh.size(ax) == 1:
+                    continue
+                if ax == "pod":
+                    if "pod_grad" not in controls:
+                        mesh.all_reduce(g, ax, tag="pod_grads")
+                else:
                     mesh.all_reduce(g, ax, tag="grads")
             g.div_(n)
         keys = sorted(metrics)

@@ -205,7 +205,11 @@ def decode_attn_seq(p, h, cfg: ArchConfig, cache_k, cache_v, pos, tp,
                     window: int = 0):
     """'seq' decode over a mesh: h (B,1,d); cache (B,S_loc,KV,hd), this
     rank's chunk of the sequence (positions rank x S_loc onwards), all kv
-    heads; pos (B,), all equal. The new key and value are written only
+    heads; pos (B,), all equal. h, the cache and pos are the rank's rows:
+    the batch lies over the mesh's data axes (``TensorParallel.data_axes``,
+    the reference's ``batch_axes``: ('pod', 'data') on a mesh with a 'pod'
+    axis), and every collective here runs over 'model'. The new key and
+    value are written only
     into the chunk that holds ``pos[0]`` (read once on the host). The
     rank's q heads are gathered over the axis; each rank forms its chunk's
     partials for every head, its maximum score m, the sum l of

@@ -19,8 +19,12 @@ batch. Every family runs so: the MoE family's experts in the layout of
 `rules_overrides` ('gather' by default, or 'token_tp'), the SSM and hybrid
 families' heads split over 'model' or replicated as the rules say, the
 SSM family's rows over 'model' too where the step's layout puts them
-there (``models.transformer``). A mesh with a 'pod' axis waits for
-ROADMAP A6b item 4.
+there (``models.transformer``). On a mesh with a 'pod' axis (the
+reference's multi-pod layout, ``core.distributed.Mesh(pods=)``) 'pod'
+joins 'data' for the batch and the cache's rows. The one layout refused
+is a hybrid's serving cache on a grid whose model axis does not divide
+its kv heads, which the reference cannot place either
+(``transformer._serving_on_mesh``).
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.distributed.sharding_rules import (PartitionSpec as P,
                                                     axis_sizes, decode_mode,
-                                                    rules_for)
+                                                    rules_for, split_size)
 from repro_torch.distributed.tensor_parallel import TensorParallel
 from repro_torch.models import attention, ssm, transformer
 from repro_torch.models.params import (count_params, init_params,
@@ -218,17 +222,19 @@ class Model(nn.Module):
         over which decode sees the last `window` positions. Over a mesh of
         ranks it is the rank's shard of that cache (``cache_pspecs`` for a
         batch of `batch` sequences of `seq`): the state's heads split as
-        the rules split them, the conv history whole."""
+        the rules split them, the conv history whole. A hybrid's cache on a
+        grid whose model axis does not divide its kv heads is refused
+        (``transformer._serving_on_mesh``)."""
         cfg = self.cfg
         dt = dtype or self.param_dtype
         dev = self.device if device is None else torch.device(device)
         if self.tp is not None:
-            sizes = axis_sizes(self.mesh)
+            transformer._serving_on_mesh(cfg, self.tp)
             specs = self.cache_pspecs(ShapeConfig("cache", "decode", seq,
                                                   batch))
 
             def shard(name, shape):
-                return tuple(n // (sizes[ax] if ax else 1)
+                return tuple(n // split_size(self.mesh, ax)
                              for n, ax in zip(shape, specs[name]))
         else:
             def shard(name, shape):

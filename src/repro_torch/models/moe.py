@@ -43,6 +43,18 @@ Each rank takes the tokens its slots hold from the global batch
 global batch (in f32), and the partial outputs are summed over 'data'
 into each rank's rows (``tp.scatter_data``) and over 'model' ('moe_out').
 The dense residual runs tensor-parallel, as the dense MLP does.
+
+On a mesh with a 'pod' axis the rows lie over ('pod', 'data'): the
+probabilities and the tokens are gathered over both axes (batch-row
+order, pod major), and in 'gather' the FFN's hidden, split over both, is
+gathered over both; the capacity stays split over 'data' alone, and in
+'token_tp' the experts too, so the two pods compute the same slots. Each
+rank then keeps its pod's rows of its partial outputs and sums them over
+'data' and 'model', the ranks that computed a share of them. Where the
+batch does not divide the data axes (``batch_axes``' fallback to a
+prefix, ('pod',) or none) the data ranks hold the same rows: the partial
+outputs are all-reduced over 'data', and the slots' inputs (the tokens
+and the gates) take their gradients summed over 'data' too.
 """
 from __future__ import annotations
 
@@ -52,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding_rules import axis_names, split_size
 from repro_torch.models.mlp import mlp_forward, mlp_template
 from repro_torch.models.params import ParamSpec
 
@@ -187,25 +200,36 @@ def _mesh_layout(tp, pspec_fn) -> str:
     return tp.moe_layout
 
 
-def _moe_mesh(p, h, cfg: ArchConfig, capacity_factor, tp, layout, wrap):
+def _moe_mesh(p, h, cfg: ArchConfig, capacity_factor, tp, layout, wrap,
+              rows):
     """``moe_forward`` on a rank of a mesh (see the module docstring):
-    (out (B,S,d) whole in h's dtype, aux)."""
+    (out (B,S,d) whole in h's dtype, aux). `rows` are the data axes the
+    batch's rows lie over (``TensorParallel.row_axes``)."""
     B, S, d = h.shape
     E, k = cfg.num_experts, cfg.experts_per_token
-    n = tp.data_size
+    n = tp.data_size  # the capacity's blocks ('gather'), the experts' else
+    # where the rows do not lie over 'data' its ranks hold the same rows,
+    # each running its own share of the slots: what feeds the slots then
+    # takes their partial gradients summed over 'data' too
+    spread = "data" not in axis_names(rows)
     x = h.reshape(B * S, d)
-    probs = tp.gather_data(wrap(_router)(x, p["router"]), 0, "moe_probs")
+    probs = tp.gather_data(wrap(_router)(x, p["router"]), 0, "moe_probs",
+                           rows)
     # the gates' gradient is partial on each model rank (its experts, or
     # its share of their hidden): summed over 'model' by the copy
     gates = tp.copy(probs, "moe_gate")
-    r = (route_per_rank(gates, k, n, capacity_factor)
-         if "local_route" in tp.controls and n > 1
+    if spread:
+        gates = tp.copy(gates, "moe_gate", "data")
+    blocks = split_size(tp.mesh, rows)
+    r = (route_per_rank(gates, k, blocks, capacity_factor)
+         if "local_route" in tp.controls and blocks > 1
          else route(gates, k, capacity_factor))
     wg, wu, wd = p["wg"], p["wu"], p["wd"]
     if layout == "gather":
-        wg = tp.gather_data(wg, 2, "moe_weights")
-        wu = tp.gather_data(wu, 2, "moe_weights")
-        wd = tp.gather_data(wd, 1, "moe_weights")
+        hidden = tp.expert_hidden  # 'data', or ('pod', 'data')
+        wg = tp.gather_data(wg, 2, "moe_weights", hidden)
+        wu = tp.gather_data(wu, 2, "moe_weights", hidden)
+        wd = tp.gather_data(wd, 1, "moe_weights", hidden)
         ne, nc = E // tp.size, r.cap // n
         e0, c0 = tp.rank * ne, tp.data_rank * nc
     else:
@@ -216,9 +240,12 @@ def _moe_mesh(p, h, cfg: ArchConfig, capacity_factor, tp, layout, wrap):
     held = r.keep & (e >= e0) & (e < e0 + ne) & (pos >= c0) & (pos < c0 + nc)
     dest = torch.where(held, (e - e0) * nc + pos - c0,
                        torch.full_like(pos, ne * nc))
-    tokens = tp.gather_data(tp.copy(x, "moe_in"), 0, "moe_tokens")
+    x_in = tp.copy(x, "moe_in")
+    if spread:
+        x_in = tp.copy(x_in, "moe_in", "data")
+    tokens = tp.gather_data(x_in, 0, "moe_tokens", rows)
     part = wrap(_experts)(tokens, wg, wu, wd, slots, dest, r.gate, (ne, nc))
-    out = tp.scatter_data(part, "moe_out")
+    out = tp.scatter_data(part, "moe_out", rows)
     if "expert_sum" not in tp.controls:
         out = tp.reduce(out, "moe_out")
     out = out.to(h.dtype)
@@ -250,7 +277,7 @@ def moe_forward(p, h, cfg: ArchConfig, capacity_factor: float = 1.25,
     if tp is not None:
         return _moe_mesh(p, h, cfg, capacity_factor, tp,
                          _mesh_layout(tp, pspec_fn),
-                         pieces or (lambda fn: fn))
+                         pieces or (lambda fn: fn), tp.row_axes(pspec_fn))
     B, S, d = h.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     T = B * S

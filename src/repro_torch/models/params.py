@@ -20,7 +20,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding_rules import PartitionSpec, axis_sizes
+from repro_torch.distributed.sharding_rules import PartitionSpec, split_size
 from repro_torch.platform import DeviceLike, resolve_device
 
 
@@ -137,16 +137,9 @@ def logical_to_pspec(spec: ParamSpec, rules: dict) -> PartitionSpec:
     return PartitionSpec(*mesh_axes)
 
 
-def _split(ax, sizes) -> int:
-    """How many ways a dim with mesh axes `ax` is split."""
-    return math.prod(sizes[a] for a in (ax if isinstance(ax, tuple)
-                                        else (ax,)))
-
-
 def check_divisibility(spec: ParamSpec, pspec: PartitionSpec, mesh) -> bool:
     """Whether every split dim of `spec` divides by its mesh axes."""
-    sizes = axis_sizes(mesh)
-    return all(ax is None or dim % _split(ax, sizes) == 0
+    return all(dim % split_size(mesh, ax) == 0
                for dim, ax in zip(spec.shape, pspec))
 
 
@@ -155,8 +148,7 @@ def param_pspecs_one(spec: ParamSpec, rules: dict, mesh) -> PartitionSpec:
     divide by its mesh axes left unsplit."""
     ps = logical_to_pspec(spec, rules)
     if not check_divisibility(spec, ps, mesh):
-        sizes = axis_sizes(mesh)
-        ps = PartitionSpec(*(ax if ax is None or dim % _split(ax, sizes) == 0
+        ps = PartitionSpec(*(ax if dim % split_size(mesh, ax) == 0
                              else None for dim, ax in zip(spec.shape, ps)))
     return ps
 

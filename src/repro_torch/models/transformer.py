@@ -55,10 +55,17 @@ the batch divides both axes, which `pspec_fn` says):
   with the vocabulary tensor-parallel when they do not.
 
 Decode follows the cache's layout (``Model.cache_pspecs``: the state's
-rows over 'data', its heads as the rules say), so it runs A, or C with
-the vocabulary tensor-parallel. What waits (ROADMAP A6b): a mesh with a
-'pod' axis, and a hybrid grid whose model axis does not divide the kv
-heads (its cache's spec always splits them).
+rows over the data axes, its heads as the rules say), so it runs A, or C
+with the vocabulary tensor-parallel.
+
+On a mesh with a 'pod' axis (the reference's multi-pod layout) every
+family runs as above with 'pod' joining 'data' for the batch: the rows
+over ('pod', 'data'), and in B over ('pod', 'data', 'model'). A hybrid
+grid whose model axis does not divide the kv heads trains with the kv
+heads replicated (``TensorParallel.kv_index``, ``kv_weight``), as the
+dense family does; it does not serve, since its cache's spec splits the
+kv heads over 'model' and cannot be placed there (nor can the
+reference's: ``_serving_on_mesh``).
 """
 from __future__ import annotations
 
@@ -275,20 +282,20 @@ def _remat(fn, remat: str):
     raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
 
 
-def _on_mesh(cfg: ArchConfig, tp):
-    """Refuse a layout whose layers are not yet run over a mesh: a mesh
-    with a 'pod' axis, and a hybrid grid whose model axis does not divide
-    the kv heads (the reference's hybrid cache always splits them)."""
-    if tp is None:
-        return
-    if "pod" in tp.mesh.axis_sizes:
+def _serving_on_mesh(cfg: ArchConfig, tp):
+    """Refuse the one layout not run over a mesh: serving a hybrid on a
+    grid whose model axis does not divide the kv heads. Its cache's spec
+    (``Model.cache_pspecs``, the reference's ``cache_pspecs``) splits the
+    kv heads over 'model', and the reference cannot place that cache
+    either: ``jax.device_put`` of its 'ak' raises ValueError (dimension 3
+    not divisible). Training there runs, the kv heads replicated."""
+    if (tp is not None and cfg.family == "hybrid"
+            and cfg.num_kv_heads % tp.size):
         raise NotImplementedError(
-            f"{cfg.name}: a mesh with a 'pod' axis (the batch over ('pod', "
-            "'data')) waits for ROADMAP A6b item 4")
-    if cfg.family == "hybrid" and cfg.num_kv_heads % tp.size:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.num_kv_heads} kv heads over a model axis of "
-            f"{tp.size} ranks: the hybrid cache splits them (ROADMAP A6b)")
+            f"{cfg.name}: a serving cache of {cfg.num_kv_heads} kv heads "
+            f"over a model axis of {tp.size} ranks: its spec splits the kv "
+            "heads over 'model', which the reference cannot place either "
+            "(its device_put of 'ak' raises: dimension 3 not divisible)")
 
 
 def _rows_over_model(cfg: ArchConfig, tp, pspec_fn) -> bool:
@@ -375,7 +382,6 @@ def forward_with_aux(params, tokens, cfg: ArchConfig, *,
     vocabulary leaves are gathered and the logits are whole (see the
     module docstring).
     """
-    _on_mesh(cfg, tp)
     rows = _rows_over_model(cfg, tp, pspec_fn)
     vtp = tp
     if rows:
@@ -487,11 +493,13 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
     heads, or 'seq', the cache holding the rank's chunk of the sequence,
     every kv head (``attention.decode_attn_seq``). An MoE layer routes the
     global batch's B tokens, in the layout `pspec_fn` names. The SSM and
-    hybrid families follow the cache's layout: its rows over 'data', the
-    state's heads as the rules say (split: ``ssm.ssm_decode_step`` on the
-    rank's heads), the hybrid's kv heads split ('heads' decode).
+    hybrid families follow the cache's layout: its rows over the data
+    axes, the state's heads as the rules say (split:
+    ``ssm.ssm_decode_step`` on the rank's heads), the hybrid's kv heads
+    split ('heads' decode; a grid that does not divide them is refused,
+    ``_serving_on_mesh``).
     """
-    _on_mesh(cfg, tp)
+    _serving_on_mesh(cfg, tp)
     if decode_mode not in DECODE_MODES and cfg.num_kv_heads:
         raise ValueError(f"decode_mode must be one of {DECODE_MODES}, got "
                          f"{decode_mode!r}")

@@ -25,7 +25,9 @@ block is the whole-leaf formula, bitwise).
 
 ZeRO-1: ``zero1_pspecs`` is the reference's rule, a leaf's state split
 over 'data' along its first unsplit dim that 'data' divides, on top of the
-parameter's spec. ``zero1`` runs it over a mesh of ranks for sgd, momentum
+parameter's spec (on a mesh with a 'pod' axis over 'data' alone, as the
+reference's: the state is replicated over 'pod', each pod updating the
+same slices). ``zero1`` runs it over a mesh of ranks for sgd, momentum
 and adamw: a rank keeps only its 'data' slice of each state leaf, updates
 its slice of the parameter and all-gathers the parameter over 'data'.
 ``adafactor(mesh=, pspecs=)`` runs over a mesh of ranks on the rank's
@@ -44,7 +46,9 @@ from typing import Callable, NamedTuple, Union
 
 import torch
 
-from repro_torch.distributed.sharding_rules import PartitionSpec, axis_sizes
+from repro_torch.distributed.sharding_rules import (PartitionSpec,
+                                                    axis_names, axis_sizes,
+                                                    coordinate, split_size)
 
 Schedule = Union[float, Callable]
 F32 = torch.float32
@@ -179,17 +183,18 @@ def leading_blocks(p):
 
 def _dim_axes(spec, ndim):
     """Per dim of a leaf of `ndim` dims, the mesh axis `spec` splits it
-    over, or None (one axis a dim)."""
+    over: a name, a tuple of two names or more (the dim split over their
+    product, the first major), or None."""
     out = []
     for s in list(spec) + [None] * (ndim - len(spec)):
-        if isinstance(s, tuple):
-            if len(s) > 1:
-                raise NotImplementedError(
-                    f"a dim split over {s}: one mesh axis a dim is run "
-                    "(ROADMAP A6b)")
-            s = s[0] if s else None
-        out.append(s)
+        names = axis_names(s)
+        out.append(names[0] if len(names) == 1 else (names or None))
     return out
+
+
+def _uses(split, axis):
+    """Whether a leaf's per-dim axes `split` (``_dim_axes``) use `axis`."""
+    return any(axis in axis_names(a) for a in split)
 
 
 class _LeafLayout(NamedTuple):
@@ -239,8 +244,9 @@ def adafactor(lr: Schedule, decay: float = 0.8, eps: float = 1e-30,
     Over a mesh of ranks (`mesh`, a ``core.distributed.Mesh``, with
     `pspecs` the parameters' specs) the parameters and gradients are the
     rank's shards (the gradients already summed over 'data'), and each
-    mean over a split dim is a sum all-reduced over its axis ('adafactor')
-    divided by the whole dim. The rank holds its shard of each moment
+    mean over a split dim is a sum all-reduced over its axis ('adafactor';
+    a dim split over ('pod', 'data') over that tuple's group) divided by
+    the whole dim. The rank holds its shard of each moment
     under `state_pspecs` (``shardings_for``'s specs of this optimizer's
     state; the parameters' by default). With `zero1` (those specs then
     ZeRO-1's) the rank updates its 'data' slice of a leaf that 'data'
@@ -333,10 +339,10 @@ def _adafactor_mesh(lr, decay, eps, clip, mesh, pspecs, state_pspecs,
     def layout(p, spec, sspec):
         nd = p.dim()
         split = _dim_axes(spec, nd)
-        whole = tuple(s * (mesh.size(a) if a else 1)
+        whole = tuple(s * split_size(mesh, a)
                       for s, a in zip(p.shape, split))
         pd = None
-        if zero1 and "data" not in split and n_data > 1:
+        if zero1 and not _uses(split, "data") and n_data > 1:
             z = _dim_axes(zero1_pspecs(PartitionSpec(*split), whole, mesh),
                           nd)
             pd = z.index("data") if "data" in z else None
@@ -353,14 +359,13 @@ def _adafactor_mesh(lr, decay, eps, clip, mesh, pspecs, state_pspecs,
                         if state_pspecs is not None else
                         tree_map(lambda s: None, pspecs))
 
-    coord = dict(zip(("data", "model"), mesh.get_coordinate()))
-
     def own(t, dim, axis="data"):
-        """The rank's block of `t` along `dim` over `axis`."""
+        """The rank's block of `t` along `dim` over `axis` (a name, or a
+        tuple of names, the first major)."""
         if dim is None:
             return t
-        size = t.shape[dim] // mesh.size(axis)
-        return t.narrow(dim, coord[axis] * size, size)
+        size = t.shape[dim] // split_size(mesh, axis)
+        return t.narrow(dim, coordinate(mesh, axis) * size, size)
 
     def gather(t, dim, tag, axis="data"):
         if dim is None:
@@ -382,7 +387,7 @@ def _adafactor_mesh(lr, decay, eps, clip, mesh, pspecs, state_pspecs,
         """`t` (a new tensor) all-reduced over each of `axes` that has
         more than one rank."""
         for ax in dict.fromkeys(a for a in axes if a is not None):
-            if mesh.size(ax) > 1:
+            if split_size(mesh, ax) > 1:
                 mesh.all_reduce(t, ax, tag="adafactor")
         return t
 
@@ -509,8 +514,8 @@ def zero1_dims(pspecs, param_pspecs=None, axis: str = "data"):
     if param_pspecs is None:
         return tree_map(lambda s: s.index(axis) if axis in s else None,
                         pspecs)
-    return tree_map(lambda s, ps: s.index(axis) if axis in s and axis
-                    not in _dim_axes(ps, len(s)) else None, pspecs,
+    return tree_map(lambda s, ps: s.index(axis) if axis in s and not
+                    _uses(_dim_axes(ps, len(s)), axis) else None, pspecs,
                     param_pspecs)
 
 
@@ -525,7 +530,7 @@ def zero1(opt: Optimizer, mesh, dims) -> Optimizer:
     parameter, in place. The slices are elementwise the whole-leaf
     update's, so the gathered parameters and state are bitwise an
     unsplit update's (sgd, momentum, adamw)."""
-    n, p = mesh.size("data"), mesh.get_coordinate()[0]
+    n, p = mesh.size("data"), coordinate(mesh, "data")
     if n == 1:
         return opt
 

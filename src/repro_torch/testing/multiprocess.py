@@ -840,19 +840,31 @@ def rank_exit(code_by_rank, seconds=0.0):
 
 
 # ---------------------------------------------------------------------------
-# The LM stack over a (data x model) mesh of ranks.
+# The LM stack over a (data x model) or (pod x data x model) mesh of ranks.
 # ---------------------------------------------------------------------------
 _LM_MESHES: Dict[tuple, Any] = {}
 
 
 def lm_mesh(grid, device):
-    """This process's mesh of `grid` = (data, model) over the live group,
-    made on its first use (every rank makes the grids in one order)."""
+    """This process's mesh of `grid` = (data, model), or (pod, data,
+    model), over the live group, made on its first use (every rank makes
+    the grids in one order)."""
     from repro_torch.core.distributed import Mesh
 
     if grid not in _LM_MESHES:
-        _LM_MESHES[grid] = Mesh(*grid, device)
+        *pods, P, Q = grid
+        _LM_MESHES[grid] = Mesh(P, Q, device, pods=pods[0] if pods else 1)
     return _LM_MESHES[grid]
+
+
+def _row_block(model, shape):
+    """The block of the global batch a serving rank's rows are: its
+    coordinate along ``serve.serve_row_axes``, 0 where the rows are
+    whole."""
+    from repro_torch.distributed.sharding_rules import coordinate
+    from repro_torch.launch import serve
+
+    return coordinate(model.mesh, serve.serve_row_axes(model, shape))
 
 
 def _numpy(tree):
@@ -1012,27 +1024,35 @@ def _lm_train(cfg, whole, job, device):
 def _lm_decode_seq(cfg, whole, job, device):
     """``attention.decode_attn_seq`` on the mesh from whole inputs: the
     attention parameters `whole`, h, the cache (split along its sequence),
-    pos and the window; the output (all-reduced) and the whole cache."""
+    pos and the window, the rank taking its rows of them over the data
+    axes (``TensorParallel.data_axes``, the reference's ``batch_axes``:
+    ('pod', 'data') on a mesh with a 'pod' axis); the output
+    (all-reduced) and the cache, gathered whole."""
+    from repro_torch.distributed.sharding_rules import coordinate, split_size
     from repro_torch.distributed.tensor_parallel import shard_params
     from repro_torch.models import attention
     from repro_torch.models.params import param_pspecs
 
     model = _lm_model(cfg, job, device)
-    tp = model.tp
-    specs = param_pspecs(attention.attn_template(cfg), model.rules(),
-                         model.mesh)
-    p = shard_params(whole, specs, model.mesh)
-    t = {k: torch.as_tensor(job[k], device=device)
-         for k in ("h", "cache_k", "cache_v", "pos")}
-    ck, cv = (t[k].chunk(tp.size, dim=1)[tp.rank].clone()
-              for k in ("cache_k", "cache_v"))
+    tp, mesh = model.tp, model.mesh
+    rows = tp.data_axes
+    n, k = split_size(mesh, rows), coordinate(mesh, rows)
+    specs = param_pspecs(attention.attn_template(cfg), model.rules(), mesh)
+    p = shard_params(whole, specs, mesh)
+    t = {k_: torch.as_tensor(job[k_], device=device).chunk(n)[k]
+         for k_ in ("h", "cache_k", "cache_v", "pos")}
+    ck, cv = (t[k_].chunk(tp.size, dim=1)[tp.rank].clone()
+              for k_ in ("cache_k", "cache_v"))
     with torch.no_grad():
         out, (ck, cv) = attention.decode_attn_seq(
             p, t["h"], cfg, ck, cv, t["pos"], tp, window=job["window"])
         out = tp.reduce(out, "attn_out")
-    return dict(out=out.cpu().numpy(),
-                cache_k=tp.gather(ck, 1, "cache").cpu().numpy(),
-                cache_v=tp.gather(cv, 1, "cache").cpu().numpy())
+        whole_rows = [mesh.all_gather_cat(x.contiguous(), rows, tag="cache")
+                      if n > 1 else x
+                      for x in (out, tp.gather(ck, 1, "cache"),
+                                tp.gather(cv, 1, "cache"))]
+    return dict(zip(("out", "cache_k", "cache_v"),
+                    (x.cpu().numpy() for x in whole_rows)))
 
 
 def _lm_serve(cfg, whole, job, device):
@@ -1046,7 +1066,8 @@ def _lm_serve(cfg, whole, job, device):
     ``cache_shapes`` every entry's), the SSM families' conv history, the
     rank's mesh coordinate, the collectives a decode step made, the flash
     and SSD launches of the prefill, of the warm-up and of the decode
-    steps, and their seconds (the device synchronised)."""
+    steps, and their seconds (the device synchronised); ``row_block``,
+    the block of the prompts the rank's rows are."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed.tensor_parallel import shard_params
     from repro_torch.kernels import ops
@@ -1106,7 +1127,8 @@ def _lm_serve(cfg, whole, job, device):
                 cache_shape=tuple(cache["k"].shape) if "k" in cache else None,
                 cache_shapes={k: tuple(v.shape) for k, v in cache.items()},
                 conv=cache["conv"].cpu().numpy() if "conv" in cache else None,
-                coordinate=mesh.get_coordinate(), decode_calls=step_calls,
+                coordinate=mesh.get_coordinate(),
+                row_block=_row_block(model, shape), decode_calls=step_calls,
                 prefill_flash=pre_n[0] - start[0],
                 prefill_ssd=pre_n[1] - start[1],
                 warm_flash=warm_n[0] - pre_n[0], warm_ssd=warm_n[1] - pre_n[1],
@@ -1116,18 +1138,22 @@ def _lm_serve(cfg, whole, job, device):
 
 def _lm_serve_call(cfg, whole, job, device):
     """``serve.serve`` itself over the mesh: the rank's greedy tokens and
-    prefill logits for its rows of ``prompts``, ``gen_len`` tokens."""
+    prefill logits for its rows of ``prompts``, ``gen_len`` tokens, and
+    the block of the prompts its rows are (``row_block``)."""
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed.tensor_parallel import shard_params
     from repro_torch.launch import serve
 
     model = _lm_model(cfg, job, device)
     params = shard_params(whole, model.pspecs(), model.mesh)
+    prompts = torch.as_tensor(job["prompts"], device=device)
     with torch.no_grad():
-        tokens, logits = serve.serve(
-            model, params, torch.as_tensor(job["prompts"], device=device),
-            job["gen_len"])
+        tokens, logits = serve.serve(model, params, prompts, job["gen_len"])
+    B, P = prompts.shape
+    shape = ShapeConfig("serve", "decode", P + job["gen_len"], B)
     return dict(tokens=tokens.cpu().numpy(), logits=logits.cpu().numpy(),
-                coordinate=model.mesh.get_coordinate())
+                coordinate=model.mesh.get_coordinate(),
+                row_block=_row_block(model, shape))
 
 
 def _lm_update(cfg, whole, job, device):
@@ -1183,10 +1209,38 @@ def _lm_collectives(cfg, whole, job, device):
                 gathered=mesh.all_gather_cat(view, "data").cpu().numpy())
 
 
+def _lm_mesh_axes(cfg, whole, job, device):
+    """The mesh of ``grid`` seen from this rank, by axis (each name, the
+    tuple ('pod', 'data') on a mesh with a 'pod' axis, and all the names):
+    its size, this rank's block along it, and the ranks of its group
+    gathered in group order; and the sum over ('pod', 'data') of every
+    rank's rank, all-reduced there, and whether the tuple ('data', 'pod')
+    is refused (on a mesh with a 'pod' axis)."""
+    from repro_torch.distributed.sharding_rules import coordinate
+
+    mesh = lm_mesh(tuple(job["grid"]), device)
+    rank = torch.distributed.get_rank()
+    names = mesh.mesh_dim_names
+    axes = list(names) + [("pod", "data")] * ("pod" in names) + [names]
+    me = torch.tensor([rank], dtype=torch.int64, device=device)
+    out = {a: (mesh.size(a), coordinate(mesh, a),
+               mesh.all_gather_cat(me, a, tag="axes").tolist())
+           for a in axes}
+    if "pod" in names:
+        total = me.clone()
+        mesh.all_reduce(total, ("pod", "data"), tag="axes")
+        out["sum"] = int(total)
+        try:  # a tuple out of the mesh's order
+            mesh.get_group(("data", "pod"))
+        except ValueError:
+            out["refused"] = True
+    return out
+
+
 _LM_JOBS = {"grads": _lm_grads, "train": _lm_train,
             "decode_seq": _lm_decode_seq, "serve": _lm_serve,
             "serve_call": _lm_serve_call, "update": _lm_update,
-            "collectives": _lm_collectives}
+            "collectives": _lm_collectives, "mesh_axes": _lm_mesh_axes}
 
 
 def rank_lm(cfg, whole, jobs, device=None):
@@ -1196,14 +1250,15 @@ def rank_lm(cfg, whole, jobs, device=None):
     attention block's alone for 'decode_seq'), carried to `device` in
     float32 and cut to each job's shards (``tensor_parallel.
     shard_params``). A job is a dict with its ``kind`` and ``grid`` (data,
-    model), and for the MoE family its ``layout`` ('gather' by default, or
+    model) or (pod, data, model), and for the MoE family its ``layout`` ('gather' by default, or
     'token_tp': the model's ``rules_overrides`` and the step's
     ``moe_layout``):
 
     * 'grads': ``train.mesh_grads`` of ``batch`` (numpy tokens and
       targets, the global batch) under ``remat``, ``controls``
-      (``tensor_parallel.CONTROLS``) and ``settings`` (``TrainSettings``
-      fields), with the first forward's routes (``route_record``);
+      (``tensor_parallel.CONTROLS``, 'pod_grad' among them) and
+      ``settings`` (``TrainSettings`` fields), with the first forward's
+      routes (``route_record``);
     * 'train': ``jit_train_step``'s steps over ``batches`` under
       ``settings`` (``TrainSettings`` fields) and ``remat``;
     * 'decode_seq': ``attention.decode_attn_seq`` of ``h``, ``cache_k``,
@@ -1213,7 +1268,8 @@ def rank_lm(cfg, whole, jobs, device=None):
       every step's logits kept; 'serve_call': ``serve.serve`` itself;
     * 'update': the mesh's optimizer over whole gradient trees ``grads``
       (``_lm_update``); 'collectives': the data-axis collectives on a
-      non-contiguous view (``_lm_collectives``).
+      non-contiguous view (``_lm_collectives``); 'mesh_axes': the mesh's
+      axes and their groups, as this rank sees them (``_lm_mesh_axes``).
 
     The meshes are made on their first use (``lm_mesh``), each rank in the
     same order. The rank's allocator cache is emptied after each job."""

@@ -349,27 +349,37 @@ def test_layouts_match_what_the_ranks_hold(setup):
 
 
 def test_a_pod_axis_and_an_undivided_hybrid_cache_refuse_a_mesh():
-    """What still waits for ROADMAP A6b: a mesh with a 'pod' axis, and a
-    hybrid grid whose model axis does not divide the kv heads (the hybrid
-    cache's spec always splits them); every family runs on the rest."""
+    """Since the 'pod' axis runs (ROADMAP A6b item 4), the one layout
+    that refuses a mesh is a hybrid's serving cache on a grid whose model
+    axis does not divide its kv heads: its spec splits them over 'model',
+    and the reference cannot place that cache either. A (pod, data,
+    model) mesh is taken by every family, for training and for serving
+    (``Model`` builds its tensor parallelism, its cache shard, and
+    ``transformer._serving_on_mesh`` passes). On the undivided hybrid
+    grid ``Model`` builds its tensor parallelism, the kv heads replicated
+    (training there is held to the reference in
+    ``tests/test_torch_mesh_pod.py``); only its serving cache refuses."""
     from repro_torch.models import transformer
 
-    def tp(sizes):
-        return types.SimpleNamespace(mesh=types.SimpleNamespace(
-            axis_sizes=sizes), size=sizes["model"])
+    def grid(sizes, coordinate):
+        return types.SimpleNamespace(
+            axis_sizes=sizes, size=lambda ax: sizes[ax],
+            get_coordinate=lambda: coordinate)
 
-    pod = tp({"pod": 2, "data": 1, "model": 2})
-    for arch in ("chatglm3-6b", "mamba2-130m", "zamba2-7b"):
-        with pytest.raises(NotImplementedError, match="A6b"):
-            transformer._on_mesh(reduced_config(get_config(arch)), pod)
-    zamba2 = reduced_config(get_config("zamba2-7b"))  # 2 kv heads
-    with pytest.raises(NotImplementedError, match="A6b"):
-        transformer._on_mesh(zamba2, tp({"data": 1, "model": 4}))
+    pod = grid({"pod": 2, "data": 1, "model": 2}, (1, 0, 1))
     for arch in ("chatglm3-6b", "arctic-480b", "mamba2-130m", "zamba2-7b"):
-        transformer._on_mesh(reduced_config(get_config(arch)),
-                             tp({"data": 2, "model": 2}))
-    transformer._on_mesh(reduced_config(get_config("mamba2-130m")),
-                         tp({"data": 1, "model": 4}))
+        cfg = reduced_config(get_config(arch))
+        model = Model(cfg, device="cpu", mesh=pod)
+        transformer._serving_on_mesh(cfg, model.tp)
+        model.cache_template(4, 16, device="meta")
+    zamba2 = reduced_config(get_config("zamba2-7b"))  # 2 kv heads
+    wide = Model(zamba2, device="cpu",
+                 mesh=grid({"data": 1, "model": 4}, (0, 2)))
+    assert wide.tp.kv_heads is False
+    with pytest.raises(NotImplementedError, match="cannot place"):
+        transformer._serving_on_mesh(zamba2, wide.tp)
+    with pytest.raises(NotImplementedError, match="cannot place"):
+        wide.cache_template(4, 16, device="meta")
 
 
 class _Grid:
